@@ -1,0 +1,129 @@
+"""Model architecture config, the port's counterpart of ``repro.configs.base``.
+
+``ModelConfig`` carries the exact public hyper-parameters of an
+architecture, the padding rules the model reads, and a ``reduced()``
+variant for CPU tests.  Pure Python: no tensor library is imported.  The
+JAX-only ``input_specs`` and the analytic ``param_count`` wait for the
+launch slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | encdec | vlm
+    num_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 128
+    # attention pattern: cycle of per-layer kinds over the stack
+    layer_pattern: Tuple[str, ...] = ("attn",)
+    # attn: global causal; swa: sliding window; chunked: llama4 iRoPE local
+    # rglru: RG-LRU recurrent block; ssd: mamba2 SSD block; enc: bidirectional
+    window: int = 0                  # SWA / local-attn window
+    rope_theta: float = 10000.0
+    qkv_bias: bool = False
+    act: str = "swiglu"              # swiglu | gelu | geglu
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_every: int = 1               # MoE MLP every k-th layer
+    capacity_factor: float = 1.25
+    n_shared_experts: int = 0
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
+    conv_width: int = 4
+    # RG-LRU
+    rnn_width: int = 0               # lru hidden width (defaults d_model)
+    # encoder-decoder (whisper)
+    enc_layers: int = 0
+    enc_seq: int = 0                 # encoder frames (whisper: 1500)
+    # vlm
+    prefix_len: int = 0              # vision token prefix (paligemma: 256)
+    frontend: str = "none"           # none | audio_stub | vision_stub
+    tie_embeddings: bool = True
+    max_seq: int = 8192
+    subquadratic: bool = False       # can run long_500k
+    source: str = ""
+
+    # ----------------------------------------------------------- derived
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // max(self.n_kv_heads, 1)
+
+    def padded_heads(self, tp: int) -> int:
+        """Query heads padded up to a multiple of TP (Megatron rule)."""
+        return math.ceil(self.n_heads / tp) * tp
+
+    def padded_kv_heads(self, tp: int) -> int:
+        """KV heads replicated (Megatron GQA rule) to the smallest multiple
+        of the originals that (a) shards evenly over TP and (b) divides the
+        padded query heads, so every shard holds whole KV heads and an
+        integer query-per-KV replication factor."""
+        ph = self.padded_heads(tp)
+        kv = max(self.n_kv_heads, 1)
+        for r in range(1, ph // kv + 1):
+            kvp = kv * r
+            if kvp % tp == 0 and ph % kvp == 0:
+                return kvp
+        return ph
+
+    def padded_vocab(self, multiple: int = 128) -> int:
+        return math.ceil(self.vocab_size / multiple) * multiple
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.enc_layers > 0
+
+    def pattern_at(self, i: int) -> str:
+        return self.layer_pattern[i % len(self.layer_pattern)]
+
+    # ----------------------------------------------------------- reduced
+
+    def reduced(self) -> "ModelConfig":
+        """Small same-family config for CPU smoke tests."""
+        pat = len(self.layer_pattern)
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            num_layers=max(pat, 2 if pat == 1 else pat),
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads > 1 else 1,
+            head_dim=16,
+            d_ff=128 if self.d_ff else 0,
+            vocab_size=256,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            window=min(self.window, 32) if self.window else 0,
+            ssm_state=16 if self.ssm_state else 0,
+            ssm_head_dim=16 if self.ssm_state else 64,
+            ssm_chunk=8 if self.ssm_state else 128,
+            rnn_width=64 if self.rnn_width else 0,
+            enc_layers=2 if self.enc_layers else 0,
+            enc_seq=16 if self.enc_seq else 0,
+            prefix_len=4 if self.prefix_len else 0,
+            max_seq=128,
+        )

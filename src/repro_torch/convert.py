@@ -1,0 +1,66 @@
+"""Build the port's model from the JAX package's parameter pytree.
+
+``params_from_jax(cfg, tree)`` takes the pytree that ``repro``'s
+``init_params`` returns, with every leaf already a numpy array (the caller
+runs ``jax.tree.map(np.asarray, params)``), and returns the equivalent
+:class:`~repro_torch.models.Transformer`.  The JAX tree stacks full pattern
+groups: ``groups[s][name]`` has a leading ``n_groups`` axis, and layer
+``g * cycle + s`` is its ``g``-th entry; ``rest`` holds the remainder
+layers unstacked.  This module imports neither JAX nor ``repro``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import Layer, Transformer, _check_layer
+
+_SUBTREES = ("norm1", "attn", "norm2", "mlp")
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.array(a, copy=True, order="C")    # the model owns its weights
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16 has no torch twin
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _layer(cfg: ModelConfig, i: int, p: Mapping[str, Any], device) -> Layer:
+    kind = cfg.pattern_at(i)
+    _check_layer(cfg, kind, i)
+    extra = set(p) - set(_SUBTREES)
+    if extra:
+        raise NotImplementedError(f"layer {i} holds unported parts {sorted(extra)}")
+    sub = {name: {k: _tensor(v, device) for k, v in p[name].items()}
+           for name in _SUBTREES}
+    return Layer(kind, sub["norm1"], sub["attn"], sub["norm2"], sub["mlp"])
+
+
+def params_from_jax(cfg: ModelConfig, tree: Mapping[str, Any], *,
+                    device="cuda") -> Transformer:
+    """The port's model holding the weights of ``tree`` on ``device``."""
+    groups = tree["groups"]
+    cycle = len(groups)
+    n_groups = (len(next(iter(groups[0]["norm1"].values()))) if cycle else 0)
+    layers: Dict[int, Layer] = {}
+    for s, slot in enumerate(groups):
+        for g in range(n_groups):
+            i = g * cycle + s
+            one = {name: {k: v[g] for k, v in sub.items()}
+                   for name, sub in slot.items()}
+            layers[i] = _layer(cfg, i, one, device)
+    for j, p in enumerate(tree["rest"]):
+        i = n_groups * cycle + j
+        layers[i] = _layer(cfg, i, p, device)
+    if sorted(layers) != list(range(cfg.num_layers)):
+        raise ValueError(f"tree holds layers {sorted(layers)}, config wants "
+                         f"{cfg.num_layers}")
+    lm_head = tree.get("lm_head")
+    return Transformer(
+        cfg, _tensor(tree["embed"], device), [layers[i] for i in sorted(layers)],
+        {k: _tensor(v, device) for k, v in tree["final_norm"].items()},
+        _tensor(lm_head, device) if lm_head is not None else None)

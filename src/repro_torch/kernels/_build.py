@@ -1,0 +1,92 @@
+"""Build the port's CUDA sources into shared libraries at first use.
+
+Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` for Hopper
+(``sm_90a``) into ``_build/<name>-<hash>.so`` inside the package, with a plain
+C interface that :func:`load` opens through ``ctypes``.  The hash covers the
+sources and the flags, so an edited source is rebuilt and an unchanged one is
+reused.  Only the sources in the package are compiled; a failed build raises
+with nvcc's output.  Nothing is built at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Iterable
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class BuildError(RuntimeError):
+    """nvcc failed or is missing."""
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [str(Path(home) / "bin" / "nvcc")] if home else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise BuildError("nvcc not found (set CUDA_HOME); the CUDA kernels are "
+                     "built on the machine that has the card")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives for the current sources."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        if src.suffix == ".cuh" or src.stem == name:
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+    return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, str]:
+    """Compile every named source whose library is missing, all at once
+    (one nvcc each, started together).  Returns ``{name: ptxas report}``
+    for the sources compiled by this call; raises :class:`BuildError`
+    on the first failure, with nvcc's output."""
+    todo = {n: library_path(n) for n in names}
+    todo = {n: p for n, p in todo.items() if not p.exists()}
+    if not todo:
+        return {}
+    BUILD.mkdir(parents=True, exist_ok=True)
+    exe = nvcc()
+    procs = {}
+    for name, out in todo.items():
+        tmp = tempfile.NamedTemporaryFile(dir=BUILD, suffix=".so.tmp",
+                                          delete=False)
+        tmp.close()
+        cmd = [exe, *NVCC_FLAGS, "-o", tmp.name, str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp.name, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports, failed = {}, []
+    for name, (tmp, out, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
+            os.unlink(tmp)
+        else:
+            os.replace(tmp, out)
+            reports[name] = log
+    if failed:
+        raise BuildError("\n".join(failed))
+    return reports
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and open its library."""
+    build([name])
+    return ctypes.CDLL(str(library_path(name)))

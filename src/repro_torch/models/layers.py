@@ -1,0 +1,125 @@
+"""Neural building blocks of the decode path: plain functions on tensors.
+
+Counterparts of ``repro/models/layers.py`` with the same arithmetic and the
+same casts: norms and RoPE compute in float32 and cast back to the input
+dtype, projections run in the weight dtype.  Parameters arrive as mappings
+of tensors (an ``nn.ParameterDict`` in the model).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping
+
+import torch
+import torch.nn.functional as F
+
+Params = Mapping[str, torch.Tensor]
+
+
+# ------------------------------------------------------------------ norms
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps) * scale + bias
+    return out.to(x.dtype)
+
+
+def norm(x: torch.Tensor, p: Params, kind: str) -> torch.Tensor:
+    if kind == "layernorm":
+        return layernorm(x, p["scale"], p["bias"])
+    return rmsnorm(x, p["scale"])
+
+
+def init_norm(d: int, kind: str, device, dtype=torch.float32) -> dict:
+    if kind == "layernorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device),
+                "bias": torch.zeros((d,), dtype=dtype, device=device)}
+    return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+# ------------------------------------------------------------------- rope
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (..., S).  Non-interleaved halves."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].float() * freqs            # (..., S, D/2)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------- decode attention
+
+def decode_attention_cache(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, slot_pos: torch.Tensor,
+                           q_pos: torch.Tensor, *, window: int = 0,
+                           chunk: int = 0) -> torch.Tensor:
+    """Single-token attention against a ring-buffer cache with per-slot
+    absolute positions, in plain PyTorch.
+
+    q: (B, 1, Hq, D); caches: (B, W, Hkv, D); slot_pos: (B, W) absolute
+    position stored in each slot (-1 = empty); q_pos: (B,).  This is the
+    general mask of ``decode_attention_cache_xla``; a full-attention layer
+    whose cache holds every position runs the flash-decode kernel instead,
+    with ``lengths = q_pos + 1``, which selects the same slots.
+    """
+    b, _, hq, d = q.shape
+    _, w, hkv, _ = k_cache.shape
+    rep = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    qh = (q[:, 0].float() * scale).reshape(b, hkv, rep, d)
+    s_logits = torch.einsum("bgrd,bsgd->bgrs", qh, k_cache.float())
+    valid = (slot_pos >= 0) & (slot_pos <= q_pos[:, None])
+    if window:
+        valid &= (q_pos[:, None] - slot_pos) < window
+    if chunk:
+        valid &= torch.div(slot_pos, chunk, rounding_mode="floor") == \
+            torch.div(q_pos[:, None], chunk, rounding_mode="floor")
+    s_logits = s_logits.masked_fill(~valid[:, None, None, :], -1e30)
+    p = torch.softmax(s_logits, dim=-1)
+    out = torch.einsum("bgrs,bsgd->bgrd", p, v_cache.float())
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+# --------------------------------------------------------------- dense mlp
+
+def mlp_apply(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+    if act in ("swiglu", "geglu"):
+        g = x @ p["w_gate"]
+        u = x @ p["w_up"]
+        h = (F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")) * u
+    else:
+        h = F.gelu(x @ p["w_up"], approximate="tanh")
+    return h @ p["w_down"]
+
+
+def init_mlp(generator: torch.Generator, d: int, f: int, act: str,
+             device, dtype=torch.bfloat16) -> dict:
+    def normal(shape, std):
+        return (torch.randn(shape, generator=generator, device=device)
+                * std).to(dtype)
+
+    s_in = 1.0 / math.sqrt(d)
+    s_ff = 1.0 / math.sqrt(f)
+    p = {"w_up": normal((d, f), s_in), "w_down": normal((f, d), s_ff)}
+    if act in ("swiglu", "geglu"):
+        p["w_gate"] = normal((d, f), s_in)
+    return p

@@ -1,0 +1,258 @@
+"""Decoder stack of the port: parameters, KV cache and one serving step.
+
+Counterpart of the serving half of ``repro/models/transformer.py``.  The
+layers are an ``nn.ModuleList`` walked by a Python loop (JAX stacks full
+pattern groups and drives them with ``lax.scan``); each layer's weights
+keep the JAX shapes, so ``x @ w`` reads the same in both.  Every attention
+layer's decode runs the flash-decode kernel
+(:mod:`repro_torch.kernels.decode_attention`).
+
+This slice ports full-attention (``"attn"``) layers with a dense MLP.  The
+other layer kinds raise ``NotImplementedError`` naming the slice that will
+port them; none of them runs a plain stand-in.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.models import layers as L
+
+#: layer kinds (and features) that later slices of the port bring in
+LATER_SLICE = {
+    "swa": "the SWA/chunked ring-buffer decode slice",
+    "chunked": "the SWA/chunked ring-buffer decode slice",
+    "ssd": "the Mamba-2 slice (ssd_scan)",
+    "rglru": "the RG-LRU slice",
+    "enc": "the encoder-decoder slice",
+    "xattn": "the encoder-decoder slice",
+    "moe": "the MoE slice",
+}
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what!r} is not ported yet: it comes with "
+        f"{LATER_SLICE.get(what, 'a later slice')}")
+
+
+def _check_layer(cfg: ModelConfig, kind: str, layer_idx: int) -> None:
+    if kind != "attn":
+        raise _unported(kind)
+    if cfg.is_encdec:
+        raise _unported("xattn")
+    if cfg.n_experts and layer_idx % cfg.moe_every == cfg.moe_every - 1:
+        raise _unported("moe")
+
+
+def _pdict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                             for k, v in tensors.items()})
+
+
+class Layer(nn.Module):
+    """One decoder layer: norm1 -> attention, norm2 -> MLP, both residual."""
+
+    def __init__(self, kind: str, norm1: Dict, attn: Dict, norm2: Dict,
+                 mlp: Dict):
+        super().__init__()
+        self.kind = kind
+        self.norm1 = _pdict(norm1)
+        self.attn = _pdict(attn)
+        self.norm2 = _pdict(norm2)
+        self.mlp = _pdict(mlp)
+
+
+class Transformer(nn.Module):
+    """The parameters of the whole model (``repro``'s params pytree)."""
+
+    def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
+                 layers: List[Layer], final_norm: Dict,
+                 lm_head: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.layers = nn.ModuleList(layers)
+        self.final_norm = _pdict(final_norm)
+        self.lm_head = (nn.Parameter(lm_head, requires_grad=False)
+                        if lm_head is not None else None)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+# ============================================================== init
+
+
+def _init_attn(gen: torch.Generator, cfg: ModelConfig, device, dtype) -> Dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    hq, kv = cfg.padded_heads(1), cfg.padded_kv_heads(1)
+    if hq % kv:
+        raise ValueError(f"{hq} query heads do not group over {kv} KV heads")
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+
+    s = 1.0 / math.sqrt(d)
+    p = {"wq": normal((d, hq * hd), s), "wk": normal((d, kv * hd), s),
+         "wv": normal((d, kv * hd), s),
+         "wo": normal((hq * hd, d), 1.0 / math.sqrt(hq * hd))}
+    if cfg.qkv_bias:
+        for name, width in (("bq", hq), ("bk", kv), ("bv", kv)):
+            p[name] = torch.zeros((width * hd,), dtype=dtype, device=device)
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, *,
+                device="cuda", dtype=torch.bfloat16) -> Transformer:
+    """Random weights with the JAX package's shapes and scales, drawn from
+    ``generator`` (which must live on ``device``) and made on ``device``.
+    Norm parameters stay float32, as in ``repro``."""
+    device = torch.device(device)
+    layers = []
+    for i in range(cfg.num_layers):
+        kind = cfg.pattern_at(i)
+        _check_layer(cfg, kind, i)
+        if cfg.d_ff <= 0:
+            raise NotImplementedError("layers without an MLP are not ported yet")
+        layers.append(Layer(
+            kind, L.init_norm(cfg.d_model, cfg.norm, device),
+            _init_attn(generator, cfg, device, dtype),
+            L.init_norm(cfg.d_model, cfg.norm, device),
+            L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, device, dtype)))
+    vp = cfg.padded_vocab()
+    emb = (torch.randn((vp, cfg.d_model), generator=generator, device=device)
+           * 0.02).to(dtype)
+    lm_head = None
+    if not cfg.tie_embeddings:
+        lm_head = (torch.randn((cfg.d_model, vp), generator=generator,
+                               device=device) * 0.02).to(dtype)
+    return Transformer(cfg, emb, layers,
+                       L.init_norm(cfg.d_model, cfg.norm, device), lm_head)
+
+
+# ============================================================== serving
+
+
+def embed_tokens(model: Transformer, ids: torch.Tensor) -> torch.Tensor:
+    """Embedding lookup (the JAX package's off-mesh path)."""
+    return model.embed[ids]
+
+
+def _cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
+    if kind in ("swa", "chunked") and cfg.window:
+        return min(cfg.window, max_len)
+    return max_len
+
+
+def init_cache(model: Transformer, batch: int, max_len: int,
+               dtype=torch.bfloat16) -> List[Dict[str, torch.Tensor]]:
+    """Zeroed KV caches, one dict per layer, on the model's device: ``k`` and
+    ``v`` (B, W, Hkv, D) in ``dtype``, ``pos`` (B, W) int32, -1 = empty."""
+    cfg = model.cfg
+    hd = cfg.head_dim
+    cache = []
+    for layer in model.layers:
+        kvh = layer.attn["wk"].shape[-1] // hd
+        wc = _cache_len(cfg, layer.kind, max_len)
+        cache.append({
+            "k": torch.zeros((batch, wc, kvh, hd), dtype=dtype, device=model.device),
+            "v": torch.zeros((batch, wc, kvh, hd), dtype=dtype, device=model.device),
+            "pos": torch.full((batch, wc), -1, dtype=torch.int32, device=model.device),
+        })
+    return cache
+
+
+def _attn_decode(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
+                 kind: str, position: torch.Tensor, max_position: int,
+                 cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One-token attention against the layer's cache.
+
+    x: (B, 1, d); position: (B,) int32 on the device; ``max_position`` is
+    the largest entry of ``position``, known on the host.  The cache is
+    updated in place (``index_put_``), where JAX builds a new one with
+    ``.at[].set``.
+    """
+    wc = cache["k"].shape[1]
+    if kind != "attn":
+        raise _unported(kind)
+    if wc < max_position + 1:
+        raise ValueError(f"cache of {wc} slots cannot hold position {max_position}")
+    # A full-attention cache holds position j in slot j and never wraps, and
+    # slots past the current position hold -1 or a stale, larger position.
+    # So the ring-buffer mask (slot_pos >= 0) & (slot_pos <= position) keeps
+    # exactly the slots below lengths = position + 1.
+    b = x.shape[0]
+    hd = cfg.head_dim
+    hq = p["wq"].shape[-1] // hd
+    kvh = p["wk"].shape[-1] // hd
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    pos_b = position[:, None]
+    q = L.apply_rope(q.reshape(b, 1, hq, hd), pos_b, cfg.rope_theta)
+    k = L.apply_rope(k.reshape(b, 1, kvh, hd), pos_b, cfg.rope_theta)
+    v = v.reshape(b, 1, kvh, hd)
+
+    slot = position.long()                # never wraps: wc > max_position
+    bi = torch.arange(b, device=x.device)
+    kc, vc, pc = cache["k"], cache["v"], cache["pos"]
+    kc.index_put_((bi, slot), k[:, 0].to(kc.dtype))
+    vc.index_put_((bi, slot), v[:, 0].to(vc.dtype))
+    pc.index_put_((bi, slot), position)
+
+    out = decode_attention(q[:, 0], kc, vc, position + 1)     # (B, Hq, D)
+    return out.reshape(b, 1, hq * hd) @ p["wo"]
+
+
+def _layer_decode(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
+                  position: torch.Tensor, max_position: int,
+                  cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+    h = L.norm(x, layer.norm1, cfg.norm)
+    x = x + _attn_decode(layer.attn, cfg, h, layer.kind, position,
+                         max_position, cache)
+    h2 = L.norm(x, layer.norm2, cfg.norm)
+    return x + L.mlp_apply(layer.mlp, h2, cfg.act)
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, cache: List[Dict[str, torch.Tensor]],
+                tokens, position) -> Tuple[torch.Tensor, List[Dict]]:
+    """One serving step: (B, 1) tokens at (B,) positions -> (B,) int32 next
+    tokens on the model's device, plus the cache (updated in place).
+
+    ``tokens`` and ``position`` are host integer arrays (numpy or CPU
+    tensors), as the serving engine keeps them; they go to the device in one
+    copy that does not wait for it, so the step itself needs no host-device
+    sync.
+    """
+    cfg = model.cfg
+    dev = model.device
+    host = np.concatenate([np.asarray(tokens, np.int64).reshape(-1),
+                           np.asarray(position, np.int64).reshape(-1)])
+    max_position = int(host[host.size // 2:].max())
+    both = torch.from_numpy(host)
+    if dev.type == "cuda":      # a pinned source lets the copy skip the wait
+        both = both.pin_memory()
+    both = both.to(dev, non_blocking=True)
+    tok, pos = both.view(2, -1)
+    pos = pos.to(torch.int32)
+    x = embed_tokens(model, tok[:, None])                    # (B, 1, d)
+    for layer, c in zip(model.layers, cache):
+        x = _layer_decode(layer, cfg, x, pos, max_position, c)
+    x = L.norm(x, model.final_norm, cfg.norm)
+    w = model.lm_head if model.lm_head is not None else model.embed.T
+    logits = (x[:, 0] @ w).float()
+    vmask = torch.arange(logits.shape[-1], device=dev) < cfg.vocab_size
+    logits = logits.masked_fill(~vmask[None], -float("inf"))
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache

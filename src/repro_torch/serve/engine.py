@@ -1,0 +1,138 @@
+"""Batched serving engine: continuous-batching decode over the KV cache.
+
+Counterpart of ``repro/serve/engine.py`` with the same semantics.
+``ServeEngine`` keeps a fixed pool of ``max_batch`` sequence slots with a
+shared KV cache on the device.  Requests join free slots (their prompt is
+prefilled token by token through ``decode_step``), then all active slots
+decode in lockstep, one token per engine step.
+
+Capacity hook: :meth:`ServeEngine.set_capacity` shrinks or restores the
+usable slot count at run time.  Paused slots keep their request and cache
+state frozen (their positions never advance, so the next decode rewrites
+the same cache line) and resume decoding when capacity returns.
+
+Positions and pending tokens stay host numpy arrays; the one host-device
+sync of a step is reading its next tokens.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import Transformer, decode_step, init_cache
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new: int = 16
+    out: Optional[List[int]] = None
+    done: bool = False
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, model: Transformer, max_batch: int = 4,
+                 max_len: int = 256, *, device="cuda"):
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if model.device != device:
+            raise ValueError(f"model lives on {model.device}, engine on {device}")
+        self.cfg = cfg
+        self.model = model
+        self.device = device
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.cache = init_cache(model, max_batch, max_len)
+        self.positions = np.zeros((max_batch,), np.int32)
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        self.pending_tok = np.zeros((max_batch,), np.int32)
+        self.capacity = max_batch
+
+    def _step(self) -> torch.Tensor:
+        """Decode the whole batch once; next tokens stay on the device."""
+        nxt, self.cache = decode_step(self.model, self.cache,
+                                      self.pending_tok[:, None], self.positions)
+        obs.count("serve.decode_steps")
+        return nxt
+
+    # ---------------------------------------------------------- capacity
+
+    def set_capacity(self, active_slots: int) -> int:
+        """Pause/restore slots: only indices ``< active_slots`` admit and
+        decode.  Requests already sitting in a paused slot stay frozen (not
+        dropped) until the capacity comes back.  Returns the clamped value."""
+        self.capacity = max(0, min(int(active_slots), self.max_batch))
+        obs.gauge("serve.capacity_slots", self.capacity)
+        return self.capacity
+
+    # ------------------------------------------------------------- admit
+
+    def submit(self, req: Request) -> bool:
+        for i, slot in enumerate(self.slots[:self.capacity]):
+            if slot is None:
+                req.out = []
+                self.slots[i] = req
+                # prefill: feed prompt tokens through the decode path
+                for j, tok in enumerate(req.prompt):
+                    self.pending_tok[i] = tok
+                    self.positions[i] = j
+                    nxt = self._step()
+                self.pending_tok[i] = int(nxt[i])
+                self.positions[i] = len(req.prompt)
+                req.out.append(int(self.pending_tok[i]))
+                return True
+        return False
+
+    # -------------------------------------------------------------- step
+
+    def step(self) -> int:
+        """One lockstep decode for all active slots; returns #active.
+
+        Slots at indices ``>= capacity`` are paused: they are excluded from
+        the active count and their positions/pending token never advance
+        (the decode still runs the full batch, but a paused lane rewrites
+        the same cache line with the same token, a no-op)."""
+        active = [i for i, s in enumerate(self.slots)
+                  if s is not None and i < self.capacity]
+        if not active:
+            return 0
+        nxt = self._step().cpu().numpy()
+        done = 0
+        for i in active:
+            req = self.slots[i]
+            self.positions[i] += 1
+            self.pending_tok[i] = nxt[i]
+            req.out.append(int(nxt[i]))
+            if len(req.out) >= req.max_new or \
+                    self.positions[i] >= self.max_len - 1:
+                req.done = True
+                self.slots[i] = None
+                done += 1
+        if done:
+            obs.count("serve.requests_completed", done)
+        return len(active)
+
+    def run_until_done(self, max_steps: int = 512) -> List[Request]:
+        """Step until every *unpaused* slot drains, or ``max_steps``.
+
+        Returns the requests still resident afterwards (hit the step
+        budget, or parked in slots paused by :meth:`set_capacity`) instead
+        of silently dropping them; the caller decides whether to resume,
+        resubmit, or abandon them.  Leftovers are counted on the
+        ``serve.unfinished_requests`` telemetry counter.
+        """
+        for _ in range(max_steps):
+            if self.step() == 0:
+                break
+        leftover = [r for r in self.slots if r is not None]
+        if leftover:
+            obs.count("serve.unfinished_requests", len(leftover))
+        return leftover

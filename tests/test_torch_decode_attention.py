@@ -1,0 +1,103 @@
+"""The port's flash-decode against the JAX package's, on the CPU.
+
+On CPU tensors the port's wrapper runs its plain version, so these tests
+hold that version (the kernel's oracle on the card) to the Pallas kernel
+in interpret mode and to the JAX ``decode_attention_ref``, and the port's
+ring-buffer ``decode_attention_cache`` to ``decode_attention_cache_xla``.
+Inputs come from a numpy seed and go to both frameworks.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention.decode_attention import decode_attention_pallas
+from repro.kernels.decode_attention.ref import decode_attention_ref as jax_ref
+from repro.models.layers import decode_attention_cache_xla
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_ref)
+from repro_torch.models.layers import decode_attention_cache
+
+# the tolerances of tests/test_kernels.py
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor of ``dtype``."""
+    j = jnp.asarray(a, jnp.float32).astype(JDT[dtype])
+    t = torch.from_numpy(np.asarray(a, np.float32)).to(TDT[dtype])
+    return j, t
+
+
+def _close(t: torch.Tensor, j, dtype: str):
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rep", [1, 2, 12])
+@pytest.mark.parametrize("d", [16, 128])
+def test_plain_decode_matches_pallas_and_ref(dtype, rep, d):
+    rng = np.random.default_rng(1000 * rep + d)
+    b, hkv, s, blk = 3, 2, 100, 32           # S not a multiple of the block
+    hq = rep * hkv
+    q = rng.standard_normal((b, hq, d))
+    kc = rng.standard_normal((b, s, hkv, d))
+    vc = rng.standard_normal((b, s, hkv, d))
+    lengths = np.array([1, s, 37], np.int32)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(x, dtype) for x in (q, kc, vc))
+    lj, lt = jnp.asarray(lengths), torch.from_numpy(lengths)
+
+    out = decode_attention(qt, kt, vt, lt)
+    assert out.dtype == TDT[dtype] and out.shape == (b, hq, d)
+    assert torch.equal(out, decode_attention_ref(qt, kt, vt, lt))
+    _close(out, jax_ref(qj, kj, vj, lj), dtype)
+    _close(out, decode_attention_pallas(qj, kj, vj, lj, block_k=blk,
+                                        interpret=True), dtype)
+
+
+def _reused_lane_cache(rng, b, w, hkv, d, q_pos):
+    """A cache as ServeEngine leaves it: lane i holds positions
+    0..q_pos[i] of its current request, and every later slot holds -1 or a
+    stale position from an earlier, longer request in that lane."""
+    k = rng.standard_normal((b, w, hkv, d))
+    v = rng.standard_normal((b, w, hkv, d))
+    slot_pos = np.full((b, w), -1, np.int32)
+    for i, p in enumerate(q_pos):
+        slot_pos[i, :p + 1] = np.arange(p + 1)
+        stale_end = min(w, p + 1 + 5 * (i + 1))  # earlier request ran further
+        slot_pos[i, p + 1:stale_end] = np.arange(p + 1, stale_end)
+    return k, v, slot_pos
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cache_attention_matches_xla_on_reused_lanes(dtype):
+    rng = np.random.default_rng(7)
+    b, w, hq, hkv, d = 3, 24, 4, 2, 16
+    q_pos = np.array([0, 9, 23], np.int32)
+    k, v, slot_pos = _reused_lane_cache(rng, b, w, hkv, d, q_pos)
+    q = rng.standard_normal((b, 1, hq, d))
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(x, dtype) for x in (q, k, v))
+    pj, pt = jnp.asarray(slot_pos), torch.from_numpy(slot_pos)
+    qpj, qpt = jnp.asarray(q_pos), torch.from_numpy(q_pos)
+
+    out = decode_attention_cache(qt, kt, vt, pt, qpt)
+    _close(out, decode_attention_cache_xla(qj, kj, vj, pj, qpj), dtype)
+    # the kernel's length mask selects the same slots as the ring mask
+    flash = decode_attention(qt[:, 0], kt, vt, qpt + 1)
+    _close(flash, decode_attention_cache_xla(qj, kj, vj, pj, qpj)[:, 0], dtype)
+    # windowed masks (the later SWA slice) agree as well
+    _close(decode_attention_cache(qt, kt, vt, pt, qpt, window=5),
+           decode_attention_cache_xla(qj, kj, vj, pj, qpj, window=5), dtype)
+
+
+def test_wrapper_rejects_other_devices():
+    q = torch.zeros((1, 2, 8), device="meta")
+    kc = torch.zeros((1, 4, 2, 8), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        decode_attention(q, kc, kc, torch.ones((1,), dtype=torch.int32,
+                                               device="meta"))
