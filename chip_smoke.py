@@ -9,16 +9,25 @@ failure:
 
   1. print the card's name and power limit; build every CUDA kernel of the
      port from ``src/repro_torch/csrc`` (one nvcc per source, together);
-  2. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the serving path gives it;
+  2. hold each kernel against its plain PyTorch version on the card: the
+     flash-decode kernel at the shapes the serving path gives it, the
+     flash-attention forward and both backward kernels in float32 and
+     bfloat16 under every mask, at ragged lengths and at StarCoder2's
+     training shape;
   3. serve reduced StarCoder2 with the same float32 weights on the CPU
      (plain versions) and on the card (kernels): the token streams agree;
-  4. the main path: full-width, full-depth StarCoder2-3B with random bf16
-     weights serves 8 requests through ``ServeEngine``; every request
+  4. serving main path: full-width, full-depth StarCoder2-3B with random
+     bf16 weights serves 8 requests through ``ServeEngine``; every request
      finishes and each decode step launched the kernel once per layer;
-     a few more engine steps run under torch.profiler to show where a
-     step's time goes;
-  5. time each kernel, its plain version and the PyTorch library call that
+     a few more engine steps run under torch.profiler;
+  5. train reduced StarCoder2 in float32 for 3 steps on the CPU (plain
+     versions) and on the card (kernels): losses and weights agree;
+  6. training main path: full-width, full-depth StarCoder2-3B, bf16, B=1,
+     S=4096, remat, AdamW, through ``make_train_step``: one warm-up step,
+     then 3 timed steps with finite loss and grad norm, changed weights and
+     exactly 2 x layers forward and 1 x layers backward flash-attention
+     launches per step; one more step runs under torch.profiler;
+  7. time each kernel, its plain version and the PyTorch library call that
      computes the same function, beside the card's least time for the work.
 
 The last lines are the ``{"kernels": ...}`` record, the card line and
@@ -27,6 +36,8 @@ The last lines are the ``{"kernels": ...}`` record, the card line and
 
 from __future__ import annotations
 
+import copy
+import gc
 import json
 import math
 import statistics
@@ -41,7 +52,17 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-KERNELS = ["decode_attention"]
+# Gradients of the flash-attention kernels against the plain version, as a
+# share of the gradient's largest entry: dK and dV sum up to Sq * rep
+# products (49k at StarCoder2's shape) in another order than the plain
+# version, in fp32; in bf16 the stored gradient rounds to 8 bits.
+GRAD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+# Reduced training, card against CPU in float32: 3 AdamW steps move each
+# weight by ~lr whatever its gradient's size, so an entry whose gradient
+# differs in its last digits may move a little differently (as in
+# tests/test_torch_train.py).
+TRAIN_TOL = {"loss_rel": 1e-4, "param_abs": 1e-4}
+KERNELS = ["decode_attention", "flash_attention"]
 
 
 def card_line() -> str:
@@ -230,7 +251,7 @@ def serve_full(torch):
     return launches
 
 
-# ------------------------------------------------------------ phase 5
+# ------------------------------------------------------------ timing
 
 
 def eager_ms(torch, fn, n_buf, iters=50, repeats=7):
@@ -355,11 +376,20 @@ def profile_engine_steps(torch, eng, n_steps=4):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     eng.run_until_done()
+    summarize_profile(torch, prof, wall_ms, n_steps,
+                      f"{n_steps} engine steps of batch {eng.max_batch}",
+                      {"flash-decode": "decode_attention"})
+
+
+def summarize_profile(torch, prof, wall_ms, n_steps, label, groups):
+    """Print device busy time and idle share per step, the kernel count and
+    the kernels that took the most time; ``groups`` maps a label to a
+    substring of kernel names whose time is summed."""
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         print("profile: the profiler recorded no device kernels")
-        return
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for st, en in spans[1:]:
@@ -372,15 +402,278 @@ def profile_engine_steps(torch, eng, n_steps=4):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    attn = sum(t for n, t in by_name.items() if "decode_attention" in n)
-    print(f"profile: {n_steps} engine steps of batch {eng.max_batch}: "
-          f"{wall_ms / n_steps:.3f} ms per step under the profiler, device busy "
-          f"{busy / 1e3 / n_steps:.3f} ms per step ({100 * (1 - busy / 1e3 / wall_ms):.1f}% "
-          f"idle), {len(kernels) / n_steps:.0f} kernels per step, flash-decode "
-          f"{attn / 1e3 / n_steps:.3f} ms per step")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    parts = ", ".join(
+        f"{g} {sum(t for n, t in by_name.items() if sub in n) / 1e3 / n_steps:.3f} ms"
+        for g, sub in groups.items())
+    idle = 100 * (1 - busy / 1e3 / wall_ms)
+    print(f"profile: {label}: {wall_ms / n_steps:.3f} ms per step under the profiler, "
+          f"device busy {busy / 1e3 / n_steps:.3f} ms per step ({idle:.1f}% idle), "
+          f"{len(kernels) / n_steps:.0f} kernels per step, {parts} per step")
     for name, t in top:
         print(f"profile: {t / 1e3 / n_steps:8.3f} ms per step  {name[:100]}")
+    return {"busy_ms": busy / 1e3 / n_steps, "idle_pct": idle}
+
+
+# ------------------------------------------------------------ flash attention
+
+
+def flash_inputs(torch, seed, b, sq, sk, hq, hkv, d, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(dtype)
+    return q, k, v, g
+
+
+def check_flash_attention(torch):
+    """Forward (out, lse) and backward (dq, dk, dv) kernels against the
+    plain versions on the same inputs; the backward of both gets the
+    kernel's (out, lse), so each comparison isolates one kernel."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_fwd,
+                                                     flash_attention_fwd_ref)
+
+    cases = [  # (label, B, Sq, Sk, Hq, Hkv, D, mask)
+        ("causal", 2, 128, 128, 4, 2, 64, dict(causal=True)),
+        ("window", 2, 256, 256, 2, 2, 32, dict(causal=True, window=100)),
+        ("chunk", 2, 128, 128, 4, 1, 64, dict(causal=True, chunk=32)),
+        ("prefix", 2, 96, 96, 2, 2, 64, dict(causal=True, prefix_len=17)),
+        ("non-causal Sk > Sq", 2, 64, 192, 2, 1, 128, dict(causal=False)),
+        ("q_offset", 1, 100, 300, 24, 2, 128, dict(causal=True, q_offset=200)),
+        ("S=1000 ragged", 1, 1000, 1000, 24, 2, 128, dict(causal=True)),
+        ("D=256", 1, 100, 100, 2, 1, 256, dict(causal=True)),
+        ("StarCoder2 S=4096", 1, 4096, 4096, 24, 2, 128, dict(causal=True)),
+    ]
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for seed, (label, b, sq, sk, hq, hkv, d, kw) in enumerate(cases):
+            q, k, v, g = flash_inputs(torch, seed, b, sq, sk, hq, hkv, d, dtype)
+            out, lse = flash_attention_fwd(q, k, v, **kw)
+            ref_out, ref_lse = flash_attention_fwd_ref(q, k, v, **kw)
+            grads = flash_attention_bwd(q, k, v, out, lse, g, **kw)
+            ref_grads = flash_attention_bwd_ref(q, k, v, out, lse, g, **kw)
+            torch.cuda.synchronize()
+            tol = TOL[dname]
+            e_out = (out.float() - ref_out.float()).abs().max().item()
+            e_lse = (lse - ref_lse.float()).abs().max().item()
+            ok = (out.dtype == dtype and out.shape == q.shape
+                  and torch.allclose(out.float(), ref_out.float(), atol=tol, rtol=tol)
+                  and torch.allclose(lse, ref_lse.float(), atol=tol, rtol=tol))
+            rel = []
+            for x, gr, rg in zip((q, k, v), grads, ref_grads):
+                top = rg.float().abs().max().item()
+                err = (gr.float() - rg.float()).abs().max().item()
+                rel.append(err / max(1.0, top))
+                ok = ok and gr.dtype == x.dtype and gr.shape == x.shape and \
+                    math.isfinite(err) and err <= GRAD_TOL[dname] * max(1.0, top)
+                errs["bwd"] = max(errs["bwd"], err)
+            errs["fwd"] = max(errs["fwd"], e_out, e_lse)
+            print(f"flash_attention {label} {dname}: out max_abs_err {e_out:.3e}, lse "
+                  f"{e_lse:.3e} (tol {tol}); dq/dk/dv err / max(1, max|grad|) "
+                  f"{rel[0]:.2e} {rel[1]:.2e} {rel[2]:.2e} (tol {GRAD_TOL[dname]}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_attention disagrees with its plain version "
+                                     f"on {label} {dname}")
+            del q, k, v, g, out, lse, ref_out, ref_lse, grads, ref_grads
+    return errs
+
+
+def train_reduced_against_cpu(torch):
+    """3 AdamW steps of reduced StarCoder2 in float32 on the CPU (plain
+    versions) and on the card (kernels), from the same weights."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.models import init_params
+    from repro_torch.train import (OptConfig, TrainConfig, init_opt_state,
+                                   make_train_step, synthetic_batch)
+
+    cfg = get_arch("starcoder2").reduced()
+    tc = TrainConfig(opt=OptConfig(lr=3e-3, warmup_steps=2))
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(4), device="cpu",
+                            dtype=torch.float32)
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    states = {dev: {"params": m, "opt": init_opt_state(m, tc.opt)}
+              for dev, m in (("cpu", cpu_model), ("cuda", card_model))}
+    step = make_train_step(cfg, tc)
+    fwd0, bwd0 = flash_attention.launches, flash_attention_bwd.launches
+    losses = {"cpu": [], "cuda": []}
+    for i in range(3):
+        host = synthetic_batch(cfg, i, 4, 64)
+        for dev, state in states.items():
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+            states[dev], m = step(state, batch)
+            losses[dev].append(float(m["loss"]))
+    if flash_attention.launches == fwd0 or flash_attention_bwd.launches == bwd0:
+        raise AssertionError("reduced training on the card launched no flash kernel")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    cpu_p = dict(cpu_model.named_parameters())
+    param_err = max((p.detach().cpu() - cpu_p[n].detach()).abs().max().item()
+                    for n, p in card_model.named_parameters())
+    ok = loss_err <= TRAIN_TOL["loss_rel"] and param_err <= TRAIN_TOL["param_abs"]
+    print(f"reference: reduced {cfg.name}, float32, 3 AdamW steps: losses card "
+          f"{losses['cuda']} cpu {losses['cpu']}, max loss rel err {loss_err:.2e} "
+          f"(tol {TRAIN_TOL['loss_rel']}), max weight abs err {param_err:.2e} (tol "
+          f"{TRAIN_TOL['param_abs']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("reduced training: card and CPU disagree")
+
+
+def attention_flops(cfg, batch, seq):
+    """Model FLOPs of causal attention scores and values in one training
+    step: forward 4 * pairs * D per head, backward twice that."""
+    pairs = seq * (seq + 1) // 2
+    return 3 * 4 * pairs * cfg.head_dim * cfg.n_heads * batch * cfg.num_layers
+
+
+def train_full(torch, batch=1, seq=4096, timed=3):
+    """Training main path: full StarCoder2-3B, bf16, remat, AdamW."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.train import (TrainConfig, init_train_state, make_train_step,
+                                   synthetic_batch)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch("starcoder2")
+    tc = TrainConfig(remat=True)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tc, 0, device="cuda", dtype=torch.bfloat16)
+    model = state["params"]
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"train: {cfg.name}, {len(model.layers)} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.4f} B parameters, AdamW state made in "
+          f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated")
+    step = make_train_step(cfg, tc)
+
+    def batch_at(i):
+        host = synthetic_batch(cfg, i, batch, seq)
+        return {k: torch.from_numpy(v).to("cuda") for k, v in host.items()}
+
+    state, m = step(state, batch_at(0))                      # warm-up
+    torch.cuda.synchronize()
+    print(f"train: warm-up step loss {float(m['loss']):.4f} grad_norm "
+          f"{float(m['grad_norm']):.4f}")
+    watch = {"embed": model.embed, "wq0": model.layers[0].attn["wq"],
+             "w_down29": model.layers[-1].mlp["w_down"]}
+    before = {n: p.detach()[:8].clone() for n, p in watch.items()}
+    batches = [batch_at(1 + i) for i in range(timed)]
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    times, metrics = [], []
+    for b in batches:
+        t1 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        metrics.append({k: float(v) for k, v in m.items()})
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.num_layers
+    if fwd != 2 * layers * timed or bwd != layers * timed:
+        raise AssertionError(f"flash_attention launched {fwd} forward and {bwd} backward "
+                             f"in {timed} steps of {layers} layers with remat; want "
+                             f"{2 * layers * timed} and {layers * timed}")
+    if not all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"]) for x in metrics):
+        raise AssertionError(f"non-finite loss or grad norm: {metrics}")
+    changed = {n: not torch.equal(before[n], p.detach()[:8]) for n, p in watch.items()}
+    if not all(changed.values()):
+        raise AssertionError(f"weights did not change: {changed}")
+    tokens = batch * seq
+    step_s = statistics.median(times)
+    model_flops = 6 * n_params * tokens + attention_flops(cfg, batch, seq)
+    flop_ms = model_flops / BF16_FLOPS * 1e3
+    # AdamW reads and writes fp32 master, m and v and reads the grads, once
+    opt_bytes = n_params * (3 * 4 * 2 + 2 + 2)
+    opt_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    mfu = model_flops / (step_s * BF16_FLOPS)
+    print(f"train: {timed} timed steps of B={batch} S={seq}: "
+          + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms; median "
+          f"{step_s * 1e3:.1f} ms per step, {tokens / step_s:.0f} tok/s, MFU "
+          f"{100 * mfu:.2f}% ({model_flops / 1e12:.2f} TFLOP per step at 989 TFLOP/s); "
+          f"bound {flop_ms + opt_ms:.1f} ms per step ({flop_ms:.1f} ms of FLOPs + "
+          f"{opt_ms:.1f} ms of optimizer bytes); peak memory {peak / 1e9:.2f} GB")
+    print("train: losses " + ", ".join(f"{x['loss']:.4f}" for x in metrics)
+          + "; grad norms " + ", ".join(f"{x['grad_norm']:.4f}" for x in metrics)
+          + f"; weights changed {changed}")
+    print(f"train: flash_attention launches {fwd} forward = 2 x {layers} layers x "
+          f"{timed} steps, {bwd} backward = {layers} x {timed}")
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        state, m = step(state, batch_at(1 + timed))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    summarize_profile(torch, prof, wall_ms, 1, f"1 training step of B={batch} S={seq}",
+                      {"flash fwd": "flash_fwd", "flash dK/dV": "flash_bwd_dkdv",
+                       "flash dQ": "flash_bwd_dq", "cuBLAS GEMM": "nvjet"})
+    del state, model, step, batches, watch, before, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fwd": fwd, "bwd": bwd, "ms_per_step": step_s * 1e3,
+            "tok_per_s": tokens / step_s, "mfu": mfu, "peak_gb": peak / 1e9}
+
+
+def time_flash_attention(torch, b=1, s=4096, hq=24, hkv=2, d=128):
+    """Forward and backward kernels, plain versions and SDPA at StarCoder2's
+    training shape, bf16, causal.  Each call takes milliseconds, so CUDA
+    events around a few eager calls time the card, not the host."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_fwd,
+                                                     flash_attention_fwd_ref)
+
+    q, k, v, g = flash_inputs(torch, 500, b, s, s, hq, hkv, d, torch.bfloat16)
+    out, lse = flash_attention_fwd(q, k, v)
+    fwd_ms = eager_ms(torch, lambda i: flash_attention_fwd(q, k, v), 1, iters=10, repeats=3)
+    bwd_ms = eager_ms(torch, lambda i: flash_attention_bwd(q, k, v, out, lse, g), 1,
+                      iters=4, repeats=3)
+    fwd_plain = eager_ms(torch, lambda i: flash_attention_fwd_ref(q, k, v), 1,
+                         iters=3, repeats=3)
+    bwd_plain = eager_ms(torch, lambda i: flash_attention_bwd_ref(q, k, v, out, lse, g), 1,
+                         iters=2, repeats=3)
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    gs = g.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    def sdpa_both():
+        return torch.autograd.grad(sdpa(), (qs, ks, vs), gs)
+
+    lib_fwd = eager_ms(torch, lambda i: sdpa(), 1, iters=10, repeats=3)
+    lib_both = eager_ms(torch, lambda i: sdpa_both(), 1, iters=10, repeats=3)
+    lib_bwd = lib_both - lib_fwd
+    pairs = b * hq * s * (s + 1) // 2
+    io = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)         # q, out; k, v (bf16)
+    lse_bytes = 4 * b * hq * s
+    res = {}
+    for name, ms, plain, lib, flops, nbytes in (
+            ("fwd", fwd_ms, fwd_plain, lib_fwd, 4 * pairs * d, io + lse_bytes),
+            ("bwd", bwd_ms, bwd_plain, lib_bwd, 10 * pairs * d,
+             io + 2 * b * s * hq * d * 2 + 2 * b * s * hkv * d * 2 + lse_bytes)):
+        t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"time flash_attention {name}: B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 "
+              f"causal: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), bound "
+              f"{bound_ms:.3f} ms ({by}, {flops / 1e9:.1f} GFLOP), plain {plain:.3f} ms, "
+              f"sdpa {lib:.3f} ms")
+        res[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
+                     "library_ms": lib}
+    return res
 
 
 def main() -> int:
@@ -399,11 +692,15 @@ def main() -> int:
     build_kernels()
 
     errs = check_decode_attention(torch)
+    flash_errs = check_flash_attention(torch)
     check_reduced_against_cpu(torch)
     launches = serve_full(torch)
     times = {label: time_decode_attention(torch, label, s, top)
              for label, s, top in [("serve", 1024, 64), ("L=1024", 1024, None),
                                    ("L=4096", 4096, None)]}
+    train_reduced_against_cpu(torch)
+    train = train_full(torch)
+    flash_times = time_flash_attention(torch)
     print(json.dumps({"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
@@ -417,6 +714,24 @@ def main() -> int:
         **times["L=1024"],
         "serve_shape": times["serve"],
         "L4096": times["L=4096"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:96",
+        "launches": train["fwd"],
+        "max_abs_err": flash_errs["fwd"],
+        "shape": "B=1 S=4096 Hq=24 Hkv=2 D=128 bf16 causal",
+        **flash_times["fwd"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/models/layers.py:155",
+        "launches": train["bwd"],
+        "max_abs_err": flash_errs["bwd"],
+        "shape": "B=1 S=4096 Hq=24 Hkv=2 D=128 bf16 causal",
+        **flash_times["bwd"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,10 @@ runs ``jax.tree.map(np.asarray, params)``), and returns the equivalent
 :class:`~repro_torch.models.Transformer`.  The JAX tree stacks full pattern
 groups: ``groups[s][name]`` has a leading ``n_groups`` axis, and layer
 ``g * cycle + s`` is its ``g``-th entry; ``rest`` holds the remainder
-layers unstacked.  This module imports neither JAX nor ``repro``.
+layers unstacked.  A JAX gradient tree has the params' structure, so the
+same function maps ``jax.grad``'s output onto the port's parameter names.
+The parameters it makes are trainable, like ``init_params``'s.  This
+module imports neither JAX nor ``repro``.
 """
 
 from __future__ import annotations

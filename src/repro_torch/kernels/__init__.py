@@ -8,4 +8,7 @@ sources live in ``repro_torch/csrc`` and are built at first use by
 
   * decode_attention -- flash-decode against a KV cache (replaces
     ``repro.kernels.decode_attention.decode_attention_pallas``)
+  * flash_attention -- blockwise attention forward and its gradient
+    (replaces ``repro.kernels.flash_attention.flash_attention_pallas`` and
+    the custom VJP of ``repro.models.layers.flash_attention_xla``)
 """

@@ -1,0 +1,196 @@
+"""Wrappers of the CUDA flash-attention kernels (``csrc/flash_attention.cu``).
+
+``flash_attention(q, k, v, ...)`` is differentiable: a
+``torch.autograd.Function`` whose forward runs :func:`flash_attention_fwd`
+and saves ``(q, k, v, out, lse)``, and whose backward runs
+:func:`flash_attention_bwd`.  Together they compute what
+``repro.kernels.flash_attention.flash_attention_pallas`` and the custom VJP
+of ``repro.models.layers.flash_attention_xla`` compute.  On CPU tensors
+each runs its plain version (:mod:`.ref`); on CUDA tensors it launches the
+kernels, or raises when they do not take the inputs.  Tensors keep the JAX
+layout (B, S, H, D); the kernels read their strides, so no transposed copy
+is made.  ``flash_attention.launches`` counts forward launches and
+``flash_attention_bwd.launches`` backward calls (each launches the dK/dV
+and the dQ kernel).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Tuple
+
+import torch
+
+from .. import _build
+from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref
+
+SMEM_LIMIT = 232448          # bytes of shared memory a block may use on Hopper
+_DTYPES = (torch.float32, torch.bfloat16)
+FWD, DKDV, DQ = 0, 1, 2      # kernel kinds of the C entry point
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.flash_attention_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def smem_bytes(kind: int, d: int, bf16: bool) -> int:
+    """Shared memory one block of kernel ``kind`` needs at head dim ``d``."""
+    return _lib().flash_attention_smem_bytes(kind, d, int(bf16))
+
+
+def _check(q, k, v, *extra):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"want q (B, Sq, Hq, D) and k/v (B, Sk, Hkv, D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, _, hq, d = q.shape
+    bk, _, hkv, dk = k.shape
+    if bk != b or dk != d or hkv == 0 or hq % hkv:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if d % 8 or d > 256:
+        raise ValueError(f"head dim {d}: the kernels take multiples of 8 up to 256")
+    tensors = (q, k, v, *extra)
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"dtypes {[t.dtype for t in tensors]}: the kernels take "
+                        f"float32 or bfloat16, the same for q, k, v and the gradient")
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+    vec = 16 // q.element_size()              # the kernels load 16 bytes at a time
+    for t in tensors:
+        if t.stride(-1) != 1:
+            raise ValueError("the last dimension of q, k, v and the gradient must "
+                             "be contiguous")
+        if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:-1]):
+            raise ValueError("rows must start on 16-byte boundaries")
+
+
+def _launch(kind, ptrs, tensors, shape, mask, bf16, scale, device):
+    need = smem_bytes(kind, shape[-1], bf16)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"head dim {shape[-1]} needs {need} bytes of shared memory, "
+                         f"more than {SMEM_LIMIT}")
+    strides = []
+    for t in tensors:
+        strides += list(t.stride()[:3]) if t is not None else [0, 0, 0]
+    c_ptrs = (ctypes.c_void_p * 10)(*ptrs)
+    c_strides = (ctypes.c_longlong * 24)(*strides)
+    c_shape = (ctypes.c_int * 6)(*shape)
+    c_mask = (ctypes.c_int * 5)(*mask)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _lib().flash_attention_launch(kind, c_ptrs, c_strides, c_shape, c_mask,
+                                        int(bf16), scale, stream)
+    if err:
+        name = {FWD: "forward", DKDV: "dK/dV", DQ: "dQ"}[kind]
+        raise RuntimeError(f"flash_attention {name} kernel launch failed: CUDA error {err}")
+
+
+def _mask_args(causal, window, chunk, prefix_len, q_offset):
+    if min(window, chunk, prefix_len, q_offset) < 0:
+        raise ValueError("window, chunk, prefix_len and q_offset must be >= 0")
+    return [int(bool(causal)), int(window), int(chunk), int(prefix_len), int(q_offset)]
+
+
+def _on(t: torch.Tensor, name: str) -> bool:
+    """True for CUDA tensors, False for CPU ones (plain version)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
+    return t.device.type == "cuda"
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0, chunk: int = 0,
+                        prefix_len: int = 0,
+                        q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D) -> out (B, Sq, Hq, D) in q's
+    dtype and lse (B, Hq, Sq) float32."""
+    if not _on(q, "flash_attention"):
+        return flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
+                                       chunk=chunk, prefix_len=prefix_len,
+                                       q_offset=q_offset)
+    mask = _mask_args(causal, window, chunk, prefix_len, q_offset)
+    _check(q, k, v)
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    _launch(FWD, [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  None, None, None, None, lse.data_ptr(), None],
+            [q, k, v, out, None, None, None, None], [b, hq, hkv, sq, sk, d], mask,
+            q.dtype == torch.bfloat16, 1.0 / math.sqrt(d), q.device)
+    # the count lives on the public entry point, as for the other kernels
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor, *,
+                        causal: bool = True, window: int = 0, chunk: int = 0,
+                        prefix_len: int = 0,
+                        q_offset: int = 0) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) in the dtypes of (q, k, v) for the output gradient ``g``."""
+    if not _on(q, "flash_attention_bwd"):
+        return flash_attention_bwd_ref(q, k, v, out, lse, g, causal=causal,
+                                       window=window, chunk=chunk,
+                                       prefix_len=prefix_len, q_offset=q_offset)
+    mask = _mask_args(causal, window, chunk, prefix_len, q_offset)
+    g = g.contiguous()               # autograd may hand the gradient in strided
+    _check(q, k, v, out, g)
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous float32 ({b}, {hq}, {sq})")
+    # delta = sum over D of dO * out, as JAX computes it before its scan
+    delta = torch.einsum("bqhd,bqhd->bhq", g.float(), out.float()).contiguous()
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr()]
+    args = ([q, k, v, out, g, dq, dk, dv], [b, hq, hkv, sq, sk, d], mask,
+            q.dtype == torch.bfloat16, 1.0 / math.sqrt(d), q.device)
+    _launch(DKDV, ptrs, *args)
+    _launch(DQ, ptrs, *args)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, prefix_len, q_offset):
+        opts = dict(causal=causal, window=window, chunk=chunk,
+                    prefix_len=prefix_len, q_offset=q_offset)
+        out, lse = flash_attention_fwd(q, k, v, **opts)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, chunk: int = 0,
+                    prefix_len: int = 0, q_offset: int = 0) -> torch.Tensor:
+    """Differentiable attention: q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) ->
+    (B, Sq, Hq, D).  ``window`` > 0 is a sliding window, ``chunk`` > 0
+    chunk-local attention, ``prefix_len`` > 0 prefix-LM; query i sits at
+    position ``q_offset + i``."""
+    return _FlashAttention.apply(q, k, v, causal, window, chunk, prefix_len, q_offset)
+
+
+flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -1,4 +1,4 @@
-"""Neural building blocks of the decode path: plain functions on tensors.
+"""Neural building blocks of the model: plain functions on tensors.
 
 Counterparts of ``repro/models/layers.py`` with the same arithmetic and the
 same casts: norms and RoPE compute in float32 and cast back to the input
@@ -13,6 +13,8 @@ from typing import Mapping
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 
 Params = Mapping[str, torch.Tensor]
 
@@ -64,6 +66,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ------------------------------------------------------- flash attention
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, chunk: int = 0,
+                    prefix_len: int = 0, q_offset: int = 0) -> torch.Tensor:
+    """Full-sequence attention (train/prefill), the counterpart of
+    ``flash_attention_xla``: q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), GQA via
+    Hq // Hkv.  ``window`` > 0 = sliding window; ``chunk`` > 0 =
+    chunk-local; ``prefix_len`` > 0 = prefix-LM.  Differentiable; on CUDA
+    tensors the forward and the backward run the flash-attention kernels
+    (:mod:`repro_torch.kernels.flash_attention`)."""
+    return _flash_kernel(q, k, v, causal=causal, window=window, chunk=chunk,
+                         prefix_len=prefix_len, q_offset=q_offset)
 
 
 # ------------------------------------------------------- decode attention

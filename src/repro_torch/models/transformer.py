@@ -1,15 +1,18 @@
-"""Decoder stack of the port: parameters, KV cache and one serving step.
+"""Decoder stack of the port: parameters, training forward and loss, KV
+cache and one serving step.
 
-Counterpart of the serving half of ``repro/models/transformer.py``.  The
-layers are an ``nn.ModuleList`` walked by a Python loop (JAX stacks full
-pattern groups and drives them with ``lax.scan``); each layer's weights
-keep the JAX shapes, so ``x @ w`` reads the same in both.  Every attention
-layer's decode runs the flash-decode kernel
-(:mod:`repro_torch.kernels.decode_attention`).
+Counterpart of ``repro/models/transformer.py``.  The layers are an
+``nn.ModuleList`` walked by a Python loop (JAX stacks full pattern groups
+and drives them with ``lax.scan``); each layer's weights keep the JAX
+shapes, so ``x @ w`` reads the same in both.  Every attention layer runs a
+hand-written kernel on the card: the flash-attention forward and backward
+in :func:`forward` (:mod:`repro_torch.kernels.flash_attention`), flash-decode
+in :func:`decode_step` (:mod:`repro_torch.kernels.decode_attention`).
 
-This slice ports full-attention (``"attn"``) layers with a dense MLP.  The
-other layer kinds raise ``NotImplementedError`` naming the slice that will
-port them; none of them runs a plain stand-in.
+This port covers full-attention (``"attn"``) layers with a dense MLP.  The
+other layer kinds, prefix (VLM) and encoder-decoder inputs raise
+``NotImplementedError`` naming the slice that will port them; none of them
+runs a plain stand-in.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
@@ -34,6 +38,7 @@ LATER_SLICE = {
     "enc": "the encoder-decoder slice",
     "xattn": "the encoder-decoder slice",
     "moe": "the MoE slice",
+    "prefix inputs": "the VLM slice (PaliGemma prefix)",
 }
 
 
@@ -53,8 +58,7 @@ def _check_layer(cfg: ModelConfig, kind: str, layer_idx: int) -> None:
 
 
 def _pdict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tensors.items()})
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors.items()})
 
 
 class Layer(nn.Module):
@@ -78,11 +82,10 @@ class Transformer(nn.Module):
                  lm_head: Optional[torch.Tensor] = None):
         super().__init__()
         self.cfg = cfg
-        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.embed = nn.Parameter(embed)
         self.layers = nn.ModuleList(layers)
         self.final_norm = _pdict(final_norm)
-        self.lm_head = (nn.Parameter(lm_head, requires_grad=False)
-                        if lm_head is not None else None)
+        self.lm_head = nn.Parameter(lm_head) if lm_head is not None else None
 
     @property
     def device(self) -> torch.device:
@@ -139,12 +142,82 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                        L.init_norm(cfg.d_model, cfg.norm, device), lm_head)
 
 
-# ============================================================== serving
+# ============================================================== training
 
 
 def embed_tokens(model: Transformer, ids: torch.Tensor) -> torch.Tensor:
     """Embedding lookup (the JAX package's off-mesh path)."""
     return model.embed[ids]
+
+
+def lm_loss(model: Transformer, x: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy of the next-token labels (the JAX
+    package's off-mesh path): float32 logits over the padded vocabulary,
+    cut to ``vocab_size``, logsumexp minus the label's logit."""
+    w = model.lm_head if model.lm_head is not None else model.embed.T
+    logits = (x @ w).float()[..., :model.cfg.vocab_size]
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - lab)
+
+
+def _attn_apply(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
+                kind: str, positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal attention (train/prefill).  x: (B, S, d)."""
+    if kind != "attn":
+        raise _unported(kind)
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    hq = p["wq"].shape[-1] // hd
+    kvh = p["wk"].shape[-1] // hd
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = L.apply_rope(q.reshape(b, s, hq, hd), positions, cfg.rope_theta)
+    k = L.apply_rope(k.reshape(b, s, kvh, hd), positions, cfg.rope_theta)
+    v = v.reshape(b, s, kvh, hd)
+    out = L.flash_attention(q, k, v, causal=True)
+    return out.reshape(b, s, hq * hd) @ p["wo"]
+
+
+def _layer_apply(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    h = L.norm(x, layer.norm1, cfg.norm)
+    x = x + _attn_apply(layer.attn, cfg, h, layer.kind, positions)
+    h2 = L.norm(x, layer.norm2, cfg.norm)
+    return x + L.mlp_apply(layer.mlp, h2, cfg.act)
+
+
+def forward(model: Transformer, batch: Dict[str, torch.Tensor], *,
+            remat: bool = True) -> torch.Tensor:
+    """Token ids (B, S) -> final hidden states (B, S, d).
+
+    With ``remat`` each layer runs under ``torch.utils.checkpoint``
+    (non-reentrant), as JAX wraps each group in ``jax.checkpoint`` with
+    nothing saveable: only the layer inputs stay alive, and each layer's
+    forward, its flash-attention kernel included, runs again during the
+    backward pass."""
+    cfg = model.cfg
+    for key in ("patches", "frames"):
+        if key in batch:
+            raise _unported("xattn" if key == "frames" else "prefix inputs")
+    tokens = batch["tokens"]
+    x = embed_tokens(model, tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    for layer in model.layers:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_layer_apply, layer, cfg, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _layer_apply(layer, cfg, x, positions)
+    return L.norm(x, model.final_norm, cfg.norm)
+
+
+# ============================================================== serving
 
 
 def _cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:

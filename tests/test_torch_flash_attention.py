@@ -1,0 +1,156 @@
+"""The port's flash attention against the JAX package's, on the CPU.
+
+On CPU tensors the port's wrappers run their plain versions, so these
+tests hold those versions (the kernels' oracles on the card) to the Pallas
+kernel in interpret mode, to ``attention_ref``, to ``_flash_fwd_impl``'s
+lse and to ``jax.vjp`` of ``flash_attention_xla``.  Inputs come from a
+numpy seed and go to both frameworks.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.flash_attention import flash_attention_pallas
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.models.layers import _flash_fwd_impl, flash_attention_xla
+from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                 flash_attention_bwd_ref,
+                                                 flash_attention_fwd,
+                                                 flash_attention_fwd_ref)
+from repro_torch.models.layers import flash_attention as layers_flash_attention
+
+# the tolerances of tests/test_kernels.py
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# Gradients sum over up to Sq * rep (dK, dV) or Sk (dQ) products whose
+# order differs between the frameworks, and both recompute the scores from
+# (q, k, lse); in float32 that leaves errors of a few 1e-6 on gradients of
+# size ~1-10, so 1e-5 relative to the gradient's largest entry.
+GRAD_TOL = 1e-5
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# the five mask cases of tests/test_kernels.py: (sq, sk, hq, hkv, d, mask)
+CASES = [
+    (128, 128, 4, 2, 64, dict(causal=True)),
+    (256, 256, 2, 2, 32, dict(causal=True, window=100)),
+    (128, 128, 4, 1, 64, dict(causal=True, chunk=32)),
+    (96, 96, 2, 2, 64, dict(causal=True, prefix_len=17)),
+    (64, 192, 2, 1, 128, dict(causal=False)),
+]
+IDS = ["causal", "window", "chunk", "prefix", "noncausal"]
+
+
+def _inputs(seed, b, sq, sk, hq, hkv, d, dtype):
+    """(q, k, v, g) as JAX arrays and as torch tensors of ``dtype``."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for shape in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d),
+                            (b, sq, hq, d))]
+    jx = [jnp.asarray(a).astype(JDT[dtype]) for a in arrays]
+    tx = [torch.from_numpy(a).to(TDT[dtype]) for a in arrays]
+    return jx, tx
+
+
+def _close(t: torch.Tensor, j, tol):
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk,hq,hkv,d,kw", CASES, ids=IDS)
+def test_plain_forward_matches_pallas_and_ref(dtype, sq, sk, hq, hkv, d, kw):
+    (qj, kj, vj, _), (qt, kt, vt, _) = _inputs(sq + d, 2, sq, sk, hq, hkv, d, dtype)
+    out, lse = flash_attention_fwd(qt, kt, vt, **kw)
+    assert out.dtype == TDT[dtype] and out.shape == qt.shape
+    assert lse.dtype == torch.float32 and lse.shape == (2, hq, sq)
+    ref_out, ref_lse = flash_attention_fwd_ref(qt, kt, vt, **kw)
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    assert torch.equal(flash_attention(qt, kt, vt, **kw), out)
+    _close(out, attention_ref(qj, kj, vj, **kw), TOL[dtype])
+    pallas = flash_attention_pallas(qj, kj, vj, block_q=64, block_k=64,
+                                    interpret=True, **kw)
+    _close(out, pallas, TOL[dtype])
+
+
+def _grad_close(t: torch.Tensor, j):
+    j = np.asarray(j, np.float32)
+    err = np.abs(t.float().numpy() - j).max()
+    assert err <= GRAD_TOL * max(1.0, np.abs(j).max()), err
+
+
+@pytest.mark.parametrize("block", [32, 64])
+@pytest.mark.parametrize("sq,sk,hq,hkv,d,kw", CASES, ids=IDS)
+def test_plain_lse_and_backward_match_jax(sq, sk, hq, hkv, d, kw, block):
+    """out and lse against ``_flash_fwd_impl``, (dq, dk, dv) against
+    ``jax.vjp`` of ``flash_attention_xla``, at blocks that scan several KV
+    blocks."""
+    (qj, kj, vj, gj), (qt, kt, vt, gt) = _inputs(11 + sk, 2, sq, sk, hq, hkv, d, "float32")
+    cfg = (kw.get("causal", True), kw.get("window", 0), kw.get("chunk", 0),
+           kw.get("prefix_len", 0))
+    jout, jlse = _flash_fwd_impl(qj, kj, vj, cfg, 0, block)
+    out, lse = flash_attention_fwd_ref(qt, kt, vt, block=block, **kw)
+    _close(out, jout, TOL["float32"])
+    _close(lse, np.asarray(jlse).reshape(2, hq, sq), TOL["float32"])
+    _, vjp = jax.vjp(lambda q, k, v: flash_attention_xla(q, k, v, block=block, **kw),
+                     qj, kj, vj)
+    jgrads = vjp(gj)
+    grads = flash_attention_bwd_ref(qt, kt, vt, out, lse, gt, block=block, **kw)
+    for t, j, x in zip(grads, jgrads, (qt, kt, vt)):
+        assert t.shape == x.shape and t.dtype == x.dtype
+        _grad_close(t, j)
+    # the wrapper's CPU path is the plain version with its default block
+    wrapped = flash_attention_bwd(qt, kt, vt, out, lse, gt, **kw)
+    for t, j in zip(wrapped, jgrads):
+        _grad_close(t, j)
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=6),
+                                dict(causal=True, chunk=8),
+                                dict(causal=True, prefix_len=5), dict(causal=False)],
+                         ids=IDS)
+def test_autograd_function_gradcheck_float64(kw):
+    rng = np.random.default_rng(5)
+    b, s, hq, hkv, d = 1, 16, 2, 1, 8
+    q, k, v = (torch.tensor(rng.standard_normal(shape), dtype=torch.float64,
+                            requires_grad=True)
+               for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: flash_attention(q, k, v, **kw), (q, k, v), fast_mode=True)
+
+
+def test_autograd_grads_and_q_offset_match_jax():
+    """Sq < Sk with a query offset (a continued prefill): the autograd
+    Function's gradients equal jax.vjp's; the model layer routes to it."""
+    (qj, kj, vj, gj), (qt, kt, vt, gt) = _inputs(3, 2, 48, 112, 4, 2, 16, "float32")
+    kw = dict(causal=True, window=40, q_offset=64)
+    jout, vjp = jax.vjp(lambda q, k, v: flash_attention_xla(q, k, v, block=32, **kw),
+                        qj, kj, vj)
+    qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
+    out = layers_flash_attention(qt, kt, vt, **kw)
+    _close(out.detach(), jout, TOL["float32"])
+    for t, j in zip(torch.autograd.grad(out, (qt, kt, vt), gt), vjp(gj)):
+        _grad_close(t, j)
+
+
+def test_cpu_path_launches_nothing_and_checks_reject_bad_inputs():
+    from repro_torch.kernels.flash_attention.flash_attention import _check
+
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    q = torch.zeros(1, 8, 4, 16)
+    kv = torch.zeros(1, 8, 2, 16)
+    flash_attention_bwd(q, kv, kv, *flash_attention_fwd(q, kv, kv), q)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == before
+    _check(q, kv, kv)
+    with pytest.raises(ValueError, match="head dim"):
+        _check(torch.zeros(1, 8, 4, 12), torch.zeros(1, 8, 2, 12), torch.zeros(1, 8, 2, 12))
+    with pytest.raises(ValueError, match="mismatch"):
+        _check(torch.zeros(1, 8, 3, 16), kv, kv)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        _check(q.double(), kv.double(), kv.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        _check(torch.zeros(1, 8, 4, 32)[..., ::2], kv, kv)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        flash_attention_fwd(q.to("meta"), kv.to("meta"), kv.to("meta"))
