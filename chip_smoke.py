@@ -28,7 +28,22 @@ failure:
      exactly 2 x layers forward and 1 x layers backward flash-attention
      launches per step; one more step runs under torch.profiler;
   7. time each kernel, its plain version and the PyTorch library call that
-     computes the same function, beside the card's least time for the work.
+     computes the same function, beside the card's least time for the work;
+  8. hold the SSD-scan forward and backward kernels against their plain
+     versions in float32 and bfloat16 (y in x's type and in float32) at
+     tests/test_kernels.py's sweep, N=128, one chunk, ragged sizes and
+     Mamba2-780m's training shape;
+  9. train reduced Mamba-2 in float32 for 3 steps on the CPU and on the
+     card: losses and weights agree; 12 lockstep decode steps agree;
+ 10. Mamba-2 training main path: full-width, full-depth Mamba2-780m, bf16,
+     B=4, S=4096, remat, AdamW: one warm-up step, then 3 timed steps with
+     finite loss and grad norm, changed weights and exactly 2 x layers
+     forward and 1 x layers backward SSD-scan launches per step; one more
+     step runs under torch.profiler;
+ 11. lockstep greedy decode of full Mamba2-780m through ``decode_step``
+     (8 prompts of 32 tokens, 32 new tokens): valid tokens, float32 state;
+ 12. time the SSD-scan kernels and their plain versions at the training
+     shape beside the card's least time for the work.
 
 The last lines are the ``{"kernels": ...}`` record, the card line and
 ``{"ok": true, "device": ...}``.
@@ -62,7 +77,12 @@ GRAD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
 # differs in its last digits may move a little differently (as in
 # tests/test_torch_train.py).
 TRAIN_TOL = {"loss_rel": 1e-4, "param_abs": 1e-4}
-KERNELS = ["decode_attention", "flash_attention"]
+# The SSD scan against its plain version: the tolerances of
+# tests/test_kernels.py for y (atol = rtol); gradients as a share of the
+# gradient's largest entry (dB and dC sum over every head and the chunk).
+SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+FP32_FLOPS = 67e12               # H100 SXM float32 peak outside the tensor cores
+KERNELS = ["decode_attention", "flash_attention", "ssd_scan"]
 
 
 def card_line() -> str:
@@ -676,6 +696,335 @@ def time_flash_attention(torch, b=1, s=4096, hq=24, hkv=2, d=128):
     return res
 
 
+# ------------------------------------------------------------ ssd scan
+
+
+def ssd_inputs(torch, seed, bt, s, h, p, n, dtype, dt_scale=1.0, strided=False):
+    """Inputs as tests/test_kernels.py makes them: dt from softplus, A =
+    -exp(.), x, B and C scaled down; ``dt_scale`` < 1 slows the decay so
+    that the state carried across chunks matters.  ``strided`` makes x, B
+    and C slices of wider tensors and dt a transposed view."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    w = 2 if strided else 1
+    x = (rand(bt, s, h, w * p) * 0.5).to(dtype)[..., :p]
+    dt = torch.nn.functional.softplus(rand(bt, h, s).transpose(1, 2) if strided
+                                      else rand(bt, s, h)) * dt_scale
+    A = -torch.exp(rand(h) * 0.3)
+    B = (rand(bt, s, w * n) * 0.3).to(dtype)[..., (w - 1) * n:]
+    C = (rand(bt, s, n + 8 * (w - 1)) * 0.3).to(dtype)[..., 8 * (w - 1):]
+    return x, dt, A, B, C
+
+
+def check_ssd_scan(torch):
+    """Forward and backward kernels against the plain versions on the same
+    inputs, in float32 and bfloat16, with y in x's dtype and (the model's
+    path) in float32."""
+    from repro_torch.kernels.ssd_scan import (ssd_scan_bwd, ssd_scan_bwd_ref, ssd_scan_fwd,
+                                              ssd_scan_ref)
+
+    cases = [  # (label, Bt, S, H, P, N, chunk, dt scale, strided views)
+        ("sweep 1", 2, 64, 3, 16, 8, 16, 1.0, False),
+        ("sweep 2", 1, 256, 2, 32, 16, 64, 1.0, False),
+        ("sweep 3", 2, 128, 4, 64, 32, 128, 1.0, False),
+        ("N=128 slow decay", 3, 512, 4, 64, 128, 128, 0.02, False),
+        ("one chunk S=96", 4, 96, 2, 64, 128, 128, 0.1, False),
+        ("ragged sizes", 2, 120, 3, 40, 72, 40, 0.1, False),
+        ("strided views", 2, 256, 3, 32, 64, 64, 0.1, True),
+        ("Mamba2-780m train", 4, 4096, 48, 64, 128, 128, 1.0, False),
+    ]
+    bf, f32 = torch.bfloat16, torch.float32
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for xdt, ydt in ((f32, f32), (bf, bf), (bf, f32)):
+        dname = "bfloat16" if bf in (xdt, ydt) else "float32"
+        tol = SSD_TOL[dname]
+        for seed, (label, bt, s, h, p, n, chunk, dts, strided) in enumerate(cases):
+            x, dt, A, B, C = ssd_inputs(torch, seed, bt, s, h, p, n, xdt, dts, strided)
+            gen = torch.Generator(device="cuda").manual_seed(1000 + seed)
+            dy = torch.randn((bt, s, h, p), generator=gen, device="cuda").to(ydt)
+            y, states, T = ssd_scan_fwd(x, dt, A, B, C, chunk=chunk, out_dtype=ydt)
+            grads = ssd_scan_bwd(x, dt, A, B, C, dy, states, T, chunk=chunk)
+            ref = ssd_scan_ref(x, dt, A, B, C, chunk, ydt)
+            ref_grads = ssd_scan_bwd_ref(x, dt, A, B, C, dy, chunk)
+            torch.cuda.synchronize()
+            e_y = (y.float() - ref.float()).abs().max().item()
+            ok = (y.dtype == ydt and y.shape == x.shape
+                  and torch.allclose(y.float(), ref.float(), atol=tol, rtol=tol))
+            rel = []
+            for t, g, rg in zip((x, dt, A, B, C), grads, ref_grads):
+                top = rg.float().abs().max().item()
+                err = (g.float() - rg.float()).abs().max().item()
+                rel.append(err / max(1.0, top))
+                ok = ok and g.dtype == t.dtype and g.shape == t.shape and \
+                    math.isfinite(err) and err <= tol * max(1.0, top)
+                errs["bwd"] = max(errs["bwd"], err)
+            errs["fwd"] = max(errs["fwd"], e_y)
+            print(f"ssd_scan {label} x {xdt} y {ydt}: y max_abs_err {e_y:.3e} (tol {tol}); "
+                  f"dx/ddt/dA/dB/dC err / max(1, max|grad|) "
+                  + " ".join(f"{r:.2e}" for r in rel) + f" (tol {tol}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"ssd_scan disagrees with its plain version on {label} "
+                                     f"x {xdt} y {ydt}")
+            del x, dt, A, B, C, dy, y, states, T, grads, ref, ref_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errs
+
+
+def train_mamba_reduced_against_cpu(torch):
+    """3 AdamW steps of reduced Mamba-2 in float32 on the CPU (plain
+    versions) and on the card (kernels), from the same weights; then a few
+    lockstep decode steps on both, whose tokens agree."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.train import (OptConfig, TrainConfig, init_opt_state,
+                                   make_train_step, synthetic_batch)
+
+    cfg = get_arch("mamba2").reduced()
+    tc = TrainConfig(opt=OptConfig(lr=3e-3, warmup_steps=2))
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(5), device="cpu",
+                            dtype=torch.float32)
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    states = {dev: {"params": m, "opt": init_opt_state(m, tc.opt)}
+              for dev, m in (("cpu", cpu_model), ("cuda", card_model))}
+    step = make_train_step(cfg, tc)
+    fwd0, bwd0 = ssd_scan.launches, ssd_scan_bwd.launches
+    losses = {"cpu": [], "cuda": []}
+    for i in range(3):
+        host = synthetic_batch(cfg, i, 4, 64)
+        for dev, state in states.items():
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+            states[dev], m = step(state, batch)
+            losses[dev].append(float(m["loss"]))
+    if ssd_scan.launches == fwd0 or ssd_scan_bwd.launches == bwd0:
+        raise AssertionError("reduced Mamba-2 training on the card launched no SSD kernel")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    cpu_p = dict(cpu_model.named_parameters())
+    param_err = max((p.detach().cpu() - cpu_p[n].detach()).abs().max().item()
+                    for n, p in card_model.named_parameters())
+    ok = loss_err <= TRAIN_TOL["loss_rel"] and param_err <= TRAIN_TOL["param_abs"]
+    print(f"reference: reduced {cfg.name}, float32, 3 AdamW steps: losses card "
+          f"{losses['cuda']} cpu {losses['cpu']}, max loss rel err {loss_err:.2e} "
+          f"(tol {TRAIN_TOL['loss_rel']}), max weight abs err {param_err:.2e} (tol "
+          f"{TRAIN_TOL['param_abs']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("reduced Mamba-2 training: card and CPU disagree")
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (3, 12))
+    out = {}
+    for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
+        cache = init_cache(model, 3, 24, dtype=torch.float32)
+        got = [decode_step(model, cache, toks[:, i:i + 1], np.full(3, i))[0].cpu()
+               for i in range(12)]
+        out[dev] = torch.stack(got, 1).tolist()
+    if out["cpu"] != out["cuda"]:
+        raise AssertionError(f"reduced Mamba-2 lockstep decode: card {out['cuda']} != "
+                             f"cpu {out['cpu']}")
+    print(f"reference: reduced {cfg.name}, float32, 12 lockstep decode steps of 3 lanes: "
+          f"card tokens equal the CPU's")
+
+
+def ssd_flops(bt, s, h, p, n, q):
+    """Operations of one SSD-scan forward: per (batch, chunk, head) the
+    causal half of C B^T and of the intra-chunk product, the inter-chunk
+    output and the chunk state, two flops per multiply-add."""
+    tri = q * (q + 1) // 2
+    return 2 * bt * (s // q) * h * (tri * n + tri * p + 2 * q * n * p)
+
+
+def train_mamba_full(torch, batch=4, seq=4096, timed=3):
+    """Mamba-2 training main path: full Mamba2-780m, bf16, remat, AdamW."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    from repro_torch.train import (TrainConfig, init_train_state, make_train_step,
+                                   synthetic_batch)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch("mamba2")
+    tc = TrainConfig(remat=True)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tc, 0, device="cuda", dtype=torch.bfloat16)
+    model = state["params"]
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"train: {cfg.name}, {len(model.layers)} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.4f} B parameters, AdamW state made in "
+          f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated")
+    step = make_train_step(cfg, tc)
+
+    def batch_at(i):
+        host = synthetic_batch(cfg, i, batch, seq)
+        return {k: torch.from_numpy(v).to("cuda") for k, v in host.items()}
+
+    state, m = step(state, batch_at(0))                      # warm-up
+    torch.cuda.synchronize()
+    print(f"train: warm-up step loss {float(m['loss']):.4f} grad_norm "
+          f"{float(m['grad_norm']):.4f}")
+    watch = {"embed": model.embed, "w_x0": model.layers[0].ssd["w_x"],
+             "A_log0": model.layers[0].ssd["A_log"],
+             "out_proj47": model.layers[-1].ssd["out_proj"]}
+    before = {n: p.detach()[:8].clone() for n, p in watch.items()}
+    batches = [batch_at(1 + i) for i in range(timed)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_scan.launches = 0
+    ssd_scan_bwd.launches = 0
+    times, metrics = [], []
+    for b in batches:
+        t1 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        metrics.append({k: float(v) for k, v in m.items()})
+    fwd, bwd = ssd_scan.launches, ssd_scan_bwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.num_layers
+    if fwd != 2 * layers * timed or bwd != layers * timed:
+        raise AssertionError(f"ssd_scan launched {fwd} forward and {bwd} backward in "
+                             f"{timed} steps of {layers} layers with remat; want "
+                             f"{2 * layers * timed} and {layers * timed}")
+    if not all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"]) for x in metrics):
+        raise AssertionError(f"non-finite loss or grad norm: {metrics}")
+    changed = {n: not torch.equal(before[n], p.detach()[:8]) for n, p in watch.items()}
+    if not all(changed.values()):
+        raise AssertionError(f"weights did not change: {changed}")
+    tokens = batch * seq
+    step_s = statistics.median(times)
+    ssd_fwd = ssd_flops(batch, seq, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                        cfg.ssm_chunk)
+    model_flops = 6 * n_params * tokens + 3 * ssd_fwd * layers
+    flop_ms = model_flops / BF16_FLOPS * 1e3
+    # AdamW reads and writes fp32 master, m and v and reads the grads, once
+    opt_bytes = n_params * (3 * 4 * 2 + 2 + 2)
+    opt_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    mfu = model_flops / (step_s * BF16_FLOPS)
+    print(f"train: {timed} timed steps of B={batch} S={seq}: "
+          + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms; median "
+          f"{step_s * 1e3:.1f} ms per step, {tokens / step_s:.0f} tok/s, MFU "
+          f"{100 * mfu:.2f}% ({model_flops / 1e12:.2f} TFLOP per step at 989 TFLOP/s, "
+          f"of which SSD {3 * ssd_fwd * layers / 1e12:.2f}); bound {flop_ms + opt_ms:.1f} ms "
+          f"per step ({flop_ms:.1f} ms of FLOPs + {opt_ms:.1f} ms of optimizer bytes); peak "
+          f"memory {peak / 1e9:.2f} GB")
+    print("train: losses " + ", ".join(f"{x['loss']:.4f}" for x in metrics)
+          + "; grad norms " + ", ".join(f"{x['grad_norm']:.4f}" for x in metrics)
+          + f"; weights changed {changed}")
+    print(f"train: ssd_scan launches {fwd} forward = 2 x {layers} layers x {timed} steps, "
+          f"{bwd} backward = {layers} x {timed}")
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        state, m = step(state, batch_at(1 + timed))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    summarize_profile(torch, prof, wall_ms, 1, f"1 Mamba-2 training step of B={batch} S={seq}",
+                      {"ssd state": "ssd_state", "ssd scan": "ssd_scan_kernel",
+                       "ssd out": "ssd_out", "ssd bwd": "ssd_bwd", "ssd reduce": "ssd_reduce",
+                       "cuBLAS GEMM": "nvjet"})
+    del state, model, step, batches, watch, before, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fwd": fwd, "bwd": bwd, "ms_per_step": step_s * 1e3,
+            "tok_per_s": tokens / step_s, "mfu": mfu, "peak_gb": peak / 1e9}
+
+
+def decode_mamba_lockstep(torch, lanes=8, prompt_len=32, new=32):
+    """Greedy decode of full Mamba2-780m through decode_step, every lane at
+    the same position (no engine: ServeEngine refuses recurrent configs)."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import decode_step, init_cache, init_params
+
+    cfg = get_arch("mamba2")
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                        dtype=torch.bfloat16)
+    cache = init_cache(model, lanes, prompt_len + new)
+    prompts = np.random.default_rng(8).integers(0, cfg.vocab_size, (lanes, prompt_len))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(prompt_len):
+        nxt, cache = decode_step(model, cache, prompts[:, i:i + 1], np.full(lanes, i))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = [nxt.cpu().numpy()]
+    for j in range(new - 1):
+        nxt, cache = decode_step(model, cache, out[-1][:, None], np.full(lanes, prompt_len + j))
+        out.append(nxt.cpu().numpy())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    toks = np.stack(out, 1)
+    if toks.shape != (lanes, new) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"lockstep decode: bad tokens {toks.shape} in "
+                             f"[{toks.min()}, {toks.max()}]")
+    bad = [i for i, c in enumerate(cache) if c["state"].dtype != torch.float32
+           or not bool(torch.isfinite(c["state"]).all())]
+    if bad:
+        raise AssertionError(f"lockstep decode: SSD state of layers {bad} is not finite fp32")
+    steps = prompt_len + new - 1
+    print(f"decode: {cfg.name} lockstep, {lanes} lanes, {prompt_len} prompt + {new} new "
+          f"tokens: {(t1 - t0) / prompt_len * 1e3:.3f} ms per prefill step, "
+          f"{(t2 - t1) / (new - 1) * 1e3:.3f} ms per decode step "
+          f"({lanes * (new - 1) / (t2 - t1):.1f} tok/s), {steps} steps; tokens in "
+          f"[0, {cfg.vocab_size}), {len(cache)} float32 states finite; lane 0: "
+          f"{toks[0, :8].tolist()}")
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def time_ssd_scan(torch, bt=4, s=4096, h=48, p=64, n=128, q=128):
+    """Forward and backward kernels and plain versions at Mamba2-780m's
+    training shape, as the model calls them: x, B, C bf16, y float32.  No
+    single PyTorch call computes the scan, so there is no library time."""
+    from repro_torch.kernels.ssd_scan import (ssd_scan_bwd, ssd_scan_bwd_ref, ssd_scan_fwd,
+                                              ssd_scan_ref)
+
+    f32 = torch.float32
+    x, dt, A, B, C = ssd_inputs(torch, 600, bt, s, h, p, n, torch.bfloat16)
+    dy = torch.randn((bt, s, h, p), device="cuda", dtype=f32)
+    y, states, T = ssd_scan_fwd(x, dt, A, B, C, chunk=q, out_dtype=f32)
+    fwd_ms = eager_ms(torch, lambda i: ssd_scan_fwd(x, dt, A, B, C, chunk=q, out_dtype=f32), 1,
+                      iters=10, repeats=3)
+    bwd_ms = eager_ms(torch, lambda i: ssd_scan_bwd(x, dt, A, B, C, dy, states, T, chunk=q), 1,
+                      iters=5, repeats=3)
+    fwd_plain = eager_ms(torch, lambda i: ssd_scan_ref(x, dt, A, B, C, q, f32), 1,
+                         iters=2, repeats=3)
+    bwd_plain = eager_ms(torch, lambda i: ssd_scan_bwd_ref(x, dt, A, B, C, dy, q), 1,
+                         iters=1, repeats=3)
+    ins = bt * s * (h * p * 2 + h * 4 + 2 * n * 2) + h * 4       # x, dt, B, C (A)
+    flops = ssd_flops(bt, s, h, p, n, q)
+    res = {}
+    # forward writes y (f32); the backward reads dy (f32) and writes dx, ddt,
+    # dA, dB, dC in the inputs' types, and does twice the forward's products
+    for name, ms, plain, ops, nbytes in (
+            ("fwd", fwd_ms, fwd_plain, flops, ins + bt * s * h * p * 4),
+            ("bwd", bwd_ms, bwd_plain, 2 * flops, 2 * ins + bt * s * h * p * 4)):
+        t_ops, t_bytes = ops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"time ssd_scan {name}: Bt={bt} S={s} H={h} P={p} N={n} chunk={q}, x/B/C bf16, "
+              f"y f32: kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.0f} "
+              f"GB/s), bound {bound_ms:.3f} ms ({by}: {ops / 1e9:.1f} GFLOP at 989 TFLOP/s, "
+              f"{nbytes / 1e6:.1f} MB at 3.35 TB/s); plain {plain:.3f} ms; no library call")
+        res[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
+                     "library_ms": None}
+    del x, dt, A, B, C, dy, y, states, T
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -701,6 +1050,11 @@ def main() -> int:
     train_reduced_against_cpu(torch)
     train = train_full(torch)
     flash_times = time_flash_attention(torch)
+    ssd_errs = check_ssd_scan(torch)
+    train_mamba_reduced_against_cpu(torch)
+    mamba = train_mamba_full(torch)
+    decode_mamba_lockstep(torch)
+    ssd_times = time_ssd_scan(torch)
     print(json.dumps({"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
@@ -732,6 +1086,24 @@ def main() -> int:
         "max_abs_err": flash_errs["bwd"],
         "shape": "B=1 S=4096 Hq=24 Hkv=2 D=128 bf16 causal",
         **flash_times["bwd"],
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:72",
+        "launches": mamba["fwd"],
+        "max_abs_err": ssd_errs["fwd"],
+        "shape": "Bt=4 S=4096 H=48 P=64 N=128 chunk=128, x/B/C bf16, y f32",
+        **ssd_times["fwd"],
+    }, {
+        "name": "ssd_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/models/ssm.py:29",
+        "launches": mamba["bwd"],
+        "max_abs_err": ssd_errs["bwd"],
+        "shape": "Bt=4 S=4096 H=48 P=64 N=128 chunk=128, x/B/C bf16, dy f32",
+        **ssd_times["bwd"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

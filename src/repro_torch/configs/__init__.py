@@ -5,13 +5,15 @@ the others join with the slices that port their modules.
 """
 
 from .base import ModelConfig
+from .mamba2_780m import CONFIG as MAMBA2
 from .starcoder2_3b import CONFIG as STARCODER2
 
-ARCHS = {c.name: c for c in [STARCODER2]}
+ARCHS = {c.name: c for c in [STARCODER2, MAMBA2]}
 
 # short aliases for --arch
 ALIASES = {
     "starcoder2": STARCODER2.name,
+    "mamba2": MAMBA2.name,
 }
 
 

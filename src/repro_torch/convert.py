@@ -22,7 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import Layer, Transformer, _check_layer
 
-_SUBTREES = ("norm1", "attn", "norm2", "mlp")
+_SUBTREES = ("norm1", "attn", "ssd", "norm2", "mlp")
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -38,9 +38,8 @@ def _layer(cfg: ModelConfig, i: int, p: Mapping[str, Any], device) -> Layer:
     extra = set(p) - set(_SUBTREES)
     if extra:
         raise NotImplementedError(f"layer {i} holds unported parts {sorted(extra)}")
-    sub = {name: {k: _tensor(v, device) for k, v in p[name].items()}
-           for name in _SUBTREES}
-    return Layer(kind, sub["norm1"], sub["attn"], sub["norm2"], sub["mlp"])
+    sub = {name: {k: _tensor(v, device) for k, v in p[name].items()} for name in p}
+    return Layer(kind, **sub)
 
 
 def params_from_jax(cfg: ModelConfig, tree: Mapping[str, Any], *,

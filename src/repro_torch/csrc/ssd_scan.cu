@@ -1,0 +1,1254 @@
+// Mamba-2 chunked SSD scan for Hopper (sm_90a): the forward pass and its
+// gradient, for x (Bt, S, H, P), dt (Bt, S, H) fp32, A (H,) fp32 and one
+// B/C group (Bt, S, N) broadcast over the H heads.
+//
+// Replaces the Pallas TPU kernel `ssd_scan_pallas` in
+// src/repro/kernels/ssd_scan/ssd_scan.py (body `_ssd_kernel`) and computes
+// the same function, the inner chunk scan of `ssd_chunked` in
+// src/repro/models/ssm.py without the D term.  Per (batch, head, chunk) of
+// Q rows, with a_t = dt_t * A and cs the within-chunk cumsum of a:
+//     y_i  = sum_{j <= i} (C_i . B_j) exp(cs_i - cs_j) dt_j x_j
+//          + exp(cs_i) C_i^T S_prev
+//     S    = exp(cs_last) S_prev + sum_j exp(cs_last - cs_j) B_j (dt_j x_j)^T
+// with the (N, P) state S in fp32 and S_prev = 0 at chunk 0.  Decays are
+// masked by index (j <= i) before exp, never after: exp(cs_i - cs_j) for
+// j > i overflows.  JAX differentiates `ssd_chunked` with XLA; the backward
+// here is hand-written too.
+//
+// Design: the three phases that `ssd_chunked` spells out, each parallel
+// over every (batch, chunk, head) and not only over (batch, head) as the
+// Pallas grid walks chunks in order:
+//   forward   1. ssd_state_kernel: each chunk's own state contribution U_c
+//                 and its total decay T_c = cs_last;
+//             2. ssd_scan_kernel: S_prev of every chunk by a short scan over
+//                 the chunks, one thread per (batch, head, state entry), in
+//                 place over U (saved for the backward);
+//             3. ssd_out_kernel: y from C B^T, the decays and S_prev;
+//   backward  4. ssd_state_kernel: V_c = sum_i exp(cs_i) C_i dy_i^T;
+//             5. ssd_scan_kernel in reverse: G_c, the gradient of the state
+//                 at the end of chunk c (G_{c-1} = exp(T_c) G_c + V_c);
+//             6. ssd_bwd_kernel: dx, ddt, per-head dB and dC, per-chunk dA;
+//             7. ssd_reduce_kernel: dB and dC summed over heads and dA over
+//                 batch and chunks, in a fixed order.
+// No atomics anywhere: every sum runs in one order, so results repeat bit
+// for bit.  At Mamba2-780m's training shape (Bt 4, S 4096, H 48, P 64,
+// N 128, Q 128) that is 6144 blocks per phase for 132 SMs.
+//
+// Bound: at that shape a forward call needs 45 GFLOP (the causal half of
+// C B^T and of the intra-chunk product, the inter-chunk output and the
+// chunk states) on 314 MB of input and output, ~144 flops per byte: below
+// the ~295 where the H100's bf16 tensor cores stop being fed by device
+// memory, so the bound is bytes (~94 us); the backward likewise (~127 us).
+// What the design does about it:
+//   * bf16 inputs (the training path) run every per-chunk product on the
+//     tensor cores (mma.sync, see the tensor-core section below);
+//   * float32 runs fp32 kernels on the CUDA cores (67 TFLOP/s): f32 must
+//     match the plain version to 1e-4, which bf16 or TF32 products cannot.
+//     Each product runs as a 256-thread block over tiles in shared memory,
+//     a thread owning an 8 x 8 (or 8 x 4) strided patch of the output, with
+//     the contraction dimension staged through 32-deep slabs;
+//   * the chunk scan streams the states once each way with float4 loads
+//     issued a chunk ahead.
+// C B^T is computed once per head (48 times per chunk), full 128 x 128
+// tiles are computed under the causal mask, and the per-head dB/dC partials
+// cost an extra (H, Bt, S, N) fp32 pass each in the backward; a head loop
+// per chunk, wgmma/TMA and overlap of loads with compute are later work.
+// Nothing is allocated here; launches go on the caller's stream.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;   // a 16 x 16 grid: ty = tid / 16, tx = tid % 16
+constexpr int QM = 128;         // largest chunk
+constexpr int NM = 128;         // largest state size
+constexpr int PM = 64;          // largest head dim
+constexpr int KS = 32;          // depth of a staged slab
+constexpr int LDR = KS + 1;     // (rows, KS) slab: odd stride, no bank conflicts
+constexpr int LDK = 132;        // (KS, cols) slab
+constexpr int SLAB = 128 * LDR; // floats of one slab buffer (also >= KS * LDK)
+constexpr int LDM = QM + 1;     // (Q, Q) matrices
+static_assert(KS * LDK <= SLAB, "slab buffer too small");
+static_assert(NM <= 128 && PM <= 128 && QM <= 128, "16 x 8 rows per block");
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+struct Args {
+  const void* x;          // (Bt, S, H, P)
+  const float* dt;        // (Bt, S, H)
+  const float* A;         // (H,)
+  const void* B;          // (Bt, S, N)
+  const void* C;          // (Bt, S, N)
+  void* y;                // forward: y out; backward: dy in (Bt, S, H, P)
+  float* states;          // (Bt, nc, H, N, P): U, then S_prev of every chunk
+  float* T;               // (Bt, nc, H): cs_last of every chunk
+  float* G;               // (Bt, nc, H, N, P): V, then G of every chunk
+  void* dx;               // (Bt, S, H, P) like x
+  float* ddt;             // (Bt, S, H) contiguous
+  float* dBp;             // (H, Bt, S, N) per-head partials
+  float* dCp;
+  float* dAp;             // (Bt, nc, H) per-chunk partials
+  void* dB;               // (Bt, S, N) contiguous, B's type
+  void* dC;
+  float* dA;              // (H,)
+  long long x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, B_sb, B_ss, C_sb, C_ss;
+  long long y_sb, y_ss, y_sh, dx_sb, dx_ss, dx_sh;
+  int bt, s, h, p, n, q, nc;
+};
+
+// dst[r * ld + c] = src[(r0 + r) * rs + c0 + c] * rscale[r0 + r] for r < NR,
+// c < NC; zero where r0 + r >= rlim or c0 + c >= clim.
+template <int NR, int NC>
+__device__ __forceinline__ void load_block(float* dst, int ld, const float* src, long long rs,
+                                           int r0, int rlim, int c0, int clim,
+                                           const float* rscale) {
+  for (int idx = threadIdx.x; idx < NR * NC; idx += kThreads) {
+    const int r = idx / NC, c = idx - r * NC;
+    float v = 0.f;
+    if (r0 + r < rlim && c0 + c < clim) {
+      v = src[(r0 + r) * rs + c0 + c];
+      if (rscale) v *= rscale[r0 + r];
+    }
+    dst[r * ld + c] = v;
+  }
+}
+
+// acc[a][b] += sum_{k < KS} X(ty + 16 a, k) * Y(tx + 16 b, k), where
+// X(r, k) = X[k * ldx + r] if XK else X[r * ldx + k], and Y likewise.
+template <int MA, int MB, bool XK, bool YK>
+__device__ __forceinline__ void mac(float (&acc)[MA][MB], const float* X, int ldx,
+                                    const float* Y, int ldy, int ty, int tx) {
+#pragma unroll 4
+  for (int k = 0; k < KS; ++k) {
+    float xv[MA], yv[MB];
+#pragma unroll
+    for (int a = 0; a < MA; ++a) xv[a] = XK ? X[k * ldx + ty + 16 * a] : X[(ty + 16 * a) * ldx + k];
+#pragma unroll
+    for (int b = 0; b < MB; ++b) yv[b] = YK ? Y[k * ldy + tx + 16 * b] : Y[(tx + 16 * b) * ldy + k];
+#pragma unroll
+    for (int a = 0; a < MA; ++a)
+#pragma unroll
+      for (int b = 0; b < MB; ++b) acc[a][b] = fmaf(xv[a], yv[b], acc[a][b]);
+  }
+}
+
+template <int MA, int MB>
+__device__ __forceinline__ void zero(float (&acc)[MA][MB]) {
+#pragma unroll
+  for (int a = 0; a < MA; ++a)
+#pragma unroll
+    for (int b = 0; b < MB; ++b) acc[a][b] = 0.f;
+}
+
+// Sum over the 16 threads of a row (tx = 0..15 share a half-warp).
+__device__ __forceinline__ float row_sum16(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// dt of the chunk's rows into s_dt (0 past q) and the inclusive cumsum of
+// dt * A into s_cs, by warp 0 in one fixed order (every kernel that needs cs
+// computes it with this function, so they agree bit for bit).
+__device__ __forceinline__ void chunk_prologue(float* s_dt, float* s_cs, const float* dt,
+                                               long long dt_ss, int q, float A) {
+  for (int i = threadIdx.x; i < QM; i += kThreads) s_dt[i] = i < q ? dt[i * dt_ss] : 0.f;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    float v[QM / 32];
+    float run = 0.f;
+#pragma unroll
+    for (int k = 0; k < QM / 32; ++k) {
+      run += s_dt[lane * (QM / 32) + k] * A;
+      v[k] = run;
+    }
+    float tot = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, tot, off);
+      if (lane >= off) tot += o;
+    }
+    float excl = __shfl_up_sync(0xffffffffu, tot, 1);
+    if (lane == 0) excl = 0.f;
+#pragma unroll
+    for (int k = 0; k < QM / 32; ++k) s_cs[lane * (QM / 32) + k] = excl + v[k];
+  }
+  __syncthreads();
+}
+
+struct Chunk {               // where one (batch, chunk, head) block reads and writes
+  int b, c, hh, q, t0;
+  long long blk;             // (b * nc + c) * H + hh
+  __device__ Chunk(const Args& a) {
+    c = blockIdx.x;
+    hh = blockIdx.y;
+    b = blockIdx.z;
+    q = a.q;
+    t0 = c * a.q;
+    blk = ((long long)b * a.nc + c) * a.h + hh;
+  }
+};
+
+// ---------------------------------------------------------------- phase 1/4
+// MODE 0: U[n][p] = sum_t exp(T - cs_t) B[t][n] * dt_t x[t][p]; writes T.
+// MODE 1: V[n][p] = sum_t exp(cs_t) C[t][n] * dy[t][p].
+template <int MODE>
+__global__ void __launch_bounds__(kThreads) ssd_state_kernel(const Args a) {
+  __shared__ float s_dt[QM], s_cs[QM], s_sc[QM];
+  __shared__ float sX[KS * LDK], sY[KS * LDK];
+  const Chunk k(a);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const float A = a.A[k.hh];
+  chunk_prologue(s_dt, s_cs, a.dt + k.b * a.dt_sb + k.t0 * a.dt_ss + k.hh * a.dt_sh, a.dt_ss,
+                 k.q, A);
+  const float T = s_cs[k.q - 1];
+  for (int i = threadIdx.x; i < QM; i += kThreads)
+    s_sc[i] = i < k.q ? (MODE == 0 ? expf(T - s_cs[i]) : expf(s_cs[i])) : 0.f;
+  if (MODE == 0 && threadIdx.x == 0) a.T[k.blk] = T;
+  __syncthreads();
+
+  const float* xs = MODE == 0
+      ? static_cast<const float*>(a.B) + k.b * a.B_sb + k.t0 * a.B_ss
+      : static_cast<const float*>(a.C) + k.b * a.C_sb + k.t0 * a.C_ss;
+  const long long xrs = MODE == 0 ? a.B_ss : a.C_ss;
+  const float* ys = MODE == 0
+      ? static_cast<const float*>(a.x) + k.b * a.x_sb + k.t0 * a.x_ss + k.hh * a.x_sh
+      : static_cast<const float*>(a.y) + k.b * a.y_sb + k.t0 * a.y_ss + k.hh * a.y_sh;
+  const long long yrs = MODE == 0 ? a.x_ss : a.y_ss;
+  float acc[NM / 16][PM / 16];
+  zero(acc);
+  for (int r0 = 0; r0 < k.q; r0 += KS) {
+    load_block<KS, NM>(sX, LDK, xs, xrs, r0, k.q, 0, a.n, s_sc);
+    load_block<KS, PM>(sY, LDK, ys, yrs, r0, k.q, 0, a.p, MODE == 0 ? s_dt : nullptr);
+    __syncthreads();
+    mac<NM / 16, PM / 16, true, true>(acc, sX, LDK, sY, LDK, ty, tx);
+    __syncthreads();
+  }
+  float* out = (MODE == 0 ? a.states : a.G) + k.blk * a.n * a.p;
+#pragma unroll
+  for (int i = 0; i < NM / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < PM / 16; ++j) {
+      const int r = ty + 16 * i, c = tx + 16 * j;
+      if (r < a.n && c < a.p) out[r * a.p + c] = acc[i][j];
+    }
+}
+
+// ---------------------------------------------------------------- phase 2/5
+// In place over buf (Bt, nc, H, N*P): entry c becomes the running value
+// before chunk c (run = run * exp(T_c) + buf_c), walking the chunks forward
+// (states: S_prev) or backward (G).  A thread carries kScanVec float4 lanes
+// (N*P % 4 == 0) and issues the next chunk's loads before it stores the
+// current one, so each thread keeps several loads in flight: the scan is a
+// pure stream over 2 x Bt*nc*H*N*P*4 bytes.
+constexpr int kScanVec = 2;
+
+__global__ void __launch_bounds__(kThreads) ssd_scan_kernel(float* __restrict__ buf,
+                                                            const float* __restrict__ T, int nc,
+                                                            int h, int np, int reverse) {
+  const int bh = blockIdx.y;      // b * h + hh
+  const int b = bh / h, hh = bh - b * h;
+  const int e0 = (blockIdx.x * kThreads + threadIdx.x) * kScanVec * 4;
+  float4 run[kScanVec], u[kScanVec], nx[kScanVec];
+  auto at = [&](int i) {          // the i-th chunk in walking order
+    const int c = reverse ? nc - 1 - i : i;
+    return ((long long)b * nc + c) * h + hh;
+  };
+  auto load = [&](float4 (&v)[kScanVec], long long blk) {
+#pragma unroll
+    for (int g = 0; g < kScanVec; ++g) {
+      const int e = e0 + 4 * g;
+      v[g] = e < np ? *reinterpret_cast<const float4*>(buf + blk * np + e)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+#pragma unroll
+  for (int g = 0; g < kScanVec; ++g) run[g] = make_float4(0.f, 0.f, 0.f, 0.f);
+  long long blk = at(0);
+  load(u, blk);
+  float t = T[blk];
+  for (int i = 0; i < nc; ++i) {
+    const long long nblk = i + 1 < nc ? at(i + 1) : blk;
+    load(nx, nblk);
+    const float tn = T[nblk];
+    const float d = expf(t);
+#pragma unroll
+    for (int g = 0; g < kScanVec; ++g) {
+      const int e = e0 + 4 * g;
+      if (e < np) *reinterpret_cast<float4*>(buf + blk * np + e) = run[g];
+      run[g] = make_float4(fmaf(run[g].x, d, u[g].x), fmaf(run[g].y, d, u[g].y),
+                           fmaf(run[g].z, d, u[g].z), fmaf(run[g].w, d, u[g].w));
+      u[g] = nx[g];
+    }
+    blk = nblk;
+    t = tn;
+  }
+}
+
+void launch_scan(float* buf, const float* T, const Args& a, int reverse, cudaStream_t st) {
+  const int np = a.n * a.p;
+  const int per_block = kThreads * kScanVec * 4;
+  const dim3 grid((np + per_block - 1) / per_block, a.bt * a.h);
+  ssd_scan_kernel<<<grid, kThreads, 0, st>>>(buf, T, a.nc, a.h, np, reverse);
+}
+
+// scores = C B^T over the chunk, masked and decayed into sM:
+// sM[i][j] = (C_i . B_j) exp(cs_i - cs_j) for j <= i < q, else 0.
+__device__ __forceinline__ void masked_scores(float* sM, float* sX, float* sY, const float* s_cs,
+                                              const float* Cc, long long C_ss, const float* Bc,
+                                              long long B_ss, int q, int n, int ty, int tx) {
+  float acc[QM / 16][QM / 16];
+  zero(acc);
+  for (int n0 = 0; n0 < n; n0 += KS) {
+    load_block<QM, KS>(sX, LDR, Cc, C_ss, 0, q, n0, n, (const float*)nullptr);
+    load_block<QM, KS>(sY, LDR, Bc, B_ss, 0, q, n0, n, (const float*)nullptr);
+    __syncthreads();
+    mac<QM / 16, QM / 16, false, false>(acc, sX, LDR, sY, LDR, ty, tx);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < QM / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < QM / 16; ++j) {
+      const int r = ty + 16 * i, c = tx + 16 * j;
+      sM[r * LDM + c] = (c <= r && r < q) ? acc[i][j] * expf(s_cs[r] - s_cs[c]) : 0.f;
+    }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------- phase 3
+__global__ void __launch_bounds__(kThreads, 2) ssd_out_kernel(const Args a) {
+  extern __shared__ float smem[];
+  float* s_dt = smem;
+  float* s_cs = s_dt + QM;
+  float* s_e = s_cs + QM;
+  float* sM = s_e + QM;
+  float* sX = sM + QM * LDM;
+  float* sY = sX + SLAB;
+  const Chunk k(a);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  chunk_prologue(s_dt, s_cs, a.dt + k.b * a.dt_sb + k.t0 * a.dt_ss + k.hh * a.dt_sh, a.dt_ss,
+                 k.q, a.A[k.hh]);
+  for (int i = threadIdx.x; i < QM; i += kThreads) s_e[i] = i < k.q ? expf(s_cs[i]) : 0.f;
+  const float* Cc = static_cast<const float*>(a.C) + k.b * a.C_sb + k.t0 * a.C_ss;
+  const float* Bc = static_cast<const float*>(a.B) + k.b * a.B_sb + k.t0 * a.B_ss;
+  const float* xc = static_cast<const float*>(a.x) + k.b * a.x_sb + k.t0 * a.x_ss + k.hh * a.x_sh;
+  const float* Sp = a.states + k.blk * a.n * a.p;
+  masked_scores(sM, sX, sY, s_cs, Cc, a.C_ss, Bc, a.B_ss, k.q, a.n, ty, tx);
+
+  float acc[QM / 16][PM / 16];
+  zero(acc);
+  // inter-chunk: (exp(cs) * C) S_prev
+  for (int n0 = 0; n0 < a.n; n0 += KS) {
+    load_block<QM, KS>(sX, LDR, Cc, a.C_ss, 0, k.q, n0, a.n, s_e);
+    load_block<KS, PM>(sY, LDK, Sp, (long long)a.p, n0, a.n, 0, a.p, (const float*)nullptr);
+    __syncthreads();
+    mac<QM / 16, PM / 16, false, true>(acc, sX, LDR, sY, LDK, ty, tx);
+    __syncthreads();
+  }
+  // intra-chunk: sM (dt * x)
+  for (int j0 = 0; j0 < k.q; j0 += KS) {
+    load_block<KS, PM>(sY, LDK, xc, a.x_ss, j0, k.q, 0, a.p, s_dt);
+    __syncthreads();
+    mac<QM / 16, PM / 16, false, true>(acc, sM + j0, LDM, sY, LDK, ty, tx);
+    __syncthreads();
+  }
+  float* yc = static_cast<float*>(a.y) + k.b * a.y_sb + k.t0 * a.y_ss + k.hh * a.y_sh;
+#pragma unroll
+  for (int i = 0; i < QM / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < PM / 16; ++j) {
+      const int r = ty + 16 * i, c = tx + 16 * j;
+      if (r < k.q && c < a.p) yc[r * a.y_ss + c] = acc[i][j];
+    }
+}
+
+// dT = sum_j w_j dw_j + exp(T) <G, S_prev>  (terms 2 and 4), added to dcs
+// at the chunk's last row (T = cs_last); then d(dt A) = the reverse cumsum
+// of dcs gives ddt_t = x_t . d(dt x)_t + A d(dt A)_t and this chunk's dA.
+__device__ __forceinline__ void finish_dcs(const Args& a, const Chunk& k, const float* Gc,
+                                           const float* Sp, float T, float A, const float* s_dt,
+                                           float* s_dcs, const float* s_ddt, const float* s_wdw,
+                                           float* s_red) {
+  const int q = k.q;
+  float part = 0.f;
+  for (int e = threadIdx.x; e < a.n * a.p; e += kThreads) part = fmaf(Gc[e], Sp[e], part);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+  if (threadIdx.x % 32 == 0) s_red[threadIdx.x / 32] = part;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float gs = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) gs += s_red[w];
+    float dT = expf(T) * gs;
+    for (int j = 0; j < q; ++j) dT += s_wdw[j];
+    s_dcs[q - 1] += dT;
+    float da = 0.f, dA = 0.f;
+    float* ddt = a.ddt + ((long long)k.b * a.s + k.t0) * a.h + k.hh;
+    for (int t = q - 1; t >= 0; --t) {
+      da += s_dcs[t];
+      ddt[(long long)t * a.h] = fmaf(A, da, s_ddt[t]);
+      dA = fmaf(da, s_dt[t], dA);
+    }
+    a.dAp[k.blk] = dA;
+  }
+}
+
+// ---------------------------------------------------------------- phase 6
+// One block per (chunk, head, batch): dx, ddt, this head's dB and dC, and
+// this chunk's share of dA.  dcs, the gradient of the within-chunk cumsum,
+// gathers five terms (see the comments) and turns into d(dt * A) by a
+// reverse cumsum.
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_kernel(const Args a) {
+  extern __shared__ float smem[];
+  float* s_dt = smem;
+  float* s_cs = s_dt + QM;
+  float* s_e = s_cs + QM;
+  float* s_w = s_e + QM;
+  float* s_dcs = s_w + QM;
+  float* s_ddt = s_dcs + QM;
+  float* s_wdw = s_ddt + QM;
+  float* s_red = s_wdw + QM;      // kThreads / 32 partial sums
+  float* sM = s_red + 32;
+  float* sD = sM + QM * LDM;
+  float* sX = sD + QM * LDM;
+  float* sY = sX + SLAB;
+  const Chunk k(a);
+  const int q = k.q;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const float A = a.A[k.hh];
+  chunk_prologue(s_dt, s_cs, a.dt + k.b * a.dt_sb + k.t0 * a.dt_ss + k.hh * a.dt_sh, a.dt_ss,
+                 q, A);
+  const float T = s_cs[q - 1];
+  for (int i = threadIdx.x; i < QM; i += kThreads) {
+    s_e[i] = i < q ? expf(s_cs[i]) : 0.f;
+    s_w[i] = i < q ? expf(T - s_cs[i]) : 0.f;
+  }
+  const float* Cc = static_cast<const float*>(a.C) + k.b * a.C_sb + k.t0 * a.C_ss;
+  const float* Bc = static_cast<const float*>(a.B) + k.b * a.B_sb + k.t0 * a.B_ss;
+  const float* xc = static_cast<const float*>(a.x) + k.b * a.x_sb + k.t0 * a.x_ss + k.hh * a.x_sh;
+  const float* gc = static_cast<const float*>(a.y) + k.b * a.y_sb + k.t0 * a.y_ss + k.hh * a.y_sh;
+  const float* Sp = a.states + k.blk * a.n * a.p;
+  const float* Gc = a.G + k.blk * a.n * a.p;
+  masked_scores(sM, sX, sY, s_cs, Cc, a.C_ss, Bc, a.B_ss, q, a.n, ty, tx);
+
+  // dM = dy (dt x)^T; ds = dM * L into sD; R = dM * M: dcs_i += sum_j R_ij,
+  // dcs_j -= sum_i R_ij  (term 1: the decays of the intra-chunk part)
+  {
+    float acc[QM / 16][QM / 16];
+    zero(acc);
+    for (int p0 = 0; p0 < a.p; p0 += KS) {
+      load_block<QM, KS>(sX, LDR, gc, a.y_ss, 0, q, p0, a.p, (const float*)nullptr);
+      load_block<QM, KS>(sY, LDR, xc, a.x_ss, 0, q, p0, a.p, s_dt);
+      __syncthreads();
+      mac<QM / 16, QM / 16, false, false>(acc, sX, LDR, sY, LDR, ty, tx);
+      __syncthreads();
+    }
+    float colsum[QM / 16];
+#pragma unroll
+    for (int j = 0; j < QM / 16; ++j) colsum[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < QM / 16; ++i) {
+      const int r = ty + 16 * i;
+      float rowsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < QM / 16; ++j) {
+        const int c = tx + 16 * j;
+        const bool live = c <= r && r < q;
+        const float R = acc[i][j] * sM[r * LDM + c];
+        sD[r * LDM + c] = live ? acc[i][j] * expf(s_cs[r] - s_cs[c]) : 0.f;
+        rowsum += R;
+        colsum[j] += R;
+      }
+      rowsum = row_sum16(rowsum);
+      if (tx == 0) s_dcs[r] = rowsum;
+    }
+    // column sums over the 16 thread rows: stage in sX (free now), then sum in order
+#pragma unroll
+    for (int j = 0; j < QM / 16; ++j) sX[ty * QM + tx + 16 * j] = colsum[j];
+    __syncthreads();
+    for (int c = threadIdx.x; c < QM; c += kThreads) {
+      float s = 0.f;
+      for (int r = 0; r < 16; ++r) s += sX[r * QM + c];
+      s_dcs[c] -= s;
+    }
+    __syncthreads();
+  }
+
+  // d(dt x) = w * (B G) + M^T dy; dw_j = sum_p (dt x)_jp (B G)_jp gives
+  // dcs_j -= w_j dw_j and dT += w_j dw_j  (term 2: the state's decays)
+  {
+    float acc[QM / 16][PM / 16];
+    zero(acc);
+    for (int n0 = 0; n0 < a.n; n0 += KS) {
+      load_block<QM, KS>(sX, LDR, Bc, a.B_ss, 0, q, n0, a.n, (const float*)nullptr);
+      load_block<KS, PM>(sY, LDK, Gc, (long long)a.p, n0, a.n, 0, a.p, (const float*)nullptr);
+      __syncthreads();
+      mac<QM / 16, PM / 16, false, true>(acc, sX, LDR, sY, LDK, ty, tx);
+      __syncthreads();
+    }
+    float xv[QM / 16][PM / 16];
+#pragma unroll
+    for (int i = 0; i < QM / 16; ++i) {
+      const int r = ty + 16 * i;
+      float dw = 0.f;
+#pragma unroll
+      for (int j = 0; j < PM / 16; ++j) {
+        const int c = tx + 16 * j;
+        xv[i][j] = (r < q && c < a.p) ? (xc[r * a.x_ss + c]) : 0.f;
+        dw += xv[i][j] * acc[i][j];
+        acc[i][j] *= s_w[r];
+      }
+      dw = row_sum16(dw) * s_dt[r];
+      if (tx == 0) {
+        s_wdw[r] = s_w[r] * dw;
+        s_dcs[r] -= s_w[r] * dw;
+      }
+    }
+    for (int i0 = 0; i0 < q; i0 += KS) {
+      load_block<KS, PM>(sY, LDK, gc, a.y_ss, i0, q, 0, a.p, (const float*)nullptr);
+      __syncthreads();
+      mac<QM / 16, PM / 16, true, true>(acc, sM + i0 * LDM, LDM, sY, LDK, ty, tx);
+      __syncthreads();
+    }
+    // dx = dt * d(dt x); ddt gets x . d(dt x)
+    float* dxc = static_cast<float*>(a.dx) + k.b * a.dx_sb + k.t0 * a.dx_ss + k.hh * a.dx_sh;
+#pragma unroll
+    for (int i = 0; i < QM / 16; ++i) {
+      const int r = ty + 16 * i;
+      float dd = 0.f;
+#pragma unroll
+      for (int j = 0; j < PM / 16; ++j) {
+        const int c = tx + 16 * j;
+        dd += xv[i][j] * acc[i][j];
+        if (r < q && c < a.p) dxc[r * a.dx_ss + c] = s_dt[r] * acc[i][j];
+      }
+      dd = row_sum16(dd);
+      if (tx == 0) s_ddt[r] = dd;
+    }
+  }
+
+  // dC = exp(cs) * (dy S_prev^T) + ds B; dcs_i += exp(cs_i) sum_n C_in (dy
+  // S_prev^T)_in  (term 3: the inter-chunk output's decay)
+  {
+    float acc[QM / 16][NM / 16];
+    zero(acc);
+    for (int p0 = 0; p0 < a.p; p0 += KS) {
+      load_block<QM, KS>(sX, LDR, gc, a.y_ss, 0, q, p0, a.p, (const float*)nullptr);
+      load_block<NM, KS>(sY, LDR, Sp, (long long)a.p, 0, a.n, p0, a.p, (const float*)nullptr);
+      __syncthreads();
+      mac<QM / 16, NM / 16, false, false>(acc, sX, LDR, sY, LDR, ty, tx);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < QM / 16; ++i) {
+      const int r = ty + 16 * i;
+      float dc = 0.f;
+#pragma unroll
+      for (int j = 0; j < NM / 16; ++j) {
+        const int c = tx + 16 * j;
+        if (r < q && c < a.n) dc += (Cc[r * a.C_ss + c]) * acc[i][j];
+        acc[i][j] *= s_e[r];
+      }
+      dc = row_sum16(dc);
+      if (tx == 0) s_dcs[r] += s_e[r] * dc;
+    }
+    for (int j0 = 0; j0 < q; j0 += KS) {
+      load_block<KS, NM>(sY, LDK, Bc, a.B_ss, j0, q, 0, a.n, (const float*)nullptr);
+      __syncthreads();
+      mac<QM / 16, NM / 16, false, true>(acc, sD + j0, LDM, sY, LDK, ty, tx);
+      __syncthreads();
+    }
+    float* out = a.dCp + ((long long)k.hh * a.bt + k.b) * a.s * a.n + (long long)k.t0 * a.n;
+#pragma unroll
+    for (int i = 0; i < QM / 16; ++i)
+#pragma unroll
+      for (int j = 0; j < NM / 16; ++j) {
+        const int r = ty + 16 * i, c = tx + 16 * j;
+        if (r < q && c < a.n) out[r * a.n + c] = acc[i][j];
+      }
+  }
+
+  // dB = w * ((dt x) G^T) + ds^T C
+  {
+    float acc[QM / 16][NM / 16];
+    zero(acc);
+    for (int p0 = 0; p0 < a.p; p0 += KS) {
+      load_block<QM, KS>(sX, LDR, xc, a.x_ss, 0, q, p0, a.p, s_dt);
+      load_block<NM, KS>(sY, LDR, Gc, (long long)a.p, 0, a.n, p0, a.p, (const float*)nullptr);
+      __syncthreads();
+      mac<QM / 16, NM / 16, false, false>(acc, sX, LDR, sY, LDR, ty, tx);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < QM / 16; ++i)
+#pragma unroll
+      for (int j = 0; j < NM / 16; ++j) acc[i][j] *= s_w[ty + 16 * i];
+    for (int i0 = 0; i0 < q; i0 += KS) {
+      load_block<KS, NM>(sY, LDK, Cc, a.C_ss, i0, q, 0, a.n, (const float*)nullptr);
+      __syncthreads();
+      mac<QM / 16, NM / 16, true, true>(acc, sD + i0 * LDM, LDM, sY, LDK, ty, tx);
+      __syncthreads();
+    }
+    float* out = a.dBp + ((long long)k.hh * a.bt + k.b) * a.s * a.n + (long long)k.t0 * a.n;
+#pragma unroll
+    for (int i = 0; i < QM / 16; ++i)
+#pragma unroll
+      for (int j = 0; j < NM / 16; ++j) {
+        const int r = ty + 16 * i, c = tx + 16 * j;
+        if (r < q && c < a.n) out[r * a.n + c] = acc[i][j];
+      }
+  }
+
+  finish_dcs(a, k, Gc, Sp, T, A, s_dt, s_dcs, s_ddt, s_wdw, s_red);
+}
+
+// ---------------------------------------------------------------- phase 7
+// dB and dC: sums of the per-head partials in head order; dA: sums of the
+// per-chunk partials in (batch, chunk) order.  Blocks past the dB/dC ones
+// do dA.
+template <typename TX>
+__global__ void __launch_bounds__(kThreads) ssd_reduce_kernel(const Args a) {
+  const long long m = (long long)a.bt * a.s * a.n;
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e < 2 * m) {
+    const bool isC = e >= m;
+    const long long i = isC ? e - m : e;
+    const float* src = (isC ? a.dCp : a.dBp) + i;
+    float s = 0.f;
+    for (int hh = 0; hh < a.h; ++hh) s += src[hh * m];
+    static_cast<TX*>(isC ? a.dC : a.dB)[i] = from_f<TX>(s);
+    return;
+  }
+  const long long hh = e - 2 * m;
+  if (hh >= a.h) return;
+  float s = 0.f;
+  for (long long bc = 0; bc < (long long)a.bt * a.nc; ++bc) s += a.dAp[bc * a.h + hh];
+  a.dA[hh] = s;
+}
+
+// ================================================================ tensor cores
+// bf16 inputs run every product of the three per-chunk kernels on the
+// tensor cores: mma.sync m16n8k16 bf16 -> fp32.  Operands are staged as
+// bf16 tiles in shared memory (rows padded by 16 bytes, so ldmatrix reads 8
+// rows without bank conflicts).  x, B, C are bf16 already; the fp32
+// operands (dt * x in the forward, dy, S_prev, G) and the masked decay
+// matrices are rounded to bf16 there, as `ssd_chunked` rounds its scores
+// and carried states to x's type.  The exception is the backward's
+// dM = dy (dt x)^T and M, whose row and column sums cancel into the
+// gradient of the decays: there M stays fp32, x is staged unscaled (exact)
+// and an fp32 dy is split into two bf16 parts.  Each of the 8 warps owns 16
+// whole rows of a 128-row output; its accumulator fragments stay in
+// registers through the epilogues (decays, masks, the dcs sums), which walk
+// the fragment layout.  The CUDA-core kernels above serve float32, which
+// must match the plain version to 1e-4.
+
+using bf16 = __nv_bfloat16;
+constexpr int LDQ = QM + 8;     // bf16 (rows, 128) tiles
+constexpr int LDP = PM + 8;     // bf16 (rows, 64) tiles
+static_assert(NM == QM, "the (Q, N) and (Q, Q) tiles share a stride");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// c += a (16 x 16, row) * b (16 x 8, col)
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc (the warp's rows 16 w.., NT n-tiles of 8 columns) += A B over K.
+// A is stored (M rows, K columns), or (K rows, M columns) if AT; B is
+// stored (N rows, K columns), or (K rows, N columns) if BT.
+template <int NT, int K, bool AT, bool BT>
+__device__ __forceinline__ void mma_block(float (&acc)[NT][4], const bf16* A, int lda,
+                                          const bf16* B, int ldb, int warp, int lane) {
+  const int m0 = 16 * warp;
+#pragma unroll 2
+  for (int kk = 0; kk < K / 16; ++kk) {
+    uint32_t a[4];
+    if (AT)
+      ldsm_x4_t(a, A + (kk * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * lda + m0 +
+                       ((lane >> 3) & 1) * 8);
+    else
+      ldsm_x4(a, A + (m0 + (lane & 15)) * lda + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int jj = 0; jj < NT / 2; ++jj) {
+      uint32_t b[4];
+      if (BT)
+        ldsm_x4_t(b, B + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb + jj * 16 +
+                         (lane >> 4) * 8);
+      else
+        ldsm_x4(b, B + (jj * 16 + (lane & 7) + ((lane >> 4) << 3)) * ldb + kk * 16 +
+                       ((lane >> 3) & 1) * 8);
+      mma16816(acc[2 * jj], a, b[0], b[1]);
+      mma16816(acc[2 * jj + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero_frag(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+// Row and column of fragment element e of n-tile j for this lane.
+__device__ __forceinline__ int frag_row(int warp, int lane, int e) {
+  return 16 * warp + (lane >> 2) + 8 * (e >> 1);
+}
+__device__ __forceinline__ int frag_col(int lane, int j, int e) {
+  return 8 * j + 2 * (lane & 3) + (e & 1);
+}
+
+// Sum over the 4 lanes that share a fragment row.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+// Eight values of a row into a bf16 tile, from bf16 (one 16-byte load) or
+// fp32 (two), times an optional scale.
+__device__ __forceinline__ void load8(float (&v)[8], const bf16* p) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(float (&v)[8], const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// dst (R rows, CC columns, stride ld) = src rows r < rlim, columns c < clim
+// (clim a multiple of 8) times rscale[r]; zeros elsewhere.
+template <int R, int CC, typename T>
+__device__ __forceinline__ void stage_bf16(bf16* dst, int ld, const T* src, long long rs,
+                                           int rlim, int clim, const float* rscale) {
+  constexpr int VPR = CC / 8;
+  for (int idx = threadIdx.x; idx < R * VPR; idx += kThreads) {
+    const int r = idx / VPR, c = (idx - r * VPR) * 8;
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (r < rlim && c < clim) {
+      load8(v, src + r * rs + c);
+      if (rscale) {
+        const float sc = rscale[r];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] *= sc;
+      }
+    }
+    uint4 out;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = out;
+  }
+}
+
+// An fp32 (R, CC) tile as two bf16 tiles hi + lo (lo = the rounding error
+// of hi), so that a product with hi and lo together keeps ~16 bits.
+template <int R, int CC>
+__device__ __forceinline__ void stage_split_bf16(bf16* hi, bf16* lo, int ld, const float* src,
+                                                 long long rs, int rlim, int clim) {
+  constexpr int VPR = CC / 8;
+  for (int idx = threadIdx.x; idx < R * VPR; idx += kThreads) {
+    const int r = idx / VPR, c = (idx - r * VPR) * 8;
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (r < rlim && c < clim) load8(v, src + r * rs + c);
+    uint4 oh, ol;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&oh);
+    __nv_bfloat162* l = reinterpret_cast<__nv_bfloat162*>(&ol);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      const float2 back = __bfloat1622float2(h[i]);
+      l[i] = __floats2bfloat162_rn(v[2 * i] - back.x, v[2 * i + 1] - back.y);
+    }
+    *reinterpret_cast<uint4*>(hi + r * ld + c) = oh;
+    *reinterpret_cast<uint4*>(lo + r * ld + c) = ol;
+  }
+}
+
+// scores = C B^T (Cb, Bb staged), masked and decayed, as bf16 into Mb
+// (which may be Bb: every warp has read Bb before any writes).
+__device__ __forceinline__ void masked_scores_mma(bf16* Mb, const bf16* Cb, const bf16* Bb,
+                                                  const float* s_cs, int q, int warp, int lane) {
+  float acc[QM / 8][4];
+  zero_frag(acc);
+  mma_block<QM / 8, NM, false, false>(acc, Cb, LDQ, Bb, LDQ, warp, lane);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < QM / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const int r = frag_row(warp, lane, e), c = frag_col(lane, j, e);
+      const bool l0 = c <= r && r < q, l1 = c + 1 <= r && r < q;
+      const float m0 = l0 ? acc[j][e] * expf(s_cs[r] - s_cs[c]) : 0.f;
+      const float m1 = l1 ? acc[j][e + 1] * expf(s_cs[r] - s_cs[c + 1]) : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(Mb + r * LDQ + c) = __floats2bfloat162_rn(m0, m1);
+    }
+  __syncthreads();
+}
+
+// MODE 0: U = (w * B)^T (dt * x); MODE 1: V = (e * C)^T dy; rows n, cols p.
+template <typename TY, int MODE>
+__global__ void __launch_bounds__(kThreads) ssd_state_mma_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  float* s_dt = reinterpret_cast<float*>(smem4);
+  float* s_cs = s_dt + QM;
+  float* s_sc = s_cs + QM;
+  bf16* Xb = reinterpret_cast<bf16*>(s_sc + QM);     // (Q, N): B or C, scaled
+  bf16* Yb = Xb + QM * LDQ;                          // (Q, P): dt * x or dy
+  const Chunk k(a);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  chunk_prologue(s_dt, s_cs, a.dt + k.b * a.dt_sb + k.t0 * a.dt_ss + k.hh * a.dt_sh, a.dt_ss,
+                 k.q, a.A[k.hh]);
+  const float T = s_cs[k.q - 1];
+  for (int i = threadIdx.x; i < QM; i += kThreads)
+    s_sc[i] = i < k.q ? (MODE == 0 ? expf(T - s_cs[i]) : expf(s_cs[i])) : 0.f;
+  if (MODE == 0 && threadIdx.x == 0) a.T[k.blk] = T;
+  __syncthreads();
+  if (MODE == 0) {
+    stage_bf16<QM, NM>(Xb, LDQ, static_cast<const bf16*>(a.B) + k.b * a.B_sb + k.t0 * a.B_ss,
+                       a.B_ss, k.q, a.n, s_sc);
+    stage_bf16<QM, PM>(Yb, LDP, static_cast<const bf16*>(a.x) + k.b * a.x_sb +
+                       k.t0 * a.x_ss + k.hh * a.x_sh, a.x_ss, k.q, a.p, s_dt);
+  } else {
+    stage_bf16<QM, NM>(Xb, LDQ, static_cast<const bf16*>(a.C) + k.b * a.C_sb + k.t0 * a.C_ss,
+                       a.C_ss, k.q, a.n, s_sc);
+    stage_bf16<QM, PM>(Yb, LDP, static_cast<const TY*>(a.y) + k.b * a.y_sb + k.t0 * a.y_ss +
+                       k.hh * a.y_sh, a.y_ss, k.q, a.p, (const float*)nullptr);
+  }
+  __syncthreads();
+  float acc[PM / 8][4];
+  zero_frag(acc);
+  mma_block<PM / 8, QM, true, true>(acc, Xb, LDQ, Yb, LDP, warp, lane);
+  float* out = (MODE == 0 ? a.states : a.G) + k.blk * a.n * a.p;
+#pragma unroll
+  for (int j = 0; j < PM / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = frag_row(warp, lane, e), c = frag_col(lane, j, e);
+      if (r < a.n && c < a.p) out[r * a.p + c] = acc[j][e];
+    }
+}
+
+template <typename TY>
+__global__ void __launch_bounds__(kThreads, 2) ssd_out_mma_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  float* s_dt = reinterpret_cast<float*>(smem4);
+  float* s_cs = s_dt + QM;
+  float* s_e = s_cs + QM;
+  bf16* Cb = reinterpret_cast<bf16*>(s_e + QM);
+  bf16* Bb = Cb + QM * LDQ;                          // then the masked scores M
+  bf16* xb = Bb + QM * LDQ;                          // dt * x
+  bf16* Sb = xb + QM * LDP;                          // S_prev (N, P)
+  const Chunk k(a);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  chunk_prologue(s_dt, s_cs, a.dt + k.b * a.dt_sb + k.t0 * a.dt_ss + k.hh * a.dt_sh, a.dt_ss,
+                 k.q, a.A[k.hh]);
+  for (int i = threadIdx.x; i < QM; i += kThreads) s_e[i] = i < k.q ? expf(s_cs[i]) : 0.f;
+  stage_bf16<QM, NM>(Cb, LDQ, static_cast<const bf16*>(a.C) + k.b * a.C_sb + k.t0 * a.C_ss,
+                     a.C_ss, k.q, a.n, (const float*)nullptr);
+  stage_bf16<QM, NM>(Bb, LDQ, static_cast<const bf16*>(a.B) + k.b * a.B_sb + k.t0 * a.B_ss,
+                     a.B_ss, k.q, a.n, (const float*)nullptr);
+  stage_bf16<QM, PM>(xb, LDP, static_cast<const bf16*>(a.x) + k.b * a.x_sb + k.t0 * a.x_ss +
+                     k.hh * a.x_sh, a.x_ss, k.q, a.p, s_dt);
+  stage_bf16<NM, PM>(Sb, LDP, a.states + k.blk * a.n * a.p, (long long)a.p, a.n, a.p,
+                     (const float*)nullptr);
+  __syncthreads();
+  masked_scores_mma(Bb, Cb, Bb, s_cs, k.q, warp, lane);
+  float acc[PM / 8][4];
+  zero_frag(acc);
+  mma_block<PM / 8, NM, false, true>(acc, Cb, LDQ, Sb, LDP, warp, lane);   // C S_prev
+#pragma unroll
+  for (int j = 0; j < PM / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= s_e[frag_row(warp, lane, e)];
+  mma_block<PM / 8, QM, false, true>(acc, Bb, LDQ, xb, LDP, warp, lane);   // + M (dt x)
+  TY* yc = static_cast<TY*>(a.y) + k.b * a.y_sb + k.t0 * a.y_ss + k.hh * a.y_sh;
+#pragma unroll
+  for (int j = 0; j < PM / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = frag_row(warp, lane, e), c = frag_col(lane, j, e);
+      if (r < k.q && c < a.p) yc[r * a.y_ss + c] = from_f<TY>(acc[j][e]);
+    }
+}
+
+// The backward of one (chunk, head, batch) on the tensor cores: the same
+// terms as ssd_bwd_kernel, in the same order.
+template <typename TY>
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_mma_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  float* s_dt = reinterpret_cast<float*>(smem4);
+  float* s_cs = s_dt + QM;
+  float* s_e = s_cs + QM;
+  float* s_w = s_e + QM;
+  float* s_dcs = s_w + QM;
+  float* s_ddt = s_dcs + QM;
+  float* s_wdw = s_ddt + QM;
+  float* s_red = s_wdw + QM;                         // 32
+  float* s_col = s_red + 32;                         // (8 warps, Q) column partials
+  bf16* Cb = reinterpret_cast<bf16*>(s_col + 8 * QM);
+  bf16* Bb = Cb + QM * LDQ;
+  bf16* Mb = Bb + QM * LDQ;                          // masked scores M
+  bf16* Db = Mb + QM * LDQ;                          // ds = dM * L
+  bf16* gb = Db + QM * LDQ;                          // dy
+  bf16* xb = gb + QM * LDP;                          // x
+  bf16* Sb = xb + QM * LDP;                          // S_prev (N, P); first dy's lo part
+  bf16* Gb = Sb + NM * LDP;                          // G (N, P)
+  const Chunk k(a);
+  const int q = k.q;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float A = a.A[k.hh];
+  chunk_prologue(s_dt, s_cs, a.dt + k.b * a.dt_sb + k.t0 * a.dt_ss + k.hh * a.dt_sh, a.dt_ss,
+                 q, A);
+  const float T = s_cs[q - 1];
+  for (int i = threadIdx.x; i < QM; i += kThreads) {
+    s_e[i] = i < q ? expf(s_cs[i]) : 0.f;
+    s_w[i] = i < q ? expf(T - s_cs[i]) : 0.f;
+  }
+  const bf16* Cc = static_cast<const bf16*>(a.C) + k.b * a.C_sb + k.t0 * a.C_ss;
+  const bf16* Bc = static_cast<const bf16*>(a.B) + k.b * a.B_sb + k.t0 * a.B_ss;
+  const bf16* xc = static_cast<const bf16*>(a.x) + k.b * a.x_sb + k.t0 * a.x_ss + k.hh * a.x_sh;
+  const TY* gc = static_cast<const TY*>(a.y) + k.b * a.y_sb + k.t0 * a.y_ss + k.hh * a.y_sh;
+  const float* Sp = a.states + k.blk * a.n * a.p;
+  const float* Gc = a.G + k.blk * a.n * a.p;
+  const float* none = nullptr;
+  // x, B, C and a bf16 dy are exact in bf16; an fp32 dy is split into hi +
+  // lo (lo in Sb until term 1 is done), so that dM, whose row and column
+  // sums cancel into dcs, keeps ~16 bits
+  constexpr bool split = sizeof(TY) == 4;
+  stage_bf16<QM, NM>(Cb, LDQ, Cc, a.C_ss, q, a.n, none);
+  stage_bf16<QM, NM>(Bb, LDQ, Bc, a.B_ss, q, a.n, none);
+  if (split)
+    stage_split_bf16<QM, PM>(gb, Sb, LDP, reinterpret_cast<const float*>(gc), a.y_ss, q, a.p);
+  else
+    stage_bf16<QM, PM>(gb, LDP, gc, a.y_ss, q, a.p, none);
+  stage_bf16<QM, PM>(xb, LDP, xc, a.x_ss, q, a.p, none);
+  if (!split) stage_bf16<NM, PM>(Sb, LDP, Sp, (long long)a.p, a.n, a.p, none);
+  stage_bf16<NM, PM>(Gb, LDP, Gc, (long long)a.p, a.n, a.p, none);
+  __syncthreads();
+
+  // term 1, by column halves: M = (C B^T) * L in fp32 (into Mb as bf16),
+  // dM = dy (dt x)^T, ds = dM * L into Db, R = dM * M row and column sums
+  {
+    float rs[2] = {0.f, 0.f};
+#pragma unroll 1
+    for (int hc = 0; hc < QM / 64; ++hc) {
+      float sc[8][4], dm[8][4], cs2[8][2];
+      zero_frag(sc);
+      zero_frag(dm);
+      mma_block<8, NM, false, false>(sc, Cb, LDQ, Bb + hc * 64 * LDQ, LDQ, warp, lane);
+      mma_block<8, PM, false, false>(dm, gb, LDP, xb + hc * 64 * LDP, LDP, warp, lane);
+      if (split) mma_block<8, PM, false, false>(dm, Sb, LDP, xb + hc * 64 * LDP, LDP, warp, lane);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        cs2[j][0] = cs2[j][1] = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int r = frag_row(warp, lane, e), c = 64 * hc + frag_col(lane, j, e);
+          float m[2], d[2];
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            const bool live = c + t <= r && r < q;
+            const float L = live ? expf(s_cs[r] - s_cs[c + t]) : 0.f;
+            const float g = dm[j][e + t] * s_dt[c + t];
+            m[t] = sc[j][e + t] * L;
+            d[t] = g * L;
+            const float R = g * m[t];
+            rs[e >> 1] += R;
+            cs2[j][t] += R;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(Mb + r * LDQ + c) = __floats2bfloat162_rn(m[0], m[1]);
+          *reinterpret_cast<__nv_bfloat162*>(Db + r * LDQ + c) = __floats2bfloat162_rn(d[0], d[1]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          float v = cs2[j][t];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if ((lane >> 2) == 0) s_col[warp * QM + 64 * hc + frag_col(lane, j, t)] = v;
+        }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float v = quad_sum(rs[hf]);
+      if ((lane & 3) == 0) s_dcs[frag_row(warp, lane, 2 * hf)] = v;
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < QM; c += kThreads) {
+      float v = 0.f;
+      for (int w = 0; w < kThreads / 32; ++w) v += s_col[w * QM + c];
+      s_dcs[c] -= v;
+    }
+    if (split) stage_bf16<NM, PM>(Sb, LDP, Sp, (long long)a.p, a.n, a.p, none);
+    __syncthreads();
+  }
+
+  // term 2: d(dt x) = w * (B G) + M^T dy; dw; dx and ddt's x . d(dt x)
+  {
+    float acc[PM / 8][4];
+    zero_frag(acc);
+    mma_block<PM / 8, NM, false, true>(acc, Bb, LDQ, Gb, LDP, warp, lane);
+    float xv[PM / 8][4];
+    float dw[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < PM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = frag_row(warp, lane, e), c = frag_col(lane, j, e);
+        xv[j][e] = (r < q && c < a.p) ? to_f(xc[r * a.x_ss + c]) : 0.f;
+        dw[e >> 1] += xv[j][e] * acc[j][e];
+        acc[j][e] *= s_w[r];
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = frag_row(warp, lane, 2 * hf);
+      const float v = quad_sum(dw[hf]) * s_dt[r];
+      if ((lane & 3) == 0) {
+        s_wdw[r] = s_w[r] * v;
+        s_dcs[r] -= s_w[r] * v;
+      }
+    }
+    mma_block<PM / 8, QM, true, true>(acc, Mb, LDQ, gb, LDP, warp, lane);
+    bf16* dxc = static_cast<bf16*>(a.dx) + k.b * a.dx_sb + k.t0 * a.dx_ss + k.hh * a.dx_sh;
+    float dd[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < PM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = frag_row(warp, lane, e), c = frag_col(lane, j, e);
+        dd[e >> 1] += xv[j][e] * acc[j][e];
+        if (r < q && c < a.p) dxc[r * a.dx_ss + c] = __float2bfloat16_rn(s_dt[r] * acc[j][e]);
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float v = quad_sum(dd[hf]);
+      if ((lane & 3) == 0) s_ddt[frag_row(warp, lane, 2 * hf)] = v;
+    }
+  }
+
+  // term 3: dC = e * (dy S_prev^T) + ds B; dcs_i += e_i C_i . (dy S_prev^T)_i
+  {
+    float acc[NM / 8][4];
+    zero_frag(acc);
+    mma_block<NM / 8, PM, false, false>(acc, gb, LDP, Sb, LDP, warp, lane);
+    float dc[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = frag_row(warp, lane, e), c = frag_col(lane, j, e);
+        dc[e >> 1] += __bfloat162float(Cb[r * LDQ + c]) * acc[j][e];
+        acc[j][e] *= s_e[r];
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = frag_row(warp, lane, 2 * hf);
+      const float v = quad_sum(dc[hf]);
+      if ((lane & 3) == 0) s_dcs[r] += s_e[r] * v;
+    }
+    mma_block<NM / 8, QM, false, true>(acc, Db, LDQ, Bb, LDQ, warp, lane);
+    float* out = a.dCp + ((long long)k.hh * a.bt + k.b) * a.s * a.n + (long long)k.t0 * a.n;
+#pragma unroll
+    for (int j = 0; j < NM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int r = frag_row(warp, lane, e), c = frag_col(lane, j, e);
+        if (r < q && c < a.n)
+          *reinterpret_cast<float2*>(out + r * a.n + c) = make_float2(acc[j][e], acc[j][e + 1]);
+      }
+  }
+
+  // dB = w * ((dt x) G^T) + ds^T C
+  {
+    float acc[NM / 8][4];
+    zero_frag(acc);
+    mma_block<NM / 8, PM, false, false>(acc, xb, LDP, Gb, LDP, warp, lane);   // x G^T
+#pragma unroll
+    for (int j = 0; j < NM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = frag_row(warp, lane, e);
+        acc[j][e] *= s_w[r] * s_dt[r];
+      }
+    mma_block<NM / 8, QM, true, true>(acc, Db, LDQ, Cb, LDQ, warp, lane);
+    float* out = a.dBp + ((long long)k.hh * a.bt + k.b) * a.s * a.n + (long long)k.t0 * a.n;
+#pragma unroll
+    for (int j = 0; j < NM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int r = frag_row(warp, lane, e), c = frag_col(lane, j, e);
+        if (r < q && c < a.n)
+          *reinterpret_cast<float2*>(out + r * a.n + c) = make_float2(acc[j][e], acc[j][e + 1]);
+      }
+  }
+  __syncthreads();
+  finish_dcs(a, k, Gc, Sp, T, A, s_dt, s_dcs, s_ddt, s_wdw, s_red);
+}
+
+constexpr int kOutSmem = (3 * QM + QM * LDM + 2 * SLAB) * 4;
+constexpr int kBwdSmem = (7 * QM + 32 + 2 * QM * LDM + 2 * SLAB) * 4;
+constexpr int kStateMmaSmem = 3 * QM * 4 + (QM * LDQ + QM * LDP) * 2;
+constexpr int kOutMmaSmem = 3 * QM * 4 + (2 * QM * LDQ + QM * LDP + NM * LDP) * 2;
+constexpr int kBwdMmaSmem = (7 * QM + 32 + 8 * QM) * 4 + (4 * QM * LDQ + 2 * QM * LDP +
+                                                          2 * NM * LDP) * 2;
+static_assert(kBwdMmaSmem <= 232448, "shared memory of a block on Hopper");
+
+template <typename K>
+int launch(K kernel, dim3 grid, int smem, const Args& a, cudaStream_t st) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, kThreads, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// float32 runs the CUDA-core kernels, bf16 inputs the tensor-core ones
+// (TY: the type of y and dy).
+int launch_fwd_f32(const Args& a, cudaStream_t st) {
+  const dim3 grid(a.nc, a.h, a.bt);
+  int err = launch(ssd_state_kernel<0>, grid, 0, a, st);
+  if (err) return err;
+  launch_scan(a.states, a.T, a, 0, st);
+  err = (int)cudaGetLastError();
+  return err ? err : launch(ssd_out_kernel, grid, kOutSmem, a, st);
+}
+
+template <typename TY>
+int launch_fwd_mma(const Args& a, cudaStream_t st) {
+  const dim3 grid(a.nc, a.h, a.bt);
+  int err = launch(ssd_state_mma_kernel<TY, 0>, grid, kStateMmaSmem, a, st);
+  if (err) return err;
+  launch_scan(a.states, a.T, a, 0, st);
+  err = (int)cudaGetLastError();
+  return err ? err : launch(ssd_out_mma_kernel<TY>, grid, kOutMmaSmem, a, st);
+}
+
+template <typename TX, typename K1, typename K6>
+int launch_bwd(K1 state, int state_smem, K6 bwd, int bwd_smem, const Args& a,
+               cudaStream_t st) {
+  const dim3 grid(a.nc, a.h, a.bt);
+  int err = launch(state, grid, state_smem, a, st);
+  if (err) return err;
+  launch_scan(a.G, a.T, a, 1, st);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  err = launch(bwd, grid, bwd_smem, a, st);
+  if (err) return err;
+  const long long work = 2LL * a.bt * a.s * a.n + a.h;
+  ssd_reduce_kernel<TX><<<(unsigned)((work + kThreads - 1) / kThreads), kThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+Args make_args(void* const* ptrs, const long long* st, const int* dims, bool bwd) {
+  Args a;
+  a.x = ptrs[0];
+  a.dt = static_cast<const float*>(ptrs[1]);
+  a.A = static_cast<const float*>(ptrs[2]);
+  a.B = ptrs[3];
+  a.C = ptrs[4];
+  a.y = ptrs[5];
+  a.states = static_cast<float*>(ptrs[6]);
+  a.T = static_cast<float*>(ptrs[7]);
+  a.G = bwd ? static_cast<float*>(ptrs[8]) : nullptr;
+  a.dx = bwd ? ptrs[9] : nullptr;
+  a.ddt = bwd ? static_cast<float*>(ptrs[10]) : nullptr;
+  a.dBp = bwd ? static_cast<float*>(ptrs[11]) : nullptr;
+  a.dCp = bwd ? static_cast<float*>(ptrs[12]) : nullptr;
+  a.dAp = bwd ? static_cast<float*>(ptrs[13]) : nullptr;
+  a.dB = bwd ? ptrs[14] : nullptr;
+  a.dC = bwd ? ptrs[15] : nullptr;
+  a.dA = bwd ? static_cast<float*>(ptrs[16]) : nullptr;
+  a.x_sb = st[0]; a.x_ss = st[1]; a.x_sh = st[2];
+  a.dt_sb = st[3]; a.dt_ss = st[4]; a.dt_sh = st[5];
+  a.B_sb = st[6]; a.B_ss = st[7];
+  a.C_sb = st[8]; a.C_ss = st[9];
+  a.y_sb = st[10]; a.y_ss = st[11]; a.y_sh = st[12];
+  a.dx_sb = st[13]; a.dx_ss = st[14]; a.dx_sh = st[15];
+  a.bt = dims[0]; a.s = dims[1]; a.h = dims[2]; a.p = dims[3]; a.n = dims[4]; a.q = dims[5];
+  a.nc = a.s / a.q;
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Largest sizes the kernels take: chunk, state size N, head dim P.
+int ssd_scan_limits(int which) { return which == 0 ? QM : which == 1 ? NM : PM; }
+
+// kind 0: forward (ptrs x, dt, A, B, C, y, states, T); kind 1: backward
+// (ptrs x, dt, A, B, C, dy, states, T, G, dx, ddt, dBp, dCp, dAp, dB, dC, dA).
+// strides: x, dt (b, s, h); B, C (b, s); y or dy (b, s, h); dx (b, s, h).
+// dims: Bt, S, H, P, N, chunk.  x_bf16: x, B, C (and dx, dB, dC) are bf16;
+// y_bf16: y (dy) is bf16.  Returns 0 or a CUDA error code; -1 for sizes or
+// types the kernels do not take.
+int ssd_scan_launch(int kind, void* const* ptrs, const long long* strides, const int* dims,
+                    int x_bf16, int y_bf16, void* stream) {
+  const Args a = make_args(ptrs, strides, dims, kind == 1);
+  if (a.q < 1 || a.q > QM || a.s % a.q || a.n < 1 || a.n > NM || a.p < 1 || a.p > PM ||
+      a.n * a.p % 4)
+    return -1;
+  if (a.h > 65535 || a.bt > 65535 || (long long)a.bt * a.h > 65535) return -1;
+  if (!x_bf16 && y_bf16) return -1;
+  if (x_bf16 && (a.n % 8 || a.p % 8)) return -1;     // 16-byte rows of the bf16 tiles
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  if (kind == 0) {
+    if (!x_bf16) return launch_fwd_f32(a, st);
+    return y_bf16 ? launch_fwd_mma<bf>(a, st) : launch_fwd_mma<float>(a, st);
+  }
+  if (kind == 1) {
+    if (!x_bf16)
+      return launch_bwd<float>(ssd_state_kernel<1>, 0, ssd_bwd_kernel, kBwdSmem, a, st);
+    if (y_bf16)
+      return launch_bwd<bf>(ssd_state_mma_kernel<bf, 1>, kStateMmaSmem, ssd_bwd_mma_kernel<bf>,
+                            kBwdMmaSmem, a, st);
+    return launch_bwd<bf>(ssd_state_mma_kernel<float, 1>, kStateMmaSmem,
+                          ssd_bwd_mma_kernel<float>, kBwdMmaSmem, a, st);
+  }
+  return -1;
+}
+
+}  // extern "C"

@@ -11,4 +11,7 @@ sources live in ``repro_torch/csrc`` and are built at first use by
   * flash_attention -- blockwise attention forward and its gradient
     (replaces ``repro.kernels.flash_attention.flash_attention_pallas`` and
     the custom VJP of ``repro.models.layers.flash_attention_xla``)
+  * ssd_scan -- Mamba-2 chunked SSD scan forward and its gradient
+    (replaces ``repro.kernels.ssd_scan.ssd_scan_pallas``; JAX takes the
+    gradient of ``repro.models.ssm.ssd_chunked`` with XLA)
 """

@@ -1,0 +1,201 @@
+"""Wrappers of the CUDA SSD-scan kernels (``csrc/ssd_scan.cu``).
+
+``ssd_scan(x, dt, A, B, C, ...)`` is differentiable: a
+``torch.autograd.Function`` whose forward runs :func:`ssd_scan_fwd` and
+saves the inputs with the chunk-start states and chunk decays the kernels
+computed, and whose backward runs :func:`ssd_scan_bwd` and returns the
+gradients of all five inputs (``A = -exp(A_log)`` is trained).  Together
+they compute what ``repro.kernels.ssd_scan.ssd_scan_pallas`` computes and
+its gradient, which JAX takes with XLA.  On CPU tensors each runs its plain
+version (:mod:`.ref`); on CUDA tensors it launches the kernels, or raises
+when they do not take the inputs.  Tensors keep the JAX layout
+(Bt, S, H, P); the kernels read their strides, so no transposed copy is
+made.  ``ssd_scan.launches`` counts forward calls and
+``ssd_scan_bwd.launches`` backward calls (each launches several kernels).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from .. import _build
+from .ref import _chunk, ssd_scan_bwd_ref, ssd_scan_ref
+
+_DTYPES = (torch.float32, torch.bfloat16)
+FWD, BWD = 0, 1              # kernel kinds of the C entry point
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ssd_scan")
+    fn = lib.ssd_scan_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.ssd_scan_limits.argtypes = [ctypes.c_int]
+        lib.ssd_scan_limits.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def limits() -> Tuple[int, int, int]:
+    """Largest chunk, state size N and head dim P the kernels take."""
+    lib = _lib()
+    return tuple(lib.ssd_scan_limits(i) for i in range(3))
+
+
+def _on(t: torch.Tensor, name: str) -> bool:
+    """True for CUDA tensors, False for CPU ones (plain version)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
+    return t.device.type == "cuda"
+
+
+def _check(x, dt, A, B, C, chunk, out_dtype, *grads):
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B.dim() != 3 or B.shape != C.shape:
+        raise ValueError(f"want x (Bt, S, H, P), dt (Bt, S, H), A (H,), B/C (Bt, S, N); got "
+                         f"{[tuple(t.shape) for t in (x, dt, A, B, C)]}")
+    bt, s, h, p = x.shape
+    n = B.shape[-1]
+    if dt.shape != (bt, s, h) or A.shape != (h,) or B.shape[:2] != (bt, s):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+                         f"A {tuple(A.shape)}, B {tuple(B.shape)}")
+    q = _chunk(s, chunk)
+    if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise TypeError(f"x, B, C are {x.dtype}, {B.dtype}, {C.dtype}: the kernels take "
+                        f"float32 or bfloat16, the same for all three")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"dt and A must be float32, not {dt.dtype} and {A.dtype}")
+    if out_dtype not in _DTYPES or (x.dtype == torch.float32 and out_dtype != torch.float32):
+        raise TypeError(f"output {out_dtype} for x {x.dtype}: the kernels write x's dtype "
+                        f"or float32")
+    tensors = (x, dt, A, B, C, *grads)
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+    for t in (x, A, B, C, *grads):
+        if t.stride(-1) != 1:
+            raise ValueError("the last dimension of x, A, B, C and dy must be contiguous")
+    for g in grads:
+        if g.shape != x.shape or g.dtype != out_dtype:
+            raise ValueError(f"dy {tuple(g.shape)} {g.dtype}: want {tuple(x.shape)} {out_dtype}")
+    if x.dtype == torch.bfloat16:    # the tensor-core kernels load 16-byte rows
+        if n % 8 or p % 8:
+            raise ValueError(f"N {n}, P {p}: bfloat16 inputs need multiples of 8")
+        for t in (x, B, C, *grads):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
+                raise ValueError("rows of x, B, C and dy must start on 16-byte boundaries")
+    if bt * h > 65535 or n * p % 4:
+        raise ValueError(f"Bt * H = {bt * h}, N * P = {n * p}: the kernels take Bt * H "
+                         f"up to 65535 and N * P a multiple of 4")
+    qmax, nmax, pmax = limits()
+    if q > qmax or n > nmax or p > pmax:
+        raise ValueError(f"chunk {q}, N {n}, P {p}: the kernels take chunk <= {qmax}, "
+                         f"N <= {nmax}, P <= {pmax}")
+    return bt, s, h, p, n, q
+
+
+def _launch(kind, ptrs, strides, dims, x, out_dtype):
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    c_strides = (ctypes.c_longlong * len(strides))(*strides)
+    c_dims = (ctypes.c_int * 6)(*dims)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib().ssd_scan_launch(kind, c_ptrs, c_strides, c_dims,
+                                 int(x.dtype == torch.bfloat16),
+                                 int(out_dtype == torch.bfloat16), stream)
+    if err:
+        name = "forward" if kind == FWD else "backward"
+        raise RuntimeError(f"ssd_scan {name} kernel launch failed: "
+                           + ("sizes or types not taken" if err < 0 else f"CUDA error {err}"))
+
+
+def _strides(x, dt, B, C, y, dx=None):
+    st = [*x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2], *y.stride()[:3]]
+    return st + (list(dx.stride()[:3]) if dx is not None else [0, 0, 0])
+
+
+def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                 C: torch.Tensor, *, chunk: int = 128,
+                 out_dtype: Optional[torch.dtype] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """y (Bt, S, H, P) in ``out_dtype`` (default x's), plus what the backward
+    kernels read: the float32 state before every chunk (Bt, nc, H, N, P) and
+    every chunk's summed decay (Bt, nc, H).  Both are None on the CPU."""
+    out_dtype = out_dtype or x.dtype
+    if not _on(x, "ssd_scan"):
+        return ssd_scan_ref(x, dt, A, B, C, chunk, out_dtype), None, None
+    bt, s, h, p, n, q = _check(x, dt, A, B, C, chunk, out_dtype)
+    nc = s // q
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty((bt, s, h, p), dtype=out_dtype, device=x.device)
+    states = torch.empty((bt, nc, h, n, p), **f32)
+    T = torch.empty((bt, nc, h), **f32)
+    ptrs = [t.data_ptr() for t in (x, dt, A, B, C, y, states, T)]
+    _launch(FWD, ptrs, _strides(x, dt, B, C, y), [bt, s, h, p, n, q], x, out_dtype)
+    # the count lives on the public entry point, as for the other kernels
+    ssd_scan.launches += 1
+    return y, states, T
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                 C: torch.Tensor, dy: torch.Tensor, states: Optional[torch.Tensor],
+                 T: Optional[torch.Tensor], *, chunk: int = 128) -> Tuple[torch.Tensor, ...]:
+    """(dx, ddt, dA, dB, dC) in the dtypes of (x, dt, A, B, C) for the output
+    gradient ``dy``; ``states`` and ``T`` are what :func:`ssd_scan_fwd`
+    returned for the same inputs."""
+    if not _on(x, "ssd_scan_bwd"):
+        return ssd_scan_bwd_ref(x, dt, A, B, C, dy, chunk)
+    dy = dy.contiguous()             # autograd may hand the gradient in strided
+    bt, s, h, p, n, q = _check(x, dt, A, B, C, chunk, dy.dtype, dy)
+    nc = s // q
+    for name, t, shape in (("states", states, (bt, nc, h, n, p)), ("T", T, (bt, nc, h))):
+        if t is None or t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 {shape}, from ssd_scan_fwd")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    G = torch.empty_like(states)
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    ddt = torch.empty((bt, s, h), **f32)
+    dBp = torch.empty((h, bt, s, n), **f32)
+    dCp = torch.empty((h, bt, s, n), **f32)
+    dAp = torch.empty((bt, nc, h), **f32)
+    dB = torch.empty((bt, s, n), dtype=B.dtype, device=x.device)
+    dC = torch.empty((bt, s, n), dtype=C.dtype, device=x.device)
+    dA = torch.empty((h,), **f32)
+    ptrs = [t.data_ptr() for t in (x, dt, A, B, C, dy, states, T, G, dx, ddt, dBp, dCp,
+                                   dAp, dB, dC, dA)]
+    _launch(BWD, ptrs, _strides(x, dt, B, C, dy, dx), [bt, s, h, p, n, q], x, dy.dtype)
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+class _SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk, out_dtype):
+        y, states, T = ssd_scan_fwd(x, dt, A, B, C, chunk=chunk, out_dtype=out_dtype)
+        ctx.save_for_backward(x, dt, A, B, C, states, T)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, A, B, C, states, T = ctx.saved_tensors
+        grads = ssd_scan_bwd(x, dt, A, B, C, dy, states, T, chunk=ctx.chunk)
+        return (*grads, None, None)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, *, chunk: int = 128,
+             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Differentiable chunked SSD scan without the D term: x (Bt, S, H, P),
+    dt (Bt, S, H) float32 (post-softplus), A (H,) float32 (negative),
+    B/C (Bt, S, N) -> y (Bt, S, H, P) in ``out_dtype`` (default x's), over
+    chunks of ``min(chunk, S)`` rows."""
+    return _SSDScan.apply(x, dt, A, B, C, chunk, out_dtype or x.dtype)
+
+
+ssd_scan.launches = 0
+ssd_scan_bwd.launches = 0

@@ -2,12 +2,13 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 5
   PYTHONPATH=src python -m repro_torch.launch.train --full --batch 1 --seq 4096
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2 --full --batch 4 --seq 4096
 
 Runs on the card unless ``--device cpu`` is given.  Without ``--full`` the
 model is the arch's ``reduced()`` config, as in ``repro.launch.train``.
-``--arch`` defaults to ``starcoder2``, the one architecture the port
-registers; ``repro``'s default, ``h2o-danube``, waits for the
-sliding-window slice.  The last line is the JSON summary of
+``--arch`` takes the architectures the port registers (``starcoder2``,
+``mamba2``) and defaults to ``starcoder2``; ``repro``'s default,
+``h2o-danube``, waits for the sliding-window slice.  The last line is the JSON summary of
 ``repro.launch.train``.
 """
 

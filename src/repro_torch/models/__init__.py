@@ -1,9 +1,9 @@
 """Model stack of the port: training forward, loss and decode path of
-full-attention decoders."""
+full-attention decoders and Mamba-2 SSD stacks."""
 
-from . import layers, transformer
+from . import layers, ssm, transformer
 from .transformer import (Layer, Transformer, decode_step, embed_tokens,
                           forward, init_cache, init_params, lm_loss)
 
 __all__ = ["Layer", "Transformer", "decode_step", "embed_tokens", "forward",
-           "init_cache", "init_params", "layers", "lm_loss", "transformer"]
+           "init_cache", "init_params", "layers", "lm_loss", "ssm", "transformer"]

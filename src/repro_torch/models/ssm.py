@@ -1,0 +1,158 @@
+"""Mamba-2 SSD block (state-space duality, arXiv:2405.21060).
+
+Counterpart of ``repro/models/ssm.py`` with the same arithmetic and the same
+casts.  The chunked scan of the training forward, :func:`ssd_chunked`, runs
+the hand-written SSD-scan kernels on the card, forward and backward
+(:mod:`repro_torch.kernels.ssd_scan`); one-token decode is the plain
+recurrence :func:`ssd_decode_step`, as in JAX, where it is no kernel either.
+Projections stay separate (``w_z``/``w_x``/``w_B``/``w_C``/``w_dt``) with the
+JAX shapes, so ``x @ w`` reads the same in both packages.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_scan import ssd_scan
+
+Params = Mapping[str, torch.Tensor]
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                C: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Chunked state-space-dual scan, differentiable.
+
+    x (Bt, S, H, P); dt (Bt, S, H) positive float32; A (H,) negative
+    float32; B/C (Bt, S, N), one group broadcast over the heads.  Returns y
+    (Bt, S, H, P) in float32, the type JAX's einsums promote to (dt is
+    float32).  Unlike JAX, the scores and the carried states are not rounded
+    to x's type in between."""
+    s = x.shape[1]
+    if s % chunk:
+        raise ValueError(f"seq {s} must be a multiple of the chunk size {chunk}")
+    return ssd_scan(x, dt, A, B, C, chunk=chunk, out_dtype=torch.float32)
+
+
+def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                    A: torch.Tensor, B: torch.Tensor,
+                    C: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token recurrence.  state (Bt, H, N, P); x (Bt, H, P);
+    dt (Bt, H); B/C (Bt, N).  Returns (y (Bt, H, P), new state)."""
+    dec = torch.exp(dt * A)                                  # (Bt, H)
+    add = torch.einsum("bn,bh,bhp->bhnp", B, dt, x)
+    new_state = state * dec[:, :, None, None] + add
+    y = torch.einsum("bn,bhnp->bhp", C, new_state)
+    return y, new_state
+
+
+# ------------------------------------------------------------- full block
+
+
+def init_ssd_block(generator: torch.Generator, cfg, device,
+                   dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """Random weights with the shapes and scales of ``repro``'s
+    ``init_ssd_block``, each drawn from ``generator`` in turn (JAX draws
+    ``conv_B_w``/``conv_C_w`` and ``w_z``/``out_proj`` from one key each;
+    see ROADMAP.md § 3).  A_log, D, dt_bias and norm_scale are float32."""
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=generator, device=device) * std).to(dtype)
+
+    def zeros(width, dt=dtype):
+        return torch.zeros((width,), dtype=dt, device=device)
+
+    s_in = 1.0 / math.sqrt(d)
+    f32 = torch.float32
+    return {
+        "w_z": normal((d, di), s_in),
+        "w_x": normal((d, di), s_in),
+        "w_B": normal((d, n), s_in),
+        "w_C": normal((d, n), s_in),
+        "w_dt": normal((d, h), s_in),
+        "conv_x_w": normal((cfg.conv_width, di), 0.2),
+        "conv_x_b": zeros(di),
+        "conv_B_w": normal((cfg.conv_width, n), 0.2),
+        "conv_B_b": zeros(n),
+        "conv_C_w": normal((cfg.conv_width, n), 0.2),
+        "conv_C_b": zeros(n),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, h, dtype=f32, device=device)),
+        "D": torch.ones((h,), dtype=f32, device=device),
+        "dt_bias": zeros(h, f32),
+        "norm_scale": zeros(di, f32),
+        "out_proj": normal((di, d), 1.0 / math.sqrt(di)),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 cache: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv over (Bt, S, Ch) with kernel (W, Ch), then
+    SiLU.  Returns the output and the last W - 1 inputs (the next cache)."""
+    width = w.shape[0]
+    if cache is None:
+        pad = torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        pad = cache
+    xp = torch.cat([pad, x], dim=1)
+    out = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(width)) + b
+    return F.silu(out), xp[:, -(width - 1):]
+
+
+def ssd_block_apply(p: Params, cfg, x: torch.Tensor,
+                    cache: Optional[Dict[str, torch.Tensor]] = None,
+                    decode: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x (Bt, S, d) -> (Bt, S, d) and, when ``decode``, the new cache
+    ``{state, conv_x, conv_B, conv_C}`` (else None)."""
+    di, h, hd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    z = x @ p["w_z"]
+    xs = x @ p["w_x"]
+    B_raw = x @ p["w_B"]
+    C_raw = x @ p["w_C"]
+    dt = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+
+    new_cache: Dict[str, torch.Tensor] = {}
+    cx = cache.get("conv_x") if cache else None
+    cB = cache.get("conv_B") if cache else None
+    cC = cache.get("conv_C") if cache else None
+    xs, new_cache["conv_x"] = _causal_conv(xs, p["conv_x_w"], p["conv_x_b"], cx)
+    B, new_cache["conv_B"] = _causal_conv(B_raw, p["conv_B_w"], p["conv_B_b"], cB)
+    C, new_cache["conv_C"] = _causal_conv(C_raw, p["conv_C_w"], p["conv_C_b"], cC)
+
+    if decode:
+        xh = xs[:, 0].reshape(-1, h, hd)
+        y, new_cache["state"] = ssd_decode_step(
+            cache["state"].float(), xh.float(), dt[:, 0], A, B[:, 0].float(), C[:, 0].float())
+        y = y + p["D"][:, None] * xh.float()
+        y = y.reshape(x.shape[0], 1, di).to(x.dtype)
+    else:
+        xh = xs.reshape(xs.shape[0], xs.shape[1], h, hd)
+        y = ssd_chunked(xh, dt, A, B, C, cfg.ssm_chunk)
+        y = y + p["D"][None, None, :, None] * xh
+        y = y.reshape(x.shape[0], x.shape[1], di)
+        new_cache = None
+
+    # gated RMSNorm (Mamba-2), in float32
+    g = y * F.silu(z)
+    g32 = g.float()
+    var = torch.mean(g32 * g32, dim=-1, keepdim=True)
+    g = (g32 * torch.rsqrt(var + 1e-6) * (1 + p["norm_scale"])).to(x.dtype)
+    return g @ p["out_proj"], new_cache
+
+
+def init_ssd_cache(cfg, batch: int, dtype=torch.bfloat16, device="cuda") -> Dict[str, torch.Tensor]:
+    """Zeroed decode state: the (Bt, H, N, P) SSD state in float32 (JAX
+    starts it in ``dtype`` and keeps it in float32 from the first step on;
+    the zeros are the same) and the conv caches (Bt, W - 1, Ch) in ``dtype``."""
+    w = cfg.conv_width - 1
+    return {
+        "state": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
+                             dtype=torch.float32, device=device),
+        "conv_x": torch.zeros((batch, w, cfg.d_inner), dtype=dtype, device=device),
+        "conv_B": torch.zeros((batch, w, cfg.ssm_state), dtype=dtype, device=device),
+        "conv_C": torch.zeros((batch, w, cfg.ssm_state), dtype=dtype, device=device),
+    }

@@ -7,12 +7,15 @@ and drives them with ``lax.scan``); each layer's weights keep the JAX
 shapes, so ``x @ w`` reads the same in both.  Every attention layer runs a
 hand-written kernel on the card: the flash-attention forward and backward
 in :func:`forward` (:mod:`repro_torch.kernels.flash_attention`), flash-decode
-in :func:`decode_step` (:mod:`repro_torch.kernels.decode_attention`).
+in :func:`decode_step` (:mod:`repro_torch.kernels.decode_attention`).  Every
+Mamba-2 (``"ssd"``) layer's forward and backward run the SSD-scan kernels
+(:mod:`repro_torch.models.ssm`); its decode is the plain recurrence, as in
+JAX.
 
-This port covers full-attention (``"attn"``) layers with a dense MLP.  The
-other layer kinds, prefix (VLM) and encoder-decoder inputs raise
-``NotImplementedError`` naming the slice that will port them; none of them
-runs a plain stand-in.
+This port covers full-attention (``"attn"``) layers and SSD layers, each
+with a dense MLP when ``d_ff > 0``.  The other layer kinds, prefix (VLM)
+and encoder-decoder inputs raise ``NotImplementedError`` naming the slice
+that will port them; none of them runs a plain stand-in.
 """
 
 from __future__ import annotations
@@ -28,12 +31,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 #: layer kinds (and features) that later slices of the port bring in
 LATER_SLICE = {
     "swa": "the SWA/chunked ring-buffer decode slice",
     "chunked": "the SWA/chunked ring-buffer decode slice",
-    "ssd": "the Mamba-2 slice (ssd_scan)",
     "rglru": "the RG-LRU slice",
     "enc": "the encoder-decoder slice",
     "xattn": "the encoder-decoder slice",
@@ -48,8 +51,11 @@ def _unported(what: str) -> NotImplementedError:
         f"{LATER_SLICE.get(what, 'a later slice')}")
 
 
+MIXERS = ("attn", "ssd")     # layer kinds, each the name of its mixer's subtree
+
+
 def _check_layer(cfg: ModelConfig, kind: str, layer_idx: int) -> None:
-    if kind != "attn":
+    if kind not in MIXERS:
         raise _unported(kind)
     if cfg.is_encdec:
         raise _unported("xattn")
@@ -62,16 +68,24 @@ def _pdict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class Layer(nn.Module):
-    """One decoder layer: norm1 -> attention, norm2 -> MLP, both residual."""
+    """One decoder layer: norm1 -> mixer (``attn`` or ``ssd``, by kind), then
+    norm2 -> MLP when the config has one, both residual.  The subtrees and
+    their names are those of ``repro``'s layer params."""
 
-    def __init__(self, kind: str, norm1: Dict, attn: Dict, norm2: Dict,
-                 mlp: Dict):
+    def __init__(self, kind: str, norm1: Dict, *, attn: Optional[Dict] = None,
+                 ssd: Optional[Dict] = None, norm2: Optional[Dict] = None,
+                 mlp: Optional[Dict] = None):
         super().__init__()
+        mixers = {"attn": attn, "ssd": ssd}
+        held = sorted(k for k, v in mixers.items() if v is not None)
+        if held != [kind]:
+            raise ValueError(f"a {kind!r} layer holds exactly its mixer; got {held}")
+        if (norm2 is None) != (mlp is None):
+            raise ValueError("norm2 and mlp come together")
         self.kind = kind
         self.norm1 = _pdict(norm1)
-        self.attn = _pdict(attn)
-        self.norm2 = _pdict(norm2)
-        self.mlp = _pdict(mlp)
+        for name, sub in (*mixers.items(), ("norm2", norm2), ("mlp", mlp)):
+            setattr(self, name, _pdict(sub) if sub is not None else None)
 
 
 class Transformer(nn.Module):
@@ -124,13 +138,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     for i in range(cfg.num_layers):
         kind = cfg.pattern_at(i)
         _check_layer(cfg, kind, i)
-        if cfg.d_ff <= 0:
-            raise NotImplementedError("layers without an MLP are not ported yet")
-        layers.append(Layer(
-            kind, L.init_norm(cfg.d_model, cfg.norm, device),
-            _init_attn(generator, cfg, device, dtype),
-            L.init_norm(cfg.d_model, cfg.norm, device),
-            L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, device, dtype)))
+        sub = {}
+        if kind == "ssd":
+            sub["ssd"] = SSM.init_ssd_block(generator, cfg, device, dtype)
+        else:
+            sub["attn"] = _init_attn(generator, cfg, device, dtype)
+        if cfg.d_ff > 0:
+            sub["norm2"] = L.init_norm(cfg.d_model, cfg.norm, device)
+            sub["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, device, dtype)
+        layers.append(Layer(kind, L.init_norm(cfg.d_model, cfg.norm, device), **sub))
     vp = cfg.padded_vocab()
     emb = (torch.randn((vp, cfg.d_model), generator=generator, device=device)
            * 0.02).to(dtype)
@@ -186,7 +202,12 @@ def _attn_apply(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
 def _layer_apply(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
     h = L.norm(x, layer.norm1, cfg.norm)
-    x = x + _attn_apply(layer.attn, cfg, h, layer.kind, positions)
+    if layer.kind == "ssd":
+        x = x + SSM.ssd_block_apply(layer.ssd, cfg, h)[0]
+    else:
+        x = x + _attn_apply(layer.attn, cfg, h, layer.kind, positions)
+    if layer.mlp is None:
+        return x
     h2 = L.norm(x, layer.norm2, cfg.norm)
     return x + L.mlp_apply(layer.mlp, h2, cfg.act)
 
@@ -198,8 +219,8 @@ def forward(model: Transformer, batch: Dict[str, torch.Tensor], *,
     With ``remat`` each layer runs under ``torch.utils.checkpoint``
     (non-reentrant), as JAX wraps each group in ``jax.checkpoint`` with
     nothing saveable: only the layer inputs stay alive, and each layer's
-    forward, its flash-attention kernel included, runs again during the
-    backward pass."""
+    forward, its flash-attention or SSD-scan kernel included, runs again
+    during the backward pass."""
     cfg = model.cfg
     for key in ("patches", "frames"):
         if key in batch:
@@ -228,12 +249,17 @@ def _cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
 
 def init_cache(model: Transformer, batch: int, max_len: int,
                dtype=torch.bfloat16) -> List[Dict[str, torch.Tensor]]:
-    """Zeroed KV caches, one dict per layer, on the model's device: ``k`` and
-    ``v`` (B, W, Hkv, D) in ``dtype``, ``pos`` (B, W) int32, -1 = empty."""
+    """Zeroed caches, one dict per layer, on the model's device: for an
+    attention layer ``k`` and ``v`` (B, W, Hkv, D) in ``dtype`` and ``pos``
+    (B, W) int32, -1 = empty; for an SSD layer its state and conv caches
+    (:func:`repro_torch.models.ssm.init_ssd_cache`)."""
     cfg = model.cfg
     hd = cfg.head_dim
     cache = []
     for layer in model.layers:
+        if layer.kind == "ssd":
+            cache.append(SSM.init_ssd_cache(cfg, batch, dtype, model.device))
+            continue
         kvh = layer.attn["wk"].shape[-1] // hd
         wc = _cache_len(cfg, layer.kind, max_len)
         cache.append({
@@ -292,8 +318,16 @@ def _layer_decode(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
                   position: torch.Tensor, max_position: int,
                   cache: Dict[str, torch.Tensor]) -> torch.Tensor:
     h = L.norm(x, layer.norm1, cfg.norm)
-    x = x + _attn_decode(layer.attn, cfg, h, layer.kind, position,
-                         max_position, cache)
+    if layer.kind == "ssd":
+        # every lane advances its state by one token: lanes run in lockstep
+        y, new = SSM.ssd_block_apply(layer.ssd, cfg, h, cache, decode=True)
+        cache.update(new)
+        x = x + y
+    else:
+        x = x + _attn_decode(layer.attn, cfg, h, layer.kind, position,
+                             max_position, cache)
+    if layer.mlp is None:
+        return x
     h2 = L.norm(x, layer.norm2, cfg.norm)
     return x + L.mlp_apply(layer.mlp, h2, cfg.act)
 
@@ -307,7 +341,8 @@ def decode_step(model: Transformer, cache: List[Dict[str, torch.Tensor]],
     ``tokens`` and ``position`` are host integer arrays (numpy or CPU
     tensors), as the serving engine keeps them; they go to the device in one
     copy that does not wait for it, so the step itself needs no host-device
-    sync.
+    sync.  An SSD layer's state has no positions: each call advances every
+    lane by one token, so its lanes must move in lockstep.
     """
     cfg = model.cfg
     dev = model.device

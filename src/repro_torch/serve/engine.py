@@ -13,6 +13,13 @@ the same cache line) and resume decoding when capacity returns.
 
 Positions and pending tokens stay host numpy arrays; the one host-device
 sync of a step is reading its next tokens.
+
+Configs with recurrent layers (``"ssd"``, ``"rglru"``) are refused: every
+step advances the state of every lane, so prefilling one request (a step
+per prompt token) would also advance the other live and paused requests,
+and a reused slot would inherit its last request's state.  ``repro``'s
+engine does just that (ROADMAP.md § 3); the port waits for admission that
+resets and masks lanes.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Transformer, decode_step, init_cache
 
+RECURRENT = {"ssd", "rglru"}     # layer kinds whose decode state has no positions
+
 
 @dataclasses.dataclass
 class Request:
@@ -40,6 +49,14 @@ class Request:
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, model: Transformer, max_batch: int = 4,
                  max_len: int = 256, *, device="cuda"):
+        recurrent = sorted(set(cfg.layer_pattern) & RECURRENT)
+        if recurrent:
+            raise NotImplementedError(
+                f"ServeEngine does not serve {cfg.name}: its {recurrent} layers keep a "
+                f"recurrent state that every engine step advances in every lane, so "
+                f"requests would leak into each other (ROADMAP.md § 3, 'repro's "
+                f"ServeEngine advances recurrent state in every lane'); decode_step "
+                f"serves such models in lockstep")
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())

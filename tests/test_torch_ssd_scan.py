@@ -1,0 +1,146 @@
+"""The port's plain SSD scan and its gradient against the JAX package's.
+
+Inputs are made from a numpy seed as ``tests/test_kernels.py`` makes them
+(dt from softplus, A = -exp(.)) and handed to both frameworks.  The JAX
+side is ``ssd_scan_pallas`` in interpret mode, ``repro``'s sequential
+``ssd_scan_ref`` and the model's ``ssd_chunked``; gradients come from
+``jax.vjp`` of ``ssd_chunked``.  On CPU tensors the port's wrapper takes
+its plain version; its CUDA kernels are held to that plain version by
+``chip_smoke.py`` on the card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd_scan.ref import ssd_scan_ref as jax_ssd_scan_ref
+from repro.kernels.ssd_scan.ssd_scan import ssd_scan_pallas
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked
+from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bwd, ssd_scan_bwd_ref,
+                                          ssd_scan_fwd, ssd_scan_ref)
+from repro_torch.kernels.ssd_scan.ssd_scan import _check
+
+# the tolerances of tests/test_kernels.py: f32 sums run in another order;
+# bf16 inputs are read the same, and y is rounded to bf16 once
+TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# gradients, as a share of the largest entry: dB and dC sum over the heads
+# and the chunk in another order than XLA.  dA sums the cumsum's gradient
+# over every position, whose terms cancel: against float64 JAX, f32 JAX is
+# 8e-6 off and the plain version 2.5e-5 at (2, 128, 4, 64, 32, 128).
+GRAD_TOL = {"dx": 2e-5, "ddt": 2e-5, "dA": 1e-4, "dB": 2e-5, "dC": 2e-5}
+SHAPES = [  # (Bt, S, H, P, N, chunk), from tests/test_kernels.py's sweep
+    (2, 64, 3, 16, 8, 16),
+    (2, 128, 4, 64, 32, 128),
+]
+
+
+def _inputs(seed, bt, s, h, p, n):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((bt, s, h, p)) * 0.5).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((bt, s, h)))).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(h) * 0.3)).astype(np.float32)
+    B = (rng.standard_normal((bt, s, n)) * 0.3).astype(np.float32)
+    C = (rng.standard_normal((bt, s, n)) * 0.3).astype(np.float32)
+    return x, dt, A, B, C
+
+
+def _both(arrays, dtype):
+    """The same values as JAX and torch arrays; x, B, C in ``dtype``."""
+    x, dt, A, B, C = arrays
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    tdt = getattr(torch, dtype)
+    j = [jnp.asarray(x).astype(jdt), jnp.asarray(dt), jnp.asarray(A),
+         jnp.asarray(B).astype(jdt), jnp.asarray(C).astype(jdt)]
+    t = [torch.from_numpy(x).to(tdt), torch.from_numpy(dt), torch.from_numpy(A),
+         torch.from_numpy(B).to(tdt), torch.from_numpy(C).to(tdt)]
+    return j, t
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_scan_matches_pallas_ref_and_ssd_chunked(dtype, shape):
+    bt, s, h, p, n, chunk = shape
+    j, t = _both(_inputs(1, bt, s, h, p, n), dtype)
+    y = ssd_scan_ref(*t, chunk)
+    assert y.dtype == t[0].dtype and y.shape == (bt, s, h, p)
+    got = y.float().numpy()
+    tol = TOL[dtype]
+    pallas = ssd_scan_pallas(*j, chunk=chunk)
+    seq, _ = jax.jit(jax_ssd_scan_ref)(*j)
+    chunked = jax.jit(jax_ssd_chunked, static_argnums=5)(*j, chunk)
+    for want in (pallas, seq, chunked):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=tol, rtol=tol)
+
+
+def test_plain_scan_is_chunk_invariant():
+    _, t = _both(_inputs(3, 1, 128, 2, 16, 8), "float32")
+    outs = [ssd_scan_ref(*t, c).numpy() for c in (16, 32, 128, 1000)]
+    for o in outs[1:]:
+        np.testing.assert_allclose(o, outs[0], atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(1, 96, 2, 8, 16, 32)])
+def test_plain_gradients_match_jax_grad_of_ssd_chunked(shape):
+    bt, s, h, p, n, chunk = shape
+    arrays = _inputs(4, bt, s, h, p, n)
+    dy = np.random.default_rng(5).standard_normal((bt, s, h, p)).astype(np.float32)
+    j, t = _both(arrays, "float32")
+    want = jax.jit(lambda dy, *a: jax.vjp(lambda *a: jax_ssd_chunked(*a, chunk), *a)[1](dy))(
+        jnp.asarray(dy), *j)
+    got = ssd_scan_bwd_ref(*t, torch.from_numpy(dy), chunk)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        err = np.abs(g.numpy() - w).max()
+        assert err <= GRAD_TOL[name] * np.abs(w).max(), (name, err, np.abs(w).max())
+
+
+@pytest.mark.parametrize("out", ["same", "float32"])
+def test_autograd_function_on_cpu_takes_the_plain_versions(out):
+    j, t = _both(_inputs(6, 2, 64, 3, 16, 8), "bfloat16")
+    out_dtype = None if out == "same" else torch.float32
+    dy = torch.from_numpy(np.random.default_rng(7).standard_normal((2, 64, 3, 16))
+                          .astype(np.float32)).to(out_dtype or torch.bfloat16)
+    launches = (ssd_scan.launches, ssd_scan_bwd.launches)
+    ins = [a.clone().requires_grad_() for a in t]
+    y = ssd_scan(*ins, chunk=16, out_dtype=out_dtype)
+    grads = torch.autograd.grad(y, ins, dy)
+    assert y.dtype == (out_dtype or torch.bfloat16)
+    torch.testing.assert_close(y, ssd_scan_ref(*t, 16, out_dtype), rtol=0, atol=0)
+    want = ssd_scan_bwd_ref(*t, dy, 16)
+    for a, g, w in zip(t, grads, want):
+        assert g.dtype == a.dtype
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    fwd = ssd_scan_fwd(*t, chunk=16, out_dtype=out_dtype)
+    assert fwd[1] is None and fwd[2] is None
+    assert all(g.dtype == a.dtype
+               for a, g in zip(t, ssd_scan_bwd(*t, dy, None, None, chunk=16)))
+    assert (ssd_scan.launches, ssd_scan_bwd.launches) == launches
+
+
+def test_checks_reject_what_the_kernels_do_not_take():
+    _, (x, dt, A, B, C) = _both(_inputs(8, 1, 64, 2, 16, 8), "float32")
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_scan_ref(x, dt, A, B, C, 24)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        _check(x, dt, A, B, C, 48, torch.float32)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        _check(x, dt[:, :, :1], A, B, C, 16, torch.float32)
+    with pytest.raises(ValueError, match="want x"):
+        _check(x[0], dt, A, B, C, 16, torch.float32)
+    with pytest.raises(TypeError, match="the same for all three"):
+        _check(x, dt, A, B.bfloat16(), C, 16, torch.float32)
+    with pytest.raises(TypeError, match="dt and A must be float32"):
+        _check(x, dt.double(), A, B, C, 16, torch.float32)
+    with pytest.raises(TypeError, match="x's dtype or float32"):
+        _check(x, dt, A, B, C, 16, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        _check(torch.cat([x, x], dim=-1)[..., ::2], dt, A, B, C, 16, torch.float32)
+    with pytest.raises(ValueError, match="a multiple of 4"):
+        _check(*_both(_inputs(8, 1, 64, 2, 5, 7), "float32")[1], 16, torch.float32)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        _check(*_both(_inputs(8, 1, 64, 2, 12, 8), "bfloat16")[1], 16, torch.bfloat16)
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        ssd_scan_fwd(x.to("meta"), dt, A, B, C, chunk=16)
