@@ -43,7 +43,27 @@ failure:
  11. lockstep greedy decode of full Mamba2-780m through ``decode_step``
      (8 prompts of 32 tokens, 32 new tokens): valid tokens, float32 state;
  12. time the SSD-scan kernels and their plain versions at the training
-     shape beside the card's least time for the work.
+     shape beside the card's least time for the work;
+ 13. hold the prefix-scan kernel bit-equal to its plain version (torch.cumsum)
+     on tests/test_prefix_scan.py's shapes, empty shapes, one row of 2^20,
+     bool/uint8/int32 input, 3-D leading axes, strided and offset views and
+     the sweep's (65536, 10000) block;
+ 14. the architecture zoo: for all 13 registered architectures the torch
+     sweep on the card equals the port's numpy sweep on 4096 counter
+     snapshots of 10,000 nodes at TP 16/32/64/24 (chunks of 1 and 8192), on
+     all-healthy and all-faulty rows and masks narrower and wider than the
+     cluster; tpuv4's over-placement at TP-24 shows;
+ 15. Fig. 13 / Table 7: 1000 trace snapshots of 720 nodes, torch grids equal
+     numpy, waste at TP-32 in the paper's bands and order;
+ 16. sweep main path (benchmarks/scale.py's configuration): 1,000,000
+     counter snapshots of 10,000 nodes at 7%, TP-32, InfiniteHBD-K3 and
+     NVL-72 through ``run_sweep(backend="torch")`` with masks drawn on the
+     card in blocks of 65,536: snapshots/s, peak memory, mean waste, exactly
+     2 prefix-scan launches per block, the first 16,384 rows equal to the
+     host numpy path and to a chunk-8192 run; two blocks under
+     torch.profiler, then the draw and the waste kernels each alone;
+ 17. time the prefix-scan kernel, its plain version and torch.cumsum at the
+     sweep's block beside the bytes bound.
 
 The last lines are the ``{"kernels": ...}`` record, the card line and
 ``{"ok": true, "device": ...}``.
@@ -60,6 +80,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -82,7 +104,9 @@ TRAIN_TOL = {"loss_rel": 1e-4, "param_abs": 1e-4}
 # gradient's largest entry (dB and dC sum over every head and the chunk).
 SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 FP32_FLOPS = 67e12               # H100 SXM float32 peak outside the tensor cores
-KERNELS = ["decode_attention", "flash_attention", "ssd_scan"]
+# H100 SXM int32 adds on the CUDA cores: 64 a clock on each of 132 SMs at 1.98 GHz
+INT32_OPS = 64 * 132 * 1.98e9
+KERNELS = ["decode_attention", "flash_attention", "ssd_scan", "prefix_scan"]
 
 
 def card_line() -> str:
@@ -1025,6 +1049,330 @@ def time_ssd_scan(torch, bt=4, s=4096, h=48, p=64, n=128, q=128):
     return res
 
 
+# ------------------------------------------------------------ sweep slice
+
+
+SWEEP_NODES = 10_000             # benchmarks/scale.py: 10,000 nodes x 4 GPUs
+SWEEP_BLOCK = 65_536             # snapshots per device block of the main path
+
+
+def scan_cases(torch):
+    """(label, input) pairs on the card: tests/test_prefix_scan.py's shape
+    sweep, empty shapes, one row of 2^20, bool/uint8/int32 (int32 with sums
+    that wrap), 3-D leading axes, strided and offset views, the sweep's
+    block."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def mask(shape, p=0.3):
+        return torch.rand(shape, generator=gen, device="cuda") < p
+
+    def ints(shape, lo=-1000, hi=1000):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int32)
+
+    shapes = [(1, 0), (1, 1), (3, 7), (64, 8), (16, 128), (8, 129), (8, 300), (2, 1024),
+              (4, 3, 40), (2, 3, 4, 8), (0, 5), (0, 0), (1, 257), (5, 1), (7, 4099)]
+    cases = []
+    for shape in shapes:
+        cases += [(f"bool {shape}", mask(shape)),
+                  (f"uint8 {shape}", ints(shape, 0, 256).to(torch.uint8)),
+                  (f"int32 {shape}", ints(shape))]
+    base = mask((33, 44))
+    flat = mask((33 * 44 + 1,))
+    base32 = ints((33, 44))
+    flat32 = ints((33 * 44 + 1,))
+    cases += [
+        ("bool one row of 2^20", mask((1, 1 << 20))),
+        ("bool dense (4, 2^20)", torch.ones((4, 1 << 20), dtype=torch.bool, device="cuda")),
+        ("int32 (4, 4096) sums past 2^31", ints((4, 4096), 1 << 20, 1 << 21)),
+        ("bool 3-D (6, 50, 720)", mask((6, 50, 720), 0.07)),
+        ("bool column slice [:, 3:35]", base[:, 3:35]),
+        ("bool transpose", base.T),
+        ("bool offset base pointer", flat[1:].view(33, 44)),
+        ("int32 column slice [:, 1:41]", base32[:, 1:41]),
+        ("int32 offset base pointer", flat32[1:].view(33, 44)),
+        (f"bool sweep block ({SWEEP_BLOCK}, {SWEEP_NODES}) at 7%",
+         mask((SWEEP_BLOCK, SWEEP_NODES), 0.07)),
+    ]
+    return cases
+
+
+def check_prefix_scan(torch):
+    """The prefix-scan kernel against its plain version on the card:
+    bit-equal (tolerance 0) on every case."""
+    from repro_torch.kernels.prefix_scan import mask_cumsum, prefix_scan, prefix_scan_ref
+
+    worst, n_cases = 0, 0
+    for label, x in scan_cases(torch):
+        out = prefix_scan(x)
+        ref = prefix_scan_ref(x)
+        torch.cuda.synchronize()
+        err = ((out.long() - ref.long()).abs().max().item() if out.numel() else 0)
+        ok = (out.dtype == torch.int32 and out.shape == x.shape and out.device == x.device
+              and torch.equal(out, ref))
+        if x.dtype == torch.bool:
+            ok = ok and torch.equal(mask_cumsum(x), ref)
+        if "sweep block" in label or "2^20" in label or not ok:
+            print(f"prefix_scan {label}: max_abs_err {err} (tol 0) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"prefix_scan disagrees with its plain version on {label}")
+        worst, n_cases = max(worst, err), n_cases + 1
+        del x, out, ref
+    try:
+        mask_cumsum(torch.ones((2, 4), dtype=torch.int32, device="cuda"))
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("mask_cumsum took an int32 tensor")
+    torch.cuda.empty_cache()
+    print(f"prefix_scan: {n_cases} cases bit-equal to torch.cumsum on the card")
+    return worst
+
+
+def grids_equal(a, b):
+    return a.names == b.names and all(
+        np.array_equal(getattr(a, f), getattr(b, f))
+        for f in ("total_gpus", "faulty_gpus", "placed_gpus"))
+
+
+def check_sweep_zoo(torch):
+    """All 13 architectures: torch grids on the card equal the port's numpy
+    grids, on the counter stream at 10,000 nodes (chunks of 1 and 8192), on
+    all-faulty and all-healthy rows and on masks narrower and wider than the
+    cluster."""
+    from repro_torch.core import arch
+    from repro_torch.sim import CounterIIDSnapshots, ScenarioSpec, run_sweep
+
+    names = arch.names()
+    tps = (16, 32, 64, 24)
+    spec = ScenarioSpec(num_nodes=SWEEP_NODES, snapshots=CounterIIDSnapshots(0.07, 4096, 0),
+                        tp_sizes=tps, architectures=names)
+    t0 = time.perf_counter()
+    ref = run_sweep(spec, backend="numpy")
+    t1 = time.perf_counter()
+    for chunk in (8192, 1):
+        t2 = time.perf_counter()
+        got = run_sweep(spec, backend="torch", chunk_snapshots=chunk)
+        dt = time.perf_counter() - t2
+        if got.backend != "torch" or not grids_equal(got, ref):
+            bad = [n for i, n in enumerate(names)
+                   if not np.array_equal(got.placed_gpus[i], ref.placed_gpus[i])
+                   or not np.array_equal(got.faulty_gpus[i], ref.faulty_gpus[i])]
+            raise AssertionError(f"zoo: torch grids at chunk {chunk} differ from numpy for {bad}")
+        print(f"zoo: {len(names)} architectures x 4096 counter snapshots x {SWEEP_NODES} nodes "
+              f"x TP {tps}, chunk {chunk}: torch grids equal numpy ({dt:.2f} s on the card, "
+              f"numpy {t1 - t0:.2f} s)")
+    waste = ref.waste_ratio.mean(axis=1)
+    print("zoo: mean waste at TP " + "/".join(map(str, tps)) + ": " + "; ".join(
+        f"{n} " + "/".join(f"{100 * w:.3f}%" for w in waste[i]) for i, n in enumerate(names)))
+    rng = np.random.default_rng(3)
+    widths = (SWEEP_NODES * 7 // 8 + 1, SWEEP_NODES, SWEEP_NODES * 9 // 8 + 3)
+    for width in widths:
+        masks = np.concatenate([np.zeros((1, width), bool), np.ones((1, width), bool),
+                                rng.random((62, width)) < 0.07])
+        edge = ScenarioSpec(num_nodes=SWEEP_NODES, snapshots=None, tp_sizes=tps,
+                            architectures=names)
+        a = run_sweep(edge, masks=masks, backend="torch", chunk_snapshots=16)
+        b = run_sweep(edge, masks=masks, backend="numpy")
+        if not grids_equal(a, b):
+            raise AssertionError(f"zoo: masks of width {width}: torch and numpy grids differ")
+    print(f"zoo: all-healthy, all-faulty and random rows at widths {widths} on "
+          f"{SWEEP_NODES} nodes: torch grids equal numpy")
+    t = names.index("tpuv4")
+    tp24 = tps.index(24)
+    placed, total = int(a.placed_gpus[t, 0, tp24]), int(a.total_gpus[t, tp24])
+    print(f"zoo: tpuv4 at TP-24 on an all-healthy cluster places {placed} of {total} GPUs "
+          f"(the reference's over-placement, reproduced)")
+    if placed <= total:
+        raise AssertionError("tpuv4 TP-24: the reference's over-placement did not show")
+
+
+def check_fig13(torch):
+    """Fig. 13 / Table 7: the production-like trace on 720 nodes."""
+    from repro_torch.sim import (DEFAULT_ARCHITECTURES, ScenarioSpec, TraceSnapshots,
+                                 run_sweep, waste_table)
+
+    spec = ScenarioSpec(num_nodes=720, snapshots=TraceSnapshots(trace_nodes=400, samples=1000,
+                                                                seed=1),
+                        tp_sizes=(16, 32, 64))
+    masks = spec.snapshots.masks(spec.num_nodes)
+    got = run_sweep(spec, masks=masks, backend="torch")
+    ref = run_sweep(spec, masks=masks, backend="numpy")
+    if not grids_equal(got, ref):
+        raise AssertionError("Fig. 13: torch and numpy grids differ")
+    rows = {r["architecture"]: r for r in waste_table(got) if r["tp_size"] == 32}
+    print(f"fig13: {len(DEFAULT_ARCHITECTURES)} architectures x 1000 trace snapshots x 720 "
+          f"nodes: torch grids equal numpy; waste at TP-32 (mean/P50/P99):")
+    for name in DEFAULT_ARCHITECTURES:
+        r = rows[name]
+        print(f"fig13:   {name:16s} {100 * r['mean_waste']:7.3f}% {100 * r['p50_waste']:7.3f}% "
+              f"{100 * r['p99_waste']:7.3f}%")
+    inf, nvl, tpu = (rows[n]["mean_waste"] for n in ("infinitehbd-k3", "nvl-72", "tpuv4"))
+    ok = inf < 0.01 and 0.08 < nvl < 0.13 and 0.05 < tpu < 0.10 and inf < tpu < nvl
+    print(f"fig13: InfiniteHBD {100 * inf:.2f}% < 1%, NVL-72 {100 * nvl:.2f}% in (8, 13)%, "
+          f"TPUv4 {100 * tpu:.2f}% in (5, 10)%, ordered (paper: 0.53%, 10.04%, 7.56%) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("Fig. 13 bands or ordering not held")
+
+
+def _busy_ms(torch, prof):
+    """Device busy time (union of kernel intervals) of a profile, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur = 0.0, None
+    for st, en in spans:
+        if cur is None or st > cur[1]:
+            busy += 0 if cur is None else cur[1] - cur[0]
+            cur = [st, en]
+        else:
+            cur[1] = max(cur[1], en)
+    return (busy + (cur[1] - cur[0] if cur else 0)) / 1e3
+
+
+def sweep_main_path(torch, samples=1_000_000, check_rows=16_384):
+    """Main path at benchmarks/scale.py's configuration: 1,000,000 counter
+    snapshots of 10,000 nodes x 4 GPUs at 7%, seed 5, TP-32, InfiniteHBD-K3
+    and NVL-72, masks drawn on the card, blocks of 65,536 snapshots."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.prng import counter_masks_at
+    from repro_torch.kernels.prefix_scan import prefix_scan
+    from repro_torch.sim import CounterIIDSnapshots, ScenarioSpec, run_sweep
+    from repro_torch.sim.torch_backend import GridEvaluator, MaskGen, infinitehbd_scans
+
+    def spec_of(n):
+        return ScenarioSpec(num_nodes=SWEEP_NODES, snapshots=CounterIIDSnapshots(0.07, n, 5),
+                            tp_sizes=(32,), architectures=("infinitehbd-k3", "nvl-72"))
+
+    spec = spec_of(samples)
+    scans_per_block = sum(infinitehbd_scans(m) for m in spec.models()
+                          if m.name.startswith("infinitehbd"))
+    blocks = -(-samples // SWEEP_BLOCK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefix_scan.launches = 0
+    t0 = time.perf_counter()
+    res = run_sweep(spec, backend="torch", chunk_snapshots=SWEEP_BLOCK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = prefix_scan.launches
+    peak = torch.cuda.max_memory_allocated()
+    if res.backend != "torch" or res.placed_gpus.shape != (2, samples, 1):
+        raise AssertionError(f"main path: backend {res.backend}, grid {res.placed_gpus.shape}")
+    if launches != scans_per_block * blocks:
+        raise AssertionError(f"prefix_scan launched {launches} times in {blocks} blocks; want "
+                             f"{scans_per_block} per block = {scans_per_block * blocks}")
+    waste = res.waste_ratio
+    inf_waste = float(waste[0, :, 0].mean())
+    nvl_waste = float(waste[1, :, 0].mean())
+    if not (np.isfinite(waste).all() and 0 <= inf_waste < nvl_waste < 1):
+        raise AssertionError(f"main path: waste InfiniteHBD {inf_waste}, NVL-72 {nvl_waste}")
+    print(f"sweep: {samples} counter snapshots x {SWEEP_NODES} nodes ({4 * SWEEP_NODES} GPUs) "
+          f"at 7%, seed 5, TP-32, infinitehbd-k3 + nvl-72, blocks of {SWEEP_BLOCK} drawn on the "
+          f"card: {wall:.3f} s, {samples / wall:.0f} snapshots/s, peak device memory "
+          f"{peak / 1e9:.2f} GB; mean waste InfiniteHBD-K3 {100 * inf_waste:.4f}%, NVL-72 "
+          f"{100 * nvl_waste:.4f}%")
+    print(f"sweep: prefix_scan launches {launches} = {scans_per_block} per block x {blocks} "
+          f"blocks")
+    # least time for the stream: the threefry draw's int32 operations (77
+    # per cipher call of two lanes: 2 key adds, 20 rounds of add, rotate (one
+    # funnel shift) and xor, 5 injections of 3 adds) and one compare per
+    # node; a fused draw and evaluation need not write the mask to memory
+    draw_ops = samples * SWEEP_NODES * (77 / 2 + 1)
+    bound_ms = draw_ops / INT32_OPS * 1e3
+    print(f"sweep: bound {bound_ms:.1f} ms for the stream (operations: "
+          f"{draw_ops / 1e12:.3f} T int32 operations of the draw at "
+          f"{INT32_OPS / 1e12:.2f} TOP/s), {samples / bound_ms * 1e3:.0f} snapshots/s")
+
+    head = spec_of(check_rows)
+    t1 = time.perf_counter()
+    host = run_sweep(head, backend="numpy")
+    t2 = time.perf_counter()
+    small = run_sweep(head, backend="torch", chunk_snapshots=8192)
+    for name, other in (("host numpy path", host), ("chunk 8192 torch run", small)):
+        if not (np.array_equal(res.placed_gpus[:, :check_rows], other.placed_gpus)
+                and np.array_equal(res.faulty_gpus[:, :check_rows], other.faulty_gpus)
+                and np.array_equal(res.total_gpus, other.total_gpus)):
+            raise AssertionError(f"main path: the first {check_rows} rows differ from the "
+                                 f"{name}")
+    print(f"sweep: first {check_rows} rows equal the numpy path on host masks "
+          f"(counter_fault_masks, {t2 - t1:.2f} s on the host) and a chunk-8192 torch run")
+
+    # where a block's time goes: two whole blocks under the profiler, then
+    # the draw alone and the model kernels alone on one block's rows
+    models = spec.models()
+    ev = GridEvaluator(models, (32,), SWEEP_NODES,
+                       gen=MaskGen(samples, SWEEP_NODES, 0.07, 5))
+    idx = np.arange(SWEEP_BLOCK, 2 * SWEEP_BLOCK, dtype=np.int64)
+    ev.eval_block(idx)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t3 = time.perf_counter()
+        for b in (1, 2):
+            ev.eval_block(idx + (b - 1) * SWEEP_BLOCK)
+        torch.cuda.synchronize()
+        block_ms = (time.perf_counter() - t3) * 1e3 / 2
+    prof_block = summarize_profile(torch, prof, 2 * block_ms, 2,
+                                   f"2 sweep blocks of {SWEEP_BLOCK} snapshots",
+                                   {"prefix scan": "prefix_scan_kernel",
+                                    "cummax/cummin": "with_indices"})
+    scan_ms = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                  if "prefix_scan_kernel" in e.name) / 1e3 / 2
+    idx_dev = torch.from_numpy(idx).cuda()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_draw:
+        masks = counter_masks_at(idx_dev, SWEEP_NODES, 0.07, 5)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_models:
+        out = [k(masks) for k in ev.kernels]
+        torch.cuda.synchronize()
+    draw_ms, model_ms = _busy_ms(torch, prof_draw), _busy_ms(torch, prof_models)
+    busy = draw_ms + model_ms
+    print(f"sweep profile: {block_ms:.1f} ms per block under the profiler; mask draw "
+          f"{draw_ms:.1f} ms ({100 * draw_ms / busy:.1f}% of device time), model kernels "
+          f"{model_ms:.1f} ms ({100 * model_ms / busy:.1f}%) of which prefix scans "
+          f"{scan_ms:.2f} ms ({100 * scan_ms / busy:.1f}%), the rest {model_ms - scan_ms:.1f} "
+          f"ms ({100 * (model_ms - scan_ms) / busy:.1f}%)")
+    del masks, out, idx_dev, ev
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "snaps_per_s": samples / wall, "seconds": wall,
+            "bound_ms": bound_ms,
+            "peak_gb": peak / 1e9, "inf_waste": inf_waste, "nvl_waste": nvl_waste,
+            "block_ms": block_ms, "draw_ms": draw_ms, "model_ms": model_ms,
+            "scan_ms": scan_ms, **(prof_block or {})}
+
+
+def time_prefix_scan(torch, rows=SWEEP_BLOCK, length=SWEEP_NODES):
+    """The kernel, its plain version and torch.cumsum at the sweep's block,
+    beside the bytes bound (each input byte read once, each int32 written
+    once).  The plain version is the library call torch.cumsum after a cast
+    to int32; the library time is torch.cumsum(..., dtype=torch.int32) on
+    the bool mask itself."""
+    from repro_torch.kernels.prefix_scan import prefix_scan, prefix_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.rand((rows, length), generator=gen, device="cuda") < 0.07
+    launches = prefix_scan.launches
+    kernel_ms = eager_ms(torch, lambda i: prefix_scan(x), 1, iters=20, repeats=5)
+    prefix_scan.launches = launches              # timing launches are not the main path's
+    plain_ms = eager_ms(torch, lambda i: prefix_scan_ref(x), 1, iters=10, repeats=5)
+    library_ms = eager_ms(torch, lambda i: torch.cumsum(x, -1, dtype=torch.int32), 1,
+                          iters=10, repeats=5)
+    nbytes = rows * length * (1 + 4)
+    ops = rows * length                          # one int32 add per element
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"time prefix_scan: ({rows}, {length}) bool -> int32: kernel {kernel_ms:.3f} ms "
+          f"({nbytes / kernel_ms / 1e6:.0f} GB/s), bound {bound_ms:.3f} ms ({by}: "
+          f"{nbytes / 1e9:.3f} GB at 3.35 TB/s); plain (torch.cumsum of the int32 cast) "
+          f"{plain_ms:.3f} ms; library torch.cumsum(dtype=int32) {library_ms:.3f} ms")
+    del x
+    torch.cuda.empty_cache()
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": library_ms}
+
+
 def main() -> int:
     import torch
 
@@ -1055,6 +1403,11 @@ def main() -> int:
     mamba = train_mamba_full(torch)
     decode_mamba_lockstep(torch)
     ssd_times = time_ssd_scan(torch)
+    scan_err = check_prefix_scan(torch)
+    check_sweep_zoo(torch)
+    check_fig13(torch)
+    sweep = sweep_main_path(torch)
+    scan_times = time_prefix_scan(torch)
     print(json.dumps({"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
@@ -1104,6 +1457,18 @@ def main() -> int:
         "max_abs_err": ssd_errs["bwd"],
         "shape": "Bt=4 S=4096 H=48 P=64 N=128 chunk=128, x/B/C bf16, dy f32",
         **ssd_times["bwd"],
+    }, {
+        "name": "prefix_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/prefix_scan.cu",
+        "replaces": "src/repro/kernels/prefix_scan/prefix_scan.py:41",
+        "launches": sweep["launches"],
+        "max_abs_err": scan_err,
+        "shape": f"({SWEEP_BLOCK}, {SWEEP_NODES}) bool -> int32",
+        "plain": "torch.cumsum of the int32 cast (a library call)",
+        "library": "torch.cumsum(mask, -1, dtype=torch.int32)",
+        **scan_times,
+        "sweep_snaps_per_s": sweep["snaps_per_s"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,7 @@ one process-global :class:`Telemetry` handle, with Chrome-trace/Perfetto
 JSON export that ``tools/trace_report.py`` reads.  Disabled -- the
 default -- every call is a true no-op, so instrumentation stays in the hot
 paths permanently.  The port keeps its own copy so that it imports nothing
-of the JAX package; ``progress.py`` is not ported yet.
+of the JAX package.
 
 Typical use::
 
@@ -26,6 +26,7 @@ export to ``REPRO_TRACE_PATH``, default ``repro.trace.json``), then
 from . import export as _export_module  # noqa: F401
 from .telemetry import (NULL_SPAN, Span, SpanRecord, TELEMETRY, Telemetry,
                         configure_from_env, rss_mb)
+from .progress import Progress, StreamProgress
 
 #: Function API bound to the process-global handle -- ``obs.span(...)``
 #: etc. read ``TELEMETRY.enabled`` per call, so enable/disable at any time.
@@ -54,7 +55,8 @@ def enabled() -> bool:
 configure_from_env()
 
 __all__ = [
-    "NULL_SPAN", "Span", "SpanRecord", "TELEMETRY", "Telemetry",
-    "chrome_trace", "configure_from_env", "count", "disable", "enable",
-    "enabled", "export", "gauge", "reset", "rss_mb", "span", "summary",
+    "NULL_SPAN", "Progress", "Span", "SpanRecord", "StreamProgress",
+    "TELEMETRY", "Telemetry", "chrome_trace", "configure_from_env", "count",
+    "disable", "enable", "enabled", "export", "gauge", "reset", "rss_mb",
+    "span", "summary",
 ]
