@@ -12,8 +12,10 @@ failure:
   2. hold each kernel against its plain PyTorch version on the card: the
      flash-decode kernel at the shapes the serving path gives it, the
      flash-attention forward and both backward kernels in float32 and
-     bfloat16 under every mask, at ragged lengths and at StarCoder2's
-     training shape;
+     bfloat16 under every mask, at ragged lengths (S=1000, S=4095), at
+     D=64 with 12 query heads a KV head, on q/k/v cut from one packed QKV
+     tensor and at StarCoder2's training shape, whose backward must also
+     be bit-identical when run twice;
   3. serve reduced StarCoder2 with the same float32 weights on the CPU
      (plain versions) and on the card (kernels): the token streams agree;
   4. serving main path: full-width, full-depth StarCoder2-3B with random
@@ -28,7 +30,9 @@ failure:
      exactly 2 x layers forward and 1 x layers backward flash-attention
      launches per step; one more step runs under torch.profiler;
   7. time each kernel, its plain version and the PyTorch library call that
-     computes the same function, beside the card's least time for the work;
+     computes the same function, beside the card's least time for the work
+     (the flash backward's delta, dK/dV, reduction and dQ passes also
+     apart, under torch.profiler);
   8. hold the SSD-scan forward and backward kernels against their plain
      versions in float32 and bfloat16 (y in x's type and in float32) at
      tests/test_kernels.py's sweep, N=128, one chunk, ragged sizes and
@@ -124,7 +128,7 @@ def build_kernels():
     dt = time.perf_counter() - t0
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C7512" in line:
                 print(f"ptxas {name}: {line.strip()}")
     print(f"build: {len(reports)} of {len(KERNELS)} sources compiled in {dt:.2f} s")
 
@@ -462,11 +466,17 @@ def summarize_profile(torch, prof, wall_ms, n_steps, label, groups):
 # ------------------------------------------------------------ flash attention
 
 
-def flash_inputs(torch, seed, b, sq, sk, hq, hkv, d, dtype):
+def flash_inputs(torch, seed, b, sq, sk, hq, hkv, d, dtype, packed=False):
+    """q, k, v, g; with ``packed`` q, k and v are non-contiguous views cut
+    from one (B, S, Hq + 2 Hkv, D) tensor, as a fused QKV projection gives."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(dtype)
+    if packed:
+        qkv = torch.randn((b, sq, hq + 2 * hkv, d), generator=gen, device="cuda").to(dtype)
+        q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+    else:
+        q = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(dtype)
     g = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(dtype)
     return q, k, v, g
 
@@ -488,13 +498,17 @@ def check_flash_attention(torch):
         ("non-causal Sk > Sq", 2, 64, 192, 2, 1, 128, dict(causal=False)),
         ("q_offset", 1, 100, 300, 24, 2, 128, dict(causal=True, q_offset=200)),
         ("S=1000 ragged", 1, 1000, 1000, 24, 2, 128, dict(causal=True)),
+        ("S=4095 ragged 128-row tile", 1, 4095, 4095, 24, 2, 128, dict(causal=True)),
+        ("D=64 rep 12", 1, 1024, 1024, 24, 2, 64, dict(causal=True)),
+        ("packed qkv views", 2, 1000, 1000, 24, 2, 128, dict(causal=True)),
         ("D=256", 1, 100, 100, 2, 1, 256, dict(causal=True)),
         ("StarCoder2 S=4096", 1, 4096, 4096, 24, 2, 128, dict(causal=True)),
     ]
     errs = {"fwd": 0.0, "bwd": 0.0}
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for seed, (label, b, sq, sk, hq, hkv, d, kw) in enumerate(cases):
-            q, k, v, g = flash_inputs(torch, seed, b, sq, sk, hq, hkv, d, dtype)
+            q, k, v, g = flash_inputs(torch, seed, b, sq, sk, hq, hkv, d, dtype,
+                                      packed=label.startswith("packed"))
             out, lse = flash_attention_fwd(q, k, v, **kw)
             ref_out, ref_lse = flash_attention_fwd_ref(q, k, v, **kw)
             grads = flash_attention_bwd(q, k, v, out, lse, g, **kw)
@@ -523,6 +537,16 @@ def check_flash_attention(torch):
                 raise AssertionError(f"flash_attention disagrees with its plain version "
                                      f"on {label} {dname}")
             del q, k, v, g, out, lse, ref_out, ref_lse, grads, ref_grads
+    # the backward has no atomics: the same inputs give the same bits
+    q, k, v, g = flash_inputs(torch, 77, 1, 4096, 4096, 24, 2, 128, torch.bfloat16)
+    out, lse = flash_attention_fwd(q, k, v)
+    first = flash_attention_bwd(q, k, v, out, lse, g)
+    second = flash_attention_bwd(q, k, v, out, lse, g)
+    same = all(torch.equal(x, y) for x, y in zip(first, second))
+    print(f"flash_attention StarCoder2 S=4096 bfloat16 backward run twice: dq, dk, dv "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("flash_attention backward is not deterministic")
     return errs
 
 
@@ -660,7 +684,8 @@ def train_full(torch, batch=1, seq=4096, timed=3):
         wall_ms = (time.perf_counter() - t1) * 1e3
     summarize_profile(torch, prof, wall_ms, 1, f"1 training step of B={batch} S={seq}",
                       {"flash fwd": "flash_fwd", "flash dK/dV": "flash_bwd_dkdv",
-                       "flash dQ": "flash_bwd_dq", "cuBLAS GEMM": "nvjet"})
+                       "flash dQ": "flash_bwd_dq", "flash delta": "flash_bwd_delta",
+                       "flash reduce": "flash_bwd_reduce", "cuBLAS GEMM": "nvjet"})
     del state, model, step, batches, watch, before, prof
     gc.collect()
     torch.cuda.empty_cache()
@@ -668,10 +693,33 @@ def train_full(torch, batch=1, seq=4096, timed=3):
             "tok_per_s": tokens / step_s, "mfu": mfu, "peak_gb": peak / 1e9}
 
 
+def kernel_ms_by_group(torch, fn, calls, groups):
+    """Device ms per call of the kernels whose names hold each substring of
+    ``groups`` (label -> substring), from torch.profiler over ``calls``
+    calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(groups, 0.0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for label, sub in groups.items():
+                if sub in e.name:
+                    out[label] += (e.time_range.end - e.time_range.start) / 1e3 / calls
+    return out
+
+
 def time_flash_attention(torch, b=1, s=4096, hq=24, hkv=2, d=128):
     """Forward and backward kernels, plain versions and SDPA at StarCoder2's
     training shape, bf16, causal.  Each call takes milliseconds, so CUDA
-    events around a few eager calls time the card, not the host."""
+    events around a few eager calls time the card, not the host.  The
+    backward's passes (delta, dK/dV, its reduction, dQ) are timed apart
+    under torch.profiler."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
@@ -684,6 +732,10 @@ def time_flash_attention(torch, b=1, s=4096, hq=24, hkv=2, d=128):
     fwd_ms = eager_ms(torch, lambda i: flash_attention_fwd(q, k, v), 1, iters=10, repeats=3)
     bwd_ms = eager_ms(torch, lambda i: flash_attention_bwd(q, k, v, out, lse, g), 1,
                       iters=4, repeats=3)
+    parts = kernel_ms_by_group(
+        torch, lambda: flash_attention_bwd(q, k, v, out, lse, g), 5,
+        {"delta": "flash_bwd_delta", "dkdv": "flash_bwd_dkdv", "reduce": "flash_bwd_reduce",
+         "dq": "flash_bwd_dq"})
     fwd_plain = eager_ms(torch, lambda i: flash_attention_fwd_ref(q, k, v), 1,
                          iters=3, repeats=3)
     bwd_plain = eager_ms(torch, lambda i: flash_attention_bwd_ref(q, k, v, out, lse, g), 1,
@@ -701,20 +753,30 @@ def time_flash_attention(torch, b=1, s=4096, hq=24, hkv=2, d=128):
     lib_both = eager_ms(torch, lambda i: sdpa_both(), 1, iters=10, repeats=3)
     lib_bwd = lib_both - lib_fwd
     pairs = b * hq * s * (s + 1) // 2
-    io = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)         # q, out; k, v (bf16)
-    lse_bytes = 4 * b * hq * s
+    qo = 2 * b * s * hq * d                    # bytes of one bf16 (B, S, Hq, D) tensor
+    kv = 2 * b * s * hkv * d                   # ... of one (B, S, Hkv, D) tensor
+    rows = 4 * b * hq * s                      # ... of one fp32 (B, Hq, S) tensor
+    part = 4 * b * s * hq * d                  # ... of one fp32 (B, Sk, Hq, D) partial
     res = {}
     for name, ms, plain, lib, flops, nbytes in (
-            ("fwd", fwd_ms, fwd_plain, lib_fwd, 4 * pairs * d, io + lse_bytes),
-            ("bwd", bwd_ms, bwd_plain, lib_bwd, 10 * pairs * d,
-             io + 2 * b * s * hq * d * 2 + 2 * b * s * hkv * d * 2 + lse_bytes)):
+            ("fwd", fwd_ms, fwd_plain, lib_fwd, 4 * pairs * d, 2 * qo + 2 * kv + rows),
+            ("bwd", bwd_ms, bwd_plain, lib_bwd, 10 * pairs * d, 4 * qo + 4 * kv + rows),
+            # the passes, each with the work it does (dK/dV and dQ recompute the scores)
+            ("bwd delta", parts["delta"], None, None, 2 * b * s * hq * d, 2 * qo + rows),
+            ("bwd dK/dV", parts["dkdv"], None, None, 8 * pairs * d,
+             2 * qo + 2 * kv + 2 * rows + 2 * part),
+            ("bwd reduce", parts["reduce"], None, None, 2 * b * s * hq * d,
+             2 * part + 2 * kv),
+            ("bwd dQ", parts["dq"], None, None, 6 * pairs * d, 3 * qo + 2 * kv + 2 * rows)):
         t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
         bound_ms = max(t_ops, t_bytes) * 1e3
         by = "operations" if t_ops >= t_bytes else "bytes"
+        tail = (f"plain {plain:.3f} ms, sdpa {lib:.3f} ms" if plain is not None else
+                f"sdpa's whole backward {lib_bwd:.3f} ms")
         print(f"time flash_attention {name}: B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 "
-              f"causal: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), bound "
-              f"{bound_ms:.3f} ms ({by}, {flops / 1e9:.1f} GFLOP), plain {plain:.3f} ms, "
-              f"sdpa {lib:.3f} ms")
+              f"causal: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{nbytes / ms / 1e6:.0f} GB/s), bound {bound_ms:.3f} ms ({by}, "
+              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), {tail}")
         res[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
                      "library_ms": lib}
     return res
@@ -1439,6 +1501,8 @@ def main() -> int:
         "max_abs_err": flash_errs["bwd"],
         "shape": "B=1 S=4096 Hq=24 Hkv=2 D=128 bf16 causal",
         **flash_times["bwd"],
+        "passes": {k: {"ms": v["ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"]}
+                   for k, v in flash_times.items() if k.startswith("bwd ")},
     }, {
         "name": "ssd_scan",
         "route": "cuda",

@@ -17,26 +17,30 @@
 // 50 MB of q/k/v/out, ~2000 flops per byte, far above the ~295 where the
 // tensor cores rather than device memory become the limit; the backward
 // does 2.5 times the forward's work.  What the design does about it:
-//   * bf16 with D <= 128 (the training path) runs every product on the
-//     tensor cores, mma.sync m16n8k16 bf16 -> fp32, with tiles in shared
-//     memory read by ldmatrix and the score fragments kept in registers
-//     and fed straight back as the next product's operand (FlashAttention-2
-//     style; see the tensor-core section below);
+//   * bf16 with D <= 128 (the training path) runs on Hopper's own units
+//     (see the Hopper section below): TMA loads into a 3-stage shared-memory
+//     ring fed by a producer warp, every product on wgmma in two consumer
+//     warpgroups that take turns; base-2 softmax; the element mask only on
+//     tiles that it cuts;
+//   * the dK/dV grid has a block per (64-key tile, query head), heaviest
+//     key tiles first (1536 blocks at the training shape instead of 128);
+//     its two warpgroups split the work, one summing dV and the other dK,
+//     so each holds one accumulator; each block writes fp32 partials that
+//     a second pass sums over the group's query heads in a fixed order: no
+//     atomics, deterministic; dQ has its own kernel, and delta =
+//     rowsum(dO * out) a pre-pass kernel;
+//   * the forward and dQ grids launch the last (under causal, heaviest) q
+//     tiles first;
 //   * float32, and bf16 with D > 128, run fp32 kernels on the CUDA cores:
 //     a thread owns a 4 x 4 (or 2 x 2) patch of every score tile and a
 //     4-row patch of every output tile, so each pass reads its operands as
 //     float4 from shared memory without bank conflicts;
 //   * tiles that the mask cannot reach are skipped at block level, with a
 //     rule at least as tight as the Pallas one (prefix-LM keeps the causal
-//     skip for keys past the prefix, the chunk rule compares chunk ranges);
-//   * the dK/dV kernel owns one KV tile and loops over the rep query heads
-//     of its group and the q tiles that see it, summing dK/dV over the
-//     group inside the block: no atomics, deterministic.  dQ has its own
-//     kernel, one block per q tile, looping over the KV tiles.
-// Loads are not yet overlapped with compute, and Hopper's wgmma and TMA are
-// not used: that is later work.  Nothing is allocated here; launches go on
-// the caller's stream.
+//     skip for keys past the prefix, the chunk rule compares chunk ranges).
+// Nothing is allocated here; launches go on the caller's stream.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -103,6 +107,20 @@ struct Mask {
     if (chunk && (klo / chunk > qhi / chunk || qlo / chunk > khi / chunk)) return false;
     return true;
   }
+
+  // Is every (query, key) pair of the tile valid, so that no element needs
+  // the mask?  Rows past Sq are not asked about: the forward drops them and
+  // the backward gives them p = 0.
+  __device__ __forceinline__ bool full(int q0, int nq, int k0, int nk) const {
+    if (k0 + nk > sk) return false;
+    const int qlo = q_offset + q0, qhi = qlo + nq - 1, khi = k0 + nk - 1;
+    if (causal && khi > qlo && khi >= prefix_len) return false;
+    if (window && qhi - k0 >= window) return false;
+    if (chunk && (k0 / chunk != khi / chunk || qlo / chunk != qhi / chunk ||
+                  qlo / chunk != k0 / chunk))
+      return false;
+    return true;
+  }
 };
 
 struct Tensor4 {          // a (B, S, H, D) tensor: base pointer and element strides
@@ -113,8 +131,10 @@ struct Tensor4 {          // a (B, S, H, D) tensor: base pointer and element str
 struct Args {
   Tensor4 q, k, v, o, g, dq, dk, dv;  // o: out (forward writes it); g: dO
   float* lse;                          // (B, Hq, Sq)
-  const float* delta;                  // (B, Hq, Sq): sum over D of dO * out
-  int hq, hkv, d;
+  float* delta;                        // (B, Hq, Sq): sum over D of dO * out
+  float* dk_part;                      // (B, Sk, Hq, D) fp32: dK of each query head
+  float* dv_part;                      // (B, Sk, Hq, D) fp32: dV of each query head
+  int batch, hq, hkv, d;
   float scale;
   Mask mask;
 };
@@ -464,394 +484,883 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
   store_rows<T, MI, NJ>(a.dq, b, h, q0, mk.sq, a.d, dq, one, ty, tx);
 }
 
-// ------------------------------------------------- bf16 tensor-core kernels
-// For bf16 inputs with D <= 128 (StarCoder2's training path) the three
-// kernels run their products on the tensor cores with mma.sync m16n8k16
-// (bf16 in, fp32 accumulate).  Tiles stay bf16 in shared memory (rows
-// padded by 16 bytes, so ldmatrix reads 8 rows without bank conflicts),
-// loaded with cp.async.  A warp owns 16 rows of its block's tile; scores,
-// probabilities and accumulators live in mma fragments in registers, and
-// the fp32 score fragment is repacked as the bf16 A operand of the next
-// product, as FlashAttention-2 does.  Softmax, masks and lse stay fp32.
+// ------------------------------------------------- bf16 Hopper kernels
+// For bf16 inputs with D <= 128 (StarCoder2's training path).  A block
+// runs 288 threads: warpgroups 0 and 1 compute, warp 8 is the producer
+// (one lane issues TMA loads into a 3-stage shared-memory ring, each stage
+// signalled by a "full" and an "empty" mbarrier).  Every product runs on
+// wgmma (m64nNk16, bf16 -> fp32), 64 rows a warpgroup.  With 288 threads a
+// thread may hold up to 224 registers, enough for the accumulators, so no
+// setmaxnreg is needed.  Tiles are loaded as boxes of 64 columns (128
+// bytes) with the 128-byte swizzle, the layout the wgmma shared-memory
+// descriptors read: a K-major operand (rows x D) for the score products,
+// the same tile as an MN-major operand (K = rows) for the products that sum
+// over rows.  Score fragments stay in registers and are repacked as the
+// bf16 A operand of the next product.  The two warpgroups take turns to
+// issue their score products (named barriers), so that one's products run
+// while the other does its elementwise work.  Softmax runs in base 2 with
+// scale * log2(e) folded into the scores; the element mask runs only on
+// tiles that it cuts, and tiles it empties are skipped.
 
-constexpr int kMmaThreads = 128;  // 4 warps
+constexpr int kWgThreads = 288;  // warpgroups 0 and 1 compute, warp 8 loads
+constexpr int kStages = 3;  // shared-memory ring depth of the streamed tiles
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf2 = kNegInf * kLog2e;  // a masked score in base 2
+
+struct Maps {  // TMA descriptors of q, k, v and dO (the forward leaves g unset)
+  CUtensorMap q, k, v, g;
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-// c += a (16 x 16, row) * b (16 x 8, col)
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 2^x by the special-function unit (2 ulp); -inf and -1e30 * log2(e) give 0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
 
-// Rows [row0, row0 + R) of one head into a shared (R, LDS) bf16 tile;
-// rows at or past `rows` and columns at or past d (up to DMAX) are zeros.
-template <int R, int DMAX, int LDS>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               long long s_stride, int row0, int rows, int d,
-                                               int nthreads) {
-  constexpr int VPR = DMAX / 8;  // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < R * VPR; idx += nthreads) {
-    const int r = idx / VPR, c = (idx - r * VPR) * 8;
-    const bool ok = row0 + r < rows && c < d;
-    cp_async16(dst + r * LDS + c, ok ? src + (row0 + r) * s_stride + c : src, ok);
+// mbarriers: a stage's "full" barrier completes when its loads have landed,
+// its "empty" barrier when every consumer warp has finished reading it.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// One arrival per warp, once all its lanes are done with what the barrier guards.
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// A wait that never ends (a wrong parity or byte count) traps after 2^28
+// polls, so that the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
   }
 }
 
-// The A fragments (16 x 16 at rows r0, columns 16 kk) of a row-major tile.
-__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const __nv_bfloat16* t, int lds,
-                                       int r0, int kk, int lane) {
-  ldsm_x4(a, t + (r0 + (lane & 15)) * lds + kk * 16 + (lane >> 4) * 8);
+// One TMA box (64 columns x rows of one head) into shared memory, dims
+// {D, H, S, B} innermost first; rows past S and columns past D read as 0.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint64_t* bar, int col,
+                                        int head, int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(head), "r"(row),
+      "r"(b)
+      : "memory");
 }
-// B fragments of two n-tiles (rows n0..n0+15 of a row-major tile read as
-// (k = column, n = row)), columns 16 kk: b[0..1] for n0, b[2..3] for n0 + 8.
-__device__ __forceinline__ void ldsm_b_rows(uint32_t (&b)[4], const __nv_bfloat16* t, int lds,
-                                            int n0, int kk, int lane) {
-  ldsm_x4(b, t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * lds + kk * 16 + ((lane >> 3) & 1) * 8);
-}
-// B fragments of two n-tiles (columns n0..n0+15) of a row-major tile read
-// as (k = row, n = column), rows 16 kk.. : b[0..1] for n0, b[2..3] for n0 + 8.
-__device__ __forceinline__ void ldsm_b_cols(uint32_t (&b)[4], const __nv_bfloat16* t, int lds,
-                                            int n0, int kk, int lane) {
-  ldsm_x4_t(b, t + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * lds + n0 + (lane >> 4) * 8);
-}
-// A fragment of k-step t from an fp32 accumulator of n-tiles 2t and 2t + 1.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
+// Rows [row, row + R) x DMAX columns: DMAX / 64 boxes, each a (R, 128 B) region.
+template <int R, int DMAX>
+__device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int row, int head, int b) {
+#pragma unroll
+  for (int r = 0; r < DMAX / 64; ++r) tma_box(dst + r * R * 128, map, bar, 64 * r, head, row, b);
 }
 
-// acc[j] (16 x 8 n-tiles, NT of them) = tile rows r0.. of X times rows of Y
-// over DMAX columns: X (rows, DMAX), Y (NT * 8 rows, DMAX), both row-major.
-template <int NT, int DMAX, int LDS>
-__device__ __forceinline__ void mma_rows(float (&acc)[NT][4], const __nv_bfloat16* X, int r0,
-                                         const __nv_bfloat16* Y, int lane) {
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N of this warpgroup's committed product groups are
+// still running (groups finish in order).
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accesses of registers that wgmma owns
+// across the asynchronous region.
+template <int R> __device__ __forceinline__ void reg_fence(float (&d)[R]) {
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (in 16-byte units), layout type 1 in bits 62-63.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+// K-major operand: rows row0.. of a tile of R rows, k step kk (16 columns):
+// region kk / 4, 32 bytes per step inside its 128-byte rows, 8-row groups
+// 1024 bytes apart.
+template <int R>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int row0, int kk) {
+  return sw128_desc(tile + (kk >> 2) * R * 128 + row0 * 128 + (kk & 3) * 32, 16, 1024);
+}
+// MN-major B operand (K = the tile's rows, N = its columns): k step kk is
+// rows 16 kk.. (two 8-row groups, 1024 bytes apart); column regions of 64
+// lie R * 128 bytes apart.
+template <int R> __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 2048, R * 128, 1024);
+}
+
+// wgmma m64nNk16 bf16 -> fp32.  The accumulator of a 64 x N tile holds
+// N / 2 floats a thread: d[4 j + 2 h + c] sits at row 16 warp + lane / 4 +
+// 8 h, column 8 j + 2 (lane % 4) + c (warp and lane within the warpgroup).
+// _ss reads A and B from shared memory (both K-major); _rs takes A from
+// registers (the mma.sync m16n8k16 A fragment of each warp's 16 rows) and
+// B MN-major, _rk A from registers and B K-major.  Each adds to d, or
+// overwrites it when `accumulate` is 0.
+template <int N> __device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate);
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int accumulate);
+template <int N>
+__device__ void wgmma_rk(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int accumulate);
+
+template <> __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+template <> __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+template <> __device__ __forceinline__ void wgmma_rk<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+template <> __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+template <> __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// acc (64 x N) = rows a_row0.. of an (RA, DMAX) tile times the N rows of an
+// (N, DMAX) tile, transposed: a sum over DMAX columns.
+template <int N, int DMAX, int RA>
+__device__ __forceinline__ void mma_ss(float (&acc)[N / 2], uint32_t a_tile, int a_row0,
+                                       uint32_t b_tile) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int kk = 0; kk < DMAX / 16; ++kk)
+    wgmma_ss<N>(acc, kmajor_desc<RA>(a_tile, a_row0, kk), kmajor_desc<N>(b_tile, 0, kk), kk > 0);
+}
+// acc (64 x DMAX) += P (64 x K as bf16 A fragments) times a (K, DMAX) tile.
+template <int K, int DMAX>
+__device__ __forceinline__ void mma_rs(float (&acc)[DMAX / 2], const uint32_t (&p)[K / 16][4],
+                                       uint32_t y_tile) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) wgmma_rs<DMAX>(acc, p[kk], mnmajor_desc<K>(y_tile, kk), 1);
+}
+// acc (64 x N) = A (64 x DMAX as bf16 A fragments) times the N rows of an
+// (N, DMAX) tile, transposed (K-major B).
+template <int N, int DMAX>
+__device__ __forceinline__ void mma_rk(float (&acc)[N / 2], const uint32_t (&a)[DMAX / 16][4],
+                                       uint32_t b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 16; ++kk)
+    wgmma_rk<N>(acc, a[kk], kmajor_desc<N>(b_tile, 0, kk), kk > 0);
+}
+// The bf16 A fragments of rows row0 + 16 (warp % 4) .. of an (R, DMAX)
+// tile in the swizzled layout TMA wrote, by ldmatrix: 16-byte chunk c of
+// row r sits at chunk c ^ (r % 8) of its 128-byte row.
+template <int R, int DMAX>
+__device__ __forceinline__ void load_afrags(uint32_t (&f)[DMAX / 16][4], uint32_t tile, int row0,
+                                            int warp4, int lane) {
+  const int row = row0 + warp4 * 16 + (lane & 15);
 #pragma unroll
   for (int kk = 0; kk < DMAX / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_a(a, X, LDS, r0, kk, lane);
+    const int c = 2 * kk + (lane >> 4);
+    const uint32_t addr = tile + (c >> 3) * R * 128 + row * 128 + (((c & 7) ^ (row & 7)) << 4);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(f[kk][0]), "=r"(f[kk][1]), "=r"(f[kk][2]), "=r"(f[kk][3])
+                 : "r"(addr));
+  }
+}
+// Keep the compiler from defining A-fragment registers between the wgmma
+// instructions that read them.
+template <int K> __device__ __forceinline__ void frag_fence(uint32_t (&a)[K][4]) {
 #pragma unroll
-    for (int jj = 0; jj < NT / 2; ++jj) {
-      uint32_t b[4];
-      ldsm_b_rows(b, Y, LDS, jj * 16, kk, lane);
-      mma16816(acc[2 * jj], a, b[0], b[1]);
-      mma16816(acc[2 * jj + 1], a, b[2], b[3]);
-    }
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+// The bf16 A fragments of k steps 16 kk.. of an fp32 accumulator (64 x 8 R/4).
+template <int R>
+__device__ __forceinline__ void to_frags(uint32_t (&a)[R / 8][4], const float (&s)[R]) {
+#pragma unroll
+  for (int kk = 0; kk < R / 8; ++kk) {
+    a[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
 }
 
-// out[n] (16 x DMAX as DMAX / 8 n-tiles) += P (16 x 8 NT, fp32 fragments)
-// times Y (8 NT rows, DMAX), Y row-major.
-template <int NT, int DMAX, int LDS>
-__device__ __forceinline__ void mma_acc(float (&out)[DMAX / 8][4], const float (&p)[NT][4],
-                                        const __nv_bfloat16* Y, int lane) {
-#pragma unroll
-  for (int t = 0; t < NT / 2; ++t) {
-    uint32_t a[4];
-    acc_to_a(a, p[2 * t], p[2 * t + 1]);
-#pragma unroll
-    for (int nn = 0; nn < DMAX / 16; ++nn) {
-      uint32_t b[4];
-      ldsm_b_cols(b, Y, LDS, nn * 16, t, lane);
-      mma16816(out[2 * nn], a, b[0], b[1]);
-      mma16816(out[2 * nn + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// Store a warp's 16 x DMAX fp32 fragments (rows row0 + gid, + 8) as bf16.
-template <int DMAX>
-__device__ __forceinline__ void store_frag_rows(const Tensor4& t, int b, int h, int row0,
-                                                int rows_valid, int d,
-                                                const float (&acc)[DMAX / 8][4], float s_lo,
-                                                float s_hi, int lane) {
-  __nv_bfloat16* base = static_cast<__nv_bfloat16*>(const_cast<void*>(t.p)) + b * t.sb + h * t.sh;
-  const int gid = lane >> 2, tig = lane & 3;
+// Store a 64 x DMAX accumulator of one warpgroup (rows row_lo and row_lo +
+// 8 of this thread, columns < d, rows < rows_valid) times s_lo / s_hi.
+template <int DMAX, typename T>
+__device__ __forceinline__ void store_acc(T* base, long long s_stride, int row_lo, int rows_valid,
+                                          int d, const float (&acc)[DMAX / 2], float s_lo,
+                                          float s_hi, int tig) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int row = row0 + gid + 8 * half;
+    const int row = row_lo + 8 * half;
     if (row >= rows_valid) continue;
     const float sc = half ? s_hi : s_lo;
 #pragma unroll
     for (int n = 0; n < DMAX / 8; ++n) {
       const int col = n * 8 + tig * 2;
-      if (col < d)
-        *reinterpret_cast<__nv_bfloat162*>(base + row * t.ss + col) =
-            __floats2bfloat162_rn(acc[n][2 * half] * sc, acc[n][2 * half + 1] * sc);
+      if (col >= d) continue;
+      const float x = acc[4 * n + 2 * half] * sc, y = acc[4 * n + 2 * half + 1] * sc;
+      if constexpr (sizeof(T) == 2)
+        *reinterpret_cast<__nv_bfloat162*>(base + row * s_stride + col) = __floats2bfloat162_rn(x, y);
+      else
+        *reinterpret_cast<float2*>(base + row * s_stride + col) = make_float2(x, y);
     }
   }
 }
 
-template <int DMAX> struct MmaTiles {
-  static constexpr int BQ = 64, BK = 64, BQB = 32;  // BQB: q rows per step of the dK/dV loop
-  static constexpr int LDS = DMAX + 8;
+// Shared memory of the three kernels: a resident tile (q, or k and v) and
+// kStages stages of the streamed tiles, then mbarriers, plus 1024 bytes to
+// align the base for the swizzle.
+template <int DMAX> struct FwdTile {    // 128 q rows (64 a warpgroup); k/v tiles of 128
+  static constexpr int BQ = 128, BK = 128, ST = kStages;
+  static constexpr int Q_BYTES = BQ * DMAX * 2, KV_BYTES = BK * DMAX * 2;
+  static constexpr int BARS = Q_BYTES + 2 * ST * KV_BYTES;
+  static constexpr int SMEM = BARS + 8 * (2 * ST + 1) + 1024;
+};
+template <int DMAX> struct DkdvTile {   // 64 keys; q/dO tiles of 64; p handed over in smem
+  static constexpr int BK = 64, BQ = 64, ST = kStages;
+  static constexpr int KV_BYTES = BK * DMAX * 2, Q_BYTES = BQ * DMAX * 2;
+  static constexpr int P_OFF = 2 * KV_BYTES + 2 * ST * Q_BYTES;  // fp32 p, fragment order
+  static constexpr int ROWS = P_OFF + BK * BQ * 4;                // lse, delta of each stage
+  static constexpr int BARS = ROWS + 2 * ST * BQ * 4;
+  static constexpr int SMEM = BARS + 8 * (2 * ST + 3) + 1024;
+};
+template <int DMAX> struct DqTile {     // 128 q rows (64 a warpgroup); k/v tiles of 64
+  static constexpr int BQ = 128, BK = 64, ST = kStages;
+  static constexpr int Q_BYTES = BQ * DMAX * 2, KV_BYTES = BK * DMAX * 2;
+  static constexpr int BARS = 2 * Q_BYTES + 2 * ST * KV_BYTES;
+  static constexpr int SMEM = BARS + 8 * (2 * ST + 1) + 1024;
 };
 
-// grid (ceil(Sq / 64), Hq, B)
+// The warp's index, broadcast from lane 0 so that the compiler knows it
+// is the same across the warp: values derived from it (the warpgroup and
+// the wgmma descriptors) then live in uniform registers.
+__device__ __forceinline__ int warp_index() { return __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0); }
+
+// Block index -> (tile, head, batch) with the tile slowest, so that all
+// heads' tiles of one kind are launched together; `reverse` launches the
+// last tile first (under the causal mask the last q tile is the heaviest).
+struct BlockPos {
+  int t, h, b;
+};
+__device__ __forceinline__ BlockPos block_pos(int hq, int batch, int ntiles, bool reverse) {
+  const int i = blockIdx.x, per = hq * batch;
+  const int t = i / per;
+  return BlockPos{reverse ? ntiles - 1 - t : t, i % hq, (i % per) / hq};
+}
+
+template <int ST>
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, uint64_t* once,
+                                          uint32_t full_count) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], full_count);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_init(once, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Named barriers 1 and 2 order the two consumer warpgroups' product
+// batches (ping-pong): a warpgroup issues its batch in its turn, then hands
+// the turn over, so that one warpgroup's products run while the other does
+// its elementwise work.  Warpgroup 1 gives warpgroup 0 the first turn.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
+// Before the loop warpgroup 1 passes the first turn; after it warpgroup 0
+// takes the turn that warpgroup 1 passed last, so both barriers end even.
+__device__ __forceinline__ void turns_begin(int wg) {
+  if (wg == 1) turn_pass(1);
+}
+__device__ __forceinline__ void turns_end(int wg) {
+  if (wg == 0) turn_wait(0);
+}
+
+// The first k tile at or after k0 that the mask leaves live for q rows
+// [q0, q0 + nq), or a value >= Sk.
+__device__ __forceinline__ int next_live(const Mask& mk, int q0, int nq, int k0, int nk) {
+  while (k0 < mk.sk && !mk.live(q0, nq, k0, nk)) k0 += nk;
+  return k0;
+}
+// The first q tile at or after q0 that sees keys [k0, k0 + nk).
+__device__ __forceinline__ int next_live_q(const Mask& mk, int q0, int nq, int k0, int nk) {
+  while (q0 < mk.sq && !mk.live(q0, nq, k0, nk)) q0 += nq;
+  return q0;
+}
+
+// One tile of the forward's online softmax in base 2: scores sc (this
+// thread's two rows r_lo, r_lo + 8) scaled, masked unless the tile is
+// full, turned into p in place; m, l updated, alpha the old sums' factor.
+template <int BK>
+__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], const Mask& mk, bool full_tile,
+                                               int r_lo, int k0, int tig, float sl2) {
+  float mx[2] = {kNegInf2, kNegInf2}, sum[2] = {0.f, 0.f};
+  if (full_tile) {
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      sc[e] *= sl2;
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const int qi = r_lo + ((e >> 1) & 1) * 8, kj = k0 + (e >> 2) * 8 + tig * 2 + (e & 1);
+      sc[e] = mk.ok(qi, kj) ? sc[e] * sl2 : kNegInf2;
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = fast_exp2(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) {
+    sc[e] = fast_exp2(sc[e] - m[(e >> 1) & 1]);
+    sum[(e >> 1) & 1] += sc[e];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];  // this thread's columns
+}
+
+// ------------------------------------------------------------ forward
+// 1-D grid of ceil(Sq / 128) x Hq x B blocks, last q tile first.
 template <int DMAX>
-__global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(const Args a) {
-  constexpr int BQ = MmaTiles<DMAX>::BQ, BK = MmaTiles<DMAX>::BK, LDS = MmaTiles<DMAX>::LDS;
-  constexpr int NT = BK / 8, NO = DMAX / 8;
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* Ks = Qs + BQ * LDS;
-  __nv_bfloat16* Vs = Ks + BK * LDS;
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
+  using TL = FwdTile<DMAX>;
+  constexpr int BQ = TL::BQ, BK = TL::BK;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* Qs = smem;
+  uint8_t* Ks = Qs + TL::Q_BYTES;                 // stage s at Ks + s * KV_BYTES
+  uint8_t* Vs = Ks + TL::ST * TL::KV_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + TL::BARS);
+  uint64_t* empty = full + TL::ST;
+  uint64_t* qbar = empty + TL::ST;
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z, g = h / (a.hq / a.hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
   const Mask& mk = a.mask;
-  using bf = __nv_bfloat16;
-  load_tile_bf16<BQ, DMAX, LDS>(Qs, static_cast<const bf*>(a.q.p) + b * a.q.sb + h * a.q.sh,
-                                a.q.ss, q0, mk.sq, a.d, kMmaThreads);
-  cp_async_wait_all();
-  const bf* kbase = static_cast<const bf*>(a.k.p) + b * a.k.sb + g * a.k.sh;
-  const bf* vbase = static_cast<const bf*>(a.v.p) + b * a.v.sb + g * a.v.sh;
-  const int r_lo = q0 + warp * 16 + gid, r_hi = r_lo + 8;
+  const BlockPos bp = block_pos(a.hq, a.batch, (mk.sq + BQ - 1) / BQ, true);
+  const int q0 = bp.t * BQ, h = bp.h, b = bp.b, g = h / (a.hq / a.hkv);
+  const int warp = warp_index(), lane = threadIdx.x & 31;
+  init_ring<TL::ST>(full, empty, qbar, 1);
 
-  float o[NO][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-
-  for (int k0 = 0; k0 < mk.sk; k0 += BK) {
-    if (!mk.live(q0, BQ, k0, BK)) continue;
-    __syncthreads();
-    load_tile_bf16<BK, DMAX, LDS>(Ks, kbase, a.k.ss, k0, mk.sk, a.d, kMmaThreads);
-    load_tile_bf16<BK, DMAX, LDS>(Vs, vbase, a.v.ss, k0, mk.sk, a.d, kMmaThreads);
-    cp_async_wait_all();
-    __syncthreads();
-    float s[NT][4];
-    mma_rows<NT, DMAX, LDS>(s, Qs, warp * 16, Ks, lane);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + tig * 2 + (e & 1);
-        const float v = mk.ok(e < 2 ? r_lo : r_hi, col) ? s[j][e] * a.scale : kNegInf;
-        s[j][e] = v;
-        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+  if (warp == 8) {  // producer
+    if (lane == 0) {
+      mbar_arrive_tx(qbar, TL::Q_BYTES);
+      tma_tile<BQ, DMAX>(Qs, &maps.q, qbar, q0, h, b);
+      int i = 0;
+      for (int k0 = 0; k0 < mk.sk; k0 += BK) {
+        if (!mk.live(q0, BQ, k0, BK)) continue;
+        const int s = i % TL::ST;
+        mbar_wait(&empty[s], ((i / TL::ST) & 1) ^ 1);
+        mbar_arrive_tx(&full[s], 2 * TL::KV_BYTES);
+        tma_tile<BK, DMAX>(Ks + s * TL::KV_BYTES, &maps.k, &full[s], k0, g, b);
+        tma_tile<BK, DMAX>(Vs + s * TL::KV_BYTES, &maps.v, &full[s], k0, g, b);
+        ++i;
       }
-    float alpha[2], sum[2] = {0.f, 0.f};
+    }
+  } else {  // consumers: warpgroup wg owns q rows q0 + 64 wg ..
+    const int wg = warp / 4, gid = lane >> 2, tig = lane & 3;
+    const int r_lo = q0 + wg * 64 + (warp & 3) * 16 + gid;
+    const float sl2 = a.scale * kLog2e;
+    const uint32_t qs = smem_addr(Qs), ks = smem_addr(Ks), vs = smem_addr(Vs);
+    float o[DMAX / 2], m[2] = {kNegInf2, kNegInf2}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      alpha[i] = expf(m[i] - m_new);
-      m[i] = m_new;
+    for (int n = 0; n < DMAX / 2; ++n) o[n] = 0.f;
+    mbar_wait(qbar, 0);
+    turns_begin(wg);
+    int i = 0;
+    for (int k0 = next_live(mk, q0, BQ, 0, BK); k0 < mk.sk;
+         k0 = next_live(mk, q0, BQ, k0 + BK, BK), ++i) {
+      const int s = i % TL::ST;
+      float sc[BK / 2], alpha[2];
+      uint32_t p[BK / 16][4];
+      mbar_wait(&full[s], (i / TL::ST) & 1);
+      turn_wait(wg);
+      wg_fence();
+      mma_ss<BK, DMAX, BQ>(sc, qs, wg * 64, ks + s * TL::KV_BYTES);  // S = q k^T
+      wg_commit();
+      turn_pass(wg);
+      wg_wait<0>();
+      reg_fence(sc);
+      online_softmax<BK>(sc, m, l, alpha, mk, mk.full(q0 + wg * 64, 64, k0, BK), r_lo, k0, tig, sl2);
+#pragma unroll
+      for (int e = 0; e < DMAX / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+      to_frags(p, sc);
+      frag_fence(p);
+      reg_fence(o);
+      wg_fence();
+      mma_rs<BK, DMAX>(o, p, vs + s * TL::KV_BYTES);  // O += P V
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(o);
+      release(&empty[s], lane);
+    }
+    turns_end(wg);
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const float lmax = fmaxf(l[r], 1e-30f);
+      inv[r] = 1.f / lmax;
+      const int row = r_lo + 8 * r;
+      // a row that no key reached keeps lse = -1e30 + log(l), as the plain version
+      if (tig == 0 && row < mk.sq)
+        a.lse[((long long)b * a.hq + h) * mk.sq + row] =
+            (m[r] == kNegInf2 ? kNegInf : m[r] * kLn2) + logf(lmax);
+    }
+    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(const_cast<void*>(a.o.p)) + b * a.o.sb + h * a.o.sh;
+    store_acc<DMAX>(ob, a.o.ss, r_lo, mk.sq, a.d, o, inv[0], inv[1], tig);
+  }
+}
+
+// The elementwise half of a dK/dV step, in place of the score tile sc
+// (keys key_lo, key_lo + 8 of this thread x BQ q columns): warpgroup 0
+// turns s^T into p = exp2(s^T scale log2(e) - lse log2(e)) (masked unless
+// the tile is full) and hands p to warpgroup 1 through pbuf; warpgroup 1
+// turns dp^T into ds = p (dp - delta) scale.  s is the ring stage, pparity
+// the handover's phase.
+template <int BQ>
+__device__ __forceinline__ void dkdv_scores(float (&sc)[BQ / 2], int wg, int s, uint32_t pparity,
+                                            int q0, int k0, int key_lo, int tw, int lane, int tig,
+                                            const Mask& mk, float sl2, float scale,
+                                            const float* lse_s, const float* del_s, float4* pbuf,
+                                            uint64_t* pfull, uint64_t* pempty) {
+  if (wg == 0) {
+    const bool full_tile = mk.full(q0, BQ, k0, 64);
+    const float* ls = lse_s + s * BQ;
+    if (full_tile) {  // two loops, so that a full tile runs no mask arithmetic at all
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) sc[e] *= sl2;
+    } else {
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e)
+        sc[e] = mk.ok(q0 + (e >> 2) * 8 + 2 * tig + (e & 1), key_lo + ((e >> 1) & 1) * 8)
+                    ? sc[e] * sl2
+                    : kNegInf2;
     }
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * tig);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        sum[e >> 1] += p;
+      for (int e = 0; e < 4; ++e) sc[4 * j + e] = fast_exp2(sc[4 * j + e] - ((e & 1) ? l2.y : l2.x));
+    }
+    mbar_wait(pempty, pparity ^ 1);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+      pbuf[j * 128 + tw] = make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3]);
+    release(pfull, lane);
+  } else {
+    const float* dl = del_s + s * BQ;
+    mbar_wait(pfull, pparity);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float4 p = pbuf[j * 128 + tw];
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * tig);
+      sc[4 * j + 0] = p.x * (sc[4 * j + 0] - d2.x) * scale;
+      sc[4 * j + 1] = p.y * (sc[4 * j + 1] - d2.y) * scale;
+      sc[4 * j + 2] = p.z * (sc[4 * j + 2] - d2.x) * scale;
+      sc[4 * j + 3] = p.w * (sc[4 * j + 3] - d2.y) * scale;
+    }
+    release(pempty, lane);
+  }
+}
+
+// ------------------------------------------------------------ backward dK/dV
+// 1-D grid of ceil(Sk / 64) x Hq x B blocks, first key tile first: one
+// block per (key tile, query head), so the grid holds Hq / Hkv times more
+// blocks than one per KV head.  Both consumer warpgroups own the block's 64
+// keys and hold one accumulator each: warpgroup 0 forms p = exp2(s^T - lse)
+// from s^T = k q^T and sums dV += p^T dO; warpgroup 1 forms dp^T = v dO^T,
+// takes p through shared memory, and sums dK += ds^T q.  k and v, fixed for
+// the block, sit in registers as the A operands of the score products.
+// The block writes its head's fp32 dK/dV to (B, Sk, Hq, D)
+// scratch; flash_bwd_reduce_kernel sums the group's heads.
+template <int DMAX>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
+  using TL = DkdvTile<DMAX>;
+  constexpr int BQ = TL::BQ, BK = TL::BK;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* Ks = smem;
+  uint8_t* Vs = Ks + TL::KV_BYTES;
+  uint8_t* Qs = Vs + TL::KV_BYTES;                // stage s at Qs + s * Q_BYTES
+  uint8_t* Gs = Qs + TL::ST * TL::Q_BYTES;
+  float4* pbuf = reinterpret_cast<float4*>(smem + TL::P_OFF);  // [BQ / 8][128]
+  float* lse_s = reinterpret_cast<float*>(smem + TL::ROWS);    // (ST, BQ): lse * log2(e)
+  float* del_s = lse_s + TL::ST * BQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + TL::BARS);
+  uint64_t* empty = full + TL::ST;
+  uint64_t* kvbar = empty + TL::ST;
+  uint64_t* pfull = kvbar + 1;   // p of the step is in pbuf
+  uint64_t* pempty = pfull + 1;  // warpgroup 1 has read it
+
+  const Mask& mk = a.mask;
+  const BlockPos bp = block_pos(a.hq, a.batch, (mk.sk + BK - 1) / BK, false);
+  const int k0 = bp.t * BK, h = bp.h, b = bp.b, g = h / (a.hq / a.hkv);
+  const int warp = warp_index(), lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(pfull, 4);
+    mbar_init(pempty, 4);
+  }
+  init_ring<TL::ST>(full, empty, kvbar, 32);  // a stage is full once the producer warp's 32 lanes arrived
+
+  if (warp == 8) {  // producer
+    {
+      if (lane == 0) {
+        mbar_arrive_tx(kvbar, 2 * TL::KV_BYTES);
+        tma_tile<BK, DMAX>(Ks, &maps.k, kvbar, k0, g, b);
+        tma_tile<BK, DMAX>(Vs, &maps.v, kvbar, k0, g, b);
       }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];  // this thread's columns
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
+      const long long rows = ((long long)b * a.hq + h) * mk.sq;
+      int i = 0;
+      for (int q0 = 0; q0 < mk.sq; q0 += BQ) {
+        if (!mk.live(q0, BQ, k0, BK)) continue;
+        const int s = i % TL::ST;
+        mbar_wait(&empty[s], ((i / TL::ST) & 1) ^ 1);
+        ++i;
+        if (lane == 0) {  // the tiles first, so that their latency covers the row loads
+          mbar_expect_tx(&full[s], 2 * TL::Q_BYTES);
+          tma_tile<BQ, DMAX>(Qs + s * TL::Q_BYTES, &maps.q, &full[s], q0, h, b);
+          tma_tile<BQ, DMAX>(Gs + s * TL::Q_BYTES, &maps.g, &full[s], q0, h, b);
+        }
+        for (int r = lane; r < BQ; r += 32) {  // rows past Sq: p = exp2(-inf) = 0
+          const bool in = q0 + r < mk.sq;
+          lse_s[s * BQ + r] = in ? a.lse[rows + q0 + r] * kLog2e : __int_as_float(0x7f800000);
+          del_s[s * BQ + r] = in ? a.delta[rows + q0 + r] : 0.f;
+        }
+        mbar_arrive(&full[s]);
+      }
     }
-    mma_acc<NT, DMAX, LDS>(o, s, Vs, lane);
-  }
-
-  float inv[2];
+  } else {  // consumers: both own keys k0 ..; wg 0 sums dV, wg 1 dK
+    const int wg = warp / 4, tw = threadIdx.x & 127, gid = lane >> 2, tig = lane & 3;
+    const int key_lo = k0 + (warp & 3) * 16 + gid;
+    const float sl2 = a.scale * kLog2e;
+    const uint32_t qs = smem_addr(Qs), gs = smem_addr(Gs);
+    float acc[DMAX / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const float lmax = fmaxf(l[i], 1e-30f);
-    inv[i] = 1.f / lmax;
-    const int row = i ? r_hi : r_lo;
-    if (tig == 0 && row < mk.sq)
-      a.lse[((long long)b * a.hq + h) * mk.sq + row] = m[i] + logf(lmax);
-  }
-  store_frag_rows<DMAX>(a.o, b, h, q0 + warp * 16, mk.sq, a.d, o, inv[0], inv[1], lane);
-}
-
-// p = exp(s * scale - lse) (masked s = -1e30; rows past Sq give 0) and
-// ds = p * (dp - delta) * scale for fragments whose element e sits at
-// (qi(e), kj(e)).  lse_s / del_s are indexed by qi - q0.
-template <int NT, typename QI, typename KJ>
-__device__ __forceinline__ void mma_bwd_scores(float (&s)[NT][4], float (&dp)[NT][4],
-                                               const float* lse_s, const float* del_s, int q0,
-                                               const Args& a, QI qi_of, KJ kj_of) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int qi = qi_of(j, e), kj = kj_of(j, e);
-      float p = 0.f;
-      if (qi < a.mask.sq)
-        p = expf((a.mask.ok(qi, kj) ? s[j][e] * a.scale : kNegInf) - lse_s[qi - q0]);
-      s[j][e] = p;
-      dp[j][e] = p * (dp[j][e] - del_s[qi - q0]) * a.scale;
+    for (int n = 0; n < DMAX / 2; ++n) acc[n] = 0.f;
+    mbar_wait(kvbar, 0);
+    // k (wg 0) or v (wg 1), the score product's A operand: held in registers
+    // at D = 128 (it halves the product's shared-memory reads); read from
+    // shared memory at D = 64, where the register form gave wrong sums on the card
+    const uint32_t score_a = smem_addr(wg == 0 ? Ks : Vs);
+    uint32_t af[DMAX / 16][4];
+    if constexpr (DMAX == 128) {
+      load_afrags<BK, DMAX>(af, score_a, 0, warp & 3, lane);
+      frag_fence(af);
     }
-}
-
-template <int BQ, int DMAX, int LDS>
-__device__ __forceinline__ void load_q_side_bf16(__nv_bfloat16* Qs, __nv_bfloat16* Gs,
-                                                 float* lse_s, float* del_s, const Args& a,
-                                                 int b, int h, int q0) {
-  using bf = __nv_bfloat16;
-  const int sq = a.mask.sq;
-  load_tile_bf16<BQ, DMAX, LDS>(Qs, static_cast<const bf*>(a.q.p) + b * a.q.sb + h * a.q.sh,
-                                a.q.ss, q0, sq, a.d, kMmaThreads);
-  load_tile_bf16<BQ, DMAX, LDS>(Gs, static_cast<const bf*>(a.g.p) + b * a.g.sb + h * a.g.sh,
-                                a.g.ss, q0, sq, a.d, kMmaThreads);
-  const long long row = ((long long)b * a.hq + h) * sq;
-  for (int r = threadIdx.x; r < BQ; r += kMmaThreads) {
-    const bool in = q0 + r < sq;
-    lse_s[r] = in ? a.lse[row + q0 + r] : 0.f;
-    del_s[r] = in ? a.delta[row + q0 + r] : 0.f;
+    // the score product reads q (wg 0) or dO (wg 1); the sum reads the other
+    const uint32_t score_b = wg == 0 ? qs : gs, sum_b = wg == 0 ? gs : qs;
+    turns_begin(wg);
+    int i = 0;
+    for (int q0 = next_live_q(mk, 0, BQ, k0, BK); q0 < mk.sq;
+         q0 = next_live_q(mk, q0 + BQ, BQ, k0, BK), ++i) {
+      const int s = i % TL::ST;
+      float sc[BQ / 2];  // wg 0: s^T then p; wg 1: dp^T then ds
+      uint32_t fr[BQ / 16][4];
+      mbar_wait(&full[s], (i / TL::ST) & 1);
+      turn_wait(wg);
+      wg_fence();
+      if constexpr (DMAX == 128)
+        mma_rk<BQ, DMAX>(sc, af, score_b + s * TL::Q_BYTES);
+      else
+        mma_ss<BQ, DMAX, BK>(sc, score_a, 0, score_b + s * TL::Q_BYTES);
+      wg_commit();
+      turn_pass(wg);
+      wg_wait<0>();
+      reg_fence(sc);
+      dkdv_scores<BQ>(sc, wg, s, i & 1, q0, k0, key_lo, tw, lane, tig, mk, sl2, a.scale, lse_s,
+                      del_s, pbuf, pfull, pempty);
+      to_frags(fr, sc);
+      frag_fence(fr);
+      reg_fence(acc);
+      wg_fence();
+      mma_rs<BQ, DMAX>(acc, fr, sum_b + s * TL::Q_BYTES);  // dV += p^T dO; dK += ds^T q
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(acc);
+      release(&empty[s], lane);
+    }
+    turns_end(wg);
+    const long long off = ((long long)b * mk.sk * a.hq + h) * a.d;
+    store_acc<DMAX>((wg == 0 ? a.dv_part : a.dk_part) + off, (long long)a.hq * a.d, key_lo, mk.sk,
+                    a.d, acc, 1.f, 1.f, tig);
   }
 }
 
-// grid (ceil(Sk / 64), Hkv, B): a warp owns 16 keys; q steps of 32 rows.
+// dS of one (q rows, key tile) pair of the dQ kernel, in place of dp:
+// p = exp2(s scale log2(e) - lse log2(e)) (masked unless the tile is full),
+// ds = p (dp - delta) scale; rows r_lo, r_lo + 8 of this thread.
+template <int BK>
+__device__ __forceinline__ void scores_to_ds(const float (&sc)[BK / 2], float (&dp)[BK / 2],
+                                             const Mask& mk, bool full_tile, int r_lo, int k0,
+                                             int tig, float sl2, const float (&lse2)[2],
+                                             const float (&del)[2], float scale) {
+  float x[BK / 2];
+  if (full_tile) {  // two loops, so that a full tile runs no mask arithmetic at all
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) x[e] = sc[e] * sl2;
+  } else {
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e)
+      x[e] = mk.ok(r_lo + 8 * ((e >> 1) & 1), k0 + (e >> 2) * 8 + tig * 2 + (e & 1)) ? sc[e] * sl2
+                                                                                  : kNegInf2;
+  }
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) {
+    const int r = (e >> 1) & 1;
+    dp[e] = fast_exp2(x[e] - lse2[r]) * (dp[e] - del[r]) * scale;
+  }
+}
+
+// ------------------------------------------------------------ backward dQ
+// 1-D grid of ceil(Sq / 128) x Hq x B blocks, last q tile first.
 template <int DMAX>
-__global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkdv_mma_kernel(const Args a) {
-  constexpr int BK = MmaTiles<DMAX>::BK, BQ = MmaTiles<DMAX>::BQB, LDS = MmaTiles<DMAX>::LDS;
-  constexpr int NT = BQ / 8, NO = DMAX / 8;
-  using bf = __nv_bfloat16;
-  extern __shared__ float4 smem4[];
-  bf* Ks = reinterpret_cast<bf*>(smem4);
-  bf* Vs = Ks + BK * LDS;
-  bf* Qs = Vs + BK * LDS;
-  bf* Gs = Qs + BQ * LDS;
-  float* lse_s = reinterpret_cast<float*>(Gs + BQ * LDS);
-  float* del_s = lse_s + BQ;
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
+  using TL = DqTile<DMAX>;
+  constexpr int BQ = TL::BQ, BK = TL::BK;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* Qs = smem;
+  uint8_t* Gs = Qs + TL::Q_BYTES;
+  uint8_t* Ks = Gs + TL::Q_BYTES;                 // stage s at Ks + s * KV_BYTES
+  uint8_t* Vs = Ks + TL::ST * TL::KV_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + TL::BARS);
+  uint64_t* empty = full + TL::ST;
+  uint64_t* qbar = empty + TL::ST;
 
-  const int k0 = blockIdx.x * BK, g = blockIdx.y, b = blockIdx.z, rep = a.hq / a.hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
   const Mask& mk = a.mask;
-  load_tile_bf16<BK, DMAX, LDS>(Ks, static_cast<const bf*>(a.k.p) + b * a.k.sb + g * a.k.sh,
-                                a.k.ss, k0, mk.sk, a.d, kMmaThreads);
-  load_tile_bf16<BK, DMAX, LDS>(Vs, static_cast<const bf*>(a.v.p) + b * a.v.sb + g * a.v.sh,
-                                a.v.ss, k0, mk.sk, a.d, kMmaThreads);
-  cp_async_wait_all();
-  const int key_lo = k0 + warp * 16 + gid;
+  const BlockPos bp = block_pos(a.hq, a.batch, (mk.sq + BQ - 1) / BQ, true);
+  const int q0 = bp.t * BQ, h = bp.h, b = bp.b, g = h / (a.hq / a.hkv);
+  const int warp = warp_index(), lane = threadIdx.x & 31;
+  init_ring<TL::ST>(full, empty, qbar, 1);
 
-  float dk[NO][4], dv[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  for (int r = 0; r < rep; ++r) {
-    const int h = g * rep + r;
-    for (int q0 = 0; q0 < mk.sq; q0 += BQ) {
-      if (!mk.live(q0, BQ, k0, BK)) continue;
-      __syncthreads();
-      load_q_side_bf16<BQ, DMAX, LDS>(Qs, Gs, lse_s, del_s, a, b, h, q0);
-      cp_async_wait_all();
-      __syncthreads();
-      float st[NT][4], dpt[NT][4];  // (keys, q): s^T and dp^T
-      mma_rows<NT, DMAX, LDS>(st, Ks, warp * 16, Qs, lane);
-      mma_rows<NT, DMAX, LDS>(dpt, Vs, warp * 16, Gs, lane);
-      mma_bwd_scores<NT>(
-          st, dpt, lse_s, del_s, q0, a,
-          [&](int j, int e) { return q0 + j * 8 + tig * 2 + (e & 1); },
-          [&](int j, int e) { return key_lo + (e >> 1) * 8; });
-      mma_acc<NT, DMAX, LDS>(dv, st, Gs, lane);   // dV += p^T dO
-      mma_acc<NT, DMAX, LDS>(dk, dpt, Qs, lane);  // dK += ds^T q
+  if (warp == 8) {  // producer
+    if (lane == 0) {
+      mbar_arrive_tx(qbar, 2 * TL::Q_BYTES);
+      tma_tile<BQ, DMAX>(Qs, &maps.q, qbar, q0, h, b);
+      tma_tile<BQ, DMAX>(Gs, &maps.g, qbar, q0, h, b);
+      int i = 0;
+      for (int k0 = 0; k0 < mk.sk; k0 += BK) {
+        if (!mk.live(q0, BQ, k0, BK)) continue;
+        const int s = i % TL::ST;
+        mbar_wait(&empty[s], ((i / TL::ST) & 1) ^ 1);
+        mbar_arrive_tx(&full[s], 2 * TL::KV_BYTES);
+        tma_tile<BK, DMAX>(Ks + s * TL::KV_BYTES, &maps.k, &full[s], k0, g, b);
+        tma_tile<BK, DMAX>(Vs + s * TL::KV_BYTES, &maps.v, &full[s], k0, g, b);
+        ++i;
+      }
     }
+  } else {  // consumers: warpgroup wg owns q rows q0 + 64 wg ..
+    const int wg = warp / 4, gid = lane >> 2, tig = lane & 3;
+    const int r_lo = q0 + wg * 64 + (warp & 3) * 16 + gid;
+    const float sl2 = a.scale * kLog2e;
+    const uint32_t qs = smem_addr(Qs), gs = smem_addr(Gs), ks = smem_addr(Ks), vs = smem_addr(Vs);
+    float lse2[2], del[2];
+    const long long rows = ((long long)b * a.hq + h) * mk.sq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // rows past Sq: p = exp2(-inf) = 0
+      const int row = r_lo + 8 * r;
+      lse2[r] = row < mk.sq ? a.lse[rows + row] * kLog2e : __int_as_float(0x7f800000);
+      del[r] = row < mk.sq ? a.delta[rows + row] : 0.f;
+    }
+    float dq[DMAX / 2];
+#pragma unroll
+    for (int n = 0; n < DMAX / 2; ++n) dq[n] = 0.f;
+    mbar_wait(qbar, 0);
+    turns_begin(wg);
+    int i = 0;
+    for (int k0 = next_live(mk, q0, BQ, 0, BK); k0 < mk.sk;
+         k0 = next_live(mk, q0, BQ, k0 + BK, BK), ++i) {
+      const int s = i % TL::ST;
+      const uint32_t ks_s = ks + s * TL::KV_BYTES;
+      float sc[BK / 2], dp[BK / 2];
+      uint32_t df[BK / 16][4];
+      mbar_wait(&full[s], (i / TL::ST) & 1);
+      turn_wait(wg);
+      wg_fence();
+      mma_ss<BK, DMAX, BQ>(sc, qs, wg * 64, ks_s);                   // S = q k^T
+      mma_ss<BK, DMAX, BQ>(dp, gs, wg * 64, vs + s * TL::KV_BYTES);  // dP = dO v^T
+      wg_commit();
+      turn_pass(wg);
+      wg_wait<0>();
+      reg_fence(sc);
+      reg_fence(dp);
+      scores_to_ds<BK>(sc, dp, mk, mk.full(q0 + wg * 64, 64, k0, BK), r_lo, k0, tig, sl2, lse2, del,
+                       a.scale);
+      to_frags(df, dp);
+      frag_fence(df);
+      reg_fence(dq);
+      wg_fence();
+      mma_rs<BK, DMAX>(dq, df, ks_s);  // dQ += ds k
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(dq);
+      release(&empty[s], lane);
+    }
+    turns_end(wg);
+    __nv_bfloat16* qb = static_cast<__nv_bfloat16*>(const_cast<void*>(a.dq.p)) + b * a.dq.sb + h * a.dq.sh;
+    store_acc<DMAX>(qb, a.dq.ss, r_lo, mk.sq, a.d, dq, 1.f, 1.f, tig);
   }
-  store_frag_rows<DMAX>(a.dk, b, g, k0 + warp * 16, mk.sk, a.d, dk, 1.f, 1.f, lane);
-  store_frag_rows<DMAX>(a.dv, b, g, k0 + warp * 16, mk.sk, a.d, dv, 1.f, 1.f, lane);
 }
 
-// grid (ceil(Sq / 64), Hq, B): a warp owns 16 q rows.
-template <int DMAX>
-__global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma_kernel(const Args a) {
-  constexpr int BQ = MmaTiles<DMAX>::BQ, BK = MmaTiles<DMAX>::BK, LDS = MmaTiles<DMAX>::LDS;
-  constexpr int NT = BK / 8, NO = DMAX / 8;
-  using bf = __nv_bfloat16;
-  extern __shared__ float4 smem4[];
-  bf* Qs = reinterpret_cast<bf*>(smem4);
-  bf* Gs = Qs + BQ * LDS;
-  bf* Ks = Gs + BQ * LDS;
-  bf* Vs = Ks + BK * LDS;
-  float* lse_s = reinterpret_cast<float*>(Vs + BK * LDS);
-  float* del_s = lse_s + BQ;
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z, g = h / (a.hq / a.hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  const Mask& mk = a.mask;
-  load_q_side_bf16<BQ, DMAX, LDS>(Qs, Gs, lse_s, del_s, a, b, h, q0);
-  cp_async_wait_all();
-  const bf* kbase = static_cast<const bf*>(a.k.p) + b * a.k.sb + g * a.k.sh;
-  const bf* vbase = static_cast<const bf*>(a.v.p) + b * a.v.sb + g * a.v.sh;
-  const int r_lo = q0 + warp * 16 + gid;
-
-  float dq[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-
-  for (int k0 = 0; k0 < mk.sk; k0 += BK) {
-    if (!mk.live(q0, BQ, k0, BK)) continue;
-    __syncthreads();
-    load_tile_bf16<BK, DMAX, LDS>(Ks, kbase, a.k.ss, k0, mk.sk, a.d, kMmaThreads);
-    load_tile_bf16<BK, DMAX, LDS>(Vs, vbase, a.v.ss, k0, mk.sk, a.d, kMmaThreads);
-    cp_async_wait_all();
-    __syncthreads();
-    float s[NT][4], dp[NT][4];
-    mma_rows<NT, DMAX, LDS>(s, Qs, warp * 16, Ks, lane);
-    mma_rows<NT, DMAX, LDS>(dp, Gs, warp * 16, Vs, lane);
-    mma_bwd_scores<NT>(
-        s, dp, lse_s, del_s, q0, a, [&](int j, int e) { return r_lo + (e >> 1) * 8; },
-        [&](int j, int e) { return k0 + j * 8 + tig * 2 + (e & 1); });
-    mma_acc<NT, DMAX, LDS>(dq, dp, Ks, lane);  // dQ += ds k
+// ------------------------------------------------- backward pre- and post-pass
+// delta (B, Hq, Sq) = sum over D of dO * out, fp32 sums of T inputs: a warp
+// per row, rows in delta's order.
+template <typename T>
+__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(const Args a) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31, sq = a.mask.sq;
+  if (row >= (long long)a.batch * a.hq * sq) return;
+  const int i = static_cast<int>(row % sq), h = static_cast<int>((row / sq) % a.hq);
+  const int b = static_cast<int>(row / ((long long)sq * a.hq));
+  const T* g = static_cast<const T*>(a.g.p) + b * a.g.sb + i * a.g.ss + h * a.g.sh;
+  const T* o = static_cast<const T*>(a.o.p) + b * a.o.sb + i * a.o.ss + h * a.o.sh;
+  float acc = 0.f;
+  for (int c = lane * 4; c < a.d; c += 128) {
+    const float4 x = V4<T>::load(g + c), y = V4<T>::load(o + c);
+    acc += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
   }
-  store_frag_rows<DMAX>(a.dq, b, h, q0 + warp * 16, mk.sq, a.d, dq, 1.f, 1.f, lane);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) a.delta[row] = acc;
+}
+
+// dK, dV (B, Sk, Hkv, D) = the sums over each group's rep query heads of
+// the fp32 partials (B, Sk, Hq, D), in head order, cast to bf16.  A
+// thread per 4 columns of one (b, key, KV head) row.
+__global__ void __launch_bounds__(256) flash_bwd_reduce_kernel(const Args a) {
+  const int vpr = a.d / 4, rep = a.hq / a.hkv, sk = a.mask.sk;
+  const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= (long long)a.batch * sk * a.hkv * vpr) return;
+  const int c = static_cast<int>(idx % vpr) * 4;
+  const long long r = idx / vpr;
+  const int g = static_cast<int>(r % a.hkv), s = static_cast<int>((r / a.hkv) % sk);
+  const int b = static_cast<int>(r / ((long long)a.hkv * sk));
+  const long long off = (((long long)b * sk + s) * a.hq + g * rep) * a.d + c;
+  float4 k4 = make_float4(0.f, 0.f, 0.f, 0.f), v4 = k4;
+  for (int j = 0; j < rep; ++j) {
+    const float4 x = V4<float>::load(a.dk_part + off + j * a.d);
+    const float4 y = V4<float>::load(a.dv_part + off + j * a.d);
+    k4.x += x.x; k4.y += x.y; k4.z += x.z; k4.w += x.w;
+    v4.x += y.x; v4.y += y.y; v4.z += y.z; v4.w += y.w;
+  }
+  using bf = __nv_bfloat16;
+  V4<bf>::store(static_cast<bf*>(const_cast<void*>(a.dk.p)) + b * a.dk.sb + s * a.dk.ss + g * a.dk.sh + c, k4);
+  V4<bf>::store(static_cast<bf*>(const_cast<void*>(a.dv.p)) + b * a.dv.sb + s * a.dv.ss + g * a.dv.sh + c, v4);
 }
 
 // ------------------------------------------------------------------- host
 
-enum Kind { kFwd = 0, kDkdv = 1, kDq = 2 };
+enum Kind { kFwd = 0, kDkdv = 1, kDq = 2, kDelta = 3 };
 
-// The tensor-core kernels take bf16 with D <= 128; f32 and larger heads
-// take the fp32 CUDA-core kernels.
-bool use_mma(int bf16, int d) { return bf16 && d <= 128; }
+// The Hopper kernels take bf16 with D <= 128; f32 and larger heads take the
+// fp32 CUDA-core kernels.
+bool use_wgmma(int bf16, int d) { return bf16 && d <= 128; }
 
 int dmax_of(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
 
@@ -862,15 +1371,15 @@ template <int DMAX> int smem_bytes(int kind) {
   return 4 * ((2 * BQ + 2 * BK) * LD + BQ * (BK + 4) + 2 * BQ);
 }
 
-template <int DMAX> int smem_bytes_mma(int kind) {
-  using M = MmaTiles<DMAX>;
-  if (kind == kFwd) return 2 * (M::BQ + 2 * M::BK) * M::LDS;
-  if (kind == kDkdv) return 2 * (2 * M::BK + 2 * M::BQB) * M::LDS + 8 * M::BQB;
-  return 2 * (2 * M::BQ + 2 * M::BK) * M::LDS + 8 * M::BQ;
+template <int DMAX> int smem_bytes_wgmma(int kind) {
+  if (kind == kFwd) return FwdTile<DMAX>::SMEM;
+  if (kind == kDkdv) return DkdvTile<DMAX>::SMEM;
+  return DqTile<DMAX>::SMEM;
 }
 
 int smem_for(int kind, int d, int bf16) {
-  if (use_mma(bf16, d)) return d <= 64 ? smem_bytes_mma<64>(kind) : smem_bytes_mma<128>(kind);
+  if (kind == kDelta) return 0;
+  if (use_wgmma(bf16, d)) return d <= 64 ? smem_bytes_wgmma<64>(kind) : smem_bytes_wgmma<128>(kind);
   switch (dmax_of(d)) {
     case 64: return smem_bytes<64>(kind);
     case 128: return smem_bytes<128>(kind);
@@ -887,59 +1396,154 @@ int launch_one(K kernel, dim3 grid, int threads, int smem, const Args& a, cudaSt
 }
 
 template <typename T, int DMAX>
-int launch(int kind, const Args& a, int batch, cudaStream_t st) {
+int launch(int kind, const Args& a, cudaStream_t st) {
   constexpr int BQ = Tiles<DMAX>::BQ, BK = Tiles<DMAX>::BK;
   const int smem = smem_bytes<DMAX>(kind);
   const int nq = (a.mask.sq + BQ - 1) / BQ, nk = (a.mask.sk + BK - 1) / BK;
   if (kind == kFwd)
-    return launch_one(flash_fwd_kernel<T, DMAX>, dim3(nq, a.hq, batch), kThreads, smem, a, st);
+    return launch_one(flash_fwd_kernel<T, DMAX>, dim3(nq, a.hq, a.batch), kThreads, smem, a, st);
   if (kind == kDkdv)
-    return launch_one(flash_bwd_dkdv_kernel<T, DMAX>, dim3(nk, a.hkv, batch), kThreads, smem, a,
+    return launch_one(flash_bwd_dkdv_kernel<T, DMAX>, dim3(nk, a.hkv, a.batch), kThreads, smem, a,
                       st);
-  return launch_one(flash_bwd_dq_kernel<T, DMAX>, dim3(nq, a.hq, batch), kThreads, smem, a, st);
+  return launch_one(flash_bwd_dq_kernel<T, DMAX>, dim3(nq, a.hq, a.batch), kThreads, smem, a, st);
+}
+
+int launch_f32(int kind, const Args& a, cudaStream_t st) {
+  switch (dmax_of(a.d)) {
+    case 64: return launch<float, 64>(kind, a, st);
+    case 128: return launch<float, 128>(kind, a, st);
+    default: return launch<float, 256>(kind, a, st);
+  }
+}
+
+// Errors of the host side of the Hopper path, above CUDA's own codes.
+constexpr int kErrNoEncoder = 1001;   // libcuda has no cuTensorMapEncodeTiled
+constexpr int kErrEncode = 1002;      // cuTensorMapEncodeTiled refused a tensor map
+constexpr int kErrPlan = 1003;        // a map's box does not match the kernel's tile
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's tensor-map encoder, fetched through the runtime so that the
+// library links cudart only.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                : nullptr;
+  }();
+  return fn;
+}
+
+// One bf16 tensor map from its plan (kMapSpec values, see
+// flash_attention_launch): dims {D, H, S, B}, byte strides of H, S and B,
+// box {64, 1, rows, 1}; 128-byte swizzle, zeros past the edges.
+constexpr int kMapSpec = 11;
+int encode(CUtensorMap* map, const void* ptr, const long long* spec, int rows) {
+  if (spec[7] != 64 || spec[8] != 1 || spec[9] != rows || spec[10] != 1) return kErrPlan;
+  const EncodeTiled fn = encoder();
+  if (!fn) return kErrNoEncoder;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4], unit[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    dims[i] = static_cast<cuuint64_t>(spec[i]);
+    box[i] = static_cast<cuuint32_t>(spec[7 + i]);
+  }
+  for (int i = 0; i < 3; ++i) strides[i] = static_cast<cuuint64_t>(spec[4 + i]);
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+template <typename K>
+int launch_tma(K kernel, int blocks, int smem, const Maps& maps, const Args& a, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, kWgThreads, smem, st>>>(maps, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q, k, v (and dO for the backward) tensor maps, q-side boxes of q_rows
+// and k-side boxes of k_rows.
+int encode_maps(Maps* m, const Args& a, const long long* specs, int q_rows, int k_rows, bool g) {
+  int err = encode(&m->q, a.q.p, specs, q_rows);
+  if (!err) err = encode(&m->k, a.k.p, specs + kMapSpec, k_rows);
+  if (!err) err = encode(&m->v, a.v.p, specs + 2 * kMapSpec, k_rows);
+  if (!err && g) err = encode(&m->g, a.g.p, specs + 3 * kMapSpec, q_rows);
+  return err;
 }
 
 template <int DMAX>
-int launch_mma(int kind, const Args& a, int batch, cudaStream_t st) {
-  using M = MmaTiles<DMAX>;
-  const int smem = smem_bytes_mma<DMAX>(kind);
-  const int nq = (a.mask.sq + M::BQ - 1) / M::BQ, nk = (a.mask.sk + M::BK - 1) / M::BK;
-  if (kind == kFwd)
-    return launch_one(flash_fwd_mma_kernel<DMAX>, dim3(nq, a.hq, batch), kMmaThreads, smem, a, st);
-  if (kind == kDkdv)
-    return launch_one(flash_bwd_dkdv_mma_kernel<DMAX>, dim3(nk, a.hkv, batch), kMmaThreads, smem,
-                      a, st);
-  return launch_one(flash_bwd_dq_mma_kernel<DMAX>, dim3(nq, a.hq, batch), kMmaThreads, smem, a,
-                    st);
+int launch_wgmma(int kind, const Args& a, const long long* specs, cudaStream_t st) {
+  if (!specs) return kErrPlan;
+  Maps maps;
+  const int heads = a.hq * a.batch;
+  if (kind == kFwd) {
+    using TL = FwdTile<DMAX>;
+    int err = encode_maps(&maps, a, specs, TL::BQ, TL::BK, false);
+    if (err) return err;
+    return launch_tma(flash_fwd_wgmma_kernel<DMAX>, heads * ((a.mask.sq + TL::BQ - 1) / TL::BQ),
+                      TL::SMEM, maps, a, st);
+  }
+  if (kind == kDkdv) {
+    using TL = DkdvTile<DMAX>;
+    const auto kernel = flash_bwd_dkdv_wgmma_kernel<DMAX>;
+    int err = encode_maps(&maps, a, specs, TL::BQ, TL::BK, true);
+    if (err) return err;
+    err = launch_tma(kernel, heads * ((a.mask.sk + TL::BK - 1) / TL::BK), TL::SMEM, maps, a, st);
+    if (err) return err;
+    const long long n = (long long)a.batch * a.mask.sk * a.hkv * (a.d / 4);
+    flash_bwd_reduce_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  using TL = DqTile<DMAX>;
+  int err = encode_maps(&maps, a, specs, TL::BQ, TL::BK, true);
+  if (err) return err;
+  return launch_tma(flash_bwd_dq_wgmma_kernel<DMAX>, heads * ((a.mask.sq + TL::BQ - 1) / TL::BQ),
+                    TL::SMEM, maps, a, st);
 }
 
-int launch_f32(int kind, const Args& a, int batch, cudaStream_t st) {
-  switch (dmax_of(a.d)) {
-    case 64: return launch<float, 64>(kind, a, batch, st);
-    case 128: return launch<float, 128>(kind, a, batch, st);
-    default: return launch<float, 256>(kind, a, batch, st);
-  }
+template <typename T> int launch_delta(const Args& a, cudaStream_t st) {
+  const long long rows = (long long)a.batch * a.hq * a.mask.sq;
+  flash_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 Tensor4 tensor4(const void* p, const long long* st) { return Tensor4{p, st[0], st[1], st[2]}; }
 
 }  // namespace
 
-// Shared memory of one block of kernel `kind` (0 forward, 1 dK/dV, 2 dQ)
-// at head dim d, for bf16 (1) or f32 (0) inputs.
+// Shared memory of one block of kernel `kind` (0 forward, 1 dK/dV, 2 dQ,
+// 3 delta) at head dim d, for bf16 (1) or f32 (0) inputs.
 extern "C" int flash_attention_smem_bytes(int kind, int d, int bf16) {
   return smem_for(kind, d, bf16);
 }
 
-// ptrs: q, k, v, out, g, dq, dk, dv, lse, delta (unused ones may be null);
-// strides: (batch, seq, head) in elements for the first eight, 24 values;
-// shape: B, Hq, Hkv, Sq, Sk, D; mask: causal, window, chunk, prefix_len,
-// q_offset.  kind 0 launches the forward (writes out and lse), kind 1 the
-// dK/dV kernel and kind 2 the dQ kernel (both read lse and delta).
-// Returns the CUDA error code of the launch (0 on success).
+// ptrs: q, k, v, out, g, dq, dk, dv, lse, delta, dk_part, dv_part (unused
+// ones may be null); strides: (batch, seq, head) in elements for the first
+// eight, 24 values; shape: B, Hq, Hkv, Sq, Sk, D; mask: causal, window,
+// chunk, prefix_len, q_offset; maps: for bf16 with D <= 128, the tensor-map
+// plans of q, k, v and g, 11 values each (dims D, H, S, B; byte strides of
+// H, S, B; box 64, 1, rows, 1), else null.  kind 0 launches the forward
+// (writes out and lse); kind 3 the delta pre-pass (reads g and out, writes
+// delta); kind 1 the dK/dV kernel (on the bf16 path into dk_part/dv_part,
+// fp32 (B, Sk, Hq, D), then the reduction into dk/dv) and kind 2 the dQ
+// kernel (both read lse and delta).  Returns the CUDA error code of the
+// launch (0 on success), or 1001-1003 when a tensor map cannot be made.
 extern "C" int flash_attention_launch(int kind, void* const* ptrs, const long long* strides,
                                       const int* shape, const int* mask, int bf16, float scale,
-                                      void* stream) {
+                                      const long long* maps, void* stream) {
   Args a;
   a.q = tensor4(ptrs[0], strides + 0);
   a.k = tensor4(ptrs[1], strides + 3);
@@ -950,15 +1554,19 @@ extern "C" int flash_attention_launch(int kind, void* const* ptrs, const long lo
   a.dk = tensor4(ptrs[6], strides + 18);
   a.dv = tensor4(ptrs[7], strides + 21);
   a.lse = static_cast<float*>(ptrs[8]);
-  a.delta = static_cast<const float*>(ptrs[9]);
+  a.delta = static_cast<float*>(ptrs[9]);
+  a.dk_part = static_cast<float*>(ptrs[10]);
+  a.dv_part = static_cast<float*>(ptrs[11]);
+  a.batch = shape[0];
   a.hq = shape[1];
   a.hkv = shape[2];
   a.d = shape[5];
   a.scale = scale;
   a.mask = Mask{shape[3], shape[4], mask[0], mask[1], mask[2], mask[3], mask[4]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (use_mma(bf16, a.d))
-    return a.d <= 64 ? launch_mma<64>(kind, a, shape[0], st) : launch_mma<128>(kind, a, shape[0], st);
-  if (bf16) return launch<__nv_bfloat16, 256>(kind, a, shape[0], st);  // 128 < D <= 256
-  return launch_f32(kind, a, shape[0], st);
+  if (kind == kDelta) return bf16 ? launch_delta<__nv_bfloat16>(a, st) : launch_delta<float>(a, st);
+  if (use_wgmma(bf16, a.d))
+    return a.d <= 64 ? launch_wgmma<64>(kind, a, maps, st) : launch_wgmma<128>(kind, a, maps, st);
+  if (bf16) return launch<__nv_bfloat16, 256>(kind, a, st);  // 128 < D <= 256
+  return launch_f32(kind, a, st);
 }

@@ -10,8 +10,13 @@ each runs its plain version (:mod:`.ref`); on CUDA tensors it launches the
 kernels, or raises when they do not take the inputs.  Tensors keep the JAX
 layout (B, S, H, D); the kernels read their strides, so no transposed copy
 is made.  ``flash_attention.launches`` counts forward launches and
-``flash_attention_bwd.launches`` backward calls (each launches the dK/dV
-and the dQ kernel).
+``flash_attention_bwd.launches`` backward calls (each launches the delta
+pre-pass, the dK/dV kernel with its reduction, and the dQ kernel).
+
+For bfloat16 with D <= 128 the kernels load their tiles with TMA; the
+host-side plan of those loads (:func:`tensor_map_spec`,
+:func:`tensor_maps`) and of the fp32 dK/dV scratch
+(:func:`dkv_partial_shape`) is plain Python, so the CPU tests reach it.
 """
 
 from __future__ import annotations
@@ -28,7 +33,15 @@ from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref
 
 SMEM_LIMIT = 232448          # bytes of shared memory a block may use on Hopper
 _DTYPES = (torch.float32, torch.bfloat16)
-FWD, DKDV, DQ = 0, 1, 2      # kernel kinds of the C entry point
+FWD, DKDV, DQ, DELTA = 0, 1, 2, 3    # kernel kinds of the C entry point
+# Rows of one tile load (query side, key side) of each Hopper kernel; the
+# C side refuses a tensor map whose box differs from its tile.
+TILE_ROWS = {FWD: (128, 128), DKDV: (64, 64), DQ: (128, 64)}
+TMA_BOX_COLS = 64            # 128 bytes of bf16: the 128-byte swizzle's row
+MAP_SPEC_LEN = 11            # values of one tensor-map plan
+_TMA_ERRORS = {1001: "libcuda has no cuTensorMapEncodeTiled",
+               1002: "cuTensorMapEncodeTiled refused a tensor map",
+               1003: "a tensor map's box does not match the kernel's tile"}
 
 
 def _lib() -> ctypes.CDLL:
@@ -36,7 +49,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.flash_attention_smem_bytes.restype = ctypes.c_int
@@ -49,6 +63,39 @@ def smem_bytes(kind: int, d: int, bf16: bool) -> int:
     return _lib().flash_attention_smem_bytes(kind, d, int(bf16))
 
 
+def uses_tensor_maps(dtype: torch.dtype, d: int) -> bool:
+    """True where the Hopper kernels (TMA, wgmma) run: bf16 with D <= 128;
+    float32 and larger heads take the fp32 CUDA-core kernels."""
+    return dtype == torch.bfloat16 and d <= 128
+
+
+def tensor_map_spec(shape, stride, elem_size: int, rows: int) -> list:
+    """The plan of one TMA tensor map over a (B, S, H, D) tensor with element
+    ``stride``: dims innermost first {D, H, S, B}, the byte strides of H, S
+    and B, and a box of 64 columns x 1 head x ``rows`` rows x 1 batch."""
+    b, s, h, d = shape
+    sb, ss, sh, _ = stride
+    return [d, h, s, b, sh * elem_size, ss * elem_size, sb * elem_size,
+            TMA_BOX_COLS, 1, rows, 1]
+
+
+def tensor_maps(kind: int, q, k, v, g=None) -> list:
+    """Plans of the maps of q, k, v and g (zeros where g is None) for
+    kernel ``kind``, ``MAP_SPEC_LEN`` values each."""
+    q_rows, k_rows = TILE_ROWS[kind]
+    spec = []
+    for t, rows in ((q, q_rows), (k, k_rows), (v, k_rows), (g, q_rows)):
+        spec += ([0] * MAP_SPEC_LEN if t is None else
+                 tensor_map_spec(t.shape, t.stride(), t.element_size(), rows))
+    return spec
+
+
+def dkv_partial_shape(b: int, sk: int, hq: int, d: int) -> Tuple[int, ...]:
+    """fp32 scratch of the Hopper dK/dV kernel: dK and dV of every query
+    head, (2, B, Sk, Hq, D), summed over each KV group by the reduction."""
+    return (2, b, sk, hq, d)
+
+
 def _check(q, k, v, *extra):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"want q (B, Sq, Hq, D) and k/v (B, Sk, Hkv, D); got "
@@ -59,6 +106,8 @@ def _check(q, k, v, *extra):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}")
     if d % 8 or d > 256:
         raise ValueError(f"head dim {d}: the kernels take multiples of 8 up to 256")
+    if q.shape[1] == 0 or k.shape[1] == 0:
+        raise ValueError("empty sequence: the kernels take Sq, Sk >= 1")
     tensors = (q, k, v, *extra)
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
         raise TypeError(f"dtypes {[t.dtype for t in tensors]}: the kernels take "
@@ -73,9 +122,13 @@ def _check(q, k, v, *extra):
                              "be contiguous")
         if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:-1]):
             raise ValueError("rows must start on 16-byte boundaries")
+        if uses_tensor_maps(q.dtype, d) and any(
+                st == 0 and n > 1 for st, n in zip(t.stride()[:-1], t.shape[:-1])):
+            raise ValueError("broadcast (stride 0) dimensions: the tensor maps of "
+                             "the bf16 kernels need a distinct row for every index")
 
 
-def _launch(kind, ptrs, tensors, shape, mask, bf16, scale, device):
+def _launch(kind, ptrs, tensors, shape, mask, bf16, scale, device, maps=None):
     need = smem_bytes(kind, shape[-1], bf16)
     if need > SMEM_LIMIT:
         raise ValueError(f"head dim {shape[-1]} needs {need} bytes of shared memory, "
@@ -83,16 +136,18 @@ def _launch(kind, ptrs, tensors, shape, mask, bf16, scale, device):
     strides = []
     for t in tensors:
         strides += list(t.stride()[:3]) if t is not None else [0, 0, 0]
-    c_ptrs = (ctypes.c_void_p * 10)(*ptrs)
+    c_ptrs = (ctypes.c_void_p * 12)(*ptrs, *[None] * (12 - len(ptrs)))
+    c_maps = None if maps is None else (ctypes.c_longlong * len(maps))(*maps)
     c_strides = (ctypes.c_longlong * 24)(*strides)
     c_shape = (ctypes.c_int * 6)(*shape)
     c_mask = (ctypes.c_int * 5)(*mask)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _lib().flash_attention_launch(kind, c_ptrs, c_strides, c_shape, c_mask,
-                                        int(bf16), scale, stream)
+                                        int(bf16), scale, c_maps, stream)
     if err:
-        name = {FWD: "forward", DKDV: "dK/dV", DQ: "dQ"}[kind]
-        raise RuntimeError(f"flash_attention {name} kernel launch failed: CUDA error {err}")
+        name = {FWD: "forward", DKDV: "dK/dV", DQ: "dQ", DELTA: "delta"}[kind]
+        why = _TMA_ERRORS.get(err, f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention {name} kernel launch failed: {why}")
 
 
 def _mask_args(causal, window, chunk, prefix_len, q_offset):
@@ -124,10 +179,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sk, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    maps = tensor_maps(FWD, q, k, v) if uses_tensor_maps(q.dtype, d) else None
     _launch(FWD, [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   None, None, None, None, lse.data_ptr(), None],
             [q, k, v, out, None, None, None, None], [b, hq, hkv, sq, sk, d], mask,
-            q.dtype == torch.bfloat16, 1.0 / math.sqrt(d), q.device)
+            q.dtype == torch.bfloat16, 1.0 / math.sqrt(d), q.device, maps)
     # the count lives on the public entry point, as for the other kernels
     flash_attention.launches += 1
     return out, lse
@@ -150,17 +206,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sk, hkv = k.shape[1], k.shape[2]
     if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 ({b}, {hq}, {sq})")
-    # delta = sum over D of dO * out, as JAX computes it before its scan
-    delta = torch.einsum("bqhd,bqhd->bhq", g.float(), out.float()).contiguous()
+    # delta = sum over D of dO * out (a pre-pass kernel), as JAX computes it
+    # before its scan
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    tma = uses_tensor_maps(q.dtype, d)
+    part = (torch.empty(dkv_partial_shape(b, sk, hq, d), dtype=torch.float32,
+                        device=q.device) if tma else None)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr()]
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            part[0].data_ptr() if tma else None, part[1].data_ptr() if tma else None]
     args = ([q, k, v, out, g, dq, dk, dv], [b, hq, hkv, sq, sk, d], mask,
             q.dtype == torch.bfloat16, 1.0 / math.sqrt(d), q.device)
-    _launch(DKDV, ptrs, *args)
-    _launch(DQ, ptrs, *args)
+    _launch(DELTA, ptrs, *args)
+    _launch(DKDV, ptrs, *args, tensor_maps(DKDV, q, k, v, g) if tma else None)
+    _launch(DQ, ptrs, *args, tensor_maps(DQ, q, k, v, g) if tma else None)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

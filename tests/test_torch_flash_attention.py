@@ -7,6 +7,9 @@ lse and to ``jax.vjp`` of ``flash_attention_xla``.  Inputs come from a
 numpy seed and go to both frameworks.
 """
 
+import importlib
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -154,3 +157,73 @@ def test_cpu_path_launches_nothing_and_checks_reject_bad_inputs():
         _check(torch.zeros(1, 8, 4, 32)[..., ::2], kv, kv)
     with pytest.raises(ValueError, match="cpu or cuda"):
         flash_attention_fwd(q.to("meta"), kv.to("meta"), kv.to("meta"))
+
+
+def test_tensor_map_spec_reads_strides_of_views():
+    """The plan of one tensor map: dims {D, H, S, B}, byte strides of H, S
+    and B, a box of 64 columns x rows; a view cut from a packed QKV tensor
+    keeps the packed strides."""
+    from repro_torch.kernels.flash_attention.flash_attention import tensor_map_spec
+
+    q = torch.zeros(2, 100, 24, 128, dtype=torch.bfloat16)
+    assert tensor_map_spec(q.shape, q.stride(), 2, 128) == [
+        128, 24, 100, 2, 256, 24 * 256, 100 * 24 * 256, 64, 1, 128, 1]
+    qkv = torch.zeros(2, 100, 28, 128, dtype=torch.bfloat16)
+    k = qkv[:, :, 24:26]
+    spec = tensor_map_spec(k.shape, k.stride(), k.element_size(), 64)
+    assert spec[:4] == [128, 2, 100, 2]
+    assert spec[4:7] == [256, 28 * 256, 100 * 28 * 256]
+    assert spec[7:] == [64, 1, 64, 1]
+    assert all(st % 16 == 0 for st in spec[4:7])
+    d32 = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)   # D < 64: the box reads zeros past D
+    assert tensor_map_spec(d32.shape, d32.stride(), 2, 128)[:7] == [32, 2, 8, 1, 64, 128, 1024]
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dkdv", "dq"])
+def test_tensor_maps_plan_each_kernel(kind):
+    """q, k, v and dO maps with the query-side and key-side rows of the
+    kernel's tile; the forward has no dO map."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+    k_ = {"fwd": fa.FWD, "dkdv": fa.DKDV, "dq": fa.DQ}[kind]
+    q = torch.zeros(1, 300, 4, 64, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 200, 2, 64, dtype=torch.bfloat16)
+    g = None if kind == "fwd" else q
+    plan = fa.tensor_maps(k_, q, kv, kv, g)
+    assert len(plan) == 4 * fa.MAP_SPEC_LEN
+    q_rows, k_rows = fa.TILE_ROWS[k_]
+    maps = [plan[i:i + fa.MAP_SPEC_LEN] for i in range(0, len(plan), fa.MAP_SPEC_LEN)]
+    assert maps[0][:4] == [64, 4, 300, 1] and maps[0][9] == q_rows
+    assert maps[1][:4] == [64, 2, 200, 1] and maps[1][9] == k_rows
+    assert maps[2] == maps[1]
+    assert maps[3] == ([0] * fa.MAP_SPEC_LEN if g is None else maps[0])
+    assert q_rows in (64, 128) and k_rows in (64, 128)
+
+
+def test_tensor_core_path_and_scratch_plan():
+    from repro_torch.kernels.flash_attention.flash_attention import (dkv_partial_shape,
+                                                                     uses_tensor_maps)
+
+    assert uses_tensor_maps(torch.bfloat16, 128) and uses_tensor_maps(torch.bfloat16, 32)
+    assert not uses_tensor_maps(torch.bfloat16, 136)
+    assert not uses_tensor_maps(torch.float32, 64)
+    # fp32 dK and dV of every query head, summed over each KV group afterwards
+    assert dkv_partial_shape(1, 4096, 24, 128) == (2, 1, 4096, 24, 128)
+    assert 4 * math.prod(dkv_partial_shape(1, 4096, 24, 128)) == 2 * 50331648
+
+
+def test_check_rejects_what_the_bf16_kernels_cannot_take():
+    from repro_torch.kernels.flash_attention.flash_attention import _check
+
+    q = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    _check(q, kv, kv)
+    with pytest.raises(ValueError, match="empty sequence"):
+        _check(q[:, :0], kv, kv)
+    with pytest.raises(ValueError, match="empty sequence"):
+        _check(q, kv[:, :0], kv[:, :0])
+    # a KV head broadcast over the query heads has stride 0: no tensor map
+    shared = torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16).expand(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="broadcast"):
+        _check(q, shared, kv)
+    # the fp32 kernels read rows through pointers and take it
+    _check(q.float(), shared.float(), kv.float())
