@@ -10,14 +10,21 @@ failure:
   1. print the card's name and power limit; build every CUDA kernel of the
      port from ``src/repro_torch/csrc`` (one nvcc per source, together);
   2. hold each kernel against its plain PyTorch version on the card: the
-     flash-decode kernel at the shapes the serving path gives it, the
+     flash-decode kernel with both masks, lengths at the shapes the
+     serving path gives it and ring-buffer slot positions on wrapped,
+     windowed, chunked and half-empty caches, D = 40 to 256, rep 1 to 20,
+     f32, bf16, f32 q with a bf16 cache and strided caches, caches of
+     140,000 slots (key splits streamed in passes), plus a bit-identical
+     repeat of calls whose key splits it merges; the
      flash-attention forward and both backward kernels in float32 and
      bfloat16 under every mask, at ragged lengths (S=1000, S=4095), at
-     D=64 with 12 query heads a KV head, on q/k/v cut from one packed QKV
-     tensor and at StarCoder2's training shape, whose backward must also
-     be bit-identical when run twice;
+     D=64 with 12 query heads a KV head, at D=80 (H2O-Danube's heads) and
+     D=96 (GPT-MoE's), on q/k/v cut from one packed QKV tensor and at
+     StarCoder2's training shape, whose backward must also be
+     bit-identical when run twice;
   3. serve reduced StarCoder2 with the same float32 weights on the CPU
-     (plain versions) and on the card (kernels): the token streams agree;
+     (plain versions) and on the card (kernels), also with prompts longer
+     than max_len, which wrap the ring cache: the token streams agree;
   4. serving main path: full-width, full-depth StarCoder2-3B with random
      bf16 weights serves 8 requests through ``ServeEngine``; every request
      finishes and each decode step launched the kernel once per layer;
@@ -32,7 +39,8 @@ failure:
   7. time each kernel, its plain version and the PyTorch library call that
      computes the same function, beside the card's least time for the work
      (the flash backward's delta, dK/dV, reduction and dQ passes also
-     apart, under torch.profiler);
+     apart, under torch.profiler; flash-decode also in its slot form on a
+     wrapped cache);
   8. hold the SSD-scan forward and backward kernels against their plain
      versions in float32 and bfloat16 (y in x's type and in float32) at
      tests/test_kernels.py's sweep, N=128, one chunk, ragged sizes and
@@ -47,7 +55,9 @@ failure:
  11. lockstep greedy decode of full Mamba2-780m through ``decode_step``
      (8 prompts of 32 tokens, 32 new tokens): valid tokens, float32 state;
  12. time the SSD-scan kernels and their plain versions at the training
-     shape beside the card's least time for the work;
+     shape beside the card's least time for the work, the backward's four
+     phases apart (torch.profiler), and check that the bf16 backward is
+     bit-identical when run twice;
  13. hold the prefix-scan kernel bit-equal to its plain version (torch.cumsum)
      on tests/test_prefix_scan.py's shapes, empty shapes, one row of 2^20,
      bool/uint8/int32 input, 3-D leading axes, strided and offset views and
@@ -149,8 +159,32 @@ def attention_inputs(torch, seed, b, hq, hkv, d, s, qdt, kvdt, max_len=None):
     return q, k, v, lengths
 
 
+def ring_slots(torch, q_pos, w):
+    """(B, W) slot positions of a ring cache after writing positions
+    0..q_pos[b] of lane b into slot position % W (-1 = never written)."""
+    j = torch.arange(w, device=q_pos.device, dtype=torch.int32)[None, :]
+    t = q_pos[:, None] - torch.remainder(q_pos[:, None] - j, w)
+    return torch.where(t >= 0, t, torch.full_like(t, -1)).to(torch.int32)
+
+
+def slot_inputs(torch, seed, b, hq, hkv, d, w, qdt, kvdt, lo, hi, strided=False):
+    """q (B, 1, Hq, D), k, v (B, W, Hkv, D), slot_pos, q_pos with q_pos drawn
+    from [lo, hi); ``strided`` cuts k and v from wider tensors."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, 1, hq, d), generator=gen, device="cuda").to(qdt)
+    wide = 2 if strided else 1
+    k = torch.randn((b, w, hkv, wide * d), generator=gen, device="cuda").to(kvdt)[..., :d]
+    v = torch.randn((b, w, hkv, wide * d), generator=gen, device="cuda").to(kvdt)[..., -d:]
+    q_pos = torch.randint(lo, hi, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    return q, k, v, ring_slots(torch, q_pos, w), q_pos
+
+
 def check_decode_attention(torch):
+    """Both masks of the decode kernel against their plain versions, and a
+    bit-identical repeat of a call whose splits the kernel merges."""
     from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_cache,
+                                                      decode_attention_cache_ref,
                                                       decode_attention_ref)
 
     bf, f32 = torch.bfloat16, torch.float32
@@ -162,25 +196,74 @@ def check_decode_attention(torch):
         ("S=4096 f32", 8, 24, 2, 128, 4096, f32, f32, None),
         ("rep=1 S=1000 bf16", 8, 2, 2, 128, 1000, bf, bf, None),
         ("f32 q, bf16 cache", 8, 24, 2, 128, 1024, f32, bf, None),
+        # splits of 17,536 keys: each block streams two passes of <= 16,384
+        ("S=140000 bf16, two passes a split", 3, 24, 2, 128, 140000, bf, bf, None),
+        ("S=140000 f32, two passes a split", 3, 24, 2, 128, 140000, f32, f32, None),
     ]
-    errs = {"float32": 0.0, "bfloat16": 0.0}
-    for seed, (label, b, hq, hkv, d, s, qdt, kvdt, top) in enumerate(cases):
-        q, k, v, lengths = attention_inputs(torch, seed, b, hq, hkv, d, s,
-                                            qdt, kvdt, top)
-        out = decode_attention(q, k, v, lengths)
-        ref = decode_attention_ref(q, k, v, lengths)
-        torch.cuda.synchronize()
+    # (label, B, Hq, Hkv, D, W, q dtype, cache dtype, q_pos range, window, chunk, strided)
+    slot_cases = [
+        ("wrapped rep 12", 8, 24, 2, 128, 1024, bf, bf, (1024, 4000), 0, 0, False),
+        ("wrapped rep 12 f32", 8, 24, 2, 128, 1024, f32, f32, (1024, 4000), 0, 0, False),
+        ("short lanes, empty slots", 8, 24, 2, 128, 1024, bf, bf, (0, 200), 0, 0, False),
+        ("window 300", 8, 24, 2, 128, 1024, bf, bf, (0, 3000), 300, 0, False),
+        ("chunk 200", 8, 24, 2, 128, 1024, bf, bf, (0, 3000), 0, 200, False),
+        ("window 100 chunk 256 W=512", 4, 24, 2, 128, 512, bf, bf, (0, 2000), 100, 256, False),
+        ("D=80 rep 4 (H2O-Danube)", 4, 32, 8, 80, 1000, bf, bf, (0, 2500), 0, 0, False),
+        ("D=96 rep 1 (GPT-MoE)", 4, 8, 8, 96, 1000, bf, bf, (0, 2500), 0, 0, False),
+        ("D=256 rep 16", 4, 16, 1, 256, 700, bf, bf, (0, 1500), 0, 0, False),
+        ("D=256 rep 16 f32", 4, 16, 1, 256, 700, f32, f32, (0, 1500), 0, 0, False),
+        ("D=64 rep 16", 4, 32, 2, 64, 1024, bf, bf, (500, 3000), 0, 0, False),
+        ("rep 20, two head groups", 2, 40, 2, 128, 600, bf, bf, (0, 1500), 0, 0, False),
+        ("D=40 CUDA cores", 4, 12, 3, 40, 777, bf, bf, (0, 2000), 0, 0, False),
+        ("f32 q, bf16 cache D=80", 4, 32, 8, 80, 1000, f32, bf, (0, 2500), 0, 0, False),
+        ("strided cache views", 4, 24, 2, 128, 1024, bf, bf, (0, 3000), 0, 0, True),
+        ("strided f32", 4, 8, 2, 64, 333, f32, f32, (0, 900), 50, 0, True),
+        ("wrapped W=140000, two passes a split", 2, 24, 2, 128, 140000, bf, bf,
+         (140000, 400000), 0, 0, False),
+        ("W=140000 window 3000 f32, passes with no live tile", 2, 8, 2, 64, 140000, f32, f32,
+         (150000, 400000), 3000, 0, False),
+    ]
+    errs = {"float32": 0.0, "bfloat16": 0.0, "slots": 0.0}
+
+    def judge(label, out, ref, qdt, kvdt, slots):
         key = "bfloat16" if bf in (qdt, kvdt) else "float32"
         tol = TOL[key]
         err = (out.float() - ref.float()).abs().max().item()
-        ok = out.dtype == q.dtype and out.shape == q.shape and torch.allclose(
+        ok = out.dtype == qdt and out.shape == ref.shape and torch.allclose(
             out.float(), ref.float(), atol=tol, rtol=tol)
-        print(f"decode_attention {label}: max_abs_err {err:.3e} (tol {tol}) "
-              f"{'ok' if ok else 'FAIL'}")
+        print(f"decode_attention {'slots ' if slots else ''}{label}: max_abs_err {err:.3e} "
+              f"(tol {tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"decode_attention disagrees with its plain "
-                                 f"version on {label}: max abs err {err}")
+            raise AssertionError(f"decode_attention disagrees with its plain version on "
+                                 f"{label}: max abs err {err}")
         errs[key] = max(errs[key], err)
+        if slots:
+            errs["slots"] = max(errs["slots"], err)
+
+    for seed, (label, b, hq, hkv, d, s, qdt, kvdt, top) in enumerate(cases):
+        q, k, v, lengths = attention_inputs(torch, seed, b, hq, hkv, d, s, qdt, kvdt, top)
+        out = decode_attention(q, k, v, lengths)
+        ref = decode_attention_ref(q, k, v, lengths)
+        torch.cuda.synchronize()
+        judge(label, out, ref, qdt, kvdt, False)
+    for seed, (label, b, hq, hkv, d, w, qdt, kvdt, (lo, hi), win, chk, strided) in \
+            enumerate(slot_cases):
+        q, k, v, sp, qp = slot_inputs(torch, 50 + seed, b, hq, hkv, d, w, qdt, kvdt, lo, hi,
+                                      strided)
+        out = decode_attention_cache(q, k, v, sp, qp, window=win, chunk=chk)
+        ref = decode_attention_cache_ref(q, k, v, sp, qp, window=win, chunk=chk)
+        torch.cuda.synchronize()
+        judge(label, out, ref, qdt, kvdt, True)
+    # the splits merge in split order, not arrival order: the same bits twice
+    q, k, v, lengths = attention_inputs(torch, 90, 8, 24, 2, 128, 4096, bf, bf, None)
+    q2, k2, v2, sp, qp = slot_inputs(torch, 91, 8, 24, 2, 128, 1024, bf, bf, 1024, 4000)
+    same = all(torch.equal(f(), f()) for f in (
+        lambda: decode_attention(q, k, v, lengths),
+        lambda: decode_attention_cache(q2, k2, v2, sp, qp)))
+    print(f"decode_attention S=4096 and wrapped W=1024, bf16, run twice: "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("decode_attention is not deterministic")
     return errs
 
 
@@ -218,11 +301,16 @@ def check_reduced_against_cpu(torch):
         eng = ServeEngine(cfg, model, max_batch=2, max_len=32, device=dev)
         streams[dev] = [r.out for r in serve(eng, Request, cfg.vocab_size,
                                              3, 5, 6, seed=2)]
+        # prompts longer than the cache wrap its ring of max_len slots
+        eng = ServeEngine(cfg, model, max_batch=2, max_len=8, device=dev)
+        streams[dev] += [r.out for r in serve(eng, Request, cfg.vocab_size,
+                                              3, 10, 6, seed=3)]
     if streams["cpu"] != streams["cuda"]:
         raise AssertionError(f"reduced model: card {streams['cuda']} != "
                              f"cpu {streams['cpu']}")
-    print(f"reference: reduced {cfg.name}, float32 weights, 3 requests: card "
-          f"token streams equal the CPU plain path's")
+    print(f"reference: reduced {cfg.name}, float32 weights, 3 requests and 3 with "
+          f"10-token prompts over max_len 8: card token streams equal the CPU plain "
+          f"path's")
 
 
 def serve_full(torch):
@@ -348,58 +436,88 @@ def graph_ms(torch, fn, n_buf, iters=20, repeats=7):
     return statistics.median(times)
 
 
-def time_decode_attention(torch, label, s, max_len=None):
-    """Kernel, plain version and SDPA at B=8 StarCoder2 heads, bf16, over a
-    cache of S slots: all live, or random lengths up to ``max_len``.  Calls
-    cycle over enough caches to exceed the 50 MB L2, as 30 layers do."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      decode_attention_ref)
-
-    b, hq, hkv, d = 8, 24, 2, 128
+def decode_bufs(torch, s, max_len=None, slots=False, b=8, hq=24, hkv=2, d=128):
+    """Kernel arguments of B=8 StarCoder2 heads over a bf16 cache of S slots,
+    on enough caches to exceed the 50 MB L2, as 30 layers do: all live or
+    random lengths up to ``max_len``; with ``slots`` ring caches in the slot
+    form, wrapped (every slot valid) or filled below positions up to
+    ``max_len``, as the serve path leaves them."""
     bf = torch.bfloat16
     kv_bytes = 2 * b * s * hkv * d * 2
     n_buf = max(2, math.ceil(120e6 / kv_bytes))
+    if slots:                   # wrapped, or positions below max_len
+        lo, hi = (0, max_len) if max_len else (s, 4 * s)
+        return [slot_inputs(torch, 100 + i, b, hq, hkv, d, s, bf, bf, lo, hi)
+                for i in range(n_buf)]
     bufs = [attention_inputs(torch, 100 + i, b, hq, hkv, d, s, bf, bf, max_len)
             for i in range(n_buf)]
     lengths = bufs[0][3]
     if max_len is None:                              # every slot live
         lengths.fill_(s)
-    bufs = [(q, k, v, lengths) for q, k, v, _ in bufs]
-    mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
-    sdpa_in = [(q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2))
-               for q, k, v, _ in bufs]
+    return [(q, k, v, lengths) for q, k, v, _ in bufs]
+
+
+def time_decode_attention(torch, label, s, max_len=None, slots=False):
+    """Kernel, plain version and SDPA at B=8 StarCoder2 heads, bf16, over a
+    cache of S slots (see ``decode_bufs``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+
+    b, hq, hkv, d = 8, 24, 2, 128
+    bufs = decode_bufs(torch, s, max_len, slots)
+    n_buf = len(bufs)
+    if slots:
+        from repro_torch.kernels.decode_attention import (decode_attention_cache,
+                                                          decode_attention_cache_ref)
+        from repro_torch.kernels.decode_attention.ref import slot_mask
+
+        masks = [slot_mask(sp, qp)[:, None, None, :] for _, _, _, sp, qp in bufs]
+        sdpa_in = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+                   for q, k, v, _, _ in bufs]
+        live = sum(int(m.sum().item()) for m in masks) // n_buf
+        kernel_fn, plain_fn = decode_attention_cache, decode_attention_cache_ref
+    else:
+        lengths = bufs[0][3]
+        mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+        masks = [mask] * n_buf
+        sdpa_in = [(q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2))
+                   for q, k, v, _ in bufs]
+        live = int(lengths.sum().item())
+        kernel_fn, plain_fn = decode_attention, decode_attention_ref
 
     def kernel(i):
-        return decode_attention(*bufs[i])
+        return kernel_fn(*bufs[i])
 
     def plain(i):
-        return decode_attention_ref(*bufs[i])
+        return plain_fn(*bufs[i])
 
     def library(i):
-        return F.scaled_dot_product_attention(*sdpa_in[i], attn_mask=mask,
+        return F.scaled_dot_product_attention(*sdpa_in[i], attn_mask=masks[i],
                                               enable_gqa=True)
 
     kernel_ms = graph_ms(torch, kernel, n_buf)
     kernel_eager_ms = eager_ms(torch, kernel, n_buf)
+    calls = iter(range(10**9))
+    device_ms = kernel_ms_by_group(torch, lambda: kernel(next(calls) % n_buf), 20,
+                                   {"decode": "decode"})["decode"]
     plain_ms = graph_ms(torch, plain, n_buf, iters=5)
     library_ms = graph_ms(torch, library, n_buf)
     library_eager_ms = eager_ms(torch, library, n_buf)
-    live = int(lengths.sum().item())
     nbytes = (2 * live * hkv * d * 2          # the K and V rows the step needs
-              + 2 * b * hq * d * 2 + b * 4)   # q, out, lengths
+              + 2 * b * hq * d * 2            # q, out
+              + (b * s * 4 + b * 4 if slots else b * 4))   # slot positions or lengths
     ops = 4 * live * hq * d
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS) * 1e3
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_FLOPS else "operations"
     print(f"time decode_attention {label}: B={b} Hq={hq} Hkv={hkv} D={d} S={s} "
           f"live keys {live}, bf16: kernel {kernel_ms * 1e3:.2f} us on the card "
-          f"({nbytes / kernel_ms / 1e6:.0f} GB/s), {kernel_eager_ms * 1e3:.2f} us "
-          f"eager; bound {bound_ms * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB); "
+          f"({nbytes / kernel_ms / 1e6:.0f} GB/s; {device_ms * 1e3:.2f} us of kernel time "
+          f"in torch.profiler), {kernel_eager_ms * 1e3:.2f} us eager; bound {bound_ms * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB); "
           f"plain {plain_ms * 1e3:.2f} us; sdpa {library_ms * 1e3:.2f} us on the "
           f"card, {library_eager_ms * 1e3:.2f} us eager")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": library_ms,
+            "bound_by": by, "library_ms": library_ms, "profiler_ms": device_ms,
             "eager_ms": kernel_eager_ms, "library_eager_ms": library_eager_ms}
 
 
@@ -426,7 +544,7 @@ def profile_engine_steps(torch, eng, n_steps=4):
     eng.run_until_done()
     summarize_profile(torch, prof, wall_ms, n_steps,
                       f"{n_steps} engine steps of batch {eng.max_batch}",
-                      {"flash-decode": "decode_attention"})
+                      {"flash-decode": "decode_"})
 
 
 def summarize_profile(torch, prof, wall_ms, n_steps, label, groups):
@@ -502,6 +620,8 @@ def check_flash_attention(torch):
         ("D=64 rep 12", 1, 1024, 1024, 24, 2, 64, dict(causal=True)),
         ("packed qkv views", 2, 1000, 1000, 24, 2, 128, dict(causal=True)),
         ("D=256", 1, 100, 100, 2, 1, 256, dict(causal=True)),
+        ("D=80 H2O-Danube heads", 1, 1000, 1000, 32, 8, 80, dict(causal=True)),
+        ("D=96 GPT-MoE heads", 1, 1000, 1000, 8, 8, 96, dict(causal=True)),
         ("StarCoder2 S=4096", 1, 4096, 4096, 24, 2, 128, dict(causal=True)),
     ]
     errs = {"fwd": 0.0, "bwd": 0.0}
@@ -855,10 +975,39 @@ def check_ssd_scan(torch):
             if not ok:
                 raise AssertionError(f"ssd_scan disagrees with its plain version on {label} "
                                      f"x {xdt} y {ydt}")
+            if label == "Mamba2-780m train" and (xdt, ydt) == (bf, f32):
+                scores_bf16_reading(torch, x, dt, A, B, C, dy, chunk, ref_grads, rel)
             del x, dt, A, B, C, dy, y, states, T, grads, ref, ref_grads
     gc.collect()
     torch.cuda.empty_cache()
     return errs
+
+
+def scores_bf16_reading(torch, x, dt, A, B, C, dy, chunk, ref_grads, kernel_rel):
+    """What one bf16 copy of C B^T per chunk, shared by every head, would
+    cost in accuracy: the plain backward with C B^T rounded to bf16 before
+    the decays (its gradient passes through the rounding unchanged) against
+    the exact plain backward, beside the kernel's error.  A reading for
+    PERF.md; it checks nothing."""
+    from torch.overrides import TorchFunctionMode
+
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_ref
+
+    class RoundScores(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is torch.einsum and args[0] == "bcin,bcjn->bcij":   # C B^T
+                out = out + (out.to(torch.bfloat16).float() - out).detach()
+            return out
+
+    with RoundScores():
+        rounded = ssd_scan_bwd_ref(x, dt, A, B, C, dy, chunk)
+    rel = [(g.float() - rg.float()).abs().max().item() / max(1.0, rg.float().abs().max().item())
+           for g, rg in zip(rounded, ref_grads)]
+    print("ssd_scan Mamba2-780m train, plain backward with C B^T in bf16: dx/ddt/dA/dB/dC "
+          "err / max(1, max|grad|) " + " ".join(f"{r:.2e}" for r in rel)
+          + "; the kernel's " + " ".join(f"{r:.2e}" for r in kernel_rel))
+    del rounded
 
 
 def train_mamba_reduced_against_cpu(torch):
@@ -1084,6 +1233,23 @@ def time_ssd_scan(torch, bt=4, s=4096, h=48, p=64, n=128, q=128):
                       iters=10, repeats=3)
     bwd_ms = eager_ms(torch, lambda i: ssd_scan_bwd(x, dt, A, B, C, dy, states, T, chunk=q), 1,
                       iters=5, repeats=3)
+    # the backward's phases apart: chunk dstates, reverse scan, per-chunk
+    # gradients, reduction
+    phases = kernel_ms_by_group(
+        torch, lambda: ssd_scan_bwd(x, dt, A, B, C, dy, states, T, chunk=q), 5,
+        {"state": "ssd_state", "scan": "ssd_scan_kernel", "bwd": "ssd_bwd",
+         "reduce": "ssd_reduce"})
+    print("time ssd_scan bwd phases: " + ", ".join(f"{k} {v:.3f} ms" for k, v in phases.items())
+          + f" (sum {sum(phases.values()):.3f} ms)")
+    # no atomics: the same inputs give the same bits
+    first = ssd_scan_bwd(x, dt, A, B, C, dy, states, T, chunk=q)
+    second = ssd_scan_bwd(x, dt, A, B, C, dy, states, T, chunk=q)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"ssd_scan Mamba2-780m bf16 backward run twice: dx, ddt, dA, dB, dC "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("ssd_scan backward is not deterministic")
+    del first, second
     fwd_plain = eager_ms(torch, lambda i: ssd_scan_ref(x, dt, A, B, C, q, f32), 1,
                          iters=2, repeats=3)
     bwd_plain = eager_ms(torch, lambda i: ssd_scan_bwd_ref(x, dt, A, B, C, dy, q), 1,
@@ -1105,6 +1271,7 @@ def time_ssd_scan(torch, bt=4, s=4096, h=48, p=64, n=128, q=128):
               f"{nbytes / 1e6:.1f} MB at 3.35 TB/s); plain {plain:.3f} ms; no library call")
         res[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
                      "library_ms": None}
+    res["bwd"]["phases_ms"] = phases
     del x, dt, A, B, C, dy, y, states, T
     gc.collect()
     torch.cuda.empty_cache()
@@ -1449,14 +1616,16 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
     build_kernels()
-
     errs = check_decode_attention(torch)
     flash_errs = check_flash_attention(torch)
     check_reduced_against_cpu(torch)
     launches = serve_full(torch)
-    times = {label: time_decode_attention(torch, label, s, top)
-             for label, s, top in [("serve", 1024, 64), ("L=1024", 1024, None),
-                                   ("L=4096", 4096, None)]}
+    times = {label: time_decode_attention(torch, label, s, top, slots)
+             for label, s, top, slots in [("serve", 1024, 64, False),
+                                          ("L=1024", 1024, None, False),
+                                          ("L=4096", 4096, None, False),
+                                          ("slots serve", 1024, 64, True),
+                                          ("slots wrapped W=1024", 1024, None, True)]}
     train_reduced_against_cpu(torch)
     train = train_full(torch)
     flash_times = time_flash_attention(torch)
@@ -1479,10 +1648,13 @@ def main() -> int:
         "max_abs_err": max(errs.values()),
         "max_err_bf16": errs["bfloat16"],
         "max_err_f32": errs["float32"],
+        "max_err_slots": errs["slots"],
         "shape": "B=8 Hq=24 Hkv=2 D=128 S=L=1024 bf16",
         **times["L=1024"],
         "serve_shape": times["serve"],
         "L4096": times["L=4096"],
+        "slots_serve_shape": times["slots serve"],
+        "slots_wrapped_W1024": times["slots wrapped W=1024"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

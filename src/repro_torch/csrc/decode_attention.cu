@@ -4,50 +4,82 @@
 // Replaces the Pallas TPU kernel `decode_attention_pallas` in
 // src/repro/kernels/decode_attention/decode_attention.py (body
 // `_decode_kernel`), and computes the same function: fp32 online-softmax
-// state (m, l, acc), keys at or past `lengths[b]` skipped, output in q's type.
+// state (m, l, acc), output in q's type.  One kernel takes two masks:
+//   mode 0 (lengths): keys at or past lengths[b] are skipped, as in Pallas;
+//   mode 1 (slots):   the ring-buffer mask of `decode_attention_cache_xla`
+//                     (src/repro/models/layers.py): slot j counts when
+//                     0 <= pos[b, j] <= q_pos[b], within `window` positions
+//                     of q_pos and in its chunk of `chunk` positions.
 //
-// Bound: device-memory bytes.  Each step reads the live part of the cache,
-// 2 * B * L * Hkv * D * sizeof(cache type) bytes, and does about
-// 4 * Hq * D flops per key position -- 12 flops per byte at StarCoder2's
-// rep = 12 in bf16, far below the ~295 flops per byte where the tensor cores
-// would become the limit.  So the design spends its effort on reading each
-// K/V byte once and keeping many reads in flight:
-//   * one block owns one (batch, kv head, key split); the rep query heads of
-//     that KV head live in shared memory and share every K/V tile the block
-//     loads, so each K/V byte crosses from device memory once per KV head;
-//   * tiles of kTileK keys are copied with cp.async, 16 bytes a thread,
-//     neighbouring threads on neighbouring addresses, only up to
-//     min(length, S), into two buffers: the next tile is in flight while the
-//     block computes on the current one;
-//   * the TPU kernel walks key blocks in order on one core; here blocks run
-//     in parallel, so a loop inside the block walks the tiles of its split,
-//     and the key axis is split across blocks (split-K) so that B * Hkv
-//     (16 blocks for StarCoder2 at B = 8) becomes enough blocks to fill the
-//     card.  A second small kernel merges the splits' (m, l, acc).
-// All arithmetic is fp32 on the CUDA cores, so f32 inputs match the plain
-// version to rounding; the kernel allocates nothing and launches on the
-// caller's stream.
+// Bound: device-memory bytes.  A step reads the live part of the cache,
+// 2 * B * L * Hkv * D * sizeof(cache type) bytes, and does 4 * Hq * D flops
+// per key -- 12 flops per byte at StarCoder2's rep = 12 in bf16, far below
+// the ~295 where the tensor cores would limit.  What the design does:
+//   * a block owns one (batch, KV head, group of up to 16 query heads, key
+//     split): the heads share every K/V tile it loads, so each K/V byte
+//     crosses from device memory once per KV head (rep <= 16);
+//   * before loading anything a block marks the valid keys of its split in
+//     shared memory (one ballot per 32 keys) and lists the tiles holding
+//     one: tiles with none are never read, so an unwrapped ring cache costs
+//     only its live part, as the lengths mask does.  A split longer than
+//     kPassKeys keys is marked and streamed in passes of kPassKeys, the
+//     online softmax carried across them, so the cache length is not capped
+//     (instances of their own: shorter splits run without the pass loop);
+//   * splits are whole tiles of at least a few hundred keys (chosen in the
+//     wrapper from shapes alone), streamed through a 3-stage cp.async ring
+//     (16 bytes a thread, invalid keys zero-filled); at D = 128 two blocks
+//     fit on an SM;
+//   * bf16 caches with D % 16 == 0 run the products on the tensor cores
+//     (mma.sync m16n8k16, fp32 accumulators): the query heads are the 16
+//     rows of M (rep 12 pads to 16), each warp takes 16 keys of a 64-key
+//     tile and keeps its own online softmax, in fp32 and base 2, and its
+//     own accumulator in registers; P goes from the score fragments to the
+//     A operand of P V without shared memory.  wgmma's 64-row minimum
+//     would leave 3/4 of each product idle at rep <= 16, hence mma.sync.
+//     An fp32 q enters as two bf16 parts (hi + lo), and so does P in P V,
+//     so both products keep ~16 bits of them;
+//   * other shapes (f32 caches, D % 16 != 0) run the CUDA-core kernel: fp32
+//     arithmetic, a lane per key, held to 2e-5 in f32;
+//   * one launch: every block first learns which splits of its row hold a
+//     valid key (from the length, or by testing the row's slots); a row
+//     with one live split writes its output from that block, the others
+//     leaving at once.  Otherwise the row's splits, one thread-block
+//     cluster of at most 8, merge their (acc, m, l) in shared memory: each
+//     block reads the others' through distributed shared memory and sums
+//     its share of the outputs in split order, so results repeat bit for
+//     bit and no partial goes to device memory.
+// Rows with no valid key give zeros.  Nothing is allocated here; launches
+// go on the caller's stream.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
+using bf16 = __nv_bfloat16;
+
 constexpr int kThreads = 128;
-constexpr int kTileK = 32;   // keys per tile: one lane per key in the softmax pass
-constexpr int kRepTile = 4;  // query heads per thread in the score pass
-constexpr int kQUnroll = 4;  // q loads in flight per thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kHeads = 16;                       // query heads of a block
+constexpr int kPassKeys = 16384;                 // keys a block marks and streams at once
+constexpr int kMaxWords = kPassKeys / 32;        // validity words of a pass
+constexpr int kMaxSplits = 8;                    // a row's splits: one portable cluster
+constexpr int kTcTile = 64;                      // keys per tile, tensor cores: 16 a warp
+constexpr int kCcTile = 32;                      // keys per tile, CUDA cores: one a lane
+constexpr int kStages = 3;                       // cp.async ring of the tensor-core kernel
+constexpr int kRepTile = 4;                      // query heads per thread, CUDA-core scores
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
 
 // 16 bytes of a cache row (N elements) and 4 elements, widened to fp32.
 template <typename T> struct Vec;
@@ -61,9 +93,9 @@ template <> struct Vec<float> {
     return *reinterpret_cast<const float4*>(p);
   }
 };
-template <> struct Vec<__nv_bfloat16> {
+template <> struct Vec<bf16> {
   static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
+  __device__ __forceinline__ static void load(const bf16* p, float* out) {
     const uint4 raw = *reinterpret_cast<const uint4*>(p);
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
@@ -73,7 +105,7 @@ template <> struct Vec<__nv_bfloat16> {
       out[2 * i + 1] = f.y;
     }
   }
-  __device__ __forceinline__ static float4 load4(const __nv_bfloat16* p) {
+  __device__ __forceinline__ static float4 load4(const bf16* p) {
     const uint2 raw = *reinterpret_cast<const uint2*>(p);
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
     const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
@@ -93,287 +125,779 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Shared memory of one block: fp32 q, acc (rep x D), probabilities
-// (rep x kTileK) and m, l, alpha (rep), then two K and two V tiles in the
-// cache's type, K rows padded by 16 bytes against bank conflicts.
-__host__ __device__ inline int float_words(int rep, int d) {
-  return (2 * rep * d + rep * kTileK + 3 * rep + 3) / 4 * 4;
-}
-__host__ __device__ inline int smem_bytes(int rep, int d, int kv_bytes) {
-  const int vec = 16 / kv_bytes;
-  return 4 * float_words(rep, d) + 2 * kTileK * (2 * d + vec) * kv_bytes;
-}
+struct Params {
+  const void* q;               // (B, Hq, D), rows q_sh apart
+  const void* k;               // (B, S, Hkv, D) strided
+  const void* v;
+  const int* lengths;          // mode 0: (B,)
+  const int* slot_pos;         // mode 1: (B, S), rows sp_sb apart
+  const int* q_pos;            // mode 1: (B,)
+  void* out;                   // (B, Hq, D) contiguous, q's type
+  long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, sp_sb;
+  int mode, B, Hq, Hkv, S, D, n_split, chunk, window, attn_chunk, rep, mgroups;
+  float scale;
+};
 
-// grid (n_split, Hkv, B).  With n_split == 1 the block writes the output;
-// otherwise it writes its split's (acc, m, l) to part[B, Hq, n_split, D + 2].
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kThreads) decode_attention_kernel(
-    const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __restrict__ v,
-    const int* __restrict__ lengths, TQ* __restrict__ out, float* __restrict__ part,
-    int S, int D, int rep, int chunk, float scale, long long q_sb, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh) {
-  constexpr int VEC = Vec<TKV>::N;
-  const int split = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
-  const int n_split = gridDim.x, hq = gridDim.y * rep;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int kstride = D + VEC;
+// Where a block works: grid (n_split, Hkv * mgroups, B), clusters of the
+// n_split blocks of a row.
+struct Block {
+  int split, b, g, h0, nh, k0, k1;
+  __device__ explicit Block(const Params& p) {
+    split = blockIdx.x;
+    b = blockIdx.z;
+    g = blockIdx.y / p.mgroups;
+    const int mg = blockIdx.y - g * p.mgroups;
+    h0 = g * p.rep + mg * kHeads;
+    nh = min(kHeads, p.rep - mg * kHeads);
+    k0 = split * p.chunk;
+    k1 = min(k0 + p.chunk, p.S);
+  }
+};
 
-  int len = lengths[b];
-  len = len < 0 ? 0 : (len > S ? S : len);
-  const int k_begin = split * chunk;
-  const int k_end = min(k_begin + chunk, len);
-  const long long row0 = (long long)b * hq + g * rep;  // first query head of the block
-
-  if (k_begin >= k_end) {  // no live key in this split
-    if (n_split == 1) {
-      for (int i = tid; i < rep * D; i += kThreads) out[row0 * D + i] = from_f32<TQ>(0.f);
-      return;
+// Whether key j of batch row b counts, under either mask.
+struct Mask {
+  const int* sp;
+  int mode, len, qp, window, chunk;
+  __device__ Mask(const Params& p, int b)
+      : sp(nullptr), mode(p.mode), len(0), qp(0), window(p.window), chunk(p.attn_chunk) {
+    if (mode == 0) {
+      len = p.lengths[b];
+      len = len < 0 ? 0 : min(len, p.S);
+    } else {
+      sp = p.slot_pos + b * p.sp_sb;
+      qp = p.q_pos[b];
     }
-    for (int i = tid; i < rep * (D + 2); i += kThreads) {
-      const int r = i / (D + 2), c = i - r * (D + 2);
-      part[((row0 + r) * n_split + split) * (D + 2) + c] = c == D ? kNegInf : 0.f;
+  }
+  __device__ __forceinline__ bool operator()(int j) const {
+    if (mode == 0) return j < len;
+    const int s = sp[j];
+    return s >= 0 && s <= qp && (window == 0 || qp - s < window) &&
+           (chunk == 0 || s / chunk == qp / chunk);
+  }
+};
+
+struct Shared {
+  uint32_t vm[kMaxWords];          // valid keys of the pass, bit per key
+  short live[kPassKeys / kCcTile];
+  int n_live;
+  unsigned splits;                 // bit s: split s of the row holds a valid key
+  float wm[kWarps][kHeads], wl[kWarps][kHeads];
+  float m[kHeads], l[kHeads];      // this split's (m, l), read by the cluster
+  float wt[kHeads][kMaxSplits], lt[kHeads][kMaxSplits];   // the splits' m (then weights), l
+  float norm[kHeads];
+};
+
+__device__ __forceinline__ bool key_bit(const Shared& sh, int rel) {
+  return (sh.vm[rel >> 5] >> (rel & 31)) & 1u;
+}
+
+// Which splits of the block's row hold a valid key (sh.splits): the
+// lengths mask knows it from the length; the slot mask tests every slot of
+// the row, U loads a thread in flight, and keeps the validity words of the
+// first pass of the block's own split, [k0, min(k1, k0 + kPassKeys)), in
+// sh.vm as it goes.  Returns their number.
+__device__ int census(Shared& sh, const Params& p, const Mask& mk, int k0, int k1) {
+  if (threadIdx.x == 0) {
+    const int n = p.mode == 0 ? (mk.len + p.chunk - 1) / p.chunk : 0;
+    sh.splits = (1u << n) - 1u;      // n <= kMaxSplits < 32
+  }
+  if (p.mode == 1) {
+    __syncthreads();
+    constexpr int U = 8;
+    const int lane = threadIdx.x & 31;
+    unsigned bits = 0;
+    // a warp tests 32 consecutive slots at a time: one validity word
+    for (int base = threadIdx.x & ~31; base < p.S; base += U * kThreads) {
+      bool v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = base + u * kThreads + lane;
+        v[u] = j < p.S && mk(j);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int w0 = base + u * kThreads;      // the word's first slot
+        if (v[u]) bits |= 1u << ((w0 + lane) / p.chunk);
+        const unsigned word = __ballot_sync(0xffffffffu, v[u]);
+        if (lane == 0 && w0 >= k0 && w0 < k1 && w0 - k0 < kPassKeys)
+          sh.vm[(w0 - k0) / 32] = word;
+      }
+    }
+    bits = __reduce_or_sync(0xffffffffu, bits);
+    if (lane == 0 && bits) atomicOr(&sh.splits, bits);
+  }
+  __syncthreads();
+  return __popc(sh.splits);
+}
+
+// Mark the valid keys of the pass [k0, k1), at most kPassKeys keys (when
+// `marked`, the slot mask's census marked them already: only the words past
+// k1 are cleared), and list the tiles of TK keys that hold one, in order;
+// returns their number.  Callers leave sh.vm and sh.live unread first.
+template <int TK>
+__device__ int find_live(Shared& sh, const Mask& mk, int k0, int k1, bool marked) {
+  constexpr int WPT = TK / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int U = 8;             // words a warp tests at once
+  const int ntiles = (k1 - k0 + TK - 1) / TK, nw = ntiles * WPT;
+  if (marked)
+    for (int w = threadIdx.x; w < nw; w += kThreads)
+      if (k0 + 32 * w >= k1) sh.vm[w] = 0u;
+  for (int w0 = warp; !marked && w0 < nw; w0 += U * kWarps) {
+    bool v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = k0 + (w0 + u * kWarps) * 32 + lane;
+      v[u] = w0 + u * kWarps < nw && j < k1 && mk(j);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const unsigned bits = __ballot_sync(0xffffffffu, v[u]);
+      if (lane == 0 && w0 + u * kWarps < nw) sh.vm[w0 + u * kWarps] = bits;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int base = 0;
+    for (int t0 = 0; t0 < ntiles; t0 += 32) {
+      const int t = t0 + lane;
+      bool live = false;
+      if (t < ntiles) {
+#pragma unroll
+        for (int i = 0; i < WPT; ++i) live |= sh.vm[t * WPT + i] != 0u;
+      }
+      const unsigned m = __ballot_sync(0xffffffffu, live);
+      if (live) sh.live[base + __popc(m & ((1u << lane) - 1u))] = static_cast<short>(t);
+      base += __popc(m);
+    }
+    if (lane == 0) sh.n_live = base;
+  }
+  __syncthreads();
+  return sh.n_live;
+}
+
+// The block's split is done: acc (nh x D, unnormalised, base-2 m in sh.m,
+// l in sh.l).  When it is the row's only live split the block writes the
+// output.  Otherwise the row's blocks, one cluster, merge in shared memory:
+// after a cluster barrier each block reads every split's (m, l), and the
+// splits' acc for its share of the outputs (distributed shared memory),
+// sums them in split order; a second barrier keeps each block's partial
+// alive until all have read it.  acc's rows are ld floats apart (ld % 4 == 0).
+template <typename TO>
+__device__ void finish(const Params& p, const Block& bk, Shared& sh, const float* acc, int ld,
+                       int live_splits) {
+  const int D = p.D, tid = threadIdx.x, nh = bk.nh, ns = p.n_split;
+  TO* out = static_cast<TO*>(p.out) + ((long long)bk.b * p.Hq + bk.h0) * D;
+  if (live_splits == 1) {
+    for (int i = tid; i < nh * D; i += kThreads) {
+      const int r = i / D;
+      out[i] = from_f32<TO>(acc[r * ld + i - r * D] / fmaxf(sh.l[r], 1e-30f));
     }
     return;
   }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  for (int i = tid; i < nh * ns; i += kThreads) {
+    const int r = i / ns, s = i - r * ns;
+    const Shared* rs = cluster.map_shared_rank(&sh, s);
+    sh.wt[r][s] = rs->m[r];
+    sh.lt[r][s] = rs->l[r];
+  }
+  __syncthreads();
+  // split weights exp2(m_s - M) per head (0 for empty splits) and the sum l
+  for (int r = tid; r < nh; r += kThreads) {
+    float M = kNegInf;
+    for (int s = 0; s < ns; ++s) M = fmaxf(M, sh.wt[r][s]);
+    float L = 0.f;
+    for (int s = 0; s < ns; ++s) {
+      const float m = sh.wt[r][s];
+      const float w = m > kNegInf ? exp2f(m - M) : 0.f;
+      sh.wt[r][s] = w;
+      L = fmaf(sh.lt[r][s], w, L);
+    }
+    sh.norm[r] = fmaxf(L, 1e-30f);
+  }
+  __syncthreads();
+  // this block's share: groups of four outputs split, split + ns, ...
+  for (int v = bk.split * kThreads + tid; v < nh * D / 4; v += ns * kThreads) {
+    const int r = 4 * v / D, a4 = (r * ld + 4 * v - r * D) / 4;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s) {
+      if (s >= ns) break;
+      const float w = sh.wt[r][s];
+      const float4 x = cluster.map_shared_rank(reinterpret_cast<const float4*>(acc), s)[a4];
+      o.x = fmaf(x.x, w, o.x);
+      o.y = fmaf(x.y, w, o.y);
+      o.z = fmaf(x.z, w, o.z);
+      o.w = fmaf(x.w, w, o.w);
+    }
+    const float l = sh.norm[r];
+    out[4 * v] = from_f32<TO>(o.x / l);
+    out[4 * v + 1] = from_f32<TO>(o.y / l);
+    out[4 * v + 2] = from_f32<TO>(o.z / l);
+    out[4 * v + 3] = from_f32<TO>(o.w / l);
+  }
+  cluster.sync();
+}
 
+// A block whose split holds no valid key: with at most one live split in
+// the row it leaves at once (split 0 writing zeros when there is none);
+// otherwise it joins the cluster's merge with an empty (m, l) and zero acc.
+// Returns true when the caller is done.
+template <typename TO>
+__device__ bool empty_split(const Params& p, const Block& bk, Shared& sh, float* acc, int ld,
+                            int live_splits) {
+  if ((sh.splits >> bk.split) & 1u) return false;
+  if (live_splits > 1) {
+    for (int r = threadIdx.x; r < kHeads; r += kThreads) {
+      sh.m[r] = kNegInf;
+      sh.l[r] = 0.f;
+    }
+    for (int i = threadIdx.x; i < bk.nh * p.D; i += kThreads)
+      acc[(i / p.D) * ld + i % p.D] = 0.f;
+    finish<TO>(p, bk, sh, acc, ld, live_splits);
+  } else if (live_splits == 0 && bk.split == 0) {
+    TO* out = static_cast<TO*>(p.out) + ((long long)bk.b * p.Hq + bk.h0) * p.D;
+    for (int i = threadIdx.x; i < bk.nh * p.D; i += kThreads) out[i] = from_f32<TO>(0.f);
+  }
+  return true;
+}
+
+// The block's q rows h0 .. h0 + nh, 16 bytes a load (rows 16-byte aligned,
+// which the wrapper ensures), rows up to kHeads zero.  load() issues every
+// load of the thread at once; put() hands each piece of EP values over as
+// put(row, column, values).  Loaded before the K/V copies are issued, q does
+// not queue behind them.
+template <typename TQ, int DMAX>
+struct QRows {
+  static constexpr int EP = 16 / sizeof(TQ);
+  static constexpr int QV = kHeads * DMAX / EP / kThreads;
+  uint4 raw[QV];
+  __device__ void load(const Params& p, const Block& bk) {
+    const int qpr = p.D / EP;
+    const TQ* qb = static_cast<const TQ*>(p.q) + bk.b * p.q_sb + (long long)bk.h0 * p.q_sh;
+#pragma unroll
+    for (int j = 0; j < QV; ++j) {
+      const int idx = threadIdx.x + j * kThreads, r = idx / qpr;
+      raw[j] = make_uint4(0u, 0u, 0u, 0u);
+      if (idx < kHeads * qpr && r < bk.nh)
+        raw[j] = *reinterpret_cast<const uint4*>(qb + r * p.q_sh + (idx - r * qpr) * EP);
+    }
+  }
+  template <typename Put>
+  __device__ void put(int D, Put f) const {
+    const int qpr = D / EP;
+#pragma unroll
+    for (int j = 0; j < QV; ++j) {
+      const int idx = threadIdx.x + j * kThreads, r = idx / qpr;
+      if (idx >= kHeads * qpr) break;
+      f(r, (idx - r * qpr) * EP, reinterpret_cast<const TQ*>(&raw[j]));
+    }
+  }
+};
+
+// ================================================================ CUDA cores
+// fp32 arithmetic, any D % 8 == 0.  Shared memory: fp32 q (pre-scaled by
+// scale * log2 e) and acc (kHeads x D), probabilities (kHeads x kCcTile)
+// and alpha (kHeads), then two K and two V tiles in the cache's type, K rows
+// padded by 16 bytes against bank conflicts.
+__host__ __device__ inline int cc_float_words(int d) {
+  return 2 * kHeads * d + kHeads * kCcTile + kHeads;
+}
+__host__ __device__ inline int cc_smem_bytes(int d, int kv_bytes) {
+  const int vec = 16 / kv_bytes;
+  return 4 * cc_float_words(d) + 2 * kCcTile * (2 * d + vec) * kv_bytes;
+}
+
+template <typename TQ, typename TKV, bool kPasses>
+__global__ void __launch_bounds__(kThreads) decode_cc_kernel(const Params p) {
+  constexpr int VEC = Vec<TKV>::N;
+  __shared__ Shared sh;
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // rep x D, pre-scaled
-  float* acc = qs + rep * D;                    // rep x D
-  float* ps = acc + rep * D;                    // rep x kTileK
-  float* ms = ps + rep * kTileK;                // rep
-  float* ls = ms + rep;                         // rep
-  float* as = ls + rep;                         // rep
-  TKV* kbuf = reinterpret_cast<TKV*>(qs + float_words(rep, D));  // 2 x kTileK x kstride
-  TKV* vbuf = kbuf + 2 * kTileK * kstride;                        // 2 x kTileK x D
+  const Block bk(p);
+  const Mask mk(p, bk.b);
+  const int D = p.D, nh = bk.nh, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kstride = D + VEC;
+  float* qs = reinterpret_cast<float*>(smem4);   // kHeads x D
+  float* acc = qs + kHeads * D;                  // kHeads x D
+  float* ps = acc + kHeads * D;                  // kHeads x kCcTile
+  float* as = ps + kHeads * kCcTile;             // kHeads
+  TKV* kbuf = reinterpret_cast<TKV*>(qs + cc_float_words(D));  // 2 x kCcTile x kstride
+  TKV* vbuf = kbuf + 2 * kCcTile * kstride;                    // 2 x kCcTile x D
 
-  const TKV* kb = k + b * k_sb + g * k_sh;
-  const TKV* vb = v + b * v_sb + g * v_sh;
+  const int live_splits = census(sh, p, mk, bk.k0, bk.k1);
+  if (empty_split<TQ>(p, bk, sh, acc, D, live_splits)) return;
+  int pk0 = bk.k0, pk1 = min(bk.k1, bk.k0 + kPassKeys);   // the pass
+  int n_live = find_live<kCcTile>(sh, mk, pk0, pk1, p.mode == 1);
+  const TKV* kb = static_cast<const TKV*>(p.k) + bk.b * p.k_sb + bk.g * p.k_sh;
+  const TKV* vb = static_cast<const TKV*>(p.v) + bk.b * p.v_sb + bk.g * p.v_sh;
   const int vec_per_row = D / VEC;
-  auto issue = [&](int t0, int buf) {
-    TKV* kd = kbuf + buf * kTileK * kstride;
-    TKV* vd = vbuf + buf * kTileK * D;
-    for (int i = tid; i < kTileK * vec_per_row; i += kThreads) {
-      const int t = i / vec_per_row, c = (i - t * vec_per_row) * VEC;
-      const bool live = t0 + t < k_end;
-      const long long key = live ? t0 + t : k_begin;  // a valid address when nothing is read
-      cp_async16(kd + t * kstride + c, kb + key * k_ss + c, live);
-      cp_async16(vd + t * D + c, vb + key * v_ss + c, live);
+  auto issue = [&](int i, int buf) {
+    const int t = sh.live[i];
+    TKV* kd = kbuf + buf * kCcTile * kstride;
+    TKV* vd = vbuf + buf * kCcTile * D;
+    for (int idx = tid; idx < kCcTile * vec_per_row; idx += kThreads) {
+      const int r = idx / vec_per_row, c = (idx - r * vec_per_row) * VEC;
+      const bool valid = (sh.vm[t] >> r) & 1u;
+      const long long key = pk0 + (valid ? t * kCcTile + r : 0);
+      cp_async16(kd + r * kstride + c, kb + key * p.k_ss + c, valid);
+      cp_async16(vd + r * D + c, vb + key * p.v_ss + c, valid);
     }
     cp_async_commit();
   };
-  issue(k_begin, 0);
-
-  const TQ* qb = q + b * q_sb + (long long)(g * rep) * q_sh;
-  for (int i0 = tid; i0 < rep * D; i0 += kQUnroll * kThreads) {
-    float val[kQUnroll];
+  QRows<TQ, 256> qrows;
+  qrows.load(p, bk);
+  if (n_live) issue(0, 0);
+  const float qscale = p.scale * kLog2e;
+  qrows.put(D, [&](int r, int c, const TQ* v) {
 #pragma unroll
-    for (int u = 0; u < kQUnroll; ++u) {
-      const int i = i0 + u * kThreads;
-      val[u] = i < rep * D ? to_f32(qb[(i / D) * q_sh + i % D]) : 0.f;
+    for (int e = 0; e < QRows<TQ, 256>::EP; ++e) {
+      qs[r * D + c + e] = to_f32(v[e]) * qscale;
+      acc[r * D + c + e] = 0.f;
     }
+  });
+  for (int r = tid; r < nh; r += kThreads) {
+    sh.m[r] = kNegInf;
+    sh.l[r] = 0.f;
+  }
+
+  const int rgroups = (nh + kRepTile - 1) / kRepTile;
+  const int dvec = D / 4;
+  for (;;) {
+    int buf = 0;
+    for (int i = 0; i < n_live; ++i, buf ^= 1) {
+      if (i + 1 < n_live) {
+        issue(i + 1, buf ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const unsigned bits = sh.vm[sh.live[i]];
+      const TKV* ks = kbuf + buf * kCcTile * kstride;
+      const TKV* vs = vbuf + buf * kCcTile * D;
+
+      // 1. scores: a thread owns kRepTile query heads and one key.
+      for (int idx = tid; idx < kCcTile * rgroups; idx += kThreads) {
+        const int t = idx % kCcTile, r0 = (idx / kCcTile) * kRepTile;
+        const TKV* kr = ks + t * kstride;
+        const float* qr[kRepTile];
 #pragma unroll
-    for (int u = 0; u < kQUnroll; ++u) {
-      const int i = i0 + u * kThreads;
-      if (i < rep * D) {
-        qs[i] = val[u] * scale;
-        acc[i] = 0.f;
+        for (int j = 0; j < kRepTile; ++j) qr[j] = qs + min(r0 + j, nh - 1) * D;
+        float s[kRepTile];
+#pragma unroll
+        for (int j = 0; j < kRepTile; ++j) s[j] = 0.f;
+        for (int d = 0; d < D; d += VEC) {
+          float kk[VEC];
+          Vec<TKV>::load(kr + d, kk);
+#pragma unroll
+          for (int j = 0; j < kRepTile; ++j) {
+#pragma unroll
+            for (int e = 0; e < VEC; e += 4) {
+              const float4 qq = *reinterpret_cast<const float4*>(qr[j] + d + e);
+              s[j] += qq.x * kk[e] + qq.y * kk[e + 1] + qq.z * kk[e + 2] + qq.w * kk[e + 3];
+            }
+          }
+        }
+        const bool valid = (bits >> t) & 1u;
+#pragma unroll
+        for (int j = 0; j < kRepTile; ++j)
+          if (r0 + j < nh) ps[(r0 + j) * kCcTile + t] = valid ? s[j] : kNegInf;
+      }
+      __syncthreads();
+
+      // 2. online softmax in base 2: one warp per query head, one lane per key.
+      for (int r = warp; r < nh; r += kWarps) {
+        const float s = ps[r * kCcTile + lane];
+        float mx = s;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_prev = sh.m[r];
+        const float m_new = fmaxf(m_prev, mx);   // finite: a listed tile holds a valid key
+        const float pr = ((bits >> lane) & 1u) ? exp2f(s - m_new) : 0.f;
+        ps[r * kCcTile + lane] = pr;
+        float sum = pr;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (lane == 0) {
+          const float alpha = exp2f(m_prev - m_new);
+          sh.l[r] = sh.l[r] * alpha + sum;
+          as[r] = alpha;
+          sh.m[r] = m_new;
+        }
+      }
+      __syncthreads();
+
+      // 3. acc = acc * alpha + p @ V: a thread owns 4 columns of one head.
+      for (int idx = tid; idx < nh * dvec; idx += kThreads) {
+        const int r = idx / dvec, c = (idx - r * dvec) * 4;
+        float4 a = *reinterpret_cast<float4*>(acc + r * D + c);
+        const float alpha = as[r];
+        a.x *= alpha; a.y *= alpha; a.z *= alpha; a.w *= alpha;
+        const float* pr = ps + r * kCcTile;
+#pragma unroll 8
+        for (int t = 0; t < kCcTile; ++t) {
+          const float pv = pr[t];
+          const float4 vv = Vec<TKV>::load4(vs + t * D + c);
+          a.x += pv * vv.x; a.y += pv * vv.y; a.z += pv * vv.z; a.w += pv * vv.w;
+        }
+        *reinterpret_cast<float4*>(acc + r * D + c) = a;
+      }
+      __syncthreads();
+    }
+    if (!kPasses || pk1 >= bk.k1) break;
+    pk0 = pk1;                       // the next pass: every tile of this one is done
+    pk1 = min(bk.k1, pk0 + kPassKeys);
+    n_live = find_live<kCcTile>(sh, mk, pk0, pk1, false);
+    if (n_live) issue(0, 0);
+  }
+  finish<TQ>(p, bk, sh, acc, D, live_splits);
+}
+
+// ================================================================ tensor cores
+// bf16 cache, D % 16 == 0, DMAX >= D.  Shared memory: q as bf16 (kHeads x
+// (D + 8); an fp32 q also its rounding error), then kStages K and V tiles
+// of kTcTile rows, rows padded by 16 bytes so ldmatrix reads 8 rows without
+// bank conflicts.
+__host__ __device__ inline int tc_smem_bytes(int d, bool split_q) {
+  return ((split_q ? 2 : 1) * kHeads + 2 * kStages * kTcTile) * (d + 8) * 2;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// c += a (16 x 16, row) * b (16 x 8, col)
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <typename TQ, int DMAX, bool kPasses>
+__global__ void __launch_bounds__(kThreads) decode_tc_kernel(const Params p) {
+  constexpr bool kSplitQ = sizeof(TQ) == 4;
+  constexpr int NT = DMAX / 8;                 // n-tiles of the output
+  __shared__ Shared sh;
+  extern __shared__ float4 smem4[];
+  const Block bk(p);
+  const Mask mk(p, bk.b);
+  const int D = p.D, LD = D + 8, nh = bk.nh, tid = threadIdx.x, lane = tid & 31,
+            warp = tid >> 5;
+  bf16* Qh = reinterpret_cast<bf16*>(smem4);
+  bf16* Ql = Qh + kHeads * LD;
+  bf16* Ks = Ql + (kSplitQ ? kHeads * LD : 0);
+  bf16* Vs = Ks + kStages * kTcTile * LD;
+
+  // the end's kWarps x kHeads rows of the warps' sums, LDR floats apart:
+  // 8 floats of padding keep float2 stores of 8 rows free of bank conflicts
+  float* red = reinterpret_cast<float*>(Ks);
+  const int LDR = D + 8;
+  const int live_splits = census(sh, p, mk, bk.k0, bk.k1);
+  if (empty_split<TQ>(p, bk, sh, red, LDR, live_splits)) return;
+  int pk0 = bk.k0, pk1 = min(bk.k1, bk.k0 + kPassKeys);   // the pass
+  int n_live = find_live<kTcTile>(sh, mk, pk0, pk1, p.mode == 1);
+  const bf16* kb = static_cast<const bf16*>(p.k) + bk.b * p.k_sb + bk.g * p.k_sh;
+  const bf16* vb = static_cast<const bf16*>(p.v) + bk.b * p.v_sb + bk.g * p.v_sh;
+  // this thread's 16-byte pieces of a tile: row << 9 | column, the same for
+  // every tile (D % 16 == 0, so a tile is vpr / 2 rounds of the block)
+  const int vpr = D / 8;
+  int piece[DMAX / 16];
+#pragma unroll
+  for (int j = 0; j < DMAX / 16; ++j) {
+    const int idx = tid + j * kThreads, r = idx / vpr;
+    piece[j] = r << 9 | (idx - r * vpr) * 8;
+  }
+  auto issue = [&](int i) {
+    if (i < n_live) {
+      const int t = sh.live[i], st = i % kStages;
+      bf16* kd = Ks + st * kTcTile * LD;
+      bf16* vd = Vs + st * kTcTile * LD;
+#pragma unroll
+      for (int j = 0; j < DMAX / 16; ++j) {
+        if (2 * j >= vpr) break;
+        const int r = piece[j] >> 9, c = piece[j] & 511;
+        const int rel = t * kTcTile + r;
+        const bool valid = key_bit(sh, rel);
+        const long long key = pk0 + (valid ? rel : 0);
+        cp_async16(kd + r * LD + c, kb + key * p.k_ss + c, valid);
+        cp_async16(vd + r * LD + c, vb + key * p.v_ss + c, valid);
       }
     }
-  }
-  for (int r = tid; r < rep; r += kThreads) {
-    ms[r] = kNegInf;
-    ls[r] = 0.f;
-  }
-
-  const int rgroups = (rep + kRepTile - 1) / kRepTile;
-  const int dvec = D / 4;
-  int buf = 0;
-  for (int t0 = k_begin; t0 < k_end; t0 += kTileK, buf ^= 1) {
-    if (t0 + kTileK < k_end) {
-      issue(t0 + kTileK, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    cp_async_commit();   // possibly empty, so every step waits on the same count
+  };
+  QRows<TQ, DMAX> qrows;
+  qrows.load(p, bk);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+  // q into shared memory as bf16 (an fp32 q as hi and lo parts)
+  qrows.put(D, [&](int r, int c, const TQ* v) {
+#pragma unroll
+    for (int e = 0; e < QRows<TQ, DMAX>::EP; ++e) {
+      const float x = to_f32(v[e]);
+      const bf16 h = __float2bfloat16_rn(x);
+      Qh[r * LD + c + e] = h;
+      if (kSplitQ) Ql[r * LD + c + e] = __float2bfloat16_rn(x - __bfloat162float(h));
     }
-    __syncthreads();
-    const TKV* ks = kbuf + buf * kTileK * kstride;
-    const TKV* vs = vbuf + buf * kTileK * D;
+  });
 
-    // 1. scores: a warp owns kRepTile query heads, a lane one key.
-    for (int i = tid; i < kTileK * rgroups; i += kThreads) {
-      const int t = i % kTileK, r0 = (i / kTileK) * kRepTile;
-      const TKV* kr = ks + t * kstride;
-      const float* qr[kRepTile];
+  float acc[NT][4];
 #pragma unroll
-      for (int j = 0; j < kRepTile; ++j) qr[j] = qs + min(r0 + j, rep - 1) * D;
-      float s[kRepTile];
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int j = 0; j < kRepTile; ++j) s[j] = 0.f;
-      for (int d = 0; d < D; d += VEC) {
-        float kk[VEC];
-        Vec<TKV>::load(kr + d, kk);
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  const float sl2 = p.scale * kLog2e;
+  const int ksteps = D / 16;
+  const int qoff = (lane & 15) * LD + (lane >> 4) * 8;                         // A: q
+  const int koff = ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;  // B: K
+  const int voff = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;     // B: V
+
+  for (;;) {
+    for (int i = 0; i < n_live; ++i) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();               // tile i landed; every warp is done with tile i - 1
+      issue(i + kStages - 1);        // into tile i - 1's stage
+      const int t = sh.live[i], st = i % kStages;
+      const bf16* kt = Ks + (st * kTcTile + warp * 16) * LD;   // this warp's 16 keys
+      const bf16* vt = Vs + (st * kTcTile + warp * 16) * LD;
+
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-        for (int j = 0; j < kRepTile; ++j) {
+      for (int ks = 0; ks < DMAX / 16; ++ks) {
+        if (ks >= ksteps) break;
+        uint32_t a[4], b[4];
+        ldsm_x4(b, kt + koff + ks * 16);
+        ldsm_x4(a, Qh + qoff + ks * 16);
+        mma16816(sc[0], a, b[0], b[1]);
+        mma16816(sc[1], a, b[2], b[3]);
+        if (kSplitQ) {
+          ldsm_x4(a, Ql + qoff + ks * 16);
+          mma16816(sc[0], a, b[0], b[1]);
+          mma16816(sc[1], a, b[2], b[3]);
+        }
+      }
+      // this warp's 16 keys: bits of word t * 2 + warp / 2, half warp % 2
+      const unsigned bits = (sh.vm[t * 2 + (warp >> 1)] >> ((warp & 1) * 16)) & 0xffffu;
+      float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-          for (int e = 0; e < VEC; e += 4) {
-            const float4 qq = *reinterpret_cast<const float4*>(qr[j] + d + e);
-            s[j] += qq.x * kk[e] + qq.y * kk[e + 1] + qq.z * kk[e + 2] + qq.w * kk[e + 3];
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool valid = (bits >> (8 * j + 2 * (lane & 3) + (e & 1))) & 1u;
+          const float s = valid ? sc[j][e] * sl2 : kNegInf;
+          sc[j][e] = s;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        alpha[h] = exp2f(m_run[h] - mx[h]);
+        m_run[h] = mx[h];
+        l_run[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool valid = (bits >> (8 * j + 2 * (lane & 3) + (e & 1))) & 1u;
+          const float pr = valid ? exp2f(sc[j][e] - m_run[e >> 1]) : 0.f;
+          sc[j][e] = pr;
+          l_run[e >> 1] += pr;
+        }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+      // the score fragments are P's A fragment (rows g, g + 8; keys 0-7, 8-15);
+      // with an fp32 q, P's rounding error goes in as a second product
+      uint32_t pa[4], pl[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float x0 = sc[j][2 * h], x1 = sc[j][2 * h + 1];
+          pa[2 * j + h] = pack_bf16(x0, x1);
+          if (kSplitQ) {
+            const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(&pa[2 * j + h]);
+            pl[2 * j + h] = pack_bf16(x0 - __low2float(r), x1 - __high2float(r));
+          }
+        }
+#pragma unroll
+      for (int jj = 0; jj < NT / 2; ++jj) {
+        if (jj < ksteps) {
+          uint32_t b[4];
+          ldsm_x4_t(b, vt + voff + jj * 16);
+          mma16816(acc[2 * jj], pa, b[0], b[1]);
+          mma16816(acc[2 * jj + 1], pa, b[2], b[3]);
+          if (kSplitQ) {
+            mma16816(acc[2 * jj], pl, b[0], b[1]);
+            mma16816(acc[2 * jj + 1], pl, b[2], b[3]);
           }
         }
       }
-      const bool live = t0 + t < k_end;
-#pragma unroll
-      for (int j = 0; j < kRepTile; ++j)
-        if (r0 + j < rep) ps[(r0 + j) * kTileK + t] = live ? s[j] : kNegInf;
     }
-    __syncthreads();
+    if (!kPasses || pk1 >= bk.k1) break;
+    pk0 = pk1;
+    pk1 = min(bk.k1, pk0 + kPassKeys);
+    cp_async_wait<0>();
+    __syncthreads();                 // every warp is done with this pass's words and tiles
+    n_live = find_live<kTcTile>(sh, mk, pk0, pk1, false);
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) issue(i);
+  }
+  cp_async_wait<0>();
+  __syncthreads();                 // the stage buffers are free from here
 
-    // 2. online softmax: one warp per query head, one lane per key.
-    for (int r = warp; r < rep; r += kThreads / 32) {
-      const float s = ps[r * kTileK + lane];
-      float mx = s;
+  // merge the four warps' (m, l, acc) in warp order; red reuses the K tiles
+  const int g = lane >> 2;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = ms[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p = expf(s - m_new);
-      ps[r * kTileK + lane] = p;
-      float sum = p;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        ls[r] = ls[r] * alpha + sum;
-        as[r] = alpha;
-        ms[r] = m_new;
-      }
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+    if ((lane & 3) == 0) {
+      sh.wm[warp][g + 8 * h] = m_run[h];
+      sh.wl[warp][g + 8 * h] = l_run[h];
     }
-    __syncthreads();
-
-    // 3. acc = acc * alpha + p @ V: a thread owns 4 columns of one head.
-    for (int i = tid; i < rep * dvec; i += kThreads) {
-      const int r = i / dvec, c = (i - r * dvec) * 4;
-      float4 a = *reinterpret_cast<float4*>(acc + r * D + c);
-      const float alpha = as[r];
-      a.x *= alpha; a.y *= alpha; a.z *= alpha; a.w *= alpha;
-      const float* pr = ps + r * kTileK;
-#pragma unroll 8
-      for (int t = 0; t < kTileK; ++t) {
-        const float p = pr[t];
-        const float4 vv = Vec<TKV>::load4(vs + t * D + c);
-        a.x += p * vv.x; a.y += p * vv.y; a.z += p * vv.z; a.w += p * vv.w;
-      }
-      *reinterpret_cast<float4*>(acc + r * D + c) = a;
-    }
-    __syncthreads();
   }
-
-  if (n_split == 1) {
-    for (int i = tid; i < rep * D; i += kThreads)
-      out[row0 * D + i] = from_f32<TQ>(acc[i] / fmaxf(ls[i / D], 1e-30f));
-    return;
-  }
-  for (int i = tid; i < rep * (D + 2); i += kThreads) {
-    const int r = i / (D + 2), c = i - r * (D + 2);
-    part[((row0 + r) * n_split + split) * (D + 2) + c] =
-        c < D ? acc[r * D + c] : (c == D ? ms[r] : ls[r]);
-  }
-}
-
-// Block-wide reduction of one value per thread (sum, or max when kMax).
-template <bool kMax>
-__device__ __forceinline__ float block_reduce(float x, float* scratch) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, off);
-    x = kMax ? fmaxf(x, y) : x + y;
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = x;
   __syncthreads();
-  x = scratch[0];
+  float sc2[2];
 #pragma unroll
-  for (int w = 1; w < kThreads / 32; ++w) x = kMax ? fmaxf(x, scratch[w]) : x + scratch[w];
+  for (int h = 0; h < 2; ++h) {
+    float M = sh.wm[0][g + 8 * h];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) M = fmaxf(M, sh.wm[w][g + 8 * h]);
+    sc2[h] = exp2f(m_run[h] - M);
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const int row = g + 8 * (e >> 1), col = 8 * n + 2 * (lane & 3);
+      if (n < 2 * ksteps)
+        *reinterpret_cast<float2*>(red + (warp * kHeads + row) * LDR + col) =
+            make_float2(acc[n][e] * sc2[e >> 1], acc[n][e + 1] * sc2[e >> 1]);
+    }
+  if (tid < kHeads) {
+    float M = sh.wm[0][tid];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) M = fmaxf(M, sh.wm[w][tid]);
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) L += sh.wl[w][tid] * exp2f(sh.wm[w][tid] - M);
+    sh.m[tid] = M;
+    sh.l[tid] = L;
+  }
   __syncthreads();
-  return x;
+  for (int i = tid; i < nh * D; i += kThreads) {   // in place over warp 0's rows
+    const int at = (i / D) * LDR + i % D;
+    float s = red[at];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) s += red[w * kHeads * LDR + at];
+    red[at] = s;
+  }
+  __syncthreads();
+  finish<TQ>(p, bk, sh, red, LDR, live_splits);
 }
 
-// grid (Hq, B): merge the splits' (acc, m, l) of one query head.  The
-// splits' weights exp(m_s - m) go to shared memory (n_split floats), so each
-// output column is a dot product whose loads are all independent.
-template <typename TO>
-__global__ void __launch_bounds__(kThreads) decode_attention_combine(
-    const float* __restrict__ part, TO* __restrict__ out, int n_split, int D) {
-  extern __shared__ float w[];  // n_split
-  __shared__ float scratch[kThreads / 32];
-  const int h = blockIdx.x, b = blockIdx.y, hq = gridDim.x, tid = threadIdx.x;
-  const long long row = (long long)b * hq + h;
-  const float* pp = part + row * n_split * (D + 2);
-  float m = kNegInf;
-  for (int s = tid; s < n_split; s += kThreads) m = fmaxf(m, pp[s * (D + 2) + D]);
-  m = block_reduce<true>(m, scratch);
-  float l = 0.f;
-  for (int s = tid; s < n_split; s += kThreads) {
-    const float e = expf(pp[s * (D + 2) + D] - m);
-    w[s] = e;
-    l += pp[s * (D + 2) + D + 1] * e;
-  }
-  l = fmaxf(block_reduce<false>(l, scratch), 1e-30f);  // its barriers publish w
-  for (int d = tid; d < D; d += kThreads) {
-    float o = 0.f;
-#pragma unroll 8
-    for (int s = 0; s < n_split; ++s) o += pp[s * (D + 2) + d] * w[s];
-    out[row * D + d] = from_f32<TO>(o / l);
-  }
-}
-
-template <typename TQ, typename TKV>
-int launch(const void* q, const void* k, const void* v, const void* lengths, void* out,
-           void* part, int B, int Hq, int Hkv, int S, int D, int n_split, int chunk,
-           long long q_sb, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-           long long v_sb, long long v_ss, long long v_sh, float scale, cudaStream_t stream) {
-  const int rep = Hq / Hkv;
-  const int smem = smem_bytes(rep, D, (int)sizeof(TKV));
-  auto kernel = decode_attention_kernel<TQ, TKV>;
+// The row's n_split blocks (grid.x) form one cluster.
+template <typename K>
+int launch(K kernel, dim3 grid, int smem, const Params& p, cudaStream_t st) {
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<dim3(n_split, Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      static_cast<const int*>(lengths), static_cast<TQ*>(out), static_cast<float*>(part), S, D,
-      rep, chunk, scale, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return (int)err;
-  decode_attention_combine<TQ><<<dim3(Hq, B), kThreads, sizeof(float) * n_split, stream>>>(
-      static_cast<const float*>(part), static_cast<TQ*>(out), n_split, D);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = grid.x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// kPasses: splits longer than kPassKeys, streamed in passes (the loop over
+// passes is compiled out of the instances that shorter splits take).
+template <typename TQ, bool kPasses>
+int launch_q(const Params& p, bool kv_bf16, dim3 grid, cudaStream_t st) {
+  const bool split_q = sizeof(TQ) == 4;
+  if (kv_bf16 && p.D % 16 == 0) {
+    const int smem = tc_smem_bytes(p.D, split_q);
+    if (p.D <= 64) return launch(decode_tc_kernel<TQ, 64, kPasses>, grid, smem, p, st);
+    if (p.D <= 128) return launch(decode_tc_kernel<TQ, 128, kPasses>, grid, smem, p, st);
+    return launch(decode_tc_kernel<TQ, 256, kPasses>, grid, smem, p, st);
+  }
+  if (kv_bf16)
+    return launch(decode_cc_kernel<TQ, bf16, kPasses>, grid, cc_smem_bytes(p.D, 2), p, st);
+  return launch(decode_cc_kernel<TQ, float, kPasses>, grid, cc_smem_bytes(p.D, 4), p, st);
 }
 
 }  // namespace
 
-extern "C" int decode_attention_smem_bytes(int rep, int d, int kv_bytes) {
-  return smem_bytes(rep, d, kv_bytes);
-}
-
-// Strides are in elements; the last dimension of q, k and v is contiguous.
-// Returns the CUDA error code of the launches (0 on success).
-extern "C" int decode_attention_launch(
-    const void* q, const void* k, const void* v, const void* lengths, void* out, void* part,
-    int B, int Hq, int Hkv, int S, int D, int n_split, int chunk, long long q_sb,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, int q_bf16, int kv_bf16, float scale, void* stream) {
+// ptrs: q, k, v, lengths, slot_pos, q_pos, out.
+// strides (elements): q (b, h), k (b, s, h), v (b, s, h), slot_pos (b);
+// the last dimension of q, k, v and slot_pos is contiguous.
+// dims: mode, B, Hq, Hkv, S, D, n_split, split keys, window, chunk, q_bf16,
+// kv_bf16.  Returns 0, a CUDA error code, or -1 for sizes not taken.
+extern "C" int decode_attention_launch(void* const* ptrs, const long long* strides,
+                                       const int* dims, float scale, void* stream) {
+  Params p;
+  p.q = ptrs[0];
+  p.k = ptrs[1];
+  p.v = ptrs[2];
+  p.lengths = static_cast<const int*>(ptrs[3]);
+  p.slot_pos = static_cast<const int*>(ptrs[4]);
+  p.q_pos = static_cast<const int*>(ptrs[5]);
+  p.out = ptrs[6];
+  p.q_sb = strides[0]; p.q_sh = strides[1];
+  p.k_sb = strides[2]; p.k_ss = strides[3]; p.k_sh = strides[4];
+  p.v_sb = strides[5]; p.v_ss = strides[6]; p.v_sh = strides[7];
+  p.sp_sb = strides[8];
+  p.mode = dims[0]; p.B = dims[1]; p.Hq = dims[2]; p.Hkv = dims[3]; p.S = dims[4];
+  p.D = dims[5]; p.n_split = dims[6]; p.chunk = dims[7]; p.window = dims[8];
+  p.attn_chunk = dims[9];
+  const bool q_bf16 = dims[10] != 0, kv_bf16 = dims[11] != 0;
+  p.scale = scale;
+  if (p.Hkv < 1 || p.Hq % p.Hkv || p.D % 8 || p.D < 8 || p.D > 256 || p.S < 1) return -1;
+  p.rep = p.Hq / p.Hkv;
+  p.mgroups = (p.rep + kHeads - 1) / kHeads;
+  if (p.n_split < 1 || p.n_split > kMaxSplits || p.chunk % kTcTile ||
+      (long long)p.n_split * p.chunk < p.S || (long long)(p.n_split - 1) * p.chunk >= p.S)
+    return -1;
+  if (p.B > 65535 || (long long)p.Hkv * p.mgroups > 65535) return -1;
+  if ((p.mode == 0 && !p.lengths) || (p.mode == 1 && (!p.slot_pos || !p.q_pos))) return -1;
+  const dim3 grid(p.n_split, p.Hkv * p.mgroups, p.B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(TQ, TKV)                                                               \
-  return launch<TQ, TKV>(q, k, v, lengths, out, part, B, Hq, Hkv, S, D, n_split, chunk, q_sb, \
-                         q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, st)
-  if (q_bf16 && kv_bf16) REPRO_LAUNCH(__nv_bfloat16, __nv_bfloat16);
-  if (q_bf16) REPRO_LAUNCH(__nv_bfloat16, float);
-  if (kv_bf16) REPRO_LAUNCH(float, __nv_bfloat16);
-  REPRO_LAUNCH(float, float);
-#undef REPRO_LAUNCH
+  if (p.chunk > kPassKeys)
+    return q_bf16 ? launch_q<bf16, true>(p, kv_bf16, grid, st)
+                  : launch_q<float, true>(p, kv_bf16, grid, st);
+  return q_bf16 ? launch_q<bf16, false>(p, kv_bf16, grid, st)
+                : launch_q<float, false>(p, kv_bf16, grid, st);
 }

@@ -27,12 +27,18 @@
 //   backward  4. ssd_state_kernel: V_c = sum_i exp(cs_i) C_i dy_i^T;
 //             5. ssd_scan_kernel in reverse: G_c, the gradient of the state
 //                 at the end of chunk c (G_{c-1} = exp(T_c) G_c + V_c);
-//             6. ssd_bwd_kernel: dx, ddt, per-head dB and dC, per-chunk dA;
-//             7. ssd_reduce_kernel: dB and dC summed over heads and dA over
-//                 batch and chunks, in a fixed order.
+//             6. ssd_bwd_heads_kernel (bf16): a block per (batch, chunk,
+//                 group of heads) walks its heads in order: dx, ddt, the
+//                 per-chunk dA, and dB and dC summed over the group in
+//                 registers; ssd_bwd_kernel (float32): a block per head,
+//                 each head its own group;
+//             7. ssd_reduce_kernel: dB and dC summed over head groups (when
+//                 there are several) and dA over batch and chunks, in a
+//                 fixed order.
 // No atomics anywhere: every sum runs in one order, so results repeat bit
 // for bit.  At Mamba2-780m's training shape (Bt 4, S 4096, H 48, P 64,
-// N 128, Q 128) that is 6144 blocks per phase for 132 SMs.
+// N 128, Q 128) phases 1, 3 and 4 run 6144 blocks for 132 SMs; phase 6
+// runs one group of 48 heads per (batch, chunk), 128 blocks, one wave.
 //
 // Bound: at that shape a forward call needs 45 GFLOP (the causal half of
 // C B^T and of the intra-chunk product, the inter-chunk output and the
@@ -49,11 +55,13 @@
 //     the contraction dimension staged through 32-deep slabs;
 //   * the chunk scan streams the states once each way with float4 loads
 //     issued a chunk ahead.
-// C B^T is computed once per head (48 times per chunk), full 128 x 128
-// tiles are computed under the causal mask, and the per-head dB/dC partials
-// cost an extra (H, Bt, S, N) fp32 pass each in the backward; a head loop
-// per chunk, wgmma/TMA and overlap of loads with compute are later work.
-// Nothing is allocated here; launches go on the caller's stream.
+//   * the bf16 backward keeps dB and dC in registers over a group of heads
+//     (no per-head partials in device memory) and skips the 16-wide
+//     fragments of each (Q, Q) product that the causal mask zeroes.
+// Both directions still form C B^T once per head (ssd_bwd_heads_kernel
+// says why), and the forward computes full tiles under the mask; wgmma/TMA and overlap of loads with compute (the head
+// loop stages each head's tiles, then computes) are later work.  Nothing
+// is allocated here; launches go on the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,6 +78,7 @@ constexpr int LDR = KS + 1;     // (rows, KS) slab: odd stride, no bank conflict
 constexpr int LDK = 132;        // (KS, cols) slab
 constexpr int SLAB = 128 * LDR; // floats of one slab buffer (also >= KS * LDK)
 constexpr int LDM = QM + 1;     // (Q, Q) matrices
+constexpr float kLog2e = 1.4426950408889634f;
 static_assert(KS * LDK <= SLAB, "slab buffer too small");
 static_assert(NM <= 128 && PM <= 128 && QM <= 128, "16 x 8 rows per block");
 
@@ -93,8 +102,8 @@ struct Args {
   float* G;               // (Bt, nc, H, N, P): V, then G of every chunk
   void* dx;               // (Bt, S, H, P) like x
   float* ddt;             // (Bt, S, H) contiguous
-  float* dBp;             // (H, Bt, S, N) per-head partials
-  float* dCp;
+  float* dBp;             // (groups, Bt, S, N) partials of each head group
+  float* dCp;             //   (groups == 1: none, dB and dC are written directly)
   float* dAp;             // (Bt, nc, H) per-chunk partials
   void* dB;               // (Bt, S, N) contiguous, B's type
   void* dC;
@@ -102,6 +111,7 @@ struct Args {
   long long x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, B_sb, B_ss, C_sb, C_ss;
   long long y_sb, y_ss, y_sh, dx_sb, dx_ss, dx_sh;
   int bt, s, h, p, n, q, nc;
+  int groups, hg;         // backward: head groups, heads of a group
 };
 
 // dst[r * ld + c] = src[(r0 + r) * rs + c0 + c] * rscale[r0 + r] for r < NR,
@@ -158,10 +168,18 @@ __device__ __forceinline__ float row_sum16(float v) {
 // dt of the chunk's rows into s_dt (0 past q) and the inclusive cumsum of
 // dt * A into s_cs, by warp 0 in one fixed order (every kernel that needs cs
 // computes it with this function, so they agree bit for bit).
+__device__ __forceinline__ void chunk_cumsum(const float* s_dt, float* s_cs, float A);
+
 __device__ __forceinline__ void chunk_prologue(float* s_dt, float* s_cs, const float* dt,
                                                long long dt_ss, int q, float A) {
   for (int i = threadIdx.x; i < QM; i += kThreads) s_dt[i] = i < q ? dt[i * dt_ss] : 0.f;
   __syncthreads();
+  chunk_cumsum(s_dt, s_cs, A);
+}
+
+// s_cs = the inclusive cumsum of s_dt * A, by warp 0 in one fixed order; the
+// block's barrier after it publishes s_cs.
+__device__ __forceinline__ void chunk_cumsum(const float* s_dt, float* s_cs, float A) {
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     float v[QM / 32];
@@ -185,17 +203,12 @@ __device__ __forceinline__ void chunk_prologue(float* s_dt, float* s_cs, const f
   __syncthreads();
 }
 
-struct Chunk {               // where one (batch, chunk, head) block reads and writes
+struct Chunk {               // where the work of one (batch, chunk, head) reads and writes
   int b, c, hh, q, t0;
   long long blk;             // (b * nc + c) * H + hh
-  __device__ Chunk(const Args& a) {
-    c = blockIdx.x;
-    hh = blockIdx.y;
-    b = blockIdx.z;
-    q = a.q;
-    t0 = c * a.q;
-    blk = ((long long)b * a.nc + c) * a.h + hh;
-  }
+  __device__ Chunk(const Args& a, int b_, int c_, int hh_)
+      : b(b_), c(c_), hh(hh_), q(a.q), t0(c_ * a.q), blk(((long long)b_ * a.nc + c_) * a.h + hh_) {}
+  __device__ explicit Chunk(const Args& a) : Chunk(a, blockIdx.z, blockIdx.x, blockIdx.y) {}
 };
 
 // ---------------------------------------------------------------- phase 1/4
@@ -375,37 +388,62 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_out_kernel(const Args a) {
 // dT = sum_j w_j dw_j + exp(T) <G, S_prev>  (terms 2 and 4), added to dcs
 // at the chunk's last row (T = cs_last); then d(dt A) = the reverse cumsum
 // of dcs gives ddt_t = x_t . d(dt x)_t + A d(dt A)_t and this chunk's dA.
-__device__ __forceinline__ void finish_dcs(const Args& a, const Chunk& k, const float* Gc,
-                                           const float* Sp, float T, float A, const float* s_dt,
-                                           float* s_dcs, const float* s_ddt, const float* s_wdw,
+// The sums run in one fixed order: warp 0, QM / 32 rows a lane, shuffles.
+// Rows at or past q hold zeros in s_dt, s_dcs, s_ddt and s_wdw.
+// `part` is this thread's share of <G, S_prev>.
+__device__ __forceinline__ void finish_dcs(const Args& a, const Chunk& k, float part, float T,
+                                           float A, const float* s_dt, const float* s_dcs,
+                                           const float* s_ddt, const float* s_wdw,
                                            float* s_red) {
-  const int q = k.q;
-  float part = 0.f;
-  for (int e = threadIdx.x; e < a.n * a.p; e += kThreads) part = fmaf(Gc[e], Sp[e], part);
+  constexpr int R = QM / 32;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
   if (threadIdx.x % 32 == 0) s_red[threadIdx.x / 32] = part;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float gs = 0.f;
-    for (int w = 0; w < kThreads / 32; ++w) gs += s_red[w];
-    float dT = expf(T) * gs;
-    for (int j = 0; j < q; ++j) dT += s_wdw[j];
-    s_dcs[q - 1] += dT;
-    float da = 0.f, dA = 0.f;
-    float* ddt = a.ddt + ((long long)k.b * a.s + k.t0) * a.h + k.hh;
-    for (int t = q - 1; t >= 0; --t) {
-      da += s_dcs[t];
-      ddt[(long long)t * a.h] = fmaf(A, da, s_ddt[t]);
-      dA = fmaf(da, s_dt[t], dA);
-    }
-    a.dAp[k.blk] = dA;
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x, r0 = lane * R;
+  float gs = 0.f;
+  for (int w = 0; w < kThreads / 32; ++w) gs += s_red[w];
+  float wsum = 0.f, v[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    wsum += s_wdw[r0 + i];
+    v[i] = s_dcs[r0 + i];
   }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) wsum += __shfl_xor_sync(0xffffffffu, wsum, off);
+  const float dT = fmaf(expf(T), gs, wsum);
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (r0 + i == k.q - 1) v[i] += dT;
+  // reverse inclusive cumsum: within the lane, then across lanes from the top
+#pragma unroll
+  for (int i = R - 2; i >= 0; --i) v[i] += v[i + 1];
+  float tail = v[0];               // this lane's total
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_down_sync(0xffffffffu, tail, off);
+    if (lane + off < 32) tail += o;
+  }
+  float above = __shfl_down_sync(0xffffffffu, tail, 1);   // lanes past this one
+  if (lane == 31) above = 0.f;
+  float* ddt = a.ddt + ((long long)k.b * a.s + k.t0) * a.h + k.hh;
+  float dA = 0.f;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int t = r0 + i;
+    const float da = v[i] + above;
+    if (t < k.q) ddt[(long long)t * a.h] = fmaf(A, da, s_ddt[t]);
+    dA = fmaf(da, s_dt[t], dA);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) dA += __shfl_xor_sync(0xffffffffu, dA, off);
+  if (lane == 0) a.dAp[k.blk] = dA;
 }
 
 // ---------------------------------------------------------------- phase 6
-// One block per (chunk, head, batch): dx, ddt, this head's dB and dC, and
-// this chunk's share of dA.  dcs, the gradient of the within-chunk cumsum,
+// float32: one block per (chunk, head, batch): dx, ddt, this head's dB and
+// dC (its head's partials), and this chunk's share of dA.  dcs, the gradient of the within-chunk cumsum,
 // gathers five terms (see the comments) and turns into d(dt * A) by a
 // reverse cumsum.
 __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_kernel(const Args a) {
@@ -609,23 +647,26 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_kernel(const Args a) {
       }
   }
 
-  finish_dcs(a, k, Gc, Sp, T, A, s_dt, s_dcs, s_ddt, s_wdw, s_red);
+  float part = 0.f;
+  for (int e = threadIdx.x; e < a.n * a.p; e += kThreads) part = fmaf(Gc[e], Sp[e], part);
+  finish_dcs(a, k, part, T, A, s_dt, s_dcs, s_ddt, s_wdw, s_red);
 }
 
 // ---------------------------------------------------------------- phase 7
-// dB and dC: sums of the per-head partials in head order; dA: sums of the
-// per-chunk partials in (batch, chunk) order.  Blocks past the dB/dC ones
-// do dA.
+// dB and dC, when phase 6 wrote partials (several head groups, or float32):
+// sums of the groups' partials in group order; dA: sums of the per-chunk
+// partials in (batch, chunk) order.  Without partials (dB and dC written
+// already) every block does dA; otherwise blocks past the dB/dC ones do.
 template <typename TX>
 __global__ void __launch_bounds__(kThreads) ssd_reduce_kernel(const Args a) {
-  const long long m = (long long)a.bt * a.s * a.n;
+  const long long m = a.dBp ? (long long)a.bt * a.s * a.n : 0;
   const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (e < 2 * m) {
     const bool isC = e >= m;
     const long long i = isC ? e - m : e;
     const float* src = (isC ? a.dCp : a.dBp) + i;
     float s = 0.f;
-    for (int hh = 0; hh < a.h; ++hh) s += src[hh * m];
+    for (int g = 0; g < a.groups; ++g) s += src[g * m];
     static_cast<TX*>(isC ? a.dC : a.dB)[i] = from_f<TX>(s);
     return;
   }
@@ -745,6 +786,12 @@ __device__ __forceinline__ void load8(float (&v)[8], const bf16* p) {
     v[2 * i + 1] = f.y;
   }
 }
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
 __device__ __forceinline__ void load8(float (&v)[8], const float* p) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
@@ -774,30 +821,6 @@ __device__ __forceinline__ void stage_bf16(bf16* dst, int ld, const T* src, long
 #pragma unroll
     for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
     *reinterpret_cast<uint4*>(dst + r * ld + c) = out;
-  }
-}
-
-// An fp32 (R, CC) tile as two bf16 tiles hi + lo (lo = the rounding error
-// of hi), so that a product with hi and lo together keeps ~16 bits.
-template <int R, int CC>
-__device__ __forceinline__ void stage_split_bf16(bf16* hi, bf16* lo, int ld, const float* src,
-                                                 long long rs, int rlim, int clim) {
-  constexpr int VPR = CC / 8;
-  for (int idx = threadIdx.x; idx < R * VPR; idx += kThreads) {
-    const int r = idx / VPR, c = (idx - r * VPR) * 8;
-    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r < rlim && c < clim) load8(v, src + r * rs + c);
-    uint4 oh, ol;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&oh);
-    __nv_bfloat162* l = reinterpret_cast<__nv_bfloat162*>(&ol);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-      const float2 back = __bfloat1622float2(h[i]);
-      l[i] = __floats2bfloat162_rn(v[2 * i] - back.x, v[2 * i + 1] - back.y);
-    }
-    *reinterpret_cast<uint4*>(hi + r * ld + c) = oh;
-    *reinterpret_cast<uint4*>(lo + r * ld + c) = ol;
   }
 }
 
@@ -908,10 +931,160 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_out_mma_kernel(const Args a) 
     }
 }
 
-// The backward of one (chunk, head, batch) on the tensor cores: the same
-// terms as ssd_bwd_kernel, in the same order.
+// acc (the warp's rows 16 w.., NT n-tiles of 8 columns) += A B over the
+// k-steps [k0, k1) of 16, skipping the pairs of n-tiles at or past npairs:
+// mma_block with the ranges that the causal mask leaves live.
+template <int NT, bool AT, bool BT>
+__device__ __forceinline__ void mma_range(float (&acc)[NT][4], const bf16* A, int lda,
+                                          const bf16* B, int ldb, int warp, int lane, int k0,
+                                          int k1, int npairs = NT / 2) {
+  const int m0 = 16 * warp;
+#pragma unroll 2
+  for (int kk = k0; kk < k1; ++kk) {
+    uint32_t a[4];
+    if (AT)
+      ldsm_x4_t(a, A + (kk * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * lda + m0 +
+                       ((lane >> 3) & 1) * 8);
+    else
+      ldsm_x4(a, A + (m0 + (lane & 15)) * lda + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int jj = 0; jj < NT / 2; ++jj) {
+      if (jj < npairs) {
+        uint32_t b[4];
+        if (BT)
+          ldsm_x4_t(b, B + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb + jj * 16 +
+                           (lane >> 4) * 8);
+        else
+          ldsm_x4(b, B + (jj * 16 + (lane & 7) + ((lane >> 4) << 3)) * ldb + kk * 16 +
+                         ((lane >> 3) & 1) * 8);
+        mma16816(acc[2 * jj], a, b[0], b[1]);
+        mma16816(acc[2 * jj + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// stage_bf16 with every load of a thread issued before any store (a block
+// that stages, then computes, waits one load latency, not one per row);
+// the forward kernels keep stage_bf16, as their two-blocks-per-SM bound
+// leaves no registers for a tile of loads in flight:
+// dst = src * rscale (rows r < rlim, columns c < clim, else zeros); with
+// lo, an fp32 source goes in as hi (dst) + lo, its rounding error.
+template <int R, int CC, typename T>
+__device__ __forceinline__ void stage_tile(bf16* dst, bf16* lo, int ld, const T* src,
+                                           long long rs, int rlim, int clim,
+                                           const float* rscale) {
+  constexpr int VPR = CC / 8, NV = R * VPR, IT = (NV + kThreads - 1) / kThreads;
+  float v[IT][8];
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    const int idx = threadIdx.x + it * kThreads, r = idx / VPR, c = (idx - r * VPR) * 8;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[it][i] = 0.f;
+    if (idx < NV && r < rlim && c < clim) load8(v[it], src + r * rs + c);
+  }
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    const int idx = threadIdx.x + it * kThreads, r = idx / VPR, c = (idx - r * VPR) * 8;
+    if (idx >= NV) continue;
+    if (rscale && r < rlim) {
+      const float sc = rscale[r];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[it][i] *= sc;
+    }
+    uint4 oh, ol;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&oh);
+    __nv_bfloat162* l = reinterpret_cast<__nv_bfloat162*>(&ol);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      h[i] = __floats2bfloat162_rn(v[it][2 * i], v[it][2 * i + 1]);
+      const float2 back = __bfloat1622float2(h[i]);
+      l[i] = __floats2bfloat162_rn(v[it][2 * i] - back.x, v[it][2 * i + 1] - back.y);
+    }
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = oh;
+    if (lo) *reinterpret_cast<uint4*>(lo + r * ld + c) = ol;
+  }
+}
+
+// Rows r of an (R, CC) bf16 tile (stride LDP) times s1[r] (times s2[r]), in
+// place.
+template <int R, int CC>
+__device__ __forceinline__ void scale_rows(bf16* t, const float* s1, const float* s2) {
+  constexpr int VPR = CC / 8;
+  for (int idx = threadIdx.x; idx < R * VPR; idx += kThreads) {
+    const int r = idx / VPR, c = (idx - r * VPR) * 8;
+    const float sc = s2 ? s1[r] * s2[r] : s1[r];
+    uint4 raw = *reinterpret_cast<const uint4*>(t + r * LDP + c);
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      h[i] = __floats2bfloat162_rn(f.x * sc, f.y * sc);
+    }
+    *reinterpret_cast<uint4*>(t + r * LDP + c) = raw;
+  }
+}
+
+// S_prev and G (N, P) fp32 into Sb and Gb, loads first; returns this
+// thread's share of <G, S_prev> in fp32.
+__device__ __forceinline__ float stage_states(bf16* Sb, bf16* Gb, const float* Sp,
+                                              const float* Gc, int n, int p) {
+  constexpr int VPR = PM / 8, NV = NM * VPR, IT = NV / kThreads, HALF = IT / 2;
+  static_assert(NV % kThreads == 0 && IT % 2 == 0, "whole rounds of the block");
+  float part = 0.f;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {      // two rounds of HALF: 32 loads in flight a thread
+    float vs[HALF][8], vg[HALF][8];
+#pragma unroll
+    for (int it = 0; it < HALF; ++it) {
+      const int idx = threadIdx.x + (h2 * HALF + it) * kThreads, r = idx / VPR,
+                c = (idx - r * VPR) * 8;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) vs[it][i] = vg[it][i] = 0.f;
+      if (r < n && c < p) {
+        load8(vs[it], Sp + r * p + c);
+        load8(vg[it], Gc + r * p + c);
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < HALF; ++it) {
+      const int idx = threadIdx.x + (h2 * HALF + it) * kThreads, r = idx / VPR,
+                c = (idx - r * VPR) * 8;
+      uint4 os, og;
+      __nv_bfloat162* hs = reinterpret_cast<__nv_bfloat162*>(&os);
+      __nv_bfloat162* hg = reinterpret_cast<__nv_bfloat162*>(&og);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        hs[i] = __floats2bfloat162_rn(vs[it][2 * i], vs[it][2 * i + 1]);
+        hg[i] = __floats2bfloat162_rn(vg[it][2 * i], vg[it][2 * i + 1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) part = fmaf(vg[it][i], vs[it][i], part);
+      *reinterpret_cast<uint4*>(Sb + r * LDP + c) = os;
+      *reinterpret_cast<uint4*>(Gb + r * LDP + c) = og;
+    }
+  }
+  return part;
+}
+
+// The backward of one (batch, chunk) for a group of heads on the tensor
+// cores: the terms of ssd_bwd_kernel for each head in turn, in head order.
+// C and B are staged once for all the heads.  dC and dB stay in registers
+// across the heads, the per-head parts added in head order:
+//     dC = sum_h [ (e dy) S_prev^T + ds B ],
+//     dB = sum_h [ (w dt x) G^T + ds^T C ],
+// with e dy and w dt x scaled in place as bf16 A operands, so no per-head
+// tile is kept; one head group writes dC and dB in B's type, several write fp32
+// partials that ssd_reduce_kernel sums in group order.  Term 3's share of
+// dcs is e_i dy_i . (C S_prev)_i.  Products skip the 16-row (or 16-column)
+// fragments that lie wholly above the diagonal of the causal (Q, Q) tiles.
+// C B^T is formed again for each head, its causal part only.  One copy
+// kept across heads was not attempted: its causal 16 x 16 fragments take
+// 18 KB of shared memory as bf16 (11 KB are free beside the 221 KB of
+// tiles) or 32 registers a thread beside the ~250 in use, and the product
+// is ~12% of a head's tensor-core work (1.18 of 9.5 M multiply-adds).
 template <typename TY>
-__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_mma_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_heads_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   float* s_dt = reinterpret_cast<float*>(smem4);
   float* s_cs = s_dt + QM;
@@ -926,27 +1099,17 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_mma_kernel(const Args a) 
   bf16* Bb = Cb + QM * LDQ;
   bf16* Mb = Bb + QM * LDQ;                          // masked scores M
   bf16* Db = Mb + QM * LDQ;                          // ds = dM * L
-  bf16* gb = Db + QM * LDQ;                          // dy
-  bf16* xb = gb + QM * LDP;                          // x
+  bf16* gb = Db + QM * LDQ;                          // dy, then e * dy
+  bf16* xb = gb + QM * LDP;                          // x, then w * dt * x
   bf16* Sb = xb + QM * LDP;                          // S_prev (N, P); first dy's lo part
   bf16* Gb = Sb + NM * LDP;                          // G (N, P)
-  const Chunk k(a);
-  const int q = k.q;
+  const int c = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
+  const int h_end = min(a.h, (grp + 1) * a.hg);
+  const int q = a.q, t0 = c * a.q;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float A = a.A[k.hh];
-  chunk_prologue(s_dt, s_cs, a.dt + k.b * a.dt_sb + k.t0 * a.dt_ss + k.hh * a.dt_sh, a.dt_ss,
-                 q, A);
-  const float T = s_cs[q - 1];
-  for (int i = threadIdx.x; i < QM; i += kThreads) {
-    s_e[i] = i < q ? expf(s_cs[i]) : 0.f;
-    s_w[i] = i < q ? expf(T - s_cs[i]) : 0.f;
-  }
-  const bf16* Cc = static_cast<const bf16*>(a.C) + k.b * a.C_sb + k.t0 * a.C_ss;
-  const bf16* Bc = static_cast<const bf16*>(a.B) + k.b * a.B_sb + k.t0 * a.B_ss;
-  const bf16* xc = static_cast<const bf16*>(a.x) + k.b * a.x_sb + k.t0 * a.x_ss + k.hh * a.x_sh;
-  const TY* gc = static_cast<const TY*>(a.y) + k.b * a.y_sb + k.t0 * a.y_ss + k.hh * a.y_sh;
-  const float* Sp = a.states + k.blk * a.n * a.p;
-  const float* Gc = a.G + k.blk * a.n * a.p;
+  const int live = warp + 1;   // 16-wide blocks at or left of this warp's diagonal block
+  const bf16* Cc = static_cast<const bf16*>(a.C) + b * a.C_sb + t0 * a.C_ss;
+  const bf16* Bc = static_cast<const bf16*>(a.B) + b * a.B_sb + t0 * a.B_ss;
   const float* none = nullptr;
   // x, B, C and a bf16 dy are exact in bf16; an fp32 dy is split into hi +
   // lo (lo in Sb until term 1 is done), so that dM, whose row and column
@@ -954,184 +1117,220 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_mma_kernel(const Args a) 
   constexpr bool split = sizeof(TY) == 4;
   stage_bf16<QM, NM>(Cb, LDQ, Cc, a.C_ss, q, a.n, none);
   stage_bf16<QM, NM>(Bb, LDQ, Bc, a.B_ss, q, a.n, none);
-  if (split)
-    stage_split_bf16<QM, PM>(gb, Sb, LDP, reinterpret_cast<const float*>(gc), a.y_ss, q, a.p);
-  else
-    stage_bf16<QM, PM>(gb, LDP, gc, a.y_ss, q, a.p, none);
-  stage_bf16<QM, PM>(xb, LDP, xc, a.x_ss, q, a.p, none);
-  if (!split) stage_bf16<NM, PM>(Sb, LDP, Sp, (long long)a.p, a.n, a.p, none);
-  stage_bf16<NM, PM>(Gb, LDP, Gc, (long long)a.p, a.n, a.p, none);
-  __syncthreads();
+  float accC[NM / 8][4], accB[NM / 8][4];
+  zero_frag(accC);
+  zero_frag(accB);
 
-  // term 1, by column halves: M = (C B^T) * L in fp32 (into Mb as bf16),
-  // dM = dy (dt x)^T, ds = dM * L into Db, R = dM * M row and column sums
-  {
-    float rs[2] = {0.f, 0.f};
+  // each head's dt is loaded while the head before it computes
+  const float* dtc = a.dt + b * a.dt_sb + t0 * a.dt_ss;
+  const int row = threadIdx.x;
+  float dt_next = row < q ? dtc[row * a.dt_ss + grp * a.hg * a.dt_sh] : 0.f;
 #pragma unroll 1
-    for (int hc = 0; hc < QM / 64; ++hc) {
-      float sc[8][4], dm[8][4], cs2[8][2];
-      zero_frag(sc);
-      zero_frag(dm);
-      mma_block<8, NM, false, false>(sc, Cb, LDQ, Bb + hc * 64 * LDQ, LDQ, warp, lane);
-      mma_block<8, PM, false, false>(dm, gb, LDP, xb + hc * 64 * LDP, LDP, warp, lane);
-      if (split) mma_block<8, PM, false, false>(dm, Sb, LDP, xb + hc * 64 * LDP, LDP, warp, lane);
+  for (int hh = grp * a.hg; hh < h_end; ++hh) {
+    const Chunk k(a, b, c, hh);
+    const float A = a.A[hh];
+    if (row < QM) s_dt[row] = dt_next;
+    dt_next = row < q && hh + 1 < h_end ? dtc[row * a.dt_ss + (hh + 1) * a.dt_sh] : 0.f;
+    __syncthreads();
+    chunk_cumsum(s_dt, s_cs, A);
+    const float T = s_cs[q - 1];
+    for (int i = threadIdx.x; i < QM; i += kThreads) {
+      s_e[i] = i < q ? expf(s_cs[i]) : 0.f;
+      s_w[i] = i < q ? expf(T - s_cs[i]) : 0.f;
+    }
+    const bf16* xc = static_cast<const bf16*>(a.x) + b * a.x_sb + t0 * a.x_ss + hh * a.x_sh;
+    const TY* gc = static_cast<const TY*>(a.y) + b * a.y_sb + t0 * a.y_ss + hh * a.y_sh;
+    const float* Sp = a.states + k.blk * a.n * a.p;
+    const float* Gc = a.G + k.blk * a.n * a.p;
+    stage_tile<QM, PM>(gb, split ? Sb : nullptr, LDP, gc, a.y_ss, q, a.p, none);
+    stage_tile<QM, PM>(xb, nullptr, LDP, xc, a.x_ss, q, a.p, none);
+    __syncthreads();
+
+    // term 1, by quarters of 32 columns: M = (C B^T) * L in fp32 (into Mb
+    // as bf16), dM = dy (dt x)^T, ds = dM * L into Db, R = dM * M row and
+    // column sums; quarters right of the diagonal block are zeros
+    {
+      float rs[2] = {0.f, 0.f};
+#pragma unroll 1
+      for (int qc = 0; qc < QM / 32; ++qc) {
+        float sc[4][4], dm[4][4], cs2[4][2];
+        zero_frag(sc);
+        zero_frag(dm);
+        const int pairs = min(2, live - 2 * qc);
+        if (pairs > 0) {
+          mma_range<4, false, false>(sc, Cb, LDQ, Bb + qc * 32 * LDQ, LDQ, warp, lane, 0,
+                                     NM / 16, pairs);
+          mma_range<4, false, false>(dm, gb, LDP, xb + qc * 32 * LDP, LDP, warp, lane, 0,
+                                     PM / 16, pairs);
+          if (split)
+            mma_range<4, false, false>(dm, Sb, LDP, xb + qc * 32 * LDP, LDP, warp, lane, 0,
+                                       PM / 16, pairs);
+        }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        cs2[j][0] = cs2[j][1] = 0.f;
+        for (int j = 0; j < 4; ++j) {
+          cs2[j][0] = cs2[j][1] = 0.f;
+          const bool tile_on = 2 * qc + (j >> 1) < live;    // else above the diagonal
 #pragma unroll
-        for (int e = 0; e < 4; e += 2) {
-          const int r = frag_row(warp, lane, e), c = 64 * hc + frag_col(lane, j, e);
-          float m[2], d[2];
+          for (int e = 0; e < 4; e += 2) {
+            const int r = frag_row(warp, lane, e), cc = 32 * qc + frag_col(lane, j, e);
+            float m[2] = {0.f, 0.f}, d[2] = {0.f, 0.f};
+#pragma unroll
+            for (int t = 0; t < 2 && tile_on; ++t) {
+              const bool on = cc + t <= r && r < q;
+              const float L = on ? exp2f((s_cs[r] - s_cs[cc + t]) * kLog2e) : 0.f;
+              const float g = dm[j][e + t] * s_dt[cc + t];
+              m[t] = sc[j][e + t] * L;
+              d[t] = g * L;
+              const float R = g * m[t];
+              rs[e >> 1] += R;
+              cs2[j][t] += R;
+            }
+            *reinterpret_cast<__nv_bfloat162*>(Mb + r * LDQ + cc) =
+                __floats2bfloat162_rn(m[0], m[1]);
+            *reinterpret_cast<__nv_bfloat162*>(Db + r * LDQ + cc) =
+                __floats2bfloat162_rn(d[0], d[1]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int t = 0; t < 2; ++t) {
-            const bool live = c + t <= r && r < q;
-            const float L = live ? expf(s_cs[r] - s_cs[c + t]) : 0.f;
-            const float g = dm[j][e + t] * s_dt[c + t];
-            m[t] = sc[j][e + t] * L;
-            d[t] = g * L;
-            const float R = g * m[t];
-            rs[e >> 1] += R;
-            cs2[j][t] += R;
+            float v = cs2[j][t];
+            v += __shfl_xor_sync(0xffffffffu, v, 4);
+            v += __shfl_xor_sync(0xffffffffu, v, 8);
+            v += __shfl_xor_sync(0xffffffffu, v, 16);
+            if ((lane >> 2) == 0) s_col[warp * QM + 32 * qc + frag_col(lane, j, t)] = v;
           }
-          *reinterpret_cast<__nv_bfloat162*>(Mb + r * LDQ + c) = __floats2bfloat162_rn(m[0], m[1]);
-          *reinterpret_cast<__nv_bfloat162*>(Db + r * LDQ + c) = __floats2bfloat162_rn(d[0], d[1]);
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float v = quad_sum(rs[hf]);
+        if ((lane & 3) == 0) s_dcs[frag_row(warp, lane, 2 * hf)] = v;
+      }
+      __syncthreads();
+      for (int cc = threadIdx.x; cc < QM; cc += kThreads) {
+        float v = 0.f;
+        for (int w = 0; w < kThreads / 32; ++w) v += s_col[w * QM + cc];
+        s_dcs[cc] -= v;
+      }
+      __syncthreads();                               // Sb's lo part is read
+    }
+    const float gs_part = stage_states(Sb, Gb, Sp, Gc, a.n, a.p);
+    __syncthreads();
+
+    // term 2: d(dt x) = w * (B G) + M^T dy; dw; dx and ddt's x . d(dt x)
+    {
+      float acc[PM / 8][4];
+      zero_frag(acc);
+      mma_range<PM / 8, false, true>(acc, Bb, LDQ, Gb, LDP, warp, lane, 0, NM / 16);
+      float dw[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < PM / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = frag_row(warp, lane, e), cc = frag_col(lane, j, e);
+          dw[e >> 1] += __bfloat162float(xb[r * LDP + cc]) * acc[j][e];
+          acc[j][e] *= s_w[r];
+        }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = frag_row(warp, lane, 2 * hf);
+        const float v = quad_sum(dw[hf]) * s_dt[r];
+        if ((lane & 3) == 0) {
+          s_wdw[r] = s_w[r] * v;
+          s_dcs[r] -= s_w[r] * v;
         }
       }
+      // M^T: row j takes the rows i >= j of M
+      mma_range<PM / 8, true, true>(acc, Mb, LDQ, gb, LDP, warp, lane, warp, QM / 16);
+      bf16* dxc = static_cast<bf16*>(a.dx) + b * a.dx_sb + t0 * a.dx_ss + hh * a.dx_sh;
+      float dd[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < PM / 8; ++j)
 #pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          float v = cs2[j][t];
-          v += __shfl_xor_sync(0xffffffffu, v, 4);
-          v += __shfl_xor_sync(0xffffffffu, v, 8);
-          v += __shfl_xor_sync(0xffffffffu, v, 16);
-          if ((lane >> 2) == 0) s_col[warp * QM + 64 * hc + frag_col(lane, j, t)] = v;
+        for (int e = 0; e < 4; e += 2) {
+          const int r = frag_row(warp, lane, e), cc = frag_col(lane, j, e);
+          const float2 xx = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(xb + r * LDP + cc));
+          dd[e >> 1] += xx.x * acc[j][e] + xx.y * acc[j][e + 1];
+          if (r < q && cc < a.p)
+            *reinterpret_cast<__nv_bfloat162*>(dxc + r * a.dx_ss + cc) =
+                __floats2bfloat162_rn(s_dt[r] * acc[j][e], s_dt[r] * acc[j][e + 1]);
         }
-    }
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const float v = quad_sum(rs[hf]);
-      if ((lane & 3) == 0) s_dcs[frag_row(warp, lane, 2 * hf)] = v;
+      for (int hf = 0; hf < 2; ++hf) {
+        const float v = quad_sum(dd[hf]);
+        if ((lane & 3) == 0) s_ddt[frag_row(warp, lane, 2 * hf)] = v;
+      }
     }
     __syncthreads();
-    for (int c = threadIdx.x; c < QM; c += kThreads) {
-      float v = 0.f;
-      for (int w = 0; w < kThreads / 32; ++w) v += s_col[w * QM + c];
-      s_dcs[c] -= v;
+    // the A operands of this head's share of dC and dB, in place: e * dy
+    // (dy's bf16 part) and w * dt * x
+    scale_rows<QM, PM>(gb, s_e, nullptr);
+    scale_rows<QM, PM>(xb, s_w, s_dt);
+
+    // term 3: dcs_i += e_i dy_i . (C S_prev)_i; dC += (e dy) S_prev^T + ds B
+    {
+      float acc[PM / 8][4];
+      zero_frag(acc);
+      mma_range<PM / 8, false, true>(acc, Cb, LDQ, Sb, LDP, warp, lane, 0, NM / 16);
+      float dc[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < PM / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int r = frag_row(warp, lane, e), cc = frag_col(lane, j, e);
+          if (r < q && cc < a.p) {
+            const float2 g = load2(gc + r * a.y_ss + cc);
+            dc[e >> 1] += g.x * acc[j][e] + g.y * acc[j][e + 1];
+          }
+        }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = frag_row(warp, lane, 2 * hf);
+        const float v = quad_sum(dc[hf]);
+        if ((lane & 3) == 0) s_dcs[r] += s_e[r] * v;
+      }
     }
-    if (split) stage_bf16<NM, PM>(Sb, LDP, Sp, (long long)a.p, a.n, a.p, none);
-    __syncthreads();
+    __syncthreads();                                 // gb and xb are scaled
+    mma_range<NM / 8, false, false>(accC, gb, LDP, Sb, LDP, warp, lane, 0, PM / 16);
+    mma_range<NM / 8, false, true>(accC, Db, LDQ, Bb, LDQ, warp, lane, 0, live);
+    // dB += (w dt x) G^T + ds^T C; ds^T's row j takes the rows i >= j of ds
+    mma_range<NM / 8, false, false>(accB, xb, LDP, Gb, LDP, warp, lane, 0, PM / 16);
+    mma_range<NM / 8, true, true>(accB, Db, LDQ, Cb, LDQ, warp, lane, warp, QM / 16);
+    finish_dcs(a, k, gs_part, T, A, s_dt, s_dcs, s_ddt, s_wdw, s_red);
+    __syncthreads();                                 // before the next head restages
   }
 
-  // term 2: d(dt x) = w * (B G) + M^T dy; dw; dx and ddt's x . d(dt x)
-  {
-    float acc[PM / 8][4];
-    zero_frag(acc);
-    mma_block<PM / 8, NM, false, true>(acc, Bb, LDQ, Gb, LDP, warp, lane);
-    float xv[PM / 8][4];
-    float dw[2] = {0.f, 0.f};
+  // one group: dC and dB in B's type; several: fp32 partials of this group
+  const long long row0 = (long long)b * a.s + t0;
 #pragma unroll
-    for (int j = 0; j < PM / 8; ++j)
+  for (int j = 0; j < NM / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = frag_row(warp, lane, e), c = frag_col(lane, j, e);
-        xv[j][e] = (r < q && c < a.p) ? to_f(xc[r * a.x_ss + c]) : 0.f;
-        dw[e >> 1] += xv[j][e] * acc[j][e];
-        acc[j][e] *= s_w[r];
-      }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = frag_row(warp, lane, 2 * hf);
-      const float v = quad_sum(dw[hf]) * s_dt[r];
-      if ((lane & 3) == 0) {
-        s_wdw[r] = s_w[r] * v;
-        s_dcs[r] -= s_w[r] * v;
+    for (int e = 0; e < 4; e += 2) {
+      const int r = frag_row(warp, lane, e), cc = frag_col(lane, j, e);
+      if (r >= q || cc >= a.n) continue;
+      const long long off = (row0 + r) * a.n + cc;
+      if (!a.dCp) {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.dC) + off) =
+            __floats2bfloat162_rn(accC[j][e], accC[j][e + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.dB) + off) =
+            __floats2bfloat162_rn(accB[j][e], accB[j][e + 1]);
+      } else {
+        const long long goff = (long long)grp * a.bt * a.s * a.n + off;
+        *reinterpret_cast<float2*>(a.dCp + goff) = make_float2(accC[j][e], accC[j][e + 1]);
+        *reinterpret_cast<float2*>(a.dBp + goff) = make_float2(accB[j][e], accB[j][e + 1]);
       }
     }
-    mma_block<PM / 8, QM, true, true>(acc, Mb, LDQ, gb, LDP, warp, lane);
-    bf16* dxc = static_cast<bf16*>(a.dx) + k.b * a.dx_sb + k.t0 * a.dx_ss + k.hh * a.dx_sh;
-    float dd[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < PM / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = frag_row(warp, lane, e), c = frag_col(lane, j, e);
-        dd[e >> 1] += xv[j][e] * acc[j][e];
-        if (r < q && c < a.p) dxc[r * a.dx_ss + c] = __float2bfloat16_rn(s_dt[r] * acc[j][e]);
-      }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const float v = quad_sum(dd[hf]);
-      if ((lane & 3) == 0) s_ddt[frag_row(warp, lane, 2 * hf)] = v;
-    }
-  }
-
-  // term 3: dC = e * (dy S_prev^T) + ds B; dcs_i += e_i C_i . (dy S_prev^T)_i
-  {
-    float acc[NM / 8][4];
-    zero_frag(acc);
-    mma_block<NM / 8, PM, false, false>(acc, gb, LDP, Sb, LDP, warp, lane);
-    float dc[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NM / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = frag_row(warp, lane, e), c = frag_col(lane, j, e);
-        dc[e >> 1] += __bfloat162float(Cb[r * LDQ + c]) * acc[j][e];
-        acc[j][e] *= s_e[r];
-      }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = frag_row(warp, lane, 2 * hf);
-      const float v = quad_sum(dc[hf]);
-      if ((lane & 3) == 0) s_dcs[r] += s_e[r] * v;
-    }
-    mma_block<NM / 8, QM, false, true>(acc, Db, LDQ, Bb, LDQ, warp, lane);
-    float* out = a.dCp + ((long long)k.hh * a.bt + k.b) * a.s * a.n + (long long)k.t0 * a.n;
-#pragma unroll
-    for (int j = 0; j < NM / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int r = frag_row(warp, lane, e), c = frag_col(lane, j, e);
-        if (r < q && c < a.n)
-          *reinterpret_cast<float2*>(out + r * a.n + c) = make_float2(acc[j][e], acc[j][e + 1]);
-      }
-  }
-
-  // dB = w * ((dt x) G^T) + ds^T C
-  {
-    float acc[NM / 8][4];
-    zero_frag(acc);
-    mma_block<NM / 8, PM, false, false>(acc, xb, LDP, Gb, LDP, warp, lane);   // x G^T
-#pragma unroll
-    for (int j = 0; j < NM / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = frag_row(warp, lane, e);
-        acc[j][e] *= s_w[r] * s_dt[r];
-      }
-    mma_block<NM / 8, QM, true, true>(acc, Db, LDQ, Cb, LDQ, warp, lane);
-    float* out = a.dBp + ((long long)k.hh * a.bt + k.b) * a.s * a.n + (long long)k.t0 * a.n;
-#pragma unroll
-    for (int j = 0; j < NM / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int r = frag_row(warp, lane, e), c = frag_col(lane, j, e);
-        if (r < q && c < a.n)
-          *reinterpret_cast<float2*>(out + r * a.n + c) = make_float2(acc[j][e], acc[j][e + 1]);
-      }
-  }
-  __syncthreads();
-  finish_dcs(a, k, Gc, Sp, T, A, s_dt, s_dcs, s_ddt, s_wdw, s_red);
 }
 
 constexpr int kOutSmem = (3 * QM + QM * LDM + 2 * SLAB) * 4;
 constexpr int kBwdSmem = (7 * QM + 32 + 2 * QM * LDM + 2 * SLAB) * 4;
 constexpr int kStateMmaSmem = 3 * QM * 4 + (QM * LDQ + QM * LDP) * 2;
 constexpr int kOutMmaSmem = 3 * QM * 4 + (2 * QM * LDQ + QM * LDP + NM * LDP) * 2;
-constexpr int kBwdMmaSmem = (7 * QM + 32 + 8 * QM) * 4 + (4 * QM * LDQ + 2 * QM * LDP +
-                                                          2 * NM * LDP) * 2;
-static_assert(kBwdMmaSmem <= 232448, "shared memory of a block on Hopper");
+constexpr int kBwdHeadsSmem = (7 * QM + 32 + 8 * QM) * 4 + (4 * QM * LDQ + 2 * QM * LDP +
+                                                            2 * NM * LDP) * 2;
+static_assert(kBwdHeadsSmem <= 232448, "shared memory of a block on Hopper");
 
 template <typename K>
 int launch(K kernel, dim3 grid, int smem, const Args& a, cudaStream_t st) {
@@ -1165,18 +1364,18 @@ int launch_fwd_mma(const Args& a, cudaStream_t st) {
   return err ? err : launch(ssd_out_mma_kernel<TY>, grid, kOutMmaSmem, a, st);
 }
 
+// The backward's four phases; `bwd` runs on a (chunk, head group, batch) grid.
 template <typename TX, typename K1, typename K6>
 int launch_bwd(K1 state, int state_smem, K6 bwd, int bwd_smem, const Args& a,
                cudaStream_t st) {
-  const dim3 grid(a.nc, a.h, a.bt);
-  int err = launch(state, grid, state_smem, a, st);
+  int err = launch(state, dim3(a.nc, a.h, a.bt), state_smem, a, st);
   if (err) return err;
   launch_scan(a.G, a.T, a, 1, st);
   err = (int)cudaGetLastError();
   if (err) return err;
-  err = launch(bwd, grid, bwd_smem, a, st);
+  err = launch(bwd, dim3(a.nc, a.groups, a.bt), bwd_smem, a, st);
   if (err) return err;
-  const long long work = 2LL * a.bt * a.s * a.n + a.h;
+  const long long work = (a.dBp ? 2LL * a.bt * a.s * a.n : 0) + a.h;
   ssd_reduce_kernel<TX><<<(unsigned)((work + kThreads - 1) / kThreads), kThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
@@ -1208,6 +1407,8 @@ Args make_args(void* const* ptrs, const long long* st, const int* dims, bool bwd
   a.dx_sb = st[13]; a.dx_ss = st[14]; a.dx_sh = st[15];
   a.bt = dims[0]; a.s = dims[1]; a.h = dims[2]; a.p = dims[3]; a.n = dims[4]; a.q = dims[5];
   a.nc = a.s / a.q;
+  a.groups = bwd ? dims[6] : 1;
+  a.hg = (a.h + a.groups - 1) / a.groups;
   return a;
 }
 
@@ -1221,7 +1422,9 @@ int ssd_scan_limits(int which) { return which == 0 ? QM : which == 1 ? NM : PM; 
 // kind 0: forward (ptrs x, dt, A, B, C, y, states, T); kind 1: backward
 // (ptrs x, dt, A, B, C, dy, states, T, G, dx, ddt, dBp, dCp, dAp, dB, dC, dA).
 // strides: x, dt (b, s, h); B, C (b, s); y or dy (b, s, h); dx (b, s, h).
-// dims: Bt, S, H, P, N, chunk.  x_bf16: x, B, C (and dx, dB, dC) are bf16;
+// dims: Bt, S, H, P, N, chunk, and for the backward the head groups: 1 to
+// H for bf16 inputs (dBp and dCp (groups, Bt, S, N) when more than 1, else
+// null), H for float32 (one head a block, dBp and dCp (H, Bt, S, N)).  x_bf16: x, B, C (and dx, dB, dC) are bf16;
 // y_bf16: y (dy) is bf16.  Returns 0 or a CUDA error code; -1 for sizes or
 // types the kernels do not take.
 int ssd_scan_launch(int kind, void* const* ptrs, const long long* strides, const int* dims,
@@ -1229,6 +1432,10 @@ int ssd_scan_launch(int kind, void* const* ptrs, const long long* strides, const
   const Args a = make_args(ptrs, strides, dims, kind == 1);
   if (a.q < 1 || a.q > QM || a.s % a.q || a.n < 1 || a.n > NM || a.p < 1 || a.p > PM ||
       a.n * a.p % 4)
+    return -1;
+  if (kind == 1 && (a.groups < 1 || a.groups > a.h || (!x_bf16 && a.groups != a.h) ||
+                    ((a.groups > 1 || !x_bf16) != (a.dBp && a.dCp)) ||
+                    (long long)(a.groups - 1) * a.hg >= a.h))
     return -1;
   if (a.h > 65535 || a.bt > 65535 || (long long)a.bt * a.h > 65535) return -1;
   if (!x_bf16 && y_bf16) return -1;
@@ -1243,10 +1450,10 @@ int ssd_scan_launch(int kind, void* const* ptrs, const long long* strides, const
     if (!x_bf16)
       return launch_bwd<float>(ssd_state_kernel<1>, 0, ssd_bwd_kernel, kBwdSmem, a, st);
     if (y_bf16)
-      return launch_bwd<bf>(ssd_state_mma_kernel<bf, 1>, kStateMmaSmem, ssd_bwd_mma_kernel<bf>,
-                            kBwdMmaSmem, a, st);
+      return launch_bwd<bf>(ssd_state_mma_kernel<bf, 1>, kStateMmaSmem,
+                            ssd_bwd_heads_kernel<bf>, kBwdHeadsSmem, a, st);
     return launch_bwd<bf>(ssd_state_mma_kernel<float, 1>, kStateMmaSmem,
-                          ssd_bwd_mma_kernel<float>, kBwdMmaSmem, a, st);
+                          ssd_bwd_heads_kernel<float>, kBwdHeadsSmem, a, st);
   }
   return -1;
 }

@@ -1,10 +1,20 @@
 """Wrapper of the CUDA flash-decode kernel (``csrc/decode_attention.cu``).
 
-``decode_attention(q, k_cache, v_cache, lengths)`` computes what
-``repro.kernels.decode_attention.decode_attention_pallas`` computes.  On
-CPU tensors it runs the plain version :func:`decode_attention_ref`; on
-CUDA tensors it launches the kernel, or raises when the kernel does not
-take the inputs.  ``decode_attention.launches`` counts kernel launches.
+Two entry points, one kernel with two masks:
+
+* ``decode_attention(q, k_cache, v_cache, lengths)`` computes what
+  ``repro.kernels.decode_attention.decode_attention_pallas`` computes: keys
+  at or past ``lengths[b]`` are ignored;
+* ``decode_attention_cache(q, k_cache, v_cache, slot_pos, q_pos, *,
+  window=0, chunk=0)`` computes ``decode_attention_cache_xla``: attention
+  against a ring-buffer cache whose slots carry absolute positions.
+
+On CPU tensors each runs its plain version (:mod:`.ref`); on CUDA tensors
+it launches the kernel once, or raises when the kernel does not take the
+inputs.  ``decode_attention.launches`` counts kernel launches of both.
+
+The kernel splits the key axis over the blocks of one thread-block
+cluster per (batch, KV head), which merge the splits in shared memory.
 """
 
 from __future__ import annotations
@@ -16,33 +26,27 @@ import math
 import torch
 
 from .. import _build
-from .ref import decode_attention_ref
+from .ref import decode_attention_cache_ref, decode_attention_ref
 
-#: keys per tile in the kernel; a split of the key axis is a whole number of tiles
-TILE_K = 32
-#: blocks per SM the key split aims for: 4 blocks of the kernel fit on an SM
-#: at StarCoder2's shapes, and 4 timed fastest of 2, 4 and 8 on an H100
-BLOCKS_PER_SM = 4
-SMEM_LIMIT = 232448          # bytes of shared memory a block may use on Hopper
+#: keys per tile of the tensor-core kernel; a split is a whole number of them
+TILE_K = 64
+#: query heads of one block: the M of the tensor cores' m16n8k16 product
+HEADS_PER_BLOCK = 16
+#: fewest keys a split streams, so that each block keeps a ring of tiles
+#: busy instead of paying its fixed cost for one tile
+MIN_SPLIT_KEYS = 128
+MAX_SPLITS = 8               # a row's splits form one (portable) cluster
 _DTYPES = (torch.float32, torch.bfloat16)
-
-_i, _ll, _p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+LENGTHS, SLOTS = 0, 1        # the kernel's two masks
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     fn = lib.decode_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [_p] * 6 + [_i] * 7 + [_ll] * 8 + [_i, _i, ctypes.c_float, _p]
-        fn.restype = _i
-        lib.decode_attention_smem_bytes.argtypes = [_i, _i, _i]
-        lib.decode_attention_smem_bytes.restype = _i
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
-
-
-@functools.cache
-def _smem_bytes(rep: int, d: int, kv_bytes: int) -> int:
-    return _lib().decode_attention_smem_bytes(rep, d, kv_bytes)
 
 
 @functools.cache
@@ -50,27 +54,30 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def num_splits(batch: int, kv_heads: int, seq: int, sms: int) -> tuple:
-    """(n_split, chunk): split the key axis so that about BLOCKS_PER_SM
-    blocks per SM run, each split a whole number of tiles.  Depends on
-    shapes only, never on ``lengths``, so choosing it needs no device sync."""
-    n = max(1, min(_cdiv(BLOCKS_PER_SM * sms, batch * kv_heads), _cdiv(seq, TILE_K)))
-    chunk = _cdiv(_cdiv(seq, n), TILE_K) * TILE_K
-    return _cdiv(seq, chunk), chunk
-
-
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _check(q, k_cache, v_cache, lengths):
+def num_splits(units: int, seq: int, sms: int) -> tuple:
+    """(n_split, chunk) for ``units`` blocks of query heads over ``seq``
+    keys: about one block per SM in all, each split at least MIN_SPLIT_KEYS
+    keys (one split for a shorter cache), a whole number of tiles, at most
+    MAX_SPLITS of them; the kernel streams a long split in passes.  Depends
+    on shapes only, never on the masks' values, so choosing it needs no
+    device sync."""
+    n = max(1, min(_cdiv(sms, units), _cdiv(seq, MIN_SPLIT_KEYS), MAX_SPLITS))
+    chunk = _cdiv(_cdiv(seq, n), TILE_K) * TILE_K
+    return _cdiv(seq, chunk), chunk
+
+
+def _check(q, k_cache, v_cache, ints):
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"want q (B, Hq, D) and caches (B, S, Hkv, D); got "
                          f"{tuple(q.shape)}, {tuple(k_cache.shape)}, "
                          f"{tuple(v_cache.shape)}")
     b, hq, d = q.shape
     bk, s, hkv, dk = k_cache.shape
-    if bk != b or dk != d or hkv == 0 or hq % hkv:
+    if bk != b or dk != d or hkv == 0 or hq % hkv or s == 0:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, cache "
                          f"{tuple(k_cache.shape)}")
     if d % 8 or d > 256:
@@ -79,9 +86,12 @@ def _check(q, k_cache, v_cache, lengths):
             or v_cache.dtype != k_cache.dtype:
         raise TypeError(f"dtypes q {q.dtype}, k {k_cache.dtype}, v "
                         f"{v_cache.dtype}: the kernel takes float32 or bfloat16")
-    if lengths.dtype != torch.int32 or lengths.shape != (b,):
-        raise TypeError(f"lengths must be int32 of shape ({b},)")
-    devs = {t.device for t in (q, k_cache, v_cache, lengths)}
+    for name, t, shape in ints:
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise TypeError(f"{name} must be int32 of shape {shape}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the last dimension must be contiguous")
+    devs = {t.device for t in (q, k_cache, v_cache, *(t for _, t, _ in ints))}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
     vec = 16 // k_cache.element_size()
@@ -91,41 +101,78 @@ def _check(q, k_cache, v_cache, lengths):
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:-1]):
             raise ValueError(f"{name}: rows must start on 16-byte boundaries")
-    if not lengths.is_contiguous():
-        raise ValueError("lengths must be contiguous")
+
+
+def _launch(mode, q, k_cache, v_cache, lengths=None, slot_pos=None, q_pos=None,
+            window=0, chunk=0):
+    qvec = 16 // q.element_size()
+    if q.data_ptr() % 16 or q.stride(0) % qvec or q.stride(1) % qvec:
+        q = q.clone(memory_format=torch.contiguous_format)   # the kernel loads 16-byte rows
+    b, hq, d = q.shape
+    _, s, hkv, _ = k_cache.shape
+    units = b * hkv * _cdiv(hq // hkv, HEADS_PER_BLOCK)
+    n_split, split_keys = num_splits(units, s, _sm_count(q.device.index))
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    ptrs = (ctypes.c_void_p * 7)(
+        ptr(q), ptr(k_cache), ptr(v_cache), ptr(lengths), ptr(slot_pos), ptr(q_pos), ptr(out))
+    strides = (ctypes.c_longlong * 9)(
+        q.stride(0), q.stride(1), *k_cache.stride()[:3], *v_cache.stride()[:3],
+        slot_pos.stride(0) if slot_pos is not None else 0)
+    dims = (ctypes.c_int * 12)(
+        mode, b, hq, hkv, s, d, n_split, split_keys, window, chunk,
+        int(q.dtype == torch.bfloat16), int(k_cache.dtype == torch.bfloat16))
+    err = _lib().decode_attention_launch(ptrs, strides, dims, 1.0 / math.sqrt(d),
+                                         torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"decode_attention kernel launch failed: "
+                           + ("sizes not taken" if err < 0 else f"CUDA error {err}"))
+    decode_attention.launches += 1
+    return out
+
+
+def _on_card(q: torch.Tensor) -> bool:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"decode_attention runs on cpu or cuda, not {q.device}")
+    return q.device.type == "cuda"
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """q: (B, Hq, D); caches: (B, S, Hkv, D); lengths: (B,) int32 -> (B, Hq, D)
     in q's dtype.  Keys at or past ``lengths[b]`` are ignored."""
-    if q.device.type == "cpu":
+    if not _on_card(q):
         return decode_attention_ref(q, k_cache, v_cache, lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention runs on cpu or cuda, not {q.device}")
-    _check(q, k_cache, v_cache, lengths)
-    b, hq, d = q.shape
-    _, s, hkv, _ = k_cache.shape
-    smem = _smem_bytes(hq // hkv, d, k_cache.element_size())
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"rep {hq // hkv} x head dim {d} needs {smem} bytes of "
-                         f"shared memory, more than {SMEM_LIMIT}")
-    n_split, chunk = num_splits(b, hkv, s, _sm_count(q.device.index))
-    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
-    part = (torch.empty((b, hq, n_split, d + 2), dtype=torch.float32,
-                        device=q.device) if n_split > 1 else None)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib().decode_attention_launch(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), part.data_ptr() if part is not None else None,
-        b, hq, hkv, s, d, n_split, chunk,
-        q.stride(0), q.stride(1), *k_cache.stride()[:3], *v_cache.stride()[:3],
-        int(q.dtype == torch.bfloat16), int(k_cache.dtype == torch.bfloat16),
-        1.0 / math.sqrt(d), stream)
-    if err:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
-    decode_attention.launches += 1
-    return out
+    _check(q, k_cache, v_cache, [("lengths", lengths, (q.shape[0],))])
+    return _launch(LENGTHS, q, k_cache, v_cache, lengths=lengths)
+
+
+def decode_attention_cache(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, slot_pos: torch.Tensor,
+                           q_pos: torch.Tensor, *, window: int = 0,
+                           chunk: int = 0) -> torch.Tensor:
+    """q: (B, 1, Hq, D); caches: (B, W, Hkv, D); slot_pos: (B, W) int32, the
+    absolute position in each slot (-1 = empty); q_pos: (B,) int32 ->
+    (B, 1, Hq, D) in q's dtype.  A slot counts when ``0 <= slot_pos <=
+    q_pos``, within ``window`` positions of ``q_pos`` (``window`` > 0) and
+    in its chunk of ``chunk`` positions (``chunk`` > 0).  A row with no
+    such slot gives zeros on the card, where the plain version averages
+    every slot; the model's decode always holds the query's own slot."""
+    if not _on_card(q):
+        return decode_attention_cache_ref(q, k_cache, v_cache, slot_pos, q_pos,
+                                          window=window, chunk=chunk)
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"want q (B, 1, Hq, D); got {tuple(q.shape)}")
+    if window < 0 or chunk < 0:
+        raise ValueError(f"window {window} and chunk {chunk} must not be negative")
+    b, w = k_cache.shape[:2] if k_cache.dim() == 4 else (None, None)
+    _check(q[:, 0], k_cache, v_cache,
+           [("slot_pos", slot_pos, (b, w)), ("q_pos", q_pos, (q.shape[0],))])
+    return _launch(SLOTS, q[:, 0], k_cache, v_cache, slot_pos=slot_pos, q_pos=q_pos,
+                   window=window, chunk=chunk)[:, None]
 
 
 decode_attention.launches = 0

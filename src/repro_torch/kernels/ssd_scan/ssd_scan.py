@@ -48,6 +48,22 @@ def limits() -> Tuple[int, int, int]:
     return tuple(lib.ssd_scan_limits(i) for i in range(3))
 
 
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def head_groups(chunks: int, heads: int, sms: int) -> int:
+    """Head groups of the bf16 backward: a block per (batch, chunk, group)
+    walks its group's heads, so with ``chunks`` = Bt * nc blocks per group
+    the groups are as many as keep the blocks within one wave of ``sms``
+    (at least 1, at most one head a group) and none is empty.  More than
+    one group costs a pass over (groups, Bt, S, N) fp32 dB/dC partials."""
+    g = max(1, min(heads, sms // max(1, chunks)))
+    per = -(-heads // g)
+    return -(-heads // per)
+
+
 def _on(t: torch.Tensor, name: str) -> bool:
     """True for CUDA tensors, False for CPU ones (plain version)."""
     if t.device.type not in ("cpu", "cuda"):
@@ -102,7 +118,7 @@ def _check(x, dt, A, B, C, chunk, out_dtype, *grads):
 def _launch(kind, ptrs, strides, dims, x, out_dtype):
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_strides = (ctypes.c_longlong * len(strides))(*strides)
-    c_dims = (ctypes.c_int * 6)(*dims)
+    c_dims = (ctypes.c_int * len(dims))(*dims)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().ssd_scan_launch(kind, c_ptrs, c_strides, c_dims,
                                  int(x.dtype == torch.bfloat16),
@@ -156,18 +172,22 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Te
         if t is None or t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32 {shape}, from ssd_scan_fwd")
     f32 = dict(dtype=torch.float32, device=x.device)
+    groups = head_groups(bt * nc, h, _sm_count(x.device.index)) \
+        if x.dtype == torch.bfloat16 else h
     G = torch.empty_like(states)
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
     ddt = torch.empty((bt, s, h), **f32)
-    dBp = torch.empty((h, bt, s, n), **f32)
-    dCp = torch.empty((h, bt, s, n), **f32)
+    partials = groups > 1 or x.dtype == torch.float32    # else dB, dC written directly
+    dBp = torch.empty((groups, bt, s, n), **f32) if partials else None
+    dCp = torch.empty((groups, bt, s, n), **f32) if partials else None
     dAp = torch.empty((bt, nc, h), **f32)
     dB = torch.empty((bt, s, n), dtype=B.dtype, device=x.device)
     dC = torch.empty((bt, s, n), dtype=C.dtype, device=x.device)
     dA = torch.empty((h,), **f32)
-    ptrs = [t.data_ptr() for t in (x, dt, A, B, C, dy, states, T, G, dx, ddt, dBp, dCp,
-                                   dAp, dB, dC, dA)]
-    _launch(BWD, ptrs, _strides(x, dt, B, C, dy, dx), [bt, s, h, p, n, q], x, dy.dtype)
+    ptrs = [t.data_ptr() if t is not None else None
+            for t in (x, dt, A, B, C, dy, states, T, G, dx, ddt, dBp, dCp, dAp, dB, dC, dA)]
+    _launch(BWD, ptrs, _strides(x, dt, B, C, dy, dx), [bt, s, h, p, n, q, groups], x,
+            dy.dtype)
     ssd_scan_bwd.launches += 1
     return dx, ddt, dA, dB, dC
 

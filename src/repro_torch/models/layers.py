@@ -14,6 +14,8 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.decode_attention.ref import (  # noqa: F401
+    decode_attention_cache_ref as decode_attention_cache)
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 
 Params = Mapping[str, torch.Tensor]
@@ -81,39 +83,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (:mod:`repro_torch.kernels.flash_attention`)."""
     return _flash_kernel(q, k, v, causal=causal, window=window, chunk=chunk,
                          prefix_len=prefix_len, q_offset=q_offset)
-
-
-# ------------------------------------------------------- decode attention
-
-def decode_attention_cache(q: torch.Tensor, k_cache: torch.Tensor,
-                           v_cache: torch.Tensor, slot_pos: torch.Tensor,
-                           q_pos: torch.Tensor, *, window: int = 0,
-                           chunk: int = 0) -> torch.Tensor:
-    """Single-token attention against a ring-buffer cache with per-slot
-    absolute positions, in plain PyTorch.
-
-    q: (B, 1, Hq, D); caches: (B, W, Hkv, D); slot_pos: (B, W) absolute
-    position stored in each slot (-1 = empty); q_pos: (B,).  This is the
-    general mask of ``decode_attention_cache_xla``; a full-attention layer
-    whose cache holds every position runs the flash-decode kernel instead,
-    with ``lengths = q_pos + 1``, which selects the same slots.
-    """
-    b, _, hq, d = q.shape
-    _, w, hkv, _ = k_cache.shape
-    rep = hq // hkv
-    scale = 1.0 / math.sqrt(d)
-    qh = (q[:, 0].float() * scale).reshape(b, hkv, rep, d)
-    s_logits = torch.einsum("bgrd,bsgd->bgrs", qh, k_cache.float())
-    valid = (slot_pos >= 0) & (slot_pos <= q_pos[:, None])
-    if window:
-        valid &= (q_pos[:, None] - slot_pos) < window
-    if chunk:
-        valid &= torch.div(slot_pos, chunk, rounding_mode="floor") == \
-            torch.div(q_pos[:, None], chunk, rounding_mode="floor")
-    s_logits = s_logits.masked_fill(~valid[:, None, None, :], -1e30)
-    p = torch.softmax(s_logits, dim=-1)
-    out = torch.einsum("bgrs,bsgd->bgrd", p, v_cache.float())
-    return out.reshape(b, 1, hq, d).to(q.dtype)
 
 
 # --------------------------------------------------------------- dense mlp

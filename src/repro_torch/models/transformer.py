@@ -29,7 +29,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import decode_attention_cache
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 
@@ -271,24 +271,18 @@ def init_cache(model: Transformer, batch: int, max_len: int,
 
 
 def _attn_decode(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
-                 kind: str, position: torch.Tensor, max_position: int,
+                 kind: str, position: torch.Tensor,
                  cache: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """One-token attention against the layer's cache.
+    """One-token attention against the layer's ring-buffer cache.
 
-    x: (B, 1, d); position: (B,) int32 on the device; ``max_position`` is
-    the largest entry of ``position``, known on the host.  The cache is
+    x: (B, 1, d); position: (B,) int32 absolute positions on the device.
+    Position ``t`` goes to slot ``t % W``, as in ``repro``, so a sequence
+    longer than the cache attends to its last W positions.  The cache is
     updated in place (``index_put_``), where JAX builds a new one with
     ``.at[].set``.
     """
-    wc = cache["k"].shape[1]
     if kind != "attn":
         raise _unported(kind)
-    if wc < max_position + 1:
-        raise ValueError(f"cache of {wc} slots cannot hold position {max_position}")
-    # A full-attention cache holds position j in slot j and never wraps, and
-    # slots past the current position hold -1 or a stale, larger position.
-    # So the ring-buffer mask (slot_pos >= 0) & (slot_pos <= position) keeps
-    # exactly the slots below lengths = position + 1.
     b = x.shape[0]
     hd = cfg.head_dim
     hq = p["wq"].shape[-1] // hd
@@ -303,19 +297,19 @@ def _attn_decode(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
     k = L.apply_rope(k.reshape(b, 1, kvh, hd), pos_b, cfg.rope_theta)
     v = v.reshape(b, 1, kvh, hd)
 
-    slot = position.long()                # never wraps: wc > max_position
-    bi = torch.arange(b, device=x.device)
     kc, vc, pc = cache["k"], cache["v"], cache["pos"]
+    slot = (position % kc.shape[1]).long()
+    bi = torch.arange(b, device=x.device)
     kc.index_put_((bi, slot), k[:, 0].to(kc.dtype))
     vc.index_put_((bi, slot), v[:, 0].to(vc.dtype))
     pc.index_put_((bi, slot), position)
 
-    out = decode_attention(q[:, 0], kc, vc, position + 1)     # (B, Hq, D)
+    out = decode_attention_cache(q, kc, vc, pc, position)     # (B, 1, Hq, D)
     return out.reshape(b, 1, hq * hd) @ p["wo"]
 
 
 def _layer_decode(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
-                  position: torch.Tensor, max_position: int,
+                  position: torch.Tensor,
                   cache: Dict[str, torch.Tensor]) -> torch.Tensor:
     h = L.norm(x, layer.norm1, cfg.norm)
     if layer.kind == "ssd":
@@ -324,8 +318,7 @@ def _layer_decode(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
         cache.update(new)
         x = x + y
     else:
-        x = x + _attn_decode(layer.attn, cfg, h, layer.kind, position,
-                             max_position, cache)
+        x = x + _attn_decode(layer.attn, cfg, h, layer.kind, position, cache)
     if layer.mlp is None:
         return x
     h2 = L.norm(x, layer.norm2, cfg.norm)
@@ -341,14 +334,14 @@ def decode_step(model: Transformer, cache: List[Dict[str, torch.Tensor]],
     ``tokens`` and ``position`` are host integer arrays (numpy or CPU
     tensors), as the serving engine keeps them; they go to the device in one
     copy that does not wait for it, so the step itself needs no host-device
-    sync.  An SSD layer's state has no positions: each call advances every
-    lane by one token, so its lanes must move in lockstep.
+    sync, and nothing in it depends on the positions' values on the host.
+    An SSD layer's state has no positions: each call advances every lane by
+    one token, so its lanes must move in lockstep.
     """
     cfg = model.cfg
     dev = model.device
     host = np.concatenate([np.asarray(tokens, np.int64).reshape(-1),
                            np.asarray(position, np.int64).reshape(-1)])
-    max_position = int(host[host.size // 2:].max())
     both = torch.from_numpy(host)
     if dev.type == "cuda":      # a pinned source lets the copy skip the wait
         both = both.pin_memory()
@@ -357,7 +350,7 @@ def decode_step(model: Transformer, cache: List[Dict[str, torch.Tensor]],
     pos = pos.to(torch.int32)
     x = embed_tokens(model, tok[:, None])                    # (B, 1, d)
     for layer, c in zip(model.layers, cache):
-        x = _layer_decode(layer, cfg, x, pos, max_position, c)
+        x = _layer_decode(layer, cfg, x, pos, c)
     x = L.norm(x, model.final_norm, cfg.norm)
     w = model.lm_head if model.lm_head is not None else model.embed.T
     logits = (x[:, 0] @ w).float()

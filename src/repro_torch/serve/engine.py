@@ -4,7 +4,9 @@ Counterpart of ``repro/serve/engine.py`` with the same semantics.
 ``ServeEngine`` keeps a fixed pool of ``max_batch`` sequence slots with a
 shared KV cache on the device.  Requests join free slots (their prompt is
 prefilled token by token through ``decode_step``), then all active slots
-decode in lockstep, one token per engine step.
+decode in lockstep, one token per engine step.  Each attention layer's
+cache is a ring of ``max_len`` slots, so a sequence longer than that
+attends to its last ``max_len`` positions, as in ``repro``.
 
 Capacity hook: :meth:`ServeEngine.set_capacity` shrinks or restores the
 usable slot count at run time.  Paused slots keep their request and cache
@@ -93,10 +95,16 @@ class ServeEngine:
     # ------------------------------------------------------------- admit
 
     def submit(self, req: Request) -> bool:
+        """Prefill ``req`` into the first free slot below the capacity and
+        take it; False when none is free.  A prompt longer than
+        ``max_len`` wraps the ring-buffer cache, as in ``repro``.  An empty
+        prompt raises ``ValueError``.  The slot is taken only once the
+        prefill has run, so a submit that raises leaves every slot as it
+        was."""
+        if not req.prompt:
+            raise ValueError(f"request {req.rid} has an empty prompt: nothing to prefill")
         for i, slot in enumerate(self.slots[:self.capacity]):
             if slot is None:
-                req.out = []
-                self.slots[i] = req
                 # prefill: feed prompt tokens through the decode path
                 for j, tok in enumerate(req.prompt):
                     self.pending_tok[i] = tok
@@ -104,7 +112,8 @@ class ServeEngine:
                     nxt = self._step()
                 self.pending_tok[i] = int(nxt[i])
                 self.positions[i] = len(req.prompt)
-                req.out.append(int(self.pending_tok[i]))
+                req.out = [int(self.pending_tok[i])]
+                self.slots[i] = req
                 return True
         return False
 

@@ -3,7 +3,8 @@
 On CPU tensors the port's wrapper runs its plain version, so these tests
 hold that version (the kernel's oracle on the card) to the Pallas kernel
 in interpret mode and to the JAX ``decode_attention_ref``, and the port's
-ring-buffer ``decode_attention_cache`` to ``decode_attention_cache_xla``.
+ring-buffer form ``decode_attention_cache`` (wrapped lanes, empty slots,
+windows and chunks) to ``decode_attention_cache_xla``.
 Inputs come from a numpy seed and go to both frameworks.
 """
 
@@ -17,8 +18,12 @@ from repro.kernels.decode_attention.decode_attention import decode_attention_pal
 from repro.kernels.decode_attention.ref import decode_attention_ref as jax_ref
 from repro.models.layers import decode_attention_cache_xla
 from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_cache,
+                                                  decode_attention_cache_ref,
                                                   decode_attention_ref)
-from repro_torch.models.layers import decode_attention_cache
+from repro_torch.kernels.decode_attention.decode_attention import (
+    HEADS_PER_BLOCK, MAX_SPLITS, MIN_SPLIT_KEYS, TILE_K, num_splits)
+from repro_torch.models import layers
 
 # the tolerances of tests/test_kernels.py
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -85,14 +90,71 @@ def test_cache_attention_matches_xla_on_reused_lanes(dtype):
     pj, pt = jnp.asarray(slot_pos), torch.from_numpy(slot_pos)
     qpj, qpt = jnp.asarray(q_pos), torch.from_numpy(q_pos)
 
-    out = decode_attention_cache(qt, kt, vt, pt, qpt)
+    out = layers.decode_attention_cache(qt, kt, vt, pt, qpt)
     _close(out, decode_attention_cache_xla(qj, kj, vj, pj, qpj), dtype)
     # the kernel's length mask selects the same slots as the ring mask
     flash = decode_attention(qt[:, 0], kt, vt, qpt + 1)
     _close(flash, decode_attention_cache_xla(qj, kj, vj, pj, qpj)[:, 0], dtype)
     # windowed masks (the later SWA slice) agree as well
-    _close(decode_attention_cache(qt, kt, vt, pt, qpt, window=5),
+    _close(layers.decode_attention_cache(qt, kt, vt, pt, qpt, window=5),
            decode_attention_cache_xla(qj, kj, vj, pj, qpj, window=5), dtype)
+
+
+def _ring_cache(rng, b, w, hkv, d, case):
+    """(k, v, slot_pos, q_pos) of a ring-buffer cache of W slots, as
+    ``_attn_decode`` leaves it: position t in slot t % W.  ``case``:
+    "wrapped" lanes ran past W positions; "empty" lanes hold fewer than W
+    (the rest -1) and one lane holds stale, larger positions of an earlier
+    request; "mixed" has one lane of each."""
+    k = rng.standard_normal((b, w, hkv, d))
+    v = rng.standard_normal((b, w, hkv, d))
+    q_pos = {"wrapped": [w + 3, 3 * w - 1, 2 * w],
+             "empty": [0, w // 2, 5],
+             "mixed": [2 * w + 7, 4, w - 1]}[case]
+    slot_pos = np.full((b, w), -1, np.int32)
+    for i, qp in enumerate(q_pos):
+        for t in range(qp + 1):
+            slot_pos[i, t % w] = t
+    if case == "empty":             # lane 2 reuses a slot of a longer request
+        slot_pos[2, 6:9] = [6 + w, 7 + w, 8 + w]
+    return k, v, slot_pos, np.asarray(q_pos, np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 80])
+@pytest.mark.parametrize("case", ["wrapped", "empty", "mixed"])
+@pytest.mark.parametrize("window, chunk", [(0, 0), (7, 0), (0, 8), (5, 16)])
+def test_plain_slot_form_matches_xla(dtype, d, case, window, chunk):
+    rng = np.random.default_rng([d, ["wrapped", "empty", "mixed"].index(case), window,
+                                 chunk])
+    b, w, hkv, rep = 3, 24, 2, 3
+    k, v, slot_pos, q_pos = _ring_cache(rng, b, w, hkv, d, case)
+    q = rng.standard_normal((b, 1, rep * hkv, d))
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(x, dtype) for x in (q, k, v))
+    pj, pt = jnp.asarray(slot_pos), torch.from_numpy(slot_pos)
+    qpj, qpt = jnp.asarray(q_pos), torch.from_numpy(q_pos)
+    before = decode_attention.launches
+    out = decode_attention_cache(qt, kt, vt, pt, qpt, window=window, chunk=chunk)
+    assert decode_attention.launches == before        # the CPU launches nothing
+    assert out.dtype == TDT[dtype] and out.shape == (b, 1, rep * hkv, d)
+    assert torch.equal(out, decode_attention_cache_ref(qt, kt, vt, pt, qpt,
+                                                       window=window, chunk=chunk))
+    assert torch.equal(out, layers.decode_attention_cache(qt, kt, vt, pt, qpt,
+                                                          window=window, chunk=chunk))
+    _close(out, decode_attention_cache_xla(qj, kj, vj, pj, qpj, window=window,
+                                           chunk=chunk), dtype)
+
+
+@pytest.mark.parametrize("b, hkv, rep, seq", [
+    (8, 2, 12, 1024), (8, 2, 12, 4096), (1, 1, 1, 100), (64, 8, 4, 2048),
+    (1, 2, 12, 65536), (4, 1, 40, 300), (1, 1, 1, 131073), (2, 2, 12, 1 << 20)])
+def test_num_splits_whole_tiles_from_shapes(b, hkv, rep, seq):
+    units = b * hkv * -(-rep // HEADS_PER_BLOCK)
+    n, keys = num_splits(units, seq, 132)
+    assert keys % TILE_K == 0
+    assert (n - 1) * keys < seq <= n * keys          # no empty trailing split
+    assert n == 1 or keys >= MIN_SPLIT_KEYS
+    assert n <= min(MAX_SPLITS, -(-132 // units))    # any cache length is taken
 
 
 def test_wrapper_rejects_other_devices():
@@ -101,3 +163,6 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError, match="cpu or cuda"):
         decode_attention(q, kc, kc, torch.ones((1,), dtype=torch.int32,
                                                device="meta"))
+    pos = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        decode_attention_cache(q[:, None], kc, kc, pos, pos[:, 0])

@@ -85,6 +85,72 @@ def test_decode_steps_match_jax(pair):
             np.testing.assert_array_equal(c["pos"].numpy(), np.asarray(jg["pos"][i]))
 
 
+def test_decode_steps_past_max_len_match_jax(pair):
+    """Positions past the cache's length wrap into slot position % max_len,
+    as in ``repro``: lane 0 runs to twice the cache, lane 1 restarts at 0
+    after wrapping, lane 2 stays short."""
+    jcfg, params, tcfg, model = pair
+    b, max_len = 3, 8
+    jcache = jax_init_cache(params, jcfg, b, max_len)
+    tcache = init_cache(model, b, max_len)
+    rng = np.random.default_rng(4)
+    for step in range(17):
+        positions = np.asarray([step, step if step < 11 else step - 11, step % 4],
+                               np.int32)
+        tokens = rng.integers(0, jcfg.vocab_size, (b, 1)).astype(np.int32)
+        jnext, jcache = jax_decode_step(params, jcfg, jcache,
+                                        jnp.asarray(tokens), jnp.asarray(positions))
+        tnext, tcache = decode_step(model, tcache, tokens, positions)
+        np.testing.assert_array_equal(tnext.numpy(), np.asarray(jnext))
+        jg = jcache["groups"][0]
+        for i, c in enumerate(tcache):
+            np.testing.assert_array_equal(c["pos"].numpy(), np.asarray(jg["pos"][i]))
+            np.testing.assert_allclose(c["k"].float().numpy(),
+                                       np.asarray(jg["k"][i], np.float32),
+                                       atol=CACHE_TOL, rtol=CACHE_TOL)
+
+
+def _awaited(jeng):
+    """repro's engine hands its host token/position arrays to jnp.asarray,
+    which may alias them on the CPU, and mutates them while the step it
+    dispatched may not have run yet.  Waiting for each step makes the
+    reference deterministic."""
+    step = jeng._step
+    jeng._step = lambda *a: jax.block_until_ready(step(*a))
+    return jeng
+
+
+def test_prompt_longer_than_max_len_wraps_like_jax(pair):
+    jcfg, params, tcfg, model = pair
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, jcfg.vocab_size, n).tolist() for n in (10, 3, 13)]
+    streams = {}
+    for name, eng, req in (
+            ("jax", _awaited(JaxServeEngine(jcfg, params, max_batch=2, max_len=8)),
+             JaxRequest),
+            ("torch", ServeEngine(tcfg, model, max_batch=2, max_len=8, device="cpu"),
+             Request)):
+        reqs = [req(i, list(p), max_new=6) for i, p in enumerate(prompts)]
+        assert eng.submit(reqs[0]) and eng.submit(reqs[1])
+        eng.step()
+        assert eng.run_until_done() == []
+        assert eng.submit(reqs[2])                # reuses a slot, wraps again
+        assert eng.run_until_done() == []
+        streams[name] = [r.out for r in reqs]
+        assert all(r.done for r in reqs)
+    assert streams["torch"] == streams["jax"]
+
+
+def test_empty_prompt_raises_and_leaves_every_slot_free(pair):
+    _, _, cfg, model = pair
+    eng = ServeEngine(cfg, model, max_batch=2, max_len=8, device="cpu")
+    with pytest.raises(ValueError, match="empty prompt"):
+        eng.submit(Request(0, [], max_new=3))
+    assert eng.slots == [None, None]
+    (a,) = reqs(1, cfg)
+    assert eng.submit(a) and eng.slots[0] is a
+
+
 def _drive(engine, request_cls, vocab):
     """3 requests through 2 slots: slot reuse plus one capacity pause and
     restore.  Returns every request's token stream and the step counts."""
@@ -105,13 +171,7 @@ def _drive(engine, request_cls, vocab):
 
 def test_serve_engine_streams_match_jax(pair):
     jcfg, params, tcfg, model = pair
-    # repro's engine hands its host token/position arrays to jnp.asarray,
-    # which may alias them on the CPU, and mutates them while the step it
-    # dispatched may not have run yet.  Waiting for each step makes the
-    # reference deterministic.
-    jeng = JaxServeEngine(jcfg, params, max_batch=2, max_len=32)
-    step = jeng._step
-    jeng._step = lambda *a: jax.block_until_ready(step(*a))
+    jeng = _awaited(JaxServeEngine(jcfg, params, max_batch=2, max_len=32))
     jstreams, jlog = _drive(jeng, JaxRequest, jcfg.vocab_size)
     tstreams, tlog = _drive(ServeEngine(tcfg, model, max_batch=2, max_len=32,
                                         device="cpu"), Request, tcfg.vocab_size)

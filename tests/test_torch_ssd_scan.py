@@ -20,7 +20,7 @@ from repro.kernels.ssd_scan.ssd_scan import ssd_scan_pallas
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bwd, ssd_scan_bwd_ref,
                                           ssd_scan_fwd, ssd_scan_ref)
-from repro_torch.kernels.ssd_scan.ssd_scan import _check
+from repro_torch.kernels.ssd_scan.ssd_scan import _check, head_groups
 
 # the tolerances of tests/test_kernels.py: f32 sums run in another order;
 # bf16 inputs are read the same, and y is rounded to bf16 once
@@ -144,3 +144,16 @@ def test_checks_reject_what_the_kernels_do_not_take():
         _check(*_both(_inputs(8, 1, 64, 2, 12, 8), "bfloat16")[1], 16, torch.bfloat16)
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
         ssd_scan_fwd(x.to("meta"), dt, A, B, C, chunk=16)
+
+
+@pytest.mark.parametrize("chunks, heads", [(128, 48), (32, 48), (5, 48), (3, 4), (1, 1),
+                                           (200, 7), (64, 24)])
+def test_head_groups_cover_every_head_within_one_wave(chunks, heads):
+    """The bf16 backward's head groups: a block per (batch, chunk, group),
+    every group non-empty, as many groups as one wave of 132 SMs holds."""
+    g = head_groups(chunks, heads, 132)
+    per = -(-heads // g)
+    assert 1 <= g <= heads
+    assert (g - 1) * per < heads <= g * per
+    assert g == 1 or chunks * g <= 132
+    assert head_groups(128, 48, 132) == 1        # Mamba2-780m's training shape
