@@ -43,8 +43,9 @@ failure:
      wrapped cache);
   8. hold the SSD-scan forward and backward kernels against their plain
      versions in float32 and bfloat16 (y in x's type and in float32) at
-     tests/test_kernels.py's sweep, N=128, one chunk, ragged sizes and
-     Mamba2-780m's training shape;
+     tests/test_kernels.py's sweep, N=128, one chunk, ragged sizes,
+     Mamba2-780m's training shape, an odd head count, a state carried
+     through 128 chunks and Bt x nc below and far above the SM count;
   9. train reduced Mamba-2 in float32 for 3 steps on the CPU and on the
      card: losses and weights agree; 12 lockstep decode steps agree;
  10. Mamba-2 training main path: full-width, full-depth Mamba2-780m, bf16,
@@ -55,9 +56,9 @@ failure:
  11. lockstep greedy decode of full Mamba2-780m through ``decode_step``
      (8 prompts of 32 tokens, 32 new tokens): valid tokens, float32 state;
  12. time the SSD-scan kernels and their plain versions at the training
-     shape beside the card's least time for the work, the backward's four
-     phases apart (torch.profiler), and check that the bf16 backward is
-     bit-identical when run twice;
+     shape beside the card's least time for the work, the forward's two
+     and the backward's four phases apart (torch.profiler), and check that
+     the bf16 forward and backward are each bit-identical when run twice;
  13. hold the prefix-scan kernel bit-equal to its plain version (torch.cumsum)
      on tests/test_prefix_scan.py's shapes, empty shapes, one row of 2^20,
      bool/uint8/int32 input, 3-D leading axes, strided and offset views and
@@ -813,10 +814,13 @@ def train_full(torch, batch=1, seq=4096, timed=3):
             "tok_per_s": tokens / step_s, "mfu": mfu, "peak_gb": peak / 1e9}
 
 
-def kernel_ms_by_group(torch, fn, calls, groups):
+def kernel_ms_by_group(torch, fn, calls, groups=None):
     """Device ms per call of the kernels whose names hold each substring of
-    ``groups`` (label -> substring), from torch.profiler over ``calls``
-    calls of ``fn``."""
+    ``groups`` (label -> substring), or without ``groups`` of each kernel
+    function (``..._kernel``) in the order of first launch, from
+    torch.profiler over ``calls`` calls of ``fn``."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -825,12 +829,19 @@ def kernel_ms_by_group(torch, fn, calls, groups):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = dict.fromkeys(groups, 0.0)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    out = dict.fromkeys(groups, 0.0) if groups else {}
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        ms = (e.time_range.end - e.time_range.start) / 1e3 / calls
+        if groups:
             for label, sub in groups.items():
                 if sub in e.name:
-                    out[label] += (e.time_range.end - e.time_range.start) / 1e3 / calls
+                    out[label] += ms
+        else:
+            m = re.search(r"(\w+_kernel)", e.name)
+            name = m.group(1) if m else e.name[:40]
+            out[name] = out.get(name, 0.0) + ms
     return out
 
 
@@ -941,6 +952,13 @@ def check_ssd_scan(torch):
         ("ragged sizes", 2, 120, 3, 40, 72, 40, 0.1, False),
         ("strided views", 2, 256, 3, 32, 64, 64, 0.1, True),
         ("Mamba2-780m train", 4, 4096, 48, 64, 128, 128, 1.0, False),
+        # the edges of the bf16 forward's grids: an odd head count, a state
+        # carried through 128 chunks, Bt x nc below the SM count (8 head
+        # groups of the output kernel) and far above it (1 group)
+        ("odd heads H=7", 2, 512, 7, 64, 128, 128, 0.1, False),
+        ("128 chunks slow decay", 1, 16384, 4, 64, 128, 128, 0.02, False),
+        ("Bt x nc below the SMs", 1, 1024, 8, 64, 128, 128, 1.0, False),
+        ("Bt x nc far above the SMs", 8, 8192, 4, 64, 128, 64, 1.0, False),
     ]
     bf, f32 = torch.bfloat16, torch.float32
     errs = {"fwd": 0.0, "bwd": 0.0}
@@ -1163,8 +1181,9 @@ def train_mamba_full(torch, batch=4, seq=4096, timed=3):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t1) * 1e3
     summarize_profile(torch, prof, wall_ms, 1, f"1 Mamba-2 training step of B={batch} S={seq}",
-                      {"ssd state": "ssd_state", "ssd scan": "ssd_scan_kernel",
-                       "ssd out": "ssd_out", "ssd bwd": "ssd_bwd", "ssd reduce": "ssd_reduce",
+                      {"ssd fwd states": "ssd_fwd_states", "ssd fwd out": "ssd_fwd_out",
+                       "ssd bwd dstates": "ssd_state_mma", "ssd bwd scan": "ssd_scan_kernel",
+                       "ssd bwd heads": "ssd_bwd_heads", "ssd bwd reduce": "ssd_reduce",
                        "cuBLAS GEMM": "nvjet"})
     del state, model, step, batches, watch, before, prof
     gc.collect()
@@ -1220,8 +1239,13 @@ def decode_mamba_lockstep(torch, lanes=8, prompt_len=32, new=32):
 
 def time_ssd_scan(torch, bt=4, s=4096, h=48, p=64, n=128, q=128):
     """Forward and backward kernels and plain versions at Mamba2-780m's
-    training shape, as the model calls them: x, B, C bf16, y float32.  No
-    single PyTorch call computes the scan, so there is no library time."""
+    training shape, as the model calls them: x, B, C bf16, y float32, each
+    direction's kernels also apart (torch.profiler) and each direction
+    bit-identical when run twice.  A backward call takes milliseconds, so
+    CUDA events around eager calls time the card; a forward call is short
+    enough for the host's launch cost to show there, so it is timed in a
+    CUDA graph as well.  No single PyTorch call computes the scan, so there
+    is no library time."""
     from repro_torch.kernels.ssd_scan import (ssd_scan_bwd, ssd_scan_bwd_ref, ssd_scan_fwd,
                                               ssd_scan_ref)
 
@@ -1229,10 +1253,27 @@ def time_ssd_scan(torch, bt=4, s=4096, h=48, p=64, n=128, q=128):
     x, dt, A, B, C = ssd_inputs(torch, 600, bt, s, h, p, n, torch.bfloat16)
     dy = torch.randn((bt, s, h, p), device="cuda", dtype=f32)
     y, states, T = ssd_scan_fwd(x, dt, A, B, C, chunk=q, out_dtype=f32)
-    fwd_ms = eager_ms(torch, lambda i: ssd_scan_fwd(x, dt, A, B, C, chunk=q, out_dtype=f32), 1,
-                      iters=10, repeats=3)
+    fwd_eager = eager_ms(torch, lambda i: ssd_scan_fwd(x, dt, A, B, C, chunk=q, out_dtype=f32),
+                         1, iters=10, repeats=3)
+    fwd_ms = graph_ms(torch, lambda i: ssd_scan_fwd(x, dt, A, B, C, chunk=q, out_dtype=f32), 1,
+                      iters=5, repeats=3)
     bwd_ms = eager_ms(torch, lambda i: ssd_scan_bwd(x, dt, A, B, C, dy, states, T, chunk=q), 1,
                       iters=5, repeats=3)
+    # the forward's kernels apart, by name (bf16: the state pass and the
+    # outputs)
+    fwd_phases = kernel_ms_by_group(
+        torch, lambda: ssd_scan_fwd(x, dt, A, B, C, chunk=q, out_dtype=f32), 5)
+    print("time ssd_scan fwd phases: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in fwd_phases.items())
+          + f" (sum {sum(fwd_phases.values()):.3f} ms); the call {fwd_ms:.3f} ms on the card "
+          f"(CUDA graph), {fwd_eager:.3f} ms eager")
+    again = ssd_scan_fwd(x, dt, A, B, C, chunk=q, out_dtype=f32)
+    same = all(torch.equal(a, b) for a, b in zip((y, states, T), again))
+    print(f"ssd_scan Mamba2-780m bf16 forward run twice: y, states, T "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("ssd_scan forward is not deterministic")
+    del again
     # the backward's phases apart: chunk dstates, reverse scan, per-chunk
     # gradients, reduction
     phases = kernel_ms_by_group(
@@ -1271,6 +1312,8 @@ def time_ssd_scan(torch, bt=4, s=4096, h=48, p=64, n=128, q=128):
               f"{nbytes / 1e6:.1f} MB at 3.35 TB/s); plain {plain:.3f} ms; no library call")
         res[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
                      "library_ms": None}
+    res["fwd"]["phases_ms"] = fwd_phases
+    res["fwd"]["eager_ms"] = fwd_eager
     res["bwd"]["phases_ms"] = phases
     del x, dt, A, B, C, dy, y, states, T
     gc.collect()

@@ -15,16 +15,37 @@
 // j > i overflows.  JAX differentiates `ssd_chunked` with XLA; the backward
 // here is hand-written too.
 //
-// Design: the three phases that `ssd_chunked` spells out, each parallel
-// over every (batch, chunk, head) and not only over (batch, head) as the
-// Pallas grid walks chunks in order:
-//   forward   1. ssd_state_kernel: each chunk's own state contribution U_c
+// Design.  float32 inputs run the three phases that `ssd_chunked` spells
+// out, each parallel over every (batch, chunk, head); bf16 inputs (the
+// training path) run a forward of two kernels on the tensor cores:
+//   forward, float32
+//             1. ssd_state_kernel: each chunk's own state contribution U_c
 //                 and its total decay T_c = cs_last;
 //             2. ssd_scan_kernel: S_prev of every chunk by a short scan over
 //                 the chunks, one thread per (batch, head, state entry), in
-//                 place over U (saved for the backward);
+//                 place over U;
 //             3. ssd_out_kernel: y from C B^T, the decays and S_prev;
-//   backward  4. ssd_state_kernel: V_c = sum_i exp(cs_i) C_i dy_i^T;
+//   forward, bf16
+//             1. ssd_fwd_states_kernel: a block per (batch, head) walks the
+//                 chunks in order, as the Pallas grid (bt, h, nc) does, with
+//                 the (N, P) state S in registers: per chunk it forms
+//                 U_c = (w dt B)^T x on the tensor cores, writes S as that
+//                 chunk's S_prev (and T_c) and sets S <- exp(T_c) S + U_c,
+//                 the scan's own update.  The next chunk's B, x and dt tiles
+//                 load by cp.async into a second buffer while this chunk
+//                 computes.  U never reaches device memory;
+//             2. ssd_fwd_out_kernel: a block per (batch, chunk, group of
+//                 heads) forms the raw C B^T once, keeps it in registers and
+//                 walks its heads: each head's decays, causal mask and dt
+//                 turn it straight into bf16 A fragments of M (dt x) (the
+//                 m16n8 accumulator layout is the m16k16 A layout, so M
+//                 never goes through shared memory), plus exp(cs) (C S_prev),
+//                 skipping the 16-wide fragments above the diagonal.  Four
+//                 producer warps load the next head's x, dt and S_prev by
+//                 cp.async and prepare its bf16 S_prev and cs while eight
+//                 warps compute this one;
+//   backward  4. ssd_state_kernel / ssd_state_mma_kernel:
+//                 V_c = sum_i exp(cs_i) C_i dy_i^T;
 //             5. ssd_scan_kernel in reverse: G_c, the gradient of the state
 //                 at the end of chunk c (G_{c-1} = exp(T_c) G_c + V_c);
 //             6. ssd_bwd_heads_kernel (bf16): a block per (batch, chunk,
@@ -37,34 +58,48 @@
 //                 fixed order.
 // No atomics anywhere: every sum runs in one order, so results repeat bit
 // for bit.  At Mamba2-780m's training shape (Bt 4, S 4096, H 48, P 64,
-// N 128, Q 128) phases 1, 3 and 4 run 6144 blocks for 132 SMs; phase 6
-// runs one group of 48 heads per (batch, chunk), 128 blocks, one wave.
+// N 128, Q 128) the bf16 state pass runs 192 blocks, two an SM, all
+// resident at once; the output kernel and phase 6 run one group of 48
+// heads per (batch, chunk), 128 blocks, one wave.
 //
 // Bound: at that shape a forward call needs 45 GFLOP (the causal half of
 // C B^T and of the intra-chunk product, the inter-chunk output and the
 // chunk states) on 314 MB of input and output, ~144 flops per byte: below
 // the ~295 where the H100's bf16 tensor cores stop being fed by device
-// memory, so the bound is bytes (~94 us); the backward likewise (~127 us).
+// memory, so the bound is bytes (~94 us; ~154 us with the 201 MB of fp32
+// S_prev that the backward reads); the backward likewise (~127 us).
 // What the design does about it:
-//   * bf16 inputs (the training path) run every per-chunk product on the
-//     tensor cores (mma.sync, see the tensor-core section below);
+//   * the bf16 forward moves x once into each kernel, S_prev out once and
+//     back once, and y out once (~0.8 GB at that shape, from ~1.2 GB when
+//     U went through device memory three times), and forms C B^T once per
+//     (batch, chunk) instead of once per head (2.1 of the 5.2 M
+//     multiply-adds of a (batch, chunk, head)).  Each of its two kernels
+//     is then held by its own device-memory traffic, not by the tensor
+//     cores: the state pass by the S_prev writes that all its blocks issue
+//     at the same point of every chunk, the output kernel by reading x and
+//     S_prev and writing y (PERF.md has the card's measurements);
+//   * bf16 inputs run every per-chunk product on the tensor cores
+//     (mma.sync, see the tensor-core section below).  The forward stays on
+//     mma.sync: it is bound by bytes, and each warp forms M for its own 16
+//     rows in registers, which mma.sync takes as they are and wgmma's
+//     64-row warpgroup tiles do not;
 //   * float32 runs fp32 kernels on the CUDA cores (67 TFLOP/s): f32 must
 //     match the plain version to 1e-4, which bf16 or TF32 products cannot.
 //     Each product runs as a 256-thread block over tiles in shared memory,
 //     a thread owning an 8 x 8 (or 8 x 4) strided patch of the output, with
 //     the contraction dimension staged through 32-deep slabs;
 //   * the chunk scan streams the states once each way with float4 loads
-//     issued a chunk ahead.
+//     issued a chunk ahead;
 //   * the bf16 backward keeps dB and dC in registers over a group of heads
 //     (no per-head partials in device memory) and skips the 16-wide
 //     fragments of each (Q, Q) product that the causal mask zeroes.
-// Both directions still form C B^T once per head (ssd_bwd_heads_kernel
-// says why), and the forward computes full tiles under the mask; wgmma/TMA and overlap of loads with compute (the head
-// loop stages each head's tiles, then computes) are later work.  Nothing
-// is allocated here; launches go on the caller's stream.
+// The backward still forms C B^T once per head (ssd_bwd_heads_kernel says
+// why) and stages each head's tiles before it computes.  Nothing is
+// allocated here; launches go on the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -82,8 +117,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 static_assert(KS * LDK <= SLAB, "slab buffer too small");
 static_assert(NM <= 128 && PM <= 128 && QM <= 128, "16 x 8 rows per block");
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
@@ -177,28 +210,37 @@ __device__ __forceinline__ void chunk_prologue(float* s_dt, float* s_cs, const f
   chunk_cumsum(s_dt, s_cs, A);
 }
 
-// s_cs = the inclusive cumsum of s_dt * A, by warp 0 in one fixed order; the
-// block's barrier after it publishes s_cs.
+// One warp's inclusive cumsum of s_dt * A, in one fixed order: lane l gets
+// rows l * QM/32 .. (l + 1) * QM/32 - 1 in v.  Every kernel that needs cs
+// computes it with this function, so they agree bit for bit.
+__device__ __forceinline__ void cumsum_warp(const float* s_dt, float A, float (&v)[QM / 32]) {
+  const int lane = threadIdx.x & 31;
+  float run = 0.f;
+#pragma unroll
+  for (int k = 0; k < QM / 32; ++k) {
+    run += s_dt[lane * (QM / 32) + k] * A;
+    v[k] = run;
+  }
+  float tot = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, tot, off);
+    if (lane >= off) tot += o;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, tot, 1);
+  if (lane == 0) excl = 0.f;
+#pragma unroll
+  for (int k = 0; k < QM / 32; ++k) v[k] += excl;
+}
+
+// s_cs = the inclusive cumsum of s_dt * A, by warp 0; the block's barrier
+// after it publishes s_cs.
 __device__ __forceinline__ void chunk_cumsum(const float* s_dt, float* s_cs, float A) {
   if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
     float v[QM / 32];
-    float run = 0.f;
+    cumsum_warp(s_dt, A, v);
 #pragma unroll
-    for (int k = 0; k < QM / 32; ++k) {
-      run += s_dt[lane * (QM / 32) + k] * A;
-      v[k] = run;
-    }
-    float tot = run;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float o = __shfl_up_sync(0xffffffffu, tot, off);
-      if (lane >= off) tot += o;
-    }
-    float excl = __shfl_up_sync(0xffffffffu, tot, 1);
-    if (lane == 0) excl = 0.f;
-#pragma unroll
-    for (int k = 0; k < QM / 32; ++k) s_cs[lane * (QM / 32) + k] = excl + v[k];
+    for (int k = 0; k < QM / 32; ++k) s_cs[threadIdx.x * (QM / 32) + k] = v[k];
   }
   __syncthreads();
 }
@@ -678,13 +720,14 @@ __global__ void __launch_bounds__(kThreads) ssd_reduce_kernel(const Args a) {
 }
 
 // ================================================================ tensor cores
-// bf16 inputs run every product of the three per-chunk kernels on the
-// tensor cores: mma.sync m16n8k16 bf16 -> fp32.  Operands are staged as
-// bf16 tiles in shared memory (rows padded by 16 bytes, so ldmatrix reads 8
-// rows without bank conflicts).  x, B, C are bf16 already; the fp32
-// operands (dt * x in the forward, dy, S_prev, G) and the masked decay
-// matrices are rounded to bf16 there, as `ssd_chunked` rounds its scores
-// and carried states to x's type.  The exception is the backward's
+// bf16 inputs run every product of the per-chunk kernels on the tensor
+// cores: mma.sync m16n8k16 bf16 -> fp32.  Operands are staged as bf16 tiles
+// in shared memory (rows padded by 16 bytes, so ldmatrix reads 8 rows
+// without bank conflicts).  x, B, C are bf16 already; the fp32 operands
+// (dy, S_prev, G) and the masked decay matrices are rounded to bf16, as
+// `ssd_chunked` rounds its scores and carried states to x's type (the
+// forward rounds w dt B and M = (C B^T) L dt in registers and keeps x
+// exact).  The exception is the backward's
 // dM = dy (dt x)^T and M, whose row and column sums cancel into the
 // gradient of the decays: there M stays fp32, x is staged unscaled (exact)
 // and an fp32 dy is split into two bf16 parts.  Each of the 8 warps owns 16
@@ -824,116 +867,10 @@ __device__ __forceinline__ void stage_bf16(bf16* dst, int ld, const T* src, long
   }
 }
 
-// scores = C B^T (Cb, Bb staged), masked and decayed, as bf16 into Mb
-// (which may be Bb: every warp has read Bb before any writes).
-__device__ __forceinline__ void masked_scores_mma(bf16* Mb, const bf16* Cb, const bf16* Bb,
-                                                  const float* s_cs, int q, int warp, int lane) {
-  float acc[QM / 8][4];
-  zero_frag(acc);
-  mma_block<QM / 8, NM, false, false>(acc, Cb, LDQ, Bb, LDQ, warp, lane);
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < QM / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; e += 2) {
-      const int r = frag_row(warp, lane, e), c = frag_col(lane, j, e);
-      const bool l0 = c <= r && r < q, l1 = c + 1 <= r && r < q;
-      const float m0 = l0 ? acc[j][e] * expf(s_cs[r] - s_cs[c]) : 0.f;
-      const float m1 = l1 ? acc[j][e + 1] * expf(s_cs[r] - s_cs[c + 1]) : 0.f;
-      *reinterpret_cast<__nv_bfloat162*>(Mb + r * LDQ + c) = __floats2bfloat162_rn(m0, m1);
-    }
-  __syncthreads();
-}
-
-// MODE 0: U = (w * B)^T (dt * x); MODE 1: V = (e * C)^T dy; rows n, cols p.
-template <typename TY, int MODE>
-__global__ void __launch_bounds__(kThreads) ssd_state_mma_kernel(const Args a) {
-  extern __shared__ float4 smem4[];
-  float* s_dt = reinterpret_cast<float*>(smem4);
-  float* s_cs = s_dt + QM;
-  float* s_sc = s_cs + QM;
-  bf16* Xb = reinterpret_cast<bf16*>(s_sc + QM);     // (Q, N): B or C, scaled
-  bf16* Yb = Xb + QM * LDQ;                          // (Q, P): dt * x or dy
-  const Chunk k(a);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  chunk_prologue(s_dt, s_cs, a.dt + k.b * a.dt_sb + k.t0 * a.dt_ss + k.hh * a.dt_sh, a.dt_ss,
-                 k.q, a.A[k.hh]);
-  const float T = s_cs[k.q - 1];
-  for (int i = threadIdx.x; i < QM; i += kThreads)
-    s_sc[i] = i < k.q ? (MODE == 0 ? expf(T - s_cs[i]) : expf(s_cs[i])) : 0.f;
-  if (MODE == 0 && threadIdx.x == 0) a.T[k.blk] = T;
-  __syncthreads();
-  if (MODE == 0) {
-    stage_bf16<QM, NM>(Xb, LDQ, static_cast<const bf16*>(a.B) + k.b * a.B_sb + k.t0 * a.B_ss,
-                       a.B_ss, k.q, a.n, s_sc);
-    stage_bf16<QM, PM>(Yb, LDP, static_cast<const bf16*>(a.x) + k.b * a.x_sb +
-                       k.t0 * a.x_ss + k.hh * a.x_sh, a.x_ss, k.q, a.p, s_dt);
-  } else {
-    stage_bf16<QM, NM>(Xb, LDQ, static_cast<const bf16*>(a.C) + k.b * a.C_sb + k.t0 * a.C_ss,
-                       a.C_ss, k.q, a.n, s_sc);
-    stage_bf16<QM, PM>(Yb, LDP, static_cast<const TY*>(a.y) + k.b * a.y_sb + k.t0 * a.y_ss +
-                       k.hh * a.y_sh, a.y_ss, k.q, a.p, (const float*)nullptr);
-  }
-  __syncthreads();
-  float acc[PM / 8][4];
-  zero_frag(acc);
-  mma_block<PM / 8, QM, true, true>(acc, Xb, LDQ, Yb, LDP, warp, lane);
-  float* out = (MODE == 0 ? a.states : a.G) + k.blk * a.n * a.p;
-#pragma unroll
-  for (int j = 0; j < PM / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = frag_row(warp, lane, e), c = frag_col(lane, j, e);
-      if (r < a.n && c < a.p) out[r * a.p + c] = acc[j][e];
-    }
-}
-
-template <typename TY>
-__global__ void __launch_bounds__(kThreads, 2) ssd_out_mma_kernel(const Args a) {
-  extern __shared__ float4 smem4[];
-  float* s_dt = reinterpret_cast<float*>(smem4);
-  float* s_cs = s_dt + QM;
-  float* s_e = s_cs + QM;
-  bf16* Cb = reinterpret_cast<bf16*>(s_e + QM);
-  bf16* Bb = Cb + QM * LDQ;                          // then the masked scores M
-  bf16* xb = Bb + QM * LDQ;                          // dt * x
-  bf16* Sb = xb + QM * LDP;                          // S_prev (N, P)
-  const Chunk k(a);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  chunk_prologue(s_dt, s_cs, a.dt + k.b * a.dt_sb + k.t0 * a.dt_ss + k.hh * a.dt_sh, a.dt_ss,
-                 k.q, a.A[k.hh]);
-  for (int i = threadIdx.x; i < QM; i += kThreads) s_e[i] = i < k.q ? expf(s_cs[i]) : 0.f;
-  stage_bf16<QM, NM>(Cb, LDQ, static_cast<const bf16*>(a.C) + k.b * a.C_sb + k.t0 * a.C_ss,
-                     a.C_ss, k.q, a.n, (const float*)nullptr);
-  stage_bf16<QM, NM>(Bb, LDQ, static_cast<const bf16*>(a.B) + k.b * a.B_sb + k.t0 * a.B_ss,
-                     a.B_ss, k.q, a.n, (const float*)nullptr);
-  stage_bf16<QM, PM>(xb, LDP, static_cast<const bf16*>(a.x) + k.b * a.x_sb + k.t0 * a.x_ss +
-                     k.hh * a.x_sh, a.x_ss, k.q, a.p, s_dt);
-  stage_bf16<NM, PM>(Sb, LDP, a.states + k.blk * a.n * a.p, (long long)a.p, a.n, a.p,
-                     (const float*)nullptr);
-  __syncthreads();
-  masked_scores_mma(Bb, Cb, Bb, s_cs, k.q, warp, lane);
-  float acc[PM / 8][4];
-  zero_frag(acc);
-  mma_block<PM / 8, NM, false, true>(acc, Cb, LDQ, Sb, LDP, warp, lane);   // C S_prev
-#pragma unroll
-  for (int j = 0; j < PM / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] *= s_e[frag_row(warp, lane, e)];
-  mma_block<PM / 8, QM, false, true>(acc, Bb, LDQ, xb, LDP, warp, lane);   // + M (dt x)
-  TY* yc = static_cast<TY*>(a.y) + k.b * a.y_sb + k.t0 * a.y_ss + k.hh * a.y_sh;
-#pragma unroll
-  for (int j = 0; j < PM / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = frag_row(warp, lane, e), c = frag_col(lane, j, e);
-      if (r < k.q && c < a.p) yc[r * a.y_ss + c] = from_f<TY>(acc[j][e]);
-    }
-}
-
 // acc (the warp's rows 16 w.., NT n-tiles of 8 columns) += A B over the
 // k-steps [k0, k1) of 16, skipping the pairs of n-tiles at or past npairs:
-// mma_block with the ranges that the causal mask leaves live.
+// mma_block with the ranges that the causal mask (or a short chunk, N or P)
+// leaves live.
 template <int NT, bool AT, bool BT>
 __device__ __forceinline__ void mma_range(float (&acc)[NT][4], const bf16* A, int lda,
                                           const bf16* B, int ldb, int warp, int lane, int k0,
@@ -964,10 +901,375 @@ __device__ __forceinline__ void mma_range(float (&acc)[NT][4], const bf16* A, in
   }
 }
 
+// V = (e * C)^T dy, rows n, cols p: the backward's chunk dstates.
+template <typename TY>
+__global__ void __launch_bounds__(kThreads) ssd_state_mma_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  float* s_dt = reinterpret_cast<float*>(smem4);
+  float* s_cs = s_dt + QM;
+  float* s_sc = s_cs + QM;
+  bf16* Xb = reinterpret_cast<bf16*>(s_sc + QM);     // (Q, N): C, scaled
+  bf16* Yb = Xb + QM * LDQ;                          // (Q, P): dy
+  const Chunk k(a);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  chunk_prologue(s_dt, s_cs, a.dt + k.b * a.dt_sb + k.t0 * a.dt_ss + k.hh * a.dt_sh, a.dt_ss,
+                 k.q, a.A[k.hh]);
+  for (int i = threadIdx.x; i < QM; i += kThreads) s_sc[i] = i < k.q ? expf(s_cs[i]) : 0.f;
+  __syncthreads();
+  stage_bf16<QM, NM>(Xb, LDQ, static_cast<const bf16*>(a.C) + k.b * a.C_sb + k.t0 * a.C_ss,
+                     a.C_ss, k.q, a.n, s_sc);
+  stage_bf16<QM, PM>(Yb, LDP, static_cast<const TY*>(a.y) + k.b * a.y_sb + k.t0 * a.y_ss +
+                     k.hh * a.y_sh, a.y_ss, k.q, a.p, (const float*)nullptr);
+  __syncthreads();
+  float acc[PM / 8][4];
+  zero_frag(acc);
+  mma_block<PM / 8, QM, true, true>(acc, Xb, LDQ, Yb, LDP, warp, lane);
+  float* out = a.G + k.blk * a.n * a.p;
+#pragma unroll
+  for (int j = 0; j < PM / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = frag_row(warp, lane, e), c = frag_col(lane, j, e);
+      if (r < a.n && c < a.p) out[r * a.p + c] = acc[j][e];
+    }
+}
+
+// cp.async: 16 (or 4) bytes from device memory into shared memory, or zeros
+// where !ok (the source is then not read).  A block waits for its copies
+// with cp_async_wait_all and a barrier.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// dst (R rows, CC columns, stride ld) <- src rows r < rlim, columns
+// c < clim (a multiple of 16 bytes' worth), zeros elsewhere, by cp.async.
+// Thread tid of nthreads takes every nthreads-th vector.
+template <int R, int CC, typename T>
+__device__ __forceinline__ void async_tile(T* dst, int ld, const T* src, long long rs, int rlim,
+                                           int clim, int tid = threadIdx.x,
+                                           int nthreads = kThreads) {
+  constexpr int EPV = 16 / sizeof(T), VPR = CC / EPV;
+  for (int idx = tid; idx < R * VPR; idx += nthreads) {
+    const int r = idx / VPR, c = (idx - r * VPR) * EPV;
+    const bool ok = r < rlim && c < clim;
+    cp_async16(dst + r * ld + c, ok ? src + r * rs + c : src, ok);
+  }
+}
+
+// The q rows of dt (row stride rs) into dst by cp.async, zeros past q;
+// thread t of the caller's first QM threads takes row t.
+__device__ __forceinline__ void async_dt(float* dst, const float* src, long long rs, int q,
+                                         int t = threadIdx.x) {
+  if (t < QM) cp_async4(dst + t, t < q ? src + t * rs : src, t < q);
+}
+
+// Named barriers (id 0 is __syncthreads): bar_sync waits until n threads
+// have arrived, bar_arrive arrives without waiting.  Shared-memory writes
+// before either are visible to the threads that pass the barrier.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+// A bf16 pair times (s.x, s.y), rounded to bf16.
+__device__ __forceinline__ uint32_t scale_bf16(uint32_t v, float2 s) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+  return pack_bf16(f.x * s.x, f.y * s.y);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// fp32 (rows, PM) tiles staged for 16-byte stores: the fragment pairs that
+// a half-warp writes (4 rows x 4 column pairs) land on distinct banks
+constexpr int LDF = PM + 8;
+constexpr int kFwdBuf = QM * LDQ + QM * LDP;         // bf16 of a state-pass buffer: B, x
+static_assert(NM * LDF * 4 <= kFwdBuf * 2, "S_prev staging fits in a spent buffer");
+
+// Forward, bf16, 1: a block per (head, batch) walks the chunks in order
+// with the (N, P) state S in registers (warp w: rows n = 16 w..16 w + 15,
+// all P columns).  Per chunk it forms U = B^T diag(w dt) x with w_t =
+// exp(T - cs_t) (B's A fragments scaled in registers, x as loaded), writes
+// S as the chunk's S_prev (staged in the chunk's spent buffer, then whole
+// rows of 16-byte stores) and T, and sets S <- exp(T) S + U,
+// ssd_scan_kernel's update.  The next chunk's B, x and dt load by cp.async
+// into the other buffer while this chunk computes; two blocks share an SM.
+__global__ void __launch_bounds__(kThreads, 2) ssd_fwd_states_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  float* s_dt = reinterpret_cast<float*>(smem4);     // 2 x QM: dt, by buffer
+  float* s_cs = s_dt + 2 * QM;
+  float* s_w = s_cs + QM;                            // w * dt
+  bf16* tiles = reinterpret_cast<bf16*>(s_w + QM);   // 2 x kFwdBuf: B (Q, N), x (Q, P)
+  const int hh = blockIdx.x, b = blockIdx.y;
+  const int q = a.q, n = a.n, p = a.p;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float A = a.A[hh];
+  const bf16* Bs = static_cast<const bf16*>(a.B) + b * a.B_sb;
+  const bf16* xs = static_cast<const bf16*>(a.x) + b * a.x_sb + hh * a.x_sh;
+  const float* dts = a.dt + b * a.dt_sb + hh * a.dt_sh;
+  auto load = [&](int c, int buf) {
+    const long long t0 = (long long)c * q;
+    async_tile<QM, NM>(tiles + buf * kFwdBuf, LDQ, Bs + t0 * a.B_ss, a.B_ss, q, n);
+    async_tile<QM, PM>(tiles + buf * kFwdBuf + QM * LDQ, LDP, xs + t0 * a.x_ss, a.x_ss, q, p);
+    async_dt(s_dt + buf * QM, dts + t0 * a.dt_ss, a.dt_ss, q);
+    cp_async_commit();
+  };
+  const int ksteps = (q + 15) / 16, npairs = (p + 15) / 16;
+  const bool live = 16 * warp < n;                   // this warp holds rows of S
+  float S[PM / 8][4], U[PM / 8][4];
+  zero_frag(S);
+  load(0, 0);
+#pragma unroll 1
+  for (int c = 0; c < a.nc; ++c) {
+    const int buf = c & 1;
+    cp_async_wait_all();
+    __syncthreads();                 // chunk c's tiles are in; every warp is done with c - 1
+    if (c + 1 < a.nc) load(c + 1, buf ^ 1);
+    const float* dtc = s_dt + buf * QM;
+    if (warp == 0) {
+      float v[QM / 32];
+      cumsum_warp(dtc, A, v);
+#pragma unroll
+      for (int k = 0; k < QM / 32; ++k) s_cs[lane * (QM / 32) + k] = v[k];
+      __syncwarp();
+      const float T = s_cs[q - 1];
+#pragma unroll
+      for (int k = 0; k < QM / 32; ++k) {
+        const int i = lane * (QM / 32) + k;
+        s_w[i] = expf(T - v[k]) * dtc[i];          // rows past q: dt 0
+      }
+    }
+    __syncthreads();
+    const float T = s_cs[q - 1];
+    const long long blk = ((long long)b * a.nc + c) * a.h + hh;
+    if (threadIdx.x == 0) a.T[blk] = T;
+    const bf16* Bt = tiles + buf * kFwdBuf;
+    const bf16* xt = Bt + QM * LDQ;
+    zero_frag(U);
+    if (live) {
+#pragma unroll 2
+      for (int kk = 0; kk < ksteps; ++kk) {
+        // B^T's A fragment (rows n, k = t), columns t scaled by w dt
+        uint32_t af[4];
+        ldsm_x4_t(af, Bt + (kk * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * LDQ + 16 * warp +
+                          ((lane >> 3) & 1) * 8);
+        const int k0 = 16 * kk + 2 * (lane & 3);
+        const float2 w0 = *reinterpret_cast<const float2*>(s_w + k0);
+        const float2 w1 = *reinterpret_cast<const float2*>(s_w + k0 + 8);
+        af[0] = scale_bf16(af[0], w0);
+        af[1] = scale_bf16(af[1], w0);
+        af[2] = scale_bf16(af[2], w1);
+        af[3] = scale_bf16(af[3], w1);
+#pragma unroll
+        for (int jj = 0; jj < PM / 16; ++jj) {
+          if (jj < npairs) {
+            uint32_t bf[4];
+            ldsm_x4_t(bf, xt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDP + jj * 16 +
+                              (lane >> 4) * 8);
+            mma16816(U[2 * jj], af, bf[0], bf[1]);
+            mma16816(U[2 * jj + 1], af, bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    // S_prev: fragments into the spent buffer, then rows out
+    __syncthreads();                 // every warp is done with this buffer's tiles
+    float* stg = reinterpret_cast<float*>(tiles + buf * kFwdBuf);
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < PM / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2)
+          store2(stg + frag_row(warp, lane, e) * LDF + frag_col(lane, j, e), S[j][e], S[j][e + 1]);
+    }
+    __syncthreads();
+    float* out = a.states + blk * n * p;
+    for (int idx = threadIdx.x; idx < NM * (PM / 4); idx += kThreads) {
+      const int r = idx / (PM / 4), cc = (idx - r * (PM / 4)) * 4;
+      if (r < n && cc < p)
+        *reinterpret_cast<float4*>(out + r * p + cc) =
+            *reinterpret_cast<const float4*>(stg + r * LDF + cc);
+    }
+    const float d = expf(T);
+#pragma unroll
+    for (int j = 0; j < PM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) S[j][e] = fmaf(S[j][e], d, U[j][e]);
+  }
+}
+
+// Forward, bf16, 2: a block per (chunk, head group, batch), warp
+// specialized.  Eight compute warps form the raw scores G = C B^T once and
+// keep them in registers for all the group's heads (warp w: rows 16 w..,
+// the 16-wide column blocks at or left of the diagonal).  Per head they
+// compute y = exp(cs) (C S_prev) + M (dt x), where M's bf16 A fragments are
+// formed from G, the decays (masked in the exponent on the diagonal block)
+// and dt in registers.  Four producer warps run up to kOutStages heads
+// ahead through a ring of buffers: x, dt and fp32 S_prev by cp.async,
+// S_prev turned into a bf16 tile, cs and exp(cs).  Named barriers hand a
+// buffer over (full) and back (empty).
+constexpr int kOutCompute = 256, kOutProducers = 128, kOutThreads = kOutCompute + kOutProducers;
+constexpr int kOutStages = 2;
+enum { kBarFull = 1, kBarEmpty = 1 + kOutStages, kBarProducers = 1 + 2 * kOutStages,
+       kBarCompute = 2 + 2 * kOutStages };            // barrier ids (full, empty: by buffer)
+
+template <typename TY>
+__global__ void __launch_bounds__(kOutThreads, 1) ssd_fwd_out_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  float* s_dt = reinterpret_cast<float*>(smem4);     // kOutStages x QM each, by buffer
+  float* s_cs = s_dt + kOutStages * QM;
+  float* s_e = s_cs + kOutStages * QM;               // exp(cs)
+  float* Sf = s_e + kOutStages * QM;                 // (N, PM) fp32: S_prev as loaded
+  bf16* Cb = reinterpret_cast<bf16*>(Sf + NM * PM);  // (Q, N): C
+  bf16* Bb = Cb + QM * LDQ;                          // (Q, N): B
+  bf16* Sb = Bb + QM * LDQ;                          // kOutStages x (N, P): S_prev
+  bf16* xb = Sb + kOutStages * NM * LDP;             // kOutStages x (Q, P): x
+  const int c = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
+  const int h0 = grp * a.hg, nh = min(a.h, h0 + a.hg) - h0;
+  const int q = a.q, n = a.n, p = a.p;
+  const long long t0 = (long long)c * q;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x >= kOutCompute) {  // ---- producers
+    const int pt = threadIdx.x - kOutCompute;
+    const bf16* xs = static_cast<const bf16*>(a.x) + b * a.x_sb + t0 * a.x_ss;
+    const float* dts = a.dt + b * a.dt_sb + t0 * a.dt_ss;
+#pragma unroll 1
+    for (int i = 0; i < nh; ++i) {
+      const int buf = i % kOutStages, hh = h0 + i;
+      if (i >= kOutStages) bar_sync(kBarEmpty + buf, kOutThreads);   // its last head is done
+      async_tile<QM, PM>(xb + buf * QM * LDP, LDP, xs + hh * a.x_sh, a.x_ss, q, p, pt,
+                         kOutProducers);
+      async_dt(s_dt + buf * QM, dts + hh * a.dt_sh, a.dt_ss, q, pt);
+      async_tile<NM, PM>(Sf, PM, a.states + (((long long)b * a.nc + c) * a.h + hh) * n * p,
+                         (long long)p, n, p, pt, kOutProducers);
+      cp_async_commit();
+      cp_async_wait_all();
+      bar_sync(kBarProducers, kOutProducers);               // the copies are in
+      bf16* St = Sb + buf * NM * LDP;
+      for (int idx = pt; idx < NM * PM / 4; idx += kOutProducers) {
+        const int r = idx / (PM / 4), cc = (idx - r * (PM / 4)) * 4;
+        const float4 v = *reinterpret_cast<const float4*>(Sf + r * PM + cc);
+        *reinterpret_cast<uint2*>(St + r * LDP + cc) =
+            make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+      }
+      if (pt < 32) {
+        float v[QM / 32];
+        cumsum_warp(s_dt + buf * QM, a.A[hh], v);
+#pragma unroll
+        for (int k = 0; k < QM / 32; ++k) {
+          const int r = lane * (QM / 32) + k;
+          s_cs[buf * QM + r] = v[k];
+          s_e[buf * QM + r] = r < q ? expf(v[k]) : 0.f;
+        }
+      }
+      bar_sync(kBarProducers, kOutProducers);               // Sf is read
+      bar_arrive(kBarFull + buf, kOutThreads);
+    }
+    return;
+  }
+
+  // ---- compute warps
+  const int live = warp + 1;         // 16-wide column blocks at or left of the diagonal
+  const bool rows = 16 * warp < q;   // this warp has rows of the chunk
+  const int nsteps = (n + 15) / 16, npairs = (p + 15) / 16;
+  stage_bf16<QM, NM>(Cb, LDQ, static_cast<const bf16*>(a.C) + b * a.C_sb + t0 * a.C_ss, a.C_ss,
+                     q, n, (const float*)nullptr);
+  stage_bf16<QM, NM>(Bb, LDQ, static_cast<const bf16*>(a.B) + b * a.B_sb + t0 * a.B_ss, a.B_ss,
+                     q, n, (const float*)nullptr);
+  bar_sync(kBarCompute, kOutCompute);
+  float g[QM / 8][4];
+  zero_frag(g);
+  if (rows) mma_range<QM / 8, false, false>(g, Cb, LDQ, Bb, LDQ, warp, lane, 0, nsteps, live);
+  const int r0 = frag_row(warp, lane, 0), r1 = r0 + 8;
+
+#pragma unroll 1
+  for (int i = 0; i < nh; ++i) {
+    const int buf = i % kOutStages, hh = h0 + i;
+    bar_sync(kBarFull + buf, kOutThreads);                  // head i's tiles are in
+    if (rows) {
+      const float* dtc = s_dt + buf * QM;
+      const float* csc = s_cs + buf * QM;
+      float acc[PM / 8][4];
+      zero_frag(acc);
+      mma_range<PM / 8, false, true>(acc, Cb, LDQ, Sb + buf * NM * LDP, LDP, warp, lane, 0,
+                                     nsteps, npairs);
+      const float e0 = s_e[buf * QM + r0], e1 = s_e[buf * QM + r1];
+      const float cs0 = csc[r0], cs1 = csc[r1];
+#pragma unroll
+      for (int j = 0; j < PM / 8; ++j) {
+        acc[j][0] *= e0;
+        acc[j][1] *= e0;
+        acc[j][2] *= e1;
+        acc[j][3] *= e1;
+      }
+      // M's entry (r, col..col+1) from G: g exp(cs_r - cs_col) dt_col, the
+      // exponent masked to -inf right of the diagonal
+      auto mpair = [&](float g0, float g1, float csr, int r, int col, bool diag) {
+        const float2 cc = *reinterpret_cast<const float2*>(csc + col);
+        const float2 dd = *reinterpret_cast<const float2*>(dtc + col);
+        const float l0 = diag && col > r ? -INFINITY : (csr - cc.x) * kLog2e;
+        const float l1 = diag && col + 1 > r ? -INFINITY : (csr - cc.y) * kLog2e;
+        return pack_bf16(g0 * exp2f(l0) * dd.x, g1 * exp2f(l1) * dd.y);
+      };
+      const bf16* xt = xb + buf * QM * LDP;
+#pragma unroll
+      for (int kk = 0; kk < QM / 16; ++kk) {
+        if (kk < live && 16 * kk < q) {
+          const bool diag = kk == warp;
+          const int k0 = 16 * kk + 2 * (lane & 3);
+          uint32_t af[4];
+          af[0] = mpair(g[2 * kk][0], g[2 * kk][1], cs0, r0, k0, diag);
+          af[1] = mpair(g[2 * kk][2], g[2 * kk][3], cs1, r1, k0, diag);
+          af[2] = mpair(g[2 * kk + 1][0], g[2 * kk + 1][1], cs0, r0, k0 + 8, diag);
+          af[3] = mpair(g[2 * kk + 1][2], g[2 * kk + 1][3], cs1, r1, k0 + 8, diag);
+#pragma unroll
+          for (int jj = 0; jj < PM / 16; ++jj) {
+            if (jj < npairs) {
+              uint32_t bf[4];
+              ldsm_x4_t(bf, xt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDP + jj * 16 +
+                                (lane >> 4) * 8);
+              mma16816(acc[2 * jj], af, bf[0], bf[1]);
+              mma16816(acc[2 * jj + 1], af, bf[2], bf[3]);
+            }
+          }
+        }
+      }
+      TY* yc = static_cast<TY*>(a.y) + b * a.y_sb + t0 * a.y_ss + hh * a.y_sh;
+#pragma unroll
+      for (int j = 0; j < PM / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int r = frag_row(warp, lane, e), cc = frag_col(lane, j, e);
+          if (r < q && cc < p) store2(yc + r * a.y_ss + cc, acc[j][e], acc[j][e + 1]);
+        }
+    }
+    if (i + kOutStages < nh) bar_arrive(kBarEmpty + buf, kOutThreads);   // to be refilled
+  }
+}
+
 // stage_bf16 with every load of a thread issued before any store (a block
-// that stages, then computes, waits one load latency, not one per row);
-// the forward kernels keep stage_bf16, as their two-blocks-per-SM bound
-// leaves no registers for a tile of loads in flight:
+// that stages, then computes, waits one load latency, not one per row):
 // dst = src * rscale (rows r < rlim, columns c < clim, else zeros); with
 // lo, an fp32 source goes in as hi (dst) + lo, its rounding error.
 template <int R, int CC, typename T>
@@ -1327,19 +1629,24 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_heads_kernel(const Args a
 constexpr int kOutSmem = (3 * QM + QM * LDM + 2 * SLAB) * 4;
 constexpr int kBwdSmem = (7 * QM + 32 + 2 * QM * LDM + 2 * SLAB) * 4;
 constexpr int kStateMmaSmem = 3 * QM * 4 + (QM * LDQ + QM * LDP) * 2;
-constexpr int kOutMmaSmem = 3 * QM * 4 + (2 * QM * LDQ + QM * LDP + NM * LDP) * 2;
+constexpr int kFwdStatesSmem = 4 * QM * 4 + 2 * kFwdBuf * 2;
+constexpr int kFwdOutSmem = (3 * kOutStages * QM + NM * PM) * 4 +
+                            (2 * QM * LDQ + kOutStages * (NM * LDP + QM * LDP)) * 2;
+static_assert(2 * (kFwdStatesSmem + 1024) <= 233472, "two state-pass blocks an SM");
+static_assert(kFwdOutSmem <= 232448, "shared memory of a block");
 constexpr int kBwdHeadsSmem = (7 * QM + 32 + 8 * QM) * 4 + (4 * QM * LDQ + 2 * QM * LDP +
                                                             2 * NM * LDP) * 2;
 static_assert(kBwdHeadsSmem <= 232448, "shared memory of a block on Hopper");
 
 template <typename K>
-int launch(K kernel, dim3 grid, int smem, const Args& a, cudaStream_t st) {
+int launch(K kernel, dim3 grid, int smem, const Args& a, cudaStream_t st,
+           int threads = kThreads) {
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<grid, kThreads, smem, st>>>(a);
+  kernel<<<grid, threads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1354,14 +1661,19 @@ int launch_fwd_f32(const Args& a, cudaStream_t st) {
   return err ? err : launch(ssd_out_kernel, grid, kOutSmem, a, st);
 }
 
+// bf16: the state pass on a (head, batch) grid, two blocks an SM (all the
+// shared memory an SM has goes to them), then the outputs on a (chunk,
+// head group, batch) grid.
 template <typename TY>
 int launch_fwd_mma(const Args& a, cudaStream_t st) {
-  const dim3 grid(a.nc, a.h, a.bt);
-  int err = launch(ssd_state_mma_kernel<TY, 0>, grid, kStateMmaSmem, a, st);
-  if (err) return err;
-  launch_scan(a.states, a.T, a, 0, st);
-  err = (int)cudaGetLastError();
-  return err ? err : launch(ssd_out_mma_kernel<TY>, grid, kOutMmaSmem, a, st);
+  const cudaError_t e = cudaFuncSetAttribute(
+      ssd_fwd_states_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  const int err = launch(ssd_fwd_states_kernel, dim3(a.h, a.bt), kFwdStatesSmem, a, st);
+  return err ? err
+             : launch(ssd_fwd_out_kernel<TY>, dim3(a.nc, a.groups, a.bt), kFwdOutSmem, a, st,
+                      kOutThreads);
 }
 
 // The backward's four phases; `bwd` runs on a (chunk, head group, batch) grid.
@@ -1407,7 +1719,7 @@ Args make_args(void* const* ptrs, const long long* st, const int* dims, bool bwd
   a.dx_sb = st[13]; a.dx_ss = st[14]; a.dx_sh = st[15];
   a.bt = dims[0]; a.s = dims[1]; a.h = dims[2]; a.p = dims[3]; a.n = dims[4]; a.q = dims[5];
   a.nc = a.s / a.q;
-  a.groups = bwd ? dims[6] : 1;
+  a.groups = dims[6];
   a.hg = (a.h + a.groups - 1) / a.groups;
   return a;
 }
@@ -1422,9 +1734,10 @@ int ssd_scan_limits(int which) { return which == 0 ? QM : which == 1 ? NM : PM; 
 // kind 0: forward (ptrs x, dt, A, B, C, y, states, T); kind 1: backward
 // (ptrs x, dt, A, B, C, dy, states, T, G, dx, ddt, dBp, dCp, dAp, dB, dC, dA).
 // strides: x, dt (b, s, h); B, C (b, s); y or dy (b, s, h); dx (b, s, h).
-// dims: Bt, S, H, P, N, chunk, and for the backward the head groups: 1 to
-// H for bf16 inputs (dBp and dCp (groups, Bt, S, N) when more than 1, else
-// null), H for float32 (one head a block, dBp and dCp (H, Bt, S, N)).  x_bf16: x, B, C (and dx, dB, dC) are bf16;
+// dims: Bt, S, H, P, N, chunk, head groups.  Forward: 1 to H for bf16
+// inputs (the output kernel's), 1 for float32.  Backward: 1 to H for bf16
+// inputs (dBp and dCp (groups, Bt, S, N) when more than 1, else null), H
+// for float32 (one head a block, dBp and dCp (H, Bt, S, N)).  x_bf16: x, B, C (and dx, dB, dC) are bf16;
 // y_bf16: y (dy) is bf16.  Returns 0 or a CUDA error code; -1 for sizes or
 // types the kernels do not take.
 int ssd_scan_launch(int kind, void* const* ptrs, const long long* strides, const int* dims,
@@ -1433,9 +1746,10 @@ int ssd_scan_launch(int kind, void* const* ptrs, const long long* strides, const
   if (a.q < 1 || a.q > QM || a.s % a.q || a.n < 1 || a.n > NM || a.p < 1 || a.p > PM ||
       a.n * a.p % 4)
     return -1;
-  if (kind == 1 && (a.groups < 1 || a.groups > a.h || (!x_bf16 && a.groups != a.h) ||
-                    ((a.groups > 1 || !x_bf16) != (a.dBp && a.dCp)) ||
-                    (long long)(a.groups - 1) * a.hg >= a.h))
+  if (a.groups < 1 || a.groups > a.h || (long long)(a.groups - 1) * a.hg >= a.h) return -1;
+  if (kind == 0 && !x_bf16 && a.groups != 1) return -1;
+  if (kind == 1 && ((!x_bf16 && a.groups != a.h) ||
+                    ((a.groups > 1 || !x_bf16) != (a.dBp && a.dCp))))
     return -1;
   if (a.h > 65535 || a.bt > 65535 || (long long)a.bt * a.h > 65535) return -1;
   if (!x_bf16 && y_bf16) return -1;
@@ -1450,9 +1764,9 @@ int ssd_scan_launch(int kind, void* const* ptrs, const long long* strides, const
     if (!x_bf16)
       return launch_bwd<float>(ssd_state_kernel<1>, 0, ssd_bwd_kernel, kBwdSmem, a, st);
     if (y_bf16)
-      return launch_bwd<bf>(ssd_state_mma_kernel<bf, 1>, kStateMmaSmem,
+      return launch_bwd<bf>(ssd_state_mma_kernel<bf>, kStateMmaSmem,
                             ssd_bwd_heads_kernel<bf>, kBwdHeadsSmem, a, st);
-    return launch_bwd<bf>(ssd_state_mma_kernel<float, 1>, kStateMmaSmem,
+    return launch_bwd<bf>(ssd_state_mma_kernel<float>, kStateMmaSmem,
                           ssd_bwd_heads_kernel<float>, kBwdHeadsSmem, a, st);
   }
   return -1;

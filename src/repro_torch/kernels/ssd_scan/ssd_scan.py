@@ -54,11 +54,13 @@ def _sm_count(device_index: int) -> int:
 
 
 def head_groups(chunks: int, heads: int, sms: int) -> int:
-    """Head groups of the bf16 backward: a block per (batch, chunk, group)
-    walks its group's heads, so with ``chunks`` = Bt * nc blocks per group
-    the groups are as many as keep the blocks within one wave of ``sms``
-    (at least 1, at most one head a group) and none is empty.  More than
-    one group costs a pass over (groups, Bt, S, N) fp32 dB/dC partials."""
+    """Head groups of the bf16 forward's output kernel and of the bf16
+    backward: a block per (batch, chunk, group) walks its group's heads, so
+    with ``chunks`` = Bt * nc blocks per group the groups are as many as
+    keep the blocks within one wave of ``sms`` (at least 1, at most one head
+    a group) and none is empty.  Each group forms C B^T once; in the
+    backward more than one group costs a pass over (groups, Bt, S, N) fp32
+    dB/dC partials."""
     g = max(1, min(heads, sms // max(1, chunks)))
     per = -(-heads // g)
     return -(-heads // per)
@@ -150,8 +152,10 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Te
     y = torch.empty((bt, s, h, p), dtype=out_dtype, device=x.device)
     states = torch.empty((bt, nc, h, n, p), **f32)
     T = torch.empty((bt, nc, h), **f32)
+    groups = head_groups(bt * nc, h, _sm_count(x.device.index)) \
+        if x.dtype == torch.bfloat16 else 1
     ptrs = [t.data_ptr() for t in (x, dt, A, B, C, y, states, T)]
-    _launch(FWD, ptrs, _strides(x, dt, B, C, y), [bt, s, h, p, n, q], x, out_dtype)
+    _launch(FWD, ptrs, _strides(x, dt, B, C, y), [bt, s, h, p, n, q, groups], x, out_dtype)
     # the count lives on the public entry point, as for the other kernels
     ssd_scan.launches += 1
     return y, states, T

@@ -9,6 +9,8 @@ its plain version; its CUDA kernels are held to that plain version by
 ``chip_smoke.py`` on the card.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -157,3 +159,50 @@ def test_head_groups_cover_every_head_within_one_wave(chunks, heads):
     assert (g - 1) * per < heads <= g * per
     assert g == 1 or chunks * g <= 132
     assert head_groups(128, 48, 132) == 1        # Mamba2-780m's training shape
+
+
+# The bf16 forward's launch plan at chip_smoke.py's card cases, (Bt, S, H,
+# chunk): Mamba2-780m's training shape, an odd head count, 128 chunks, Bt x
+# nc below and far above the SM count, a ragged chunk.
+FWD_PLANS = [(4, 4096, 48, 128), (2, 512, 7, 128), (1, 16384, 4, 128), (1, 1024, 8, 128),
+             (8, 8192, 4, 64), (2, 120, 3, 40)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bt, s, h, chunk", FWD_PLANS)
+def test_forward_hands_the_kernels_its_plan(monkeypatch, dtype, bt, s, h, chunk):
+    """What ``ssd_scan_fwd`` hands the C entry point for CUDA tensors, with
+    the launch caught on the CPU: the outputs it allocates, the dims with
+    the head groups of the bf16 output kernel (a block per (batch, chunk,
+    group), as many groups as one wave of 132 SMs holds; float32 takes 1)
+    and one count on ``ssd_scan.launches``."""
+    wrapper = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+    calls = []
+    monkeypatch.setattr(wrapper, "_on", lambda t, name: True)
+    monkeypatch.setattr(wrapper, "limits", lambda: (128, 128, 64))
+    monkeypatch.setattr(wrapper, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(wrapper, "_launch", lambda *args: calls.append(args))
+    p, n = 8, 16                     # the plan does not depend on them
+    tdt = getattr(torch, dtype)
+    x = torch.empty((bt, s, h, p), dtype=tdt)
+    dt = torch.empty((bt, s, h))
+    A = torch.empty((h,))
+    B, C = (torch.empty((bt, s, n), dtype=tdt) for _ in range(2))
+    launches = ssd_scan.launches
+    y, states, T = ssd_scan_fwd(x, dt, A, B, C, chunk=chunk, out_dtype=torch.float32)
+    q = min(chunk, s)
+    nc = s // q
+    (kind, ptrs, strides, dims, arg, out_dtype), = calls
+    groups = head_groups(bt * nc, h, 132) if dtype == "bfloat16" else 1
+    assert kind == wrapper.FWD and arg is x and out_dtype == torch.float32
+    assert dims == [bt, s, h, p, n, q, groups]
+    assert ptrs == [t.data_ptr() for t in (x, dt, A, B, C, y, states, T)]
+    assert strides == [*x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
+                       *y.stride()[:3], 0, 0, 0]
+    assert y.shape == x.shape and y.dtype == torch.float32
+    assert states.shape == (bt, nc, h, n, p) and states.dtype == torch.float32
+    assert states.is_contiguous() and T.shape == (bt, nc, h) and T.dtype == torch.float32
+    assert ssd_scan.launches == launches + 1
+    per = -(-h // groups)
+    assert (groups - 1) * per < h <= groups * per
+    assert groups == 1 or bt * nc * groups <= 132
