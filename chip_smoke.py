@@ -21,7 +21,9 @@ failure:
      D=64 with 12 query heads a KV head, at D=80 (H2O-Danube's heads) and
      D=96 (GPT-MoE's), on q/k/v cut from one packed QKV tensor and at
      StarCoder2's training shape, whose backward must also be
-     bit-identical when run twice;
+     bit-identical when run twice; in bfloat16 also at H2O-Danube's and
+     Mixtral's training shapes (S=8192, Hq=32, Hkv=8, D=80 and D=128)
+     under their 4096-position sliding window;
   3. serve reduced StarCoder2 with the same float32 weights on the CPU
      (plain versions) and on the card (kernels), also with prompts longer
      than max_len, which wrap the ring cache: the token streams agree;
@@ -41,47 +43,65 @@ failure:
      (the flash backward's delta, dK/dV, reduction and dQ passes also
      apart, under torch.profiler; flash-decode also in its slot form on a
      wrapped cache);
-  8. hold the SSD-scan forward and backward kernels against their plain
+  8. reduced H2O-Danube (sliding window), Mixtral (sliding window, MoE)
+     and Llama-4 Maverick (chunked attention, MoE with a shared expert)
+     in float32 on the CPU and on the card: ServeEngine token streams of
+     prompts past the window of 32 are equal, and 3 AdamW steps at S=64
+     agree in losses and weights;
+  9. H2O-Danube-1.8B training main path: full width and depth (24
+     layers), bf16, B=1, S=8192 past the 4096 window, as phase 6: 48
+     forward and 24 backward flash-attention launches per step;
+ 10. H2O-Danube-1.8B serving: 8 requests as phase 4, 24 flash-decode
+     launches per decode step;
+ 11. Mixtral-8x7B at full width and 2 of its 32 layers (what AdamW's
+     state leaves room for on 80 GB): training as phase 9, MFU on active
+     parameters, the dropped expert assignments of a batch and the MoE
+     routing, scatter, experts and combine shares of a profiled step;
+     serving as phase 10 with the dropped assignments;
+ 12. Llama-4 Maverick at full width and 2 layers (a chunked layer with a
+     dense MLP, one with 128 experts, top-1, and a shared expert; 18.55 B
+     parameters): serving as phase 10 with the dropped assignments;
+ 13. hold the SSD-scan forward and backward kernels against their plain
      versions in float32 and bfloat16 (y in x's type and in float32) at
      tests/test_kernels.py's sweep, N=128, one chunk, ragged sizes,
      Mamba2-780m's training shape, an odd head count, a state carried
      through 128 chunks and Bt x nc below and far above the SM count;
-  9. train reduced Mamba-2 in float32 for 3 steps on the CPU and on the
+ 14. train reduced Mamba-2 in float32 for 3 steps on the CPU and on the
      card: losses and weights agree; 12 lockstep decode steps agree;
- 10. Mamba-2 training main path: full-width, full-depth Mamba2-780m, bf16,
+ 15. Mamba-2 training main path: full-width, full-depth Mamba2-780m, bf16,
      B=4, S=4096, remat, AdamW: one warm-up step, then 3 timed steps with
      finite loss and grad norm, changed weights and exactly 2 x layers
      forward and 1 x layers backward SSD-scan launches per step; one more
      step runs under torch.profiler;
- 11. lockstep greedy decode of full Mamba2-780m through ``decode_step``
+ 16. lockstep greedy decode of full Mamba2-780m through ``decode_step``
      (8 prompts of 32 tokens, 32 new tokens): valid tokens, float32 state;
- 12. time the SSD-scan kernels and their plain versions at the training
+ 17. time the SSD-scan kernels and their plain versions at the training
      shape beside the card's least time for the work, the forward's two
      and the backward's four phases apart (torch.profiler), and check that
      the bf16 forward and backward are each bit-identical when run twice;
- 13. hold the prefix-scan kernel bit-equal to its plain version (torch.cumsum)
+ 18. hold the prefix-scan kernel bit-equal to its plain version (torch.cumsum)
      on tests/test_prefix_scan.py's shapes, empty shapes, one row of 2^20,
      bool/uint8/int32 input, 3-D leading axes, strided and offset views and
      the sweep's (65536, 10000) block;
- 14. the architecture zoo: for all 13 registered architectures the torch
+ 19. the architecture zoo: for all 13 registered architectures the torch
      sweep on the card equals the port's numpy sweep on 4096 counter
      snapshots of 10,000 nodes at TP 16/32/64/24 (chunks of 1 and 8192), on
      all-healthy and all-faulty rows and masks narrower and wider than the
      cluster; tpuv4's over-placement at TP-24 shows;
- 15. Fig. 13 / Table 7: 1000 trace snapshots of 720 nodes, torch grids equal
+ 20. Fig. 13 / Table 7: 1000 trace snapshots of 720 nodes, torch grids equal
      numpy, waste at TP-32 in the paper's bands and order;
- 16. sweep main path (benchmarks/scale.py's configuration): 1,000,000
+ 21. sweep main path (benchmarks/scale.py's configuration): 1,000,000
      counter snapshots of 10,000 nodes at 7%, TP-32, InfiniteHBD-K3 and
      NVL-72 through ``run_sweep(backend="torch")`` with masks drawn on the
      card in blocks of 65,536: snapshots/s, peak memory, mean waste, exactly
      2 prefix-scan launches per block, the first 16,384 rows equal to the
      host numpy path and to a chunk-8192 run; two blocks under
      torch.profiler, then the draw and the waste kernels each alone;
- 17. time the prefix-scan kernel, its plain version and torch.cumsum at the
+ 22. time the prefix-scan kernel, its plain version and torch.cumsum at the
      sweep's block beside the bytes bound.
 
-The last lines are the ``{"kernels": ...}`` record, the card line and
-``{"ok": true, "device": ...}``.
+The last lines are the script's time, the ``{"kernels": ...}`` record, the
+card line and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -109,6 +129,18 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # products (49k at StarCoder2's shape) in another order than the plain
 # version, in fp32; in bf16 the stored gradient rounds to 8 bits.
 GRAD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+# The windowed bf16 flash cases at S = 8192 are also held to the reference's
+# own scale: past a 4096 window a row averages ~1500 keys, so its outputs
+# are ~0.026 and TOL's absolute 2e-2 would pass a window off by a tile.
+# Per band of 64 sequence rows, the band's max abs error over the RMS of the
+# reference in the band: the bf16 rounding of both sides reads up to 0.106
+# on an H100 (largest in the first rows, which average few keys), and a
+# plain version whose window is off by 64 keys reads 1.35 or more.  lse's
+# max abs error: the plain version rounds q * scale to bf16, which moves the
+# lse of a row with few keys by up to 4.7e-3; the window off by 64 keys
+# moves it by 4e-2 or more.
+WINDOW_TOL = {"band_rel": 0.3, "lse_abs": 1e-2}
+WINDOW_BAND = 64
 # Reduced training, card against CPU in float32: 3 AdamW steps move each
 # weight by ~lr whatever its gradient's size, so an entry whose gradient
 # differs in its last digits may move a little differently (as in
@@ -314,7 +346,20 @@ def check_reduced_against_cpu(torch):
           f"path's")
 
 
-def serve_full(torch):
+def depth(cfg) -> str:
+    """The layer count, and the published one where the depth was cut."""
+    from repro_torch.configs import ARCHS
+
+    full = ARCHS[cfg.name].num_layers if cfg.name in ARCHS else cfg.num_layers
+    return (f"{cfg.num_layers} layers" if cfg.num_layers == full else
+            f"{cfg.num_layers} of {full} layers (depth cut, widths published)")
+
+
+def serve_full(torch, cfg=None):
+    """Serving main path: a full-width config (StarCoder2-3B unless ``cfg``
+    is given) with random bf16 weights serves 8 requests of 32 + 32 tokens;
+    every request finishes and each decode step launches flash-decode once
+    per layer.  An MoE config also prints its dropped expert assignments."""
     import numpy as np
 
     from repro_torch import obs
@@ -323,15 +368,18 @@ def serve_full(torch):
     from repro_torch.models import init_params
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = get_arch("starcoder2")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = cfg or get_arch("starcoder2")
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                         device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    print(f"model: {cfg.name}, {len(model.layers)} layers, d_model {cfg.d_model}, "
-          f"{weight_bytes / 1e9:.3f} GB of weights, made in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"model: {cfg.name}, {depth(cfg)}, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.4f} B parameters, {weight_bytes / 1e9:.3f} GB of weights, "
+          f"made in {time.perf_counter() - t0:.2f} s")
 
     batch, max_len, n_req, prompt_len, max_new = 8, 1024, 8, 32, 32
     warm = ServeEngine(cfg, model, max_batch=batch, max_len=max_len)
@@ -373,7 +421,7 @@ def serve_full(torch):
                              f"{steps} decode steps of {cfg.num_layers} layers")
     tokens = sum(len(r.out) for r in reqs)
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"serve: {n_req} requests, {tokens} tokens, {steps} decode steps "
+    print(f"serve: {cfg.name}: {n_req} requests, {tokens} tokens, {steps} decode steps "
           f"({prefill_steps} prefill + {decode_steps} engine steps), "
           f"{tokens / (t2 - t0):.1f} tok/s overall, "
           f"{(t2 - t0) / steps * 1e3:.3f} ms per decode step overall, "
@@ -382,10 +430,19 @@ def serve_full(torch):
           f"({n_req * decode_steps / (t2 - t1):.1f} tok/s), weight-streaming "
           f"bound {bound_ms:.3f} ms per step, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    print(f"serve: decode_attention launches {launches} = {cfg.num_layers} x "
-          f"{steps} steps")
+    print(f"serve: {cfg.name}: decode_attention launches {launches} = "
+          f"{cfg.num_layers} x {steps} steps")
+    if cfg.n_experts:
+        # every lane of the batch, idle ones too, is routed (as in repro), so
+        # the capacity of a step is max(1, int(capacity_factor * 8 * top_k / E))
+        cap = max(1, int(cfg.capacity_factor * batch * cfg.top_k / cfg.n_experts))
+        print(f"serve: {cfg.name}: {counters['moe.dropped_assignments']} of "
+              f"{counters['moe.assignments']} expert assignments dropped over {steps} "
+              f"steps ({cfg.n_experts} experts, top-{cfg.top_k}, capacity {cap} a step; "
+              f"uniformly drawn prompts)")
     profile_engine_steps(torch, eng)
-    return launches
+    return {"launches": launches, "steps": steps,
+            "ms_per_step": (t2 - t1) / decode_steps * 1e3}
 
 
 # ------------------------------------------------------------ timing
@@ -544,8 +601,8 @@ def profile_engine_steps(torch, eng, n_steps=4):
         wall_ms = (time.perf_counter() - t0) * 1e3
     eng.run_until_done()
     summarize_profile(torch, prof, wall_ms, n_steps,
-                      f"{n_steps} engine steps of batch {eng.max_batch}",
-                      {"flash-decode": "decode_"})
+                      f"{eng.cfg.name}: {n_steps} engine steps of batch {eng.max_batch}",
+                      {"flash-decode": "decode_", "cuBLAS GEMM": "nvjet"})
 
 
 def summarize_profile(torch, prof, wall_ms, n_steps, label, groups):
@@ -553,7 +610,8 @@ def summarize_profile(torch, prof, wall_ms, n_steps, label, groups):
     the kernels that took the most time; ``groups`` maps a label to a
     substring of kernel names whose time is summed."""
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         print("profile: the profiler recorded no device kernels")
         return None
@@ -600,6 +658,39 @@ def flash_inputs(torch, seed, b, sq, sk, hq, hkv, d, dtype, packed=False):
     return q, k, v, g
 
 
+def band_errors(torch, x, ref, seq_dim, split, band=WINDOW_BAND):
+    """(rows < split, rows >= split): the largest over bands of ``band``
+    rows along ``seq_dim`` of the band's max abs error over the RMS of
+    ``ref`` in the band."""
+    d = (x.float() - ref.float()).movedim(seq_dim, 0)
+    r = ref.float().movedim(seq_dim, 0)
+    rel = torch.stack([dd.abs().max() / rr.square().mean().sqrt().clamp_min(1e-30)
+                       for dd, rr in zip(d.split(band), r.split(band))]).tolist()
+    return max(rel[:split // band]), max(rel[split // band:])
+
+
+def window_errors(torch, fwd, ref_fwd, grads, ref_grads, window):
+    """The windowed cases' errors by name: out, dq, dk, dv by band against
+    the reference's scale, lse absolutely, each as (rows < window, rows >=
+    window)."""
+    errs = {"out": band_errors(torch, fwd[0], ref_fwd[0], 1, window)}
+    e_lse = (fwd[1] - ref_fwd[1].float()).abs()
+    errs["lse"] = (e_lse[..., :window].max().item(), e_lse[..., window:].max().item())
+    for name, x, rx in zip(("dq", "dk", "dv"), grads, ref_grads):
+        errs[name] = band_errors(torch, x, rx, 1, window)
+    return errs
+
+
+def over_window_tol(errs):
+    """Names of the errors over WINDOW_TOL."""
+    return [n for n, e in errs.items()
+            if max(e) > WINDOW_TOL["lse_abs" if n == "lse" else "band_rel"]]
+
+
+def show_window_errors(errs):
+    return ", ".join(f"{n} {e[0]:.3e}/{e[1]:.3e}" for n, e in errs.items())
+
+
 def check_flash_attention(torch):
     """Forward (out, lse) and backward (dq, dk, dv) kernels against the
     plain versions on the same inputs; the backward of both gets the
@@ -625,9 +716,19 @@ def check_flash_attention(torch):
         ("D=96 GPT-MoE heads", 1, 1000, 1000, 8, 8, 96, dict(causal=True)),
         ("StarCoder2 S=4096", 1, 4096, 4096, 24, 2, 128, dict(causal=True)),
     ]
+    # bf16 only, the training shapes of H2O-Danube (D = 80: the register-A
+    # dK/dV form at DMAX 128) and Mixtral: S = 8192 past the 4096 window, so
+    # a key tile sees only a band of q tiles
+    windowed = [
+        ("H2O-Danube S=8192 window 4096", 1, 8192, 8192, 32, 8, 80,
+         dict(causal=True, window=4096)),
+        ("Mixtral S=8192 window 4096", 1, 8192, 8192, 32, 8, 128,
+         dict(causal=True, window=4096)),
+    ]
     errs = {"fwd": 0.0, "bwd": 0.0}
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for seed, (label, b, sq, sk, hq, hkv, d, kw) in enumerate(cases):
+        for seed, (label, b, sq, sk, hq, hkv, d, kw) in enumerate(
+                cases + (windowed if dtype == torch.bfloat16 else [])):
             q, k, v, g = flash_inputs(torch, seed, b, sq, sk, hq, hkv, d, dtype,
                                       packed=label.startswith("packed"))
             out, lse = flash_attention_fwd(q, k, v, **kw)
@@ -657,6 +758,9 @@ def check_flash_attention(torch):
             if not ok:
                 raise AssertionError(f"flash_attention disagrees with its plain version "
                                      f"on {label} {dname}")
+            if kw.get("window") and sq > kw["window"]:
+                window_check(torch, label, q, k, v, g, (out, lse), (ref_out, ref_lse),
+                             grads, ref_grads, kw["window"], plant=label.startswith("H2O"))
             del q, k, v, g, out, lse, ref_out, ref_lse, grads, ref_grads
     # the backward has no atomics: the same inputs give the same bits
     q, k, v, g = flash_inputs(torch, 77, 1, 4096, 4096, 24, 2, 128, torch.bfloat16)
@@ -671,17 +775,49 @@ def check_flash_attention(torch):
     return errs
 
 
-def train_reduced_against_cpu(torch):
-    """3 AdamW steps of reduced StarCoder2 in float32 on the CPU (plain
-    versions) and on the card (kernels), from the same weights."""
+def window_check(torch, label, q, k, v, g, fwd, ref_fwd, grads, ref_grads, window,
+                 plant=False):
+    """Hold a windowed case to WINDOW_TOL; with ``plant``, also show that
+    the check fails on a plain version whose window is off by one 64-key
+    tile either way (forward and backward, every tensor)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_ref,
+                                                     flash_attention_fwd_ref)
+
+    errs = window_errors(torch, fwd, ref_fwd, grads, ref_grads, window)
+    over = over_window_tol(errs)
+    print(f"flash_attention {label} bfloat16 against the reference's scale (rows before "
+          f"/ past the window; band of {WINDOW_BAND} rows: max err / RMS, tol "
+          f"{WINDOW_TOL['band_rel']}; lse abs, tol {WINDOW_TOL['lse_abs']}): "
+          f"{show_window_errors(errs)} {'ok' if not over else 'FAIL ' + str(over)}")
+    if over:
+        raise AssertionError(f"flash_attention disagrees with its plain version on "
+                             f"{label} bfloat16 at the reference's scale: {over}")
+    if not plant:
+        return
+    for w in (window - 64, window + 64):
+        planted = window_errors(
+            torch, fwd, flash_attention_fwd_ref(q, k, v, causal=True, window=w), grads,
+            flash_attention_bwd_ref(q, k, v, *fwd, g, causal=True, window=w), window)
+        caught = over_window_tol(planted)
+        print(f"flash_attention {label}: the plain version planted with window {w}: "
+              f"{show_window_errors(planted)}; over the tolerance: {caught}")
+        if set(caught) != set(planted):
+            raise AssertionError(f"the windowed check passes a window of {w}: only "
+                                 f"{caught} over the tolerance")
+
+
+def train_reduced_against_cpu(torch, arch="starcoder2", adam_eps=1e-8):
+    """3 AdamW steps of a reduced config (StarCoder2 unless ``arch`` is
+    given) in float32 on the CPU (plain versions) and on the card (kernels),
+    from the same weights."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.models import init_params
     from repro_torch.train import (OptConfig, TrainConfig, init_opt_state,
                                    make_train_step, synthetic_batch)
 
-    cfg = get_arch("starcoder2").reduced()
-    tc = TrainConfig(opt=OptConfig(lr=3e-3, warmup_steps=2))
+    cfg = get_arch(arch).reduced()
+    tc = TrainConfig(opt=OptConfig(lr=3e-3, warmup_steps=2, eps=adam_eps))
     cpu_model = init_params(cfg, torch.Generator().manual_seed(4), device="cpu",
                             dtype=torch.float32)
     card_model = copy.deepcopy(cpu_model).to("cuda")
@@ -711,15 +847,104 @@ def train_reduced_against_cpu(torch):
         raise AssertionError("reduced training: card and CPU disagree")
 
 
+# The decoder configs whose reduced versions run on card and CPU: sliding
+# window (H2O-Danube), sliding window and MoE (Mixtral), chunked attention
+# and MoE with a shared expert (Llama-4 Maverick).
+DECODERS = ("h2o-danube", "mixtral", "llama4")
+# Adam's eps in their card-against-CPU training, as in
+# tests/test_torch_windowed.py: top-1 routing (Llama-4) renormalises the
+# one weight to 1, so the router's gradient is zero but for rounding, which
+# differs between card and CPU; eps = 1e-8 would turn that into moves of a
+# sizeable share of lr.
+DECODER_ADAM_EPS = 1e-6
+# Mixtral-8x7B's training depth: 2 layers hold 3.165 B parameters, 51 GB
+# with AdamW's fp32 master, m and v and bf16 gradients; 3 layers (74 GB of
+# state) leave no room for the step's activations on an 80 GB card.
+MIXTRAL_LAYERS = 2
+
+
+def decoders_reduced_against_cpu(torch):
+    """Reduced H2O-Danube, Mixtral and Llama-4 Maverick with float32 weights
+    on the CPU (plain versions) and on the card (kernels): ServeEngine token
+    streams of prompts past the window of 32 (the ring caches wrap, the
+    window and chunk masks cut keys) are equal, and 3 AdamW steps at S = 64
+    agree within TRAIN_TOL."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request, ServeEngine
+
+    for arch in DECODERS:
+        cfg = get_arch(arch).reduced()
+        model = init_params(cfg, torch.Generator().manual_seed(6), device="cpu",
+                            dtype=torch.float32)
+        streams = {}
+        for dev in ("cpu", "cuda"):
+            m = model if dev == "cpu" else copy.deepcopy(model).to("cuda")
+            launches = decode_attention.launches
+            eng = ServeEngine(cfg, m, max_batch=2, max_len=64, device=dev)
+            streams[dev] = [r.out for r in serve(eng, Request, cfg.vocab_size, 3, 40, 8,
+                                                 seed=7)]
+        if decode_attention.launches == launches:
+            raise AssertionError(f"reduced {cfg.name} served on the card without flash-decode")
+        if streams["cpu"] != streams["cuda"]:
+            raise AssertionError(f"reduced {cfg.name}: card {streams['cuda']} != "
+                                 f"cpu {streams['cpu']}")
+        print(f"reference: reduced {cfg.name} ({'/'.join(cfg.layer_pattern)}, window "
+              f"{cfg.window}, {cfg.n_experts} experts), float32 weights, 3 requests of "
+              f"40-token prompts through 2 slots of max_len 64: card token streams equal "
+              f"the CPU plain path's")
+        train_reduced_against_cpu(torch, arch, adam_eps=DECODER_ADAM_EPS)
+
+
 def attention_flops(cfg, batch, seq):
-    """Model FLOPs of causal attention scores and values in one training
-    step: forward 4 * pairs * D per head, backward twice that."""
-    pairs = seq * (seq + 1) // 2
-    return 3 * 4 * pairs * cfg.head_dim * cfg.n_heads * batch * cfg.num_layers
+    """Model FLOPs of attention scores and values in one training step:
+    forward 4 * pairs * D per head, backward twice that, where the pairs are
+    the (query, key) pairs each layer's mask keeps: causal, within the
+    window (``swa``) or within the chunk (``chunked``)."""
+    pairs = {"attn": seq * (seq + 1) // 2,
+             "swa": sum(min(q + 1, cfg.window) for q in range(seq)) if cfg.window else 0,
+             "chunked": sum(q % cfg.window + 1 for q in range(seq)) if cfg.window else 0}
+    total = sum(pairs[cfg.pattern_at(i)] for i in range(cfg.num_layers))
+    return 3 * 4 * total * cfg.head_dim * cfg.n_heads * batch
 
 
-def train_full(torch, batch=1, seq=4096, timed=3):
-    """Training main path: full StarCoder2-3B, bf16, remat, AdamW."""
+MOE_RANGES = ("moe.route", "moe.scatter", "moe.experts", "moe.combine")
+# autograd nodes that only the MoE layers' backward runs: the router's
+# softmax and top-k, the scatter's, the combine's gather and the experts'
+MOE_BACKWARD = ("SoftmaxBackward0", "SortBackward0", "IndexPutBackward0",
+                "IndexSelectBackward0", "BmmBackward0")
+
+
+def moe_device_ms(prof, names):
+    """Device ms of each profiler range or autograd node in ``names``, from
+    a profile that traced the CPU side too."""
+    avg = {e.key: e for e in prof.key_averages()}
+    return {n: (getattr(avg[n], "device_time_total", 0.0) / 1e3 if n in avg else 0.0)
+            for n in names}
+
+
+def moe_drops(torch, model, batch):
+    """(dropped, routed) expert assignments of a no-grad forward of
+    ``batch``, from the MoE layers' telemetry counters."""
+    from repro_torch import obs
+    from repro_torch.models import forward
+
+    obs.enable()
+    obs.reset()
+    with torch.no_grad():
+        forward(model, batch)
+    counters = obs.summary()["counters"]
+    obs.disable()
+    obs.reset()
+    return counters["moe.dropped_assignments"], counters["moe.assignments"]
+
+
+def train_full(torch, cfg=None, batch=1, seq=4096, timed=3):
+    """Training main path: a full-width config (StarCoder2-3B unless ``cfg``
+    is given), bf16, remat, AdamW: one warm-up step, ``timed`` timed steps
+    with the launch counts checked, one profiled step.  MFU counts the
+    active parameters (an MoE token runs top-k of its experts)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -731,29 +956,47 @@ def train_full(torch, batch=1, seq=4096, timed=3):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_arch("starcoder2")
+    cfg = cfg or get_arch("starcoder2")
     tc = TrainConfig(remat=True)
     t0 = time.perf_counter()
     state = init_train_state(cfg, tc, 0, device="cuda", dtype=torch.bfloat16)
     model = state["params"]
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"train: {cfg.name}, {len(model.layers)} layers, d_model {cfg.d_model}, "
-          f"{n_params / 1e9:.4f} B parameters, AdamW state made in "
-          f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-          f"allocated")
+    n_active = n_params - (cfg.param_count() - cfg.active_param_count())
+    print(f"train: {cfg.name}, {depth(cfg)}, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.4f} B parameters ({n_active / 1e9:.4f} B active a token), "
+          f"AdamW state made in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     step = make_train_step(cfg, tc)
 
     def batch_at(i):
         host = synthetic_batch(cfg, i, batch, seq)
         return {k: torch.from_numpy(v).to("cuda") for k, v in host.items()}
 
+    if cfg.n_experts:
+        # the synthetic tokens are Zipf(1.3) unigrams: equal tokens take the
+        # same experts at layer 0, so the drops are also read on tokens drawn
+        # uniformly from the vocabulary, with the same weights
+        first = batch_at(0)
+        uniform = {"tokens": torch.randint(
+            0, cfg.vocab_size, first["tokens"].shape, dtype=first["tokens"].dtype,
+            device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))}
+        top = torch.bincount(first["tokens"].flatten()).sort(descending=True)
+        drops = {"before": moe_drops(torch, model, first),
+                 "uniform": moe_drops(torch, model, uniform)}
+        print(f"train: {cfg.name}: the warm-up batch's most frequent token ids "
+              + ", ".join(f"{i} {100 * n / first['tokens'].numel():.1f}%" for n, i in
+                          zip(top.values[:4].tolist(), top.indices[:4].tolist()))
+              + " of its positions")
     state, m = step(state, batch_at(0))                      # warm-up
     torch.cuda.synchronize()
-    print(f"train: warm-up step loss {float(m['loss']):.4f} grad_norm "
+    print(f"train: {cfg.name}: warm-up step loss {float(m['loss']):.4f} grad_norm "
           f"{float(m['grad_norm']):.4f}")
+    last = model.layers[-1]
     watch = {"embed": model.embed, "wq0": model.layers[0].attn["wq"],
-             "w_down29": model.layers[-1].mlp["w_down"]}
+             f"w_down{len(model.layers) - 1}":
+                 last.moe.w_down if last.moe is not None else last.mlp["w_down"]}
     before = {n: p.detach()[:8].clone() for n, p in watch.items()}
     batches = [batch_at(1 + i) for i in range(timed)]
     torch.cuda.synchronize()
@@ -780,33 +1023,57 @@ def train_full(torch, batch=1, seq=4096, timed=3):
         raise AssertionError(f"weights did not change: {changed}")
     tokens = batch * seq
     step_s = statistics.median(times)
-    model_flops = 6 * n_params * tokens + attention_flops(cfg, batch, seq)
+    model_flops = 6 * n_active * tokens + attention_flops(cfg, batch, seq)
     flop_ms = model_flops / BF16_FLOPS * 1e3
     # AdamW reads and writes fp32 master, m and v and reads the grads, once
     opt_bytes = n_params * (3 * 4 * 2 + 2 + 2)
     opt_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
     mfu = model_flops / (step_s * BF16_FLOPS)
-    print(f"train: {timed} timed steps of B={batch} S={seq}: "
+    print(f"train: {cfg.name}: {timed} timed steps of B={batch} S={seq}: "
           + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms; median "
           f"{step_s * 1e3:.1f} ms per step, {tokens / step_s:.0f} tok/s, MFU "
           f"{100 * mfu:.2f}% ({model_flops / 1e12:.2f} TFLOP per step at 989 TFLOP/s); "
           f"bound {flop_ms + opt_ms:.1f} ms per step ({flop_ms:.1f} ms of FLOPs + "
           f"{opt_ms:.1f} ms of optimizer bytes); peak memory {peak / 1e9:.2f} GB")
-    print("train: losses " + ", ".join(f"{x['loss']:.4f}" for x in metrics)
+    print(f"train: {cfg.name}: losses " + ", ".join(f"{x['loss']:.4f}" for x in metrics)
           + "; grad norms " + ", ".join(f"{x['grad_norm']:.4f}" for x in metrics)
           + f"; weights changed {changed}")
-    print(f"train: flash_attention launches {fwd} forward = 2 x {layers} layers x "
-          f"{timed} steps, {bwd} backward = {layers} x {timed}")
+    print(f"train: {cfg.name}: flash_attention launches {fwd} forward = 2 x {layers} "
+          f"layers x {timed} steps, {bwd} backward = {layers} x {timed}")
+    if cfg.n_experts:
+        drops["after"] = moe_drops(torch, model, batches[-1])
+        print(f"train: {cfg.name}: expert assignments dropped at capacity factor "
+              f"{cfg.capacity_factor} ({cfg.n_experts} experts, top-{cfg.top_k}), by "
+              f"no-grad forwards: {drops['before'][0]} of {drops['before'][1]} in the "
+              f"warm-up batch with the initial weights, {drops['after'][0]} of "
+              f"{drops['after'][1]} in the last timed batch after {1 + timed} steps; "
+              f"{drops['uniform'][0]} of {drops['uniform'][1]} with the initial weights "
+              f"on uniformly drawn tokens")
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # an MoE step also traces the CPU side, for the device time of its ranges
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cfg.n_experts else [])
+    with profile(activities=acts) as prof:
         t1 = time.perf_counter()
         state, m = step(state, batch_at(1 + timed))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t1) * 1e3
-    summarize_profile(torch, prof, wall_ms, 1, f"1 training step of B={batch} S={seq}",
-                      {"flash fwd": "flash_fwd", "flash dK/dV": "flash_bwd_dkdv",
-                       "flash dQ": "flash_bwd_dq", "flash delta": "flash_bwd_delta",
-                       "flash reduce": "flash_bwd_reduce", "cuBLAS GEMM": "nvjet"})
+    busy = summarize_profile(
+        torch, prof, wall_ms, 1, f"{cfg.name}: 1 training step of B={batch} S={seq}",
+        {"flash fwd": "flash_fwd", "flash dK/dV": "flash_bwd_dkdv",
+         "flash dQ": "flash_bwd_dq", "flash delta": "flash_bwd_delta",
+         "flash reduce": "flash_bwd_reduce", "cuBLAS GEMM": "nvjet"})
+    if cfg.n_experts and busy:
+        ms = moe_device_ms(prof, MOE_RANGES + MOE_BACKWARD)
+        share = {
+            "route": ms["moe.route"] + ms["SoftmaxBackward0"] + ms["SortBackward0"],
+            "scatter": ms["moe.scatter"] + ms["IndexPutBackward0"],
+            "combine": ms["moe.combine"] + ms["IndexSelectBackward0"],
+            "experts": ms["moe.experts"] + ms["BmmBackward0"]}
+        print(f"profile: {cfg.name}: MoE device ms in the step (forward ranges twice "
+              f"with remat; backward by autograd node): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+              + "; share of the busy time: "
+              + ", ".join(f"{k} {100 * v / busy['busy_ms']:.2f}%" for k, v in share.items()))
     del state, model, step, batches, watch, before, prof
     gc.collect()
     torch.cuda.empty_cache()
@@ -1646,6 +1913,8 @@ def time_prefix_scan(torch, rows=SWEEP_BLOCK, length=SWEEP_NODES):
 
 
 def main() -> int:
+    import dataclasses
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1654,6 +1923,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -1662,7 +1932,7 @@ def main() -> int:
     errs = check_decode_attention(torch)
     flash_errs = check_flash_attention(torch)
     check_reduced_against_cpu(torch)
-    launches = serve_full(torch)
+    launches = serve_full(torch)["launches"]
     times = {label: time_decode_attention(torch, label, s, top, slots)
              for label, s, top, slots in [("serve", 1024, 64, False),
                                           ("L=1024", 1024, None, False),
@@ -1672,6 +1942,26 @@ def main() -> int:
     train_reduced_against_cpu(torch)
     train = train_full(torch)
     flash_times = time_flash_attention(torch)
+
+    from repro_torch.configs import get_arch
+
+    t_decoders = time.perf_counter()
+    decoders_reduced_against_cpu(torch)
+    danube = get_arch("h2o-danube")
+    mixtral = dataclasses.replace(get_arch("mixtral"), num_layers=MIXTRAL_LAYERS)
+    llama4 = dataclasses.replace(get_arch("llama4"), num_layers=2)
+    decoder_runs = {
+        "h2o_danube_train": train_full(torch, danube, seq=8192),
+        "h2o_danube_serve": serve_full(torch, danube),
+        "mixtral_train": train_full(torch, mixtral, seq=8192),
+        "mixtral_serve": serve_full(torch, mixtral),
+        "llama4_serve": serve_full(torch, llama4),
+    }
+    decoders_s = time.perf_counter() - t_decoders
+    print(f"decoders: the decoder-config phases (reduced H2O-Danube, Mixtral and "
+          f"Llama-4 against the CPU; H2O-Danube-1.8B trained and served; Mixtral-8x7B "
+          f"at {MIXTRAL_LAYERS} layers trained and served; Llama-4 Maverick at 2 layers "
+          f"served) took {decoders_s:.1f} s")
     ssd_errs = check_ssd_scan(torch)
     train_mamba_reduced_against_cpu(torch)
     mamba = train_mamba_full(torch)
@@ -1682,6 +1972,8 @@ def main() -> int:
     check_fig13(torch)
     sweep = sweep_main_path(torch)
     scan_times = time_prefix_scan(torch)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, of which the "
+          f"decoder-config phases {decoders_s:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
@@ -1698,6 +1990,9 @@ def main() -> int:
         "L4096": times["L=4096"],
         "slots_serve_shape": times["slots serve"],
         "slots_wrapped_W1024": times["slots wrapped W=1024"],
+        "launches_h2o_danube_serve": decoder_runs["h2o_danube_serve"]["launches"],
+        "launches_mixtral_serve": decoder_runs["mixtral_serve"]["launches"],
+        "launches_llama4_serve": decoder_runs["llama4_serve"]["launches"],
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -1707,6 +2002,8 @@ def main() -> int:
         "max_abs_err": flash_errs["fwd"],
         "shape": "B=1 S=4096 Hq=24 Hkv=2 D=128 bf16 causal",
         **flash_times["fwd"],
+        "launches_h2o_danube_train": decoder_runs["h2o_danube_train"]["fwd"],
+        "launches_mixtral_train": decoder_runs["mixtral_train"]["fwd"],
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -1716,6 +2013,8 @@ def main() -> int:
         "max_abs_err": flash_errs["bwd"],
         "shape": "B=1 S=4096 Hq=24 Hkv=2 D=128 bf16 causal",
         **flash_times["bwd"],
+        "launches_h2o_danube_train": decoder_runs["h2o_danube_train"]["bwd"],
+        "launches_mixtral_train": decoder_runs["mixtral_train"]["bwd"],
         "passes": {k: {"ms": v["ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"]}
                    for k, v in flash_times.items() if k.startswith("bwd ")},
     }, {

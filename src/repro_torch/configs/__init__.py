@@ -5,15 +5,29 @@ the others join with the slices that port their modules.
 """
 
 from .base import ModelConfig
+from .deepseek_67b import CONFIG as DEEPSEEK
+from .gpt_moe import CONFIG as GPT_MOE
+from .h2o_danube_1_8b import CONFIG as H2O_DANUBE
+from .llama4_maverick_400b_a17b import CONFIG as LLAMA4
 from .mamba2_780m import CONFIG as MAMBA2
+from .mixtral_8x7b import CONFIG as MIXTRAL
+from .qwen25_32b import CONFIG as QWEN25
 from .starcoder2_3b import CONFIG as STARCODER2
 
-ARCHS = {c.name: c for c in [STARCODER2, MAMBA2]}
+ARCHS = {c.name: c for c in [
+    LLAMA4, MIXTRAL, MAMBA2, DEEPSEEK, QWEN25, H2O_DANUBE, STARCODER2, GPT_MOE,
+]}
 
 # short aliases for --arch
 ALIASES = {
-    "starcoder2": STARCODER2.name,
+    "llama4": LLAMA4.name,
+    "mixtral": MIXTRAL.name,
     "mamba2": MAMBA2.name,
+    "deepseek": DEEPSEEK.name,
+    "qwen": QWEN25.name,
+    "h2o-danube": H2O_DANUBE.name,
+    "starcoder2": STARCODER2.name,
+    "gpt-moe": GPT_MOE.name,
 }
 
 

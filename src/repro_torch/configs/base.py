@@ -1,10 +1,11 @@
 """Model architecture config, the port's counterpart of ``repro.configs.base``.
 
 ``ModelConfig`` carries the exact public hyper-parameters of an
-architecture, the padding rules the model reads, and a ``reduced()``
-variant for CPU tests.  Pure Python: no tensor library is imported.  The
-JAX-only ``input_specs`` and the analytic ``param_count`` wait for the
-launch slice.
+architecture, the padding rules the model reads, a ``reduced()`` variant
+for CPU tests, and the analytic ``param_count`` and
+``active_param_count`` that MFU reads (an MoE step counts only the top-k
+experts).  Pure Python: no tensor library is imported.  The JAX-only
+``input_specs`` waits for the launch slice.
 """
 
 from __future__ import annotations
@@ -99,6 +100,49 @@ class ModelConfig:
 
     def pattern_at(self, i: int) -> str:
         return self.layer_pattern[i % len(self.layer_pattern)]
+
+    def param_count(self) -> float:
+        """Approximate parameter count (used for MODEL_FLOPS = 6 N D)."""
+        d, f = self.d_model, self.d_ff
+        total = 0.0
+        for i in range(self.num_layers):
+            kind = self.pattern_at(i)
+            if kind in ("attn", "swa", "chunked", "enc"):
+                total += d * (self.n_heads + 2 * self.n_kv_heads) * self.head_dim
+                total += self.n_heads * self.head_dim * d
+            elif kind == "rglru":
+                w = self.rnn_width or d
+                total += 2 * d * w + 3 * w * w // max(w, 1) + w * d  # proj + gates
+                total += 2 * w  # lambda, conv-ish
+            elif kind == "ssd":
+                di = self.d_inner
+                total += d * (2 * di + 2 * self.ssm_state + self.ssm_heads)
+                total += di * d
+            if f > 0:
+                mats = 3 if self.act in ("swiglu", "geglu") else 2
+                if self.n_experts and (i % self.moe_every == self.moe_every - 1):
+                    total += self.n_experts * mats * d * f
+                    total += d * self.n_experts  # router
+                    total += self.n_shared_experts * mats * d * f
+                else:
+                    total += mats * d * f
+        total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.is_encdec:
+            for _ in range(self.enc_layers):
+                total += 4 * d * d + (3 if self.act in ("swiglu", "geglu") else 2) * d * f
+                # decoder cross-attention
+            total += self.num_layers * 4 * d * d
+        return total
+
+    def active_param_count(self) -> float:
+        """Active params per token (MoE: only top-k experts count)."""
+        if not self.n_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        mats = 3 if self.act in ("swiglu", "geglu") else 2
+        n_moe = self.num_layers // self.moe_every
+        inactive = (self.n_experts - self.top_k) * mats * d * f * n_moe
+        return self.param_count() - inactive
 
     # ----------------------------------------------------------- reduced
 

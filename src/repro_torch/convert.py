@@ -5,8 +5,11 @@
 runs ``jax.tree.map(np.asarray, params)``), and returns the equivalent
 :class:`~repro_torch.models.Transformer`.  The JAX tree stacks full pattern
 groups: ``groups[s][name]`` has a leading ``n_groups`` axis, and layer
-``g * cycle + s`` is its ``g``-th entry; ``rest`` holds the remainder
-layers unstacked.  A JAX gradient tree has the params' structure, so the
+``g * cycle + s`` is its ``g``-th entry, where a cycle is the least common
+multiple of the pattern's length and ``moe_every`` (Llama-4 Maverick's is 4,
+GPT-MoE's 2); ``rest`` holds the remainder layers unstacked.  Subtrees nest
+one level where ``repro``'s do: an MoE layer's ``moe`` holds its ``shared``
+expert MLP.  A JAX gradient tree has the params' structure, so the
 same function maps ``jax.grad``'s output onto the port's parameter names.
 The parameters it makes are trainable, like ``init_params``'s.  This
 module imports neither JAX nor ``repro``.
@@ -22,7 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import Layer, Transformer, _check_layer
 
-_SUBTREES = ("norm1", "attn", "ssd", "norm2", "mlp")
+_SUBTREES = ("norm1", "attn", "ssd", "norm2", "mlp", "moe")
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -32,14 +35,18 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _map(fn, tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """``fn`` on every array of a nested dict."""
+    return {k: _map(fn, v) if isinstance(v, Mapping) else fn(v) for k, v in tree.items()}
+
+
 def _layer(cfg: ModelConfig, i: int, p: Mapping[str, Any], device) -> Layer:
     kind = cfg.pattern_at(i)
-    _check_layer(cfg, kind, i)
+    _check_layer(cfg, kind)
     extra = set(p) - set(_SUBTREES)
     if extra:
         raise NotImplementedError(f"layer {i} holds unported parts {sorted(extra)}")
-    sub = {name: {k: _tensor(v, device) for k, v in p[name].items()} for name in p}
-    return Layer(kind, **sub)
+    return Layer(kind, **_map(lambda v: _tensor(v, device), p))
 
 
 def params_from_jax(cfg: ModelConfig, tree: Mapping[str, Any], *,
@@ -52,9 +59,7 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping[str, Any], *,
     for s, slot in enumerate(groups):
         for g in range(n_groups):
             i = g * cycle + s
-            one = {name: {k: v[g] for k, v in sub.items()}
-                   for name, sub in slot.items()}
-            layers[i] = _layer(cfg, i, one, device)
+            layers[i] = _layer(cfg, i, _map(lambda v: v[g], slot), device)
     for j, p in enumerate(tree["rest"]):
         i = n_groups * cycle + j
         layers[i] = _layer(cfg, i, p, device)

@@ -1,9 +1,13 @@
 """Serving launcher: batched requests through the port's ServeEngine.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2 --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral --device cpu
 
 Runs on the card unless ``--device cpu`` is given.  Without ``--full`` the
 model is the arch's ``reduced()`` config, as in ``repro.launch.serve``.
+``--arch`` takes the names of ``repro_torch.configs``.  At full depth the
+bf16 weights of Mixtral-8x7B, DeepSeek-67B, Llama-4 Maverick and GPT-MoE
+exceed one 80 GB card.
 """
 
 from __future__ import annotations

@@ -1,15 +1,16 @@
 """Training launcher of the port.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 5
-  PYTHONPATH=src python -m repro_torch.launch.train --full --batch 1 --seq 4096
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral --device cpu --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --full --batch 1 --seq 8192
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2 --full --batch 4 --seq 4096
 
 Runs on the card unless ``--device cpu`` is given.  Without ``--full`` the
 model is the arch's ``reduced()`` config, as in ``repro.launch.train``.
-``--arch`` takes the architectures the port registers (``starcoder2``,
-``mamba2``) and defaults to ``starcoder2``; ``repro``'s default,
-``h2o-danube``, waits for the sliding-window slice.  The last line is the JSON summary of
-``repro.launch.train``.
+``--arch`` takes the architectures the port registers (``h2o-danube``,
+``mixtral``, ``llama4``, ``qwen``, ``deepseek``, ``gpt-moe``, ``starcoder2``,
+``mamba2`` or their full names) and defaults to ``repro``'s ``h2o-danube``.
+The last line is the JSON summary of ``repro.launch.train``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="starcoder2")
+    ap.add_argument("--arch", default="h2o-danube")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

@@ -1,0 +1,183 @@
+"""Mixture-of-Experts MLP of the port, the counterpart of
+``repro/models/moe.py`` on one device (``moe_impl="tp"`` with ``tp == 1``).
+
+Dispatch is capacity-based, as in ``repro``: float32 router logits,
+softmax, the top-k experts of each token renormalised; a token's
+rank within its expert is the cumulative sum of the one-hot assignments,
+and assignments ranked past ``capacity`` are dropped.  The experts run as
+batched matrix products over the (E, C, d) buffer.
+
+Two places pin what PyTorch leaves open:
+
+* ``torch.topk`` promises no order among equal values, where ``lax.top_k``
+  takes the lower index first, so :func:`top_k` is a stable descending sort.
+* The combine adds each token's k weighted rows in slot order.  ``index_add_``
+  on CUDA adds them with atomics in any order, so a bf16 result could differ
+  between runs, and between a layer's forward and its remat recompute.
+
+The buffer gets one row past its end, a sink: a dropped assignment is
+written there, and the combine reads its zeros there.  ``repro`` adds the
+zeroed row at (E-1, C-1) and reads row (e, C-1) of its expert times zero,
+which gives the same values.  With the sink each buffer row is written and
+read at most once, so neither direction needs an accumulating scatter (on
+CUDA a sort of the T·k indices) and each gradient row receives one value.
+
+With telemetry on (``repro_torch.obs``) each call counts its assignments
+(``moe.assignments``) and the dropped ones (``moe.dropped_assignments``, a
+sum held on the tensors' device, read once when the summary is taken, so
+counting adds no host sync).  The routing, the scatter into the buffer,
+the experts and the combine run in ``torch.profiler`` ranges
+(``moe.route``, ``moe.scatter``, ``moe.experts``, ``moe.combine``), so a
+profile of a step gives each its device time.  Tensor-parallel experts
+(``tp > 1``) and the expert-parallel exchange (``moe_impl="ep"``) need the
+collectives of ROADMAP.md § 1 item 7 and raise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.profiler import record_function
+
+from repro_torch import obs
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+
+class MoE(nn.Module):
+    """The parameters of one MoE MLP, named as ``repro``'s ``moe`` subtree:
+    ``router`` (d, E) float32, ``w_up`` and ``w_gate`` (E, d, f), ``w_down``
+    (E, f, d) and, with shared experts, the dense MLP ``shared`` of width
+    ``f * n_shared_experts`` (so ``named_parameters``, the optimizer and
+    checkpoints see ``moe.shared.w_up``)."""
+
+    def __init__(self, router: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+                 w_gate: Optional[torch.Tensor] = None,
+                 shared: Optional[Dict[str, torch.Tensor]] = None):
+        super().__init__()
+        self.router = nn.Parameter(router)
+        self.w_up = nn.Parameter(w_up)
+        self.w_down = nn.Parameter(w_down)
+        self.w_gate = nn.Parameter(w_gate) if w_gate is not None else None
+        self.shared = (nn.ParameterDict({k: nn.Parameter(v) for k, v in shared.items()})
+                       if shared is not None else None)
+
+
+def _experts(gen: torch.Generator, shape, std: float, device, dtype) -> torch.Tensor:
+    """(E, ...) normal weights drawn one expert at a time: a float32 draw of
+    all of Llama-4 Maverick's 128 experts at once would take 21 GB beside
+    the bf16 result."""
+    w = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        w[i] = torch.randn(shape[1:], generator=gen, device=device).mul_(std)
+    return w
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, device, dtype=torch.bfloat16) -> Dict:
+    """Random MoE weights with ``repro``'s shapes and scales (the router in
+    float32), drawn from ``gen`` on ``device``."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    s_in, s_ff = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    p = {"router": torch.randn((d, e), generator=gen, device=device) * s_in,
+         "w_up": _experts(gen, (e, d, f), s_in, device, dtype),
+         "w_down": _experts(gen, (e, f, d), s_ff, device, dtype)}
+    if cfg.act in ("swiglu", "geglu"):
+        p["w_gate"] = _experts(gen, (e, d, f), s_in, device, dtype)
+    if cfg.n_shared_experts:
+        p["shared"] = L.init_mlp(gen, d, f * cfg.n_shared_experts, cfg.act, device, dtype)
+    return p
+
+
+def _act(h: torch.Tensor, g: Optional[torch.Tensor], act: str) -> torch.Tensor:
+    if act == "swiglu":
+        return F.silu(g) * h
+    if act == "geglu":
+        return F.gelu(g, approximate="tanh") * h
+    return F.gelu(h, approximate="tanh")
+
+
+def top_k(x: torch.Tensor, k: int):
+    """The k largest entries along the last axis and their indices, equal
+    entries in index order, as ``lax.top_k`` gives them."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _dispatch(x2d: torch.Tensor, router_w: torch.Tensor, e: int, k: int, capacity: int):
+    """Route T tokens: returns (buffer (E, C, d), combine metadata)."""
+    t, d = x2d.shape
+    with record_function("moe.route"):
+        logits = x2d.float() @ router_w                          # (T, E)
+        probs = torch.softmax(logits, dim=-1)
+        topw, topi = top_k(probs, k)                             # (T, k)
+        topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+
+        flat_e = topi.reshape(-1)                                # (T*k,)
+        one_hot = F.one_hot(flat_e, e).to(torch.int32)           # (T*k, E)
+        # rank within expert, scanned along each expert's contiguous row:
+        # torch's CUDA scan down the T*k rows of (T*k, E) runs a thread a column
+        ranks = torch.cumsum(one_hot.t().contiguous(), dim=1, dtype=torch.int32).t()
+        pos = ranks * one_hot
+        flat_pos = pos.sum(-1) - 1                               # (T*k,)
+        keep = flat_pos < capacity
+
+    with record_function("moe.scatter"):
+        # each token's row k times, repro's x2d[repeat(arange(T), k)]
+        rows = x2d[:, None].expand(t, k, d).reshape(t * k, d)
+        buf = x2d.new_zeros((e * capacity + 1, d)).index_put(
+            (_slots(flat_e, flat_pos, keep, e, capacity),), rows)
+    meta = (flat_e, flat_pos, keep, topw.reshape(-1), t)
+    return buf[:-1].view(e, capacity, d), meta
+
+
+def _slots(flat_e, flat_pos, keep, e: int, capacity: int) -> torch.Tensor:
+    """Each assignment's row of the flattened (E*C + 1, d) buffer: expert
+    e's rank r at e*C + r, a dropped one at the sink row E*C."""
+    return torch.where(keep, flat_e * capacity + flat_pos, e * capacity)
+
+
+def _combine(out_buf: torch.Tensor, meta, dtype) -> torch.Tensor:
+    """Each token's k expert rows, weighted, summed in slot order."""
+    flat_e, flat_pos, keep, w, t = meta
+    e, capacity, d = out_buf.shape
+    padded = torch.cat([out_buf.reshape(e * capacity, d), out_buf.new_zeros((1, d))])
+    gathered = padded.index_select(0, _slots(flat_e, flat_pos, keep, e, capacity))
+    gathered = gathered * (w * keep).to(out_buf.dtype)[:, None]
+    rows = gathered.view(t, -1, d)                               # (T, k, d)
+    y = rows[:, 0]
+    for j in range(1, rows.shape[1]):
+        y = y + rows[:, j]
+    return y.to(dtype)
+
+
+def moe_apply_local(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
+                    moe_impl: str = "tp", tp: int = 1) -> torch.Tensor:
+    """The MoE MLP on local tokens x (Bt, S, d) -> (Bt, S, d) in x's dtype:
+    ``repro``'s ``moe_apply_local`` with ``tp == 1``.  The buffer is in x's
+    dtype, the combine runs in the experts' output dtype."""
+    if tp != 1 or moe_impl != "tp":
+        raise NotImplementedError(
+            f"MoE with moe_impl={moe_impl!r} and tp={tp} is not ported yet: its "
+            f"collectives come with the parallel slice (ROADMAP.md § 1 item 7)")
+    bt, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    x2d = x.reshape(-1, d)
+    t = x2d.shape[0]
+    capacity = max(1, int(cfg.capacity_factor * t * k / e))
+    buf, meta = _dispatch(x2d, p.router, e, k, capacity)
+    if obs.enabled():
+        obs.count("moe.assignments", t * k)
+        obs.count_held("moe.dropped_assignments", (~meta[2]).sum())
+    with record_function("moe.experts"):
+        h = torch.bmm(buf, p.w_up)
+        g = torch.bmm(buf, p.w_gate) if p.w_gate is not None else None
+        out = torch.bmm(_act(h, g, cfg.act), p.w_down)
+    with record_function("moe.combine"):
+        y = _combine(out, meta, x.dtype)
+    if p.shared is not None:
+        y = y + L.mlp_apply(p.shared, x2d, cfg.act)
+    return y.reshape(bt, s, d)

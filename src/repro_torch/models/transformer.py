@@ -12,10 +12,13 @@ Mamba-2 (``"ssd"``) layer's forward and backward run the SSD-scan kernels
 (:mod:`repro_torch.models.ssm`); its decode is the plain recurrence, as in
 JAX.
 
-This port covers full-attention (``"attn"``) layers and SSD layers, each
-with a dense MLP when ``d_ff > 0``.  The other layer kinds, prefix (VLM)
-and encoder-decoder inputs raise ``NotImplementedError`` naming the slice
-that will port them; none of them runs a plain stand-in.
+This port covers the attention kinds (``"attn"``; ``"swa"``, a sliding
+window of ``cfg.window`` positions; ``"chunked"``, attention within chunks
+of ``cfg.window`` positions) and SSD layers, each with a dense MLP or, every
+``moe_every``-th layer of a config with experts, an MoE MLP
+(:mod:`repro_torch.models.moe`).  The other layer kinds, prefix (VLM) and
+encoder-decoder inputs raise ``NotImplementedError`` naming the slice that
+will port them; none of them runs a plain stand-in.
 """
 
 from __future__ import annotations
@@ -31,16 +34,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention_cache
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 #: layer kinds (and features) that later slices of the port bring in
 LATER_SLICE = {
-    "swa": "the SWA/chunked ring-buffer decode slice",
-    "chunked": "the SWA/chunked ring-buffer decode slice",
     "rglru": "the RG-LRU slice",
     "enc": "the encoder-decoder slice",
     "xattn": "the encoder-decoder slice",
-    "moe": "the MoE slice",
     "prefix inputs": "the VLM slice (PaliGemma prefix)",
 }
 
@@ -51,16 +52,16 @@ def _unported(what: str) -> NotImplementedError:
         f"{LATER_SLICE.get(what, 'a later slice')}")
 
 
-MIXERS = ("attn", "ssd")     # layer kinds, each the name of its mixer's subtree
+ATTN_KINDS = ("attn", "swa", "chunked")
+#: the subtree that holds each layer kind's mixer
+MIXERS = {**dict.fromkeys(ATTN_KINDS, "attn"), "ssd": "ssd"}
 
 
-def _check_layer(cfg: ModelConfig, kind: str, layer_idx: int) -> None:
+def _check_layer(cfg: ModelConfig, kind: str) -> None:
     if kind not in MIXERS:
         raise _unported(kind)
     if cfg.is_encdec:
         raise _unported("xattn")
-    if cfg.n_experts and layer_idx % cfg.moe_every == cfg.moe_every - 1:
-        raise _unported("moe")
 
 
 def _pdict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
@@ -68,24 +69,27 @@ def _pdict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class Layer(nn.Module):
-    """One decoder layer: norm1 -> mixer (``attn`` or ``ssd``, by kind), then
-    norm2 -> MLP when the config has one, both residual.  The subtrees and
-    their names are those of ``repro``'s layer params."""
+    """One decoder layer: norm1 -> mixer (``attn`` for the attention kinds,
+    ``ssd``), then norm2 -> dense ``mlp`` or ``moe`` when the config has an
+    MLP, both residual.  The subtrees and their names are those of
+    ``repro``'s layer params."""
 
     def __init__(self, kind: str, norm1: Dict, *, attn: Optional[Dict] = None,
                  ssd: Optional[Dict] = None, norm2: Optional[Dict] = None,
-                 mlp: Optional[Dict] = None):
+                 mlp: Optional[Dict] = None, moe: Optional[Dict] = None):
         super().__init__()
         mixers = {"attn": attn, "ssd": ssd}
         held = sorted(k for k, v in mixers.items() if v is not None)
-        if held != [kind]:
+        if held != [MIXERS.get(kind)]:
             raise ValueError(f"a {kind!r} layer holds exactly its mixer; got {held}")
-        if (norm2 is None) != (mlp is None):
-            raise ValueError("norm2 and mlp come together")
+        if (norm2 is None) != (mlp is None and moe is None) or \
+                (mlp is not None and moe is not None):
+            raise ValueError("norm2 comes with one of mlp and moe")
         self.kind = kind
         self.norm1 = _pdict(norm1)
         for name, sub in (*mixers.items(), ("norm2", norm2), ("mlp", mlp)):
             setattr(self, name, _pdict(sub) if sub is not None else None)
+        self.moe = MOE.MoE(**moe) if moe is not None else None
 
 
 class Transformer(nn.Module):
@@ -137,7 +141,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     layers = []
     for i in range(cfg.num_layers):
         kind = cfg.pattern_at(i)
-        _check_layer(cfg, kind, i)
+        _check_layer(cfg, kind)
         sub = {}
         if kind == "ssd":
             sub["ssd"] = SSM.init_ssd_block(generator, cfg, device, dtype)
@@ -145,7 +149,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
             sub["attn"] = _init_attn(generator, cfg, device, dtype)
         if cfg.d_ff > 0:
             sub["norm2"] = L.init_norm(cfg.d_model, cfg.norm, device)
-            sub["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, device, dtype)
+            if cfg.n_experts and i % cfg.moe_every == cfg.moe_every - 1:
+                sub["moe"] = MOE.init_moe(generator, cfg, device, dtype)
+            else:
+                sub["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act,
+                                        device, dtype)
         layers.append(Layer(kind, L.init_norm(cfg.d_model, cfg.norm, device), **sub))
     vp = cfg.padded_vocab()
     emb = (torch.randn((vp, cfg.d_model), generator=generator, device=device)
@@ -180,9 +188,9 @@ def lm_loss(model: Transformer, x: torch.Tensor,
 
 def _attn_apply(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
                 kind: str, positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence causal attention (train/prefill).  x: (B, S, d)."""
-    if kind != "attn":
-        raise _unported(kind)
+    """Full-sequence causal attention (train/prefill), within ``cfg.window``
+    positions for ``"swa"`` and within chunks of ``cfg.window`` positions
+    for ``"chunked"``.  x: (B, S, d)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     hq = p["wq"].shape[-1] // hd
@@ -195,8 +203,24 @@ def _attn_apply(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
     q = L.apply_rope(q.reshape(b, s, hq, hd), positions, cfg.rope_theta)
     k = L.apply_rope(k.reshape(b, s, kvh, hd), positions, cfg.rope_theta)
     v = v.reshape(b, s, kvh, hd)
-    out = L.flash_attention(q, k, v, causal=True)
+    out = L.flash_attention(q, k, v, causal=True, **_mask(cfg, kind))
     return out.reshape(b, s, hq * hd) @ p["wo"]
+
+
+def _mask(cfg: ModelConfig, kind: str) -> Dict[str, int]:
+    return {"window": cfg.window if kind == "swa" else 0,
+            "chunk": cfg.window if kind == "chunked" else 0}
+
+
+def _mlp_apply(layer: Layer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The residual MLP half of a layer: dense, or MoE on one device (what
+    ``repro``'s ``_moe_dispatch`` runs without a mesh)."""
+    if layer.norm2 is None:
+        return x
+    h2 = L.norm(x, layer.norm2, cfg.norm)
+    if layer.moe is not None:
+        return x + MOE.moe_apply_local(layer.moe, cfg, h2, tp=1)
+    return x + L.mlp_apply(layer.mlp, h2, cfg.act)
 
 
 def _layer_apply(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
@@ -206,10 +230,7 @@ def _layer_apply(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
         x = x + SSM.ssd_block_apply(layer.ssd, cfg, h)[0]
     else:
         x = x + _attn_apply(layer.attn, cfg, h, layer.kind, positions)
-    if layer.mlp is None:
-        return x
-    h2 = L.norm(x, layer.norm2, cfg.norm)
-    return x + L.mlp_apply(layer.mlp, h2, cfg.act)
+    return _mlp_apply(layer, cfg, x)
 
 
 def forward(model: Transformer, batch: Dict[str, torch.Tensor], *,
@@ -279,10 +300,9 @@ def _attn_decode(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
     Position ``t`` goes to slot ``t % W``, as in ``repro``, so a sequence
     longer than the cache attends to its last W positions.  The cache is
     updated in place (``index_put_``), where JAX builds a new one with
-    ``.at[].set``.
+    ``.at[].set``.  ``"swa"`` and ``"chunked"`` layers mask by ``cfg.window``
+    as in :func:`_attn_apply`.
     """
-    if kind != "attn":
-        raise _unported(kind)
     b = x.shape[0]
     hd = cfg.head_dim
     hq = p["wq"].shape[-1] // hd
@@ -304,7 +324,8 @@ def _attn_decode(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
     vc.index_put_((bi, slot), v[:, 0].to(vc.dtype))
     pc.index_put_((bi, slot), position)
 
-    out = decode_attention_cache(q, kc, vc, pc, position)     # (B, 1, Hq, D)
+    out = decode_attention_cache(q, kc, vc, pc, position,
+                                 **_mask(cfg, kind))          # (B, 1, Hq, D)
     return out.reshape(b, 1, hq * hd) @ p["wo"]
 
 
@@ -319,10 +340,9 @@ def _layer_decode(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
         x = x + y
     else:
         x = x + _attn_decode(layer.attn, cfg, h, layer.kind, position, cache)
-    if layer.mlp is None:
-        return x
-    h2 = L.norm(x, layer.norm2, cfg.norm)
-    return x + L.mlp_apply(layer.mlp, h2, cfg.act)
+    # every lane, idle and paused ones too, goes through an MoE router and
+    # competes for expert capacity, as in repro
+    return _mlp_apply(layer, cfg, x)
 
 
 @torch.no_grad()

@@ -32,6 +32,7 @@ from .progress import Progress, StreamProgress
 #: etc. read ``TELEMETRY.enabled`` per call, so enable/disable at any time.
 span = TELEMETRY.span
 count = TELEMETRY.count
+count_held = TELEMETRY.count_held
 gauge = TELEMETRY.gauge
 summary = TELEMETRY.summary
 export = TELEMETRY.export
@@ -56,7 +57,7 @@ configure_from_env()
 
 __all__ = [
     "NULL_SPAN", "Progress", "Span", "SpanRecord", "StreamProgress",
-    "TELEMETRY", "Telemetry", "chrome_trace", "configure_from_env", "count",
+    "TELEMETRY", "Telemetry", "chrome_trace", "configure_from_env", "count", "count_held",
     "disable", "enable", "enabled", "export", "gauge", "reset", "rss_mb",
     "span", "summary",
 ]

@@ -51,6 +51,7 @@ def chrome_trace(tel: "Telemetry") -> dict:
     pid = os.getpid()
     epoch = tel.epoch_ns
     events = []
+    tel._settle()
     with tel._lock:
         spans = list(tel.spans)
         counter_events = {k: list(v) for k, v in tel.counter_events.items()}

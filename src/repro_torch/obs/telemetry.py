@@ -10,6 +10,8 @@ the engines' hot paths:
     in child spans) -- the quantity the trace report ranks by;
   * **counters** -- monotonic event counts (``obs.count("prng.masks", n)``);
     every increment is timestamped, so a counter is also a rate timeline;
+    ``count_held`` keeps a device tensor's running sum on the device until
+    the summary or an export reads it;
   * **gauges** -- point-in-time samples (``obs.gauge("prng.rss_mb", v)``),
     e.g. RSS during a million-snapshot stream.
 
@@ -34,7 +36,7 @@ from __future__ import annotations
 import os
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = [
     "NULL_SPAN", "Span", "SpanRecord", "Telemetry", "TELEMETRY",
@@ -155,6 +157,8 @@ class Telemetry:
         #: per-counter increment timeline: (t_ns, cumulative value)
         self.counter_events: Dict[str, List[Tuple[int, float]]] = {}
         self.gauges: Dict[str, List[Tuple[int, float]]] = {}
+        #: counters whose running sums stay on a device until read
+        self._held: Dict[str, Any] = {}
 
     # ------------------------------------------------------------ control
 
@@ -173,6 +177,7 @@ class Telemetry:
             self.counters = {}
             self.counter_events = {}
             self.gauges = {}
+            self._held = {}
             self.epoch_ns = time.perf_counter_ns()
         self._local = threading.local()
         return self
@@ -209,6 +214,31 @@ class Telemetry:
             self.counters[name] = total
             self.counter_events.setdefault(name, []).append((now, total))
 
+    def count_held(self, name: str, n) -> None:
+        """Bump counter ``name`` by ``n``, a 0-d tensor, without reading it:
+        the running sum stays where ``n`` lives (added in place, no host
+        sync) until :meth:`summary` or an export reads every held counter
+        at once, as one increment each."""
+        if not self.enabled:
+            return
+        with self._lock:
+            held = self._held.get(name)
+            if held is None:
+                self._held[name] = n.detach().clone()
+            else:
+                held.add_(n)
+
+    def _settle(self) -> None:
+        """Read the held counters into the host counters."""
+        with self._lock:
+            held, self._held = self._held, {}
+        now = time.perf_counter_ns()
+        for name, n in held.items():
+            with self._lock:
+                total = self.counters.get(name, 0) + n.item()
+                self.counters[name] = total
+                self.counter_events.setdefault(name, []).append((now, total))
+
     def gauge(self, name: str, value: float) -> None:
         """Record one point-in-time sample of gauge ``name``."""
         if not self.enabled:
@@ -229,6 +259,7 @@ class Telemetry:
              "counters": {name: total},
              "gauges": {name: {"last", "max", "samples"}}}
         """
+        self._settle()
         with self._lock:
             spans = list(self.spans)
             counters = dict(self.counters)

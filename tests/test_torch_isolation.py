@@ -29,7 +29,7 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
-    assert len(MODULES) >= 15
+    assert len(MODULES) >= 15 and "repro_torch.models.moe" in MODULES
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
@@ -61,4 +61,4 @@ def test_entry_points_default_to_cuda():
     with pytest.raises((RuntimeError, AssertionError, ValueError)):
         ServeEngine(cfg, model)
     with pytest.raises(KeyError, match="starcoder2"):
-        get_arch("mixtral")
+        get_arch("recurrentgemma")

@@ -1,0 +1,188 @@
+"""The port's MoE MLP (``repro_torch.models.moe``) against ``repro.models.moe``
+on the CPU, on the same seeded weights and tokens.
+
+Reduced configs with 4 experts: Mixtral's SwiGLU experts (top-2), Llama-4
+Maverick's SwiGLU experts with a shared expert (top-1) and GPT-MoE's GELU
+experts without a gate (top-2), each also at capacity factor 0.5, where
+assignments are dropped.  Routing (experts, ranks, kept assignments) must
+equal JAX's exactly; values agree within the forward tolerance of
+``tests/test_torch_train.py``.  The model-level checks of the MoE configs
+are in ``tests/test_torch_windowed.py``.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+
+from repro.configs import get_arch as jax_get_arch
+from repro.models import moe as jax_moe
+from repro_torch import obs
+from repro_torch.configs import get_arch
+from repro_torch.models import moe
+
+ACT_TOL = 2e-5            # float32 forward, as tests/test_torch_train.py
+GRAD_TOL = 2e-5           # of the gradient's largest entry
+BF16_TOL = 2e-2           # tests/test_kernels.py's bf16 tolerance
+
+CASES = [(arch, cf) for arch in ("mixtral", "llama4", "gpt-moe") for cf in (1.25, 0.5)]
+
+
+def _cfgs(arch, capacity_factor):
+    jcfg = dataclasses.replace(jax_get_arch(arch).reduced(), capacity_factor=capacity_factor)
+    tcfg = dataclasses.replace(get_arch(arch).reduced(), capacity_factor=capacity_factor)
+    return jcfg, tcfg
+
+
+def _pair(arch, capacity_factor, dtype=jnp.float32, seed=0):
+    """(JAX config, JAX params, port config, port MoE, tokens (2, 24, d))."""
+    jcfg, tcfg = _cfgs(arch, capacity_factor)
+    jp = jax.tree.map(np.asarray, jax_moe.init_moe(jax.random.PRNGKey(seed), jcfg, dtype))
+
+    def to_torch(v):
+        if isinstance(v, dict):
+            return {k: to_torch(x) for k, x in v.items()}
+        if v.dtype.name == "bfloat16":
+            return torch.from_numpy(v.view(np.uint16).copy()).view(torch.bfloat16)
+        return torch.from_numpy(v.copy())
+
+    x = np.random.default_rng(seed + 1).standard_normal((2, 24, tcfg.d_model)).astype(np.float32)
+    return jcfg, jp, tcfg, moe.MoE(**to_torch(jp)), x
+
+
+@pytest.mark.parametrize("arch,capacity_factor", CASES)
+def test_dispatch_routes_like_jax(arch, capacity_factor):
+    jcfg, jp, tcfg, p, x = _pair(arch, capacity_factor)
+    x2d = x.reshape(-1, tcfg.d_model)
+    e, k = tcfg.n_experts, tcfg.top_k
+    capacity = max(1, int(capacity_factor * x2d.shape[0] * k / e))
+    jbuf, jmeta = jax_moe._dispatch(jnp.asarray(x2d), jnp.asarray(jp["router"]), e, k,
+                                    capacity)
+    with torch.no_grad():
+        buf, meta = moe._dispatch(torch.from_numpy(x2d), p.router, e, k, capacity)
+    for name, got, want in zip(("experts", "ranks", "keep"), meta[:3], jmeta[:3]):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=name)
+    assert meta[4] == jmeta[5] == x2d.shape[0]
+    np.testing.assert_allclose(meta[3].numpy(), np.asarray(jmeta[3]), rtol=ACT_TOL)
+    assert buf.shape == (e, capacity, tcfg.d_model) and buf.dtype == torch.float32
+    np.testing.assert_array_equal(buf.numpy(), np.asarray(jbuf))
+    if capacity_factor < 1.0:        # fewer slots than assignments
+        assert not meta[2].all()
+
+
+@pytest.mark.parametrize("arch,capacity_factor", CASES)
+def test_moe_apply_local_matches_jax(arch, capacity_factor):
+    jcfg, jp, tcfg, p, x = _pair(arch, capacity_factor)
+    want = jax.jit(lambda p, x: jax_moe.moe_apply_local(p, jcfg, x))(
+        jax.tree.map(jnp.asarray, jp), jnp.asarray(x))
+    with torch.no_grad():
+        got = moe.moe_apply_local(p, tcfg, torch.from_numpy(x))
+    assert got.shape == x.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ACT_TOL, rtol=ACT_TOL)
+
+
+@pytest.mark.parametrize("arch,capacity_factor",
+                         [("mixtral", 0.5), ("llama4", 0.5), ("gpt-moe", 0.5)])
+def test_moe_gradients_match_jax_with_drops(arch, capacity_factor):
+    """Gradients of every weight (the router's too) and of the tokens, with
+    dropped assignments, against JAX's.  Top-1 routing renormalises the one
+    weight to 1, so no gradient reaches the router: there both sides must
+    be zero up to rounding, measured against the largest gradient."""
+    jcfg, jp, tcfg, p, x = _pair(arch, capacity_factor)
+    g = np.random.default_rng(9).standard_normal(x.shape).astype(np.float32)
+
+    def jloss(params, x):
+        return jnp.sum(jax_moe.moe_apply_local(params, jcfg, x) * g)
+
+    jgp, jgx = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jax.tree.map(jnp.asarray, jp),
+                                                        jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_()
+    names, params = zip(*p.named_parameters())
+    loss = torch.sum(moe.moe_apply_local(p, tcfg, tx) * torch.from_numpy(g))
+    grads = torch.autograd.grad(loss, (*params, tx))
+    flat = {".".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(jgp)[0]}
+    assert sorted(names) == sorted(flat)
+    wants = [np.asarray(w) for w in (*(flat[n] for n in names), jgx)]
+    top = max(np.abs(w).max() for w in wants)
+    for name, got, want in zip((*names, "x"), grads, wants):
+        if name == "router" and tcfg.top_k == 1:
+            assert max(np.abs(got.numpy()).max(), np.abs(want).max()) <= GRAD_TOL * top
+            continue
+        err = np.abs(got.numpy() - want).max()
+        assert err <= GRAD_TOL * max(1e-3, np.abs(want).max()), (name, err)
+
+
+def test_bf16_keeps_repro_dtypes():
+    """bf16 experts: the buffer and the output in x's dtype, the router in
+    float32; values within the bf16 tolerance of JAX's."""
+    jcfg, jp, tcfg, p, x = _pair("llama4", 1.25, dtype=jnp.bfloat16)
+    assert p.router.dtype == torch.float32 and p.w_up.dtype == torch.bfloat16
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    want = jax.jit(lambda p, x: jax_moe.moe_apply_local(p, jcfg, x))(
+        jax.tree.map(jnp.asarray, jp), jnp.asarray(x).astype(jnp.bfloat16))
+    with torch.no_grad():
+        buf, _ = moe._dispatch(xb.reshape(-1, tcfg.d_model), p.router, 4, 1, 15)
+        got = moe.moe_apply_local(p, tcfg, xb)
+    assert buf.dtype == torch.bfloat16 and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=BF16_TOL, rtol=BF16_TOL)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_top_k_breaks_ties_like_lax(k):
+    rows = np.asarray([[0.25, 0.25, 0.25, 0.25], [0.1, 0.4, 0.4, 0.1],
+                       [0.3, 0.1, 0.3, 0.3], [0.0, 0.5, 0.0, 0.5]], np.float32)
+    vals, idx = moe.top_k(torch.from_numpy(rows), k)
+    jvals, jidx = lax.top_k(jnp.asarray(rows), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jvals))
+
+
+def test_telemetry_counts_dropped_assignments():
+    _, _, tcfg, p, x = _pair("mixtral", 0.5)
+    x2d = torch.from_numpy(x.reshape(-1, tcfg.d_model))
+    capacity = max(1, int(0.5 * x2d.shape[0] * 2 / 4))
+    keep = moe._dispatch(x2d, p.router, 4, 2, capacity)[1][2]
+    obs.enable()
+    obs.reset()
+    try:
+        with torch.no_grad():
+            moe.moe_apply_local(p, tcfg, torch.from_numpy(x))
+        counters = obs.summary()["counters"]
+    finally:
+        obs.disable()
+        obs.reset()
+    assert counters["moe.assignments"] == x2d.shape[0] * 2
+    assert counters["moe.dropped_assignments"] == int((~keep).sum()) > 0
+
+
+def test_held_counter_sums_in_place_and_is_read_by_the_summary():
+    from repro_torch.obs import Telemetry
+    tel = Telemetry().enable()
+    for n in (3, 4):
+        tel.count_held("drops", torch.tensor(n))
+    assert tel.counters == {}                    # nothing read yet
+    held = tel._held["drops"]
+    tel.count_held("drops", torch.tensor(5))
+    assert tel._held["drops"] is held and int(held) == 12
+    assert tel.summary()["counters"] == {"drops": 12}
+    tel.count_held("drops", torch.tensor(1))
+    assert [e["args"]["drops"] for e in tel.chrome_trace()["traceEvents"]
+            if e["name"] == "drops"] == [12, 13]
+    tel.count_held("drops", torch.tensor(1))
+    tel.reset()
+    assert tel.summary()["counters"] == {}
+    tel.disable().count_held("drops", torch.tensor(1))
+    assert tel._held == {}
+
+
+@pytest.mark.parametrize("kw", [{"tp": 2}, {"moe_impl": "ep"}, {"moe_impl": "ep", "tp": 4}])
+def test_sharded_experts_raise_naming_the_parallel_slice(kw):
+    _, _, tcfg, p, x = _pair("mixtral", 1.25)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md § 1 item 7"):
+        moe.moe_apply_local(p, tcfg, torch.from_numpy(x), **kw)

@@ -287,7 +287,7 @@ def test_cli_trains_on_the_cpu(capsys):
                         "--seq", "16", "--microbatches", "2", "--ckpt", d])
         assert ckpt.latest_step(d) == 19
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert out["arch"] == "starcoder2-3b-reduced" and out["steps"] == 20
+    assert out["arch"] == "h2o-danube-1.8b-reduced" and out["steps"] == 20
     assert np.isfinite(out["first_loss"]) and np.isfinite(out["last_loss"])
 
 
