@@ -61,43 +61,65 @@ failure:
  12. Llama-4 Maverick at full width and 2 layers (a chunked layer with a
      dense MLP, one with 128 experts, top-1, and a shared expert; 18.55 B
      parameters): serving as phase 10 with the dropped assignments;
- 13. hold the SSD-scan forward and backward kernels against their plain
+ 13. the flash kernels at PaliGemma-3B's training shape (B=1, S=4096,
+     prefix 256, MQA 8 over 1 KV head, D=256, bf16) and Whisper-small's
+     encoder (B=16, 1500 x 1500) and cross-attention (448 x 1500), D=64,
+     non-causal, in float32 and bf16: absolutely and per band against the
+     reference's scale, and plain versions planted with a prefix of 256 ±
+     64 and with 1500 - 64 keys fail that check; flash-decode at
+     PaliGemma's serving shape (slot form, D=256, MQA) and Whisper's
+     cross-attention (lengths form, L=1500, bf16 q over a float32 cache),
+     with a plain version planted with 1500 - 64 keys caught;
+ 14. reduced PaliGemma (prefix 4) and Whisper (2 encoder layers over 16
+     frames) in float32 on the CPU and on the card: ServeEngine token
+     streams are equal (Whisper's caches filled by ``encode_to_cache``)
+     and 3 AdamW steps agree;
+ 15. PaliGemma-3B, all 18 layers: trained at B=1, S=4096 (256 patches +
+     3840 tokens; 36 forward and 18 backward flash launches a step) and
+     served text only (18 flash-decode launches a step);
+ 16. Whisper-small, 12 decoder and 12 encoder layers: trained at B=16,
+     S=448 over 1500 float32 frames (60 forward and 36 backward flash
+     launches a step) and served with caches filled by
+     ``encode_to_cache`` (24 flash-decode launches a step, 12 in each form);
+ 17. time the flash kernels at PaliGemma's and Whisper's training shapes
+     beside SDPA and the card's least time for the work;
+ 18. hold the SSD-scan forward and backward kernels against their plain
      versions in float32 and bfloat16 (y in x's type and in float32) at
      tests/test_kernels.py's sweep, N=128, one chunk, ragged sizes,
      Mamba2-780m's training shape, an odd head count, a state carried
      through 128 chunks and Bt x nc below and far above the SM count;
- 14. train reduced Mamba-2 in float32 for 3 steps on the CPU and on the
+ 19. train reduced Mamba-2 in float32 for 3 steps on the CPU and on the
      card: losses and weights agree; 12 lockstep decode steps agree;
- 15. Mamba-2 training main path: full-width, full-depth Mamba2-780m, bf16,
+ 20. Mamba-2 training main path: full-width, full-depth Mamba2-780m, bf16,
      B=4, S=4096, remat, AdamW: one warm-up step, then 3 timed steps with
      finite loss and grad norm, changed weights and exactly 2 x layers
      forward and 1 x layers backward SSD-scan launches per step; one more
      step runs under torch.profiler;
- 16. lockstep greedy decode of full Mamba2-780m through ``decode_step``
+ 21. lockstep greedy decode of full Mamba2-780m through ``decode_step``
      (8 prompts of 32 tokens, 32 new tokens): valid tokens, float32 state;
- 17. time the SSD-scan kernels and their plain versions at the training
+ 22. time the SSD-scan kernels and their plain versions at the training
      shape beside the card's least time for the work, the forward's two
      and the backward's four phases apart (torch.profiler), and check that
      the bf16 forward and backward are each bit-identical when run twice;
- 18. hold the prefix-scan kernel bit-equal to its plain version (torch.cumsum)
+ 23. hold the prefix-scan kernel bit-equal to its plain version (torch.cumsum)
      on tests/test_prefix_scan.py's shapes, empty shapes, one row of 2^20,
      bool/uint8/int32 input, 3-D leading axes, strided and offset views and
      the sweep's (65536, 10000) block;
- 19. the architecture zoo: for all 13 registered architectures the torch
+ 24. the architecture zoo: for all 13 registered architectures the torch
      sweep on the card equals the port's numpy sweep on 4096 counter
      snapshots of 10,000 nodes at TP 16/32/64/24 (chunks of 1 and 8192), on
      all-healthy and all-faulty rows and masks narrower and wider than the
      cluster; tpuv4's over-placement at TP-24 shows;
- 20. Fig. 13 / Table 7: 1000 trace snapshots of 720 nodes, torch grids equal
+ 25. Fig. 13 / Table 7: 1000 trace snapshots of 720 nodes, torch grids equal
      numpy, waste at TP-32 in the paper's bands and order;
- 21. sweep main path (benchmarks/scale.py's configuration): 1,000,000
+ 26. sweep main path (benchmarks/scale.py's configuration): 1,000,000
      counter snapshots of 10,000 nodes at 7%, TP-32, InfiniteHBD-K3 and
      NVL-72 through ``run_sweep(backend="torch")`` with masks drawn on the
      card in blocks of 65,536: snapshots/s, peak memory, mean waste, exactly
      2 prefix-scan launches per block, the first 16,384 rows equal to the
      host numpy path and to a chunk-8192 run; two blocks under
      torch.profiler, then the draw and the waste kernels each alone;
- 22. time the prefix-scan kernel, its plain version and torch.cumsum at the
+ 27. time the prefix-scan kernel, its plain version and torch.cumsum at the
      sweep's block beside the bytes bound.
 
 The last lines are the script's time, the ``{"kernels": ...}`` record, the
@@ -141,6 +163,16 @@ GRAD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
 # moves it by 4e-2 or more.
 WINDOW_TOL = {"band_rel": 0.3, "lse_abs": 1e-2}
 WINDOW_BAND = 64
+# The same per-band check in float32 (Whisper's encoder and cross-attention
+# run in float32): both sides round in float32 and sum up to 1500 keys in
+# another order, which reads ~1e-5 of a band's RMS; a key length off by one
+# 64-key tile reads ~1 on out.
+BAND_TOL = {"bfloat16": WINDOW_TOL, "float32": {"band_rel": 2e-4, "lse_abs": 1e-4}}
+# Flash-decode's output over the RMS of the plain version's, where the
+# attention averages up to 1500 keys and its outputs (~0.03) sit far below
+# TOL's absolute 2e-2: bf16 rounding of the output reads a few 1e-3, and a
+# key length off by one 64-key tile reads ~1.
+DECODE_REL_TOL = 0.1
 # Reduced training, card against CPU in float32: 3 AdamW steps move each
 # weight by ~lr whatever its gradient's size, so an entry whose gradient
 # differs in its last digits may move a little differently (as in
@@ -359,13 +391,16 @@ def serve_full(torch, cfg=None):
     """Serving main path: a full-width config (StarCoder2-3B unless ``cfg``
     is given) with random bf16 weights serves 8 requests of 32 + 32 tokens;
     every request finishes and each decode step launches flash-decode once
-    per layer.  An MoE config also prints its dropped expert assignments."""
+    per layer, and once more per layer with cross-attention.  An MoE config
+    also prints its dropped expert assignments.  An encoder-decoder config's
+    engines get their cache filled by ``encode_to_cache`` over float32 stub
+    frames, one utterance a lane, before any request."""
     import numpy as np
 
     from repro_torch import obs
     from repro_torch.configs import get_arch
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.models import init_params
+    from repro_torch.models import encode_to_cache, init_params
     from repro_torch.serve import Request, ServeEngine
 
     gc.collect()
@@ -382,11 +417,34 @@ def serve_full(torch, cfg=None):
           f"made in {time.perf_counter() - t0:.2f} s")
 
     batch, max_len, n_req, prompt_len, max_new = 8, 1024, 8, 32, 32
+    frames = None
+    if cfg.is_encdec:
+        frames = torch.randn((batch, cfg.enc_seq, cfg.d_model), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(5)) * 0.02
     warm = ServeEngine(cfg, model, max_batch=batch, max_len=max_len)
+    if frames is not None:
+        warm.cache = encode_to_cache(model, warm.cache, frames)
     serve(warm, Request, cfg.vocab_size, 1, 4, 3, seed=99)
     del warm
 
     eng = ServeEngine(cfg, model, max_batch=batch, max_len=max_len)
+    # what a decode step must read: the decoder's weights and, with
+    # cross-attention, every layer's encoder K/V
+    step_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                     if not n.startswith("enc."))
+    if frames is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.cache = encode_to_cache(model, eng.cache, frames)
+        torch.cuda.synchronize()
+        xk = eng.cache[0]["xk"]
+        cross_bytes = sum(c[n].numel() * c[n].element_size() for c in eng.cache
+                          for n in ("xk", "xv"))
+        step_bytes += cross_bytes
+        print(f"serve: {cfg.name}: cache filled by encode_to_cache over {batch} utterances "
+              f"of {cfg.enc_seq} float32 frames in {(time.perf_counter() - t0) * 1e3:.1f} ms: "
+              f"xk/xv {tuple(xk.shape)} {xk.dtype} in each of {cfg.num_layers} layers "
+              f"({cross_bytes / 1e9:.3f} GB), self-attention cache {eng.cache[0]['k'].dtype}")
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, prompt_len).tolist(),
                     max_new=max_new) for i in range(n_req)]
@@ -416,22 +474,25 @@ def serve_full(torch, cfg=None):
         raise AssertionError("a token outside the vocabulary")
     if counters.get("serve.requests_completed") != n_req:
         raise AssertionError(f"completed {counters.get('serve.requests_completed')}")
-    if launches != cfg.num_layers * steps:
+    per_step = cfg.num_layers * (2 if cfg.is_encdec else 1)
+    if launches != per_step * steps:
         raise AssertionError(f"decode_attention launched {launches} times in "
-                             f"{steps} decode steps of {cfg.num_layers} layers")
+                             f"{steps} decode steps of {per_step} attention calls")
     tokens = sum(len(r.out) for r in reqs)
-    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
     print(f"serve: {cfg.name}: {n_req} requests, {tokens} tokens, {steps} decode steps "
           f"({prefill_steps} prefill + {decode_steps} engine steps), "
           f"{tokens / (t2 - t0):.1f} tok/s overall, "
           f"{(t2 - t0) / steps * 1e3:.3f} ms per decode step overall, "
           f"{(t1 - t0) / prefill_steps * 1e3:.3f} ms per prefill step, "
           f"{(t2 - t1) / decode_steps * 1e3:.3f} ms per engine step "
-          f"({n_req * decode_steps / (t2 - t1):.1f} tok/s), weight-streaming "
+          f"({n_req * decode_steps / (t2 - t1):.1f} tok/s), "
+          f"{'weight and encoder-cache' if frames is not None else 'weight'}-streaming "
           f"bound {bound_ms:.3f} ms per step, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    print(f"serve: {cfg.name}: decode_attention launches {launches} = "
-          f"{cfg.num_layers} x {steps} steps")
+    print(f"serve: {cfg.name}: decode_attention launches {launches} = {per_step} x {steps} "
+          f"steps" + (f" ({cfg.num_layers} slot form and {cfg.num_layers} lengths form a "
+                      f"step)" if cfg.is_encdec else ""))
     if cfg.n_experts:
         # every lane of the batch, idle ones too, is routed (as in repro), so
         # the capacity of a step is max(1, int(capacity_factor * 8 * top_k / E))
@@ -637,7 +698,9 @@ def summarize_profile(torch, prof, wall_ms, n_steps, label, groups):
           f"{len(kernels) / n_steps:.0f} kernels per step, {parts} per step")
     for name, t in top:
         print(f"profile: {t / 1e3 / n_steps:8.3f} ms per step  {name[:100]}")
-    return {"busy_ms": busy / 1e3 / n_steps, "idle_pct": idle}
+    return {"busy_ms": busy / 1e3 / n_steps, "idle_pct": idle,
+            "groups": {g: sum(t for n, t in by_name.items() if sub in n) / 1e3 / n_steps
+                       for g, sub in groups.items()}}
 
 
 # ------------------------------------------------------------ flash attention
@@ -661,44 +724,87 @@ def flash_inputs(torch, seed, b, sq, sk, hq, hkv, d, dtype, packed=False):
 def band_errors(torch, x, ref, seq_dim, split, band=WINDOW_BAND):
     """(rows < split, rows >= split): the largest over bands of ``band``
     rows along ``seq_dim`` of the band's max abs error over the RMS of
-    ``ref`` in the band."""
+    ``ref`` in the band; 0 for a part with no rows."""
     d = (x.float() - ref.float()).movedim(seq_dim, 0)
     r = ref.float().movedim(seq_dim, 0)
     rel = torch.stack([dd.abs().max() / rr.square().mean().sqrt().clamp_min(1e-30)
                        for dd, rr in zip(d.split(band), r.split(band))]).tolist()
-    return max(rel[:split // band]), max(rel[split // band:])
+    return max(rel[:split // band], default=0.0), max(rel[split // band:], default=0.0)
 
 
-def window_errors(torch, fwd, ref_fwd, grads, ref_grads, window):
-    """The windowed cases' errors by name: out, dq, dk, dv by band against
-    the reference's scale, lse absolutely, each as (rows < window, rows >=
-    window)."""
-    errs = {"out": band_errors(torch, fwd[0], ref_fwd[0], 1, window)}
+def window_errors(torch, fwd, ref_fwd, grads, ref_grads, split, split_k=None):
+    """The errors by name: out, dq, dk, dv by band against the reference's
+    scale, lse absolutely, each as (rows < split, rows >= split); dk and dv
+    split their key rows at ``split_k`` (default ``split``)."""
+    split_k = split if split_k is None else split_k
+    errs = {"out": band_errors(torch, fwd[0], ref_fwd[0], 1, split)}
     e_lse = (fwd[1] - ref_fwd[1].float()).abs()
-    errs["lse"] = (e_lse[..., :window].max().item(), e_lse[..., window:].max().item())
+    errs["lse"] = tuple(part.max().item() if part.numel() else 0.0
+                        for part in (e_lse[..., :split], e_lse[..., split:]))
     for name, x, rx in zip(("dq", "dk", "dv"), grads, ref_grads):
-        errs[name] = band_errors(torch, x, rx, 1, window)
+        errs[name] = band_errors(torch, x, rx, 1, split if name == "dq" else split_k)
     return errs
 
 
-def over_window_tol(errs):
-    """Names of the errors over WINDOW_TOL."""
+def over_window_tol(errs, tol):
+    """Names of the errors over ``tol`` (a BAND_TOL entry)."""
     return [n for n, e in errs.items()
-            if max(e) > WINDOW_TOL["lse_abs" if n == "lse" else "band_rel"]]
+            if max(e) > tol["lse_abs" if n == "lse" else "band_rel"]]
 
 
 def show_window_errors(errs):
     return ", ".join(f"{n} {e[0]:.3e}/{e[1]:.3e}" for n, e in errs.items())
 
 
-def check_flash_attention(torch):
-    """Forward (out, lse) and backward (dq, dk, dv) kernels against the
-    plain versions on the same inputs; the backward of both gets the
-    kernel's (out, lse), so each comparison isolates one kernel."""
+def flash_case(torch, label, dname, seed, b, sq, sk, hq, hkv, d, kw, errs, packed=False):
+    """One case of the flash kernels against their plain versions on the
+    same inputs: out and lse within TOL, dq, dk, dv within GRAD_TOL of the
+    gradient's largest entry; the backward of both gets the kernel's (out,
+    lse), so each comparison isolates one kernel.  Raises on a
+    disagreement, adds the largest errors to ``errs`` and returns the
+    inputs and both sides' results."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_ref,
                                                      flash_attention_fwd,
                                                      flash_attention_fwd_ref)
+
+    dtype = getattr(torch, dname)
+    q, k, v, g = flash_inputs(torch, seed, b, sq, sk, hq, hkv, d, dtype, packed=packed)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    ref_out, ref_lse = flash_attention_fwd_ref(q, k, v, **kw)
+    grads = flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    ref_grads = flash_attention_bwd_ref(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    tol = TOL[dname]
+    e_out = (out.float() - ref_out.float()).abs().max().item()
+    e_lse = (lse - ref_lse.float()).abs().max().item()
+    ok = (out.dtype == dtype and out.shape == q.shape
+          and torch.allclose(out.float(), ref_out.float(), atol=tol, rtol=tol)
+          and torch.allclose(lse, ref_lse.float(), atol=tol, rtol=tol))
+    rel = []
+    for x, gr, rg in zip((q, k, v), grads, ref_grads):
+        top = rg.float().abs().max().item()
+        err = (gr.float() - rg.float()).abs().max().item()
+        rel.append(err / max(1.0, top))
+        ok = ok and gr.dtype == x.dtype and gr.shape == x.shape and \
+            math.isfinite(err) and err <= GRAD_TOL[dname] * max(1.0, top)
+        errs["bwd"] = max(errs["bwd"], err)
+    errs["fwd"] = max(errs["fwd"], e_out, e_lse)
+    print(f"flash_attention {label} {dname}: out max_abs_err {e_out:.3e}, lse "
+          f"{e_lse:.3e} (tol {tol}); dq/dk/dv err / max(1, max|grad|) "
+          f"{rel[0]:.2e} {rel[1]:.2e} {rel[2]:.2e} (tol {GRAD_TOL[dname]}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash_attention disagrees with its plain version "
+                             f"on {label} {dname}")
+    return (q, k, v, g), (out, lse), (ref_out, ref_lse), grads, ref_grads
+
+
+def check_flash_attention(torch):
+    """Forward (out, lse) and backward (dq, dk, dv) kernels against the
+    plain versions on the same inputs (``flash_case``)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
 
     cases = [  # (label, B, Sq, Sk, Hq, Hkv, D, mask)
         ("causal", 2, 128, 128, 4, 2, 64, dict(causal=True)),
@@ -726,42 +832,21 @@ def check_flash_attention(torch):
          dict(causal=True, window=4096)),
     ]
     errs = {"fwd": 0.0, "bwd": 0.0}
-    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+    for dname in ("float32", "bfloat16"):
         for seed, (label, b, sq, sk, hq, hkv, d, kw) in enumerate(
-                cases + (windowed if dtype == torch.bfloat16 else [])):
-            q, k, v, g = flash_inputs(torch, seed, b, sq, sk, hq, hkv, d, dtype,
-                                      packed=label.startswith("packed"))
-            out, lse = flash_attention_fwd(q, k, v, **kw)
-            ref_out, ref_lse = flash_attention_fwd_ref(q, k, v, **kw)
-            grads = flash_attention_bwd(q, k, v, out, lse, g, **kw)
-            ref_grads = flash_attention_bwd_ref(q, k, v, out, lse, g, **kw)
-            torch.cuda.synchronize()
-            tol = TOL[dname]
-            e_out = (out.float() - ref_out.float()).abs().max().item()
-            e_lse = (lse - ref_lse.float()).abs().max().item()
-            ok = (out.dtype == dtype and out.shape == q.shape
-                  and torch.allclose(out.float(), ref_out.float(), atol=tol, rtol=tol)
-                  and torch.allclose(lse, ref_lse.float(), atol=tol, rtol=tol))
-            rel = []
-            for x, gr, rg in zip((q, k, v), grads, ref_grads):
-                top = rg.float().abs().max().item()
-                err = (gr.float() - rg.float()).abs().max().item()
-                rel.append(err / max(1.0, top))
-                ok = ok and gr.dtype == x.dtype and gr.shape == x.shape and \
-                    math.isfinite(err) and err <= GRAD_TOL[dname] * max(1.0, top)
-                errs["bwd"] = max(errs["bwd"], err)
-            errs["fwd"] = max(errs["fwd"], e_out, e_lse)
-            print(f"flash_attention {label} {dname}: out max_abs_err {e_out:.3e}, lse "
-                  f"{e_lse:.3e} (tol {tol}); dq/dk/dv err / max(1, max|grad|) "
-                  f"{rel[0]:.2e} {rel[1]:.2e} {rel[2]:.2e} (tol {GRAD_TOL[dname]}) "
-                  f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"flash_attention disagrees with its plain version "
-                                     f"on {label} {dname}")
+                cases + (windowed if dname == "bfloat16" else [])):
+            (q, k, v, g), fwd, ref_fwd, grads, ref_grads = flash_case(
+                torch, label, dname, seed, b, sq, sk, hq, hkv, d, kw, errs,
+                packed=label.startswith("packed"))
             if kw.get("window") and sq > kw["window"]:
-                window_check(torch, label, q, k, v, g, (out, lse), (ref_out, ref_lse),
-                             grads, ref_grads, kw["window"], plant=label.startswith("H2O"))
-            del q, k, v, g, out, lse, ref_out, ref_lse, grads, ref_grads
+                w = kw["window"]
+                plants = [] if not label.startswith("H2O") else [
+                    (f"window {p}", lambda p=p: planted(torch, q, k, v, g, fwd,
+                                                        causal=True, window=p))
+                    for p in (w - 64, w + 64)]
+                band_check(torch, label, dname, fwd, ref_fwd, grads, ref_grads, w,
+                           plants=plants, where="the window")
+            del q, k, v, g, fwd, ref_fwd, grads, ref_grads
     # the backward has no atomics: the same inputs give the same bits
     q, k, v, g = flash_inputs(torch, 77, 1, 4096, 4096, 24, 2, 128, torch.bfloat16)
     out, lse = flash_attention_fwd(q, k, v)
@@ -775,35 +860,48 @@ def check_flash_attention(torch):
     return errs
 
 
-def window_check(torch, label, q, k, v, g, fwd, ref_fwd, grads, ref_grads, window,
-                 plant=False):
-    """Hold a windowed case to WINDOW_TOL; with ``plant``, also show that
-    the check fails on a plain version whose window is off by one 64-key
-    tile either way (forward and backward, every tensor)."""
+def planted(torch, q, k, v, g, fwd, keys=None, **kw):
+    """The plain version's (out, lse) and (dq, dk, dv) under the mask ``kw``,
+    its backward from the kernel's ``fwd``; with ``keys`` it sees only the
+    first ``keys`` keys, and its dk, dv get zero rows for the others."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_ref,
                                                      flash_attention_fwd_ref)
 
-    errs = window_errors(torch, fwd, ref_fwd, grads, ref_grads, window)
-    over = over_window_tol(errs)
-    print(f"flash_attention {label} bfloat16 against the reference's scale (rows before "
-          f"/ past the window; band of {WINDOW_BAND} rows: max err / RMS, tol "
-          f"{WINDOW_TOL['band_rel']}; lse abs, tol {WINDOW_TOL['lse_abs']}): "
+    sk = k.shape[1]
+    if keys is not None:
+        k, v = k[:, :keys], v[:, :keys]
+    ref_fwd = flash_attention_fwd_ref(q, k, v, **kw)
+    dq, dk, dv = flash_attention_bwd_ref(q, k, v, *fwd, g, **kw)
+    pad = [0, 0, 0, 0, 0, sk - k.shape[1]]
+    return ref_fwd, (dq, torch.nn.functional.pad(dk, pad), torch.nn.functional.pad(dv, pad))
+
+
+def band_check(torch, label, dname, fwd, ref_fwd, grads, ref_grads, split, split_k=None,
+               plants=(), where="the split"):
+    """Hold a case to BAND_TOL of its dtype, by band, with rows before and
+    from ``split`` (keys at ``split_k``) apart; each of ``plants``, (name, a
+    function giving a planted plain version's forward and gradients), must
+    go over the tolerance on every tensor."""
+    tol = BAND_TOL[dname]
+    errs = window_errors(torch, fwd, ref_fwd, grads, ref_grads, split, split_k)
+    over = over_window_tol(errs, tol)
+    print(f"flash_attention {label} {dname} against the reference's scale (rows before / "
+          f"from {where}; band of {WINDOW_BAND} rows: max err / RMS, tol "
+          f"{tol['band_rel']}; lse abs, tol {tol['lse_abs']}): "
           f"{show_window_errors(errs)} {'ok' if not over else 'FAIL ' + str(over)}")
     if over:
         raise AssertionError(f"flash_attention disagrees with its plain version on "
-                             f"{label} bfloat16 at the reference's scale: {over}")
-    if not plant:
-        return
-    for w in (window - 64, window + 64):
-        planted = window_errors(
-            torch, fwd, flash_attention_fwd_ref(q, k, v, causal=True, window=w), grads,
-            flash_attention_bwd_ref(q, k, v, *fwd, g, causal=True, window=w), window)
-        caught = over_window_tol(planted)
-        print(f"flash_attention {label}: the plain version planted with window {w}: "
-              f"{show_window_errors(planted)}; over the tolerance: {caught}")
-        if set(caught) != set(planted):
-            raise AssertionError(f"the windowed check passes a window of {w}: only "
-                                 f"{caught} over the tolerance")
+                             f"{label} {dname} at the reference's scale: {over}")
+    for name, make in plants:
+        p_fwd, p_grads = make()
+        bad = window_errors(torch, fwd, p_fwd, grads, p_grads, split, split_k)
+        caught = over_window_tol(bad, tol)
+        print(f"flash_attention {label} {dname}: the plain version planted with {name}: "
+              f"{show_window_errors(bad)}; over the tolerance: {caught}")
+        if set(caught) != set(bad):
+            raise AssertionError(f"the band check of {label} passes a plant of {name}: "
+                                 f"only {caught} over the tolerance")
+        del p_fwd, p_grads
 
 
 def train_reduced_against_cpu(torch, arch="starcoder2", adam_eps=1e-8):
@@ -863,26 +961,34 @@ DECODER_ADAM_EPS = 1e-6
 MIXTRAL_LAYERS = 2
 
 
-def decoders_reduced_against_cpu(torch):
-    """Reduced H2O-Danube, Mixtral and Llama-4 Maverick with float32 weights
-    on the CPU (plain versions) and on the card (kernels): ServeEngine token
-    streams of prompts past the window of 32 (the ring caches wrap, the
-    window and chunk masks cut keys) are equal, and 3 AdamW steps at S = 64
-    agree within TRAIN_TOL."""
+def decoders_reduced_against_cpu(torch, archs=DECODERS):
+    """Reduced configs (H2O-Danube, Mixtral and Llama-4 Maverick unless
+    ``archs`` is given) with float32 weights on the CPU (plain versions) and
+    on the card (kernels): ServeEngine token streams of prompts past the
+    window of 32 (the ring caches wrap, the window and chunk masks cut keys)
+    are equal, and 3 AdamW steps at S = 64 agree within TRAIN_TOL.  An
+    encoder-decoder config's engines get their cache filled by
+    ``encode_to_cache`` over the same float32 frames on both sides."""
+    import numpy as np
+
     from repro_torch.configs import get_arch
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.models import init_params
+    from repro_torch.models import encode_to_cache, init_params
     from repro_torch.serve import Request, ServeEngine
 
-    for arch in DECODERS:
+    for arch in archs:
         cfg = get_arch(arch).reduced()
         model = init_params(cfg, torch.Generator().manual_seed(6), device="cpu",
                             dtype=torch.float32)
+        frames = torch.from_numpy((np.random.default_rng(8).standard_normal(
+            (2, cfg.enc_seq, cfg.d_model)) * 0.02).astype(np.float32))
         streams = {}
         for dev in ("cpu", "cuda"):
             m = model if dev == "cpu" else copy.deepcopy(model).to("cuda")
             launches = decode_attention.launches
             eng = ServeEngine(cfg, m, max_batch=2, max_len=64, device=dev)
+            if cfg.is_encdec:
+                eng.cache = encode_to_cache(m, eng.cache, frames)
             streams[dev] = [r.out for r in serve(eng, Request, cfg.vocab_size, 3, 40, 8,
                                                  seed=7)]
         if decode_attention.launches == launches:
@@ -891,22 +997,161 @@ def decoders_reduced_against_cpu(torch):
             raise AssertionError(f"reduced {cfg.name}: card {streams['cuda']} != "
                                  f"cpu {streams['cpu']}")
         print(f"reference: reduced {cfg.name} ({'/'.join(cfg.layer_pattern)}, window "
-              f"{cfg.window}, {cfg.n_experts} experts), float32 weights, 3 requests of "
-              f"40-token prompts through 2 slots of max_len 64: card token streams equal "
-              f"the CPU plain path's")
+              f"{cfg.window}, {cfg.n_experts} experts, prefix {cfg.prefix_len}, "
+              f"{cfg.enc_layers} encoder layers over {cfg.enc_seq} frames), float32 "
+              f"weights, 3 requests of 40-token prompts through 2 slots of max_len 64"
+              + (", engine cache filled by encode_to_cache" if cfg.is_encdec else "")
+              + ": card token streams equal the CPU plain path's")
         train_reduced_against_cpu(torch, arch, adam_eps=DECODER_ADAM_EPS)
+
+
+# PaliGemma-3B's attention in training: B=1, S=4096 (256 patches + 3840
+# tokens), bidirectional within the 256-position prefix, MQA (8 query heads
+# over 1 KV head) at D=256, bf16: the fp32 CUDA-core kernels (bf16 takes the
+# Hopper kernels only up to D=128).  Whisper-small's encoder (1500 frames)
+# and cross-attention (448 tokens over 1500 frames), B=16, 12 heads, D=64,
+# non-causal, 1500 keys = 23 whole 64-key tiles and a tail of 28: float32
+# as the model runs them over float32 frames, and bf16.
+PALIGEMMA_FLASH = ("PaliGemma prefix-LM", 1, 4096, 4096, 8, 1, 256,
+                   dict(causal=True, prefix_len=256))
+WHISPER_FLASH = [("Whisper encoder", 16, 1500, 1500, 12, 12, 64, dict(causal=False)),
+                 ("Whisper cross-attention", 16, 448, 1500, 12, 12, 64, dict(causal=False))]
+
+
+def check_vlm_encdec_flash(torch):
+    """The flash kernels at PaliGemma's and Whisper's training shapes
+    against their plain versions: absolutely (``flash_case``), and per band
+    of 64 rows against the reference's scale (``band_check``), PaliGemma's
+    rows before and from the prefix's end, Whisper's before and in the
+    ragged last tile (queries and keys apart).  Plain versions planted with
+    a prefix of 256 - 64 and 256 + 64, and with 1500 - 64 keys (float32),
+    must go over the band tolerance on every tensor."""
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    cases = [(PALIGEMMA_FLASH, "bfloat16")] + [
+        (c, dname) for c in WHISPER_FLASH for dname in ("float32", "bfloat16")]
+    for seed, ((label, b, sq, sk, hq, hkv, d, kw), dname) in enumerate(cases):
+        (q, k, v, g), fwd, ref_fwd, grads, ref_grads = flash_case(
+            torch, f"{label} B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d}", dname,
+            300 + seed, b, sq, sk, hq, hkv, d, kw, errs)
+        prefix = kw.get("prefix_len", 0)
+        if prefix:
+            plants = [(f"prefix {p}", lambda p=p: planted(torch, q, k, v, g, fwd, causal=True,
+                                                          prefix_len=p))
+                      for p in (prefix - 64, prefix + 64)]
+            band_check(torch, label, dname, fwd, ref_fwd, grads, ref_grads, prefix,
+                       plants=plants, where="the prefix's end")
+        else:
+            plants = [] if dname != "float32" else [
+                (f"key length {sk - 64} (its dk, dv rows of the other 64 keys are zero, so "
+                 f"their band reads err / 1e-30)",
+                 lambda: planted(torch, q, k, v, g, fwd, keys=sk - 64, causal=False))]
+            band_check(torch, label, dname, fwd, ref_fwd, grads, ref_grads,
+                       sq // WINDOW_BAND * WINDOW_BAND, sk // WINDOW_BAND * WINDOW_BAND,
+                       plants=plants, where="the ragged last tile")
+        del q, k, v, g, fwd, ref_fwd, grads, ref_grads
+        torch.cuda.empty_cache()
+    return errs
+
+
+def check_vlm_encdec_decode(torch):
+    """Flash-decode at PaliGemma's serving shape (slot form, MQA 8 over 1
+    KV head, D=256, bf16, a cache filled below position 64 and a wrapped
+    one) and Whisper's cross-attention (lengths form, L=1500 with every key
+    live, Hq=Hkv=12, D=64, a bf16 q over a float32 cache), against the plain
+    versions: within TOL absolutely and within DECODE_REL_TOL of the plain
+    version's RMS; a plain version planted with 1500 - 64 keys must go over
+    the latter."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_cache,
+                                                      decode_attention_cache_ref,
+                                                      decode_attention_ref)
+
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rel(out, ref):
+        return ((out.float() - ref.float()).abs().max()
+                / ref.float().square().mean().sqrt()).item()
+
+    def judge(label, out, ref, qdt):
+        err = (out.float() - ref.float()).abs().max().item()
+        r = rel(out, ref)
+        tol = TOL["bfloat16"]
+        ok = out.dtype == qdt and out.shape == ref.shape and r <= DECODE_REL_TOL and \
+            torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+        print(f"decode_attention {label}: max_abs_err {err:.3e} (tol {tol}), over the "
+              f"reference's RMS {r:.3e} (tol {DECODE_REL_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"decode_attention disagrees with its plain version on {label}")
+        return err
+
+    errs = []
+    for seed, (what, lo, hi) in enumerate([("filled below position 64", 0, 64),
+                                           ("wrapped", 1024, 4000)]):
+        q, k, v, sp, qp = slot_inputs(torch, 400 + seed, 8, 8, 1, 256, 1024, bf, bf, lo, hi)
+        out = decode_attention_cache(q, k, v, sp, qp)
+        ref = decode_attention_cache_ref(q, k, v, sp, qp)
+        torch.cuda.synchronize()
+        errs.append(judge(f"PaliGemma slots B=8 Hq=8 Hkv=1 D=256 W=1024 bf16, {what}",
+                          out, ref, bf))
+    q, k, v, lengths = attention_inputs(torch, 410, 8, 12, 12, 64, 1500, bf, f32)
+    lengths.fill_(1500)
+    out = decode_attention(q, k, v, lengths)
+    ref = decode_attention_ref(q, k, v, lengths)
+    torch.cuda.synchronize()
+    errs.append(judge("Whisper cross-attention B=8 L=1500 Hq=Hkv=12 D=64, bf16 q over a "
+                      "float32 cache, every key live", out, ref, bf))
+    bad = rel(out, decode_attention_ref(q, k, v, lengths - 64))
+    print(f"decode_attention Whisper cross-attention: the plain version planted with key "
+          f"length 1500 - 64: over its RMS {bad:.3e} (tol {DECODE_REL_TOL})")
+    if bad <= DECODE_REL_TOL:
+        raise AssertionError("the decode check passes a plain version that drops 64 keys")
+    return max(errs)
 
 
 def attention_flops(cfg, batch, seq):
     """Model FLOPs of attention scores and values in one training step:
     forward 4 * pairs * D per head, backward twice that, where the pairs are
     the (query, key) pairs each layer's mask keeps: causal, within the
-    window (``swa``) or within the chunk (``chunked``)."""
-    pairs = {"attn": seq * (seq + 1) // 2,
+    window (``swa``) or within the chunk (``chunked``), all pairs of the
+    prefix both ways."""
+    p = cfg.prefix_len
+    pairs = {"attn": seq * (seq + 1) // 2 + p * (p - 1) // 2,
              "swa": sum(min(q + 1, cfg.window) for q in range(seq)) if cfg.window else 0,
              "chunked": sum(q % cfg.window + 1 for q in range(seq)) if cfg.window else 0}
     total = sum(pairs[cfg.pattern_at(i)] for i in range(cfg.num_layers))
     return 3 * 4 * total * cfg.head_dim * cfg.n_heads * batch
+
+
+def train_flops(cfg, n_active, batch, seq):
+    """(bf16 FLOPs, float32 FLOPs) of one training step's model work: 6 x
+    parameters x tokens plus attention.  An encoder-decoder config's encoder
+    runs over ``enc_seq`` frames, and its float32 frames keep the encoder,
+    the cross K/V projections and the cross-attention in float32 (bf16
+    weights promoted), which run at FP32_FLOPS, not on the tensor cores."""
+    if not cfg.is_encdec:
+        return 6 * n_active * batch * seq + attention_flops(cfg, batch, seq), 0
+    d, f, se = cfg.d_model, cfg.d_ff, cfg.enc_seq
+    mats = 3 if cfg.act in ("swiglu", "geglu") else 2
+    enc_layer = 4 * d * d + mats * d * f
+    dec_layer = 4 * d * d + 2 * d * d + mats * d * f        # self, cross q/o, MLP
+    head = cfg.vocab_size * d
+    hd_h = cfg.head_dim * cfg.n_heads
+    f32 = (6 * enc_layer * cfg.enc_layers * batch * se
+           + 6 * 2 * d * d * cfg.num_layers * batch * se      # cross K/V projections
+           + 3 * 4 * hd_h * batch * (cfg.enc_layers * se * se + cfg.num_layers * seq * se))
+    bf16 = 6 * (dec_layer * cfg.num_layers + head) * batch * seq + attention_flops(cfg, batch, seq)
+    return bf16, f32
+
+
+def flash_calls(cfg):
+    """(forward, backward) flash-attention launches of one training step
+    with remat: each decoder layer's self-attention, and cross-attention
+    where it has one, runs forward twice (the remat recompute) and backward
+    once; each encoder layer, which ``encode`` does not recompute, once
+    each."""
+    per_layer = 2 if cfg.is_encdec else 1
+    return (2 * per_layer * cfg.num_layers + cfg.enc_layers,
+            per_layer * cfg.num_layers + cfg.enc_layers)
 
 
 MOE_RANGES = ("moe.route", "moe.scatter", "moe.experts", "moe.combine")
@@ -943,8 +1188,10 @@ def moe_drops(torch, model, batch):
 def train_full(torch, cfg=None, batch=1, seq=4096, timed=3):
     """Training main path: a full-width config (StarCoder2-3B unless ``cfg``
     is given), bf16, remat, AdamW: one warm-up step, ``timed`` timed steps
-    with the launch counts checked, one profiled step.  MFU counts the
-    active parameters (an MoE token runs top-k of its experts)."""
+    with the launch counts checked (``flash_calls``), one profiled step.
+    MFU counts the active parameters (an MoE token runs top-k of its
+    experts) and, for an encoder-decoder config, the encoder's work over
+    its frames (``train_flops``).  ``seq`` counts a VLM's patches."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -997,6 +1244,9 @@ def train_full(torch, cfg=None, batch=1, seq=4096, timed=3):
     watch = {"embed": model.embed, "wq0": model.layers[0].attn["wq"],
              f"w_down{len(model.layers) - 1}":
                  last.moe.w_down if last.moe is not None else last.mlp["w_down"]}
+    if model.enc is not None:
+        watch.update(enc_wq0=model.enc.layers[0].attn["wq"],
+                     xattn_wk0=model.layers[0].xattn["wk"])
     before = {n: p.detach()[:8].clone() for n, p in watch.items()}
     batches = [batch_at(1 + i) for i in range(timed)]
     torch.cuda.synchronize()
@@ -1011,11 +1261,11 @@ def train_full(torch, cfg=None, batch=1, seq=4096, timed=3):
         metrics.append({k: float(v) for k, v in m.items()})
     fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
     peak = torch.cuda.max_memory_allocated()
-    layers = cfg.num_layers
-    if fwd != 2 * layers * timed or bwd != layers * timed:
+    want_fwd, want_bwd = flash_calls(cfg)
+    if fwd != want_fwd * timed or bwd != want_bwd * timed:
         raise AssertionError(f"flash_attention launched {fwd} forward and {bwd} backward "
-                             f"in {timed} steps of {layers} layers with remat; want "
-                             f"{2 * layers * timed} and {layers * timed}")
+                             f"in {timed} steps of {cfg.num_layers} layers with remat; want "
+                             f"{want_fwd * timed} and {want_bwd * timed}")
     if not all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"]) for x in metrics):
         raise AssertionError(f"non-finite loss or grad norm: {metrics}")
     changed = {n: not torch.equal(before[n], p.detach()[:8]) for n, p in watch.items()}
@@ -1023,8 +1273,9 @@ def train_full(torch, cfg=None, batch=1, seq=4096, timed=3):
         raise AssertionError(f"weights did not change: {changed}")
     tokens = batch * seq
     step_s = statistics.median(times)
-    model_flops = 6 * n_active * tokens + attention_flops(cfg, batch, seq)
-    flop_ms = model_flops / BF16_FLOPS * 1e3
+    bf16_flops, f32_flops = train_flops(cfg, n_active, batch, seq)
+    model_flops = bf16_flops + f32_flops
+    flop_ms = (bf16_flops / BF16_FLOPS + f32_flops / FP32_FLOPS) * 1e3
     # AdamW reads and writes fp32 master, m and v and reads the grads, once
     opt_bytes = n_params * (3 * 4 * 2 + 2 + 2)
     opt_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
@@ -1032,14 +1283,19 @@ def train_full(torch, cfg=None, batch=1, seq=4096, timed=3):
     print(f"train: {cfg.name}: {timed} timed steps of B={batch} S={seq}: "
           + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms; median "
           f"{step_s * 1e3:.1f} ms per step, {tokens / step_s:.0f} tok/s, MFU "
-          f"{100 * mfu:.2f}% ({model_flops / 1e12:.2f} TFLOP per step at 989 TFLOP/s); "
-          f"bound {flop_ms + opt_ms:.1f} ms per step ({flop_ms:.1f} ms of FLOPs + "
-          f"{opt_ms:.1f} ms of optimizer bytes); peak memory {peak / 1e9:.2f} GB")
+          f"{100 * mfu:.2f}% ({model_flops / 1e12:.2f} TFLOP per step at 989 TFLOP/s"
+          + (f", {f32_flops / 1e12:.2f} of them float32 at 67 TFLOP/s" if f32_flops else "")
+          + f"); bound {flop_ms + opt_ms:.1f} ms per step ({flop_ms:.1f} ms of FLOPs + "
+          f"{opt_ms:.1f} ms of optimizer bytes); peak memory {peak / 1e9:.2f} GB"
+          + (f"; {batch * cfg.enc_seq / step_s:.0f} encoder frames/s" if cfg.is_encdec
+             else ""))
     print(f"train: {cfg.name}: losses " + ", ".join(f"{x['loss']:.4f}" for x in metrics)
           + "; grad norms " + ", ".join(f"{x['grad_norm']:.4f}" for x in metrics)
           + f"; weights changed {changed}")
-    print(f"train: {cfg.name}: flash_attention launches {fwd} forward = 2 x {layers} "
-          f"layers x {timed} steps, {bwd} backward = {layers} x {timed}")
+    print(f"train: {cfg.name}: flash_attention launches {fwd} forward = {want_fwd} x {timed} "
+          f"steps, {bwd} backward = {want_bwd} x {timed} ({cfg.num_layers} decoder layers"
+          + (f" with cross-attention, {cfg.enc_layers} encoder layers)" if cfg.is_encdec
+             else ")"))
     if cfg.n_experts:
         drops["after"] = moe_drops(torch, model, batches[-1])
         print(f"train: {cfg.name}: expert assignments dropped at capacity factor "
@@ -1061,7 +1317,13 @@ def train_full(torch, cfg=None, batch=1, seq=4096, timed=3):
         torch, prof, wall_ms, 1, f"{cfg.name}: 1 training step of B={batch} S={seq}",
         {"flash fwd": "flash_fwd", "flash dK/dV": "flash_bwd_dkdv",
          "flash dQ": "flash_bwd_dq", "flash delta": "flash_bwd_delta",
-         "flash reduce": "flash_bwd_reduce", "cuBLAS GEMM": "nvjet"})
+         "flash reduce": "flash_bwd_reduce", "cuBLAS GEMM": "nvjet", "other GEMM": "gemm"})
+    if busy:
+        grp = busy["groups"]
+        flash_ms = sum(t for g, t in grp.items() if g.startswith("flash"))
+        gemm_ms = grp["cuBLAS GEMM"] + grp["other GEMM"]
+        print(f"profile: {cfg.name}: flash-attention kernels {100 * flash_ms / busy['busy_ms']:.1f}% "
+              f"and GEMMs {100 * gemm_ms / busy['busy_ms']:.1f}% of the step's busy time")
     if cfg.n_experts and busy:
         ms = moe_device_ms(prof, MOE_RANGES + MOE_BACKWARD)
         share = {
@@ -1081,11 +1343,14 @@ def train_full(torch, cfg=None, batch=1, seq=4096, timed=3):
             "tok_per_s": tokens / step_s, "mfu": mfu, "peak_gb": peak / 1e9}
 
 
-def kernel_ms_by_group(torch, fn, calls, groups=None):
+def kernel_ms_by_group(torch, fn, calls, groups=None, once_per_call=False):
     """Device ms per call of the kernels whose names hold each substring of
     ``groups`` (label -> substring), or without ``groups`` of each kernel
     function (``..._kernel``) in the order of first launch, from
-    torch.profiler over ``calls`` calls of ``fn``."""
+    torch.profiler over ``calls`` calls of ``fn``.  With ``once_per_call``
+    (each call launches each group's kernel once) a group's time is the
+    mean of the launches the profiler recorded: it can miss whole calls of
+    kernels that run for milliseconds, and says so."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -1097,6 +1362,7 @@ def kernel_ms_by_group(torch, fn, calls, groups=None):
             fn()
         torch.cuda.synchronize()
     out = dict.fromkeys(groups, 0.0) if groups else {}
+    seen = dict.fromkeys(groups, 0) if groups else {}
     for e in sorted((e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=lambda e: e.time_range.start):
@@ -1105,19 +1371,31 @@ def kernel_ms_by_group(torch, fn, calls, groups=None):
             for label, sub in groups.items():
                 if sub in e.name:
                     out[label] += ms
+                    seen[label] += 1
         else:
             m = re.search(r"(\w+_kernel)", e.name)
             name = m.group(1) if m else e.name[:40]
             out[name] = out.get(name, 0.0) + ms
+    if once_per_call:
+        for label, n in seen.items():
+            if n:
+                out[label] *= calls / n
+            if n not in (0, calls):
+                print(f"profile: {n} of {calls} launches of {groups[label]} recorded; "
+                      f"timed by their mean")
     return out
 
 
-def time_flash_attention(torch, b=1, s=4096, hq=24, hkv=2, d=128):
-    """Forward and backward kernels, plain versions and SDPA at StarCoder2's
-    training shape, bf16, causal.  Each call takes milliseconds, so CUDA
-    events around a few eager calls time the card, not the host.  The
-    backward's passes (delta, dK/dV, its reduction, dQ) are timed apart
-    under torch.profiler."""
+def time_flash_attention(torch, label="StarCoder2", b=1, sq=4096, sk=None, hq=24, hkv=2,
+                         d=128, dname="bfloat16", kw=None):
+    """Forward and backward kernels, plain versions and SDPA at one training
+    shape (StarCoder2's, bf16, causal, unless told otherwise).  Each call
+    takes milliseconds, so CUDA events around a few eager calls time the
+    card, not the host.  The backward's passes (delta, dK/dV, its
+    reduction, dQ) are also timed apart under torch.profiler.
+    The bound counts the pairs the mask keeps, at the bf16 tensor-core peak
+    for bf16 and the float32 peak for float32 (the fp32 kernels run on the
+    CUDA cores)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
@@ -1125,24 +1403,38 @@ def time_flash_attention(torch, b=1, s=4096, hq=24, hkv=2, d=128):
                                                      flash_attention_fwd,
                                                      flash_attention_fwd_ref)
 
-    q, k, v, g = flash_inputs(torch, 500, b, s, s, hq, hkv, d, torch.bfloat16)
-    out, lse = flash_attention_fwd(q, k, v)
-    fwd_ms = eager_ms(torch, lambda i: flash_attention_fwd(q, k, v), 1, iters=10, repeats=3)
-    bwd_ms = eager_ms(torch, lambda i: flash_attention_bwd(q, k, v, out, lse, g), 1,
+    sk = sq if sk is None else sk
+    kw = dict(causal=True) if kw is None else kw
+    dtype = getattr(torch, dname)
+    q, k, v, g = flash_inputs(torch, 500, b, sq, sk, hq, hkv, d, dtype)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    fwd_ms = eager_ms(torch, lambda i: flash_attention_fwd(q, k, v, **kw), 1, iters=10,
+                      repeats=3)
+    bwd_ms = eager_ms(torch, lambda i: flash_attention_bwd(q, k, v, out, lse, g, **kw), 1,
                       iters=4, repeats=3)
     parts = kernel_ms_by_group(
-        torch, lambda: flash_attention_bwd(q, k, v, out, lse, g), 5,
+        torch, lambda: flash_attention_bwd(q, k, v, out, lse, g, **kw), 5,
         {"delta": "flash_bwd_delta", "dkdv": "flash_bwd_dkdv", "reduce": "flash_bwd_reduce",
-         "dq": "flash_bwd_dq"})
-    fwd_plain = eager_ms(torch, lambda i: flash_attention_fwd_ref(q, k, v), 1,
+         "dq": "flash_bwd_dq"}, once_per_call=True)
+    fwd_plain = eager_ms(torch, lambda i: flash_attention_fwd_ref(q, k, v, **kw), 1,
                          iters=3, repeats=3)
-    bwd_plain = eager_ms(torch, lambda i: flash_attention_bwd_ref(q, k, v, out, lse, g), 1,
-                         iters=2, repeats=3)
+    bwd_plain = eager_ms(torch, lambda i: flash_attention_bwd_ref(q, k, v, out, lse, g, **kw),
+                         1, iters=2, repeats=3)
     qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     gs = g.transpose(1, 2)
+    prefix = kw.get("prefix_len", 0)
+    causal = kw.get("causal", True)
+    # SDPA takes the prefix-LM mask as an explicit boolean mask
+    mask = None
+    if causal and prefix:
+        i = torch.arange(sq, device="cuda")[:, None]
+        j = torch.arange(sk, device="cuda")[None, :]
+        mask = (i >= j) | (j < prefix)
 
     def sdpa():
-        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              is_causal=causal and mask is None,
+                                              enable_gqa=hq != hkv)
 
     def sdpa_both():
         return torch.autograd.grad(sdpa(), (qs, ks, vs), gs)
@@ -1150,33 +1442,40 @@ def time_flash_attention(torch, b=1, s=4096, hq=24, hkv=2, d=128):
     lib_fwd = eager_ms(torch, lambda i: sdpa(), 1, iters=10, repeats=3)
     lib_both = eager_ms(torch, lambda i: sdpa_both(), 1, iters=10, repeats=3)
     lib_bwd = lib_both - lib_fwd
-    pairs = b * hq * s * (s + 1) // 2
-    qo = 2 * b * s * hq * d                    # bytes of one bf16 (B, S, Hq, D) tensor
-    kv = 2 * b * s * hkv * d                   # ... of one (B, S, Hkv, D) tensor
-    rows = 4 * b * hq * s                      # ... of one fp32 (B, Hq, S) tensor
-    part = 4 * b * s * hq * d                  # ... of one fp32 (B, Sk, Hq, D) partial
-    res = {}
-    for name, ms, plain, lib, flops, nbytes in (
-            ("fwd", fwd_ms, fwd_plain, lib_fwd, 4 * pairs * d, 2 * qo + 2 * kv + rows),
+    pairs = b * hq * (sq * (sq + 1) // 2 + prefix * (prefix - 1) // 2 if causal else sq * sk)
+    elt = q.element_size()
+    peak = BF16_FLOPS if dname == "bfloat16" else FP32_FLOPS
+    qo = elt * b * sq * hq * d                 # bytes of one (B, Sq, Hq, D) tensor
+    kv = elt * b * sk * hkv * d                # ... of one (B, Sk, Hkv, D) tensor
+    rows = 4 * b * hq * sq                     # ... of one fp32 (B, Hq, Sq) tensor
+    part = 4 * b * sk * hq * d                 # ... of one fp32 (B, Sk, Hq, D) partial
+    work = [("fwd", fwd_ms, fwd_plain, lib_fwd, 4 * pairs * d, 2 * qo + 2 * kv + rows),
             ("bwd", bwd_ms, bwd_plain, lib_bwd, 10 * pairs * d, 4 * qo + 4 * kv + rows),
-            # the passes, each with the work it does (dK/dV and dQ recompute the scores)
-            ("bwd delta", parts["delta"], None, None, 2 * b * s * hq * d, 2 * qo + rows),
+            # each pass with the work it does (dK/dV and dQ recompute the scores)
+            ("bwd delta", parts["delta"], None, None, 2 * b * sq * hq * d, 2 * qo + rows),
             ("bwd dK/dV", parts["dkdv"], None, None, 8 * pairs * d,
              2 * qo + 2 * kv + 2 * rows + 2 * part),
-            ("bwd reduce", parts["reduce"], None, None, 2 * b * s * hq * d,
-             2 * part + 2 * kv),
-            ("bwd dQ", parts["dq"], None, None, 6 * pairs * d, 3 * qo + 2 * kv + 2 * rows)):
-        t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+            ("bwd reduce", parts["reduce"], None, None, 2 * b * sk * hq * d, 2 * part + 2 * kv),
+            ("bwd dQ", parts["dq"], None, None, 6 * pairs * d, 3 * qo + 2 * kv + 2 * rows)]
+    res = {}
+    for name, ms, plain, lib, flops, nbytes in work:
+        if not ms:      # a pass this path does not run (the fp32 kernels reduce nothing)
+            print(f"time flash_attention {name} {label}: no such kernel in this path")
+            continue
+        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
         bound_ms = max(t_ops, t_bytes) * 1e3
         by = "operations" if t_ops >= t_bytes else "bytes"
         tail = (f"plain {plain:.3f} ms, sdpa {lib:.3f} ms" if plain is not None else
                 f"sdpa's whole backward {lib_bwd:.3f} ms")
-        print(f"time flash_attention {name}: B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 "
-              f"causal: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
-              f"{nbytes / ms / 1e6:.0f} GB/s), bound {bound_ms:.3f} ms ({by}, "
-              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), {tail}")
+        print(f"time flash_attention {name} {label}: B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} "
+              f"D={d} {dname} {', '.join(f'{k_}={v_}' for k_, v_ in kw.items())}: kernel "
+              f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.0f} GB/s), "
+              f"bound {bound_ms:.3f} ms ({by}, {flops / 1e9:.1f} GFLOP at "
+              f"{peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB), {tail}")
         res[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
                      "library_ms": lib}
+    del q, k, v, g, out, lse, qs, ks, vs, gs
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1962,6 +2261,33 @@ def main() -> int:
           f"Llama-4 against the CPU; H2O-Danube-1.8B trained and served; Mixtral-8x7B "
           f"at {MIXTRAL_LAYERS} layers trained and served; Llama-4 Maverick at 2 layers "
           f"served) took {decoders_s:.1f} s")
+
+    t_vlm = time.perf_counter()
+    vlm_flash_errs = check_vlm_encdec_flash(torch)
+    vlm_decode_err = check_vlm_encdec_decode(torch)
+    decoders_reduced_against_cpu(torch, ("paligemma", "whisper"))
+    paligemma, whisper = get_arch("paligemma"), get_arch("whisper")
+    vlm_runs = {
+        "paligemma_train": train_full(torch, paligemma, batch=1, seq=4096),
+        "paligemma_serve": serve_full(torch, paligemma),
+        "whisper_train": train_full(torch, whisper, batch=16, seq=448),
+        "whisper_serve": serve_full(torch, whisper),
+    }
+    vlm_times = {
+        "paligemma_prefix_d256_bf16": time_flash_attention(
+            torch, "PaliGemma prefix-LM", 1, 4096, 4096, 8, 1, 256, "bfloat16",
+            dict(causal=True, prefix_len=256)),
+        "whisper_encoder_f32": time_flash_attention(
+            torch, "Whisper encoder", 16, 1500, 1500, 12, 12, 64, "float32",
+            dict(causal=False)),
+        "whisper_cross_f32": time_flash_attention(
+            torch, "Whisper cross-attention", 16, 448, 1500, 12, 12, 64, "float32",
+            dict(causal=False)),
+    }
+    vlm_s = time.perf_counter() - t_vlm
+    print(f"vlm/encdec: the PaliGemma and Whisper phases (flash and flash-decode at their "
+          f"shapes, reduced models against the CPU, PaliGemma-3B and Whisper-small trained "
+          f"and served, flash timed at their shapes) took {vlm_s:.1f} s")
     ssd_errs = check_ssd_scan(torch)
     train_mamba_reduced_against_cpu(torch)
     mamba = train_mamba_full(torch)
@@ -1973,7 +2299,8 @@ def main() -> int:
     sweep = sweep_main_path(torch)
     scan_times = time_prefix_scan(torch)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, of which the "
-          f"decoder-config phases {decoders_s:.1f} s")
+          f"decoder-config phases {decoders_s:.1f} s and the PaliGemma and Whisper phases "
+          f"{vlm_s:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
@@ -1993,6 +2320,9 @@ def main() -> int:
         "launches_h2o_danube_serve": decoder_runs["h2o_danube_serve"]["launches"],
         "launches_mixtral_serve": decoder_runs["mixtral_serve"]["launches"],
         "launches_llama4_serve": decoder_runs["llama4_serve"]["launches"],
+        "launches_paligemma_serve": vlm_runs["paligemma_serve"]["launches"],
+        "launches_whisper_serve": vlm_runs["whisper_serve"]["launches"],
+        "max_err_model_shapes": vlm_decode_err,
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -2004,6 +2334,10 @@ def main() -> int:
         **flash_times["fwd"],
         "launches_h2o_danube_train": decoder_runs["h2o_danube_train"]["fwd"],
         "launches_mixtral_train": decoder_runs["mixtral_train"]["fwd"],
+        "launches_paligemma_train": vlm_runs["paligemma_train"]["fwd"],
+        "launches_whisper_train": vlm_runs["whisper_train"]["fwd"],
+        "max_err_model_shapes": vlm_flash_errs["fwd"],
+        **{key: t["fwd"] for key, t in vlm_times.items()},
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -2015,6 +2349,10 @@ def main() -> int:
         **flash_times["bwd"],
         "launches_h2o_danube_train": decoder_runs["h2o_danube_train"]["bwd"],
         "launches_mixtral_train": decoder_runs["mixtral_train"]["bwd"],
+        "launches_paligemma_train": vlm_runs["paligemma_train"]["bwd"],
+        "launches_whisper_train": vlm_runs["whisper_train"]["bwd"],
+        "max_err_model_shapes": vlm_flash_errs["bwd"],
+        **{key: t["bwd"] for key, t in vlm_times.items()},
         "passes": {k: {"ms": v["ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"]}
                    for k, v in flash_times.items() if k.startswith("bwd ")},
     }, {

@@ -11,11 +11,14 @@ from .h2o_danube_1_8b import CONFIG as H2O_DANUBE
 from .llama4_maverick_400b_a17b import CONFIG as LLAMA4
 from .mamba2_780m import CONFIG as MAMBA2
 from .mixtral_8x7b import CONFIG as MIXTRAL
+from .paligemma_3b import CONFIG as PALIGEMMA
 from .qwen25_32b import CONFIG as QWEN25
 from .starcoder2_3b import CONFIG as STARCODER2
+from .whisper_small import CONFIG as WHISPER
 
 ARCHS = {c.name: c for c in [
-    LLAMA4, MIXTRAL, MAMBA2, DEEPSEEK, QWEN25, H2O_DANUBE, STARCODER2, GPT_MOE,
+    LLAMA4, MIXTRAL, MAMBA2, DEEPSEEK, QWEN25, H2O_DANUBE, STARCODER2, WHISPER,
+    PALIGEMMA, GPT_MOE,
 ]}
 
 # short aliases for --arch
@@ -27,6 +30,8 @@ ALIASES = {
     "qwen": QWEN25.name,
     "h2o-danube": H2O_DANUBE.name,
     "starcoder2": STARCODER2.name,
+    "whisper": WHISPER.name,
+    "paligemma": PALIGEMMA.name,
     "gpt-moe": GPT_MOE.name,
 }
 

@@ -9,7 +9,11 @@ groups: ``groups[s][name]`` has a leading ``n_groups`` axis, and layer
 multiple of the pattern's length and ``moe_every`` (Llama-4 Maverick's is 4,
 GPT-MoE's 2); ``rest`` holds the remainder layers unstacked.  Subtrees nest
 one level where ``repro``'s do: an MoE layer's ``moe`` holds its ``shared``
-expert MLP.  A JAX gradient tree has the params' structure, so the
+expert MLP, and a decoder layer of an encoder-decoder config its cross-attention
+``normx`` and ``xattn``.  The encoder, ``tree["enc"]``, stacks all its layers
+(``enc["layers"][name]`` has a leading ``enc_layers`` axis) beside its
+``final_norm``; the port holds one entry a layer.  A JAX gradient tree has
+the params' structure, so the
 same function maps ``jax.grad``'s output onto the port's parameter names.
 The parameters it makes are trainable, like ``init_params``'s.  This
 module imports neither JAX nor ``repro``.
@@ -23,9 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import Layer, Transformer, _check_layer
+from repro_torch.models.transformer import Encoder, Layer, Transformer, _check_layer
 
-_SUBTREES = ("norm1", "attn", "ssd", "norm2", "mlp", "moe")
+_SUBTREES = ("norm1", "attn", "ssd", "normx", "xattn", "norm2", "mlp", "moe")
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -40,9 +44,8 @@ def _map(fn, tree: Mapping[str, Any]) -> Dict[str, Any]:
     return {k: _map(fn, v) if isinstance(v, Mapping) else fn(v) for k, v in tree.items()}
 
 
-def _layer(cfg: ModelConfig, i: int, p: Mapping[str, Any], device) -> Layer:
-    kind = cfg.pattern_at(i)
-    _check_layer(cfg, kind)
+def _layer(kind: str, i: int, p: Mapping[str, Any], device) -> Layer:
+    _check_layer(kind)
     extra = set(p) - set(_SUBTREES)
     if extra:
         raise NotImplementedError(f"layer {i} holds unported parts {sorted(extra)}")
@@ -59,15 +62,21 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping[str, Any], *,
     for s, slot in enumerate(groups):
         for g in range(n_groups):
             i = g * cycle + s
-            layers[i] = _layer(cfg, i, _map(lambda v: v[g], slot), device)
+            layers[i] = _layer(cfg.pattern_at(i), i, _map(lambda v: v[g], slot), device)
     for j, p in enumerate(tree["rest"]):
         i = n_groups * cycle + j
-        layers[i] = _layer(cfg, i, p, device)
+        layers[i] = _layer(cfg.pattern_at(i), i, p, device)
     if sorted(layers) != list(range(cfg.num_layers)):
         raise ValueError(f"tree holds layers {sorted(layers)}, config wants "
                          f"{cfg.num_layers}")
     lm_head = tree.get("lm_head")
+    enc = None
+    if "enc" in tree:
+        stacked = tree["enc"]["layers"]
+        enc = Encoder([_layer("enc", i, _map(lambda v: v[i], stacked), device)
+                       for i in range(cfg.enc_layers)],
+                      _map(lambda v: _tensor(v, device), tree["enc"]["final_norm"]))
     return Transformer(
         cfg, _tensor(tree["embed"], device), [layers[i] for i in sorted(layers)],
         {k: _tensor(v, device) for k, v in tree["final_norm"].items()},
-        _tensor(lm_head, device) if lm_head is not None else None)
+        _tensor(lm_head, device) if lm_head is not None else None, enc)

@@ -2,12 +2,16 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2 --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper --full
 
 Runs on the card unless ``--device cpu`` is given.  Without ``--full`` the
 model is the arch's ``reduced()`` config, as in ``repro.launch.serve``.
 ``--arch`` takes the names of ``repro_torch.configs``.  At full depth the
 bf16 weights of Mixtral-8x7B, DeepSeek-67B, Llama-4 Maverick and GPT-MoE
-exceed one 80 GB card.
+exceed one 80 GB card.  PaliGemma is served as text only, as in ``repro``.
+An encoder-decoder config (Whisper) first fills the engine's cache with
+``encode_to_cache`` over float32 stub frames drawn from seed 0, one
+utterance a slot.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_arch
-    from repro_torch.models import init_params
+    from repro_torch.models import encode_to_cache, init_params
     from repro_torch.serve import Request, ServeEngine
 
     cfg = get_arch(args.arch)
@@ -43,8 +47,12 @@ def main(argv=None):
     model = init_params(cfg, gen, device=device)
     eng = ServeEngine(cfg, model, max_batch=args.max_batch, max_len=128,
                       device=device)
-
     rng = np.random.default_rng(0)
+    if cfg.is_encdec:
+        frames = rng.standard_normal((args.max_batch, cfg.enc_seq, cfg.d_model)) * 0.02
+        eng.cache = encode_to_cache(model, eng.cache,
+                                    torch.from_numpy(frames.astype(np.float32)))
+
     pending = [Request(i, rng.integers(0, cfg.vocab_size, 6).tolist(),
                        max_new=args.max_new) for i in range(args.requests)]
     done = []

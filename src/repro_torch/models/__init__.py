@@ -1,10 +1,12 @@
 """Model stack of the port: training forward, loss and decode path of
-decoders with full, sliding-window and chunked attention, dense and MoE
-MLPs, and of Mamba-2 SSD stacks."""
+decoders with full, sliding-window, chunked and prefix-LM attention, dense
+and MoE MLPs, of Mamba-2 SSD stacks, and of encoder-decoder models."""
 
 from . import layers, moe, ssm, transformer
-from .transformer import (Layer, Transformer, decode_step, embed_tokens,
-                          forward, init_cache, init_params, lm_loss)
+from .transformer import (Encoder, Layer, Transformer, decode_step, embed_tokens,
+                          encode, encode_to_cache, forward, init_cache, init_params,
+                          lm_loss)
 
-__all__ = ["Layer", "Transformer", "decode_step", "embed_tokens", "forward",
-           "init_cache", "init_params", "layers", "lm_loss", "moe", "ssm", "transformer"]
+__all__ = ["Encoder", "Layer", "Transformer", "decode_step", "embed_tokens", "encode",
+           "encode_to_cache", "forward", "init_cache", "init_params", "layers", "lm_loss",
+           "moe", "ssm", "transformer"]

@@ -2,8 +2,9 @@
 
 Counterparts of ``repro/models/layers.py`` with the same arithmetic and the
 same casts: norms and RoPE compute in float32 and cast back to the input
-dtype, projections run in the weight dtype.  Parameters arrive as mappings
-of tensors (an ``nn.ParameterDict`` in the model).
+dtype, projections run in the dtype jnp promotes ``x @ w`` to
+(:func:`matmul`).  Parameters arrive as mappings of tensors (an
+``nn.ParameterDict`` in the model).
 """
 
 from __future__ import annotations
@@ -19,6 +20,16 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: F401
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 
 Params = Mapping[str, torch.Tensor]
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype, as jnp computes it: float32
+    activations (an encoder over float32 frames) with bf16 weights give a
+    float32 product, where ``torch.matmul`` refuses mixed dtypes."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
 
 
 # ------------------------------------------------------------------ norms
@@ -80,21 +91,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Hq // Hkv.  ``window`` > 0 = sliding window; ``chunk`` > 0 =
     chunk-local; ``prefix_len`` > 0 = prefix-LM.  Differentiable; on CUDA
     tensors the forward and the backward run the flash-attention kernels
-    (:mod:`repro_torch.kernels.flash_attention`)."""
-    return _flash_kernel(q, k, v, causal=causal, window=window, chunk=chunk,
-                         prefix_len=prefix_len, q_offset=q_offset)
+    (:mod:`repro_torch.kernels.flash_attention`).
+
+    A bf16 q over float32 k/v (a decoder's cross-attention to a float32
+    encoder) runs in float32 and returns q's dtype, as the JAX function
+    does: it computes every block in float32 and casts the output to q's
+    dtype.  JAX scales q in its own dtype first; for the power-of-two
+    scales of head dims 16, 64 and 256 that rounds nothing."""
+    dt = torch.promote_types(q.dtype, k.dtype)
+    out = _flash_kernel(q.to(dt), k.to(dt), v.to(dt), causal=causal, window=window,
+                        chunk=chunk, prefix_len=prefix_len, q_offset=q_offset)
+    return out.to(q.dtype)
 
 
 # --------------------------------------------------------------- dense mlp
 
 def mlp_apply(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     if act in ("swiglu", "geglu"):
-        g = x @ p["w_gate"]
-        u = x @ p["w_up"]
+        g = matmul(x, p["w_gate"])
+        u = matmul(x, p["w_up"])
         h = (F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")) * u
     else:
-        h = F.gelu(x @ p["w_up"], approximate="tanh")
-    return h @ p["w_down"]
+        h = F.gelu(matmul(x, p["w_up"]), approximate="tanh")
+    return matmul(h, p["w_down"])
 
 
 def init_mlp(generator: torch.Generator, d: int, f: int, act: str,

@@ -1,5 +1,6 @@
 """Mixture-of-Experts MLP of the port, the counterpart of
-``repro/models/moe.py`` on one device (``moe_impl="tp"`` with ``tp == 1``).
+``repro/models/moe.py`` on one device (``tp == 1``, where both
+``moe_impl`` values run the same local capacity path).
 
 Dispatch is capacity-based, as in ``repro``: float32 router logits,
 softmax, the top-k experts of each token renormalised; a token's
@@ -28,9 +29,9 @@ sum held on the tensors' device, read once when the summary is taken, so
 counting adds no host sync).  The routing, the scatter into the buffer,
 the experts and the combine run in ``torch.profiler`` ranges
 (``moe.route``, ``moe.scatter``, ``moe.experts``, ``moe.combine``), so a
-profile of a step gives each its device time.  Tensor-parallel experts
-(``tp > 1``) and the expert-parallel exchange (``moe_impl="ep"``) need the
-collectives of ROADMAP.md § 1 item 7 and raise.
+profile of a step gives each its device time.  Sharded experts (``tp >
+1``: tensor-parallel, or the expert-parallel exchange of ``moe_impl="ep"``)
+need the collectives of ROADMAP.md § 1 item 7 and raise.
 """
 
 from __future__ import annotations
@@ -157,9 +158,10 @@ def _combine(out_buf: torch.Tensor, meta, dtype) -> torch.Tensor:
 def moe_apply_local(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
                     moe_impl: str = "tp", tp: int = 1) -> torch.Tensor:
     """The MoE MLP on local tokens x (Bt, S, d) -> (Bt, S, d) in x's dtype:
-    ``repro``'s ``moe_apply_local`` with ``tp == 1``.  The buffer is in x's
-    dtype, the combine runs in the experts' output dtype."""
-    if tp != 1 or moe_impl != "tp":
+    ``repro``'s ``moe_apply_local`` with ``tp == 1``, where both
+    ``moe_impl`` values run the local capacity path, as in ``repro``.  The
+    buffer is in x's dtype, the combine runs in the experts' output dtype."""
+    if tp != 1:
         raise NotImplementedError(
             f"MoE with moe_impl={moe_impl!r} and tp={tp} is not ported yet: its "
             f"collectives come with the parallel slice (ROADMAP.md § 1 item 7)")

@@ -1,5 +1,5 @@
-"""Decoder stack of the port: parameters, training forward and loss, KV
-cache and one serving step.
+"""Model stack of the port: parameters, training forward and loss, KV
+cache and one serving step, plus the encoder of encoder-decoder configs.
 
 Counterpart of ``repro/models/transformer.py``.  The layers are an
 ``nn.ModuleList`` walked by a Python loop (JAX stacks full pattern groups
@@ -14,11 +14,23 @@ JAX.
 
 This port covers the attention kinds (``"attn"``; ``"swa"``, a sliding
 window of ``cfg.window`` positions; ``"chunked"``, attention within chunks
-of ``cfg.window`` positions) and SSD layers, each with a dense MLP or, every
+of ``cfg.window`` positions; ``"enc"``, the bidirectional encoder layers
+without RoPE) and SSD layers, each with a dense MLP or, every
 ``moe_every``-th layer of a config with experts, an MoE MLP
-(:mod:`repro_torch.models.moe`).  The other layer kinds, prefix (VLM) and
-encoder-decoder inputs raise ``NotImplementedError`` naming the slice that
-will port them; none of them runs a plain stand-in.
+(:mod:`repro_torch.models.moe`).  A VLM config (``cfg.prefix_len``) puts
+``batch["patches"]`` before the tokens and attends bidirectionally within
+that prefix.  An encoder-decoder config (``cfg.enc_layers``) runs
+:func:`encode` over ``batch["frames"]`` and gives every decoder layer a
+non-causal cross-attention to its output; in serving, :func:`encode_to_cache`
+writes each layer's cross K/V into the cache, and :func:`decode_step` reads
+all of them through flash-decode's lengths form.  The RG-LRU kind raises
+``NotImplementedError`` naming the slice that will port it; nothing runs a
+plain stand-in.
+
+Dtypes follow ``repro``'s promotions: ``x @ w`` of float32 activations and
+bf16 weights computes in float32 (:func:`~repro_torch.models.layers.matmul`),
+so float32 frames keep the whole encoder, and the cross K/V projected from
+it, in float32 beside bf16 decoder activations.
 """
 
 from __future__ import annotations
@@ -32,17 +44,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_attention import decode_attention_cache
+from repro_torch.kernels.decode_attention import decode_attention, decode_attention_cache
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
-#: layer kinds (and features) that later slices of the port bring in
+#: layer kinds that later slices of the port bring in
 LATER_SLICE = {
     "rglru": "the RG-LRU slice",
-    "enc": "the encoder-decoder slice",
-    "xattn": "the encoder-decoder slice",
-    "prefix inputs": "the VLM slice (PaliGemma prefix)",
 }
 
 
@@ -52,16 +61,14 @@ def _unported(what: str) -> NotImplementedError:
         f"{LATER_SLICE.get(what, 'a later slice')}")
 
 
-ATTN_KINDS = ("attn", "swa", "chunked")
+ATTN_KINDS = ("attn", "swa", "chunked", "enc")
 #: the subtree that holds each layer kind's mixer
 MIXERS = {**dict.fromkeys(ATTN_KINDS, "attn"), "ssd": "ssd"}
 
 
-def _check_layer(cfg: ModelConfig, kind: str) -> None:
+def _check_layer(kind: str) -> None:
     if kind not in MIXERS:
         raise _unported(kind)
-    if cfg.is_encdec:
-        raise _unported("xattn")
 
 
 def _pdict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
@@ -69,27 +76,42 @@ def _pdict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class Layer(nn.Module):
-    """One decoder layer: norm1 -> mixer (``attn`` for the attention kinds,
-    ``ssd``), then norm2 -> dense ``mlp`` or ``moe`` when the config has an
-    MLP, both residual.  The subtrees and their names are those of
+    """One layer: norm1 -> mixer (``attn`` for the attention kinds, ``ssd``),
+    in a decoder of an encoder-decoder config normx -> cross-attention
+    ``xattn``, then norm2 -> dense ``mlp`` or ``moe`` when the config has an
+    MLP, each residual.  The subtrees and their names are those of
     ``repro``'s layer params."""
 
     def __init__(self, kind: str, norm1: Dict, *, attn: Optional[Dict] = None,
-                 ssd: Optional[Dict] = None, norm2: Optional[Dict] = None,
+                 ssd: Optional[Dict] = None, normx: Optional[Dict] = None,
+                 xattn: Optional[Dict] = None, norm2: Optional[Dict] = None,
                  mlp: Optional[Dict] = None, moe: Optional[Dict] = None):
         super().__init__()
         mixers = {"attn": attn, "ssd": ssd}
         held = sorted(k for k, v in mixers.items() if v is not None)
         if held != [MIXERS.get(kind)]:
             raise ValueError(f"a {kind!r} layer holds exactly its mixer; got {held}")
+        if (normx is None) != (xattn is None):
+            raise ValueError("normx comes with xattn")
         if (norm2 is None) != (mlp is None and moe is None) or \
                 (mlp is not None and moe is not None):
             raise ValueError("norm2 comes with one of mlp and moe")
         self.kind = kind
         self.norm1 = _pdict(norm1)
-        for name, sub in (*mixers.items(), ("norm2", norm2), ("mlp", mlp)):
+        for name, sub in (*mixers.items(), ("normx", normx), ("xattn", xattn),
+                          ("norm2", norm2), ("mlp", mlp)):
             setattr(self, name, _pdict(sub) if sub is not None else None)
         self.moe = MOE.MoE(**moe) if moe is not None else None
+
+
+class Encoder(nn.Module):
+    """The encoder of an encoder-decoder config (``repro``'s
+    ``params["enc"]``): ``"enc"`` layers and a final norm."""
+
+    def __init__(self, layers: List[Layer], final_norm: Dict):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+        self.final_norm = _pdict(final_norm)
 
 
 class Transformer(nn.Module):
@@ -97,13 +119,17 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
                  layers: List[Layer], final_norm: Dict,
-                 lm_head: Optional[torch.Tensor] = None):
+                 lm_head: Optional[torch.Tensor] = None,
+                 enc: Optional[Encoder] = None):
         super().__init__()
+        if (enc is not None) != cfg.is_encdec:
+            raise ValueError(f"{cfg.name}: an encoder comes with enc_layers > 0")
         self.cfg = cfg
         self.embed = nn.Parameter(embed)
         self.layers = nn.ModuleList(layers)
         self.final_norm = _pdict(final_norm)
         self.lm_head = nn.Parameter(lm_head) if lm_head is not None else None
+        self.enc = enc
 
     @property
     def device(self) -> torch.device:
@@ -113,7 +139,9 @@ class Transformer(nn.Module):
 # ============================================================== init
 
 
-def _init_attn(gen: torch.Generator, cfg: ModelConfig, device, dtype) -> Dict:
+def _init_attn(gen: torch.Generator, cfg: ModelConfig, device, dtype,
+               cross: bool = False) -> Dict:
+    """Attention projections; a cross-attention's have no q/k/v bias."""
     d, hd = cfg.d_model, cfg.head_dim
     hq, kv = cfg.padded_heads(1), cfg.padded_kv_heads(1)
     if hq % kv:
@@ -126,35 +154,47 @@ def _init_attn(gen: torch.Generator, cfg: ModelConfig, device, dtype) -> Dict:
     p = {"wq": normal((d, hq * hd), s), "wk": normal((d, kv * hd), s),
          "wv": normal((d, kv * hd), s),
          "wo": normal((hq * hd, d), 1.0 / math.sqrt(hq * hd))}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, width in (("bq", hq), ("bk", kv), ("bv", kv)):
             p[name] = torch.zeros((width * hd,), dtype=dtype, device=device)
     return p
+
+
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, i: int, device,
+                dtype, cross: bool = False) -> Layer:
+    """Layer ``i`` of kind ``kind``; ``cross`` adds normx and xattn."""
+    _check_layer(kind)
+    sub = {}
+    if kind == "ssd":
+        sub["ssd"] = SSM.init_ssd_block(gen, cfg, device, dtype)
+    else:
+        sub["attn"] = _init_attn(gen, cfg, device, dtype)
+    if cross:
+        sub["normx"] = L.init_norm(cfg.d_model, cfg.norm, device)
+        sub["xattn"] = _init_attn(gen, cfg, device, dtype, cross=True)
+    if cfg.d_ff > 0:
+        sub["norm2"] = L.init_norm(cfg.d_model, cfg.norm, device)
+        if cfg.n_experts and i % cfg.moe_every == cfg.moe_every - 1:
+            sub["moe"] = MOE.init_moe(gen, cfg, device, dtype)
+        else:
+            sub["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, device, dtype)
+    return Layer(kind, L.init_norm(cfg.d_model, cfg.norm, device), **sub)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device="cuda", dtype=torch.bfloat16) -> Transformer:
     """Random weights with the JAX package's shapes and scales, drawn from
     ``generator`` (which must live on ``device``) and made on ``device``.
-    Norm parameters stay float32, as in ``repro``."""
+    Norm parameters stay float32, as in ``repro``.  An encoder-decoder
+    config also gets the encoder's ``"enc"`` layers."""
     device = torch.device(device)
-    layers = []
-    for i in range(cfg.num_layers):
-        kind = cfg.pattern_at(i)
-        _check_layer(cfg, kind)
-        sub = {}
-        if kind == "ssd":
-            sub["ssd"] = SSM.init_ssd_block(generator, cfg, device, dtype)
-        else:
-            sub["attn"] = _init_attn(generator, cfg, device, dtype)
-        if cfg.d_ff > 0:
-            sub["norm2"] = L.init_norm(cfg.d_model, cfg.norm, device)
-            if cfg.n_experts and i % cfg.moe_every == cfg.moe_every - 1:
-                sub["moe"] = MOE.init_moe(generator, cfg, device, dtype)
-            else:
-                sub["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act,
-                                        device, dtype)
-        layers.append(Layer(kind, L.init_norm(cfg.d_model, cfg.norm, device), **sub))
+    layers = [_init_layer(generator, cfg, cfg.pattern_at(i), i, device, dtype,
+                          cross=cfg.is_encdec) for i in range(cfg.num_layers)]
+    enc = None
+    if cfg.is_encdec:
+        enc = Encoder([_init_layer(generator, cfg, "enc", i, device, dtype)
+                       for i in range(cfg.enc_layers)],
+                      L.init_norm(cfg.d_model, cfg.norm, device))
     vp = cfg.padded_vocab()
     emb = (torch.randn((vp, cfg.d_model), generator=generator, device=device)
            * 0.02).to(dtype)
@@ -163,7 +203,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
         lm_head = (torch.randn((cfg.d_model, vp), generator=generator,
                                device=device) * 0.02).to(dtype)
     return Transformer(cfg, emb, layers,
-                       L.init_norm(cfg.d_model, cfg.norm, device), lm_head)
+                       L.init_norm(cfg.d_model, cfg.norm, device), lm_head, enc)
 
 
 # ============================================================== training
@@ -187,24 +227,51 @@ def lm_loss(model: Transformer, x: torch.Tensor,
 
 
 def _attn_apply(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
-                kind: str, positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence causal attention (train/prefill), within ``cfg.window``
-    positions for ``"swa"`` and within chunks of ``cfg.window`` positions
-    for ``"chunked"``.  x: (B, S, d)."""
+                kind: str, positions: torch.Tensor, prefix_len: int = 0,
+                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """Full-sequence attention (train/prefill).  x: (B, S, d).
+
+    Self-attention is causal with RoPE, within ``cfg.window`` positions for
+    ``"swa"`` and within chunks of ``cfg.window`` positions for
+    ``"chunked"``, bidirectional within the first ``prefix_len`` positions;
+    ``"enc"`` layers attend bidirectionally without RoPE.  With ``kv``, the
+    (k, v) of a cross-attention, the queries attend to all of them, without
+    RoPE."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     hq = p["wq"].shape[-1] // hd
     kvh = p["wk"].shape[-1] // hd
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = L.matmul(x, p["wq"])
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = L.apply_rope(q.reshape(b, s, hq, hd), positions, cfg.rope_theta)
-    k = L.apply_rope(k.reshape(b, s, kvh, hd), positions, cfg.rope_theta)
-    v = v.reshape(b, s, kvh, hd)
-    out = L.flash_attention(q, k, v, causal=True, **_mask(cfg, kind))
-    return out.reshape(b, s, hq * hd) @ p["wo"]
+        q = q + p["bq"]
+    q = q.reshape(b, s, hq, hd)
+    if kv is not None:
+        out = L.flash_attention(q, *kv, causal=False)
+    else:
+        k = L.matmul(x, p["wk"])
+        v = L.matmul(x, p["wv"])
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
+        k = k.reshape(b, s, kvh, hd)
+        v = v.reshape(b, s, kvh, hd)
+        if kind != "enc":
+            q = L.apply_rope(q, positions, cfg.rope_theta)
+            k = L.apply_rope(k, positions, cfg.rope_theta)
+        out = L.flash_attention(q, k, v, causal=kind != "enc", prefix_len=prefix_len,
+                                **_mask(cfg, kind))
+    return L.matmul(out.reshape(b, s, hq * hd), p["wo"])
+
+
+def _enc_kv(layer: Layer, cfg: ModelConfig,
+            enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This layer's cross-attention K and V (B, S_enc, Hkv, D), projected
+    from the encoder output in the dtype ``x @ w`` promotes to."""
+    xa = layer.xattn
+    b, se, _ = enc_out.shape
+    hd = cfg.head_dim
+    kvh = xa["wk"].shape[-1] // hd
+    return (L.matmul(enc_out, xa["wk"]).reshape(b, se, kvh, hd),
+            L.matmul(enc_out, xa["wv"]).reshape(b, se, kvh, hd))
 
 
 def _mask(cfg: ModelConfig, kind: str) -> Dict[str, int]:
@@ -224,39 +291,78 @@ def _mlp_apply(layer: Layer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_apply(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: Optional[torch.Tensor], prefix_len: int = 0,
+                 enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     h = L.norm(x, layer.norm1, cfg.norm)
     if layer.kind == "ssd":
         x = x + SSM.ssd_block_apply(layer.ssd, cfg, h)[0]
     else:
-        x = x + _attn_apply(layer.attn, cfg, h, layer.kind, positions)
+        x = x + _attn_apply(layer.attn, cfg, h, layer.kind, positions, prefix_len)
+    if layer.xattn is not None and enc_out is not None:
+        hx = L.norm(x, layer.normx, cfg.norm)
+        x = x + _attn_apply(layer.xattn, cfg, hx, "attn", positions,
+                            kv=_enc_kv(layer, cfg, enc_out))
     return _mlp_apply(layer, cfg, x)
 
 
 def forward(model: Transformer, batch: Dict[str, torch.Tensor], *,
             remat: bool = True) -> torch.Tensor:
-    """Token ids (B, S) -> final hidden states (B, S, d).
+    """Token ids (B, S) -> final hidden states (B, S, d), or (B, P + S, d)
+    for a VLM config given ``batch["patches"]`` (B, P, d): the patches, cast
+    to the activations' dtype, come first, and attention is bidirectional
+    within the first ``cfg.prefix_len`` positions.  An encoder-decoder
+    config given ``batch["frames"]`` (B, S_enc, d) encodes them
+    (:func:`encode`) and every decoder layer cross-attends to the result.
+    As in ``repro``, ``patches`` and ``frames`` are ignored by configs
+    without a prefix or an encoder.
 
-    With ``remat`` each layer runs under ``torch.utils.checkpoint``
+    With ``remat`` each decoder layer runs under ``torch.utils.checkpoint``
     (non-reentrant), as JAX wraps each group in ``jax.checkpoint`` with
     nothing saveable: only the layer inputs stay alive, and each layer's
-    forward, its flash-attention or SSD-scan kernel included, runs again
-    during the backward pass."""
+    forward, its flash-attention or SSD-scan kernels included, runs again
+    during the backward pass.  The encoder is not recomputed, as JAX's
+    ``encode`` scans its layers without a checkpoint."""
     cfg = model.cfg
-    for key in ("patches", "frames"):
-        if key in batch:
-            raise _unported("xattn" if key == "frames" else "prefix inputs")
-    tokens = batch["tokens"]
-    x = embed_tokens(model, tokens)
+    x = embed_tokens(model, batch["tokens"])
+    prefix_len = 0
+    if cfg.prefix_len and "patches" in batch:
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        prefix_len = cfg.prefix_len
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    enc_out = None
+    if cfg.is_encdec and "frames" in batch:
+        enc_out = encode(model, batch["frames"])
     for layer in model.layers:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(_layer_apply, layer, cfg, x, positions,
+            x = checkpoint(_layer_apply, layer, cfg, x, positions, prefix_len, enc_out,
                            use_reentrant=False)
         else:
-            x = _layer_apply(layer, cfg, x, positions)
+            x = _layer_apply(layer, cfg, x, positions, prefix_len, enc_out)
     return L.norm(x, model.final_norm, cfg.norm)
+
+
+def _sinusoid_positions(s: int, d: int, device) -> torch.Tensor:
+    """(S, d) float32 sinusoidal positions: sin of pos / 10000^(2i/d) in the
+    first half of the columns, cos in the second, as ``repro``'s encoder."""
+    pos = torch.arange(s, device=device, dtype=torch.float32)[:, None]
+    dim = torch.arange(d // 2, device=device, dtype=torch.float32)[None, :]
+    ang = pos / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def encode(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
+    """The bidirectional encoder over stub frame embeddings (B, S_enc, d):
+    sinusoidal positions added in the frames' dtype, the ``"enc"`` layers
+    (no RoPE, no mask), a final norm.  Float32 frames keep it in float32."""
+    cfg = model.cfg
+    if model.enc is None:
+        raise ValueError(f"{cfg.name} has no encoder")
+    _, s, d = frames.shape
+    x = frames + _sinusoid_positions(s, d, frames.device).to(frames.dtype)[None]
+    for layer in model.enc.layers:
+        x = _layer_apply(layer, cfg, x, None)
+    return L.norm(x, model.enc.final_norm, cfg.norm)
 
 
 # ============================================================== serving
@@ -273,21 +379,27 @@ def init_cache(model: Transformer, batch: int, max_len: int,
     """Zeroed caches, one dict per layer, on the model's device: for an
     attention layer ``k`` and ``v`` (B, W, Hkv, D) in ``dtype`` and ``pos``
     (B, W) int32, -1 = empty; for an SSD layer its state and conv caches
-    (:func:`repro_torch.models.ssm.init_ssd_cache`)."""
+    (:func:`repro_torch.models.ssm.init_ssd_cache`); for a layer with
+    cross-attention also ``xk`` and ``xv`` (B, S_enc, Hkv, D) in ``dtype``,
+    which :func:`encode_to_cache` replaces."""
     cfg = model.cfg
     hd = cfg.head_dim
+    dev = model.device
     cache = []
     for layer in model.layers:
         if layer.kind == "ssd":
-            cache.append(SSM.init_ssd_cache(cfg, batch, dtype, model.device))
-            continue
-        kvh = layer.attn["wk"].shape[-1] // hd
-        wc = _cache_len(cfg, layer.kind, max_len)
-        cache.append({
-            "k": torch.zeros((batch, wc, kvh, hd), dtype=dtype, device=model.device),
-            "v": torch.zeros((batch, wc, kvh, hd), dtype=dtype, device=model.device),
-            "pos": torch.full((batch, wc), -1, dtype=torch.int32, device=model.device),
-        })
+            c = SSM.init_ssd_cache(cfg, batch, dtype, dev)
+        else:
+            kvh = layer.attn["wk"].shape[-1] // hd
+            wc = _cache_len(cfg, layer.kind, max_len)
+            c = {"k": torch.zeros((batch, wc, kvh, hd), dtype=dtype, device=dev),
+                 "v": torch.zeros((batch, wc, kvh, hd), dtype=dtype, device=dev),
+                 "pos": torch.full((batch, wc), -1, dtype=torch.int32, device=dev)}
+        if layer.xattn is not None:
+            kvh = layer.xattn["wk"].shape[-1] // hd
+            for name in ("xk", "xv"):
+                c[name] = torch.zeros((batch, cfg.enc_seq, kvh, hd), dtype=dtype, device=dev)
+        cache.append(c)
     return cache
 
 
@@ -329,9 +441,22 @@ def _attn_decode(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
     return out.reshape(b, 1, hq * hd) @ p["wo"]
 
 
+def _cross_decode(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
+                  cache: Dict[str, torch.Tensor], lengths: torch.Tensor) -> torch.Tensor:
+    """One-token cross-attention to every key of the cache's ``xk``/``xv``:
+    flash-decode's lengths form, each lane's length (``lengths``, (B,)
+    int32) the whole encoder sequence.  x: (B, 1, d)."""
+    b = x.shape[0]
+    hd = cfg.head_dim
+    hq = p["wq"].shape[-1] // hd
+    q = L.matmul(x, p["wq"]).reshape(b, hq, hd)
+    out = decode_attention(q, cache["xk"], cache["xv"], lengths)  # (B, Hq, D)
+    return L.matmul(out.reshape(b, 1, hq * hd), p["wo"])
+
+
 def _layer_decode(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
-                  position: torch.Tensor,
-                  cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+                  position: torch.Tensor, cache: Dict[str, torch.Tensor],
+                  xlen: Optional[torch.Tensor] = None) -> torch.Tensor:
     h = L.norm(x, layer.norm1, cfg.norm)
     if layer.kind == "ssd":
         # every lane advances its state by one token: lanes run in lockstep
@@ -340,6 +465,9 @@ def _layer_decode(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
         x = x + y
     else:
         x = x + _attn_decode(layer.attn, cfg, h, layer.kind, position, cache)
+    if layer.xattn is not None and "xk" in cache:
+        x = x + _cross_decode(layer.xattn, cfg, L.norm(x, layer.normx, cfg.norm), cache,
+                              xlen)
     # every lane, idle and paused ones too, goes through an MoE router and
     # competes for expert capacity, as in repro
     return _mlp_apply(layer, cfg, x)
@@ -369,11 +497,30 @@ def decode_step(model: Transformer, cache: List[Dict[str, torch.Tensor]],
     tok, pos = both.view(2, -1)
     pos = pos.to(torch.int32)
     x = embed_tokens(model, tok[:, None])                    # (B, 1, d)
+    # every lane attends to all the encoder's keys: one lengths tensor a step
+    # serves every layer's cross-attention
+    xlen = next((torch.full((tok.shape[0],), c["xk"].shape[1], dtype=torch.int32,
+                            device=dev) for c in cache if "xk" in c), None)
     for layer, c in zip(model.layers, cache):
-        x = _layer_decode(layer, cfg, x, pos, c)
+        x = _layer_decode(layer, cfg, x, pos, c, xlen)
     x = L.norm(x, model.final_norm, cfg.norm)
     w = model.lm_head if model.lm_head is not None else model.embed.T
     logits = (x[:, 0] @ w).float()
     vmask = torch.arange(logits.shape[-1], device=dev) < cfg.vocab_size
     logits = logits.masked_fill(~vmask[None], -float("inf"))
     return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
+@torch.no_grad()
+def encode_to_cache(model: Transformer, cache: List[Dict[str, torch.Tensor]],
+                    frames) -> List[Dict[str, torch.Tensor]]:
+    """Run the encoder over ``frames`` (B, S_enc, d; moved to the model's
+    device) and replace every decoder layer's ``xk`` and ``xv`` with its
+    cross K/V projections, in the dtype those take (float32 for float32
+    frames, as in ``repro``).  Call once per batch of utterances before
+    :func:`decode_step`; returns the cache, updated in place."""
+    enc_out = encode(model, torch.as_tensor(frames).to(model.device))
+    for layer, c in zip(model.layers, cache):
+        if layer.xattn is not None:
+            c["xk"], c["xv"] = _enc_kv(layer, model.cfg, enc_out)
+    return cache

@@ -16,6 +16,11 @@ the same cache line) and resume decoding when capacity returns.
 Positions and pending tokens stay host numpy arrays; the one host-device
 sync of a step is reading its next tokens.
 
+A VLM config is served as text only.  An encoder-decoder config decodes
+against the encoder K/V in ``self.cache``: as in ``repro``, the engine
+takes no frames, and the caller fills the cache with
+:func:`~repro_torch.models.encode_to_cache` before submitting requests.
+
 Configs with recurrent layers (``"ssd"``, ``"rglru"``) are refused: every
 step advances the state of every lane, so prefilling one request (a step
 per prompt token) would also advance the other live and paused requests,

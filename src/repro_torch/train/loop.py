@@ -28,7 +28,12 @@ class TrainConfig:
 
 
 def loss_fn(model, batch: Dict[str, torch.Tensor], train_cfg: TrainConfig) -> torch.Tensor:
+    """Mean next-token loss; a VLM's prefix rows carry no label and are
+    dropped before the loss, as in ``repro``."""
     h = forward(model, batch, remat=train_cfg.remat)
+    prefix = model.cfg.prefix_len
+    if prefix and "patches" in batch:
+        h = h[:, prefix:]
     return lm_loss(model, h, batch["labels"])
 
 

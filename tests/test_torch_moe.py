@@ -183,6 +183,17 @@ def test_held_counter_sums_in_place_and_is_read_by_the_summary():
 
 @pytest.mark.parametrize("kw", [{"tp": 2}, {"moe_impl": "ep"}, {"moe_impl": "ep", "tp": 4}])
 def test_sharded_experts_raise_naming_the_parallel_slice(kw):
-    _, _, tcfg, p, x = _pair("mixtral", 1.25)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md § 1 item 7"):
-        moe.moe_apply_local(p, tcfg, torch.from_numpy(x), **kw)
+    """Sharded experts (tp > 1) raise.  ``moe_impl="ep"`` on one device is
+    not sharded: ``repro`` runs its local capacity path there, and so must
+    the port, with JAX's values."""
+    jcfg, jp, tcfg, p, x = _pair("mixtral", 1.25)
+    if kw.get("tp", 1) != 1:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md § 1 item 7"):
+            moe.moe_apply_local(p, tcfg, torch.from_numpy(x), **kw)
+        return
+    want = jax.jit(lambda p, x: jax_moe.moe_apply_local(p, jcfg, x, tp=1, **kw))(
+        jax.tree.map(jnp.asarray, jp), jnp.asarray(x))
+    with torch.no_grad():
+        got = moe.moe_apply_local(p, tcfg, torch.from_numpy(x), **kw)
+    assert got.shape == x.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ACT_TOL, rtol=ACT_TOL)
