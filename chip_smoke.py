@@ -83,43 +83,62 @@ failure:
      ``encode_to_cache`` (24 flash-decode launches a step, 12 in each form);
  17. time the flash kernels at PaliGemma's and Whisper's training shapes
      beside SDPA and the card's least time for the work;
- 18. hold the SSD-scan forward and backward kernels against their plain
+ 18. the flash kernels at RecurrentGemma-2B's training shape (B=1, S=4096
+     past its 2048 window, MQA 10 over 1 KV head, D=256, bf16: the fp32
+     kernels), absolutely and per band, with plain versions planted with
+     windows of 2048 ± 64 caught; flash-decode's slot form at its serving
+     shape (B=8, D=256, a 2048-slot ring that has wrapped), with a plain
+     version planted with a window of 2048 - 64 caught;
+ 19. reduced RecurrentGemma (rglru, rglru, swa; window 32) in float32 on the
+     CPU and on the card: every gradient of one batch agrees, 3 AdamW
+     steps agree, and 48 lockstep decode steps past the window give the
+     same tokens;
+ 20. RecurrentGemma-2B, all 26 layers: trained at B=1, S=4096 (16 forward
+     and 8 backward flash launches a step; a profiled step's flash,
+     ``rglru.scan``, GEMM and remaining shares) and decoded in lockstep
+     through ``decode_step``, 8 lanes, 32 + 32 tokens (8 flash-decode
+     launches a step);
+ 21. time the flash kernels at RecurrentGemma's shape with its window and
+     causal only, beside SDPA and the card's least time for the work, and
+     flash-decode at its serving shape;
+ 22. hold the SSD-scan forward and backward kernels against their plain
      versions in float32 and bfloat16 (y in x's type and in float32) at
      tests/test_kernels.py's sweep, N=128, one chunk, ragged sizes,
      Mamba2-780m's training shape, an odd head count, a state carried
      through 128 chunks and Bt x nc below and far above the SM count;
- 19. train reduced Mamba-2 in float32 for 3 steps on the CPU and on the
+ 23. train reduced Mamba-2 in float32 for 3 steps on the CPU and on the
      card: losses and weights agree; 12 lockstep decode steps agree;
- 20. Mamba-2 training main path: full-width, full-depth Mamba2-780m, bf16,
+ 24. Mamba-2 training main path: full-width, full-depth Mamba2-780m, bf16,
      B=4, S=4096, remat, AdamW: one warm-up step, then 3 timed steps with
      finite loss and grad norm, changed weights and exactly 2 x layers
      forward and 1 x layers backward SSD-scan launches per step; one more
      step runs under torch.profiler;
- 21. lockstep greedy decode of full Mamba2-780m through ``decode_step``
-     (8 prompts of 32 tokens, 32 new tokens): valid tokens, float32 state;
- 22. time the SSD-scan kernels and their plain versions at the training
+ 25. lockstep greedy decode of full Mamba2-780m through ``decode_step``
+     (8 prompts of 32 tokens, 32 new tokens): valid tokens, float32 state,
+     no flash-decode launch;
+ 26. time the SSD-scan kernels and their plain versions at the training
      shape beside the card's least time for the work, the forward's two
      and the backward's four phases apart (torch.profiler), and check that
      the bf16 forward and backward are each bit-identical when run twice;
- 23. hold the prefix-scan kernel bit-equal to its plain version (torch.cumsum)
+ 27. hold the prefix-scan kernel bit-equal to its plain version (torch.cumsum)
      on tests/test_prefix_scan.py's shapes, empty shapes, one row of 2^20,
      bool/uint8/int32 input, 3-D leading axes, strided and offset views and
      the sweep's (65536, 10000) block;
- 24. the architecture zoo: for all 13 registered architectures the torch
+ 28. the architecture zoo: for all 13 registered architectures the torch
      sweep on the card equals the port's numpy sweep on 4096 counter
      snapshots of 10,000 nodes at TP 16/32/64/24 (chunks of 1 and 8192), on
      all-healthy and all-faulty rows and masks narrower and wider than the
      cluster; tpuv4's over-placement at TP-24 shows;
- 25. Fig. 13 / Table 7: 1000 trace snapshots of 720 nodes, torch grids equal
+ 29. Fig. 13 / Table 7: 1000 trace snapshots of 720 nodes, torch grids equal
      numpy, waste at TP-32 in the paper's bands and order;
- 26. sweep main path (benchmarks/scale.py's configuration): 1,000,000
+ 30. sweep main path (benchmarks/scale.py's configuration): 1,000,000
      counter snapshots of 10,000 nodes at 7%, TP-32, InfiniteHBD-K3 and
      NVL-72 through ``run_sweep(backend="torch")`` with masks drawn on the
      card in blocks of 65,536: snapshots/s, peak memory, mean waste, exactly
      2 prefix-scan launches per block, the first 16,384 rows equal to the
      host numpy path and to a chunk-8192 run; two blocks under
      torch.profiler, then the draw and the waste kernels each alone;
- 27. time the prefix-scan kernel, its plain version and torch.cumsum at the
+ 31. time the prefix-scan kernel, its plain version and torch.cumsum at the
      sweep's block beside the bytes bound.
 
 The last lines are the script's time, the ``{"kernels": ...}`` record, the
@@ -474,7 +493,7 @@ def serve_full(torch, cfg=None):
         raise AssertionError("a token outside the vocabulary")
     if counters.get("serve.requests_completed") != n_req:
         raise AssertionError(f"completed {counters.get('serve.requests_completed')}")
-    per_step = cfg.num_layers * (2 if cfg.is_encdec else 1)
+    per_step = attention_layers(cfg) * (2 if cfg.is_encdec else 1)
     if launches != per_step * steps:
         raise AssertionError(f"decode_attention launched {launches} times in "
                              f"{steps} decode steps of {per_step} attention calls")
@@ -576,26 +595,31 @@ def decode_bufs(torch, s, max_len=None, slots=False, b=8, hq=24, hkv=2, d=128):
     return [(q, k, v, lengths) for q, k, v, _ in bufs]
 
 
-def time_decode_attention(torch, label, s, max_len=None, slots=False):
-    """Kernel, plain version and SDPA at B=8 StarCoder2 heads, bf16, over a
-    cache of S slots (see ``decode_bufs``)."""
+def time_decode_attention(torch, label, s, max_len=None, slots=False, hq=24, hkv=2, d=128,
+                          window=0):
+    """Kernel, plain version and SDPA at B=8 StarCoder2 heads (or ``hq``
+    query heads over ``hkv`` KV heads of ``d``), bf16, over a cache of S
+    slots (see ``decode_bufs``); the slot form masks by ``window``."""
+    import functools
+
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
 
-    b, hq, hkv, d = 8, 24, 2, 128
-    bufs = decode_bufs(torch, s, max_len, slots)
+    b = 8
+    bufs = decode_bufs(torch, s, max_len, slots, b, hq, hkv, d)
     n_buf = len(bufs)
     if slots:
         from repro_torch.kernels.decode_attention import (decode_attention_cache,
                                                           decode_attention_cache_ref)
         from repro_torch.kernels.decode_attention.ref import slot_mask
 
-        masks = [slot_mask(sp, qp)[:, None, None, :] for _, _, _, sp, qp in bufs]
+        masks = [slot_mask(sp, qp, window)[:, None, None, :] for _, _, _, sp, qp in bufs]
         sdpa_in = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
                    for q, k, v, _, _ in bufs]
         live = sum(int(m.sum().item()) for m in masks) // n_buf
-        kernel_fn, plain_fn = decode_attention_cache, decode_attention_cache_ref
+        kernel_fn, plain_fn = (functools.partial(f, window=window) for f in
+                               (decode_attention_cache, decode_attention_cache_ref))
     else:
         lengths = bufs[0][3]
         mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
@@ -630,7 +654,7 @@ def time_decode_attention(torch, label, s, max_len=None, slots=False):
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS) * 1e3
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_FLOPS else "operations"
     print(f"time decode_attention {label}: B={b} Hq={hq} Hkv={hkv} D={d} S={s} "
-          f"live keys {live}, bf16: kernel {kernel_ms * 1e3:.2f} us on the card "
+          f"window {window}, live keys {live}, bf16: kernel {kernel_ms * 1e3:.2f} us on the card "
           f"({nbytes / kernel_ms / 1e6:.0f} GB/s; {device_ms * 1e3:.2f} us of kernel time "
           f"in torch.profiler), {kernel_eager_ms * 1e3:.2f} us eager; bound {bound_ms * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB); "
           f"plain {plain_ms * 1e3:.2f} us; sdpa {library_ms * 1e3:.2f} us on the "
@@ -907,7 +931,7 @@ def band_check(torch, label, dname, fwd, ref_fwd, grads, ref_grads, split, split
 def train_reduced_against_cpu(torch, arch="starcoder2", adam_eps=1e-8):
     """3 AdamW steps of a reduced config (StarCoder2 unless ``arch`` is
     given) in float32 on the CPU (plain versions) and on the card (kernels),
-    from the same weights."""
+    from the same weights.  Returns the trained (CPU, card) models."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.models import init_params
@@ -934,15 +958,16 @@ def train_reduced_against_cpu(torch, arch="starcoder2", adam_eps=1e-8):
         raise AssertionError("reduced training on the card launched no flash kernel")
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
     cpu_p = dict(cpu_model.named_parameters())
-    param_err = max((p.detach().cpu() - cpu_p[n].detach()).abs().max().item()
-                    for n, p in card_model.named_parameters())
+    param_err, worst = max(((p.detach().cpu() - cpu_p[n].detach()).abs().max().item(), n)
+                           for n, p in card_model.named_parameters())
     ok = loss_err <= TRAIN_TOL["loss_rel"] and param_err <= TRAIN_TOL["param_abs"]
-    print(f"reference: reduced {cfg.name}, float32, 3 AdamW steps: losses card "
-          f"{losses['cuda']} cpu {losses['cpu']}, max loss rel err {loss_err:.2e} "
-          f"(tol {TRAIN_TOL['loss_rel']}), max weight abs err {param_err:.2e} (tol "
-          f"{TRAIN_TOL['param_abs']}) {'ok' if ok else 'FAIL'}")
+    print(f"reference: reduced {cfg.name}, float32, 3 AdamW steps (eps {adam_eps}): losses "
+          f"card {losses['cuda']} cpu {losses['cpu']}, max loss rel err {loss_err:.2e} "
+          f"(tol {TRAIN_TOL['loss_rel']}), max weight abs err {param_err:.2e} in {worst} "
+          f"(tol {TRAIN_TOL['param_abs']}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("reduced training: card and CPU disagree")
+    return cpu_model, card_model
 
 
 # The decoder configs whose reduced versions run on card and CPU: sliding
@@ -1053,6 +1078,27 @@ def check_vlm_encdec_flash(torch):
     return errs
 
 
+def decode_rel(out, ref):
+    """Flash-decode's max abs error over the RMS of the plain version's output."""
+    return ((out.float() - ref.float()).abs().max() / ref.float().square().mean().sqrt()).item()
+
+
+def decode_judge(torch, label, out, ref, qdt):
+    """Hold a flash-decode output to its plain version's: within TOL's bf16
+    tolerance absolutely and DECODE_REL_TOL of its RMS.  Returns the max abs
+    error; raises on a disagreement."""
+    err = (out.float() - ref.float()).abs().max().item()
+    r = decode_rel(out, ref)
+    tol = TOL["bfloat16"]
+    ok = out.dtype == qdt and out.shape == ref.shape and r <= DECODE_REL_TOL and \
+        torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+    print(f"decode_attention {label}: max_abs_err {err:.3e} (tol {tol}), over the "
+          f"reference's RMS {r:.3e} (tol {DECODE_REL_TOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"decode_attention disagrees with its plain version on {label}")
+    return err
+
+
 def check_vlm_encdec_decode(torch):
     """Flash-decode at PaliGemma's serving shape (slot form, MQA 8 over 1
     KV head, D=256, bf16, a cache filled below position 64 and a wrapped
@@ -1067,23 +1113,6 @@ def check_vlm_encdec_decode(torch):
                                                       decode_attention_ref)
 
     bf, f32 = torch.bfloat16, torch.float32
-
-    def rel(out, ref):
-        return ((out.float() - ref.float()).abs().max()
-                / ref.float().square().mean().sqrt()).item()
-
-    def judge(label, out, ref, qdt):
-        err = (out.float() - ref.float()).abs().max().item()
-        r = rel(out, ref)
-        tol = TOL["bfloat16"]
-        ok = out.dtype == qdt and out.shape == ref.shape and r <= DECODE_REL_TOL and \
-            torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
-        print(f"decode_attention {label}: max_abs_err {err:.3e} (tol {tol}), over the "
-              f"reference's RMS {r:.3e} (tol {DECODE_REL_TOL}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"decode_attention disagrees with its plain version on {label}")
-        return err
-
     errs = []
     for seed, (what, lo, hi) in enumerate([("filled below position 64", 0, 64),
                                            ("wrapped", 1024, 4000)]):
@@ -1091,16 +1120,16 @@ def check_vlm_encdec_decode(torch):
         out = decode_attention_cache(q, k, v, sp, qp)
         ref = decode_attention_cache_ref(q, k, v, sp, qp)
         torch.cuda.synchronize()
-        errs.append(judge(f"PaliGemma slots B=8 Hq=8 Hkv=1 D=256 W=1024 bf16, {what}",
-                          out, ref, bf))
+        errs.append(decode_judge(
+            torch, f"PaliGemma slots B=8 Hq=8 Hkv=1 D=256 W=1024 bf16, {what}", out, ref, bf))
     q, k, v, lengths = attention_inputs(torch, 410, 8, 12, 12, 64, 1500, bf, f32)
     lengths.fill_(1500)
     out = decode_attention(q, k, v, lengths)
     ref = decode_attention_ref(q, k, v, lengths)
     torch.cuda.synchronize()
-    errs.append(judge("Whisper cross-attention B=8 L=1500 Hq=Hkv=12 D=64, bf16 q over a "
-                      "float32 cache, every key live", out, ref, bf))
-    bad = rel(out, decode_attention_ref(q, k, v, lengths - 64))
+    errs.append(decode_judge(torch, "Whisper cross-attention B=8 L=1500 Hq=Hkv=12 D=64, bf16 "
+                             "q over a float32 cache, every key live", out, ref, bf))
+    bad = decode_rel(out, decode_attention_ref(q, k, v, lengths - 64))
     print(f"decode_attention Whisper cross-attention: the plain version planted with key "
           f"length 1500 - 64: over its RMS {bad:.3e} (tol {DECODE_REL_TOL})")
     if bad <= DECODE_REL_TOL:
@@ -1108,17 +1137,144 @@ def check_vlm_encdec_decode(torch):
     return max(errs)
 
 
+# RecurrentGemma-2B's local attention in training: B=1, S=4096 past its 2048
+# window, MQA (10 query heads over 1 KV head) at D=256, bf16: the fp32
+# CUDA-core kernels.  Its serving shape: 8 lanes over a 2048-slot ring,
+# positions past 2048 so that the ring has wrapped.
+RECURRENTGEMMA_FLASH = ("RecurrentGemma local attention", 1, 4096, 4096, 10, 1, 256,
+                        dict(causal=True, window=2048))
+RECURRENTGEMMA_DECODE = dict(b=8, hq=10, hkv=1, d=256, w=2048)
+
+
+def check_recurrentgemma_kernels(torch):
+    """The flash kernels at RecurrentGemma's training shape against their
+    plain versions, absolutely (``flash_case``) and per band of 64 rows
+    against the reference's scale (``band_check``, rows before and from the
+    window), with plain versions planted with windows of 2048 - 64 and
+    2048 + 64 caught; flash-decode's slot form at its serving shape on a
+    wrapped ring, with a plain version planted with a window of 2048 - 64
+    caught.  Returns the largest errors."""
+    from repro_torch.kernels.decode_attention import (decode_attention_cache,
+                                                      decode_attention_cache_ref)
+
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    label, b, sq, sk, hq, hkv, d, kw = RECURRENTGEMMA_FLASH
+    (q, k, v, g), fwd, ref_fwd, grads, ref_grads = flash_case(
+        torch, f"{label} B={b} S={sq} Hq={hq} Hkv={hkv} D={d} window {kw['window']}",
+        "bfloat16", 600, b, sq, sk, hq, hkv, d, kw, errs)
+    w = kw["window"]
+    plants = [(f"window {p}", lambda p=p: planted(torch, q, k, v, g, fwd, causal=True, window=p))
+              for p in (w - 64, w + 64)]
+    band_check(torch, label, "bfloat16", fwd, ref_fwd, grads, ref_grads, w, plants=plants,
+               where="the window")
+    del q, k, v, g, fwd, ref_fwd, grads, ref_grads
+    torch.cuda.empty_cache()
+
+    bf = torch.bfloat16
+    dc = RECURRENTGEMMA_DECODE
+    q, k, v, sp, qp = slot_inputs(torch, 610, dc["b"], dc["hq"], dc["hkv"], dc["d"], dc["w"],
+                                  bf, bf, dc["w"], 4 * dc["w"])
+    out = decode_attention_cache(q, k, v, sp, qp, window=dc["w"])
+    ref = decode_attention_cache_ref(q, k, v, sp, qp, window=dc["w"])
+    torch.cuda.synchronize()
+    errs["decode"] = decode_judge(
+        torch, f"RecurrentGemma slots B={dc['b']} Hq={dc['hq']} Hkv={dc['hkv']} D={dc['d']} "
+        f"W={dc['w']} window {dc['w']} bf16, wrapped (positions {int(qp.min())}-"
+        f"{int(qp.max())})", out, ref, bf)
+    bad = decode_rel(out, decode_attention_cache_ref(q, k, v, sp, qp, window=dc["w"] - 64))
+    print(f"decode_attention RecurrentGemma slots: the plain version planted with window "
+          f"{dc['w'] - 64}: over its RMS {bad:.3e} (tol {DECODE_REL_TOL})")
+    if bad <= DECODE_REL_TOL:
+        raise AssertionError("the decode check passes a plain version with a window 64 short")
+    return errs
+
+
+def lockstep_tokens(torch, model, toks):
+    """Greedy next tokens of ``decode_step`` fed the (lanes, steps) host
+    tokens ``toks``, every lane at the same position, from a float32 cache
+    of ``steps`` slots (a windowed layer's ring is cut to its window)."""
+    from repro_torch.models import decode_step, init_cache
+
+    lanes, steps = toks.shape
+    cache = init_cache(model, lanes, steps, dtype=torch.float32)
+    got = [decode_step(model, cache, toks[:, i:i + 1], np.full(lanes, i))[0].cpu()
+           for i in range(steps)]
+    return torch.stack(got, 1).tolist()
+
+
+# Adam's eps in RecurrentGemma's card-against-CPU training.  Its float32
+# gradients agree to ~1e-5 of each tensor's largest entry (the embedding's
+# differ by up to ~2e-6 absolutely), but entries of ~1e-9 (an MLP gate) or
+# ~1e-6 (embedding rows) are then rounding noise, and at eps 1e-8 or 1e-6
+# Adam turns such an entry into a move that differs by ~lr / 10, over
+# TRAIN_TOL's 1e-4.  At eps 1e-3 three steps move an entry by at most
+# 3 lr 2e-6 / eps = 1.8e-5 more on one side.  The gradients themselves are
+# held to REDUCED_GRAD_TOL of each tensor's largest entry first.
+RECURRENT_ADAM_EPS = 1e-3
+REDUCED_GRAD_TOL = 5e-5
+
+
+def recurrentgemma_reduced_against_cpu(torch):
+    """Reduced RecurrentGemma (rglru, rglru, swa; window 32) in float32 on
+    the CPU (plain versions) and on the card (kernels): every parameter's
+    gradient of one batch agrees within REDUCED_GRAD_TOL of its largest
+    entry, 3 AdamW steps agree (``train_reduced_against_cpu``), then 48
+    lockstep decode steps of 3 lanes, past the window and around the 32-slot
+    ring, give the same tokens on both."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import forward, init_params, lm_loss
+    from repro_torch.train import synthetic_batch
+
+    cfg = get_arch("recurrentgemma").reduced()
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(4), device="cpu",
+                            dtype=torch.float32)
+    host = synthetic_batch(cfg, 0, 4, 64)
+    grads = {}
+    for dev, m in (("cpu", cpu_model), ("cuda", copy.deepcopy(cpu_model).to("cuda"))):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        names, params = zip(*m.named_parameters())
+        loss = lm_loss(m, forward(m, batch), batch["labels"])
+        grads[dev] = dict(zip(names, (g.cpu() for g in torch.autograd.grad(loss, params))))
+    rel, worst = max(((grads["cuda"][n] - g).abs().max().item()
+                      / g.abs().max().clamp_min(1e-30).item(), n)
+                     for n, g in grads["cpu"].items())
+    print(f"reference: reduced {cfg.name}, float32 gradients of one batch, card against "
+          f"CPU: largest err / max|grad| {rel:.2e} in {worst} (tol {REDUCED_GRAD_TOL}) "
+          f"{'ok' if rel <= REDUCED_GRAD_TOL else 'FAIL'}")
+    if rel > REDUCED_GRAD_TOL:
+        raise AssertionError("reduced RecurrentGemma gradients: card and CPU disagree")
+    models = train_reduced_against_cpu(torch, "recurrentgemma", adam_eps=RECURRENT_ADAM_EPS)
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (3, 48))
+    launches = decode_attention.launches
+    out = {dev: lockstep_tokens(torch, m, toks) for dev, m in zip(("cpu", "cuda"), models)}
+    if decode_attention.launches == launches:
+        raise AssertionError("reduced RecurrentGemma decoded on the card without flash-decode")
+    if out["cpu"] != out["cuda"]:
+        raise AssertionError(f"reduced RecurrentGemma lockstep decode: card {out['cuda']} != "
+                             f"cpu {out['cpu']}")
+    print(f"reference: reduced {cfg.name}, float32, 48 lockstep decode steps of 3 lanes past "
+          f"the window of {cfg.window}: card tokens equal the CPU's")
+
+
+def attention_layers(cfg):
+    """The number of decoder layers with self-attention: a Mamba-2 or
+    RG-LRU layer has none."""
+    return sum(cfg.pattern_at(i) in ("attn", "swa", "chunked")
+               for i in range(cfg.num_layers))
+
+
 def attention_flops(cfg, batch, seq):
     """Model FLOPs of attention scores and values in one training step:
     forward 4 * pairs * D per head, backward twice that, where the pairs are
     the (query, key) pairs each layer's mask keeps: causal, within the
     window (``swa``) or within the chunk (``chunked``), all pairs of the
-    prefix both ways."""
+    prefix both ways; a layer kind without attention keeps none."""
     p = cfg.prefix_len
     pairs = {"attn": seq * (seq + 1) // 2 + p * (p - 1) // 2,
              "swa": sum(min(q + 1, cfg.window) for q in range(seq)) if cfg.window else 0,
              "chunked": sum(q % cfg.window + 1 for q in range(seq)) if cfg.window else 0}
-    total = sum(pairs[cfg.pattern_at(i)] for i in range(cfg.num_layers))
+    total = sum(pairs.get(cfg.pattern_at(i), 0) for i in range(cfg.num_layers))
     return 3 * 4 * total * cfg.head_dim * cfg.n_heads * batch
 
 
@@ -1148,10 +1304,9 @@ def flash_calls(cfg):
     with remat: each decoder layer's self-attention, and cross-attention
     where it has one, runs forward twice (the remat recompute) and backward
     once; each encoder layer, which ``encode`` does not recompute, once
-    each."""
-    per_layer = 2 if cfg.is_encdec else 1
-    return (2 * per_layer * cfg.num_layers + cfg.enc_layers,
-            per_layer * cfg.num_layers + cfg.enc_layers)
+    each.  Recurrent layers launch none."""
+    calls = attention_layers(cfg) * (2 if cfg.is_encdec else 1)
+    return 2 * calls + cfg.enc_layers, calls + cfg.enc_layers
 
 
 MOE_RANGES = ("moe.route", "moe.scatter", "moe.experts", "moe.combine")
@@ -1161,7 +1316,7 @@ MOE_BACKWARD = ("SoftmaxBackward0", "SortBackward0", "IndexPutBackward0",
                 "IndexSelectBackward0", "BmmBackward0")
 
 
-def moe_device_ms(prof, names):
+def range_device_ms(prof, names):
     """Device ms of each profiler range or autograd node in ``names``, from
     a profile that traced the CPU side too."""
     avg = {e.key: e for e in prof.key_averages()}
@@ -1209,10 +1364,14 @@ def train_full(torch, cfg=None, batch=1, seq=4096, timed=3):
     state = init_train_state(cfg, tc, 0, device="cuda", dtype=torch.bfloat16)
     model = state["params"]
     torch.cuda.synchronize()
+    # N counts the model's tensors (a tied embedding once); the config's
+    # analytic param_count() is printed beside it (for RG-LRU layers it
+    # leaves out w_r, w_i and the conv, as repro's formula does)
     n_params = sum(p.numel() for p in model.parameters())
     n_active = n_params - (cfg.param_count() - cfg.active_param_count())
     print(f"train: {cfg.name}, {depth(cfg)}, d_model {cfg.d_model}, "
-          f"{n_params / 1e9:.4f} B parameters ({n_active / 1e9:.4f} B active a token), "
+          f"{n_params / 1e9:.4f} B parameters by numel (param_count() "
+          f"{cfg.param_count() / 1e9:.4f} B; {n_active / 1e9:.4f} B active a token), "
           f"AdamW state made in {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     step = make_train_step(cfg, tc)
@@ -1240,8 +1399,9 @@ def train_full(torch, cfg=None, batch=1, seq=4096, timed=3):
     torch.cuda.synchronize()
     print(f"train: {cfg.name}: warm-up step loss {float(m['loss']):.4f} grad_norm "
           f"{float(m['grad_norm']):.4f}")
-    last = model.layers[-1]
-    watch = {"embed": model.embed, "wq0": model.layers[0].attn["wq"],
+    last, first = model.layers[-1], model.layers[0]
+    first_w = first.attn["wq"] if first.attn is not None else first.rglru["w_x"]
+    watch = {"embed": model.embed, f"{first.kind}0": first_w,
              f"w_down{len(model.layers) - 1}":
                  last.moe.w_down if last.moe is not None else last.mlp["w_down"]}
     if model.enc is not None:
@@ -1293,7 +1453,8 @@ def train_full(torch, cfg=None, batch=1, seq=4096, timed=3):
           + "; grad norms " + ", ".join(f"{x['grad_norm']:.4f}" for x in metrics)
           + f"; weights changed {changed}")
     print(f"train: {cfg.name}: flash_attention launches {fwd} forward = {want_fwd} x {timed} "
-          f"steps, {bwd} backward = {want_bwd} x {timed} ({cfg.num_layers} decoder layers"
+          f"steps, {bwd} backward = {want_bwd} x {timed} ({attention_layers(cfg)} of "
+          f"{cfg.num_layers} decoder layers attend"
           + (f" with cross-attention, {cfg.enc_layers} encoder layers)" if cfg.is_encdec
              else ")"))
     if cfg.n_experts:
@@ -1306,8 +1467,11 @@ def train_full(torch, cfg=None, batch=1, seq=4096, timed=3):
               f"{drops['uniform'][0]} of {drops['uniform'][1]} with the initial weights "
               f"on uniformly drawn tokens")
 
-    # an MoE step also traces the CPU side, for the device time of its ranges
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cfg.n_experts else [])
+    # an MoE or RG-LRU step also traces the CPU side, for the device time of
+    # its ranges
+    rglru = "rglru" in cfg.layer_pattern
+    acts = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if cfg.n_experts or rglru else [])
     with profile(activities=acts) as prof:
         t1 = time.perf_counter()
         state, m = step(state, batch_at(1 + timed))
@@ -1324,8 +1488,19 @@ def train_full(torch, cfg=None, batch=1, seq=4096, timed=3):
         gemm_ms = grp["cuBLAS GEMM"] + grp["other GEMM"]
         print(f"profile: {cfg.name}: flash-attention kernels {100 * flash_ms / busy['busy_ms']:.1f}% "
               f"and GEMMs {100 * gemm_ms / busy['busy_ms']:.1f}% of the step's busy time")
+        if rglru:
+            # the RG-LRU scan's forward (twice with remat) and backward run
+            # under the "rglru.scan" range
+            scan_ms = range_device_ms(prof, ["rglru.scan"])["rglru.scan"]
+            rest_ms = busy["busy_ms"] - flash_ms - gemm_ms - scan_ms
+            shares = {"flash": flash_ms, "rglru.scan": scan_ms, "gemm": gemm_ms,
+                      "rest": rest_ms}
+            print(f"profile: {cfg.name}: device ms in the step: " + ", ".join(
+                f"{k} {v:.1f} ({100 * v / busy['busy_ms']:.1f}%)" for k, v in shares.items())
+                + f" of {busy['busy_ms']:.1f} busy ms (rest: elementwise, norms, optimizer, "
+                  f"copies)")
     if cfg.n_experts and busy:
-        ms = moe_device_ms(prof, MOE_RANGES + MOE_BACKWARD)
+        ms = range_device_ms(prof, MOE_RANGES + MOE_BACKWARD)
         share = {
             "route": ms["moe.route"] + ms["SoftmaxBackward0"] + ms["SortBackward0"],
             "scatter": ms["moe.scatter"] + ms["IndexPutBackward0"],
@@ -1423,13 +1598,18 @@ def time_flash_attention(torch, label="StarCoder2", b=1, sq=4096, sk=None, hq=24
     qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     gs = g.transpose(1, 2)
     prefix = kw.get("prefix_len", 0)
+    window = kw.get("window", 0)
     causal = kw.get("causal", True)
-    # SDPA takes the prefix-LM mask as an explicit boolean mask
-    mask = None
+    # the (query, key) pairs the mask keeps; SDPA takes a window or a
+    # prefix-LM mask as an explicit boolean mask
+    i = torch.arange(sq, device="cuda")[:, None]
+    j = torch.arange(sk, device="cuda")[None, :]
+    keep = (i >= j) if causal else torch.ones((sq, sk), dtype=torch.bool, device="cuda")
+    if window:
+        keep &= i - j < window
     if causal and prefix:
-        i = torch.arange(sq, device="cuda")[:, None]
-        j = torch.arange(sk, device="cuda")[None, :]
-        mask = (i >= j) | (j < prefix)
+        keep |= j < prefix
+    mask = keep if window or (causal and prefix) else None
 
     def sdpa():
         return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
@@ -1442,7 +1622,7 @@ def time_flash_attention(torch, label="StarCoder2", b=1, sq=4096, sk=None, hq=24
     lib_fwd = eager_ms(torch, lambda i: sdpa(), 1, iters=10, repeats=3)
     lib_both = eager_ms(torch, lambda i: sdpa_both(), 1, iters=10, repeats=3)
     lib_bwd = lib_both - lib_fwd
-    pairs = b * hq * (sq * (sq + 1) // 2 + prefix * (prefix - 1) // 2 if causal else sq * sk)
+    pairs = b * hq * int(keep.sum().item())
     elt = q.element_size()
     peak = BF16_FLOPS if dname == "bfloat16" else FP32_FLOPS
     qo = elt * b * sq * hq * d                 # bytes of one (B, Sq, Hq, D) tensor
@@ -1474,7 +1654,7 @@ def time_flash_attention(torch, label="StarCoder2", b=1, sq=4096, sk=None, hq=24
               f"{peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB), {tail}")
         res[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
                      "library_ms": lib}
-    del q, k, v, g, out, lse, qs, ks, vs, gs
+    del q, k, v, g, out, lse, qs, ks, vs, gs, keep, mask
     torch.cuda.empty_cache()
     return res
 
@@ -1602,7 +1782,7 @@ def train_mamba_reduced_against_cpu(torch):
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
-    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.models import init_params
     from repro_torch.train import (OptConfig, TrainConfig, init_opt_state,
                                    make_train_step, synthetic_batch)
 
@@ -1636,12 +1816,8 @@ def train_mamba_reduced_against_cpu(torch):
     if not ok:
         raise AssertionError("reduced Mamba-2 training: card and CPU disagree")
     toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (3, 12))
-    out = {}
-    for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
-        cache = init_cache(model, 3, 24, dtype=torch.float32)
-        got = [decode_step(model, cache, toks[:, i:i + 1], np.full(3, i))[0].cpu()
-               for i in range(12)]
-        out[dev] = torch.stack(got, 1).tolist()
+    out = {dev: lockstep_tokens(torch, m, toks)
+           for dev, m in (("cpu", cpu_model), ("cuda", card_model))}
     if out["cpu"] != out["cuda"]:
         raise AssertionError(f"reduced Mamba-2 lockstep decode: card {out['cuda']} != "
                              f"cpu {out['cpu']}")
@@ -1758,20 +1934,27 @@ def train_mamba_full(torch, batch=4, seq=4096, timed=3):
             "tok_per_s": tokens / step_s, "mfu": mfu, "peak_gb": peak / 1e9}
 
 
-def decode_mamba_lockstep(torch, lanes=8, prompt_len=32, new=32):
-    """Greedy decode of full Mamba2-780m through decode_step, every lane at
-    the same position (no engine: ServeEngine refuses recurrent configs)."""
+def decode_lockstep(torch, cfg=None, lanes=8, prompt_len=32, new=32):
+    """Greedy decode of a full recurrent config (Mamba2-780m unless ``cfg``
+    is given) through decode_step, every lane at the same position (no
+    engine: ServeEngine refuses recurrent configs).  Each step launches
+    flash-decode once per attention layer; every recurrent state stays
+    finite (the SSD state float32, the RG-LRU state in the cache's bf16)."""
     import numpy as np
 
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.models import decode_step, init_cache, init_params
 
-    cfg = get_arch("mamba2")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = cfg or get_arch("mamba2")
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
                         dtype=torch.bfloat16)
     cache = init_cache(model, lanes, prompt_len + new)
     prompts = np.random.default_rng(8).integers(0, cfg.vocab_size, (lanes, prompt_len))
     torch.cuda.synchronize()
+    decode_attention.launches = 0
     t0 = time.perf_counter()
     for i in range(prompt_len):
         nxt, cache = decode_step(model, cache, prompts[:, i:i + 1], np.full(lanes, i))
@@ -1783,24 +1966,36 @@ def decode_mamba_lockstep(torch, lanes=8, prompt_len=32, new=32):
         out.append(nxt.cpu().numpy())
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    launches = decode_attention.launches
     toks = np.stack(out, 1)
     if toks.shape != (lanes, new) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
         raise AssertionError(f"lockstep decode: bad tokens {toks.shape} in "
                              f"[{toks.min()}, {toks.max()}]")
-    bad = [i for i, c in enumerate(cache) if c["state"].dtype != torch.float32
-           or not bool(torch.isfinite(c["state"]).all())]
+    states = {i: c.get("state", c.get("h")) for i, c in enumerate(cache)
+              if "state" in c or "h" in c}
+    want_dtype = {i: torch.float32 if "state" in cache[i] else torch.bfloat16 for i in states}
+    bad = [i for i, st in states.items() if st.dtype != want_dtype[i]
+           or not bool(torch.isfinite(st).all())]
     if bad:
-        raise AssertionError(f"lockstep decode: SSD state of layers {bad} is not finite fp32")
+        raise AssertionError(f"lockstep decode: recurrent state of layers {bad} is not finite "
+                             f"or not in its dtype")
     steps = prompt_len + new - 1
+    per_step = attention_layers(cfg)
+    if launches != per_step * steps:
+        raise AssertionError(f"decode_attention launched {launches} times in {steps} lockstep "
+                             f"steps of {per_step} attention layers")
+    ms = (t2 - t1) / (new - 1) * 1e3
     print(f"decode: {cfg.name} lockstep, {lanes} lanes, {prompt_len} prompt + {new} new "
           f"tokens: {(t1 - t0) / prompt_len * 1e3:.3f} ms per prefill step, "
-          f"{(t2 - t1) / (new - 1) * 1e3:.3f} ms per decode step "
-          f"({lanes * (new - 1) / (t2 - t1):.1f} tok/s), {steps} steps; tokens in "
-          f"[0, {cfg.vocab_size}), {len(cache)} float32 states finite; lane 0: "
+          f"{ms:.3f} ms per decode step ({lanes * (new - 1) / (t2 - t1):.1f} tok/s), "
+          f"{steps} steps; tokens in [0, {cfg.vocab_size}), {len(states)} recurrent states "
+          f"finite ({', '.join(sorted({str(t) for t in want_dtype.values()}))}); "
+          f"decode_attention launches {launches} = {per_step} x {steps}; lane 0: "
           f"{toks[0, :8].tolist()}")
     del model, cache
     gc.collect()
     torch.cuda.empty_cache()
+    return {"launches": launches, "steps": steps, "ms_per_step": ms}
 
 
 def time_ssd_scan(torch, bt=4, s=4096, h=48, p=64, n=128, q=128):
@@ -2288,10 +2483,39 @@ def main() -> int:
     print(f"vlm/encdec: the PaliGemma and Whisper phases (flash and flash-decode at their "
           f"shapes, reduced models against the CPU, PaliGemma-3B and Whisper-small trained "
           f"and served, flash timed at their shapes) took {vlm_s:.1f} s")
+
+    t_rg = time.perf_counter()
+    rg_errs = check_recurrentgemma_kernels(torch)
+    recurrentgemma_reduced_against_cpu(torch)
+    recurrentgemma = get_arch("recurrentgemma")
+    rg_runs = {"train": train_full(torch, recurrentgemma, batch=1, seq=4096),
+               "decode": decode_lockstep(torch, recurrentgemma)}
+    label, b, sq, sk, hq, hkv, d, kw = RECURRENTGEMMA_FLASH
+    rg_times = {
+        "recurrentgemma_window2048_d256_bf16": time_flash_attention(
+            torch, label, b, sq, sk, hq, hkv, d, "bfloat16", kw),
+        "recurrentgemma_causal_d256_bf16": time_flash_attention(
+            torch, "RecurrentGemma shape, causal only", b, sq, sk, hq, hkv, d, "bfloat16",
+            dict(causal=True)),
+    }
+    kept = sum(min(i + 1, kw["window"]) for i in range(sq)) / (sq * (sq + 1) // 2)
+    for pas in ("fwd", "bwd"):
+        win, full = (rg_times[k][pas]["ms"] for k in rg_times)
+        print(f"time flash_attention {pas} RecurrentGemma shape: window {kw['window']} / "
+              f"causal {win:.3f} / {full:.3f} ms = {win / full:.3f} (the window keeps "
+              f"{kept:.4f} of the causal pairs)")
+    dc = RECURRENTGEMMA_DECODE
+    rg_decode_time = time_decode_attention(torch, "RecurrentGemma slots wrapped W=2048",
+                                           dc["w"], None, True, dc["hq"], dc["hkv"], dc["d"],
+                                           window=dc["w"])
+    rg_s = time.perf_counter() - t_rg
+    print(f"recurrentgemma: the RecurrentGemma phases (flash and flash-decode at its shapes, "
+          f"the reduced model against the CPU, RecurrentGemma-2B trained and decoded in "
+          f"lockstep, flash and flash-decode timed at its shapes) took {rg_s:.1f} s")
     ssd_errs = check_ssd_scan(torch)
     train_mamba_reduced_against_cpu(torch)
     mamba = train_mamba_full(torch)
-    decode_mamba_lockstep(torch)
+    decode_lockstep(torch)
     ssd_times = time_ssd_scan(torch)
     scan_err = check_prefix_scan(torch)
     check_sweep_zoo(torch)
@@ -2299,8 +2523,8 @@ def main() -> int:
     sweep = sweep_main_path(torch)
     scan_times = time_prefix_scan(torch)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, of which the "
-          f"decoder-config phases {decoders_s:.1f} s and the PaliGemma and Whisper phases "
-          f"{vlm_s:.1f} s")
+          f"decoder-config phases {decoders_s:.1f} s, the PaliGemma and Whisper phases "
+          f"{vlm_s:.1f} s and the RecurrentGemma phases {rg_s:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
@@ -2322,7 +2546,9 @@ def main() -> int:
         "launches_llama4_serve": decoder_runs["llama4_serve"]["launches"],
         "launches_paligemma_serve": vlm_runs["paligemma_serve"]["launches"],
         "launches_whisper_serve": vlm_runs["whisper_serve"]["launches"],
-        "max_err_model_shapes": vlm_decode_err,
+        "launches_recurrentgemma_decode": rg_runs["decode"]["launches"],
+        "max_err_model_shapes": max(vlm_decode_err, rg_errs["decode"]),
+        "recurrentgemma_slots_wrapped_W2048": rg_decode_time,
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -2336,8 +2562,9 @@ def main() -> int:
         "launches_mixtral_train": decoder_runs["mixtral_train"]["fwd"],
         "launches_paligemma_train": vlm_runs["paligemma_train"]["fwd"],
         "launches_whisper_train": vlm_runs["whisper_train"]["fwd"],
-        "max_err_model_shapes": vlm_flash_errs["fwd"],
-        **{key: t["fwd"] for key, t in vlm_times.items()},
+        "launches_recurrentgemma_train": rg_runs["train"]["fwd"],
+        "max_err_model_shapes": max(vlm_flash_errs["fwd"], rg_errs["fwd"]),
+        **{key: t["fwd"] for key, t in {**vlm_times, **rg_times}.items()},
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -2351,8 +2578,9 @@ def main() -> int:
         "launches_mixtral_train": decoder_runs["mixtral_train"]["bwd"],
         "launches_paligemma_train": vlm_runs["paligemma_train"]["bwd"],
         "launches_whisper_train": vlm_runs["whisper_train"]["bwd"],
-        "max_err_model_shapes": vlm_flash_errs["bwd"],
-        **{key: t["bwd"] for key, t in vlm_times.items()},
+        "launches_recurrentgemma_train": rg_runs["train"]["bwd"],
+        "max_err_model_shapes": max(vlm_flash_errs["bwd"], rg_errs["bwd"]),
+        **{key: t["bwd"] for key, t in {**vlm_times, **rg_times}.items()},
         "passes": {k: {"ms": v["ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"]}
                    for k, v in flash_times.items() if k.startswith("bwd ")},
     }, {

@@ -1,7 +1,6 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-Only the architectures whose every layer kind the port runs are listed;
-the others join with the slices that port their modules.
+Every architecture of ``repro.configs`` is listed, with its aliases.
 """
 
 from .base import ModelConfig
@@ -13,12 +12,13 @@ from .mamba2_780m import CONFIG as MAMBA2
 from .mixtral_8x7b import CONFIG as MIXTRAL
 from .paligemma_3b import CONFIG as PALIGEMMA
 from .qwen25_32b import CONFIG as QWEN25
+from .recurrentgemma_2b import CONFIG as RECURRENTGEMMA
 from .starcoder2_3b import CONFIG as STARCODER2
 from .whisper_small import CONFIG as WHISPER
 
 ARCHS = {c.name: c for c in [
-    LLAMA4, MIXTRAL, MAMBA2, DEEPSEEK, QWEN25, H2O_DANUBE, STARCODER2, WHISPER,
-    PALIGEMMA, GPT_MOE,
+    LLAMA4, MIXTRAL, MAMBA2, DEEPSEEK, QWEN25, H2O_DANUBE, STARCODER2,
+    RECURRENTGEMMA, WHISPER, PALIGEMMA, GPT_MOE,
 ]}
 
 # short aliases for --arch
@@ -30,6 +30,7 @@ ALIASES = {
     "qwen": QWEN25.name,
     "h2o-danube": H2O_DANUBE.name,
     "starcoder2": STARCODER2.name,
+    "recurrentgemma": RECURRENTGEMMA.name,
     "whisper": WHISPER.name,
     "paligemma": PALIGEMMA.name,
     "gpt-moe": GPT_MOE.name,
@@ -39,7 +40,7 @@ ALIASES = {
 def get_arch(name: str) -> ModelConfig:
     name = ALIASES.get(name, name)
     if name not in ARCHS:
-        raise KeyError(f"arch {name!r} is not ported yet; ported: "
+        raise KeyError(f"unknown arch {name!r}; available: "
                        f"{sorted(ARCHS)} (aliases {sorted(ALIASES)})")
     return ARCHS[name]
 

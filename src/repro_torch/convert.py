@@ -29,7 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import Encoder, Layer, Transformer, _check_layer
 
-_SUBTREES = ("norm1", "attn", "ssd", "normx", "xattn", "norm2", "mlp", "moe")
+_SUBTREES = ("norm1", "attn", "ssd", "rglru", "normx", "xattn", "norm2", "mlp", "moe")
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:

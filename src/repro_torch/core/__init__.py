@@ -1,18 +1,35 @@
-"""InfiniteHBD core of the port: the pieces the sweep engine runs on.
+"""InfiniteHBD core of the port: topology, OCSTrx, orchestration, simulators.
 
-Copies of the NumPy-only modules of ``repro.core`` (``prng``, ``trace``,
-``reductions``, ``hbd_models``, ``cost_model``, ``arch`` and
-``orchestrator.healthy_components``), plus the torch threefry draw in
-``prng``.  Topology, OCSTrx, placement and the control plane come with
-later slices.
+Copies of the NumPy-only modules of ``repro.core`` (``ocstrx``,
+``topology``, ``orchestrator``, ``hbd_models``, ``fault_sim``, ``trace``,
+``reductions``, ``cost_model``, ``mfu_sim``, ``arch`` and the host part of
+``placement``), plus the torch threefry draw in ``prng``.  Not yet here:
+``placement.make_orchestrated_mesh``, which builds a mesh, comes with the
+parallel slice, and ``control_plane``, which stands on the DCN engine, with
+the DCN slice (ROADMAP.md § 1 items 6-7).
 """
 
+from .ocstrx import OCSTrx, OCSTrxBundle, Path
+from .topology import KHopRingTopology, TopologyConfig
+from .orchestrator import (IncrementalOrchestrator, Placement,
+                           cross_tor_traffic, deployment_strategy,
+                           greedy_baseline, healthy_components,
+                           orchestrate_dcn_free, orchestrate_fat_tree,
+                           placement_fat_tree)
+from .placement import (InsufficientCapacityError, MeshPlan, plan_mesh,
+                        ring_adjacency_ok)
 from .hbd_models import (BatchedWasteResult, BigSwitch, HBDModel,
                          InfiniteHBDModel, NVLModel, SiPRingModel, TPUv4Model,
                          WasteResult, default_suite)
-from .orchestrator import healthy_components
+from .fault_sim import (fault_waiting_time, fault_waiting_time_batched,
+                        max_job_scale, max_job_scale_batched,
+                        theoretical_waste_bound, trace_grid, waste_over_trace,
+                        waste_over_trace_batched, waste_vs_fault_ratio,
+                        waste_vs_fault_ratio_batched)
 from .trace import (FaultEvent, FaultTrace, generate_trace, iid_fault_masks,
                     iid_fault_sets, to_4gpu_trace)
 from .cost_model import (ALL_BOMS, ArchBOM, Component, INFINITEHBD_K2,
                          INFINITEHBD_K3, NVL36, NVL72, NVL576, TPUV4,
                          aggregate_cost, cost_ratio, table6)
+from .mfu_sim import (Cluster, GPT_MOE_1T, LLAMA31_405B, ParallelPlan,
+                      SimModel, SimResult, search, simulate)

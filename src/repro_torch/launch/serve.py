@@ -11,7 +11,9 @@ bf16 weights of Mixtral-8x7B, DeepSeek-67B, Llama-4 Maverick and GPT-MoE
 exceed one 80 GB card.  PaliGemma is served as text only, as in ``repro``.
 An encoder-decoder config (Whisper) first fills the engine's cache with
 ``encode_to_cache`` over float32 stub frames drawn from seed 0, one
-utterance a slot.
+utterance a slot.  Configs with recurrent layers (Mamba-2, RecurrentGemma)
+are refused by ``ServeEngine`` (see its docstring); ``decode_step`` decodes
+them in lockstep.
 """
 
 from __future__ import annotations

@@ -6,13 +6,15 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2 --full --batch 4 --seq 4096
   PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma --full --batch 1 --seq 4096
   PYTHONPATH=src python -m repro_torch.launch.train --arch whisper --full --batch 16 --seq 448
+  PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma --full --batch 1 --seq 4096
 
 Runs on the card unless ``--device cpu`` is given.  Without ``--full`` the
 model is the arch's ``reduced()`` config, as in ``repro.launch.train``.
 ``--arch`` takes the architectures the port registers (``h2o-danube``,
 ``mixtral``, ``llama4``, ``qwen``, ``deepseek``, ``gpt-moe``, ``starcoder2``,
-``mamba2``, ``paligemma``, ``whisper`` or their full names) and defaults to
-``repro``'s ``h2o-danube``.  ``--seq`` counts PaliGemma's 256 patches;
+``mamba2``, ``recurrentgemma``, ``paligemma``, ``whisper`` or their full
+names) and defaults to ``repro``'s ``h2o-danube``.  ``--seq`` counts
+PaliGemma's 256 patches;
 Whisper's batches also carry 1500 float32 frames a sequence.
 The last line is the JSON summary of ``repro.launch.train``.
 """

@@ -10,12 +10,13 @@ in :func:`forward` (:mod:`repro_torch.kernels.flash_attention`), flash-decode
 in :func:`decode_step` (:mod:`repro_torch.kernels.decode_attention`).  Every
 Mamba-2 (``"ssd"``) layer's forward and backward run the SSD-scan kernels
 (:mod:`repro_torch.models.ssm`); its decode is the plain recurrence, as in
-JAX.
+JAX.  An RG-LRU (``"rglru"``) layer runs :mod:`repro_torch.models.rglru`,
+whose scan is torch code, as ``repro``'s is XLA's.
 
 This port covers the attention kinds (``"attn"``; ``"swa"``, a sliding
 window of ``cfg.window`` positions; ``"chunked"``, attention within chunks
 of ``cfg.window`` positions; ``"enc"``, the bidirectional encoder layers
-without RoPE) and SSD layers, each with a dense MLP or, every
+without RoPE), SSD and RG-LRU layers, each with a dense MLP or, every
 ``moe_every``-th layer of a config with experts, an MoE MLP
 (:mod:`repro_torch.models.moe`).  A VLM config (``cfg.prefix_len``) puts
 ``batch["patches"]`` before the tokens and attends bidirectionally within
@@ -23,9 +24,9 @@ that prefix.  An encoder-decoder config (``cfg.enc_layers``) runs
 :func:`encode` over ``batch["frames"]`` and gives every decoder layer a
 non-causal cross-attention to its output; in serving, :func:`encode_to_cache`
 writes each layer's cross K/V into the cache, and :func:`decode_step` reads
-all of them through flash-decode's lengths form.  The RG-LRU kind raises
-``NotImplementedError`` naming the slice that will port it; nothing runs a
-plain stand-in.
+all of them through flash-decode's lengths form.  A layer kind that
+``repro`` does not have raises ``NotImplementedError``; nothing runs a plain
+stand-in.
 
 Dtypes follow ``repro``'s promotions: ``x @ w`` of float32 activations and
 bf16 weights computes in float32 (:func:`~repro_torch.models.layers.matmul`),
@@ -47,23 +48,24 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_cache
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 
-#: layer kinds that later slices of the port bring in
-LATER_SLICE = {
-    "rglru": "the RG-LRU slice",
-}
+#: layer kinds that later slices of the port bring in (none is left)
+LATER_SLICE: Dict[str, str] = {}
 
 
 def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what!r} is not ported yet: it comes with "
-        f"{LATER_SLICE.get(what, 'a later slice')}")
+    if what in LATER_SLICE:
+        return NotImplementedError(f"{what!r} is not ported yet: it comes with "
+                                   f"{LATER_SLICE[what]}")
+    return NotImplementedError(f"unknown layer kind {what!r}; the port runs "
+                               f"{sorted(MIXERS)}")
 
 
 ATTN_KINDS = ("attn", "swa", "chunked", "enc")
 #: the subtree that holds each layer kind's mixer
-MIXERS = {**dict.fromkeys(ATTN_KINDS, "attn"), "ssd": "ssd"}
+MIXERS = {**dict.fromkeys(ATTN_KINDS, "attn"), "ssd": "ssd", "rglru": "rglru"}
 
 
 def _check_layer(kind: str) -> None:
@@ -76,18 +78,20 @@ def _pdict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class Layer(nn.Module):
-    """One layer: norm1 -> mixer (``attn`` for the attention kinds, ``ssd``),
+    """One layer: norm1 -> mixer (``attn`` for the attention kinds, ``ssd``,
+    ``rglru``),
     in a decoder of an encoder-decoder config normx -> cross-attention
     ``xattn``, then norm2 -> dense ``mlp`` or ``moe`` when the config has an
     MLP, each residual.  The subtrees and their names are those of
     ``repro``'s layer params."""
 
     def __init__(self, kind: str, norm1: Dict, *, attn: Optional[Dict] = None,
-                 ssd: Optional[Dict] = None, normx: Optional[Dict] = None,
+                 ssd: Optional[Dict] = None, rglru: Optional[Dict] = None,
+                 normx: Optional[Dict] = None,
                  xattn: Optional[Dict] = None, norm2: Optional[Dict] = None,
                  mlp: Optional[Dict] = None, moe: Optional[Dict] = None):
         super().__init__()
-        mixers = {"attn": attn, "ssd": ssd}
+        mixers = {"attn": attn, "ssd": ssd, "rglru": rglru}
         held = sorted(k for k, v in mixers.items() if v is not None)
         if held != [MIXERS.get(kind)]:
             raise ValueError(f"a {kind!r} layer holds exactly its mixer; got {held}")
@@ -167,6 +171,8 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, i: int, devic
     sub = {}
     if kind == "ssd":
         sub["ssd"] = SSM.init_ssd_block(gen, cfg, device, dtype)
+    elif kind == "rglru":
+        sub["rglru"] = RG.init_rglru_block(gen, cfg, device, dtype)
     else:
         sub["attn"] = _init_attn(gen, cfg, device, dtype)
     if cross:
@@ -296,6 +302,8 @@ def _layer_apply(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
     h = L.norm(x, layer.norm1, cfg.norm)
     if layer.kind == "ssd":
         x = x + SSM.ssd_block_apply(layer.ssd, cfg, h)[0]
+    elif layer.kind == "rglru":
+        x = x + RG.rglru_block_apply(layer.rglru, cfg, h)[0]
     else:
         x = x + _attn_apply(layer.attn, cfg, h, layer.kind, positions, prefix_len)
     if layer.xattn is not None and enc_out is not None:
@@ -319,7 +327,8 @@ def forward(model: Transformer, batch: Dict[str, torch.Tensor], *,
     With ``remat`` each decoder layer runs under ``torch.utils.checkpoint``
     (non-reentrant), as JAX wraps each group in ``jax.checkpoint`` with
     nothing saveable: only the layer inputs stay alive, and each layer's
-    forward, its flash-attention or SSD-scan kernels included, runs again
+    forward, its flash-attention or SSD-scan kernels or its RG-LRU scan
+    included, runs again
     during the backward pass.  The encoder is not recomputed, as JAX's
     ``encode`` scans its layers without a checkpoint."""
     cfg = model.cfg
@@ -379,7 +388,9 @@ def init_cache(model: Transformer, batch: int, max_len: int,
     """Zeroed caches, one dict per layer, on the model's device: for an
     attention layer ``k`` and ``v`` (B, W, Hkv, D) in ``dtype`` and ``pos``
     (B, W) int32, -1 = empty; for an SSD layer its state and conv caches
-    (:func:`repro_torch.models.ssm.init_ssd_cache`); for a layer with
+    (:func:`repro_torch.models.ssm.init_ssd_cache`), for an RG-LRU layer
+    its ``h`` and conv cache in ``dtype``
+    (:func:`repro_torch.models.rglru.init_rglru_cache`); for a layer with
     cross-attention also ``xk`` and ``xv`` (B, S_enc, Hkv, D) in ``dtype``,
     which :func:`encode_to_cache` replaces."""
     cfg = model.cfg
@@ -389,6 +400,8 @@ def init_cache(model: Transformer, batch: int, max_len: int,
     for layer in model.layers:
         if layer.kind == "ssd":
             c = SSM.init_ssd_cache(cfg, batch, dtype, dev)
+        elif layer.kind == "rglru":
+            c = RG.init_rglru_cache(cfg, batch, dtype, dev)
         else:
             kvh = layer.attn["wk"].shape[-1] // hd
             wc = _cache_len(cfg, layer.kind, max_len)
@@ -458,9 +471,10 @@ def _layer_decode(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
                   position: torch.Tensor, cache: Dict[str, torch.Tensor],
                   xlen: Optional[torch.Tensor] = None) -> torch.Tensor:
     h = L.norm(x, layer.norm1, cfg.norm)
-    if layer.kind == "ssd":
+    if layer.kind in ("ssd", "rglru"):
         # every lane advances its state by one token: lanes run in lockstep
-        y, new = SSM.ssd_block_apply(layer.ssd, cfg, h, cache, decode=True)
+        block = SSM.ssd_block_apply if layer.kind == "ssd" else RG.rglru_block_apply
+        y, new = block(getattr(layer, layer.kind), cfg, h, cache, decode=True)
         cache.update(new)
         x = x + y
     else:
@@ -483,8 +497,8 @@ def decode_step(model: Transformer, cache: List[Dict[str, torch.Tensor]],
     tensors), as the serving engine keeps them; they go to the device in one
     copy that does not wait for it, so the step itself needs no host-device
     sync, and nothing in it depends on the positions' values on the host.
-    An SSD layer's state has no positions: each call advances every lane by
-    one token, so its lanes must move in lockstep.
+    An SSD or RG-LRU layer's state has no positions: each call advances
+    every lane by one token, so its lanes must move in lockstep.
     """
     cfg = model.cfg
     dev = model.device

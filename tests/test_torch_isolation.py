@@ -15,6 +15,8 @@ PKG = ROOT / "src" / "repro_torch"
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
     for p in PKG.rglob("*.py"))
+# the host modules of repro.core that the port copies
+CORE = ("ocstrx", "topology", "mfu_sim", "fault_sim", "orchestrator", "placement")
 # "repro" as a whole name: repro_torch does not match
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\s|\.|,|$)", re.M)
 
@@ -30,6 +32,8 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
     assert len(MODULES) >= 15 and "repro_torch.models.moe" in MODULES
+    assert {"repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_2b",
+            *(f"repro_torch.core.{m}" for m in CORE)} <= set(MODULES)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
@@ -61,4 +65,4 @@ def test_entry_points_default_to_cuda():
     with pytest.raises((RuntimeError, AssertionError, ValueError)):
         ServeEngine(cfg, model)
     with pytest.raises(KeyError, match="starcoder2"):
-        get_arch("recurrentgemma")
+        get_arch("no-such-arch")

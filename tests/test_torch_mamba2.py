@@ -222,13 +222,14 @@ def test_decode_steps_match_jax(pair, cache_dtype):
                                            err_msg=f"layer {li} {key} step {i}")
 
 
-def test_serve_engine_and_cli_refuse_recurrent_configs():
-    cfg = get_arch("mamba2").reduced()
+@pytest.mark.parametrize("arch", ["mamba2", "recurrentgemma"])
+def test_serve_engine_and_cli_refuse_recurrent_configs(arch):
+    cfg = get_arch(arch).reduced()
     model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md § 3"):
         ServeEngine(cfg, model, device="cpu")
     with pytest.raises(NotImplementedError, match="recurrent state"):
-        serve_cli.main(["--arch", "mamba2", "--device", "cpu"])
+        serve_cli.main(["--arch", arch, "--device", "cpu"])
 
 
 def test_cli_trains_mamba2_on_the_cpu(capsys):

@@ -301,12 +301,12 @@ def test_training_entry_points_default_to_cuda_and_reject_unported_inputs():
     model = init_train_state(cfg, TrainConfig(), device="cpu")["params"]
     tokens = torch.zeros((1, 8), dtype=torch.int32)
     # a config without a prefix or an encoder ignores patches and frames, as
-    # repro's forward does; the RG-LRU layer kind is not ported yet
+    # repro's forward does; a layer kind that repro does not have raises
     with torch.no_grad():
         plain = forward(model, {"tokens": tokens})
         for extra in ("patches", "frames"):
             got = forward(model, {"tokens": tokens, extra: torch.ones(1, 4, cfg.d_model)})
             assert torch.equal(got, plain), extra
-    rglru = dataclasses.replace(cfg, layer_pattern=("rglru", "attn"))
-    with pytest.raises(NotImplementedError, match="RG-LRU"):
-        init_train_state(rglru, TrainConfig(), device="cpu")
+    unknown = dataclasses.replace(cfg, layer_pattern=("no-such-kind", "attn"))
+    with pytest.raises(NotImplementedError, match="unknown layer kind 'no-such-kind'"):
+        init_train_state(unknown, TrainConfig(), device="cpu")
