@@ -62,11 +62,17 @@ failure:
      dense MLP, one with 128 experts, top-1, and a shared expert; 18.55 B
      parameters): serving as phase 10 with the dropped assignments;
  13. the flash kernels at PaliGemma-3B's training shape (B=1, S=4096,
-     prefix 256, MQA 8 over 1 KV head, D=256, bf16) and Whisper-small's
-     encoder (B=16, 1500 x 1500) and cross-attention (448 x 1500), D=64,
-     non-causal, in float32 and bf16: absolutely and per band against the
-     reference's scale, and plain versions planted with a prefix of 256 ±
-     64 and with 1500 - 64 keys fail that check; flash-decode at
+     prefix 256, MQA 8 over 1 KV head, D=256, bf16: the DMAX-256 wgmma
+     kernels) and Whisper-small's encoder (B=16, 1500 x 1500) and
+     cross-attention (448 x 1500), D=64, non-causal, in float32 and bf16:
+     absolutely and per band against the reference's scale, and plain
+     versions planted with a prefix of 256 ± 64 and with 1500 - 64 keys
+     fail that check; the bf16 kernels at D > 128 on edge cases (S=4095
+     with 2 KV heads, Sq != Sk with a query offset, a chunk mask, packed
+     QKV views, Sk > Sq non-causal, D=192), absolutely and per band, each
+     launching only the wgmma kernels, float32 at D=256 only the fp32
+     ones, and the forward and backward at PaliGemma's shape bit-identical
+     when run twice; flash-decode at
      PaliGemma's serving shape (slot form, D=256, MQA) and Whisper's
      cross-attention (lengths form, L=1500, bf16 q over a float32 cache),
      with a plain version planted with 1500 - 64 keys caught;
@@ -84,8 +90,8 @@ failure:
  17. time the flash kernels at PaliGemma's and Whisper's training shapes
      beside SDPA and the card's least time for the work;
  18. the flash kernels at RecurrentGemma-2B's training shape (B=1, S=4096
-     past its 2048 window, MQA 10 over 1 KV head, D=256, bf16: the fp32
-     kernels), absolutely and per band, with plain versions planted with
+     past its 2048 window, MQA 10 over 1 KV head, D=256, bf16: the
+     DMAX-256 wgmma kernels), absolutely and per band, with plain versions planted with
      windows of 2048 ± 64 caught; flash-decode's slot form at its serving
      shape (B=8, D=256, a 2048-slot ring that has wrapped), with a plain
      version planted with a window of 2048 - 64 caught;
@@ -1032,8 +1038,8 @@ def decoders_reduced_against_cpu(torch, archs=DECODERS):
 
 # PaliGemma-3B's attention in training: B=1, S=4096 (256 patches + 3840
 # tokens), bidirectional within the 256-position prefix, MQA (8 query heads
-# over 1 KV head) at D=256, bf16: the fp32 CUDA-core kernels (bf16 takes the
-# Hopper kernels only up to D=128).  Whisper-small's encoder (1500 frames)
+# over 1 KV head) at D=256, bf16: the DMAX-256 Hopper kernels.
+# Whisper-small's encoder (1500 frames)
 # and cross-attention (448 tokens over 1500 frames), B=16, 12 heads, D=64,
 # non-causal, 1500 keys = 23 whole 64-key tiles and a tail of 28: float32
 # as the model runs them over float32 frames, and bf16.
@@ -1075,6 +1081,95 @@ def check_vlm_encdec_flash(torch):
                        plants=plants, where="the ragged last tile")
         del q, k, v, g, fwd, ref_fwd, grads, ref_grads
         torch.cuda.empty_cache()
+    return errs
+
+
+# Edge cases of the bf16 kernels at DMAX 256 (label, dtype, B, Sq, Sk, Hq,
+# Hkv, D, mask, packed): a ragged last tile with 2 KV heads, Sq != Sk with a
+# query offset, a chunk that cuts tiles, q/k/v cut from one packed QKV
+# tensor, Sk > Sq without the causal mask, D=192 (the last of the four
+# 64-column boxes reads zeros past D); float32 at D=256 takes the fp32
+# CUDA-core kernels.
+D256_FLASH = [
+    ("D=256 S=4095 GQA 8/2", "bfloat16", 1, 4095, 4095, 8, 2, 256, dict(causal=True), False),
+    ("D=256 Sq=300 Sk=1000 q_offset 700", "bfloat16", 1, 300, 1000, 8, 2, 256,
+     dict(causal=True, q_offset=700), False),
+    ("D=256 chunk 200", "bfloat16", 1, 1000, 1000, 4, 2, 256, dict(causal=True, chunk=200), False),
+    ("D=256 packed qkv views", "bfloat16", 2, 1000, 1000, 8, 2, 256, dict(causal=True), True),
+    ("D=256 non-causal Sk > Sq", "bfloat16", 2, 64, 192, 2, 1, 256, dict(causal=False), False),
+    ("D=192", "bfloat16", 1, 1000, 1000, 8, 1, 192, dict(causal=True), False),
+    ("D=256 on the fp32 kernels", "float32", 1, 300, 300, 4, 2, 256, dict(causal=True), False),
+]
+
+
+def flash_kernels_run(torch, fn, want, tries=5):
+    """The flash-attention kernels ``fn`` launches, as (name, DMAX) pairs
+    read from torch.profiler's kernel names (demangled or not): the union
+    over up to ``tries`` profiles of two calls each, after a warm-up call,
+    stopping once every pair of ``want`` was seen (an isolated profile can
+    miss launches, PERF.md § 7)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    ran = set()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            fn()
+            torch.cuda.synchronize()
+        ran |= {m.groups() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                for m in [re.search(r"(flash_(?:fwd|bwd_dkdv|bwd_dq)(?:_wgmma)?_kernel)(?:<|ILi)(\d+)",
+                                    e.name)] if m}
+        if want <= ran:
+            break
+    return ran
+
+
+def check_d256_flash(torch):
+    """The bf16 kernels at D > 128 (DMAX 256) against their plain versions
+    on ``D256_FLASH``, absolutely (``flash_case``) and per band of 64 rows
+    (``band_check``, rows before and in the ragged last tile); each bf16
+    case launches only the three wgmma kernels, the float32 case only the
+    fp32 ones; the forward and the backward at PaliGemma's training shape
+    are bit-identical when run twice.  Returns the largest errors."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    wgmma = {"flash_fwd_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"}
+    fp32 = {"flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"}
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for seed, (label, dname, b, sq, sk, hq, hkv, d, kw, packed) in enumerate(D256_FLASH):
+        (q, k, v, g), fwd, ref_fwd, grads, ref_grads = flash_case(
+            torch, label, dname, 700 + seed, b, sq, sk, hq, hkv, d, kw, errs, packed=packed)
+        band_check(torch, label, dname, fwd, ref_fwd, grads, ref_grads,
+                   sq // WINDOW_BAND * WINDOW_BAND, sk // WINDOW_BAND * WINDOW_BAND,
+                   where="the ragged last tile")
+        want = {(n, "256") for n in (wgmma if dname == "bfloat16" else fp32)}
+        ran = flash_kernels_run(torch, lambda: flash_attention_bwd(
+            q, k, v, *flash_attention_fwd(q, k, v, **kw), g, **kw), want)
+        others = {name for name, _ in ran} & ((wgmma | fp32) - {n for n, _ in want})
+        print(f"flash_attention {label} {dname}: kernels run "
+              f"{sorted(f'{n}<{dm}>' for n, dm in ran)} {'ok' if want <= ran and not others else 'FAIL'}")
+        if not want <= ran or others:
+            raise AssertionError(f"flash_attention {label} {dname} took the wrong kernels: {ran}")
+        del q, k, v, g, fwd, ref_fwd, grads, ref_grads
+        torch.cuda.empty_cache()
+    # no atomics in either direction: the same inputs give the same bits
+    label, b, sq, sk, hq, hkv, d, kw = PALIGEMMA_FLASH
+    q, k, v, g = flash_inputs(torch, 78, b, sq, sk, hq, hkv, d, torch.bfloat16)
+    fwd = [flash_attention_fwd(q, k, v, **kw) for _ in range(2)]
+    bwd = [flash_attention_bwd(q, k, v, *fwd[0], g, **kw) for _ in range(2)]
+    same = {"forward": all(torch.equal(x, y) for x, y in zip(*fwd)),
+            "backward": all(torch.equal(x, y) for x, y in zip(*bwd))}
+    print(f"flash_attention {label} B={b} S={sq} Hq={hq} Hkv={hkv} D={d} bfloat16 run twice: "
+          + ", ".join(f"{n} {'bit-identical' if ok else 'DIFFER'}" for n, ok in same.items()))
+    if not all(same.values()):
+        raise AssertionError(f"flash_attention at D=256 is not deterministic: {same}")
+    del q, k, v, g, fwd, bwd
+    torch.cuda.empty_cache()
     return errs
 
 
@@ -1138,8 +1233,8 @@ def check_vlm_encdec_decode(torch):
 
 
 # RecurrentGemma-2B's local attention in training: B=1, S=4096 past its 2048
-# window, MQA (10 query heads over 1 KV head) at D=256, bf16: the fp32
-# CUDA-core kernels.  Its serving shape: 8 lanes over a 2048-slot ring,
+# window, MQA (10 query heads over 1 KV head) at D=256, bf16: the DMAX-256
+# Hopper kernels.  Its serving shape: 8 lanes over a 2048-slot ring,
 # positions past 2048 so that the ring has wrapped.
 RECURRENTGEMMA_FLASH = ("RecurrentGemma local attention", 1, 4096, 4096, 10, 1, 256,
                         dict(causal=True, window=2048))
@@ -2459,6 +2554,7 @@ def main() -> int:
 
     t_vlm = time.perf_counter()
     vlm_flash_errs = check_vlm_encdec_flash(torch)
+    d256_errs = check_d256_flash(torch)
     vlm_decode_err = check_vlm_encdec_decode(torch)
     decoders_reduced_against_cpu(torch, ("paligemma", "whisper"))
     paligemma, whisper = get_arch("paligemma"), get_arch("whisper")
@@ -2498,6 +2594,12 @@ def main() -> int:
             torch, "RecurrentGemma shape, causal only", b, sq, sk, hq, hkv, d, "bfloat16",
             dict(causal=True)),
     }
+    for name, t in (("PaliGemma-3B", vlm_times["paligemma_prefix_d256_bf16"]),
+                    ("RecurrentGemma-2B", rg_times["recurrentgemma_window2048_d256_bf16"])):
+        print(f"time flash_attention D=256 bf16 at {name}'s training shape: " + "; ".join(
+            f"{p} {t[p]['ms']:.3f} ms (bound {t[p]['bound_ms']:.3f}, plain {t[p]['plain_ms']:.3f}, "
+            f"sdpa {t[p]['library_ms']:.3f})" for p in ("fwd", "bwd"))
+            + f"; backward's dK/dV {t['bwd dK/dV']['ms']:.3f} ms, dQ {t['bwd dQ']['ms']:.3f} ms")
     kept = sum(min(i + 1, kw["window"]) for i in range(sq)) / (sq * (sq + 1) // 2)
     for pas in ("fwd", "bwd"):
         win, full = (rg_times[k][pas]["ms"] for k in rg_times)
@@ -2564,6 +2666,7 @@ def main() -> int:
         "launches_whisper_train": vlm_runs["whisper_train"]["fwd"],
         "launches_recurrentgemma_train": rg_runs["train"]["fwd"],
         "max_err_model_shapes": max(vlm_flash_errs["fwd"], rg_errs["fwd"]),
+        "max_err_d256_cases": d256_errs["fwd"],
         **{key: t["fwd"] for key, t in {**vlm_times, **rg_times}.items()},
     }, {
         "name": "flash_attention_bwd",
@@ -2580,6 +2683,7 @@ def main() -> int:
         "launches_whisper_train": vlm_runs["whisper_train"]["bwd"],
         "launches_recurrentgemma_train": rg_runs["train"]["bwd"],
         "max_err_model_shapes": max(vlm_flash_errs["bwd"], rg_errs["bwd"]),
+        "max_err_d256_cases": d256_errs["bwd"],
         **{key: t["bwd"] for key, t in {**vlm_times, **rg_times}.items()},
         "passes": {k: {"ms": v["ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"]}
                    for k, v in flash_times.items() if k.startswith("bwd ")},

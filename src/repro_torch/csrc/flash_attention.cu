@@ -17,11 +17,12 @@
 // 50 MB of q/k/v/out, ~2000 flops per byte, far above the ~295 where the
 // tensor cores rather than device memory become the limit; the backward
 // does 2.5 times the forward's work.  What the design does about it:
-//   * bf16 with D <= 128 (the training path) runs on Hopper's own units
-//     (see the Hopper section below): TMA loads into a 3-stage shared-memory
-//     ring fed by a producer warp, every product on wgmma in two consumer
-//     warpgroups that take turns; base-2 softmax; the element mask only on
-//     tiles that it cuts;
+//   * bf16 (the training path, D up to 256) runs on Hopper's own units (see
+//     the Hopper section below): TMA loads into a shared-memory ring fed by a
+//     producer warp, every product on wgmma in two consumer warpgroups that
+//     take turns; base-2 softmax; the element mask only on tiles that it
+//     cuts; at D > 128 smaller streamed tiles and fewer stages, so that each
+//     warpgroup's one 64 x 256 accumulator and the ring fit;
 //   * the dK/dV grid has a block per (64-key tile, query head), heaviest
 //     key tiles first (1536 blocks at the training shape instead of 128);
 //     its two warpgroups split the work, one summing dV and the other dK,
@@ -31,10 +32,10 @@
 //     rowsum(dO * out) a pre-pass kernel;
 //   * the forward and dQ grids launch the last (under causal, heaviest) q
 //     tiles first;
-//   * float32, and bf16 with D > 128, run fp32 kernels on the CUDA cores:
-//     a thread owns a 4 x 4 (or 2 x 2) patch of every score tile and a
-//     4-row patch of every output tile, so each pass reads its operands as
-//     float4 from shared memory without bank conflicts;
+//   * float32 runs fp32 kernels on the CUDA cores: a thread owns a 4 x 4
+//     (or 2 x 2) patch of every score tile and a 4-row patch of every
+//     output tile, so each pass reads its operands as float4 from shared
+//     memory without bank conflicts;
 //   * tiles that the mask cannot reach are skipped at block level, with a
 //     rule at least as tight as the Pallas one (prefix-LM keeps the causal
 //     skip for keys past the prefix, the chunk rule compares chunk ranges).
@@ -141,15 +142,15 @@ struct Args {
 
 // Rows [row0, row0 + R) of one head of a (B, S, H, D) tensor into a
 // shared (R, LD) fp32 tile, times `scale`; rows at or past `rows` are zeros.
-template <typename T, int R, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long s_stride,
+template <int R, int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long s_stride,
                                           int row0, int rows, int d, float scale) {
   const int vpr = d / 4;
   for (int idx = threadIdx.x; idx < R * vpr; idx += kThreads) {
     const int r = idx / vpr, c = (idx - r * vpr) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < rows) {
-      x = V4<T>::load(src + (row0 + r) * s_stride + c);
+      x = V4<float>::load(src + (row0 + r) * s_stride + c);
       x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
     }
     *reinterpret_cast<float4*>(dst + r * LD + c) = x;
@@ -227,12 +228,12 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-// Store rows ty + 16 i of an fp32 (rows, D) accumulator as T, rows < rows_valid.
-template <typename T, int MI, int NJ>
+// Store rows ty + 16 i of an fp32 (rows, D) accumulator, rows < rows_valid.
+template <int MI, int NJ>
 __device__ __forceinline__ void store_rows(const Tensor4& t, int b, int h, int row0,
                                            int rows_valid, int d, const float (&acc)[MI][NJ][4],
                                            const float (&inv)[MI], int ty, int tx) {
-  T* base = static_cast<T*>(const_cast<void*>(t.p)) + b * t.sb + h * t.sh;
+  float* base = static_cast<float*>(const_cast<void*>(t.p)) + b * t.sb + h * t.sh;
 #pragma unroll
   for (int i = 0; i < MI; ++i) {
     const int row = row0 + ty + 16 * i;
@@ -241,16 +242,16 @@ __device__ __forceinline__ void store_rows(const Tensor4& t, int b, int h, int r
     for (int j = 0; j < NJ; ++j) {
       const int n = 4 * tx + 64 * j;
       if (n < d)
-        V4<T>::store(base + row * t.ss + n,
-                     make_float4(acc[i][j][0] * inv[i], acc[i][j][1] * inv[i],
-                                 acc[i][j][2] * inv[i], acc[i][j][3] * inv[i]));
+        V4<float>::store(base + row * t.ss + n,
+                         make_float4(acc[i][j][0] * inv[i], acc[i][j][1] * inv[i],
+                                     acc[i][j][2] * inv[i], acc[i][j][3] * inv[i]));
     }
   }
 }
 
 // ------------------------------------------------------------------ forward
 // grid (ceil(Sq / BQ), Hq, B): one block per (q tile, q head, batch).
-template <typename T, int DMAX>
+template <int DMAX>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
   constexpr int BQ = Tiles<DMAX>::BQ, BK = Tiles<DMAX>::BK, LD = Tiles<DMAX>::LD;
   constexpr int LDP = BK + 4, MI = BQ / 16, MJ = BK / 16, NJ = (DMAX + 63) / 64;
@@ -263,10 +264,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z, g = h / (a.hq / a.hkv);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const Mask& mk = a.mask;
-  load_tile<T, BQ, LD>(Qs, static_cast<const T*>(a.q.p) + b * a.q.sb + h * a.q.sh, a.q.ss, q0,
-                       mk.sq, a.d, a.scale);
-  const T* kbase = static_cast<const T*>(a.k.p) + b * a.k.sb + g * a.k.sh;
-  const T* vbase = static_cast<const T*>(a.v.p) + b * a.v.sb + g * a.v.sh;
+  load_tile<BQ, LD>(Qs, static_cast<const float*>(a.q.p) + b * a.q.sb + h * a.q.sh, a.q.ss, q0,
+                    mk.sq, a.d, a.scale);
+  const float* kbase = static_cast<const float*>(a.k.p) + b * a.k.sb + g * a.k.sh;
+  const float* vbase = static_cast<const float*>(a.v.p) + b * a.v.sb + g * a.v.sh;
 
   float m[MI], l[MI], acc[MI][NJ][4];
 #pragma unroll
@@ -282,8 +283,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
   for (int k0 = 0; k0 < mk.sk; k0 += BK) {
     if (!mk.live(q0, BQ, k0, BK)) continue;
     __syncthreads();  // the last tile's readers are done; the q tile is in place
-    load_tile<T, BK, LD>(Ks, kbase, a.k.ss, k0, mk.sk, a.d, 1.f);
-    load_tile<T, BK, LD>(Vs, vbase, a.v.ss, k0, mk.sk, a.d, 1.f);
+    load_tile<BK, LD>(Ks, kbase, a.k.ss, k0, mk.sk, a.d, 1.f);
+    load_tile<BK, LD>(Vs, vbase, a.v.ss, k0, mk.sk, a.d, 1.f);
     __syncthreads();
     float s[MI][MJ];
     dot_rows<MI, MJ, LD>(s, Qs, Ks, a.d, ty, tx);
@@ -325,7 +326,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
     if (tx == 0 && qi < mk.sq)
       a.lse[((long long)b * a.hq + h) * mk.sq + qi] = m[i] + logf(lmax);
   }
-  store_rows<T, MI, NJ>(a.o, b, h, q0, mk.sq, a.d, acc, inv, ty, tx);
+  store_rows<MI, NJ>(a.o, b, h, q0, mk.sq, a.d, acc, inv, ty, tx);
 }
 
 // Scores of one (q tile, kv tile) pair in the backward: p = exp(s - lse)
@@ -357,14 +358,14 @@ __device__ __forceinline__ void bwd_scores(float (&p)[MI][MJ], float (&ds)[MI][M
 }
 
 // q, dO, lse and delta of one q tile into shared memory.
-template <typename T, int BQ, int LD>
+template <int BQ, int LD>
 __device__ __forceinline__ void load_q_side(float* Qs, float* Gs, float* lse_s, float* del_s,
                                             const Args& a, int b, int h, int q0) {
   const int sq = a.mask.sq;
-  load_tile<T, BQ, LD>(Qs, static_cast<const T*>(a.q.p) + b * a.q.sb + h * a.q.sh, a.q.ss, q0,
-                       sq, a.d, 1.f);
-  load_tile<T, BQ, LD>(Gs, static_cast<const T*>(a.g.p) + b * a.g.sb + h * a.g.sh, a.g.ss, q0,
-                       sq, a.d, 1.f);
+  load_tile<BQ, LD>(Qs, static_cast<const float*>(a.q.p) + b * a.q.sb + h * a.q.sh, a.q.ss, q0,
+                    sq, a.d, 1.f);
+  load_tile<BQ, LD>(Gs, static_cast<const float*>(a.g.p) + b * a.g.sb + h * a.g.sh, a.g.ss, q0,
+                    sq, a.d, 1.f);
   const long long row = ((long long)b * a.hq + h) * sq;
   for (int r = threadIdx.x; r < BQ; r += kThreads) {
     const bool in = q0 + r < sq;
@@ -375,7 +376,7 @@ __device__ __forceinline__ void load_q_side(float* Qs, float* Gs, float* lse_s, 
 
 // ------------------------------------------------------------ backward dK/dV
 // grid (ceil(Sk / BK), Hkv, B): one block per (kv tile, KV head, batch).
-template <typename T, int DMAX>
+template <int DMAX>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const Args a) {
   constexpr int BQ = Tiles<DMAX>::BQ, BK = Tiles<DMAX>::BK, LD = Tiles<DMAX>::LD;
   constexpr int LDT = BQ + 4, MI = BQ / 16, MJ = BK / 16, MK = BK / 16, NJ = (DMAX + 63) / 64;
@@ -392,10 +393,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const Args a) 
   const int k0 = blockIdx.x * BK, g = blockIdx.y, b = blockIdx.z, rep = a.hq / a.hkv;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const Mask& mk = a.mask;
-  load_tile<T, BK, LD>(Ks, static_cast<const T*>(a.k.p) + b * a.k.sb + g * a.k.sh, a.k.ss, k0,
-                       mk.sk, a.d, 1.f);
-  load_tile<T, BK, LD>(Vs, static_cast<const T*>(a.v.p) + b * a.v.sb + g * a.v.sh, a.v.ss, k0,
-                       mk.sk, a.d, 1.f);
+  load_tile<BK, LD>(Ks, static_cast<const float*>(a.k.p) + b * a.k.sb + g * a.k.sh, a.k.ss, k0,
+                    mk.sk, a.d, 1.f);
+  load_tile<BK, LD>(Vs, static_cast<const float*>(a.v.p) + b * a.v.sb + g * a.v.sh, a.v.ss, k0,
+                    mk.sk, a.d, 1.f);
 
   float dk[MK][NJ][4], dv[MK][NJ][4];
 #pragma unroll
@@ -410,7 +411,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const Args a) 
     for (int q0 = 0; q0 < mk.sq; q0 += BQ) {
       if (!mk.live(q0, BQ, k0, BK)) continue;
       __syncthreads();
-      load_q_side<T, BQ, LD>(Qs, Gs, lse_s, del_s, a, b, h, q0);
+      load_q_side<BQ, LD>(Qs, Gs, lse_s, del_s, a, b, h, q0);
       __syncthreads();
       float p[MI][MJ], ds[MI][MJ];
       bwd_scores<MI, MJ, LD>(p, ds, Qs, Gs, Ks, Vs, lse_s, del_s, q0, k0, a, ty, tx);
@@ -429,13 +430,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const Args a) 
   float one[MK];
 #pragma unroll
   for (int i = 0; i < MK; ++i) one[i] = 1.f;
-  store_rows<T, MK, NJ>(a.dk, b, g, k0, mk.sk, a.d, dk, one, ty, tx);
-  store_rows<T, MK, NJ>(a.dv, b, g, k0, mk.sk, a.d, dv, one, ty, tx);
+  store_rows<MK, NJ>(a.dk, b, g, k0, mk.sk, a.d, dk, one, ty, tx);
+  store_rows<MK, NJ>(a.dv, b, g, k0, mk.sk, a.d, dv, one, ty, tx);
 }
 
 // --------------------------------------------------------------- backward dQ
 // grid (ceil(Sq / BQ), Hq, B): one block per (q tile, q head, batch).
-template <typename T, int DMAX>
+template <int DMAX>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
   constexpr int BQ = Tiles<DMAX>::BQ, BK = Tiles<DMAX>::BK, LD = Tiles<DMAX>::LD;
   constexpr int LDP = BK + 4, MI = BQ / 16, MJ = BK / 16, NJ = (DMAX + 63) / 64;
@@ -451,9 +452,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z, g = h / (a.hq / a.hkv);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const Mask& mk = a.mask;
-  load_q_side<T, BQ, LD>(Qs, Gs, lse_s, del_s, a, b, h, q0);
-  const T* kbase = static_cast<const T*>(a.k.p) + b * a.k.sb + g * a.k.sh;
-  const T* vbase = static_cast<const T*>(a.v.p) + b * a.v.sb + g * a.v.sh;
+  load_q_side<BQ, LD>(Qs, Gs, lse_s, del_s, a, b, h, q0);
+  const float* kbase = static_cast<const float*>(a.k.p) + b * a.k.sb + g * a.k.sh;
+  const float* vbase = static_cast<const float*>(a.v.p) + b * a.v.sb + g * a.v.sh;
 
   float dq[MI][NJ][4];
 #pragma unroll
@@ -466,8 +467,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
   for (int k0 = 0; k0 < mk.sk; k0 += BK) {
     if (!mk.live(q0, BQ, k0, BK)) continue;
     __syncthreads();
-    load_tile<T, BK, LD>(Ks, kbase, a.k.ss, k0, mk.sk, a.d, 1.f);
-    load_tile<T, BK, LD>(Vs, vbase, a.v.ss, k0, mk.sk, a.d, 1.f);
+    load_tile<BK, LD>(Ks, kbase, a.k.ss, k0, mk.sk, a.d, 1.f);
+    load_tile<BK, LD>(Vs, vbase, a.v.ss, k0, mk.sk, a.d, 1.f);
     __syncthreads();
     float p[MI][MJ], ds[MI][MJ];
     bwd_scores<MI, MJ, LD>(p, ds, Qs, Gs, Ks, Vs, lse_s, del_s, q0, k0, a, ty, tx);
@@ -481,29 +482,41 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
   float one[MI];
 #pragma unroll
   for (int i = 0; i < MI; ++i) one[i] = 1.f;
-  store_rows<T, MI, NJ>(a.dq, b, h, q0, mk.sq, a.d, dq, one, ty, tx);
+  store_rows<MI, NJ>(a.dq, b, h, q0, mk.sq, a.d, dq, one, ty, tx);
 }
 
 // ------------------------------------------------- bf16 Hopper kernels
-// For bf16 inputs with D <= 128 (StarCoder2's training path).  A block
-// runs 288 threads: warpgroups 0 and 1 compute, warp 8 is the producer
-// (one lane issues TMA loads into a 3-stage shared-memory ring, each stage
-// signalled by a "full" and an "empty" mbarrier).  Every product runs on
-// wgmma (m64nNk16, bf16 -> fp32), 64 rows a warpgroup.  With 288 threads a
-// thread may hold up to 224 registers, enough for the accumulators, so no
-// setmaxnreg is needed.  Tiles are loaded as boxes of 64 columns (128
-// bytes) with the 128-byte swizzle, the layout the wgmma shared-memory
-// descriptors read: a K-major operand (rows x D) for the score products,
-// the same tile as an MN-major operand (K = rows) for the products that sum
-// over rows.  Score fragments stay in registers and are repacked as the
+// For bf16 inputs, D up to 256 (the DMAX 64, 128 and 256 instances; tiles
+// and ring depth in FwdTile, DkdvTile, DqTile).  Warpgroups 0 and 1
+// compute, warp 8 is the producer (one lane issues TMA loads into a
+// shared-memory ring, each stage signalled by a "full" and an "empty"
+// mbarrier).  Every product runs on wgmma (m64nNk16, bf16 -> fp32), 64 rows
+// a warpgroup.  A block of 288 threads is given registers as if it were
+// whole warpgroups (384 threads): 168 a thread, enough up to DMAX 128.  At
+// DMAX 256 that spills and serializes wgmma (C7512) beside the 64 x 256
+// accumulator, so a block runs 384 threads and the producer's warpgroup
+// (warp 8 and three idle warps) hands registers to the consumers with
+// setmaxnreg: 40 against 232 a thread.  Tiles are loaded as
+// boxes of 64 columns (128 bytes) with the 128-byte swizzle, the layout
+// the wgmma shared-memory descriptors read: a K-major operand (rows x D)
+// for the score products, the same tile as an MN-major operand (K = rows)
+// for the products that sum over rows.  Score fragments stay in registers and are repacked as the
 // bf16 A operand of the next product.  The two warpgroups take turns to
 // issue their score products (named barriers), so that one's products run
 // while the other does its elementwise work.  Softmax runs in base 2 with
 // scale * log2(e) folded into the scores; the element mask runs only on
 // tiles that it cuts, and tiles it empties are skipped.
 
-constexpr int kWgThreads = 288;  // warpgroups 0 and 1 compute, warp 8 loads
-constexpr int kStages = 3;  // shared-memory ring depth of the streamed tiles
+// Threads of a block: two consumer warpgroups, then the producer warp 8,
+// alone up to DMAX 128, in a whole warpgroup at DMAX 256 (see above).
+template <int DMAX> constexpr int wg_threads() { return DMAX <= 128 ? 288 : 384; }
+template <int DMAX> __device__ __forceinline__ void producer_regs() {
+  if constexpr (DMAX > 128) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+}
+template <int DMAX> __device__ __forceinline__ void consumer_regs() {  // 128 x 40 + 256 x 232 <= 384 x 168
+  if constexpr (DMAX > 128) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+}
+constexpr int kStages = 3;  // shared-memory ring depth of the streamed tiles (see FwdTile)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf2 = kNegInf * kLog2e;  // a masked score in base 2
@@ -553,13 +566,15 @@ __device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
                "r"(bytes)
                : "memory");
 }
-// A wait that never ends (a wrong parity or byte count) traps after 2^28
-// polls, so that the launch fails instead of hanging the card.
+// A wait that never ends (a wrong parity or byte count) faults after 2^28
+// polls, so that the launch fails instead of hanging the card.  It faults
+// by a store to address 0, not by __trap(): ptxas drops a kernel's
+// setmaxnreg register handover (DMAX 256) when the kernel can trap.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_addr(bar);
   uint32_t done = 0;
   for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 28)) __trap();
+    if (polls == (1u << 28)) asm volatile("st.global.u32 [%0], %1;\n" ::"l"(0ull), "r"(0u) : "memory");
     asm volatile(
         "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
@@ -630,7 +645,9 @@ template <int R> __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile,
 // _ss reads A and B from shared memory (both K-major); _rs takes A from
 // registers (the mma.sync m16n8k16 A fragment of each warp's 16 rows) and
 // B MN-major, _rk A from registers and B K-major.  Each adds to d, or
-// overwrites it when `accumulate` is 0.
+// overwrites it when `accumulate` is 0.  Instantiated for the N the
+// kernels use: score tiles of 32 (dQ at DMAX 256), 64 and 128 keys or
+// rows, accumulators of 64, 128 and 256 columns.
 template <int N> __device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate);
 template <int N>
 __device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int accumulate);
@@ -708,6 +725,42 @@ template <> __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const 
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+template <> __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+template <> __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4],
+                                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
@@ -797,24 +850,30 @@ __device__ __forceinline__ void store_acc(T* base, long long s_stride, int row_l
 }
 
 // Shared memory of the three kernels: a resident tile (q, or k and v) and
-// kStages stages of the streamed tiles, then mbarriers, plus 1024 bytes to
-// align the base for the swizzle.
-template <int DMAX> struct FwdTile {    // 128 q rows (64 a warpgroup); k/v tiles of 128
-  static constexpr int BQ = 128, BK = 128, ST = kStages;
+// ST stages of the streamed tiles, then mbarriers, plus 1024 bytes to align
+// the base for the swizzle.  Up to DMAX 128 the ring holds kStages stages.
+// At DMAX 256 those tiles would need 448 KB (forward) and 320 KB (dQ), so
+// the streamed tiles shrink and the ring holds fewer stages: the forward
+// streams 64-key tiles in 2 stages (193 KB), dK/dV keeps 64 x 64 tiles in
+// 2 stages (210 KB), dQ streams 32-key tiles in 3 stages (225 KB).  Each
+// warpgroup then holds one 64 x 256 fp32 accumulator (128 registers a
+// thread) beside a score tile of at most 64 x 64.
+template <int DMAX> struct FwdTile {    // 128 q rows (64 a warpgroup)
+  static constexpr int BQ = 128, BK = DMAX <= 128 ? 128 : 64, ST = DMAX <= 128 ? kStages : 2;
   static constexpr int Q_BYTES = BQ * DMAX * 2, KV_BYTES = BK * DMAX * 2;
   static constexpr int BARS = Q_BYTES + 2 * ST * KV_BYTES;
   static constexpr int SMEM = BARS + 8 * (2 * ST + 1) + 1024;
 };
 template <int DMAX> struct DkdvTile {   // 64 keys; q/dO tiles of 64; p handed over in smem
-  static constexpr int BK = 64, BQ = 64, ST = kStages;
+  static constexpr int BK = 64, BQ = 64, ST = DMAX <= 128 ? kStages : 2;
   static constexpr int KV_BYTES = BK * DMAX * 2, Q_BYTES = BQ * DMAX * 2;
   static constexpr int P_OFF = 2 * KV_BYTES + 2 * ST * Q_BYTES;  // fp32 p, fragment order
   static constexpr int ROWS = P_OFF + BK * BQ * 4;                // lse, delta of each stage
   static constexpr int BARS = ROWS + 2 * ST * BQ * 4;
   static constexpr int SMEM = BARS + 8 * (2 * ST + 3) + 1024;
 };
-template <int DMAX> struct DqTile {     // 128 q rows (64 a warpgroup); k/v tiles of 64
-  static constexpr int BQ = 128, BK = 64, ST = kStages;
+template <int DMAX> struct DqTile {     // 128 q rows (64 a warpgroup)
+  static constexpr int BQ = 128, BK = DMAX <= 128 ? 64 : 32, ST = kStages;
   static constexpr int Q_BYTES = BQ * DMAX * 2, KV_BYTES = BK * DMAX * 2;
   static constexpr int BARS = 2 * Q_BYTES + 2 * ST * KV_BYTES;
   static constexpr int SMEM = BARS + 8 * (2 * ST + 1) + 1024;
@@ -925,7 +984,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float (&m)[2
 // ------------------------------------------------------------ forward
 // 1-D grid of ceil(Sq / 128) x Hq x B blocks, last q tile first.
 template <int DMAX>
-__global__ void __launch_bounds__(kWgThreads, 1)
+__global__ void __launch_bounds__(wg_threads<DMAX>(), 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
   using TL = FwdTile<DMAX>;
   constexpr int BQ = TL::BQ, BK = TL::BK;
@@ -944,8 +1003,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int warp = warp_index(), lane = threadIdx.x & 31;
   init_ring<TL::ST>(full, empty, qbar, 1);
 
-  if (warp == 8) {  // producer
-    if (lane == 0) {
+  if (warp >= 8) {  // producer
+    producer_regs<DMAX>();
+    if (warp == 8 && lane == 0) {
       mbar_arrive_tx(qbar, TL::Q_BYTES);
       tma_tile<BQ, DMAX>(Qs, &maps.q, qbar, q0, h, b);
       int i = 0;
@@ -960,6 +1020,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
     }
   } else {  // consumers: warpgroup wg owns q rows q0 + 64 wg ..
+    consumer_regs<DMAX>();
     const int wg = warp / 4, gid = lane >> 2, tig = lane & 3;
     const int r_lo = q0 + wg * 64 + (warp & 3) * 16 + gid;
     const float sl2 = a.scale * kLog2e;
@@ -1073,12 +1134,13 @@ __device__ __forceinline__ void dkdv_scores(float (&sc)[BQ / 2], int wg, int s, 
 // blocks than one per KV head.  Both consumer warpgroups own the block's 64
 // keys and hold one accumulator each: warpgroup 0 forms p = exp2(s^T - lse)
 // from s^T = k q^T and sums dV += p^T dO; warpgroup 1 forms dp^T = v dO^T,
-// takes p through shared memory, and sums dK += ds^T q.  k and v, fixed for
-// the block, sit in registers as the A operands of the score products.
+// takes p through shared memory, and sums dK += ds^T q.  k and v are fixed
+// for the block; at DMAX 128 they sit in registers as the A operands of the
+// score products.
 // The block writes its head's fp32 dK/dV to (B, Sk, Hq, D)
 // scratch; flash_bwd_reduce_kernel sums the group's heads.
 template <int DMAX>
-__global__ void __launch_bounds__(kWgThreads, 1)
+__global__ void __launch_bounds__(wg_threads<DMAX>(), 1)
     flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
   using TL = DkdvTile<DMAX>;
   constexpr int BQ = TL::BQ, BK = TL::BK;
@@ -1107,8 +1169,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
   init_ring<TL::ST>(full, empty, kvbar, 32);  // a stage is full once the producer warp's 32 lanes arrived
 
-  if (warp == 8) {  // producer
-    {
+  if (warp >= 8) {  // producer
+    producer_regs<DMAX>();
+    if (warp == 8) {
       if (lane == 0) {
         mbar_arrive_tx(kvbar, 2 * TL::KV_BYTES);
         tma_tile<BK, DMAX>(Ks, &maps.k, kvbar, k0, g, b);
@@ -1135,6 +1198,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
     }
   } else {  // consumers: both own keys k0 ..; wg 0 sums dV, wg 1 dK
+    consumer_regs<DMAX>();
     const int wg = warp / 4, tw = threadIdx.x & 127, gid = lane >> 2, tig = lane & 3;
     const int key_lo = k0 + (warp & 3) * 16 + gid;
     const float sl2 = a.scale * kLog2e;
@@ -1144,8 +1208,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     for (int n = 0; n < DMAX / 2; ++n) acc[n] = 0.f;
     mbar_wait(kvbar, 0);
     // k (wg 0) or v (wg 1), the score product's A operand: held in registers
-    // at D = 128 (it halves the product's shared-memory reads); read from
-    // shared memory at D = 64, where the register form gave wrong sums on the card
+    // at DMAX 128 (it halves the product's shared-memory reads); read from
+    // shared memory at DMAX 64, where the register form gave wrong sums on
+    // the card, and at DMAX 256, where it would take 64 registers a thread
     const uint32_t score_a = smem_addr(wg == 0 ? Ks : Vs);
     uint32_t af[DMAX / 16][4];
     if constexpr (DMAX == 128) {
@@ -1219,7 +1284,7 @@ __device__ __forceinline__ void scores_to_ds(const float (&sc)[BK / 2], float (&
 // ------------------------------------------------------------ backward dQ
 // 1-D grid of ceil(Sq / 128) x Hq x B blocks, last q tile first.
 template <int DMAX>
-__global__ void __launch_bounds__(kWgThreads, 1)
+__global__ void __launch_bounds__(wg_threads<DMAX>(), 1)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ Maps maps, const Args a) {
   using TL = DqTile<DMAX>;
   constexpr int BQ = TL::BQ, BK = TL::BK;
@@ -1239,8 +1304,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int warp = warp_index(), lane = threadIdx.x & 31;
   init_ring<TL::ST>(full, empty, qbar, 1);
 
-  if (warp == 8) {  // producer
-    if (lane == 0) {
+  if (warp >= 8) {  // producer
+    producer_regs<DMAX>();
+    if (warp == 8 && lane == 0) {
       mbar_arrive_tx(qbar, 2 * TL::Q_BYTES);
       tma_tile<BQ, DMAX>(Qs, &maps.q, qbar, q0, h, b);
       tma_tile<BQ, DMAX>(Gs, &maps.g, qbar, q0, h, b);
@@ -1256,6 +1322,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
     }
   } else {  // consumers: warpgroup wg owns q rows q0 + 64 wg ..
+    consumer_regs<DMAX>();
     const int wg = warp / 4, gid = lane >> 2, tig = lane & 3;
     const int r_lo = q0 + wg * 64 + (warp & 3) * 16 + gid;
     const float sl2 = a.scale * kLog2e;
@@ -1358,13 +1425,11 @@ __global__ void __launch_bounds__(256) flash_bwd_reduce_kernel(const Args a) {
 
 enum Kind { kFwd = 0, kDkdv = 1, kDq = 2, kDelta = 3 };
 
-// The Hopper kernels take bf16 with D <= 128; f32 and larger heads take the
-// fp32 CUDA-core kernels.
-bool use_wgmma(int bf16, int d) { return bf16 && d <= 128; }
-
+// Tile width of head dim d (at most 256, which the wrapper checks).  bf16
+// takes the Hopper kernels at every width, float32 the fp32 CUDA-core ones.
 int dmax_of(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
 
-template <int DMAX> int smem_bytes(int kind) {
+template <int DMAX> int smem_bytes_f32(int kind) {
   constexpr int BQ = Tiles<DMAX>::BQ, BK = Tiles<DMAX>::BK, LD = Tiles<DMAX>::LD;
   if (kind == kFwd) return 4 * ((BQ + 2 * BK) * LD + BQ * (BK + 4));
   if (kind == kDkdv) return 4 * ((2 * BQ + 2 * BK) * LD + 2 * BK * (BQ + 4) + 2 * BQ);
@@ -1379,11 +1444,10 @@ template <int DMAX> int smem_bytes_wgmma(int kind) {
 
 int smem_for(int kind, int d, int bf16) {
   if (kind == kDelta) return 0;
-  if (use_wgmma(bf16, d)) return d <= 64 ? smem_bytes_wgmma<64>(kind) : smem_bytes_wgmma<128>(kind);
   switch (dmax_of(d)) {
-    case 64: return smem_bytes<64>(kind);
-    case 128: return smem_bytes<128>(kind);
-    default: return smem_bytes<256>(kind);
+    case 64: return bf16 ? smem_bytes_wgmma<64>(kind) : smem_bytes_f32<64>(kind);
+    case 128: return bf16 ? smem_bytes_wgmma<128>(kind) : smem_bytes_f32<128>(kind);
+    default: return bf16 ? smem_bytes_wgmma<256>(kind) : smem_bytes_f32<256>(kind);
   }
 }
 
@@ -1395,25 +1459,17 @@ int launch_one(K kernel, dim3 grid, int threads, int smem, const Args& a, cudaSt
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DMAX>
-int launch(int kind, const Args& a, cudaStream_t st) {
+template <int DMAX>
+int launch_f32(int kind, const Args& a, cudaStream_t st) {
   constexpr int BQ = Tiles<DMAX>::BQ, BK = Tiles<DMAX>::BK;
-  const int smem = smem_bytes<DMAX>(kind);
+  const int smem = smem_bytes_f32<DMAX>(kind);
   const int nq = (a.mask.sq + BQ - 1) / BQ, nk = (a.mask.sk + BK - 1) / BK;
   if (kind == kFwd)
-    return launch_one(flash_fwd_kernel<T, DMAX>, dim3(nq, a.hq, a.batch), kThreads, smem, a, st);
+    return launch_one(flash_fwd_kernel<DMAX>, dim3(nq, a.hq, a.batch), kThreads, smem, a, st);
   if (kind == kDkdv)
-    return launch_one(flash_bwd_dkdv_kernel<T, DMAX>, dim3(nk, a.hkv, a.batch), kThreads, smem, a,
+    return launch_one(flash_bwd_dkdv_kernel<DMAX>, dim3(nk, a.hkv, a.batch), kThreads, smem, a,
                       st);
-  return launch_one(flash_bwd_dq_kernel<T, DMAX>, dim3(nq, a.hq, a.batch), kThreads, smem, a, st);
-}
-
-int launch_f32(int kind, const Args& a, cudaStream_t st) {
-  switch (dmax_of(a.d)) {
-    case 64: return launch<float, 64>(kind, a, st);
-    case 128: return launch<float, 128>(kind, a, st);
-    default: return launch<float, 256>(kind, a, st);
-  }
+  return launch_one(flash_bwd_dq_kernel<DMAX>, dim3(nq, a.hq, a.batch), kThreads, smem, a, st);
 }
 
 // Errors of the host side of the Hopper path, above CUDA's own codes.
@@ -1467,10 +1523,11 @@ int encode(CUtensorMap* map, const void* ptr, const long long* spec, int rows) {
 }
 
 template <typename K>
-int launch_tma(K kernel, int blocks, int smem, const Maps& maps, const Args& a, cudaStream_t st) {
+int launch_tma(K kernel, int blocks, int threads, int smem, const Maps& maps, const Args& a,
+               cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, kWgThreads, smem, st>>>(maps, a);
+  kernel<<<blocks, threads, smem, st>>>(maps, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1494,14 +1551,15 @@ int launch_wgmma(int kind, const Args& a, const long long* specs, cudaStream_t s
     int err = encode_maps(&maps, a, specs, TL::BQ, TL::BK, false);
     if (err) return err;
     return launch_tma(flash_fwd_wgmma_kernel<DMAX>, heads * ((a.mask.sq + TL::BQ - 1) / TL::BQ),
-                      TL::SMEM, maps, a, st);
+                      wg_threads<DMAX>(), TL::SMEM, maps, a, st);
   }
   if (kind == kDkdv) {
     using TL = DkdvTile<DMAX>;
     const auto kernel = flash_bwd_dkdv_wgmma_kernel<DMAX>;
     int err = encode_maps(&maps, a, specs, TL::BQ, TL::BK, true);
     if (err) return err;
-    err = launch_tma(kernel, heads * ((a.mask.sk + TL::BK - 1) / TL::BK), TL::SMEM, maps, a, st);
+    err = launch_tma(kernel, heads * ((a.mask.sk + TL::BK - 1) / TL::BK), wg_threads<DMAX>(),
+                     TL::SMEM, maps, a, st);
     if (err) return err;
     const long long n = (long long)a.batch * a.mask.sk * a.hkv * (a.d / 4);
     flash_bwd_reduce_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(a);
@@ -1511,7 +1569,7 @@ int launch_wgmma(int kind, const Args& a, const long long* specs, cudaStream_t s
   int err = encode_maps(&maps, a, specs, TL::BQ, TL::BK, true);
   if (err) return err;
   return launch_tma(flash_bwd_dq_wgmma_kernel<DMAX>, heads * ((a.mask.sq + TL::BQ - 1) / TL::BQ),
-                    TL::SMEM, maps, a, st);
+                    wg_threads<DMAX>(), TL::SMEM, maps, a, st);
 }
 
 template <typename T> int launch_delta(const Args& a, cudaStream_t st) {
@@ -1533,8 +1591,8 @@ extern "C" int flash_attention_smem_bytes(int kind, int d, int bf16) {
 // ptrs: q, k, v, out, g, dq, dk, dv, lse, delta, dk_part, dv_part (unused
 // ones may be null); strides: (batch, seq, head) in elements for the first
 // eight, 24 values; shape: B, Hq, Hkv, Sq, Sk, D; mask: causal, window,
-// chunk, prefix_len, q_offset; maps: for bf16 with D <= 128, the tensor-map
-// plans of q, k, v and g, 11 values each (dims D, H, S, B; byte strides of
+// chunk, prefix_len, q_offset; maps: for bf16, the tensor-map plans of q,
+// k, v and g, 11 values each (dims D, H, S, B; byte strides of
 // H, S, B; box 64, 1, rows, 1), else null.  kind 0 launches the forward
 // (writes out and lse); kind 3 the delta pre-pass (reads g and out, writes
 // delta); kind 1 the dK/dV kernel (on the bf16 path into dk_part/dv_part,
@@ -1565,8 +1623,9 @@ extern "C" int flash_attention_launch(int kind, void* const* ptrs, const long lo
   a.mask = Mask{shape[3], shape[4], mask[0], mask[1], mask[2], mask[3], mask[4]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == kDelta) return bf16 ? launch_delta<__nv_bfloat16>(a, st) : launch_delta<float>(a, st);
-  if (use_wgmma(bf16, a.d))
-    return a.d <= 64 ? launch_wgmma<64>(kind, a, maps, st) : launch_wgmma<128>(kind, a, maps, st);
-  if (bf16) return launch<__nv_bfloat16, 256>(kind, a, st);  // 128 < D <= 256
-  return launch_f32(kind, a, st);
+  switch (dmax_of(a.d)) {
+    case 64: return bf16 ? launch_wgmma<64>(kind, a, maps, st) : launch_f32<64>(kind, a, st);
+    case 128: return bf16 ? launch_wgmma<128>(kind, a, maps, st) : launch_f32<128>(kind, a, st);
+    default: return bf16 ? launch_wgmma<256>(kind, a, maps, st) : launch_f32<256>(kind, a, st);
+  }
 }

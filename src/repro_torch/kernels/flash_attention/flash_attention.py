@@ -13,9 +13,10 @@ is made.  ``flash_attention.launches`` counts forward launches and
 ``flash_attention_bwd.launches`` backward calls (each launches the delta
 pre-pass, the dK/dV kernel with its reduction, and the dQ kernel).
 
-For bfloat16 with D <= 128 the kernels load their tiles with TMA; the
-host-side plan of those loads (:func:`tensor_map_spec`,
-:func:`tensor_maps`) and of the fp32 dK/dV scratch
+For bfloat16 (any D up to 256) the kernels load their tiles with TMA and
+multiply on the tensor cores; float32 takes the fp32 CUDA-core kernels.
+The host-side plan of the TMA loads (:func:`tensor_map_spec`,
+:func:`tensor_maps`, :func:`tile_rows`) and of the fp32 dK/dV scratch
 (:func:`dkv_partial_shape`) is plain Python, so the CPU tests reach it.
 """
 
@@ -34,9 +35,14 @@ from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref
 SMEM_LIMIT = 232448          # bytes of shared memory a block may use on Hopper
 _DTYPES = (torch.float32, torch.bfloat16)
 FWD, DKDV, DQ, DELTA = 0, 1, 2, 3    # kernel kinds of the C entry point
-# Rows of one tile load (query side, key side) of each Hopper kernel; the
-# C side refuses a tensor map whose box differs from its tile.
-TILE_ROWS = {FWD: (128, 128), DKDV: (64, 64), DQ: (128, 64)}
+# Rows of one tile load (query side, key side) of each Hopper kernel, by
+# the tile width DMAX (64, 128 or 256); the C side refuses a tensor map
+# whose box differs from its tile.  At DMAX 256 the streamed tiles shrink
+# so that the shared-memory ring fits (FwdTile, DkdvTile, DqTile in
+# csrc/flash_attention.cu).
+_NARROW_ROWS = {FWD: (128, 128), DKDV: (64, 64), DQ: (128, 64)}
+TILE_ROWS = {64: _NARROW_ROWS, 128: _NARROW_ROWS,
+             256: {FWD: (128, 64), DKDV: (64, 64), DQ: (128, 32)}}
 TMA_BOX_COLS = 64            # 128 bytes of bf16: the 128-byte swizzle's row
 MAP_SPEC_LEN = 11            # values of one tensor-map plan
 _TMA_ERRORS = {1001: "libcuda has no cuTensorMapEncodeTiled",
@@ -64,9 +70,22 @@ def smem_bytes(kind: int, d: int, bf16: bool) -> int:
 
 
 def uses_tensor_maps(dtype: torch.dtype, d: int) -> bool:
-    """True where the Hopper kernels (TMA, wgmma) run: bf16 with D <= 128;
-    float32 and larger heads take the fp32 CUDA-core kernels."""
-    return dtype == torch.bfloat16 and d <= 128
+    """True where the Hopper kernels (TMA, wgmma) run: bf16 at every head
+    dim the kernels take (up to 256); float32 takes the fp32 CUDA-core
+    kernels."""
+    return dtype == torch.bfloat16 and d <= 256
+
+
+def dmax(d: int) -> int:
+    """The tile width of head dim ``d``: 64, 128 or 256 columns, each row
+    loaded as ``dmax(d) // TMA_BOX_COLS`` boxes; columns past ``d`` read
+    as zeros."""
+    return 64 if d <= 64 else 128 if d <= 128 else 256
+
+
+def tile_rows(kind: int, d: int) -> Tuple[int, int]:
+    """(query-side, key-side) rows of one tile load of kernel ``kind``."""
+    return TILE_ROWS[dmax(d)][kind]
 
 
 def tensor_map_spec(shape, stride, elem_size: int, rows: int) -> list:
@@ -82,7 +101,7 @@ def tensor_map_spec(shape, stride, elem_size: int, rows: int) -> list:
 def tensor_maps(kind: int, q, k, v, g=None) -> list:
     """Plans of the maps of q, k, v and g (zeros where g is None) for
     kernel ``kind``, ``MAP_SPEC_LEN`` values each."""
-    q_rows, k_rows = TILE_ROWS[kind]
+    q_rows, k_rows = tile_rows(kind, q.shape[-1])
     spec = []
     for t, rows in ((q, q_rows), (k, k_rows), (v, k_rows), (g, q_rows)):
         spec += ([0] * MAP_SPEC_LEN if t is None else

@@ -44,6 +44,18 @@ CASES = [
     (64, 192, 2, 1, 128, dict(causal=False)),
 ]
 IDS = ["causal", "window", "chunk", "prefix", "noncausal"]
+# head dim 256 (PaliGemma's and RecurrentGemma's heads, the bf16 kernels'
+# DMAX-256 tiles on the card): GQA 4/2, a window and a chunk.  The chunk
+# divides the Pallas kernel's 64-row blocks: its block-level chunk skip
+# (`_flash_kernel`) compares only the blocks' first and last rows, so with
+# chunk 48 it skips q rows 64-95 against keys 48-63 (one chunk) and fails
+# against `attention_ref`; a limit of the reference, not of the port.
+CASES_256 = [
+    (128, 128, 4, 2, 256, dict(causal=True)),
+    (192, 192, 4, 2, 256, dict(causal=True, window=80)),
+    (128, 128, 4, 2, 256, dict(causal=True, chunk=32)),
+]
+IDS_256 = ["causal-d256", "window-d256", "chunk-d256"]
 
 
 def _inputs(seed, b, sq, sk, hq, hkv, d, dtype):
@@ -63,7 +75,7 @@ def _close(t: torch.Tensor, j, tol):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("sq,sk,hq,hkv,d,kw", CASES, ids=IDS)
+@pytest.mark.parametrize("sq,sk,hq,hkv,d,kw", CASES + CASES_256, ids=IDS + IDS_256)
 def test_plain_forward_matches_pallas_and_ref(dtype, sq, sk, hq, hkv, d, kw):
     (qj, kj, vj, _), (qt, kt, vt, _) = _inputs(sq + d, 2, sq, sk, hq, hkv, d, dtype)
     out, lse = flash_attention_fwd(qt, kt, vt, **kw)
@@ -85,7 +97,7 @@ def _grad_close(t: torch.Tensor, j):
 
 
 @pytest.mark.parametrize("block", [32, 64])
-@pytest.mark.parametrize("sq,sk,hq,hkv,d,kw", CASES, ids=IDS)
+@pytest.mark.parametrize("sq,sk,hq,hkv,d,kw", CASES + CASES_256, ids=IDS + IDS_256)
 def test_plain_lse_and_backward_match_jax(sq, sk, hq, hkv, d, kw, block):
     """out and lse against ``_flash_fwd_impl``, (dq, dk, dv) against
     ``jax.vjp`` of ``flash_attention_xla``, at blocks that scan several KV
@@ -179,24 +191,34 @@ def test_tensor_map_spec_reads_strides_of_views():
     assert tensor_map_spec(d32.shape, d32.stride(), 2, 128)[:7] == [32, 2, 8, 1, 64, 128, 1024]
 
 
-@pytest.mark.parametrize("kind", ["fwd", "dkdv", "dq"])
-def test_tensor_maps_plan_each_kernel(kind):
+@pytest.mark.parametrize("kind,d", [(k, d) for d in (64, 256) for k in ("fwd", "dkdv", "dq")],
+                         ids=["fwd", "dkdv", "dq", "fwd-d256", "dkdv-d256", "dq-d256"])
+def test_tensor_maps_plan_each_kernel(kind, d):
     """q, k, v and dO maps with the query-side and key-side rows of the
-    kernel's tile; the forward has no dO map."""
+    kernel's tile; the forward has no dO map.  At D = 256 a row is four
+    64-column boxes and the streamed tiles are smaller (the shared-memory
+    ring of the DMAX-256 kernels)."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
     k_ = {"fwd": fa.FWD, "dkdv": fa.DKDV, "dq": fa.DQ}[kind]
-    q = torch.zeros(1, 300, 4, 64, dtype=torch.bfloat16)
-    kv = torch.zeros(1, 200, 2, 64, dtype=torch.bfloat16)
+    q = torch.zeros(1, 300, 4, d, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 200, 2, d, dtype=torch.bfloat16)
     g = None if kind == "fwd" else q
     plan = fa.tensor_maps(k_, q, kv, kv, g)
     assert len(plan) == 4 * fa.MAP_SPEC_LEN
-    q_rows, k_rows = fa.TILE_ROWS[k_]
+    q_rows, k_rows = fa.tile_rows(k_, d)
+    assert (q_rows, k_rows) == fa.TILE_ROWS[fa.dmax(d)][k_]
     maps = [plan[i:i + fa.MAP_SPEC_LEN] for i in range(0, len(plan), fa.MAP_SPEC_LEN)]
-    assert maps[0][:4] == [64, 4, 300, 1] and maps[0][9] == q_rows
-    assert maps[1][:4] == [64, 2, 200, 1] and maps[1][9] == k_rows
+    assert maps[0][:4] == [d, 4, 300, 1] and maps[0][9] == q_rows
+    assert maps[1][:4] == [d, 2, 200, 1] and maps[1][9] == k_rows
     assert maps[2] == maps[1]
     assert maps[3] == ([0] * fa.MAP_SPEC_LEN if g is None else maps[0])
-    assert q_rows in (64, 128) and k_rows in (64, 128)
+    assert all(m[7] == fa.TMA_BOX_COLS == 64 for m in maps if any(m))
+    if d == 64:
+        assert fa.dmax(d) // fa.TMA_BOX_COLS == 1
+        assert q_rows in (64, 128) and k_rows in (64, 128)
+    else:
+        assert fa.dmax(d) // fa.TMA_BOX_COLS == 4
+        assert (q_rows, k_rows) == {"fwd": (128, 64), "dkdv": (64, 64), "dq": (128, 32)}[kind]
 
 
 def test_tensor_core_path_and_scratch_plan():
@@ -204,8 +226,11 @@ def test_tensor_core_path_and_scratch_plan():
                                                                      uses_tensor_maps)
 
     assert uses_tensor_maps(torch.bfloat16, 128) and uses_tensor_maps(torch.bfloat16, 32)
-    assert not uses_tensor_maps(torch.bfloat16, 136)
+    # bf16 heads past 128 take the DMAX-256 Hopper kernels; float32 never
+    assert uses_tensor_maps(torch.bfloat16, 136) and uses_tensor_maps(torch.bfloat16, 256)
     assert not uses_tensor_maps(torch.float32, 64)
+    assert not uses_tensor_maps(torch.float32, 256)
+    assert dkv_partial_shape(1, 4096, 8, 256) == (2, 1, 4096, 8, 256)
     # fp32 dK and dV of every query head, summed over each KV group afterwards
     assert dkv_partial_shape(1, 4096, 24, 128) == (2, 1, 4096, 24, 128)
     assert 4 * math.prod(dkv_partial_shape(1, 4096, 24, 128)) == 2 * 50331648
@@ -227,3 +252,11 @@ def test_check_rejects_what_the_bf16_kernels_cannot_take():
         _check(q, shared, kv)
     # the fp32 kernels read rows through pointers and take it
     _check(q.float(), shared.float(), kv.float())
+    # at D = 256 bf16 takes the tensor maps too (no quiet fp32 path), float32 not
+    q256 = torch.zeros(1, 8, 4, 256, dtype=torch.bfloat16)
+    kv256 = torch.zeros(1, 8, 2, 256, dtype=torch.bfloat16)
+    shared256 = torch.zeros(1, 8, 1, 256, dtype=torch.bfloat16).expand(1, 8, 2, 256)
+    _check(q256, kv256, kv256)
+    with pytest.raises(ValueError, match="broadcast"):
+        _check(q256, shared256, kv256)
+    _check(q256.float(), shared256.float(), kv256.float())
