@@ -145,7 +145,26 @@ failure:
      host numpy path and to a chunk-8192 run; two blocks under
      torch.profiler, then the draw and the waste kernels each alone;
  31. time the prefix-scan kernel, its plain version and torch.cumsum at the
-     sweep's block beside the bytes bound.
+     sweep's block beside the bytes bound;
+ 32. the Fig. 17c grid of benchmarks/dcn.py (2048 nodes, 512-node domains,
+     five fault ratios x 100 snapshots, TP-32, three variants) through
+     ``run_dcn_sweep(backend="torch")``: every grid equal to the port's
+     numpy grid, the curves equal to BENCH_dcn.json, 26 prefix-scan
+     launches;
+ 33. the DCN placement at datacenter scale: 8192 nodes, the five ratios x
+     1024 snapshots, TP 32 and 64, orchestrated only, through
+     ``run_dcn_sweep`` (launches: 4 * (iters + 1) + 2 = 30 per block and
+     TP) and the kernel alone per TP (rows/s beside numpy's, every row
+     equal to numpy), peak memory, a profile of one TP
+     (busy and idle share, the scans' share beside their bytes bound), a
+     fault planted in the card's input and a member changed in its output
+     both caught; then the placement's scans timed at their short tier rows
+     (64 entries) and full rows;
+ 34. churn: benchmarks/churn.py's 256-trace ensemble through
+     ``monte_carlo_replay(backend="torch")``, batched and streamed, equal to
+     numpy (traces/s); one 348-day trace of 2048 nodes through
+     ``traffic_replay`` equal to numpy (rows/s); a control-plane replay on
+     the host with its latency table.
 
 The last lines are the script's time, the ``{"kernels": ...}`` record, the
 card line and ``{"ok": true, "device": ...}``.
@@ -2501,6 +2520,348 @@ def time_prefix_scan(torch, rows=SWEEP_BLOCK, length=SWEEP_NODES):
             "library_ms": library_ms}
 
 
+# ------------------------------------------------------------ DCN and churn slice
+
+
+DCN_RATIOS = (0.0, 0.03, 0.05, 0.07, 0.10)      # Fig. 17c's fault ratios
+DCN_GRIDS = ("groups", "dp_pairs", "crossing_pairs", "crossing_pod_pairs", "feasible",
+             "n_constraints")
+DC_NODES = 8192                                   # 32,768 GPUs
+DC_SAMPLES = 1024                                 # snapshots per fault ratio
+DC_TPS = (32, 64)
+DC_CHUNK = 1024                                   # rows per device block
+
+
+def dcn_grids_equal(a, b):
+    return a.variants == b.variants and all(
+        np.array_equal(getattr(a, f), getattr(b, f)) for f in DCN_GRIDS)
+
+
+def placements_equal(a, b):
+    return (np.array_equal(a.members, b.members) and np.array_equal(a.feasible, b.feasible)
+            and np.array_equal(a.n_constraints, b.n_constraints))
+
+
+def check_fig17c(torch):
+    """benchmarks/dcn.py's Fig. 17c grid: 2048 nodes, 512-node domains, five
+    fault ratios x 100 snapshots, TP-32, all three variants through
+    ``run_dcn_sweep(backend="torch")``: every grid equal to the port's numpy
+    grid, the curves equal to the reference's recorded BENCH_dcn.json."""
+    from repro_torch.dcn import DcnSpec, cross_tor_curve, run_dcn_sweep
+    from repro_torch.dcn.torch_backend import scans_per_call
+    from repro_torch.kernels.prefix_scan import prefix_scan
+
+    spec = DcnSpec(num_nodes=2048, agg_domain=512, fault_ratios=DCN_RATIOS, samples=100,
+                   tp_sizes=(32,), job_scale=0.85, seed=3)
+    masks = [spec.masks(ri) for ri in range(len(DCN_RATIOS))]
+    t0 = time.perf_counter()
+    ref = run_dcn_sweep(spec, backend="numpy", masks=masks)
+    dt_np = time.perf_counter() - t0
+    rows = len(DCN_RATIOS) * spec.samples
+    want = scans_per_call(spec.config, 32) * -(-rows // 1024)
+    # twice: the first call loads the CUDA modules of every kernel on this
+    # path, the second is the steady state
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        prefix_scan.launches = 0
+        t1 = time.perf_counter()
+        got = run_dcn_sweep(spec, backend="torch", masks=masks)
+        times.append(time.perf_counter() - t1)
+        launches = prefix_scan.launches
+        if got.backend != "torch" or not dcn_grids_equal(got, ref):
+            bad = [f for f in DCN_GRIDS if not np.array_equal(getattr(got, f), getattr(ref, f))]
+            raise AssertionError(f"fig17c: torch grids differ from numpy in {bad}")
+        if launches != want:
+            raise AssertionError(f"fig17c: prefix_scan launched {launches} times, want {want}")
+    dt = times[1]
+    recorded = json.loads((ROOT / "BENCH_dcn.json").read_text())
+    print(f"fig17c: {rows} snapshots x 2048 nodes, agg 512, TP-32, 3 variants: torch grids "
+          f"equal numpy on groups, dp_pairs, crossing_pairs, crossing_pod_pairs, feasible, "
+          f"n_constraints, twice (torch first call {times[0]:.3f} s, then {dt:.3f} s; numpy "
+          f"{dt_np:.3f} s); prefix_scan launches {launches} a run")
+    for variant in got.variants:
+        curve = cross_tor_curve(got, variant)
+        same = {f"{r:.2f}": s for r, s in curve.items()} == recorded[f"curve_{variant}"]
+        print(f"fig17c: {variant:12s} cross-ToR share " + ", ".join(
+            f"{100 * r:.0f}%: " + ("infeasible" if s is None else f"{s:.6f}")
+            for r, s in curve.items())
+            + f" ({'equal to' if same else 'DIFFERS FROM'} BENCH_dcn.json)")
+        if not same:
+            raise AssertionError(f"fig17c: the {variant} curve differs from BENCH_dcn.json")
+    return {"launches": launches, "seconds": dt, "numpy_seconds": dt_np}
+
+
+def dcn_datacenter(torch):
+    """8192 nodes (32,768 GPUs), 512-node domains, the five ratios x 1024
+    snapshots, TP 32 and 64, orchestrated only; masks drawn before the
+    timer.  The main path (``run_dcn_sweep``) with its launch count, the
+    placement kernel timed alone per TP and held to numpy on every row, a
+    profile of one TP's blocks, and two plants caught."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.dcn import DcnSpec, batched_fat_tree, run_dcn_sweep
+    from repro_torch.dcn.torch_backend import fat_tree_placements, scans_per_call, search_iters
+    from repro_torch.kernels.prefix_scan import prefix_scan
+
+    spec = DcnSpec(num_nodes=DC_NODES, agg_domain=512, fault_ratios=DCN_RATIOS,
+                   samples=DC_SAMPLES, tp_sizes=DC_TPS, job_scale=0.85, seed=3,
+                   variants=("orchestrated",))
+    cfg = spec.config
+    masks = [spec.masks(ri) for ri in range(len(DCN_RATIOS))]
+    stacked = np.concatenate(masks)
+    rows = stacked.shape[0]
+    chunks = -(-rows // DC_CHUNK)
+    jobs = [spec.job_gpus(tp) for tp in DC_TPS]
+    per_call = {tp: scans_per_call(cfg, tp) for tp in DC_TPS}
+    iters = search_iters(cfg)
+
+    # the main path: run_dcn_sweep on the card, launches counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefix_scan.launches = 0
+    t0 = time.perf_counter()
+    res = run_dcn_sweep(spec, backend="torch", masks=masks, chunk_snapshots=DC_CHUNK)
+    wall = time.perf_counter() - t0
+    launches = prefix_scan.launches
+    peak = torch.cuda.max_memory_allocated()
+    want = sum(per_call.values()) * chunks
+    if any(v != 4 * (iters + 1) + 2 for v in per_call.values()) or launches != want:
+        raise AssertionError(f"dc: prefix_scan launched {launches} times; want "
+                             f"4 * ({iters} + 1) + 2 per (block, TP) x {chunks} blocks x "
+                             f"{len(DC_TPS)} TPs = {want}")
+    print(f"dc: {rows} snapshots x {DC_NODES} nodes ({4 * DC_NODES} GPUs), agg 512, TP "
+          f"{'/'.join(map(str, DC_TPS))}, orchestrated: run_dcn_sweep on the card {wall:.3f} s "
+          f"({rows / wall:.0f} rows/s at both TPs), peak device memory {peak / 1e9:.2f} GB; "
+          f"prefix_scan launches {launches} = {launches // (chunks * len(DC_TPS))} per "
+          f"(block, TP) = 4 * (iters {iters} + 1) + 2, x {chunks} blocks x {len(DC_TPS)} TPs")
+
+    # the placement kernel alone, per TP, beside numpy on every row (numpy
+    # takes ~2.5 ms a row on the host; one ratio's rows a call)
+    out = {"launches": launches, "rows": rows, "peak_gb": peak / 1e9,
+           "sweep_rows_per_s": rows / wall, "per_tp": {}}
+    scans_bytes = 0
+    for tp, job in zip(DC_TPS, jobs):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bp = fat_tree_placements(stacked, cfg, [tp], [job], chunk_snapshots=DC_CHUNK)[0]
+        dt = time.perf_counter() - t1
+        dt_np = 0.0
+        for ri, mk in enumerate(masks):
+            t2 = time.perf_counter()
+            ref = batched_fat_tree(mk, cfg, tp, job)
+            dt_np += time.perf_counter() - t2
+            rows_ri = slice(ri * DC_SAMPLES, (ri + 1) * DC_SAMPLES)
+            got = type(bp)(bp.members[rows_ri], bp.feasible[rows_ri],
+                           bp.n_constraints[rows_ri], bp.need, bp.m)
+            if not placements_equal(got, ref):
+                raise AssertionError(f"dc: TP-{tp} placements differ from numpy at "
+                                     f"{DCN_RATIOS[ri]:.0%} faults")
+            del ref, got
+        ti = DC_TPS.index(tp)
+        if not (np.array_equal(res.feasible[0, :, :, ti].reshape(-1), bp.feasible)
+                and np.array_equal(res.n_constraints[:, :, ti].reshape(-1), bp.n_constraints)):
+            raise AssertionError(f"dc: TP-{tp} run_dcn_sweep and the kernel alone disagree")
+        # each scan reads its bool input once and writes int32 once; every
+        # scan of this path runs over rows x num_nodes elements
+        scan_bytes = per_call[tp] * rows * DC_NODES * (1 + 4)
+        scans_bytes += scan_bytes
+        feas = bp.feasible.reshape(len(DCN_RATIOS), DC_SAMPLES).mean(axis=1)
+        print(f"dc: TP-{tp}: placement kernel {dt:.3f} s = {rows / dt:.0f} rows/s on the card; "
+              f"numpy {rows / dt_np:.0f} rows/s on the host ({dt_np:.2f} s; every row equal "
+              f"to the card's); "
+              f"feasible share by ratio " + "/".join(f"{f:.3f}" for f in feas)
+              + f"; scans' bytes bound {scan_bytes / 1e9:.3f} GB = "
+              f"{scan_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+        out["per_tp"][tp] = {"rows_per_s": rows / dt, "numpy_rows_per_s": rows / dt_np,
+                             "scan_bound_ms": scan_bytes / HBM_BYTES_PER_S * 1e3}
+        if tp == DC_TPS[0]:
+            plant_input, plant_output = stacked[:1].copy(), bp
+    out["scan_bound_ms"] = scans_bytes / HBM_BYTES_PER_S * 1e3
+
+    # plants: a fault on a placed node of the fault-free row, and one member
+    # of the card's output changed, must both fail the comparison
+    tp, job = DC_TPS[0], jobs[0]
+    node = int(plant_output.members[0, 0, 0])
+    plant_input[0, node] = True
+    planted = fat_tree_placements(plant_input, cfg, [tp], [job])[0]
+    ref0 = batched_fat_tree(stacked[:1], cfg, tp, job)
+    corrupt = type(plant_output)(plant_output.members[:1].copy(), plant_output.feasible[:1],
+                                 plant_output.n_constraints[:1], plant_output.need,
+                                 plant_output.m)
+    corrupt.members[0, 0, 0] += 1
+    caught = (not placements_equal(planted, ref0), not placements_equal(corrupt, ref0))
+    print(f"dc plant: a fault on node {node} of the card's input "
+          f"{'caught' if caught[0] else 'MISSED'}; one member of the card's output changed "
+          f"{'caught' if caught[1] else 'MISSED'}")
+    if not all(caught):
+        raise AssertionError("dc: a planted fault passed the comparison")
+
+    # where the time goes: one TP's blocks under the profiler
+    fat_tree_placements(stacked[:DC_CHUNK], cfg, [tp], [job], chunk_snapshots=DC_CHUNK)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t3 = time.perf_counter()
+        fat_tree_placements(stacked, cfg, [tp], [job], chunk_snapshots=DC_CHUNK)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t3) * 1e3
+    summary = summarize_profile(torch, prof, prof_ms, 1,
+                                f"TP-{tp} placement of {rows} rows x {DC_NODES} nodes",
+                                {"prefix scan": "prefix_scan_kernel", "cummax/cummin":
+                                 "with_indices", "sorts": "ort"})
+    if summary:
+        scan_ms = summary["groups"]["prefix scan"]
+        print(f"dc profile: device busy {summary['busy_ms']:.1f} of {prof_ms:.1f} ms "
+              f"({summary['idle_pct']:.1f}% idle); prefix scans {scan_ms:.2f} ms = "
+              f"{100 * scan_ms / summary['busy_ms']:.1f}% of device time against their "
+              f"bytes bound {per_call[tp] * rows * DC_NODES * 5 / HBM_BYTES_PER_S * 1e3:.3f} ms")
+        out.update(profile=summary, profile_wall_ms=prof_ms)
+    return out
+
+
+def time_short_row_scans(torch, rows=DC_CHUNK):
+    """The tier carve's scans: rows x 16 domains x 8 sub-lines of 64 ToR
+    positions (8192 nodes, 512-node domains), and the residual carve's
+    rows of 8192, each beside its bytes bound and the plain version."""
+    from repro_torch.kernels.prefix_scan import prefix_scan, prefix_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    out = {}
+    for label, shape in (("tier", (rows, 16, 8, 64)), ("residual", (rows, DC_NODES))):
+        x = torch.rand(shape, generator=gen, device="cuda") < 0.07
+        launches = prefix_scan.launches
+        kernel_ms = eager_ms(torch, lambda i: prefix_scan(x), 1, iters=20, repeats=5)
+        prefix_scan.launches = launches         # timing launches are not the main path's
+        plain_ms = eager_ms(torch, lambda i: prefix_scan_ref(x), 1, iters=20, repeats=5)
+        library_ms = eager_ms(torch, lambda i: torch.cumsum(x, -1, dtype=torch.int32), 1,
+                              iters=20, repeats=5)
+        nbytes = x.numel() * 5
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, x.numel() / INT32_OPS) * 1e3
+        print(f"time prefix_scan {label} rows {tuple(shape)}: kernel {kernel_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms (bytes: {nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms, "
+              f"library torch.cumsum {library_ms:.4f} ms")
+        out[label] = {"shape": list(shape), "ms": kernel_ms, "bound_ms": bound_ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms}
+        del x
+    return out
+
+
+def churn_on_card(torch):
+    """benchmarks/churn.py's acceptance ensemble (256 traces of 200 8-GPU
+    nodes, 60 days, TP-32, InfiniteHBD-K3, NVL-72, TPUv4) batched and
+    streamed on the card, equal to numpy; one 348-day trace of 1024 8-GPU
+    nodes (2048 4-GPU nodes, 512-node domains) through ``traffic_replay``,
+    equal to numpy; one control-plane replay on the host."""
+    from repro_torch.churn import (ChurnJob, ChurnSpec, control_plane_replay,
+                                   latency_table, monte_carlo_replay, traffic_replay)
+    from repro_torch.dcn.engine import VARIANTS, evaluate_placements
+    from repro_torch.dcn.torch_backend import scans_per_call
+    from repro_torch.dcn.kernel import FatTreeConfig
+    from repro_torch.kernels.prefix_scan import prefix_scan
+    from repro_torch.sim.torch_backend import infinitehbd_scans
+
+    spec = ChurnSpec(trace_nodes=200, horizon_h=60 * 24.0, tp_sizes=(32,),
+                     architectures=("infinitehbd-k3", "nvl-72", "tpuv4"), seed=1)
+    n_traces = 256
+    t0 = time.perf_counter()
+    traces = [spec.trace(r) for r in range(n_traces)]
+    gen_s = time.perf_counter() - t0
+    intervals = sum(len(tr.interval_edges()) for tr in traces)
+    recorded = json.loads((ROOT / "BENCH_churn.json").read_text())["intervals_total"]
+    if intervals != recorded:
+        raise AssertionError(f"churn: {intervals} intervals, BENCH_churn.json has {recorded}")
+    t1 = time.perf_counter()
+    ref = monte_carlo_replay(spec, traces, backend="numpy")
+    np_s = time.perf_counter() - t1
+    out = {"traces": n_traces, "intervals": intervals, "numpy_traces_per_s": n_traces / np_s}
+    scans = sum(infinitehbd_scans(m) for m in spec.models() if m.name.startswith("infinitehbd"))
+    for engine in ("batched", "streamed"):
+        torch.cuda.synchronize()
+        prefix_scan.launches = 0
+        t2 = time.perf_counter()
+        got = monte_carlo_replay(spec, traces, engine=engine, backend="torch")
+        dt = time.perf_counter() - t2
+        launches = prefix_scan.launches
+        same = got.backend == "torch" and all(
+            np.array_equal(a.placed_gpus, b.placed_gpus)
+            and np.array_equal(a.faulty_gpus, b.faulty_gpus)
+            and np.array_equal(a.total_gpus, b.total_gpus)
+            for a, b in zip(got.timelines, ref.timelines))
+        want = scans * -(-intervals // 4096) if engine == "batched" else None
+        print(f"churn {engine}: {n_traces} traces, {intervals} intervals x {spec.num_nodes} "
+              f"nodes: torch {dt:.3f} s = {n_traces / dt:.1f} traces/s, numpy "
+              f"{n_traces / np_s:.1f} traces/s (traces generated in {gen_s:.2f} s, not timed); "
+              f"timelines {'equal' if same else 'DIFFER'}; prefix_scan launches {launches}")
+        if not same:
+            raise AssertionError(f"churn {engine}: torch timelines differ from numpy")
+        if launches == 0 or (want is not None and launches != want):
+            raise AssertionError(f"churn {engine}: prefix_scan launched {launches} times"
+                                 + ("" if want is None else f", want {want}"))
+        out[engine] = {"traces_per_s": n_traces / dt, "launches": launches, "seconds": dt}
+    summary = {r["architecture"]: r for r in got.summary_table()}
+    print("churn: mean time-integrated waste at TP-32 " + ", ".join(
+        f"{n} {100 * r['mean_waste']:.3f}% (P99 {100 * r['p99_waste']:.3f}%)"
+        for n, r in summary.items()))
+
+    trace = ChurnSpec(trace_nodes=1024).trace(0)
+    edges = len(trace.interval_edges())
+    kw = dict(tp_sizes=(32,), agg_domain=512)
+    cfg = FatTreeConfig(trace.num_nodes, 4, 8, 512, 3)
+    torch.cuda.synchronize()
+    prefix_scan.launches = 0
+    t3 = time.perf_counter()
+    tl = traffic_replay(trace, backend="torch", **kw)
+    dt = time.perf_counter() - t3
+    launches = prefix_scan.launches
+    t4 = time.perf_counter()
+    tl_np = traffic_replay(trace, backend="numpy", **kw)
+    dt_np = time.perf_counter() - t4
+    fields = ("groups", "dp_pairs", "crossing_pairs", "crossing_pod_pairs", "feasible")
+    same = tl.backend == "torch" and all(
+        np.array_equal(getattr(tl, f), getattr(tl_np, f)) for f in fields)
+    want = scans_per_call(cfg, 32) * -(-edges // 4096)
+    print(f"traffic replay: one 348-day trace of {trace.num_nodes} nodes, {edges} intervals, "
+          f"agg 512, TP-32, {len(VARIANTS)} variants: torch {dt:.3f} s = {edges / dt:.0f} "
+          f"rows/s, numpy {dt_np:.3f} s = {edges / dt_np:.0f} rows/s; grids "
+          f"{'equal' if same else 'DIFFER'}; prefix_scan launches {launches} (want {want})")
+    if not same or launches != want:
+        raise AssertionError("traffic replay: torch grids differ from numpy or the scan "
+                             "launches are off")
+    feas = tl.feasible_time_share()[:, 0]
+    cross = tl.time_mean_shares()["cross_tor_share"][:, 0]
+    print("traffic replay: time-mean cross-ToR share (1:9 bytes) " + ", ".join(
+        f"{v} {cross[i]:.5f} (placeable {100 * feas[i]:.2f}% of the time)"
+        for i, v in enumerate(tl.variants)))
+    # the replay's device part alone: the orchestrated placement of every
+    # interval (the masks, the baselines and the pair counts are host code)
+    masks = trace.fault_masks(trace.interval_edges())
+    job = max(int(trace.num_nodes * 4 * 0.85) // 32 * 32, 32)
+    torch.cuda.synchronize()
+    t6 = time.perf_counter()
+    evaluate_placements(masks, cfg, "orchestrated", 32, job, backend="torch",
+                        chunk_snapshots=4096)
+    dt_o = time.perf_counter() - t6
+    print(f"traffic replay: the orchestrated placement alone {dt_o:.3f} s = "
+          f"{edges / dt_o:.0f} rows/s on the card; the rest of the torch replay's "
+          f"{dt:.3f} s is host code (interval masks, the greedy and DGX-island "
+          f"baselines, pair counts)")
+    out["traffic"] = {"intervals": edges, "rows_per_s": edges / dt,
+                      "numpy_rows_per_s": edges / dt_np, "launches": launches,
+                      "orchestrated_rows_per_s": edges / dt_o}
+
+    job = ChurnJob(tp_size=32, dp_size=8, agg_domain=80)
+    t5 = time.perf_counter()
+    recs = control_plane_replay(traces[0], job, max_events=100)
+    dt = time.perf_counter() - t5
+    row = latency_table({"400 nodes": recs})[0]
+    print(f"control plane: {row['reconfigs']} reconfigurations of trace 0 on the host in "
+          f"{dt:.2f} s ({row['infeasible']} infeasible): latency mean {row['mean_us']:.1f} us, "
+          f"P50 {row['p50_us']:.1f}, P90 {row['p90_us']:.1f}, P99 {row['p99_us']:.1f}, "
+          f"max {row['max_us']:.1f}")
+    out["control_plane"] = row
+    return out
+
+
 def main() -> int:
     import dataclasses
 
@@ -2624,9 +2985,19 @@ def main() -> int:
     check_fig13(torch)
     sweep = sweep_main_path(torch)
     scan_times = time_prefix_scan(torch)
+    t_dcn = time.perf_counter()
+    fig17c = check_fig17c(torch)
+    dc = dcn_datacenter(torch)
+    short_rows = time_short_row_scans(torch)
+    churn = churn_on_card(torch)
+    dcn_s = time.perf_counter() - t_dcn
+    print(f"dcn/churn: the DCN and churn phases (the Fig. 17c grid, the 8192-node placement, "
+          f"the short-row scans, the churn ensemble, the traffic and control-plane replays) "
+          f"took {dcn_s:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, of which the "
           f"decoder-config phases {decoders_s:.1f} s, the PaliGemma and Whisper phases "
-          f"{vlm_s:.1f} s and the RecurrentGemma phases {rg_s:.1f} s")
+          f"{vlm_s:.1f} s, the RecurrentGemma phases {rg_s:.1f} s and the DCN and churn "
+          f"phases {dcn_s:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
@@ -2717,6 +3088,14 @@ def main() -> int:
         "library": "torch.cumsum(mask, -1, dtype=torch.int32)",
         **scan_times,
         "sweep_snaps_per_s": sweep["snaps_per_s"],
+        "launches_dcn_fig17c": fig17c["launches"],
+        "launches_dcn_8192": dc["launches"],
+        "launches_churn_batched": churn["batched"]["launches"],
+        "launches_churn_streamed": churn["streamed"]["launches"],
+        "launches_traffic_replay": churn["traffic"]["launches"],
+        "dcn_8192_rows_per_s": {str(tp): v["rows_per_s"] for tp, v in dc["per_tp"].items()},
+        "dcn_8192_scan_bound_ms": dc["scan_bound_ms"],
+        "dcn_short_rows": short_rows,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,11 @@
 
 Copies of the NumPy-only modules of ``repro.core`` (``ocstrx``,
 ``topology``, ``orchestrator``, ``hbd_models``, ``fault_sim``, ``trace``,
-``reductions``, ``cost_model``, ``mfu_sim``, ``arch`` and the host part of
-``placement``), plus the torch threefry draw in ``prng``.  Not yet here:
-``placement.make_orchestrated_mesh``, which builds a mesh, comes with the
-parallel slice, and ``control_plane``, which stands on the DCN engine, with
-the DCN slice (ROADMAP.md § 1 items 6-7).
+``reductions``, ``cost_model``, ``mfu_sim``, ``arch``, ``control_plane``
+and the host part of ``placement``), plus the torch threefry draw in
+``prng``; it exports what ``repro.core`` exports.  Not yet here:
+``placement.make_orchestrated_mesh``, which builds a mesh and comes with
+the parallel slice (ROADMAP.md § 1 item 7).
 """
 
 from .ocstrx import OCSTrx, OCSTrxBundle, Path
@@ -33,3 +33,5 @@ from .cost_model import (ALL_BOMS, ArchBOM, Component, INFINITEHBD_K2,
                          aggregate_cost, cost_ratio, table6)
 from .mfu_sim import (Cluster, GPT_MOE_1T, LLAMA31_405B, ParallelPlan,
                       SimModel, SimResult, search, simulate)
+from .control_plane import (ClusterManager, ControlPlaneConfig,
+                            NodeFabricManager, ReconfigEvent)

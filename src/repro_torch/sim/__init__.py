@@ -2,9 +2,10 @@
 architectures, on the card.
 
 The counterpart of ``repro.sim`` (the paper's §6.2 resiliency evaluation,
-Figs. 13-16, as ``(architectures x snapshots x TP)`` grids).  The DCN
-traffic and serving-SLO axes that ``repro.sim`` re-exports come with their
-slices, as does ``comparison_matrix``.
+Figs. 13-16, as ``(architectures x snapshots x TP)`` grids), with the DCN
+traffic axis (Fig. 17, ``repro_torch.dcn``) re-exported beside it as
+``repro.sim`` does.  The serving-SLO axis and ``comparison_matrix`` come
+with their slice (ROADMAP.md § 1 item 6).
 
 Typical use::
 
@@ -26,6 +27,11 @@ from .scenario import (CounterIIDSnapshots, DEFAULT_ARCHITECTURES,
                        IIDSnapshots, MODEL_REGISTRY, ScenarioSpec,
                        TraceSnapshots, make_model)
 from .tables import fault_waiting_table, max_job_table, to_csv, waste_table
+# DCN traffic axis of the sweep engine (Fig. 17): the batched fat-tree
+# placement kernels live in repro_torch.dcn; the spec/sweep/reduction trio
+# is re-exported here so traffic sweeps sit next to the waste sweeps.
+from ..dcn.engine import DcnSpec, run_dcn_sweep, variant_for
+from ..dcn.tables import traffic_tables
 
 __all__ = [
     "SweepResult", "run_sweep", "run_sweep_scalar", "evaluate_masks",
@@ -33,4 +39,5 @@ __all__ = [
     "ScenarioSpec", "TraceSnapshots", "IIDSnapshots", "CounterIIDSnapshots",
     "MODEL_REGISTRY", "DEFAULT_ARCHITECTURES", "make_model",
     "waste_table", "max_job_table", "fault_waiting_table", "to_csv",
+    "DcnSpec", "run_dcn_sweep", "traffic_tables", "variant_for",
 ]

@@ -16,7 +16,12 @@ MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
     for p in PKG.rglob("*.py"))
 # the host modules of repro.core that the port copies
-CORE = ("ocstrx", "topology", "mfu_sim", "fault_sim", "orchestrator", "placement")
+CORE = ("ocstrx", "topology", "mfu_sim", "fault_sim", "orchestrator", "placement",
+        "control_plane")
+# the DCN engine and the churn replays
+ENGINES = ("dcn.engine", "dcn.incremental", "dcn.kernel", "dcn.tables", "dcn.torch_backend",
+           "dcn.traffic", "churn.mfu_bridge", "churn.monte_carlo", "churn.replay",
+           "churn.timeline", "churn.traffic", "kernels.prefix_scan.host")
 # "repro" as a whole name: repro_torch does not match
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\s|\.|,|$)", re.M)
 
@@ -33,7 +38,8 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
     assert len(MODULES) >= 15 and "repro_torch.models.moe" in MODULES
     assert {"repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_2b",
-            *(f"repro_torch.core.{m}" for m in CORE)} <= set(MODULES)
+            *(f"repro_torch.core.{m}" for m in CORE),
+            *(f"repro_torch.{m}" for m in ENGINES)} <= set(MODULES)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
