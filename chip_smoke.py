@@ -70,9 +70,13 @@ failure:
      fail that check; the bf16 kernels at D > 128 on edge cases (S=4095
      with 2 KV heads, Sq != Sk with a query offset, a chunk mask, packed
      QKV views, Sk > Sq non-causal, D=192), absolutely and per band, each
-     launching only the wgmma kernels, float32 at D=256 only the fp32
+     launching only the wgmma kernels, float32 at D=256 only the 3xTF32
      ones, and the forward and backward at PaliGemma's shape bit-identical
-     when run twice; flash-decode at
+     when run twice; the float32 (3xTF32 tensor-core) kernels: only they
+     run at both Whisper shapes, bit-identical twice at the encoder's, and
+     on edge cases (window, chunk 200, prefix 256, a query offset, D=80,
+     GQA 8/2, packed QKV views, a broadcast KV head) absolutely and per
+     band; flash-decode at
      PaliGemma's serving shape (slot form, D=256, MQA) and Whisper's
      cross-attention (lengths form, L=1500, bf16 q over a float32 cache),
      with a plain version planted with 1500 - 64 keys caught;
@@ -88,7 +92,9 @@ failure:
      launches a step) and served with caches filled by
      ``encode_to_cache`` (24 flash-decode launches a step, 12 in each form);
  17. time the flash kernels at PaliGemma's and Whisper's training shapes
-     beside SDPA and the card's least time for the work;
+     beside SDPA (its kernels printed by name) and the card's least time
+     for the work (float32: 3xTF32 at the TF32 tensor-core peak, beside
+     the FFMA bound);
  18. the flash kernels at RecurrentGemma-2B's training shape (B=1, S=4096
      past its 2048 window, MQA 10 over 1 KV head, D=256, bf16: the
      DMAX-256 wgmma kernels), absolutely and per band, with plain versions planted with
@@ -227,6 +233,10 @@ TRAIN_TOL = {"loss_rel": 1e-4, "param_abs": 1e-4}
 # gradient's largest entry (dB and dC sum over every head and the chunk).
 SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 FP32_FLOPS = 67e12               # H100 SXM float32 peak outside the tensor cores
+TF32_FLOPS = 495e12              # H100 SXM dense TF32 tensor-core peak
+# The float32 flash kernels run each product as three TF32 products
+# (3xTF32), so their least time is 3 x their FLOPs at TF32_FLOPS.
+TF32_SPLIT = 3
 # H100 SXM int32 adds on the CUDA cores: 64 a clock on each of 132 SMs at 1.98 GHz
 INT32_OPS = 64 * 132 * 1.98e9
 KERNELS = ["decode_attention", "flash_attention", "ssd_scan", "prefix_scan"]
@@ -755,13 +765,18 @@ def summarize_profile(torch, prof, wall_ms, n_steps, label, groups):
 # ------------------------------------------------------------ flash attention
 
 
-def flash_inputs(torch, seed, b, sq, sk, hq, hkv, d, dtype, packed=False):
+def flash_inputs(torch, seed, b, sq, sk, hq, hkv, d, dtype, packed=False, broadcast=False):
     """q, k, v, g; with ``packed`` q, k and v are non-contiguous views cut
-    from one (B, S, Hq + 2 Hkv, D) tensor, as a fused QKV projection gives."""
+    from one (B, S, Hq + 2 Hkv, D) tensor, as a fused QKV projection gives;
+    with ``broadcast`` k and v hold one KV head expanded to Hkv (stride 0)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     if packed:
         qkv = torch.randn((b, sq, hq + 2 * hkv, d), generator=gen, device="cuda").to(dtype)
         q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+    elif broadcast:
+        q = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((b, sk, 1, d), generator=gen, device="cuda").to(dtype)
+                .expand(b, sk, hkv, d) for _ in range(2))
     else:
         q = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(dtype)
         k = torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(dtype)
@@ -805,7 +820,8 @@ def show_window_errors(errs):
     return ", ".join(f"{n} {e[0]:.3e}/{e[1]:.3e}" for n, e in errs.items())
 
 
-def flash_case(torch, label, dname, seed, b, sq, sk, hq, hkv, d, kw, errs, packed=False):
+def flash_case(torch, label, dname, seed, b, sq, sk, hq, hkv, d, kw, errs, packed=False,
+               broadcast=False):
     """One case of the flash kernels against their plain versions on the
     same inputs: out and lse within TOL, dq, dk, dv within GRAD_TOL of the
     gradient's largest entry; the backward of both gets the kernel's (out,
@@ -818,7 +834,8 @@ def flash_case(torch, label, dname, seed, b, sq, sk, hq, hkv, d, kw, errs, packe
                                                      flash_attention_fwd_ref)
 
     dtype = getattr(torch, dname)
-    q, k, v, g = flash_inputs(torch, seed, b, sq, sk, hq, hkv, d, dtype, packed=packed)
+    q, k, v, g = flash_inputs(torch, seed, b, sq, sk, hq, hkv, d, dtype, packed=packed,
+                              broadcast=broadcast)
     out, lse = flash_attention_fwd(q, k, v, **kw)
     ref_out, ref_lse = flash_attention_fwd_ref(q, k, v, **kw)
     grads = flash_attention_bwd(q, k, v, out, lse, g, **kw)
@@ -1107,8 +1124,8 @@ def check_vlm_encdec_flash(torch):
 # Hkv, D, mask, packed): a ragged last tile with 2 KV heads, Sq != Sk with a
 # query offset, a chunk that cuts tiles, q/k/v cut from one packed QKV
 # tensor, Sk > Sq without the causal mask, D=192 (the last of the four
-# 64-column boxes reads zeros past D); float32 at D=256 takes the fp32
-# CUDA-core kernels.
+# 64-column boxes reads zeros past D); float32 at D=256 takes the 3xTF32
+# kernels' DMAX-256 tiles.
 D256_FLASH = [
     ("D=256 S=4095 GQA 8/2", "bfloat16", 1, 4095, 4095, 8, 2, 256, dict(causal=True), False),
     ("D=256 Sq=300 Sk=1000 q_offset 700", "bfloat16", 1, 300, 1000, 8, 2, 256,
@@ -1117,8 +1134,16 @@ D256_FLASH = [
     ("D=256 packed qkv views", "bfloat16", 2, 1000, 1000, 8, 2, 256, dict(causal=True), True),
     ("D=256 non-causal Sk > Sq", "bfloat16", 2, 64, 192, 2, 1, 256, dict(causal=False), False),
     ("D=192", "bfloat16", 1, 1000, 1000, 8, 1, 192, dict(causal=True), False),
-    ("D=256 on the fp32 kernels", "float32", 1, 300, 300, 4, 2, 256, dict(causal=True), False),
+    ("D=256 on the 3xTF32 kernels", "float32", 1, 300, 300, 4, 2, 256, dict(causal=True), False),
 ]
+# The kernels of each route: bf16 takes TMA and wgmma, float32 the 3xTF32
+# mma.sync kernels (csrc/flash_attention.cu).
+FLASH_ROUTES = {
+    "bfloat16": {"flash_fwd_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
+                 "flash_bwd_dq_wgmma_kernel"},
+    "float32": {"flash_fwd_tf32x3_kernel", "flash_bwd_dkdv_tf32x3_kernel",
+                "flash_bwd_dq_tf32x3_kernel"},
+}
 
 
 def flash_kernels_run(torch, fn, want, tries=5):
@@ -1141,11 +1166,44 @@ def flash_kernels_run(torch, fn, want, tries=5):
             torch.cuda.synchronize()
         ran |= {m.groups() for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                for m in [re.search(r"(flash_(?:fwd|bwd_dkdv|bwd_dq)(?:_wgmma)?_kernel)(?:<|ILi)(\d+)",
-                                    e.name)] if m}
+                for m in [re.search(
+                    r"(flash_(?:fwd|bwd_dkdv|bwd_dq)_(?:wgmma|tf32x3)_kernel)(?:<|ILi)(\d+)",
+                    e.name)] if m}
         if want <= ran:
             break
     return ran
+
+
+def check_route(torch, label, dname, q, k, v, g, kw):
+    """Raise unless a forward and a backward on (q, k, v, g) launch the
+    three kernels of ``dname``'s route at the DMAX of q's head dim, and no
+    other flash kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.flash_attention.flash_attention import dmax
+
+    want = {(n, str(dmax(q.shape[-1]))) for n in FLASH_ROUTES[dname]}
+    ran = flash_kernels_run(torch, lambda: flash_attention_bwd(
+        q, k, v, *flash_attention_fwd(q, k, v, **kw), g, **kw), want)
+    ok = ran == want
+    print(f"flash_attention {label} {dname}: kernels run "
+          f"{sorted(f'{n}<{dm}>' for n, dm in ran)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash_attention {label} {dname} took the wrong kernels: {ran}")
+
+
+def check_repeat(torch, label, dname, q, k, v, g, kw):
+    """The forward and the backward each give the same bits twice: no
+    atomics in either direction."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    fwd = [flash_attention_fwd(q, k, v, **kw) for _ in range(2)]
+    bwd = [flash_attention_bwd(q, k, v, *fwd[0], g, **kw) for _ in range(2)]
+    same = {"forward": all(torch.equal(x, y) for x, y in zip(*fwd)),
+            "backward": all(torch.equal(x, y) for x, y in zip(*bwd))}
+    print(f"flash_attention {label} {dname} run twice: "
+          + ", ".join(f"{n} {'bit-identical' if ok else 'DIFFER'}" for n, ok in same.items()))
+    if not all(same.values()):
+        raise AssertionError(f"flash_attention {label} {dname} is not deterministic: {same}")
 
 
 def check_d256_flash(torch):
@@ -1153,12 +1211,8 @@ def check_d256_flash(torch):
     on ``D256_FLASH``, absolutely (``flash_case``) and per band of 64 rows
     (``band_check``, rows before and in the ragged last tile); each bf16
     case launches only the three wgmma kernels, the float32 case only the
-    fp32 ones; the forward and the backward at PaliGemma's training shape
+    3xTF32 ones; the forward and the backward at PaliGemma's training shape
     are bit-identical when run twice.  Returns the largest errors."""
-    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
-
-    wgmma = {"flash_fwd_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"}
-    fp32 = {"flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"}
     errs = {"fwd": 0.0, "bwd": 0.0}
     for seed, (label, dname, b, sq, sk, hq, hkv, d, kw, packed) in enumerate(D256_FLASH):
         (q, k, v, g), fwd, ref_fwd, grads, ref_grads = flash_case(
@@ -1166,29 +1220,63 @@ def check_d256_flash(torch):
         band_check(torch, label, dname, fwd, ref_fwd, grads, ref_grads,
                    sq // WINDOW_BAND * WINDOW_BAND, sk // WINDOW_BAND * WINDOW_BAND,
                    where="the ragged last tile")
-        want = {(n, "256") for n in (wgmma if dname == "bfloat16" else fp32)}
-        ran = flash_kernels_run(torch, lambda: flash_attention_bwd(
-            q, k, v, *flash_attention_fwd(q, k, v, **kw), g, **kw), want)
-        others = {name for name, _ in ran} & ((wgmma | fp32) - {n for n, _ in want})
-        print(f"flash_attention {label} {dname}: kernels run "
-              f"{sorted(f'{n}<{dm}>' for n, dm in ran)} {'ok' if want <= ran and not others else 'FAIL'}")
-        if not want <= ran or others:
-            raise AssertionError(f"flash_attention {label} {dname} took the wrong kernels: {ran}")
+        check_route(torch, label, dname, q, k, v, g, kw)
         del q, k, v, g, fwd, ref_fwd, grads, ref_grads
         torch.cuda.empty_cache()
-    # no atomics in either direction: the same inputs give the same bits
     label, b, sq, sk, hq, hkv, d, kw = PALIGEMMA_FLASH
     q, k, v, g = flash_inputs(torch, 78, b, sq, sk, hq, hkv, d, torch.bfloat16)
-    fwd = [flash_attention_fwd(q, k, v, **kw) for _ in range(2)]
-    bwd = [flash_attention_bwd(q, k, v, *fwd[0], g, **kw) for _ in range(2)]
-    same = {"forward": all(torch.equal(x, y) for x, y in zip(*fwd)),
-            "backward": all(torch.equal(x, y) for x, y in zip(*bwd))}
-    print(f"flash_attention {label} B={b} S={sq} Hq={hq} Hkv={hkv} D={d} bfloat16 run twice: "
-          + ", ".join(f"{n} {'bit-identical' if ok else 'DIFFER'}" for n, ok in same.items()))
-    if not all(same.values()):
-        raise AssertionError(f"flash_attention at D=256 is not deterministic: {same}")
-    del q, k, v, g, fwd, bwd
+    check_repeat(torch, f"{label} B={b} S={sq} Hq={hq} Hkv={hkv} D={d}", "bfloat16",
+                 q, k, v, g, kw)
+    del q, k, v, g
     torch.cuda.empty_cache()
+    return errs
+
+
+# Edge cases of the float32 (3xTF32) kernels beside Whisper's shapes, each
+# held to its plain version (label, B, Sq, Sk, Hq, Hkv, D, mask, packed,
+# broadcast): a window, a chunk and a prefix that cut tiles, Sq != Sk with a
+# query offset, D=80 (two 64-column blocks, the second 16 wide), GQA 8/2
+# with a ragged last tile, q/k/v cut from one packed QKV tensor, and a KV
+# head broadcast (stride 0) over two.
+F32_FLASH = [
+    ("window 300", 1, 1000, 1000, 8, 2, 64, dict(causal=True, window=300), False, False),
+    ("chunk 200", 1, 1000, 1000, 4, 2, 64, dict(causal=True, chunk=200), False, False),
+    ("prefix 256", 2, 1000, 1000, 4, 1, 64, dict(causal=True, prefix_len=256), False, False),
+    ("Sq=300 Sk=1000 q_offset 700", 1, 300, 1000, 8, 2, 64, dict(causal=True, q_offset=700),
+     False, False),
+    ("D=80", 1, 1000, 1000, 8, 2, 80, dict(causal=True), False, False),
+    ("GQA 8/2 S=1500", 2, 1500, 1500, 8, 2, 64, dict(causal=False), False, False),
+    ("packed qkv views", 2, 1000, 1000, 8, 2, 64, dict(causal=True), True, False),
+    ("broadcast KV head", 2, 1000, 1000, 8, 2, 64, dict(causal=True), False, True),
+]
+
+
+def check_f32_flash(torch):
+    """The float32 (3xTF32) kernels: at both of Whisper's shapes they launch
+    only the three 3xTF32 kernels, and at its encoder shape the forward and
+    the backward are bit-identical when run twice; each case of
+    ``F32_FLASH`` agrees with its plain version absolutely (``flash_case``)
+    and per band of 64 rows (``band_check``) and takes the same route.
+    Returns the largest errors."""
+    for seed, (label, b, sq, sk, hq, hkv, d, kw) in enumerate(WHISPER_FLASH):
+        q, k, v, g = flash_inputs(torch, 400 + seed, b, sq, sk, hq, hkv, d, torch.float32)
+        name = f"{label} B={b} Sq={sq} Sk={sk} Hq={hq} D={d}"
+        check_route(torch, name, "float32", q, k, v, g, kw)
+        if seed == 0:
+            check_repeat(torch, name, "float32", q, k, v, g, kw)
+        del q, k, v, g
+        torch.cuda.empty_cache()
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for seed, (label, b, sq, sk, hq, hkv, d, kw, packed, broadcast) in enumerate(F32_FLASH):
+        (q, k, v, g), fwd, ref_fwd, grads, ref_grads = flash_case(
+            torch, label, "float32", 800 + seed, b, sq, sk, hq, hkv, d, kw, errs,
+            packed=packed, broadcast=broadcast)
+        band_check(torch, label, "float32", fwd, ref_fwd, grads, ref_grads,
+                   sq // WINDOW_BAND * WINDOW_BAND, sk // WINDOW_BAND * WINDOW_BAND,
+                   where="the ragged last tile")
+        check_route(torch, label, "float32", q, k, v, g, kw)
+        del q, k, v, g, fwd, ref_fwd, grads, ref_grads
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -1675,6 +1763,22 @@ def kernel_ms_by_group(torch, fn, calls, groups=None, once_per_call=False):
     return out
 
 
+def kernel_names(torch, fn, calls=3):
+    """The names of the CUDA kernels ``fn`` launches, from torch.profiler
+    over ``calls`` calls after a warm-up call (an isolated profile of one
+    call can miss its only launch, PERF.md § 7)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sorted({e.name[:100] for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
 def time_flash_attention(torch, label="StarCoder2", b=1, sq=4096, sk=None, hq=24, hkv=2,
                          d=128, dname="bfloat16", kw=None):
     """Forward and backward kernels, plain versions and SDPA at one training
@@ -1683,8 +1787,10 @@ def time_flash_attention(torch, label="StarCoder2", b=1, sq=4096, sk=None, hq=24
     card, not the host.  The backward's passes (delta, dK/dV, its
     reduction, dQ) are also timed apart under torch.profiler.
     The bound counts the pairs the mask keeps, at the bf16 tensor-core peak
-    for bf16 and the float32 peak for float32 (the fp32 kernels run on the
-    CUDA cores)."""
+    for bf16; for float32 at the TF32 tensor-core peak with each product
+    taken three times (3xTF32, as the kernels take it), beside the bound at
+    the float32 peak of the CUDA cores (FFMA).  The kernels SDPA launches
+    are printed by name."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
@@ -1736,9 +1842,13 @@ def time_flash_attention(torch, label="StarCoder2", b=1, sq=4096, sk=None, hq=24
     lib_fwd = eager_ms(torch, lambda i: sdpa(), 1, iters=10, repeats=3)
     lib_both = eager_ms(torch, lambda i: sdpa_both(), 1, iters=10, repeats=3)
     lib_bwd = lib_both - lib_fwd
+    print(f"sdpa {label} {dname}: a forward and backward launch "
+          f"{kernel_names(torch, sdpa_both)}")
     pairs = b * hq * int(keep.sum().item())
     elt = q.element_size()
-    peak = BF16_FLOPS if dname == "bfloat16" else FP32_FLOPS
+    # the least time the card could take: bf16 at its tensor-core peak,
+    # float32 as three TF32 products at the TF32 peak
+    peak = BF16_FLOPS if dname == "bfloat16" else TF32_FLOPS / TF32_SPLIT
     qo = elt * b * sq * hq * d                 # bytes of one (B, Sq, Hq, D) tensor
     kv = elt * b * sk * hkv * d                # ... of one (B, Sk, Hkv, D) tensor
     rows = 4 * b * hq * sq                     # ... of one fp32 (B, Hq, Sq) tensor
@@ -1761,13 +1871,17 @@ def time_flash_attention(torch, label="StarCoder2", b=1, sq=4096, sk=None, hq=24
         by = "operations" if t_ops >= t_bytes else "bytes"
         tail = (f"plain {plain:.3f} ms, sdpa {lib:.3f} ms" if plain is not None else
                 f"sdpa's whole backward {lib_bwd:.3f} ms")
+        ffma_ms = max(flops / FP32_FLOPS, t_bytes) * 1e3 if dname == "float32" else None
+        ffma = "" if ffma_ms is None else f"; FFMA bound {ffma_ms:.3f} ms at 67 TFLOP/s"
         print(f"time flash_attention {name} {label}: B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} "
               f"D={d} {dname} {', '.join(f'{k_}={v_}' for k_, v_ in kw.items())}: kernel "
               f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.0f} GB/s), "
               f"bound {bound_ms:.3f} ms ({by}, {flops / 1e9:.1f} GFLOP at "
-              f"{peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB), {tail}")
+              f"{peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB{ffma}), {tail}")
         res[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
                      "library_ms": lib}
+        if ffma_ms is not None:
+            res[name]["ffma_bound_ms"] = ffma_ms
     del q, k, v, g, out, lse, qs, ks, vs, gs, keep, mask
     torch.cuda.empty_cache()
     return res
@@ -2916,6 +3030,7 @@ def main() -> int:
     t_vlm = time.perf_counter()
     vlm_flash_errs = check_vlm_encdec_flash(torch)
     d256_errs = check_d256_flash(torch)
+    f32_errs = check_f32_flash(torch)
     vlm_decode_err = check_vlm_encdec_decode(torch)
     decoders_reduced_against_cpu(torch, ("paligemma", "whisper"))
     paligemma, whisper = get_arch("paligemma"), get_arch("whisper")
@@ -3038,6 +3153,7 @@ def main() -> int:
         "launches_recurrentgemma_train": rg_runs["train"]["fwd"],
         "max_err_model_shapes": max(vlm_flash_errs["fwd"], rg_errs["fwd"]),
         "max_err_d256_cases": d256_errs["fwd"],
+        "max_err_f32_cases": f32_errs["fwd"],
         **{key: t["fwd"] for key, t in {**vlm_times, **rg_times}.items()},
     }, {
         "name": "flash_attention_bwd",
@@ -3055,6 +3171,7 @@ def main() -> int:
         "launches_recurrentgemma_train": rg_runs["train"]["bwd"],
         "max_err_model_shapes": max(vlm_flash_errs["bwd"], rg_errs["bwd"]),
         "max_err_d256_cases": d256_errs["bwd"],
+        "max_err_f32_cases": f32_errs["bwd"],
         **{key: t["bwd"] for key, t in {**vlm_times, **rg_times}.items()},
         "passes": {k: {"ms": v["ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"]}
                    for k, v in flash_times.items() if k.startswith("bwd ")},

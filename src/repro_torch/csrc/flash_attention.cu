@@ -32,10 +32,10 @@
 //     rowsum(dO * out) a pre-pass kernel;
 //   * the forward and dQ grids launch the last (under causal, heaviest) q
 //     tiles first;
-//   * float32 runs fp32 kernels on the CUDA cores: a thread owns a 4 x 4
-//     (or 2 x 2) patch of every score tile and a 4-row patch of every
-//     output tile, so each pass reads its operands as float4 from shared
-//     memory without bank conflicts;
+//   * float32 runs on the tensor cores too, as 3xTF32 mma.sync products
+//     (see the float32 section below): each operand split into two TF32
+//     halves and three products summed, which keeps float32's accuracy;
+//     cp.async loads into a 2-stage ring, softmax in registers;
 //   * tiles that the mask cannot reach are skipped at block level, with a
 //     rule at least as tight as the Pallas one (prefix-LM keeps the causal
 //     skip for keys past the prefix, the chunk rule compares chunk ranges).
@@ -48,15 +48,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // a 16 x 16 grid of threads: ty = tid / 16, tx = tid % 16
 constexpr float kNegInf = -1e30f;
-
-// q/k tile rows: 64 up to D = 128, 32 for D up to 256 (shared memory).
-template <int DMAX> struct Tiles {
-  static constexpr int BQ = DMAX <= 128 ? 64 : 32;
-  static constexpr int BK = BQ;
-  static constexpr int LD = DMAX + 4;  // row stride of a (rows, D) tile: 16 B apart in banks
-};
 
 // Four consecutive elements of a row, widened to / narrowed from fp32.
 template <typename T> struct V4;
@@ -139,351 +131,6 @@ struct Args {
   float scale;
   Mask mask;
 };
-
-// Rows [row0, row0 + R) of one head of a (B, S, H, D) tensor into a
-// shared (R, LD) fp32 tile, times `scale`; rows at or past `rows` are zeros.
-template <int R, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, long long s_stride,
-                                          int row0, int rows, int d, float scale) {
-  const int vpr = d / 4;
-  for (int idx = threadIdx.x; idx < R * vpr; idx += kThreads) {
-    const int r = idx / vpr, c = (idx - r * vpr) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < rows) {
-      x = V4<float>::load(src + (row0 + r) * s_stride + c);
-      x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
-    }
-    *reinterpret_cast<float4*>(dst + r * LD + c) = x;
-  }
-}
-
-// acc[i][j] = sum_d X[ty + 16 i][d] * Y[tx + 16 j][d] for two row-major tiles.
-template <int MI, int MJ, int LD>
-__device__ __forceinline__ void dot_rows(float (&acc)[MI][MJ], const float* X, const float* Y,
-                                         int d, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < MJ; ++j) acc[i][j] = 0.f;
-  for (int c = 0; c < d; c += 4) {
-    float4 x[MI], y[MJ];
-#pragma unroll
-    for (int i = 0; i < MI; ++i) x[i] = *reinterpret_cast<const float4*>(X + (ty + 16 * i) * LD + c);
-#pragma unroll
-    for (int j = 0; j < MJ; ++j) y[j] = *reinterpret_cast<const float4*>(Y + (tx + 16 * j) * LD + c);
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < MJ; ++j) {
-        float a = acc[i][j];
-        a = fmaf(x[i].x, y[j].x, a);
-        a = fmaf(x[i].y, y[j].y, a);
-        a = fmaf(x[i].z, y[j].z, a);
-        a = fmaf(x[i].w, y[j].w, a);
-        acc[i][j] = a;
-      }
-  }
-}
-
-// acc[i][j][e] += sum_k X[ty + 16 i][k] * Y[k][n], n = 4 tx + 64 j + e < d,
-// for X (rows, K) with row stride LDX and Y (K, D) with row stride LDY.
-template <int MI, int NJ, int K, int LDX, int LDY>
-__device__ __forceinline__ void acc_rows(float (&acc)[MI][NJ][4], const float* X,
-                                         const float* Y, int d, int ty, int tx) {
-#pragma unroll 2
-  for (int k = 0; k < K; k += 4) {
-    float4 x[MI];
-#pragma unroll
-    for (int i = 0; i < MI; ++i) x[i] = *reinterpret_cast<const float4*>(X + (ty + 16 * i) * LDX + k);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int n = 4 * tx + 64 * j;
-        if (n < d) {
-          const float4 y = *reinterpret_cast<const float4*>(Y + (k + kk) * LDY + n);
-#pragma unroll
-          for (int i = 0; i < MI; ++i) {
-            const float xi = kk == 0 ? x[i].x : kk == 1 ? x[i].y : kk == 2 ? x[i].z : x[i].w;
-            acc[i][j][0] = fmaf(xi, y.x, acc[i][j][0]);
-            acc[i][j][1] = fmaf(xi, y.y, acc[i][j][1]);
-            acc[i][j][2] = fmaf(xi, y.z, acc[i][j][2]);
-            acc[i][j][3] = fmaf(xi, y.w, acc[i][j][3]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// Reduce over the 16 lanes of a half warp (the threads of one ty).
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Store rows ty + 16 i of an fp32 (rows, D) accumulator, rows < rows_valid.
-template <int MI, int NJ>
-__device__ __forceinline__ void store_rows(const Tensor4& t, int b, int h, int row0,
-                                           int rows_valid, int d, const float (&acc)[MI][NJ][4],
-                                           const float (&inv)[MI], int ty, int tx) {
-  float* base = static_cast<float*>(const_cast<void*>(t.p)) + b * t.sb + h * t.sh;
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= rows_valid) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int n = 4 * tx + 64 * j;
-      if (n < d)
-        V4<float>::store(base + row * t.ss + n,
-                         make_float4(acc[i][j][0] * inv[i], acc[i][j][1] * inv[i],
-                                     acc[i][j][2] * inv[i], acc[i][j][3] * inv[i]));
-    }
-  }
-}
-
-// ------------------------------------------------------------------ forward
-// grid (ceil(Sq / BQ), Hq, B): one block per (q tile, q head, batch).
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
-  constexpr int BQ = Tiles<DMAX>::BQ, BK = Tiles<DMAX>::BK, LD = Tiles<DMAX>::LD;
-  constexpr int LDP = BK + 4, MI = BQ / 16, MJ = BK / 16, NJ = (DMAX + 63) / 64;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* Ps = Vs + BK * LD;
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z, g = h / (a.hq / a.hkv);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const Mask& mk = a.mask;
-  load_tile<BQ, LD>(Qs, static_cast<const float*>(a.q.p) + b * a.q.sb + h * a.q.sh, a.q.ss, q0,
-                    mk.sq, a.d, a.scale);
-  const float* kbase = static_cast<const float*>(a.k.p) + b * a.k.sb + g * a.k.sh;
-  const float* vbase = static_cast<const float*>(a.v.p) + b * a.v.sb + g * a.v.sh;
-
-  float m[MI], l[MI], acc[MI][NJ][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < mk.sk; k0 += BK) {
-    if (!mk.live(q0, BQ, k0, BK)) continue;
-    __syncthreads();  // the last tile's readers are done; the q tile is in place
-    load_tile<BK, LD>(Ks, kbase, a.k.ss, k0, mk.sk, a.d, 1.f);
-    load_tile<BK, LD>(Vs, vbase, a.v.ss, k0, mk.sk, a.d, 1.f);
-    __syncthreads();
-    float s[MI][MJ];
-    dot_rows<MI, MJ, LD>(s, Qs, Ks, a.d, ty, tx);
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < MJ; ++j) {
-        if (!mk.ok(qi, k0 + tx + 16 * j)) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < MJ; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * alpha + half_warp_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] *= alpha;
-    }
-    __syncthreads();
-    acc_rows<MI, NJ, BK, LDP, LD>(acc, Ps, Vs, a.d, ty, tx);
-  }
-
-  float inv[MI];
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-    const float lmax = fmaxf(l[i], 1e-30f);
-    inv[i] = 1.f / lmax;
-    const int qi = q0 + ty + 16 * i;
-    if (tx == 0 && qi < mk.sq)
-      a.lse[((long long)b * a.hq + h) * mk.sq + qi] = m[i] + logf(lmax);
-  }
-  store_rows<MI, NJ>(a.o, b, h, q0, mk.sq, a.d, acc, inv, ty, tx);
-}
-
-// Scores of one (q tile, kv tile) pair in the backward: p = exp(s - lse)
-// with s = q.k * scale (masked to -1e30), ds = p * (dp - delta) * scale with
-// dp = dO.v.  Rows at or past Sq get p = ds = 0.
-template <int MI, int MJ, int LD>
-__device__ __forceinline__ void bwd_scores(float (&p)[MI][MJ], float (&ds)[MI][MJ],
-                                           const float* Qs, const float* Gs, const float* Ks,
-                                           const float* Vs, const float* lse_s,
-                                           const float* del_s, int q0, int k0, const Args& a,
-                                           int ty, int tx) {
-  float dp[MI][MJ];
-  dot_rows<MI, MJ, LD>(p, Qs, Ks, a.d, ty, tx);
-  dot_rows<MI, MJ, LD>(dp, Gs, Vs, a.d, ty, tx);
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-    const int r = ty + 16 * i, qi = q0 + r;
-#pragma unroll
-    for (int j = 0; j < MJ; ++j) {
-      float pij = 0.f;
-      if (qi < a.mask.sq) {
-        const float s = a.mask.ok(qi, k0 + tx + 16 * j) ? p[i][j] * a.scale : kNegInf;
-        pij = expf(s - lse_s[r]);
-      }
-      p[i][j] = pij;
-      ds[i][j] = pij * (dp[i][j] - del_s[r]) * a.scale;
-    }
-  }
-}
-
-// q, dO, lse and delta of one q tile into shared memory.
-template <int BQ, int LD>
-__device__ __forceinline__ void load_q_side(float* Qs, float* Gs, float* lse_s, float* del_s,
-                                            const Args& a, int b, int h, int q0) {
-  const int sq = a.mask.sq;
-  load_tile<BQ, LD>(Qs, static_cast<const float*>(a.q.p) + b * a.q.sb + h * a.q.sh, a.q.ss, q0,
-                    sq, a.d, 1.f);
-  load_tile<BQ, LD>(Gs, static_cast<const float*>(a.g.p) + b * a.g.sb + h * a.g.sh, a.g.ss, q0,
-                    sq, a.d, 1.f);
-  const long long row = ((long long)b * a.hq + h) * sq;
-  for (int r = threadIdx.x; r < BQ; r += kThreads) {
-    const bool in = q0 + r < sq;
-    lse_s[r] = in ? a.lse[row + q0 + r] : 0.f;
-    del_s[r] = in ? a.delta[row + q0 + r] : 0.f;
-  }
-}
-
-// ------------------------------------------------------------ backward dK/dV
-// grid (ceil(Sk / BK), Hkv, B): one block per (kv tile, KV head, batch).
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const Args a) {
-  constexpr int BQ = Tiles<DMAX>::BQ, BK = Tiles<DMAX>::BK, LD = Tiles<DMAX>::LD;
-  constexpr int LDT = BQ + 4, MI = BQ / 16, MJ = BK / 16, MK = BK / 16, NJ = (DMAX + 63) / 64;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + BK * LD;
-  float* Qs = Vs + BK * LD;
-  float* Gs = Qs + BQ * LD;
-  float* Pt = Gs + BQ * LD;   // (BK, BQ): p transposed
-  float* Dt = Pt + BK * LDT;  // (BK, BQ): ds transposed
-  float* lse_s = Dt + BK * LDT;
-  float* del_s = lse_s + BQ;
-
-  const int k0 = blockIdx.x * BK, g = blockIdx.y, b = blockIdx.z, rep = a.hq / a.hkv;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const Mask& mk = a.mask;
-  load_tile<BK, LD>(Ks, static_cast<const float*>(a.k.p) + b * a.k.sb + g * a.k.sh, a.k.ss, k0,
-                    mk.sk, a.d, 1.f);
-  load_tile<BK, LD>(Vs, static_cast<const float*>(a.v.p) + b * a.v.sb + g * a.v.sh, a.v.ss, k0,
-                    mk.sk, a.d, 1.f);
-
-  float dk[MK][NJ][4], dv[MK][NJ][4];
-#pragma unroll
-  for (int i = 0; i < MK; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[i][j][e] = dv[i][j][e] = 0.f;
-
-  for (int r = 0; r < rep; ++r) {
-    const int h = g * rep + r;
-    for (int q0 = 0; q0 < mk.sq; q0 += BQ) {
-      if (!mk.live(q0, BQ, k0, BK)) continue;
-      __syncthreads();
-      load_q_side<BQ, LD>(Qs, Gs, lse_s, del_s, a, b, h, q0);
-      __syncthreads();
-      float p[MI][MJ], ds[MI][MJ];
-      bwd_scores<MI, MJ, LD>(p, ds, Qs, Gs, Ks, Vs, lse_s, del_s, q0, k0, a, ty, tx);
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < MJ; ++j) {
-          Pt[(tx + 16 * j) * LDT + ty + 16 * i] = p[i][j];
-          Dt[(tx + 16 * j) * LDT + ty + 16 * i] = ds[i][j];
-        }
-      __syncthreads();
-      acc_rows<MK, NJ, BQ, LDT, LD>(dv, Pt, Gs, a.d, ty, tx);  // dV += p^T dO
-      acc_rows<MK, NJ, BQ, LDT, LD>(dk, Dt, Qs, a.d, ty, tx);  // dK += ds^T q
-    }
-  }
-  float one[MK];
-#pragma unroll
-  for (int i = 0; i < MK; ++i) one[i] = 1.f;
-  store_rows<MK, NJ>(a.dk, b, g, k0, mk.sk, a.d, dk, one, ty, tx);
-  store_rows<MK, NJ>(a.dv, b, g, k0, mk.sk, a.d, dv, one, ty, tx);
-}
-
-// --------------------------------------------------------------- backward dQ
-// grid (ceil(Sq / BQ), Hq, B): one block per (q tile, q head, batch).
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
-  constexpr int BQ = Tiles<DMAX>::BQ, BK = Tiles<DMAX>::BK, LD = Tiles<DMAX>::LD;
-  constexpr int LDP = BK + 4, MI = BQ / 16, MJ = BK / 16, NJ = (DMAX + 63) / 64;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Gs = Qs + BQ * LD;
-  float* Ks = Gs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* Ds = Vs + BK * LD;  // (BQ, BK): ds
-  float* lse_s = Ds + BQ * LDP;
-  float* del_s = lse_s + BQ;
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z, g = h / (a.hq / a.hkv);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const Mask& mk = a.mask;
-  load_q_side<BQ, LD>(Qs, Gs, lse_s, del_s, a, b, h, q0);
-  const float* kbase = static_cast<const float*>(a.k.p) + b * a.k.sb + g * a.k.sh;
-  const float* vbase = static_cast<const float*>(a.v.p) + b * a.v.sb + g * a.v.sh;
-
-  float dq[MI][NJ][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dq[i][j][e] = 0.f;
-
-  for (int k0 = 0; k0 < mk.sk; k0 += BK) {
-    if (!mk.live(q0, BQ, k0, BK)) continue;
-    __syncthreads();
-    load_tile<BK, LD>(Ks, kbase, a.k.ss, k0, mk.sk, a.d, 1.f);
-    load_tile<BK, LD>(Vs, vbase, a.v.ss, k0, mk.sk, a.d, 1.f);
-    __syncthreads();
-    float p[MI][MJ], ds[MI][MJ];
-    bwd_scores<MI, MJ, LD>(p, ds, Qs, Gs, Ks, Vs, lse_s, del_s, q0, k0, a, ty, tx);
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < MJ; ++j) Ds[(ty + 16 * i) * LDP + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-    acc_rows<MI, NJ, BK, LDP, LD>(dq, Ds, Ks, a.d, ty, tx);  // dQ += ds k
-  }
-  float one[MI];
-#pragma unroll
-  for (int i = 0; i < MI; ++i) one[i] = 1.f;
-  store_rows<MI, NJ>(a.dq, b, h, q0, mk.sq, a.d, dq, one, ty, tx);
-}
 
 // ------------------------------------------------- bf16 Hopper kernels
 // For bf16 inputs, D up to 256 (the DMAX 64, 128 and 256 instances; tiles
@@ -1375,6 +1022,515 @@ __global__ void __launch_bounds__(wg_threads<DMAX>(), 1)
   }
 }
 
+// ------------------------------------------------- float32 kernels (3xTF32)
+// For float32 inputs, D a multiple of 8 up to 256 (the DMAX 64, 128 and
+// 256 instances).  Every product runs on the tensor cores as mma.sync
+// m16n8k8 with TF32 operands and keeps float32's accuracy by the 3xTF32
+// split: each float32 operand x becomes hi = tf32(x) and lo = tf32(x - hi),
+// rounded to nearest with ties away from zero (cvt.rna's rounding), and a
+// product sums lo.hi + hi.lo + hi.hi in fp32; lo.lo lies below float32's
+// rounding and is dropped.  One TF32 product alone misses the float32
+// tolerance sevenfold.
+//   * mma.sync, not wgmma: wgmma reads TF32 operands from shared memory
+//     only K-major, so the products that sum over rows (P V, p^T dO,
+//     ds^T q, ds k) would need transposed copies of v, dO, q and k, and
+//     every B operand a split copy; mma.sync reads every fragment from a
+//     plain row-major float32 tile, at a lower peak rate than wgmma's.
+//   * The split runs in registers as each fragment is loaded (four integer
+//     and float instructions a value), so a tile is kept once, in float32,
+//     and serves both products that read it.  These splits, not the
+//     products, take most of the issue slots.
+//   * A score accumulator is the A operand of the next product as it
+//     stands: its n8 tile j holds columns 8 j + 2 t and 8 j + 2 t + 1 of
+//     rows g and g + 8 (lane = 4 g + t), the A fragment of k step j once
+//     the step's k index is permuted (slot t is column 2 t, slot t + 4
+//     column 2 t + 1); the B fragment reads rows 2 t and 2 t + 1 to match.
+//     No shuffles and no round trip through shared memory.
+//   * The tensor cores' fp32 accumulation truncates.  Each tile's product
+//     is summed there from zero and added to the running sum in fp32, so
+//     that sums over thousands of keys or queries stay within float32's
+//     tolerance.
+//   * cp.async (16 bytes a thread, rows and columns past the end
+//     zero-filled) into a 2-stage ring: the next tile lands while this one
+//     computes.  It reads through pointers, so strided views, packed QKV
+//     and broadcast (stride-0) KV heads are taken as they are.
+//   * Softmax in registers, in base 2 (online_softmax, scores_to_ds); the
+//     element mask only on tiles that it cuts.
+//   * A block writes 64 output columns: at D > 64 ceil(D / 64) blocks share
+//     a tile, each recomputing its scores, so that an accumulator takes 32
+//     registers a thread beside the score tiles.
+//   * The backward keeps the delta pre-pass, a dK/dV kernel per (key tile,
+//     KV head) that walks the group's query heads in order, and a dQ kernel
+//     per q tile: no atomics, the same inputs give the same bits.
+
+constexpr int kCols = 64;  // output columns of one float32 block
+
+// Tiles of the float32 kernels, 16 rows a warp, 32 rows a streamed tile
+// in a 2-stage ring.  A tile read down its columns (the B operand of p v,
+// p^T dO, ds^T q, ds k) has a row stride of DMAX + 4 floats, 4 mod 32
+// banks; a tile read only along its rows (q and k in the forward, dO and v
+// in dQ) DMAX + 16, 16 mod 32, where each thread reads four columns at
+// once without bank conflicts.  At DMAX 64 (Whisper) three blocks fit an
+// SM: 58-76 KB of shared memory and at most 168 registers a thread.  At
+// DMAX 256 the resident tiles of the backward halve so that they fit.
+template <int DMAX> struct F32Tile {
+  static constexpr int LD = DMAX + 4, LDR = DMAX + 16, LDC = kCols + 4;
+  static constexpr int MINB = DMAX == 64 ? 3 : 1;  // blocks an SM
+};
+template <int DMAX> struct F32Fwd {  // q resident; k and the block's 64 columns of v streamed
+  static constexpr int BQ = 64, BK = 32, THREADS = 128, LDQ = F32Tile<DMAX>::LDR;
+  static constexpr int K_F = BK * LDQ, V_F = BK * F32Tile<DMAX>::LDC;
+  static constexpr int SMEM = 4 * (BQ * LDQ + 2 * (K_F + V_F));
+};
+template <int DMAX> struct F32Dq {  // q, dO resident; k, v streamed
+  static constexpr int BQ = DMAX <= 128 ? 64 : 32, BK = 32, THREADS = 2 * BQ;
+  static constexpr int LD = F32Tile<DMAX>::LD, LDR = F32Tile<DMAX>::LDR;
+  static constexpr int K_F = BK * LD, V_F = BK * LDR;
+  static constexpr int SMEM = 4 * (BQ * (LD + LDR) + 2 * (K_F + V_F));
+};
+template <int DMAX> struct F32Dkdv {  // k, v resident; q, dO, lse, delta streamed
+  static constexpr int BK = DMAX <= 128 ? 64 : 32, BQ = 32, THREADS = 2 * BK;
+  static constexpr int LD = F32Tile<DMAX>::LD, Q_F = BQ * LD;
+  static constexpr int SMEM = 4 * (2 * BK * LD + 2 * (2 * Q_F + 2 * BQ));
+};
+
+// cp.async of 16 (4) bytes; when `in` is false nothing is read and the
+// destination is zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + R) x C columns of a float32 matrix at src (row stride
+// ss elements) into a shared tile of row stride ld, by the block's NT
+// threads; rows at or past `rows` and columns at or past `cols` are
+// zero-filled, so that the products run over all C columns unguarded.
+template <int R, int C, int NT>
+__device__ __forceinline__ void cp_tile(float* dst, int ld, const float* src, long long ss, int row0,
+                                        int rows, int cols) {
+  static_assert(R * C / 4 % NT == 0, "whole 16-byte chunks a thread");
+#pragma unroll
+  for (int k = 0; k < R * C / 4 / NT; ++k) {
+    const int i = threadIdx.x + k * NT, r = i / (C / 4), c = i % (C / 4) * 4;
+    const bool in = row0 + r < rows && c < cols;
+    cp_async16(dst + r * ld + c, in ? src + (row0 + r) * ss + c : src, in);
+  }
+}
+
+// blockIdx.z -> the batch and the block's output columns [c0, c0 + cols).
+struct Chunk {
+  int b, c0, cols;
+};
+__device__ __forceinline__ Chunk chunk_of(int d) {
+  const int nc = (d + kCols - 1) / kCols, c0 = static_cast<int>(blockIdx.z % nc) * kCols;
+  return Chunk{static_cast<int>(blockIdx.z / nc), c0, min(kCols, d - c0)};
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero: the bits cvt.rna.tf32.f32 gives for finite x, in two integer
+// instructions (ptxas expands the cvt itself into about five, with checks
+// for NaN and infinity that no finite score or operand needs).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+struct Split4 {  // an A fragment, split
+  uint32_t hi[4], lo[4];
+};
+struct Split2 {  // a B fragment, split
+  uint32_t hi[2], lo[2];
+};
+// x = hi + lo, each a TF32 value, to ~2^-22 of x.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// A fragment of rows g, g + 8 and columns t, t + 4 of a row-major tile.
+__device__ __forceinline__ Split4 frag_a(const float* x, int ld, int gid, int tig) {
+  const float* p = x + gid * ld + tig;
+  Split4 f;
+  split_tf32(p[0], f.hi[0], f.lo[0]);
+  split_tf32(p[8 * ld], f.hi[1], f.lo[1]);
+  split_tf32(p[4], f.hi[2], f.lo[2]);
+  split_tf32(p[8 * ld + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+// B fragment of a transposed row-major tile Y (k = Y's columns, n = its
+// rows): Y[g][t], Y[g][t + 4].
+__device__ __forceinline__ Split2 frag_bt(const float* y, int ld, int gid, int tig) {
+  const float* p = y + gid * ld + tig;
+  Split2 f;
+  split_tf32(p[0], f.hi[0], f.lo[0]);
+  split_tf32(p[4], f.hi[1], f.lo[1]);
+  return f;
+}
+// B fragment of a row-major tile Y (k = its rows, n = its columns) in the
+// permuted k order of frag_acc: Y[2 t][g], Y[2 t + 1][g].
+__device__ __forceinline__ Split2 frag_bp(const float* y, int ld, int gid, int tig) {
+  const float* p = y + 2 * tig * ld + gid;
+  Split2 f;
+  split_tf32(p[0], f.hi[0], f.lo[0]);
+  split_tf32(p[ld], f.hi[1], f.lo[1]);
+  return f;
+}
+// The A fragment of k step j from n8 tile j of a score accumulator (s[0..3]
+// of that tile), k permuted: slot t is column 2 t, slot t + 4 column 2 t + 1.
+__device__ __forceinline__ Split4 frag_acc(const float* s) {
+  Split4 f;
+  split_tf32(s[0], f.hi[0], f.lo[0]);
+  split_tf32(s[2], f.hi[1], f.lo[1]);
+  split_tf32(s[1], f.hi[2], f.lo[2]);
+  split_tf32(s[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// c (N / 8 m16n8 tiles) += a b[j] for each tile j to float32's accuracy:
+// the two cross terms of every tile, then hi.hi, so that consecutive
+// products go to different accumulators.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[N / 2], const Split4& a,
+                                           const Split2 (&b)[N / 8]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) mma_tf32(&c[4 * j], a.lo, b[j].hi);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) mma_tf32(&c[4 * j], a.hi, b[j].lo);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) mma_tf32(&c[4 * j], a.hi, b[j].hi);
+}
+
+// s (16 x N, in N / 8 m16n8 tiles, the layout of online_softmax) = the 16
+// rows of x times the N rows of y, transposed: a sum over DMAX columns
+// (zero past D).  With VEC each thread reads four columns at once (16
+// bytes; row strides 16 mod 32 banks) and the two k steps of every 16
+// columns take them in a permuted order that x and y share.
+template <int N, int DMAX, bool VEC>
+__device__ __forceinline__ void scores_tf32(float (&s)[N / 2], const float* x, int ldx,
+                                            const float* y, int ldy, int gid, int tig) {
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) s[e] = 0.f;
+  if constexpr (VEC) {
+#pragma unroll
+    for (int c = 0; c < DMAX; c += 16) {
+      const float4 lo = *reinterpret_cast<const float4*>(x + gid * ldx + c + 4 * tig);
+      const float4 hi = *reinterpret_cast<const float4*>(x + (gid + 8) * ldx + c + 4 * tig);
+      Split4 a0, a1;  // k step 2 c / 16 takes columns c + 4 t, + 1; the next one + 2, + 3
+      split_tf32(lo.x, a0.hi[0], a0.lo[0]);
+      split_tf32(hi.x, a0.hi[1], a0.lo[1]);
+      split_tf32(lo.y, a0.hi[2], a0.lo[2]);
+      split_tf32(hi.y, a0.hi[3], a0.lo[3]);
+      split_tf32(lo.z, a1.hi[0], a1.lo[0]);
+      split_tf32(hi.z, a1.hi[1], a1.lo[1]);
+      split_tf32(lo.w, a1.hi[2], a1.lo[2]);
+      split_tf32(hi.w, a1.hi[3], a1.lo[3]);
+      Split2 b0[N / 8], b1[N / 8];
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(y + (8 * j + gid) * ldy + c + 4 * tig);
+        split_tf32(v.x, b0[j].hi[0], b0[j].lo[0]);
+        split_tf32(v.y, b0[j].hi[1], b0[j].lo[1]);
+        split_tf32(v.z, b1[j].hi[0], b1[j].lo[0]);
+        split_tf32(v.w, b1[j].hi[1], b1[j].lo[1]);
+      }
+      mma_3xtf32<N>(s, a0, b0);
+      mma_3xtf32<N>(s, a1, b1);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 8; ++kk) {
+      const Split4 a = frag_a(x + 8 * kk, ldx, gid, tig);
+      Split2 b[N / 8];
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) b[j] = frag_bt(y + 8 * j * ldy + 8 * kk, ldy, gid, tig);
+      mma_3xtf32<N>(s, a, b);
+    }
+  }
+}
+// acc (16 x 64) = acc * keep (per row) + p (16 x K, a score accumulator)
+// times the K rows of y (64 columns, zero past D).  The tile's product is
+// summed on the tensor cores from zero and added to acc in fp32: their
+// accumulation truncates, and summed there over every tile of a long row
+// (1500 keys, or Sq x rep queries for dK/dV) the drift grows to ~1e-4 of
+// the sum.
+template <int K>
+__device__ __forceinline__ void acc_tf32(float (&acc)[kCols / 2], const float (&keep)[2],
+                                         const float (&p)[K / 2], const float* y, int ldy, int gid,
+                                         int tig) {
+  float t[kCols / 2];
+#pragma unroll
+  for (int e = 0; e < kCols / 2; ++e) t[e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    const Split4 a = frag_acc(&p[4 * j]);
+    Split2 b[kCols / 8];
+#pragma unroll
+    for (int n = 0; n < kCols / 8; ++n) b[n] = frag_bp(y + 8 * j * ldy + 8 * n, ldy, gid, tig);
+    mma_3xtf32<kCols>(t, a, b);
+  }
+#pragma unroll
+  for (int e = 0; e < kCols / 2; ++e) acc[e] = fmaf(acc[e], keep[(e >> 1) & 1], t[e]);
+}
+
+// The streamed tiles of the float32 kernels go through a 2-stage ring:
+// step i reads stage i & 1 while the next tile is copied into the other.
+// `ring_wait` waits for step i's tile (every copy group but the newest)
+// and for every warp.
+__device__ __forceinline__ void ring_wait() {
+  cp_commit();
+  cp_wait<1>();
+  __syncthreads();
+}
+
+// ------------------------------------------------------- float32 forward
+// grid (ceil(Sq / 64), Hq, B x 64-column chunks), last q tile first; a
+// warp owns 16 q rows.
+template <int DMAX>
+__global__ void __launch_bounds__(F32Fwd<DMAX>::THREADS, F32Tile<DMAX>::MINB)
+    flash_fwd_tf32x3_kernel(const Args a) {
+  using TL = F32Fwd<DMAX>;
+  constexpr int BQ = TL::BQ, BK = TL::BK, NT = TL::THREADS;
+  constexpr int LDQ = TL::LDQ, LDC = F32Tile<DMAX>::LDC;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Ks = Qs + BQ * LDQ;      // stage s at Ks + s * K_F
+  float* Vs = Ks + 2 * TL::K_F;  // stage s at Vs + s * V_F
+  const Mask& mk = a.mask;
+  const Chunk ch = chunk_of(a.d);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y, b = ch.b, g = h / (a.hq / a.hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const float* kb = static_cast<const float*>(a.k.p) + b * a.k.sb + g * a.k.sh;
+  const float* vb = static_cast<const float*>(a.v.p) + b * a.v.sb + g * a.v.sh + ch.c0;
+  auto load_kv = [&](int k0, int s) {
+    cp_tile<BK, DMAX, NT>(Ks + s * TL::K_F, LDQ, kb, a.k.ss, k0, mk.sk, a.d);
+    cp_tile<BK, kCols, NT>(Vs + s * TL::V_F, LDC, vb, a.v.ss, k0, mk.sk, ch.cols);
+  };
+  cp_tile<BQ, DMAX, NT>(Qs, LDQ, static_cast<const float*>(a.q.p) + b * a.q.sb + h * a.q.sh, a.q.ss,
+                        q0, mk.sq, a.d);
+  int k0 = next_live(mk, q0, BQ, 0, BK);
+  if (k0 < mk.sk) load_kv(k0, 0);
+  cp_commit();
+
+  const int r_lo = q0 + warp * 16 + gid;
+  const float sl2 = a.scale * kLog2e;
+  float o[kCols / 2], m[2] = {kNegInf2, kNegInf2}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < kCols / 2; ++e) o[e] = 0.f;
+  for (int i = 0; k0 < mk.sk; ++i) {
+    const int s = i & 1, kn = next_live(mk, q0, BQ, k0 + BK, BK);
+    if (kn < mk.sk) load_kv(kn, s ^ 1);  // lands while this tile computes
+    ring_wait();
+    float sc[BK / 2], alpha[2];
+    scores_tf32<BK, DMAX, true>(sc, Qs + warp * 16 * LDQ, LDQ, Ks + s * TL::K_F, LDQ, gid,
+                                tig);  // S = q k^T
+    online_softmax<BK>(sc, m, l, alpha, mk, mk.full(q0 + warp * 16, 16, k0, BK), r_lo, k0, tig, sl2);
+    acc_tf32<BK>(o, alpha, sc, Vs + s * TL::V_F, LDC, gid, tig);  // O = O alpha + P V
+    __syncthreads();  // every warp is done with stage s before it is refilled
+    k0 = kn;
+  }
+  cp_wait<0>();
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float lmax = fmaxf(l[r], 1e-30f);
+    inv[r] = 1.f / lmax;
+    const int row = r_lo + 8 * r;
+    // a row that no key reached keeps lse = -1e30 + log(l), as the plain version
+    if (ch.c0 == 0 && tig == 0 && row < mk.sq)
+      a.lse[((long long)b * a.hq + h) * mk.sq + row] =
+          (m[r] == kNegInf2 ? kNegInf : m[r] * kLn2) + logf(lmax);
+  }
+  float* ob = static_cast<float*>(const_cast<void*>(a.o.p)) + b * a.o.sb + h * a.o.sh + ch.c0;
+  store_acc<kCols>(ob, a.o.ss, r_lo, mk.sq, ch.cols, o, inv[0], inv[1], tig);
+}
+
+// ------------------------------------------------------ float32 backward dQ
+// grid (ceil(Sq / BQ), Hq, B x 64-column chunks), last q tile first; a
+// warp owns 16 q rows.
+template <int DMAX>
+__global__ void __launch_bounds__(F32Dq<DMAX>::THREADS, F32Tile<DMAX>::MINB)
+    flash_bwd_dq_tf32x3_kernel(const Args a) {
+  using TL = F32Dq<DMAX>;
+  constexpr int BQ = TL::BQ, BK = TL::BK, NT = TL::THREADS;
+  constexpr int LD = TL::LD, LDR = TL::LDR;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Gs = Qs + BQ * LD;
+  float* Ks = Gs + BQ * LDR;     // stage s at Ks + s * K_F
+  float* Vs = Ks + 2 * TL::K_F;  // stage s at Vs + s * V_F
+  const Mask& mk = a.mask;
+  const Chunk ch = chunk_of(a.d);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y, b = ch.b, g = h / (a.hq / a.hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const float* kb = static_cast<const float*>(a.k.p) + b * a.k.sb + g * a.k.sh;
+  const float* vb = static_cast<const float*>(a.v.p) + b * a.v.sb + g * a.v.sh;
+  auto load_kv = [&](int k0, int s) {
+    cp_tile<BK, DMAX, NT>(Ks + s * TL::K_F, LD, kb, a.k.ss, k0, mk.sk, a.d);
+    cp_tile<BK, DMAX, NT>(Vs + s * TL::V_F, LDR, vb, a.v.ss, k0, mk.sk, a.d);
+  };
+  cp_tile<BQ, DMAX, NT>(Qs, LD, static_cast<const float*>(a.q.p) + b * a.q.sb + h * a.q.sh, a.q.ss,
+                        q0, mk.sq, a.d);
+  cp_tile<BQ, DMAX, NT>(Gs, LDR, static_cast<const float*>(a.g.p) + b * a.g.sb + h * a.g.sh, a.g.ss,
+                        q0, mk.sq, a.d);
+  int k0 = next_live(mk, q0, BQ, 0, BK);
+  if (k0 < mk.sk) load_kv(k0, 0);
+  cp_commit();
+
+  const int r_lo = q0 + warp * 16 + gid;
+  const float sl2 = a.scale * kLog2e, one[2] = {1.f, 1.f};
+  float lse2[2], del[2];
+  const long long rows = ((long long)b * a.hq + h) * mk.sq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // rows past Sq: p = exp2(-inf) = 0
+    const int row = r_lo + 8 * r;
+    lse2[r] = row < mk.sq ? a.lse[rows + row] * kLog2e : __int_as_float(0x7f800000);
+    del[r] = row < mk.sq ? a.delta[rows + row] : 0.f;
+  }
+  float dq[kCols / 2];
+#pragma unroll
+  for (int e = 0; e < kCols / 2; ++e) dq[e] = 0.f;
+  for (int i = 0; k0 < mk.sk; ++i) {
+    const int s = i & 1, kn = next_live(mk, q0, BQ, k0 + BK, BK);
+    if (kn < mk.sk) load_kv(kn, s ^ 1);
+    ring_wait();
+    const float* ks = Ks + s * TL::K_F;
+    float sc[BK / 2], dp[BK / 2];
+    scores_tf32<BK, DMAX, false>(sc, Qs + warp * 16 * LD, LD, ks, LD, gid, tig);  // S = q k^T
+    scores_tf32<BK, DMAX, true>(dp, Gs + warp * 16 * LDR, LDR, Vs + s * TL::V_F, LDR, gid,
+                                tig);  // dP = dO v^T
+    scores_to_ds<BK>(sc, dp, mk, mk.full(q0 + warp * 16, 16, k0, BK), r_lo, k0, tig, sl2, lse2, del,
+                     a.scale);
+    acc_tf32<BK>(dq, one, dp, ks + ch.c0, LD, gid, tig);  // dQ += ds k
+    __syncthreads();
+    k0 = kn;
+  }
+  cp_wait<0>();
+  float* qb = static_cast<float*>(const_cast<void*>(a.dq.p)) + b * a.dq.sb + h * a.dq.sh + ch.c0;
+  store_acc<kCols>(qb, a.dq.ss, r_lo, mk.sq, ch.cols, dq, 1.f, 1.f, tig);
+}
+
+// The first (query head, q tile) pair at or after `it` (it = head * nqt +
+// tile, n pairs) whose q tile sees keys [k0, k0 + nk), or n.
+__device__ __forceinline__ int next_pair(const Mask& mk, int it, int n, int nqt, int nq, int k0,
+                                         int nk) {
+  while (it < n && !mk.live((it % nqt) * nq, nq, k0, nk)) ++it;
+  return it;
+}
+
+// ---------------------------------------------------- float32 backward dK/dV
+// grid (ceil(Sk / BK), Hkv, B x 64-column chunks); a warp owns 16 keys and
+// walks the q tiles of each query head of the group, in order.
+template <int DMAX>
+__global__ void __launch_bounds__(F32Dkdv<DMAX>::THREADS, F32Tile<DMAX>::MINB)
+    flash_bwd_dkdv_tf32x3_kernel(const Args a) {
+  using TL = F32Dkdv<DMAX>;
+  constexpr int BQ = TL::BQ, BK = TL::BK, NT = TL::THREADS;
+  constexpr int LD = TL::LD, F = TL::Q_F;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + BK * LD;
+  float* Qs = Vs + BK * LD;      // stage s at Qs + s * F
+  float* Gs = Qs + 2 * F;        // stage s at Gs + s * F
+  float* lse_s = Gs + 2 * F;     // stage s at lse_s + s * BQ
+  float* del_s = lse_s + 2 * BQ;
+  const Mask& mk = a.mask;
+  const Chunk ch = chunk_of(a.d);
+  const int k0 = blockIdx.x * BK, grp = blockIdx.y, b = ch.b, rep = a.hq / a.hkv;
+  const int nqt = (mk.sq + BQ - 1) / BQ, n = rep * nqt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const float* qb = static_cast<const float*>(a.q.p) + b * a.q.sb;
+  const float* gb = static_cast<const float*>(a.g.p) + b * a.g.sb;
+  const long long rows_b = (long long)b * a.hq * mk.sq;  // lse / delta rows of batch b
+  // q, dO, lse and delta of pair `it` into stage s; rows past Sq read zero
+  auto load_q_side = [&](int it, int s) {
+    const int h = grp * rep + it / nqt, q0 = (it % nqt) * BQ;
+    cp_tile<BQ, DMAX, NT>(Qs + s * F, LD, qb + h * a.q.sh, a.q.ss, q0, mk.sq, a.d);
+    cp_tile<BQ, DMAX, NT>(Gs + s * F, LD, gb + h * a.g.sh, a.g.ss, q0, mk.sq, a.d);
+    const long long row = rows_b + (long long)h * mk.sq + q0;
+    for (int r = threadIdx.x; r < BQ; r += NT) {
+      const bool in = q0 + r < mk.sq;
+      cp_async4(lse_s + s * BQ + r, a.lse + (in ? row + r : 0), in);
+      cp_async4(del_s + s * BQ + r, a.delta + (in ? row + r : 0), in);
+    }
+  };
+  cp_tile<BK, DMAX, NT>(Ks, LD, static_cast<const float*>(a.k.p) + b * a.k.sb + grp * a.k.sh, a.k.ss,
+                        k0, mk.sk, a.d);
+  cp_tile<BK, DMAX, NT>(Vs, LD, static_cast<const float*>(a.v.p) + b * a.v.sb + grp * a.v.sh, a.v.ss,
+                        k0, mk.sk, a.d);
+  int it = next_pair(mk, 0, n, nqt, BQ, k0, BK);
+  if (it < n) load_q_side(it, 0);
+  cp_commit();
+
+  const int key_lo = k0 + warp * 16 + gid;
+  const float sl2 = a.scale * kLog2e, one[2] = {1.f, 1.f};
+  float dk[kCols / 2], dv[kCols / 2];
+#pragma unroll
+  for (int e = 0; e < kCols / 2; ++e) dk[e] = dv[e] = 0.f;
+  for (int i = 0; it < n; ++i) {
+    const int s = i & 1, itn = next_pair(mk, it + 1, n, nqt, BQ, k0, BK);
+    if (itn < n) load_q_side(itn, s ^ 1);
+    ring_wait();
+    const int q0 = (it % nqt) * BQ;
+    const float* qs = Qs + s * F;
+    const float* gs = Gs + s * F;
+    const float* ls = lse_s + s * BQ;
+    const float* dl = del_s + s * BQ;
+    float sc[BQ / 2], dp[BQ / 2];  // s^T then p^T; dp^T then ds^T
+    scores_tf32<BQ, DMAX, false>(sc, Ks + warp * 16 * LD, LD, qs, LD, gid, tig);  // s^T = k q^T
+    // q columns past Sq are masked: their p is exp2(-1e30 log2(e) - 0) = 0
+    if (q0 + BQ <= mk.sq && mk.full(q0, BQ, k0 + warp * 16, 16)) {
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) sc[e] *= sl2;
+    } else {
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) {
+        const int qi = q0 + (e >> 2) * 8 + 2 * tig + (e & 1);
+        sc[e] = qi < mk.sq && mk.ok(qi, key_lo + ((e >> 1) & 1) * 8) ? sc[e] * sl2 : kNegInf2;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * tig);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[4 * j + e] = fast_exp2(sc[4 * j + e] - ((e & 1) ? l2.y : l2.x) * kLog2e);
+    }
+    acc_tf32<BQ>(dv, one, sc, gs + ch.c0, LD, gid, tig);                        // dV += p^T dO
+    scores_tf32<BQ, DMAX, false>(dp, Vs + warp * 16 * LD, LD, gs, LD, gid, tig);  // dp^T = v dO^T
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * tig);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x)) * a.scale;
+    }
+    acc_tf32<BQ>(dk, one, dp, qs + ch.c0, LD, gid, tig);  // dK += ds^T q
+    __syncthreads();
+    it = itn;
+  }
+  cp_wait<0>();
+  float* dkb = static_cast<float*>(const_cast<void*>(a.dk.p)) + b * a.dk.sb + grp * a.dk.sh;
+  float* dvb = static_cast<float*>(const_cast<void*>(a.dv.p)) + b * a.dv.sb + grp * a.dv.sh;
+  store_acc<kCols>(dkb + ch.c0, a.dk.ss, key_lo, mk.sk, ch.cols, dk, 1.f, 1.f, tig);
+  store_acc<kCols>(dvb + ch.c0, a.dv.ss, key_lo, mk.sk, ch.cols, dv, 1.f, 1.f, tig);
+}
+
 // ------------------------------------------------- backward pre- and post-pass
 // delta (B, Hq, Sq) = sum over D of dO * out, fp32 sums of T inputs: a warp
 // per row, rows in delta's order.
@@ -1426,14 +1582,14 @@ __global__ void __launch_bounds__(256) flash_bwd_reduce_kernel(const Args a) {
 enum Kind { kFwd = 0, kDkdv = 1, kDq = 2, kDelta = 3 };
 
 // Tile width of head dim d (at most 256, which the wrapper checks).  bf16
-// takes the Hopper kernels at every width, float32 the fp32 CUDA-core ones.
+// takes the TMA and wgmma kernels at every width, float32 the 3xTF32
+// mma.sync ones.
 int dmax_of(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
 
 template <int DMAX> int smem_bytes_f32(int kind) {
-  constexpr int BQ = Tiles<DMAX>::BQ, BK = Tiles<DMAX>::BK, LD = Tiles<DMAX>::LD;
-  if (kind == kFwd) return 4 * ((BQ + 2 * BK) * LD + BQ * (BK + 4));
-  if (kind == kDkdv) return 4 * ((2 * BQ + 2 * BK) * LD + 2 * BK * (BQ + 4) + 2 * BQ);
-  return 4 * ((2 * BQ + 2 * BK) * LD + BQ * (BK + 4) + 2 * BQ);
+  if (kind == kFwd) return F32Fwd<DMAX>::SMEM;
+  if (kind == kDkdv) return F32Dkdv<DMAX>::SMEM;
+  return F32Dq<DMAX>::SMEM;
 }
 
 template <int DMAX> int smem_bytes_wgmma(int kind) {
@@ -1459,17 +1615,24 @@ int launch_one(K kernel, dim3 grid, int threads, int smem, const Args& a, cudaSt
   return static_cast<int>(cudaGetLastError());
 }
 
+// The float32 kernels: a block per 64 output columns of each tile, so
+// the grid's z holds the batch times ceil(D / 64).
 template <int DMAX>
 int launch_f32(int kind, const Args& a, cudaStream_t st) {
-  constexpr int BQ = Tiles<DMAX>::BQ, BK = Tiles<DMAX>::BK;
-  const int smem = smem_bytes_f32<DMAX>(kind);
-  const int nq = (a.mask.sq + BQ - 1) / BQ, nk = (a.mask.sk + BK - 1) / BK;
-  if (kind == kFwd)
-    return launch_one(flash_fwd_kernel<DMAX>, dim3(nq, a.hq, a.batch), kThreads, smem, a, st);
-  if (kind == kDkdv)
-    return launch_one(flash_bwd_dkdv_kernel<DMAX>, dim3(nk, a.hkv, a.batch), kThreads, smem, a,
-                      st);
-  return launch_one(flash_bwd_dq_kernel<DMAX>, dim3(nq, a.hq, a.batch), kThreads, smem, a, st);
+  const int z = a.batch * ((a.d + kCols - 1) / kCols);
+  if (kind == kFwd) {
+    using TL = F32Fwd<DMAX>;
+    return launch_one(flash_fwd_tf32x3_kernel<DMAX>, dim3((a.mask.sq + TL::BQ - 1) / TL::BQ, a.hq, z),
+                      TL::THREADS, TL::SMEM, a, st);
+  }
+  if (kind == kDkdv) {
+    using TL = F32Dkdv<DMAX>;
+    return launch_one(flash_bwd_dkdv_tf32x3_kernel<DMAX>,
+                      dim3((a.mask.sk + TL::BK - 1) / TL::BK, a.hkv, z), TL::THREADS, TL::SMEM, a, st);
+  }
+  using TL = F32Dq<DMAX>;
+  return launch_one(flash_bwd_dq_tf32x3_kernel<DMAX>, dim3((a.mask.sq + TL::BQ - 1) / TL::BQ, a.hq, z),
+                    TL::THREADS, TL::SMEM, a, st);
 }
 
 // Errors of the host side of the Hopper path, above CUDA's own codes.

@@ -14,7 +14,10 @@ is made.  ``flash_attention.launches`` counts forward launches and
 pre-pass, the dK/dV kernel with its reduction, and the dQ kernel).
 
 For bfloat16 (any D up to 256) the kernels load their tiles with TMA and
-multiply on the tensor cores; float32 takes the fp32 CUDA-core kernels.
+multiply on the tensor cores with ``wgmma``.  float32 runs on the tensor
+cores too, as 3xTF32 ``mma.sync`` products (each operand split into two
+TF32 halves, three products summed, float32's accuracy), from tiles loaded
+with ``cp.async`` through the tensors' strides.
 The host-side plan of the TMA loads (:func:`tensor_map_spec`,
 :func:`tensor_maps`, :func:`tile_rows`) and of the fp32 dK/dV scratch
 (:func:`dkv_partial_shape`) is plain Python, so the CPU tests reach it.
@@ -70,9 +73,9 @@ def smem_bytes(kind: int, d: int, bf16: bool) -> int:
 
 
 def uses_tensor_maps(dtype: torch.dtype, d: int) -> bool:
-    """True where the Hopper kernels (TMA, wgmma) run: bf16 at every head
-    dim the kernels take (up to 256); float32 takes the fp32 CUDA-core
-    kernels."""
+    """True where the TMA and wgmma kernels run: bf16 at every head dim the
+    kernels take (up to 256); float32 takes the 3xTF32 kernels, which load
+    through pointers and need no tensor map."""
     return dtype == torch.bfloat16 and d <= 256
 
 

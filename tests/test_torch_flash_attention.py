@@ -260,3 +260,106 @@ def test_check_rejects_what_the_bf16_kernels_cannot_take():
     with pytest.raises(ValueError, match="broadcast"):
         _check(q256, shared256, kv256)
     _check(q256.float(), shared256.float(), kv256.float())
+
+
+# The float32 kernels run every product on the tensor cores as three TF32
+# products (3xTF32): x = hi + lo with hi = tf32(x), lo = tf32(x - hi)
+# (cvt.rna), and a b = lo.hi + hi.lo + hi.hi, summed in float32.  The card
+# holds the kernels to their plain versions; these tests hold the
+# arithmetic itself, emulated in numpy, to float32's tolerance.
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: float32 rounded to 10 mantissa bits, to nearest
+    with ties away from zero (the 13 low bits of the pattern cleared)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm(a, b, products):
+    """a @ b as the kernels' tensor cores take it: three split products
+    (the cross terms first, lo.lo dropped) or one TF32 product.  A product
+    of two TF32 values is exact in float32, so float32 matmuls emulate the
+    fp32 accumulation."""
+    if products == 1:
+        return _tf32(a) @ _tf32(b)
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def test_tf32_rounding_clears_13_bits_with_ties_away_from_zero():
+    x = np.random.default_rng(0).standard_normal(4096).astype(np.float32) * 100
+    hi = _tf32(x)
+    assert not np.any(hi.view(np.uint32) & np.uint32(0x1FFF))
+    assert np.all(np.abs(hi.astype(np.float64) - x) <= 2.0 ** -11 * np.abs(x))
+    one = np.float32(1.0).view(np.uint32)
+    below, tie, above = (np.array([one + n], np.uint32).view(np.float32)
+                         for n in (0xFFF, 0x1000, 0x1001))
+    up = np.array([one + 0x2000], np.uint32).view(np.float32)
+    assert _tf32(below)[0] == 1.0 and _tf32(above)[0] == up[0]
+    # a tie above an even mantissa goes away from zero on both sides: to
+    # nearest even it would stay at 1
+    assert _tf32(tie)[0] == up[0] and _tf32(-tie)[0] == -up[0]
+
+
+def test_tf32_split_reproduces_float32():
+    x = np.random.default_rng(1).standard_normal(1 << 16).astype(np.float32)
+    x = np.concatenate([x, x * 1e-20, x * 1e20])
+    hi, lo = _split(x)
+    for part in (hi, lo):
+        assert not np.any(part.view(np.uint32) & np.uint32(0x1FFF))
+    rel = np.abs((hi.astype(np.float64) + lo) - x) / np.abs(x)
+    assert rel.max() <= 2.0 ** -22
+    assert np.all(np.abs(lo) <= 2.0 ** -11 * np.abs(x))
+
+
+@pytest.fixture(scope="module")
+def whisper_reduced():
+    """Inputs at a reduced Whisper encoder shape (B=1, 1500 frames, 2
+    heads, D=64, non-causal) and ``repro``'s out, lse and gradients."""
+    b, s, h, d = 1, 1500, 2, 64
+    rng = np.random.default_rng(25)
+    q, k, v, g = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(4))
+    cfg = (False, 0, 0, 0)
+    qj, kj, vj = (jnp.asarray(x) for x in (q, k, v))
+    out, lse = _flash_fwd_impl(qj, kj, vj, cfg, 0, 512)
+    from repro.models.layers import _flash_vjp_bwd
+    grads = _flash_vjp_bwd(cfg, 0, 512, (qj, kj, vj, out, lse), jnp.asarray(g))
+    ref = dict(out=out, lse=np.asarray(lse).reshape(b, h, s),
+               **dict(zip(("dq", "dk", "dv"), grads)))
+    return (q, k, v, g), {n: np.asarray(x, np.float32) for n, x in ref.items()}
+
+
+@pytest.mark.parametrize("products", [3, 1], ids=["3xtf32", "one-tf32"])
+def test_split_products_hold_float32_tolerance_at_whisper_shape(whisper_reduced, products):
+    """Attention and its three gradients with every product (q k^T, p v,
+    dO v^T, p^T dO, ds^T q, ds k) done as the kernels do it: three split
+    products match ``_flash_fwd_impl`` and ``_flash_vjp_bwd`` within
+    TOL["float32"]; one TF32 product misses it on out and every gradient."""
+    (q, k, v, g), ref = whisper_reduced
+    qt, kt, vt, gt = (x.transpose(0, 2, 1, 3) for x in (q, k, v, g))   # (B, H, S, D)
+    scale = np.float32(1.0 / math.sqrt(q.shape[-1]))
+    s = _mm(qt, kt.swapaxes(-1, -2), products) * scale
+    m = s.max(-1, keepdims=True)
+    p = np.exp(s - m)
+    l = p.sum(-1, keepdims=True)
+    out = _mm(p, vt, products) / l
+    lse = m + np.log(l)
+    p = np.exp(s - lse)                               # the backward's recomputed p
+    ds = p * (_mm(gt, vt.swapaxes(-1, -2), products) - (gt * out).sum(-1, keepdims=True)) * scale
+    got = dict(out=out, lse=lse[..., 0], dv=_mm(p.swapaxes(-1, -2), gt, products),
+               dk=_mm(ds.swapaxes(-1, -2), qt, products), dq=_mm(ds, kt, products))
+    tol = TOL["float32"]
+    within = {}
+    for name, x in got.items():
+        x = x if name == "lse" else x.transpose(0, 2, 1, 3)
+        assert x.shape == ref[name].shape
+        within[name] = bool(np.all(np.abs(x - ref[name]) <= tol + tol * np.abs(ref[name])))
+    if products == 3:
+        assert all(within.values()), within
+    else:
+        assert not any(within[n] for n in ("out", "dq", "dk", "dv")), within
