@@ -170,7 +170,30 @@ failure:
      ``monte_carlo_replay(backend="torch")``, batched and streamed, equal to
      numpy (traces/s); one 348-day trace of 2048 nodes through
      ``traffic_replay`` equal to numpy (rows/s); a control-plane replay on
-     the host with its latency table.
+     the host with its latency table;
+ 35. cost: benchmarks/cost.py's spec (768 nodes, ratios 0-15% x 200
+     snapshots, TP 8 and 32, seed 5, 7 architectures) through
+     ``run_cost_sweep(backend="torch")``: grids equal to numpy, Fig. 17d,
+     Table 6 and the headline ratios equal to BENCH_cost.json, 24
+     prefix-scan launches; the six ratios at 8192 nodes x 1024 snapshots,
+     equal to numpy, rows/s and the card's busy share;
+ 36. matrix: benchmarks/matrix.py's ``comparison_matrix`` (512 nodes, 4
+     ratios x 25 snapshots, TP-32, 12 architectures) with its waste and
+     DCN sweeps on the card: rows equal to numpy and to BENCH_matrix.json
+     at 6 decimals; then 8192 nodes x 256 snapshots, equal to numpy, the
+     time of each span and the busy share;
+ 37. SLO: benchmarks/serve.py's spec (a 400-node, 60-day trace replayed on
+     the card with its control plane at TP-16; 3 streams, 6
+     architectures): ``run_serve_sweep(backend="torch")`` equal to numpy
+     and the scalar reference, 261,209 requests, slo_table equal to
+     BENCH_serve.json; then the 348-day trace of 2048 nodes (37,791
+     intervals) with 64 streams: the doubling scan equal to
+     ``_scan_numpy``, requests/s of each;
+ 38. faults: each generator's ``torch_masks`` on the card equal to numpy at
+     BENCH_faults.json's size, at the pinned digests and at 8192 nodes;
+     then the JSON's scenario_table and claim_breaks rebuilt with the
+     sweeps, replays, traffic replays and serving scans on the card, held
+     to their scalar or numpy paths and equal to the JSON at its rounding.
 
 The last lines are the script's time, the ``{"kernels": ...}`` record, the
 card line and ``{"ok": true, "device": ...}``.
@@ -2976,6 +2999,547 @@ def churn_on_card(torch):
     return out
 
 
+# ------------------------------------------------------------ cost, matrix, SLO and faults slice
+
+
+COST_SEED = 5                                     # benchmarks/cost.py's spec
+BIG_NODES = 8192                                  # 32,768 GPUs
+FAULT_ARCHES = ("big-switch", "infinitehbd-k3", "nvl-72", "acos")   # benchmarks/faults.py
+FAULT_TPS = (16, 32)
+SERVE_ARCHES = ("big-switch", "infinitehbd-k2", "infinitehbd-k3", "nvl-72", "tpuv4",
+                "sip-ring")                       # benchmarks/serve.py
+SERVE_GRIDS = ("served", "served_cum", "gone_cum", "queue_depth")
+# sha256 of masks(96) at samples=128, seed=7 (tests/test_prng_digests.py)
+GENERATOR_PINS = {
+    "CorrelatedTorOutages": "1b5d6d7492f36251b5b74fc5c28314923c1315712bef9397aad0ce50ce6fc8f1",
+    "MaintenanceWindows": "9132aeddd11588340bd237006d72476862d2394563e6e74da38db2769c88b559",
+    "BurstStorms": "1f2b1b812691d3c4d608118b12c1c90a7595ecf8553be482a51893416f39ee68",
+    "FlappingStragglers": "02d35517fedde8056c774457b9a418645b17d589e7f81b06b24187adca339834",
+}
+
+
+def sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def device_share(torch, device, label, fn):
+    """Run ``fn`` once more under torch.profiler (CUDA kernels only) and
+    print the card's busy time against the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if torch.device(device).type != "cuda":
+        return None
+    sync(torch, device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = _busy_ms(torch, prof)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    idle = 100 * (1 - busy / wall_ms)
+    print(f"profile {label}: {wall_ms:.1f} ms wall under the profiler, card busy {busy:.1f} ms "
+          f"({idle:.1f}% idle), {sum(1 for _ in by_name)} distinct device events; the most: "
+          + "; ".join(f"{name[:60]} {t / 1e3:.1f} ms" for name, t in top))
+    return {"wall_ms": wall_ms, "busy_ms": busy, "idle_pct": idle,
+            "top_ms": {name[:60]: t / 1e3 for name, t in top}}
+
+
+def sweep_scans(models, blocks):
+    """prefix_scan launches of a torch sweep: each InfiniteHBD model's
+    kernel call scans once or twice a block (``infinitehbd_scans``)."""
+    from repro_torch.core.hbd_models import InfiniteHBDModel
+    from repro_torch.sim.torch_backend import infinitehbd_scans
+
+    return blocks * sum(infinitehbd_scans(m) for m in models if isinstance(m, InfiniteHBDModel))
+
+
+def fig17d_musd(result):
+    """benchmarks/cost.py's Fig. 17d record: per TP, the mean aggregate cost
+    in MUSD at 3 decimals of each architecture that hosts the TP."""
+    from repro_torch.cost import cost_effectiveness_table, hosting_architectures
+
+    out = {}
+    for tp in (32, 8):
+        hosts = hosting_architectures(result, tp)
+        by_ratio = {}
+        for r in cost_effectiveness_table(result, baseline="nvl-72", tp=tp):
+            if r["architecture"] in hosts:
+                by_ratio.setdefault(f"{r['fault_ratio']:.2f}", {})[r["architecture"]] = \
+                    round(r["mean_cost_usd"] / 1e6, 3)
+        out[f"fig17d_musd_tp{tp}"] = by_ratio
+        out[f"fig17d_tp{tp}_skipped"] = [n for n in result.names if n not in hosts]
+    return out
+
+
+def cost_grids_equal(a, b):
+    return a.names == b.names and all(
+        np.array_equal(getattr(a, f), getattr(b, f))
+        for f in ("total_gpus", "faulty_gpus", "placed_gpus", "cost_usd"))
+
+
+def cost_on_card(torch, device="cuda"):
+    """benchmarks/cost.py's spec (768 nodes, 6 ratios x 200 snapshots, TP 8
+    and 32, seed 5, 7 architectures) through ``run_cost_sweep`` on the
+    card: grids equal to numpy, Fig. 17d, Table 6 and the headline ratios
+    equal to BENCH_cost.json; then 8192 nodes x 1024 snapshots a ratio,
+    equal to numpy, rows/s for each backend and the card's busy share."""
+    from repro_torch.cost import (CostSpec, headline_ratio_rows, per_gpu_cost_table,
+                                  run_cost_sweep)
+    from repro_torch.kernels.prefix_scan import prefix_scan
+
+    recorded = json.loads((ROOT / "BENCH_cost.json").read_text())
+    table6 = {r["architecture"]: r["per_gpu_cost"] for r in per_gpu_cost_table()}
+    if table6 != recorded["table6_per_gpu_usd"] \
+            or headline_ratio_rows() != recorded["headline_ratios"]:
+        raise AssertionError("cost: Table 6 or the headline ratios differ from BENCH_cost.json")
+    out = {}
+    for label, nodes, samples in (("bench", recorded["num_nodes"], recorded["samples"]),
+                                  ("8192", BIG_NODES, 1024)):
+        spec = CostSpec(num_nodes=nodes, fault_ratios=tuple(recorded["fault_ratios"]),
+                        samples=samples, tp_sizes=tuple(recorded["tp_sizes"]), seed=COST_SEED,
+                        architectures=tuple(recorded["architectures"]))
+        rows = len(spec.fault_ratios) * samples
+        t0 = time.perf_counter()
+        ref = run_cost_sweep(spec, backend="numpy")
+        np_s = time.perf_counter() - t0
+        want = sweep_scans(spec.models(), len(spec.fault_ratios) * -(-samples // 1024))
+        times = []
+        for _ in range(2 if label == "bench" else 1):   # the first call loads the modules
+            sync(torch, device)
+            prefix_scan.launches = 0
+            t1 = time.perf_counter()
+            got = run_cost_sweep(spec, backend="torch", device=device)
+            sync(torch, device)
+            times.append(time.perf_counter() - t1)
+            launches = prefix_scan.launches
+        if got.backend != "torch" or not cost_grids_equal(got, ref):
+            raise AssertionError(f"cost {label}: torch grids differ from numpy")
+        if launches != want:
+            raise AssertionError(f"cost {label}: prefix_scan launched {launches} times, "
+                                 f"want {want}")
+        dt = times[-1]
+        print(f"cost {label}: {rows} rows ({len(spec.fault_ratios)} ratios x {samples}) x "
+              f"{nodes} nodes x {len(spec.architectures)} architectures x TP "
+              f"{'/'.join(map(str, spec.tp_sizes))}: torch {dt:.3f} s = {rows / dt:.0f} rows/s"
+              + (f" (first call {times[0]:.3f} s)" if len(times) > 1 else "")
+              + f", numpy {np_s:.3f} s = {rows / np_s:.0f} rows/s; grids equal; prefix_scan "
+              f"launches {launches}")
+        out[label] = {"rows": rows, "rows_per_s": rows / dt, "numpy_rows_per_s": rows / np_s,
+                      "launches": launches}
+        if label == "bench":
+            fig = fig17d_musd(got)
+            same = all(fig[k] == recorded[k] for k in fig)
+            print("cost bench: Fig. 17d MUSD at TP-32, "
+                  + ", ".join(f"{r}: " + "/".join(f"{v:.3f}" for v in row.values())
+                              for r, row in fig["fig17d_musd_tp32"].items())
+                  + f" ({'equal to' if same else 'DIFFERS FROM'} BENCH_cost.json, TP-8 too); "
+                  f"Table 6 and the headline ratios equal")
+            if not same:
+                raise AssertionError("cost: Fig. 17d differs from BENCH_cost.json")
+        else:
+            out[label]["profile"] = device_share(
+                torch, device, f"cost sweep at {nodes} nodes",
+                lambda: run_cost_sweep(spec, backend="torch", device=device))
+    return out
+
+
+def matrix_rows_rounded(rows):
+    """benchmarks/matrix.py's record: the float columns at 6 decimals."""
+    def r6(v):
+        return None if v is None else round(v, 6)
+    return [{**r, "waste_ratio": r6(r["waste_ratio"]), "mean_mfu": r6(r["mean_mfu"]),
+             "cross_tor_share": r6(r["cross_tor_share"]),
+             "usd_per_mfu_gpu_h": r6(r["usd_per_mfu_gpu_h"])} for r in rows]
+
+
+def matrix_on_card(torch, device="cuda"):
+    """benchmarks/matrix.py's comparison matrix (512 nodes, 4 ratios x 25
+    snapshots, TP-32, 12 architectures) with both sweeps on the card: rows
+    equal to numpy's and to BENCH_matrix.json at 6 decimals; then 8192
+    nodes x 4 ratios x 256 snapshots, equal to numpy, with the time of
+    each span and the card's busy share."""
+    from repro_torch import obs
+    from repro_torch.dcn import DcnSpec
+    from repro_torch.dcn.torch_backend import scans_per_call
+    from repro_torch.kernels.prefix_scan import prefix_scan
+    from repro_torch.sim import comparison_matrix, make_model
+
+    recorded = json.loads((ROOT / "BENCH_matrix.json").read_text())
+    ratios, tp = tuple(recorded["fault_ratios"]), recorded["tp_size"]
+    arches = tuple(recorded["architectures"])
+    out = {}
+    for label, nodes, samples in (("bench", recorded["num_nodes"], recorded["samples"]),
+                                  ("8192", BIG_NODES, 256)):
+        kw = dict(fault_ratios=ratios, samples=samples, tp=tp, architectures=arches)
+        cfg = DcnSpec(num_nodes=nodes).config
+        rows_n = len(ratios) * samples
+        want = sweep_scans([make_model(a, nodes) for a in arches],
+                           len(ratios) * -(-samples // 1024)) \
+            + (scans_per_call(cfg, tp) * -(-rows_n // 1024) if cfg.regular() else 0)
+        t0 = time.perf_counter()
+        ref = comparison_matrix(nodes, backend="numpy", **kw)
+        np_s = time.perf_counter() - t0
+        was = obs.enabled()
+        obs.enable()
+        obs.reset()
+        sync(torch, device)
+        prefix_scan.launches = 0
+        t1 = time.perf_counter()
+        got = comparison_matrix(nodes, backend="torch", device=device, **kw)
+        sync(torch, device)
+        dt = time.perf_counter() - t1
+        launches = prefix_scan.launches
+        spans = {k: v["total_s"] for k, v in obs.summary()["spans"].items()
+                 if k.startswith("matrix.")}
+        obs.reset()
+        if not was:
+            obs.disable()
+        if got != ref:
+            raise AssertionError(f"matrix {label}: torch rows differ from numpy")
+        if launches != want:
+            raise AssertionError(f"matrix {label}: prefix_scan launched {launches} times, "
+                                 f"want {want}")
+        print(f"matrix {label}: {len(got)} rows ({len(arches)} architectures x {len(ratios)} "
+              f"ratios), {nodes} nodes x {samples} snapshots, TP-{tp}: torch {dt:.3f} s ("
+              + ", ".join(f"{k} {v:.3f} s" for k, v in spans.items())
+              + f"), numpy {np_s:.3f} s; rows equal; prefix_scan launches {launches}")
+        out[label] = {"rows": len(got), "seconds": dt, "numpy_seconds": np_s, "spans_s": spans,
+                      "launches": launches}
+        if label == "bench":
+            same = matrix_rows_rounded(got) == recorded["rows"]
+            print(f"matrix bench: the 48 rows at 6 decimals "
+                  f"{'equal' if same else 'DIFFER FROM'} BENCH_matrix.json; tpuv4 at 10% "
+                  + str({k: got[i][k] for i in range(len(got))
+                         if got[i]["architecture"] == "tpuv4" and got[i]["fault_ratio"] == 0.1
+                         for k in ("waste_ratio", "usd_per_mfu_gpu_h")}))
+            if not same:
+                raise AssertionError("matrix: rows differ from BENCH_matrix.json")
+        else:
+            out[label]["profile"] = device_share(
+                torch, device, f"comparison matrix at {nodes} nodes",
+                lambda: comparison_matrix(nodes, backend="torch", device=device, **kw))
+    return out
+
+
+def serve_spec_bench(device="cuda"):
+    """benchmarks/serve.py's full spec: one 200-node (400 4-GPU nodes),
+    60-day Appendix-A trace replayed with its control plane at TP-16;
+    returns the churn spec and the serving spec."""
+    from repro_torch.churn import ChurnJob, ChurnSpec, replay_trace
+    from repro_torch.slo import DiurnalArrivals, PoissonArrivals, ServeSpec
+
+    cspec = ChurnSpec(trace_nodes=200, horizon_h=60 * 24.0, tp_sizes=(16,),
+                      architectures=SERVE_ARCHES, seed=1)
+    tl = replay_trace(cspec.trace(0), tp_sizes=cspec.tp_sizes, architectures=SERVE_ARCHES,
+                      job=ChurnJob(tp_size=16), device=device)
+    return cspec, ServeSpec(timeline=tl,
+                            arrivals=(PoissonArrivals(40.0, seed=2, stream=0),
+                                      PoissonArrivals(80.0, seed=2, stream=1),
+                                      DiurnalArrivals(60.0, seed=2, stream=2, amplitude=0.5)),
+                            tp=16, req_per_gpu_hour=0.05, slo_h=2.0, patience_h=12.0)
+
+
+def scan_drivers(res):
+    """The serving scan's host drivers of a sweep result."""
+    from repro_torch.slo import cohort_deadlines, expire_cumulative
+
+    ca = np.cumsum(res.arrivals, axis=1)
+    dead = cohort_deadlines(res.edges_h, res.horizon_h, res.patience_h)
+    return ca, res.capacity, expire_cumulative(ca, dead)
+
+
+def time_scans(torch, device, res, label):
+    """The serving scan alone, torch (second call) against _scan_numpy on the
+    drivers of ``res`` (a torch sweep, whose grids must equal numpy's):
+    requests/s as benchmarks/serve.py counts them (each request through
+    every architecture's queue)."""
+    from repro_torch.slo import torch_backend
+    from repro_torch.slo.engine import _scan_numpy
+
+    drivers = scan_drivers(res)
+    t0 = time.perf_counter()
+    want = _scan_numpy(*drivers)
+    np_s = time.perf_counter() - t0
+    torch_backend.serve_scan(*drivers, device=device)
+    t1 = time.perf_counter()
+    got = torch_backend.serve_scan(*drivers, device=device)
+    dt = time.perf_counter() - t1
+    if not all(np.array_equal(g, w) and np.array_equal(getattr(res, f), w)
+               for f, g, w in zip(SERVE_GRIDS, got, want)):
+        raise AssertionError(f"slo {label}: the torch scan differs from _scan_numpy")
+    R, A, B = got[0].shape
+    requests = int(res.total_arrivals.sum()) * A
+    passes = math.ceil(math.log2(B)) if B > 1 else 0
+    print(f"slo {label}: serve scan {R} streams x {A} architectures x {B} intervals "
+          f"({passes} doubling passes): torch {dt * 1e3:.2f} ms = {requests / dt:.4g} requests/s, "
+          f"_scan_numpy {np_s * 1e3:.2f} ms = {requests / np_s:.4g} requests/s "
+          f"({np_s / dt:.1f}x); grids equal")
+    return drivers, {"intervals": B, "passes": passes, "torch_s": dt, "numpy_s": np_s,
+                     "requests_per_s": requests / dt, "numpy_requests_per_s": requests / np_s}
+
+
+def slo_on_card(torch, device="cuda"):
+    """benchmarks/serve.py's spec on the card (the replay's sweep and the
+    serving scan): grids equal to numpy and to the scalar reference,
+    261,209 requests, slo_table equal to BENCH_serve.json; then PR 24's
+    348-day trace of 2048 nodes (37,791 intervals) with 64 streams near the
+    fleet's fault-free capacity, grids equal to numpy, requests/s."""
+    from repro_torch.churn import ChurnSpec, replay_trace
+    from repro_torch.kernels.prefix_scan import prefix_scan
+    from repro_torch.slo import (DiurnalArrivals, PoissonArrivals, ServeSpec, run_serve_scalar,
+                                 run_serve_sweep, slo_table, torch_backend)
+
+    recorded = json.loads((ROOT / "BENCH_serve.json").read_text())
+    sync(torch, device)
+    prefix_scan.launches = 0
+    t0 = time.perf_counter()
+    cspec, spec = serve_spec_bench(device)
+    replay_s = time.perf_counter() - t0
+    replay_launches = prefix_scan.launches
+    tl = spec.timeline
+    # the replay's sweep: the InfiniteHBD models' scans, once a 4096-interval block
+    want = sweep_scans(cspec.models(), -(-tl.num_intervals // 4096))
+    if replay_launches != want or tl.num_intervals != recorded["intervals"]:
+        raise AssertionError(f"slo: the replay launched prefix_scan {replay_launches} times "
+                             f"(want {want}) over {tl.num_intervals} intervals")
+    got = run_serve_sweep(spec, backend="torch", device=device)
+    ref = run_serve_sweep(spec, backend="numpy")
+    scalar = run_serve_scalar(spec)
+    same = all(np.array_equal(getattr(got, f), getattr(o, f))
+               for f in SERVE_GRIDS for o in (ref, scalar))
+    requests = int(got.total_arrivals.sum())
+    table_same = slo_table(got) == recorded["slo_table"]
+    print(f"slo bench: {cspec.num_nodes} nodes, "
+          f"{tl.num_intervals} intervals ({len(tl.reconfigs)} reconfigurations, the trace "
+          f"replayed on the card with its control plane in {replay_s:.2f} s, prefix_scan "
+          f"launches {replay_launches}); {requests} requests: torch grids "
+          f"{'equal' if same else 'DIFFER FROM'} numpy and the scalar reference; slo_table "
+          f"{'equal to' if table_same else 'DIFFERS FROM'} BENCH_serve.json")
+    if got.backend != "torch" or not same or requests != recorded["requests_total"] \
+            or not table_same:
+        raise AssertionError("slo bench: grids, requests or slo_table differ")
+    out = {"replay_launches": replay_launches, "requests": requests,
+           "bench": time_scans(torch, device, got, "bench")[1]}
+
+    # PR 24's 348-day trace of 1024 8-GPU nodes (2048 4-GPU nodes); 64 streams
+    # from half to all of the fleet's fault-free capacity at 0.01 requests a
+    # GPU-hour (the host's Poisson inversion grows with the mean)
+    trace = ChurnSpec(trace_nodes=1024).trace(0)
+    t1 = time.perf_counter()
+    tl = replay_trace(trace, tp_sizes=(16,), architectures=SERVE_ARCHES, device=device)
+    replay_s = time.perf_counter() - t1
+    rate = trace.num_nodes * 4 * 0.01
+    arrivals = tuple(
+        PoissonArrivals(rate * (0.5 + 0.5 * i / 63), seed=3, stream=i) if i % 2 == 0 else
+        DiurnalArrivals(rate * (0.5 + 0.5 * i / 63), seed=3, stream=i, amplitude=0.5)
+        for i in range(64))
+    spec = ServeSpec(timeline=tl, arrivals=arrivals, tp=16, req_per_gpu_hour=0.01, slo_h=2.0,
+                     patience_h=12.0)
+    t2 = time.perf_counter()
+    got = run_serve_sweep(spec, backend="torch", device=device)
+    sweep_s = time.perf_counter() - t2
+    drivers, big = time_scans(torch, device, got, "2048 nodes")
+    big["profile"] = device_share(torch, device, "serve scan at 2048 nodes",
+                                  lambda: torch_backend.serve_scan(*drivers, device=device))
+    print(f"slo 2048 nodes: {tl.num_intervals} intervals replayed on the card in "
+          f"{replay_s:.2f} s; {int(got.total_arrivals.sum())} requests in 64 streams; "
+          f"run_serve_sweep {sweep_s:.2f} s on the host clock (arrivals and capacity on the "
+          f"host, then the scan)")
+    out["2048"] = big
+    return out
+
+
+def time_mean_waste(tl):
+    """benchmarks/faults.py's duration-weighted stranded-GPU waste, (A, T)."""
+    stranded = tl.total_gpus[:, None, :] - tl.faulty_gpus - tl.placed_gpus
+    w = tl.durations_h / tl.horizon_h
+    return np.einsum("abt,b->at", stranded / tl.total_gpus[:, None, :], w)
+
+
+def fault_masks_on_card(torch, device, gens, nodes):
+    """Each generator's ``torch_masks`` on the card equal to its NumPy masks
+    at BENCH_faults.json's size, at the pinned digests and at 8192 nodes."""
+    import hashlib
+
+    from repro_torch.faults import GENERATORS
+
+    out = {}
+    for cls, gen in zip(GENERATORS, gens):
+        pinned = cls(samples=128, seed=7)
+        digest = hashlib.sha256(np.ascontiguousarray(
+            pinned.torch_masks(96, device=device).cpu().numpy()).tobytes()).hexdigest()
+        if digest != GENERATOR_PINS[cls.__name__] \
+                or not np.array_equal(gen.torch_masks(nodes, device=device).cpu().numpy(),
+                                      gen.masks(nodes)):
+            raise AssertionError(f"faults: {gen.label} torch_masks differ from numpy or its pin")
+        t0 = time.perf_counter()
+        want = gen.masks(BIG_NODES)
+        np_s = time.perf_counter() - t0
+        gen.torch_masks(BIG_NODES, device=device)
+        sync(torch, device)
+        t1 = time.perf_counter()
+        got = gen.torch_masks(BIG_NODES, device=device)
+        sync(torch, device)
+        dt = time.perf_counter() - t1
+        if not np.array_equal(got.cpu().numpy(), want):
+            raise AssertionError(f"faults: {gen.label} torch_masks differ at {BIG_NODES} nodes")
+        cells = gen.samples * BIG_NODES
+        print(f"faults {gen.label}: torch_masks equal numpy at {nodes} and {BIG_NODES} nodes x "
+              f"{gen.samples} ticks and the pinned digest; at {BIG_NODES} nodes torch "
+              f"{dt * 1e3:.2f} ms = {cells / dt:.4g} node-ticks/s, numpy {np_s * 1e3:.2f} ms = "
+              f"{cells / np_s:.4g}; fault ratio {want.mean():.6f}")
+        out[gen.label] = {"torch_ms": dt * 1e3, "numpy_ms": np_s * 1e3}
+    out["profile"] = device_share(torch, device, f"the four generators at {BIG_NODES} nodes",
+                                  lambda: [g.torch_masks(BIG_NODES, device=device) for g in gens])
+    return out
+
+
+def scenario_entry(device, gen, nodes):
+    """One row of benchmarks/faults.py's scenario_table, every engine with a
+    device path on the card and held to its numpy (and scalar) path."""
+    from repro_torch.churn import replay_trace, traffic_replay
+    from repro_torch.cost import timeline_cost_table
+    from repro_torch.sim import ScenarioSpec, run_sweep, run_sweep_scalar
+    from repro_torch.slo import (PoissonArrivals, ServeSpec, run_serve_scalar, run_serve_sweep,
+                                 slo_table)
+
+    spec = ScenarioSpec(num_nodes=nodes, snapshots=gen, tp_sizes=FAULT_TPS,
+                        architectures=FAULT_ARCHES)
+    sweep = run_sweep(spec, backend="torch", device=device)
+    ref = run_sweep_scalar(spec)
+    if not (np.array_equal(sweep.placed_gpus, ref.placed_gpus)
+            and np.array_equal(sweep.faulty_gpus, ref.faulty_gpus)):
+        raise AssertionError(f"faults {gen.label}: the torch sweep differs from the scalar loop")
+    trace = gen.trace(nodes)
+    kw = dict(tp_sizes=FAULT_TPS, architectures=FAULT_ARCHES)
+    tl = replay_trace(trace, backend="torch", device=device, **kw)
+    tl_ref = replay_trace(trace, engine="scalar", **kw)
+    if not all(np.array_equal(getattr(tl, f), getattr(tl_ref, f))
+               for f in ("placed_gpus", "faulty_gpus", "edges_h")):
+        raise AssertionError(f"faults {gen.label}: the torch replay differs from the scalar one")
+    waste = time_mean_waste(tl)
+    tt = traffic_replay(trace, tp_sizes=(32,), variants=("orchestrated",), backend="torch",
+                        device=device)
+    tt_ref = traffic_replay(trace, tp_sizes=(32,), variants=("orchestrated",), backend="numpy")
+    if not all(np.array_equal(getattr(tt, f), getattr(tt_ref, f))
+               for f in ("groups", "dp_pairs", "crossing_pairs", "crossing_pod_pairs")):
+        raise AssertionError(f"faults {gen.label}: the torch traffic replay differs from numpy")
+    inf_cost = next(r for r in timeline_cost_table(tl, tp=32)
+                    if r["architecture"] == "infinitehbd-k3")
+    serve = ServeSpec(timeline=tl, arrivals=(PoissonArrivals(8.0, seed=2, stream=0),), tp=16,
+                      req_per_gpu_hour=0.05, slo_h=2.0, patience_h=12.0)
+    res = run_serve_sweep(serve, backend="torch", device=device)
+    res_ref = run_serve_scalar(serve)
+    if not all(np.array_equal(getattr(res, f), getattr(res_ref, f)) for f in SERVE_GRIDS):
+        raise AssertionError(f"faults {gen.label}: the torch serving scan differs from scalar")
+    attain = next(r["slo_attainment"] for r in slo_table(res)
+                  if r["architecture"] == "infinitehbd-k3")
+    return {
+        "scenario": gen.label,
+        "fault_ratio": round(float(gen.masks(nodes).mean()), 6),
+        "events": len(trace.events),
+        "intervals": tl.num_intervals,
+        "waste_tp32_big_switch": round(float(waste[FAULT_ARCHES.index("big-switch"), 1]), 6),
+        "waste_tp32_infinitehbd": round(float(waste[FAULT_ARCHES.index("infinitehbd-k3"), 1]),
+                                        6),
+        "cross_tor_share_tp32": round(
+            float(tt.time_mean_shares()["cross_tor_share"][0, 0]), 6),
+        "cost_time_mean_musd_infinitehbd": round(inf_cost["time_mean_cost_usd"] / 1e6, 4),
+        "slo_attainment_infinitehbd": round(attain, 6),
+    }
+
+
+def claim_breaks(device, tor_gen, nodes):
+    """benchmarks/faults.py's structured-vs-i.i.d. comparison at a matched
+    marginal fault ratio, the replays on the card."""
+    from repro_torch.churn import replay_trace, traffic_replay
+    from repro_torch.core.prng import counter_fault_masks
+    from repro_torch.faults import masks_to_trace
+
+    tor_masks = tor_gen.masks(nodes)
+    ratio = float(tor_masks.mean())
+    iid_masks = counter_fault_masks(nodes, ratio, tor_gen.samples, seed=1)
+    traces = {"tor-outages": tor_gen.trace(nodes),
+              "iid": masks_to_trace(iid_masks, tor_gen.tick_h)}
+    out = {"matched_fault_ratio": round(ratio, 6),
+           "iid_fault_ratio": round(float(iid_masks.mean()), 6)}
+    bs, inf = FAULT_ARCHES.index("big-switch"), FAULT_ARCHES.index("infinitehbd-k3")
+    ti = FAULT_TPS.index(32)
+    waste = {}
+    for label, trace in traces.items():
+        tl = replay_trace(trace, tp_sizes=FAULT_TPS, architectures=FAULT_ARCHES,
+                          backend="torch", device=device)
+        waste[label] = time_mean_waste(tl)
+        if label == "iid":
+            out["iid_matches_ideal_isolation"] = bool(
+                np.array_equal(tl.placed_gpus[inf], tl.placed_gpus[bs]))
+        tt = traffic_replay(trace, tp_sizes=(32,), variants=("orchestrated",), backend="torch",
+                            device=device)
+        out[f"cross_tor_share_{label.replace('-', '_')}"] = round(
+            float(tt.time_mean_shares()["cross_tor_share"][0, 0]), 6)
+    w_ideal = float(waste["tor-outages"][bs, ti])
+    w_inf = float(waste["tor-outages"][inf, ti])
+    w_iid = float(waste["iid"][inf, ti])
+    out.update(
+        waste_tp32_ideal_tor_outages=round(w_ideal, 6),
+        waste_tp32_infinitehbd_tor_outages=round(w_inf, 6),
+        waste_tp32_infinitehbd_iid=round(w_iid, 6),
+        isolation_survives_tor_outage=bool(w_inf <= w_ideal + 1e-12),
+        excess_waste_vs_ideal_pct=round(
+            100.0 * (w_inf - w_ideal) / w_ideal, 2) if w_ideal else None,
+        waste_increase_vs_iid_pct=round(
+            100.0 * (w_inf - w_iid) / w_iid, 2) if w_iid else None,
+        traffic_claim_survives=bool(
+            out["cross_tor_share_tor_outages"] <= out["cross_tor_share_iid"] + 1e-12))
+    return out
+
+
+def faults_on_card(torch, device="cuda"):
+    """BENCH_faults.json's four generators (192 nodes, 336 ticks, seed 11):
+    ``torch_masks`` on the card equal to numpy (and at the pins and 8192
+    nodes), then its scenario_table and claim_breaks rebuilt through the
+    port with the sweeps, ``replay_trace``, ``traffic_replay`` and the
+    serving scan on the card, equal to the JSON at its rounding."""
+    from repro_torch.faults import GENERATORS
+    from repro_torch.kernels.prefix_scan import prefix_scan
+
+    recorded = json.loads((ROOT / "BENCH_faults.json").read_text())
+    nodes, samples = recorded["num_nodes"], recorded["samples"]
+    gens = tuple(cls(samples=samples, seed=11) for cls in GENERATORS)
+    out = {"masks": fault_masks_on_card(torch, device, gens, nodes)}
+    sync(torch, device)
+    prefix_scan.launches = 0
+    t0 = time.perf_counter()
+    table = [scenario_entry(device, gen, nodes) for gen in gens]
+    breaks = claim_breaks(device, gens[0], nodes)
+    sync(torch, device)
+    dt = time.perf_counter() - t0
+    launches = prefix_scan.launches
+    for row, want in zip(table, recorded["scenario_table"]):
+        print(f"faults {row['scenario']}: " + ", ".join(
+            f"{k} {v}" for k, v in row.items() if k != "scenario")
+            + f" ({'equal to' if row == want else 'DIFFERS FROM'} BENCH_faults.json)")
+    same = table == recorded["scenario_table"] and breaks == recorded["claim_breaks"]
+    print(f"faults claim_breaks: excess waste vs the ideal under ToR outages "
+          f"{breaks['excess_waste_vs_ideal_pct']}%, isolation survives "
+          f"{breaks['isolation_survives_tor_outage']}, traffic claim survives "
+          f"{breaks['traffic_claim_survives']} "
+          f"({'equal to' if breaks == recorded['claim_breaks'] else 'DIFFERS FROM'} "
+          f"BENCH_faults.json); the rebuild took {dt:.2f} s with the scalar and numpy "
+          f"references, prefix_scan launches {launches}")
+    if not same or launches == 0:
+        raise AssertionError("faults: the rebuilt tables differ from BENCH_faults.json or "
+                             "prefix_scan never launched")
+    out.update(launches=launches, seconds=dt)
+    return out
+
+
 def main() -> int:
     import dataclasses
 
@@ -3109,10 +3673,18 @@ def main() -> int:
     print(f"dcn/churn: the DCN and churn phases (the Fig. 17c grid, the 8192-node placement, "
           f"the short-row scans, the churn ensemble, the traffic and control-plane replays) "
           f"took {dcn_s:.1f} s")
+    t_engines = time.perf_counter()
+    cost = cost_on_card(torch)
+    matrix = matrix_on_card(torch)
+    slo = slo_on_card(torch)
+    faults = faults_on_card(torch)
+    engines_s = time.perf_counter() - t_engines
+    print(f"cost/matrix/slo/faults: the cost, comparison-matrix, serving-SLO and fault "
+          f"phases took {engines_s:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, of which the "
           f"decoder-config phases {decoders_s:.1f} s, the PaliGemma and Whisper phases "
-          f"{vlm_s:.1f} s, the RecurrentGemma phases {rg_s:.1f} s and the DCN and churn "
-          f"phases {dcn_s:.1f} s")
+          f"{vlm_s:.1f} s, the RecurrentGemma phases {rg_s:.1f} s, the DCN and churn "
+          f"phases {dcn_s:.1f} s and the cost, matrix, SLO and fault phases {engines_s:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
@@ -3213,6 +3785,15 @@ def main() -> int:
         "dcn_8192_rows_per_s": {str(tp): v["rows_per_s"] for tp, v in dc["per_tp"].items()},
         "dcn_8192_scan_bound_ms": dc["scan_bound_ms"],
         "dcn_short_rows": short_rows,
+        "launches_cost_bench": cost["bench"]["launches"],
+        "launches_cost_8192": cost["8192"]["launches"],
+        "launches_matrix_bench": matrix["bench"]["launches"],
+        "launches_matrix_8192": matrix["8192"]["launches"],
+        "launches_slo_replay": slo["replay_launches"],
+        "launches_faults_rebuild": faults["launches"],
+        "cost_8192_rows_per_s": cost["8192"]["rows_per_s"],
+        "matrix_8192_seconds": matrix["8192"]["seconds"],
+        "slo_scan_requests_per_s": {k: slo[k]["requests_per_s"] for k in ("bench", "2048")},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -125,9 +125,8 @@ class ChurnTimeline:
         happened in).  Records with ``latency_us=None`` (no feasible plan)
         contribute nothing here: their capacity loss already lives in the
         shrunken ``placed_gpus`` grid.  This is the serving bridge's
-        capacity hook: the SLO engine (``repro.slo``; the port's comes with
-        ROADMAP.md § 1 item 6) subtracts the stall from every
-        interval's usable serving time.
+        capacity hook: the SLO engine (``repro_torch.slo.capacity``)
+        subtracts the stall from every interval's usable serving time.
         """
         stall = np.zeros(self.num_intervals, dtype=float)
         if not self.reconfigs:

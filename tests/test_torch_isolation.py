@@ -18,10 +18,14 @@ MODULES = sorted(
 # the host modules of repro.core that the port copies
 CORE = ("ocstrx", "topology", "mfu_sim", "fault_sim", "orchestrator", "placement",
         "control_plane")
-# the DCN engine and the churn replays
+# the DCN engine, the churn replays, the cost and serving-SLO engines and
+# the structured fault generators
 ENGINES = ("dcn.engine", "dcn.incremental", "dcn.kernel", "dcn.tables", "dcn.torch_backend",
            "dcn.traffic", "churn.mfu_bridge", "churn.monte_carlo", "churn.replay",
-           "churn.timeline", "churn.traffic", "kernels.prefix_scan.host")
+           "churn.timeline", "churn.traffic", "kernels.prefix_scan.host",
+           "cost", "cost.engine", "cost.tables", "cost.bridge", "sim.tables",
+           "slo", "slo.arrivals", "slo.capacity", "slo.engine", "slo.torch_backend",
+           "slo.tables", "faults", "faults.base", "faults.generators", "faults.torch_mirror")
 # "repro" as a whole name: repro_torch does not match
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\s|\.|,|$)", re.M)
 
