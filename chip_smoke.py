@@ -193,7 +193,37 @@ failure:
      BENCH_faults.json's size, at the pinned digests and at 8192 nodes;
      then the JSON's scenario_table and claim_breaks rebuilt with the
      sweeps, replays, traffic replays and serving scans on the card, held
-     to their scalar or numpy paths and equal to the JSON at its rounding.
+     to their scalar or numpy paths and equal to the JSON at its rounding;
+ 39. collectives on the card: 4 ranks of one torch.distributed world over
+     gloo share the card (repro_torch.parallel.mesh.spawn_world); each runs
+     the ring all-reduce (ring and psum), reduce-scatter, all-gather, the
+     binary exchange and all_to_all_baseline on CUDA float32 and int32
+     payloads of (2048, 4096), phase 40's MoE output, held to host
+     references (the rings bit for bit in their order of adds, integers
+     exactly), and gpipe over the 4 ranks at width 4096 against the stages
+     in sequence; ms per call by rank;
+ 40. Mixtral-8x7B at full width and MIXTRAL_LAYERS layers, sharded over the
+     same 4 ranks, B=1, S=2048 a data shard; the unsharded port computed
+     here first.  In float32 at mesh (data=1, model=4): tp mode with
+     ar_impl "psum" and "ring", each rank's hidden states, loss and every
+     gradient against the unsharded port's; at capacity factor 16 ep mode
+     with the binary exchange and with all_to_all_single against tp mode
+     (hidden states and loss); at mesh (data=2, model=2) tp mode, each
+     data shard's hidden states, and the loss and every gradient averaged
+     over data (sync_gradients) against the unsharded port's on both
+     batches.
+     In bf16 (PAR_TOL): at mesh (data=2, model=2) the loss and gradient
+     norm averaged over data against the unsharded port's on both batches;
+     at (data=1, model=4) the dropped shares of tp and ep mode at the
+     config's capacity factor, then the main path, one AdamW step through make_train_step (4 forward and
+     2 backward flash launches a rank; its loss, gradient norm and the loss
+     after it against the unsharded step's) with each rank's ms;
+ 41. elastic restart: ElasticRunner training reduced H2O-Danube on the
+     card under a fault at step 9 on nodes {3, 4} (64 nodes x 4 GPUs, TP
+     16, DP 14, a checkpoint every 5 steps, 18 steps): one fault event, a
+     settle time under 10 ms, the new DP degree, a checkpoint on disk, and
+     the steps recomputed after the restore equal to the first pass's;
+     then a straggler schedule flags node 5 and rebuilds as a fault.
 
 The last lines are the script's time, the ``{"kernels": ...}`` record, the
 card line and ``{"ok": true, "device": ...}``.
@@ -202,6 +232,7 @@ card line and ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import gc
 import json
 import math
@@ -1549,16 +1580,17 @@ def range_device_ms(prof, names):
             for n in names}
 
 
-def moe_drops(torch, model, batch):
+def moe_drops(torch, model, batch, moe_ctx=None):
     """(dropped, routed) expert assignments of a no-grad forward of
-    ``batch``, from the MoE layers' telemetry counters."""
+    ``batch``, from the MoE layers' telemetry counters (this process's
+    rank's under a mesh)."""
     from repro_torch import obs
     from repro_torch.models import forward
 
     obs.enable()
     obs.reset()
     with torch.no_grad():
-        forward(model, batch)
+        forward(model, batch, moe_ctx=moe_ctx)
     counters = obs.summary()["counters"]
     obs.disable()
     obs.reset()
@@ -3540,6 +3572,548 @@ def faults_on_card(torch, device="cuda"):
     return out
 
 
+# ------------------------------------------------------------ parallel slice (phases 39-41)
+
+# The ranks of phases 39-40 share the one card: processes of one
+# torch.distributed world over gloo, each on cuda:0 (NCCL takes one rank a
+# card).  Gloo's point-to-point sends take host memory only, so the ring's
+# and the binary exchange's CUDA payloads pass through pinned host buffers
+# (repro_torch.parallel.mesh.Axis.stages); its all-reduce and all-to-all
+# take CUDA tensors themselves.  Their times are those of ranks sharing one
+# H100 through host memory, not of collectives on an HBD.
+PAR_RANKS = 4
+# phase 39's payloads: the size of phase 40's MoE output, (B·S, d)
+PAR_PAYLOAD = (2048, 4096)
+PAR_GPIPE = (8, 16, 4096)        # microbatches, rows a microbatch, width
+# gloo's all-reduce adds 4 float32 terms in its own order
+PAR_PSUM_TOL = 1e-5
+# phase 40: Mixtral-8x7B at MIXTRAL_LAYERS layers, B = 1, S = 2048 a data shard
+PAR_SEQ = 2048
+PAR_SEED = 0
+# The sharded model against the unsharded one.  In float32 each tensor's
+# error over its norm: the shards add their partial sums in another order
+# (~3e-6 on the H100).  In bf16 the shards round their partial sums to bf16
+# before the all-reduce adds them, so tokens whose top-2 experts nearly tie
+# can route to another expert, and their rows and their share of each
+# gradient then differ by O(1): bf16 is held to tests/test_kernels.py's
+# 2e-2 on the step's scalars (the loss, the gradient norm, the loss after
+# the AdamW step, and at mesh (2, 2) the data shards' mean loss and
+# gradient norm), and its hidden states' error is printed.
+PAR_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+PAR_EP_CF = 16.0                 # tests/_sharded_checks.py: no assignment drops
+
+
+def par_cfg(cf=None):
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch("mixtral"), num_layers=MIXTRAL_LAYERS)
+    return cfg if cf is None else dataclasses.replace(cfg, capacity_factor=cf)
+
+
+def par_batches(cfg, device, seq):
+    from repro_torch.train import synthetic_batch
+
+    return [{k: torch_from(v, device) for k, v in synthetic_batch(cfg, i, 1, seq).items()}
+            for i in range(2)]
+
+
+def par_draw(torch, cfg, device, dtype):
+    """Phase 40's weights, heads padded for PAR_RANKS (Mixtral's need none)."""
+    from repro_torch.models import init_params
+
+    return init_params(cfg, torch.Generator(device=device).manual_seed(PAR_SEED),
+                       tp=PAR_RANKS, device=device, dtype=dtype)
+
+
+def torch_from(a, device):
+    import torch
+
+    return torch.from_numpy(a).to(device)
+
+
+def rel_errs(torch, got, want):
+    """(error's norm over the reference's, max error over its largest
+    entry), in float32."""
+    g, w = got.float(), want.to(got.device).float()
+    d = g - w
+    return (float(d.norm() / w.norm().clamp_min(1e-30)),
+            float(d.abs().max() / w.abs().max().clamp_min(1e-30)))
+
+
+def ring_reference(torch, xs, n):
+    """The ring all-reduce's result on the host in its order of adds: chunk
+    c is ((x[c+1] + x[c+2]) + ...) + x[c-1], then + x[c]."""
+    chunks = [x.chunk(n, 0) for x in xs]
+    out = []
+    for c in range(n):
+        acc = torch.zeros_like(chunks[0][c])
+        for k in range(n - 1):
+            acc = chunks[(c - (n - 1) + k) % n][c] + acc
+        out.append(acc + chunks[c][c])
+    return torch.cat(out)
+
+
+def timed_ms(torch, device, fn, reps=3):
+    """Median ms of ``fn`` on this rank, synchronised, after one warm-up."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        sync(torch, device)
+        t0 = time.perf_counter()
+        fn()
+        sync(torch, device)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def collectives_on_card(torch, rank, device="cuda", shape=PAR_PAYLOAD, gp=PAR_GPIPE):
+    """Phase 39 on one rank: every collective on float32 and int32 payloads
+    of ``shape`` (each rank's drawn from its seed, so every rank knows all
+    of them), held to host references, and gpipe over 4 stages."""
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.mesh import make_mesh, mesh_axis
+    from repro_torch.parallel.pipeline import gpipe
+
+    mesh = make_mesh((PAR_RANKS,), ("model",), device=device)
+    ax = mesh_axis(mesh, "model")
+    i, n = ax.index, ax.size
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    res = {"checks": {}, "ms": {}}
+    payloads = {
+        "f32": [torch.randn(shape, generator=gen(1000 + r), device=device) for r in range(n)],
+        "i32": [torch.randint(-2 ** 20, 2 ** 20, shape, generator=gen(1100 + r), device=device,
+                              dtype=torch.int32) for r in range(n)]}
+    for dt, xs in payloads.items():
+        host = [x.cpu() for x in xs]
+        ring_ref = ring_reference(torch, host, n)
+        x = xs[i]
+        ring = C.ring_all_reduce(x, ax, impl="ring")
+        psum = C.ring_all_reduce(x, ax, impl="psum")
+        rs = C.ring_reduce_scatter(x, ax, 0)
+        ag = C.ring_all_gather(rs, ax, 0)
+        slabs = x.view(n, shape[0] // n, *shape[1:])
+        be = C.binary_exchange_all_to_all(slabs, ax)
+        bl = C.all_to_all_baseline(slabs, ax)
+        want_a2a = torch.stack([h.view(n, shape[0] // n, *shape[1:])[i] for h in host])
+        total = sum(host[1:], host[0])
+        checks = res["checks"]
+        checks[f"ring_{dt}"] = torch.equal(ring.cpu(), ring_ref)
+        checks[f"rs_{dt}"] = torch.equal(rs.cpu(), ring_ref.chunk(n, 0)[i])
+        checks[f"ag_{dt}"] = torch.equal(ag.cpu(), ring_ref)
+        checks[f"binary_{dt}"] = torch.equal(be.cpu(), want_a2a)
+        checks[f"xla_{dt}"] = torch.equal(bl.cpu(), want_a2a)
+        if dt == "i32":
+            checks["psum_i32"] = torch.equal(psum.cpu(), total)
+        else:
+            res["psum_f32_err"] = float((psum.cpu() - total).abs().max())
+            checks["psum_f32"] = res["psum_f32_err"] <= PAR_PSUM_TOL
+        if dt == "f32":
+            res["ms"] = {
+                "ring_all_reduce": timed_ms(torch, device, lambda: C.ring_all_reduce(x, ax)),
+                "psum": timed_ms(torch, device, lambda: C.ring_all_reduce(x, ax, impl="psum")),
+                "ring_reduce_scatter": timed_ms(torch, device,
+                                                lambda: C.ring_reduce_scatter(x, ax, 0)),
+                "ring_all_gather": timed_ms(torch, device, lambda: C.ring_all_gather(rs, ax, 0)),
+                "binary_exchange": timed_ms(torch, device,
+                                            lambda: C.binary_exchange_all_to_all(slabs, ax)),
+                "all_to_all_baseline": timed_ms(torch, device,
+                                                lambda: C.all_to_all_baseline(slabs, ax))}
+        del ring, psum, rs, ag, be, bl
+    del payloads
+    n_micro, mb, width = gp
+    ws = [torch.randn((width, width), generator=gen(2000 + s), device=device) / math.sqrt(width)
+          for s in range(n)]
+    x_mb = torch.randn((n_micro, mb, width), generator=gen(3000), device=device)
+    stage_fn = lambda s, v: torch.tanh(v @ ws[s])
+    out = gpipe(stage_fn, x_mb, group=ax, n_micro=n_micro)
+    seq = x_mb
+    for s in range(n):
+        seq = torch.tanh(seq @ ws[s])
+    res["gpipe_err"] = float((out - seq).abs().max())
+    res["checks"]["gpipe"] = res["gpipe_err"] <= 1e-5
+    res["ms"]["gpipe"] = timed_ms(torch, device,
+                                  lambda: gpipe(stage_fn, x_mb, group=ax, n_micro=n_micro))
+    return res
+
+
+def shared_copy(torch, t):
+    """A host copy of ``t`` in shared memory, which the ranks spawned
+    later map without another copy."""
+    out = torch.empty(t.shape, dtype=t.dtype).share_memory_()
+    return out.copy_(t)
+
+
+def grads_of(torch, model, batch, moe_ctx=None):
+    """(hidden states, loss, {name: gradient}) of one training forward
+    (remat) and backward."""
+    from repro_torch.models import forward, lm_loss
+
+    names, params = zip(*model.named_parameters())
+    h = forward(model, batch, moe_ctx=moe_ctx)
+    loss = lm_loss(model, h, batch["labels"])
+    return h.detach(), loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def mixtral_reference(torch, cfg, device="cuda", seq=PAR_SEQ):
+    """The unsharded port on one process: in float32 batch 0's hidden
+    states, loss and every gradient, and for the (2, 2) mesh both batches'
+    hidden states, their mean loss and mean gradients (what its data shards
+    average to; host copies the ranks map from shared memory); in bf16
+    batch 0's hidden states and loss, the mean loss and gradient norm of
+    batches 0 and 1, then one AdamW step on batch 0 (its gradient norm and
+    the loss after it)."""
+    from repro_torch.train import TrainConfig, init_opt_state, loss_fn, make_train_step
+    from repro_torch.train.optimizer import global_norm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    b0, b1 = par_batches(cfg, device, seq)
+    model = par_draw(torch, cfg, device, torch.float32)
+    h0, l0, g0 = grads_of(torch, model, b0)
+    h1, l1, g1 = grads_of(torch, model, b1)
+    h0 = shared_copy(torch, h0)
+    ref = {"float32": {"h": h0, "loss": float(l0),
+                       "grads": {n: shared_copy(torch, g) for n, g in g0.items()}}}
+    ref["float32 (2, 2)"] = {"h": [h0, shared_copy(torch, h1)],
+                             "loss": (float(l0) + float(l1)) / 2,
+                             "grads": {n: shared_copy(torch, g.add_(g1[n]).div_(2))
+                                       for n, g in g0.items()}}
+    del model, h0, h1, l0, l1, g0, g1
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = par_draw(torch, cfg, device, torch.bfloat16)
+    h, l0, g0 = grads_of(torch, model, b0)
+    _, l1, g1 = grads_of(torch, model, b1)
+    bf = {"h": h.cpu(), "loss": float(l0)}
+    bf["mean_loss"] = (float(l0) + float(l1)) / 2
+    bf["mean_grad_norm"] = float(global_norm((g0[n].float() + g1[n].float()) / 2 for n in g0))
+    del g0, g1, h
+    tc = TrainConfig()
+    state = {"params": model, "opt": init_opt_state(model, tc.opt)}
+    state, m = make_train_step(cfg, tc)(state, b0)
+    with torch.no_grad():
+        bf["post_loss"] = float(loss_fn(model, b0, tc))
+    bf["grad_norm"] = float(m["grad_norm"])
+    ref["bfloat16"] = bf
+    del state, model, m, b0, b1
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"parallel: the unsharded reference of {cfg.name} at {depth(cfg)} (B=1, S={seq}; "
+          f"float32 and bf16 on batches 0 and 1, one bf16 AdamW step) took "
+          f"{time.perf_counter() - t0:.1f} s; float32 loss {ref['float32']['loss']:.5f}, "
+          f"bf16 loss {bf['loss']:.5f}, grad norm {bf['grad_norm']:.5f}, after the step "
+          f"{bf['post_loss']:.5f}")
+    return ref
+
+
+def mixtral_sharded(torch, rank, ref, cfg, device="cuda", seq=PAR_SEQ):
+    """Phase 40 on one rank: the sharded port against the unsharded one."""
+    from repro_torch.convert import shard_params
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.models import forward, lm_loss
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.parallel.sharding import mesh_axes, parallel_rules
+    from repro_torch.parallel.specs import param_pspecs, shard_tensor
+    from repro_torch.train import TrainConfig, init_opt_state, loss_fn, make_train_step
+    from repro_torch.train import sync_gradients
+
+    res = {"errs": {}, "s": {}}
+    rules = mesh_axes()
+    b0, b1 = par_batches(cfg, device, seq)
+    f32, bf = ref["float32"], ref["bfloat16"]
+    clock = [time.perf_counter()]
+
+    def mark(name):
+        sync(torch, device)
+        now = time.perf_counter()
+        res["s"][name] = now - clock[0]
+        clock[0] = now
+
+    def sharded(mesh, dtype, *impls):
+        """This rank's shards of the seeded weights, one model a moe_impl."""
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        full = par_draw(torch, cfg, device, dtype)
+        out = [shard_params(full, mesh, impl) for impl in impls]
+        del full
+        return out
+
+    def step_of(model, batch, moe_ctx):
+        """Hidden states, loss and gradient norm of one training forward
+        and backward, the loss and gradients averaged over data."""
+        h, loss, grads = grads_of(torch, model, batch, moe_ctx)
+        impl = moe_ctx.get("moe_impl", "tp")
+        loss, norm = sync_gradients(model, loss, grads, TrainConfig(moe_impl=impl))
+        return h, float(loss), float(norm), grads
+
+    def against(label, model, mesh, batch, moe_ctx, want):
+        """The step's hidden states, loss and every gradient against the
+        unsharded port's (``want``)."""
+        h, loss, _, grads = step_of(model, batch, moe_ctx)
+        errs = {"hidden": rel_errs(torch, h, want["h"]),
+                "loss": (abs(loss - want["loss"]) / abs(want["loss"]),) * 2}
+        specs = param_pspecs(model, moe_ctx.get("moe_impl", "tp"))
+        worst = (0.0, 0.0, "")
+        for name, g in grads.items():
+            e = rel_errs(torch, g, shard_tensor(want["grads"][name], specs[name], mesh))
+            if e[0] >= worst[0]:
+                worst = (e[0], e[1], name)
+        errs["grads"] = worst[:2]
+        res[f"worst_grad_{label}"] = worst[2]
+        res["errs"][label] = errs
+
+    # (data=1, model=4), float32: tp mode at the config's capacity factor
+    # against the unsharded port, then at capacity factor 16 ep mode with
+    # both exchanges against tp mode (every token kept)
+    mesh = make_mesh((1, PAR_RANKS), ("data", "model"), device=device)
+    with parallel_rules(rules, mesh):
+        m_tp, m_ep = sharded(mesh, torch.float32, "tp", "ep")
+        mark("float32 draw")
+        for ar in ("psum", "ring"):
+            against(f"float32 (1, 4) tp ar={ar}", m_tp, mesh, b0,
+                    {"moe_impl": "tp", "ar_impl": ar}, f32)
+            mark(f"float32 (1, 4) {ar}")
+        # capacity factor 16 keeps every token, so both modes route alike:
+        # ep's forward and loss against tp's
+        m_tp.cfg = m_ep.cfg = dataclasses.replace(cfg, capacity_factor=PAR_EP_CF)
+        with torch.no_grad():
+            h_tp = forward(m_tp, b0, moe_ctx={"moe_impl": "tp"}, remat=False)
+            l_tp = float(lm_loss(m_tp, h_tp, b0["labels"]))
+            del m_tp
+            for a2a in ("binary", "xla"):
+                h = forward(m_ep, b0, moe_ctx={"moe_impl": "ep", "a2a_impl": a2a}, remat=False)
+                loss = float(lm_loss(m_ep, h, b0["labels"]))
+                res["errs"][f"float32 cf16 ep a2a={a2a} vs tp"] = {
+                    "hidden": rel_errs(torch, h, h_tp), "loss": (abs(loss - l_tp) / l_tp,) * 2}
+                del h
+        del m_ep, h_tp
+        mark("float32 cf16 tp, ep x2")
+    # (data=2, model=2): in float32 each data shard's hidden states, and the
+    # loss and every gradient averaged over data, against the unsharded
+    # port's; in bf16 the averaged loss and gradient norm
+    mesh22 = make_mesh((2, PAR_RANKS // 2), ("data", "model"), device=device)
+    d = mesh22.get_coordinate()[0]
+    with parallel_rules(rules, mesh22):
+        model, = sharded(mesh22, torch.float32, "tp")
+        f22 = ref["float32 (2, 2)"]
+        against("float32 (2, 2) tp", model, mesh22, (b0, b1)[d], {"moe_impl": "tp"},
+                {"h": f22["h"][d], "loss": f22["loss"], "grads": f22["grads"]})
+        del model
+        mark("float32 (2, 2)")
+        model, = sharded(mesh22, torch.bfloat16, "tp")
+        _, loss, norm, _ = step_of(model, (b0, b1)[d], {"moe_impl": "tp"})
+        res["bf16_2x2"] = {"loss": abs(loss - bf["mean_loss"]) / bf["mean_loss"],
+                           "grad norm": abs(norm - bf["mean_grad_norm"]) / bf["mean_grad_norm"]}
+        del model
+        mark("bf16 (2, 2)")
+    # (data=1, model=4), bf16: the main path
+    with parallel_rules(rules, mesh):
+        model, m_ep = sharded(mesh, torch.bfloat16, "tp", "ep")
+        res["drops_ep"] = moe_drops(torch, m_ep, b0, {"moe_impl": "ep"})
+        del m_ep
+        with torch.no_grad():
+            h = forward(model, b0)
+            loss = float(lm_loss(model, h, b0["labels"]))
+        res["bf16_hidden"] = rel_errs(torch, h, bf["h"])
+        res["bf16_loss"] = abs(loss - bf["loss"]) / bf["loss"]
+        del h
+        res["drops_tp"] = moe_drops(torch, model, b0, {"moe_impl": "tp"})
+        mark("bf16 draw, drops")
+        tc = TrainConfig()
+        state = {"params": model, "opt": init_opt_state(model, tc.opt)}
+        step = make_train_step(cfg, tc)
+        sync(torch, device)
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        t0 = time.perf_counter()
+        state, m = step(state, b0)
+        sync(torch, device)
+        res["step_ms"] = (time.perf_counter() - t0) * 1e3
+        res["launches"] = {"fwd": flash_attention.launches, "bwd": flash_attention_bwd.launches}
+        res["grad_norm"] = float(m["grad_norm"])
+        with torch.no_grad():
+            res["post_loss"] = float(loss_fn(model, b0, tc))
+        del state, model, m, step
+    gc.collect()
+    mark("bf16 step")
+    return res
+
+
+def parallel_rank(rank, ref, device="cuda", cfg=None, shape=PAR_PAYLOAD, gp=PAR_GPIPE,
+                  seq=PAR_SEQ):
+    """One rank of phases 39-40 (a process of spawn_world's world)."""
+    import torch
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    out = {"collectives": collectives_on_card(torch, rank, device, shape, gp), "t0": t0}
+    out["t39"] = time.time() - t0
+    out["mixtral"] = mixtral_sharded(torch, rank, ref, cfg or par_cfg(), device, seq)
+    return out
+
+
+def parallel_on_card(torch, device="cuda", cfg=None, shape=PAR_PAYLOAD, gp=PAR_GPIPE,
+                     seq=PAR_SEQ):
+    """Phases 39-40: the unsharded reference here, then PAR_RANKS ranks
+    sharing the card over gloo."""
+    from repro_torch.parallel.mesh import spawn_world
+
+    cfg = cfg or par_cfg()
+    ref = mixtral_reference(torch, cfg, device, seq)
+    t0, wall0 = time.perf_counter(), time.time()
+    outs = spawn_world(parallel_rank, PAR_RANKS, ref, device, cfg, shape, gp, seq,
+                       backend="gloo", timeout_s=600)
+    world_s = time.perf_counter() - t0
+    print(f"parallel: the world's ranks started {max(o['t0'] for o in outs) - wall0:.1f} s "
+          f"after the spawn; phase 39 took {max(o['t39'] for o in outs):.1f} s; phase 40's "
+          f"parts (s, worst rank): " + ", ".join(
+              f"{k} {max(o['mixtral']['s'][k] for o in outs):.1f}"
+              for k in outs[0]["mixtral"]["s"]))
+    label = f"{PAR_RANKS} ranks sharing one {'H100' if device == 'cuda' else 'CPU'} over gloo"
+    # phase 39
+    bad = sorted({k for o in outs for k, ok in o["collectives"]["checks"].items() if not ok})
+    if bad:
+        raise AssertionError(f"parallel: collectives disagree with their references: {bad}")
+    ms = {k: [o["collectives"]["ms"][k] for o in outs] for k in outs[0]["collectives"]["ms"]}
+    print(f"parallel: phase 39, {label}: ring all-reduce, psum, reduce-scatter, all-gather, "
+          f"binary exchange, all-to-all on float32 and int32 {shape} payloads equal their host "
+          f"references (rings bit for bit in their order of adds, integers exactly, psum within "
+          f"{max(o['collectives']['psum_f32_err'] for o in outs):.2e}), gpipe over "
+          f"{PAR_RANKS} stages {gp} within {max(o['collectives']['gpipe_err'] for o in outs):.2e}"
+          f" of the stages in sequence")
+    for k, v in ms.items():
+        what = f"over {gp} microbatches" if k == "gpipe" else f"of a float32 {shape} payload"
+        print(f"parallel: time {k} {what} ({label}), ms per call by rank: "
+              + ", ".join(f"{t:.2f}" for t in v))
+    # phase 40
+    mx = [o["mixtral"] for o in outs]
+    for run in mx[0]["errs"]:
+        worst = {part: max(m["errs"][run][part] for m in mx) for part in mx[0]["errs"][run]}
+        print(f"parallel: {cfg.name} {run}: " + ", ".join(
+            f"{part} err {e[0]:.3e} (max {e[1]:.3e})" for part, e in worst.items()))
+        for part, e in worst.items():
+            if not e[0] <= PAR_TOL["float32"]:
+                raise AssertionError(f"parallel: {run} {part} off by {e[0]:.3e} (over the "
+                                     f"reference's norm); worst gradients "
+                                     f"{[m.get('worst_grad_' + run) for m in mx]}")
+    bf = ref["bfloat16"]
+    scal = {"loss": max(m["bf16_loss"] for m in mx),
+            "grad norm": max(abs(m["grad_norm"] - bf["grad_norm"]) / bf["grad_norm"]
+                             for m in mx),
+            "loss after the step": max(abs(m["post_loss"] - bf["post_loss"]) / bf["post_loss"]
+                                       for m in mx),
+            "(2, 2) mean loss": max(m["bf16_2x2"]["loss"] for m in mx),
+            "(2, 2) gradient norm": max(m["bf16_2x2"]["grad norm"] for m in mx)}
+    launches = [m["launches"] for m in mx]
+    want = {"fwd": 2 * cfg.num_layers, "bwd": cfg.num_layers}
+    hid = max(m["bf16_hidden"][0] for m in mx), max(m["bf16_hidden"][1] for m in mx)
+    print(f"parallel: bf16 at (data=2, model=2), the data shards' mean against the unsharded "
+          f"port's on both batches, and the main path at (data=1, model={PAR_RANKS}), one "
+          f"AdamW step through make_train_step: against the unsharded bf16 port " + ", ".join(
+              f"{k} within {v:.2e}" for k, v in scal.items())
+          + f"; hidden states {hid[0]:.3e} of their norm (max {hid[1]:.3e}); flash launches a rank {launches} (want {want}); ms per step by "
+          f"rank " + ", ".join(f"{m['step_ms']:.1f}" for m in mx) + f" ({label})")
+    if not all(v <= PAR_TOL["bfloat16"] for v in scal.values()):
+        raise AssertionError(f"parallel: the sharded bf16 step disagrees with the unsharded "
+                             f"one: {scal}")
+    if device == "cuda" and any(l != want for l in launches):
+        raise AssertionError(f"parallel: flash launches a rank {launches}, want {want}")
+    tp_drop = [m["drops_tp"] for m in mx]
+    ep_drop = [m["drops_ep"] for m in mx]
+    print(f"parallel: dropped expert assignments (bf16) at capacity factor "
+          f"{cfg.capacity_factor}: tp mode {tp_drop[0][0]} of {tp_drop[0][1]} "
+          f"({tp_drop[0][0] / tp_drop[0][1]:.2%}, every rank routes all tokens), ep mode "
+          f"{sum(d for d, _ in ep_drop)} of {sum(a for _, a in ep_drop)} "
+          f"({sum(d for d, _ in ep_drop) / sum(a for _, a in ep_drop):.2%}: each rank routes "
+          f"{seq // PAR_RANKS} tokens with its own capacity)")
+    print(f"parallel: phases 39-40 took {world_s:.1f} s in the world of {PAR_RANKS} ranks")
+    return {"collectives_ms": ms, "launches": launches, "step_ms": [m["step_ms"] for m in mx],
+            "drops_tp": tp_drop, "drops_ep": ep_drop, "bf16": scal,
+            "errs": {k: max(max(e[0] for e in m["errs"][k].values()) for m in mx)
+                     for k in mx[0]["errs"]}}
+
+
+def elastic_on_card(torch, device="cuda"):
+    """Phase 41: ElasticRunner training reduced H2O-Danube on ``device``
+    under tests/test_system.py's fault and straggler schedules."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.train import (OptConfig, TrainConfig, checkpoint, init_train_state,
+                                   make_train_step, synthetic_batch)
+    from repro_torch.train.elastic import ElasticConfig, ElasticRunner
+
+    cfg = get_arch("h2o-danube").reduced()
+    tc = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2))
+    res = {}
+
+    def runner_for(d, every, batch, seq):
+        built = []
+        # the same batch every step: a step's loss depends on the state
+        # alone, so the steps recomputed after the rollback repeat theirs
+        b = {k: torch_from(v, device) for k, v in synthetic_batch(cfg, 0, batch, seq).items()}
+
+        def build_step(mesh, plan, dp):
+            built.append((mesh, dp))
+            state = init_train_state(cfg, tc, 0, device=device, dtype=torch.float32)
+            return state, make_train_step(cfg, tc), iter(lambda: b, None)
+
+        ecfg = ElasticConfig(num_nodes=64, gpus_per_node=4, tp_size=16, dp_size=14,
+                             checkpoint_every=every)
+        return ElasticRunner(ecfg, d, build_step, device=device), built
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        runner, built = runner_for(d, 5, 4, 32)
+        flash_attention.launches = 0
+        _, losses = runner.run(total_steps=18, fault_schedule={9: {3, 4}})
+        launches = flash_attention.launches
+        faults = [e for e in runner.events if e[0] == "fault"]
+        last = checkpoint.latest_step(d)
+        files = sorted(p.name for p in Path(d).glob("step*.npz"))
+    # steps 5-8 ran before the fault at step 9 and again after the restore
+    # of the checkpoint of step 4
+    first, again = losses[5:9], losses[9:13]
+    diff = max(abs(a - b) for a, b in zip(first, again))
+    ok = (len(faults) == 1 and 0 < faults[0][2] < 0.01 and last is not None and
+          len(losses) == 22 and diff <= 1e-6 and all(math.isfinite(x) for x in losses) and
+          all(m is None for m, _ in built) and (device != "cuda" or launches > 0))
+    print(f"elastic: reduced {cfg.name} on {device}, 64 nodes x 4 GPUs, TP 16, DP 14, a fault "
+          f"at step 9 on nodes {{3, 4}}: {len(faults)} fault event, settled in "
+          f"{faults[0][2] * 1e3:.3f} ms, DP {built[0][1]} -> {built[-1][1]}, checkpoints "
+          f"{files}, {len(losses)} steps run; steps 5-8 recomputed after the restore "
+          f"{'bit-identical' if diff == 0 else f'within {diff:.2e}'} to the first pass "
+          f"({first[0]:.6f} ... {first[-1]:.6f}); {launches} flash launches; one process, so "
+          f"no mesh is built (the plan needs 224 ranks)")
+    if not ok:
+        raise AssertionError(f"elastic: the fault run failed its checks (events {runner.events},"
+                             f" last checkpoint {last}, losses {losses})")
+    times = {i: 1.0 for i in range(8)}
+    times[5] = 3.0                       # node 5 straggles at step 4
+    with tempfile.TemporaryDirectory() as d:
+        runner, built = runner_for(d, 3, 2, 16)
+        _, losses = runner.run(total_steps=10, straggler_schedule={4: times})
+        sev = [e for e in runner.events if e[0] == "straggler"]
+        nf = len([e for e in runner.events if e[0] == "fault"])
+    print(f"elastic: straggler schedule (node 5 at 3x the median at step 4): events "
+          f"{sev}, then {nf} fault event; node 5 "
+          f"{'is' if 5 in runner.cm.physical_faults else 'is not'} marked faulty; "
+          f"{len(losses)} steps run; phase 41 took {time.perf_counter() - t0:.1f} s")
+    if sev != [("straggler", 4, (5,))] or nf != 1 or 5 not in runner.cm.physical_faults \
+            or len(losses) < 10:
+        raise AssertionError(f"elastic: the straggler run failed its checks {runner.events}")
+    res.update(fault_launches=launches, recompute_diff=diff, dp=[dp for _, dp in built])
+    return res
+
+
 def main() -> int:
     import dataclasses
 
@@ -3681,10 +4255,17 @@ def main() -> int:
     engines_s = time.perf_counter() - t_engines
     print(f"cost/matrix/slo/faults: the cost, comparison-matrix, serving-SLO and fault "
           f"phases took {engines_s:.1f} s")
+    t_par = time.perf_counter()
+    par = parallel_on_card(torch)
+    elastic = elastic_on_card(torch)
+    par_s = time.perf_counter() - t_par
+    print(f"parallel/elastic: the collectives, sharded Mixtral and elastic phases (39-41) "
+          f"took {par_s:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, of which the "
           f"decoder-config phases {decoders_s:.1f} s, the PaliGemma and Whisper phases "
           f"{vlm_s:.1f} s, the RecurrentGemma phases {rg_s:.1f} s, the DCN and churn "
-          f"phases {dcn_s:.1f} s and the cost, matrix, SLO and fault phases {engines_s:.1f} s")
+          f"phases {dcn_s:.1f} s, the cost, matrix, SLO and fault phases {engines_s:.1f} s "
+          f"and the parallel and elastic phases {par_s:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
@@ -3727,6 +4308,8 @@ def main() -> int:
         "max_err_d256_cases": d256_errs["fwd"],
         "max_err_f32_cases": f32_errs["fwd"],
         **{key: t["fwd"] for key, t in {**vlm_times, **rg_times}.items()},
+        "launches_mixtral_sharded_step_per_rank": [l["fwd"] for l in par["launches"]],
+        "launches_elastic_restart": elastic["fault_launches"],
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -3747,6 +4330,7 @@ def main() -> int:
         **{key: t["bwd"] for key, t in {**vlm_times, **rg_times}.items()},
         "passes": {k: {"ms": v["ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"]}
                    for k, v in flash_times.items() if k.startswith("bwd ")},
+        "launches_mixtral_sharded_step_per_rank": [l["bwd"] for l in par["launches"]],
     }, {
         "name": "ssd_scan",
         "route": "cuda",

@@ -15,12 +15,18 @@ expert MLP, and a decoder layer of an encoder-decoder config its cross-attention
 ``final_norm``; the port holds one entry a layer.  A JAX gradient tree has
 the params' structure, so the
 same function maps ``jax.grad``'s output onto the port's parameter names.
-The parameters it makes are trainable, like ``init_params``'s.  This
-module imports neither JAX nor ``repro``.
+The parameters it makes are trainable, like ``init_params``'s.  A tree
+that ``repro`` made with ``init_params(cfg, key, tp=...)`` carries its
+padded heads over as they are.
+
+``shard_params(model, mesh, moe_impl)`` cuts a rank's shards of a full
+model (the counterpart of ``device_put`` with ``param_pspecs``'
+shardings).  This module imports neither JAX nor ``repro``.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -80,3 +86,17 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping[str, Any], *,
         cfg, _tensor(tree["embed"], device), [layers[i] for i in sorted(layers)],
         {k: _tensor(v, device) for k, v in tree["final_norm"].items()},
         _tensor(lm_head, device) if lm_head is not None else None, enc)
+
+
+def shard_params(model: Transformer, mesh, moe_impl: str = "tp") -> Transformer:
+    """A copy of ``model`` that holds this rank's slice of every parameter
+    under ``param_pspecs(model, moe_impl)`` on ``mesh``, resolved by the
+    installed rules (``repro_torch.parallel.parallel_rules``).  The slices
+    are copies: the full model may be freed."""
+    from repro_torch.parallel.specs import param_pspecs, shard_tensor
+
+    specs = param_pspecs(model, moe_impl)
+    memo = {id(p): torch.nn.Parameter(shard_tensor(p.detach(), specs[name], mesh).clone(),
+                                      requires_grad=p.requires_grad)
+            for name, p in model.named_parameters()}
+    return copy.deepcopy(model, memo)

@@ -3,10 +3,9 @@
 Copies of the NumPy-only modules of ``repro.core`` (``ocstrx``,
 ``topology``, ``orchestrator``, ``hbd_models``, ``fault_sim``, ``trace``,
 ``reductions``, ``cost_model``, ``mfu_sim``, ``arch``, ``control_plane``
-and the host part of ``placement``), plus the torch threefry draw in
-``prng``; it exports what ``repro.core`` exports.  Not yet here:
-``placement.make_orchestrated_mesh``, which builds a mesh and comes with
-the parallel slice (ROADMAP.md § 1 item 7).
+and ``placement``, whose ``make_orchestrated_mesh`` builds a
+``torch.distributed`` ``DeviceMesh``), plus the torch threefry draw in
+``prng``; it exports what ``repro.core`` exports.
 """
 
 from .ocstrx import OCSTrx, OCSTrxBundle, Path
@@ -16,8 +15,8 @@ from .orchestrator import (IncrementalOrchestrator, Placement,
                            greedy_baseline, healthy_components,
                            orchestrate_dcn_free, orchestrate_fat_tree,
                            placement_fat_tree)
-from .placement import (InsufficientCapacityError, MeshPlan, plan_mesh,
-                        ring_adjacency_ok)
+from .placement import (InsufficientCapacityError, MeshPlan,
+                        make_orchestrated_mesh, plan_mesh, ring_adjacency_ok)
 from .hbd_models import (BatchedWasteResult, BigSwitch, HBDModel,
                          InfiniteHBDModel, NVLModel, SiPRingModel, TPUv4Model,
                          WasteResult, default_suite)

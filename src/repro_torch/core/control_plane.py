@@ -7,8 +7,7 @@ the training runtime a new ``MeshPlan`` plus the reconfiguration deadline
 (when all transceivers have settled).
 
 This is an event-driven simulation of the production control plane; the
-training runtime (``repro.train.elastic``, which the port takes with
-ROADMAP.md § 1 item 7) consumes its decisions.
+training runtime (``repro_torch.train.elastic``) consumes its decisions.
 
 A copy of ``repro.core.control_plane``: on regular fat-tree geometry it
 replans through ``repro_torch.dcn.incremental``.

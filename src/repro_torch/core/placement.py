@@ -17,10 +17,12 @@ ring building, OCSTrx activation) happen in HBD-position space.
 
 Device model: the devices are grouped into virtual nodes of
 ``gpus_per_node`` consecutive devices; virtual node ids follow device ids.
+In the port a device is a rank of the ``torch.distributed`` world (one
+process per GPU), so device ids are global ranks.
 
-A copy of ``repro.core.placement`` without its mesh builder,
-``make_orchestrated_mesh``, which comes with the port's parallel slice
-(ROADMAP.md § 1 item 7).
+A copy of ``repro.core.placement``; its mesh builder,
+``make_orchestrated_mesh``, builds a ``DeviceMesh`` whose rank tensor is
+the plan's ``device_grid``.
 """
 
 from __future__ import annotations
@@ -111,6 +113,38 @@ def plan_mesh(num_nodes: int, gpus_per_node: int, tp_size: int,
     return MeshPlan(placement, segments_pos, rings, grid, axis_names, dep,
                     cross_tor_traffic(placement, nodes_per_tor,
                                       agg_domain=agg_domain))
+
+
+def orchestrated_grid(plan: MeshPlan, world_size: int) -> np.ndarray:
+    """The rank grid of ``plan`` (its ``device_grid``), checked against a
+    world of ``world_size`` ranks: raises InsufficientCapacityError, with
+    ``repro``'s message, if the plan names a rank the world lacks."""
+    flat = plan.device_grid.reshape(-1)
+    if flat.max() >= world_size:
+        raise InsufficientCapacityError(
+            f"plan references device {int(flat.max())} but only "
+            f"{world_size} devices exist")
+    return plan.device_grid
+
+
+def make_orchestrated_mesh(plan: MeshPlan, world_size: Optional[int] = None, *,
+                           device="cuda"):
+    """A ``DeviceMesh`` whose rank layout follows ``plan``: its rank tensor
+    is ``plan.device_grid``, its dimension names ``plan.axis_names``, so
+    the ``model`` axis runs along the orchestrator's GPU rings.  The world
+    (``world_size`` ranks, by default the current one) must hold every rank
+    the plan names.  ``device`` is the mesh's device type ("cuda" raises
+    without a card)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ..parallel.mesh import device_type
+
+    kind = device_type(device)
+    world = dist.get_world_size() if world_size is None else world_size
+    grid = orchestrated_grid(plan, world)
+    return DeviceMesh(kind, torch.as_tensor(grid), mesh_dim_names=plan.axis_names)
 
 
 def ring_adjacency_ok(plan: MeshPlan, k: int, gpus_per_node: int) -> bool:

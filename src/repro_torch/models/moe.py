@@ -1,6 +1,22 @@
 """Mixture-of-Experts MLP of the port, the counterpart of
-``repro/models/moe.py`` on one device (``tp == 1``, where both
-``moe_impl`` values run the same local capacity path).
+``repro/models/moe.py``, with the paper's two execution modes:
+
+* ``moe_impl="tp"`` (paper default, §2.3 key finding): every expert's FFN is
+  sharded over the model axis exactly like a dense MLP.  Computation is
+  perfectly balanced regardless of routing, and the only HBD traffic is the
+  all-reduce of the expert outputs (``ar_impl``: ``"ring"`` is the
+  neighbor-only ring of :mod:`repro_torch.parallel.collectives`, ``"psum"``
+  ``dist.all_reduce``).
+* ``moe_impl="ep"``: experts are partitioned over the model axis and tokens
+  travel to their experts via all-to-all.  ``a2a_impl="binary"`` uses the
+  Appendix-G Binary-Exchange algorithm over XOR partners (the re-wired
+  +-2^k backup links); ``a2a_impl="xla"`` ``dist.all_to_all_single``.
+
+With ``tp == 1`` both modes run the same local capacity path, as in
+``repro``.  With ``tp > 1`` the call runs on every rank of the model axis
+(the process group it is given) with the rank's expert shards; dispatch is
+local to the rank's data shard (capacity is per shard), as ``repro``'s
+``shard_map`` body.
 
 Dispatch is capacity-based, as in ``repro``: float32 router logits,
 softmax, the top-k experts of each token renormalised; a token's
@@ -23,15 +39,27 @@ which gives the same values.  With the sink each buffer row is written and
 read at most once, so neither direction needs an accumulating scatter (on
 CUDA a sort of the T·k indices) and each gradient row receives one value.
 
+Gradients under ``tp > 1``: the tokens and the router weights enter the
+sharded region through Megatron's *f* (:func:`~repro_torch.parallel.collectives.copy_to`),
+because each rank's use of them yields a partial result -- in ``tp`` mode
+the routing weights scale partial expert outputs, in ``ep`` mode each rank
+routes its own slice of the tokens -- so their gradients are summed over
+the axis.  The outputs leave through *g* (the all-reduce, identity
+backward).
+
+A shared expert (Llama-4) runs in ``tp`` mode only when ``tp > 1``:
+``param_pspecs`` splits ``shared`` over ``ff`` on the model axis in both
+modes, as ``repro``'s specs do, but ``ep`` mode's body treats it as
+replicated, so each row would get only its rank's share of it.  ``repro``
+has the same mismatch (ROADMAP.md § 3); the port raises instead.
+
 With telemetry on (``repro_torch.obs``) each call counts its assignments
 (``moe.assignments``) and the dropped ones (``moe.dropped_assignments``, a
 sum held on the tensors' device, read once when the summary is taken, so
 counting adds no host sync).  The routing, the scatter into the buffer,
 the experts and the combine run in ``torch.profiler`` ranges
 (``moe.route``, ``moe.scatter``, ``moe.experts``, ``moe.combine``), so a
-profile of a step gives each its device time.  Sharded experts (``tp >
-1``: tensor-parallel, or the expert-parallel exchange of ``moe_impl="ep"``)
-need the collectives of ROADMAP.md § 1 item 7 and raise.
+profile of a step gives each its device time.
 """
 
 from __future__ import annotations
@@ -47,6 +75,10 @@ from torch.profiler import record_function
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel.collectives import (all_to_all_baseline,
+                                              binary_exchange_all_to_all, copy_to,
+                                              psum, ring_all_reduce)
+from repro_torch.parallel.mesh import Axis
 
 
 class MoE(nn.Module):
@@ -155,31 +187,91 @@ def _combine(out_buf: torch.Tensor, meta, dtype) -> torch.Tensor:
     return y.to(dtype)
 
 
+def _count(t: int, k: int, keep: torch.Tensor) -> None:
+    if obs.enabled():
+        obs.count("moe.assignments", t * k)
+        obs.count_held("moe.dropped_assignments", (~keep).sum())
+
+
+def _expert_ffn(buf: torch.Tensor, w_up, w_gate, w_down, act: str) -> torch.Tensor:
+    with record_function("moe.experts"):
+        h = torch.bmm(buf, w_up)
+        g = torch.bmm(buf, w_gate) if w_gate is not None else None
+        return torch.bmm(_act(h, g, act), w_down)
+
+
 def moe_apply_local(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
-                    moe_impl: str = "tp", tp: int = 1) -> torch.Tensor:
-    """The MoE MLP on local tokens x (Bt, S, d) -> (Bt, S, d) in x's dtype:
-    ``repro``'s ``moe_apply_local`` with ``tp == 1``, where both
-    ``moe_impl`` values run the local capacity path, as in ``repro``.  The
-    buffer is in x's dtype, the combine runs in the experts' output dtype."""
-    if tp != 1:
-        raise NotImplementedError(
-            f"MoE with moe_impl={moe_impl!r} and tp={tp} is not ported yet: its "
-            f"collectives come with the parallel slice (ROADMAP.md § 1 item 7)")
+                    moe_impl: str = "tp", a2a_impl: str = "binary",
+                    ar_impl: str = "psum", tp: int = 1,
+                    group: Optional[Axis] = None) -> torch.Tensor:
+    """The MoE MLP on local tokens x (Bt, S, d) -> (Bt, S, d) in x's dtype,
+    ``repro``'s ``moe_apply_local``.  The buffer is in x's dtype, the
+    combine runs in the experts' output dtype.
+
+    With ``tp > 1``, ``group`` is the model axis (``tp`` ranks) and x is
+    replicated over it; the expert weights are this rank's shards:
+      tp mode: w_up/w_gate (E, d, f/tp), w_down (E, f/tp, d)
+      ep mode: w_up/w_gate (E/tp, d, f), w_down (E/tp, f, d)
+    The output is replicated over the axis."""
+    if moe_impl not in ("tp", "ep"):
+        raise ValueError(f"moe_impl is 'tp' or 'ep', not {moe_impl!r}")
+    if moe_impl == "ep" and tp > 1 and p.shared is not None:
+        raise ValueError(
+            "moe_impl='ep' with tp > 1 cannot run a shared expert: its weights are split "
+            "over ff on the model axis (param_pspecs, as repro's ep specs shard 'shared'), "
+            "and ep mode would add only this rank's part of it; use moe_impl='tp'")
+    if tp != 1 and (group is None or group.size != tp):
+        got = "none" if group is None else f"one of {group.size} ranks"
+        raise ValueError(f"moe_apply_local with tp={tp} runs on the model axis: it needs "
+                         f"that axis's process group of {tp} ranks (group=), got {got}")
     bt, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     x2d = x.reshape(-1, d)
     t = x2d.shape[0]
-    capacity = max(1, int(cfg.capacity_factor * t * k / e))
-    buf, meta = _dispatch(x2d, p.router, e, k, capacity)
-    if obs.enabled():
-        obs.count("moe.assignments", t * k)
-        obs.count_held("moe.dropped_assignments", (~meta[2]).sum())
-    with record_function("moe.experts"):
-        h = torch.bmm(buf, p.w_up)
-        g = torch.bmm(buf, p.w_gate) if p.w_gate is not None else None
-        out = torch.bmm(_act(h, g, cfg.act), p.w_down)
+    router = p.router
+    if tp > 1:
+        x2d, router = copy_to(x2d, group), copy_to(router, group)
+
+    if moe_impl == "tp" or tp == 1:
+        capacity = max(1, int(cfg.capacity_factor * t * k / e))
+        buf, meta = _dispatch(x2d, router, e, k, capacity)
+        _count(t, k, meta[2])
+        out = _expert_ffn(buf, p.w_up, p.w_gate, p.w_down, cfg.act)   # partial over f/tp
+        # combine while still partial: (T,d) is k*capacity_factor x smaller
+        # than (E,C,d), so the all-reduce moves less -- and the shared
+        # expert's partial folds into the same reduction for free.
+        with record_function("moe.combine"):
+            y = _combine(out, meta, x.dtype)
+        if p.shared is not None:
+            y = y + L.mlp_apply(p.shared, x2d, cfg.act)
+        if tp > 1:
+            y = ring_all_reduce(y, group, impl=ar_impl)
+        return y.reshape(bt, s, d)
+
+    # EP: experts live on other ranks; tokens travel.  The incoming tokens
+    # are replicated over the model axis (the batch is data-sharded), so
+    # each EP rank dispatches only its 1/tp slice -- otherwise every expert
+    # would process the same token tp times.
+    if a2a_impl not in ("binary", "xla"):
+        raise ValueError(f"a2a_impl is 'binary' or 'xla', not {a2a_impl!r}")
+    if e % tp or p.w_up.shape[0] != e // tp:
+        raise ValueError(f"ep mode over {tp} ranks holds {e} // {tp} experts a rank, got "
+                         f"{p.w_up.shape[0]} (shard the weights with moe_impl='ep')")
+    e_loc, idx, t_loc = e // tp, group.index, t // tp
+    x_loc = x2d[idx * t_loc:(idx + 1) * t_loc]
+    capacity = max(1, int(cfg.capacity_factor * t_loc * k / e))
+    buf, meta = _dispatch(x_loc, router, e, k, capacity)
+    _count(t_loc, k, meta[2])
+    a2a = binary_exchange_all_to_all if a2a_impl == "binary" else all_to_all_baseline
+    # (E, C, d) -> (tp, e_loc, C, d): slab r goes to rank r
+    recv = a2a(buf.reshape(tp, e_loc, capacity, d), group)   # from each source
+    toks = recv.movedim(0, 1).reshape(e_loc, tp * capacity, d)
+    out = _expert_ffn(toks, p.w_up, p.w_gate, p.w_down, cfg.act)
+    back = out.reshape(e_loc, tp, capacity, d).movedim(1, 0).contiguous()
+    out_buf = a2a(back, group).reshape(e, capacity, d)
     with record_function("moe.combine"):
-        y = _combine(out, meta, x.dtype)
-    if p.shared is not None:
-        y = y + L.mlp_apply(p.shared, x2d, cfg.act)
-    return y.reshape(bt, s, d)
+        y_loc = _combine(out_buf, meta, x.dtype)                 # (t_loc, d)
+    # re-assemble the replicated (t, d) output across EP ranks
+    y = torch.cat([y_loc.new_zeros((idx * t_loc, d)), y_loc,
+                   y_loc.new_zeros((t - (idx + 1) * t_loc, d))])
+    return psum(y, group).reshape(bt, s, d)

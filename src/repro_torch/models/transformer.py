@@ -28,6 +28,20 @@ all of them through flash-decode's lengths form.  A layer kind that
 ``repro`` does not have raises ``NotImplementedError``; nothing runs a plain
 stand-in.
 
+Under a mesh (``repro_torch.parallel.parallel_rules(rules, mesh)``) every
+rank runs these functions on its own shards: the batch split over
+``data`` (and ``pod``), attention heads, the MLP's ``ff`` and the
+vocabulary split over ``model`` (``shard_params`` in
+:mod:`repro_torch.convert` cuts them), the residual stream replicated over
+``model``.  Where ``repro`` leaves the collectives to GSPMD, the port runs
+them: a column-parallel region is entered through Megatron's *f*
+(identity forward, all-reduce of the gradient backward) and a row-parallel
+partial sum leaves through *g* (``psum``: all-reduce forward, identity
+backward); the embedding is a masked local lookup and a ``psum``, the loss
+the fused vocab-parallel softmax cross-entropy, and the MoE layers run
+:func:`~repro_torch.models.moe.moe_apply_local` on the model axis.  SSD and
+RG-LRU layers, and serving, run off a mesh only.
+
 Dtypes follow ``repro``'s promotions: ``x @ w`` of float32 activations and
 bf16 weights computes in float32 (:func:`~repro_torch.models.layers.matmul`),
 so float32 frames keep the whole encoder, and the cross K/V projected from
@@ -50,6 +64,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
+from repro_torch.parallel.collectives import copy_to, pmax, psum
+from repro_torch.parallel.mesh import Axis, mesh_axis
+from repro_torch.parallel.sharding import get_mesh, get_rules
 
 #: layer kinds that later slices of the port bring in (none is left)
 LATER_SLICE: Dict[str, str] = {}
@@ -143,11 +160,13 @@ class Transformer(nn.Module):
 # ============================================================== init
 
 
-def _init_attn(gen: torch.Generator, cfg: ModelConfig, device, dtype,
+def _init_attn(gen: torch.Generator, cfg: ModelConfig, device, dtype, tp: int = 1,
                cross: bool = False) -> Dict:
-    """Attention projections; a cross-attention's have no q/k/v bias."""
+    """Attention projections; a cross-attention's have no q/k/v bias.
+    Query heads are padded to a multiple of ``tp`` and KV heads replicated
+    to ``cfg.padded_kv_heads(tp)``, as in ``repro``."""
     d, hd = cfg.d_model, cfg.head_dim
-    hq, kv = cfg.padded_heads(1), cfg.padded_kv_heads(1)
+    hq, kv = cfg.padded_heads(tp), cfg.padded_kv_heads(tp)
     if hq % kv:
         raise ValueError(f"{hq} query heads do not group over {kv} KV heads")
 
@@ -165,7 +184,7 @@ def _init_attn(gen: torch.Generator, cfg: ModelConfig, device, dtype,
 
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, i: int, device,
-                dtype, cross: bool = False) -> Layer:
+                dtype, tp: int = 1, cross: bool = False) -> Layer:
     """Layer ``i`` of kind ``kind``; ``cross`` adds normx and xattn."""
     _check_layer(kind)
     sub = {}
@@ -174,10 +193,10 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, i: int, devic
     elif kind == "rglru":
         sub["rglru"] = RG.init_rglru_block(gen, cfg, device, dtype)
     else:
-        sub["attn"] = _init_attn(gen, cfg, device, dtype)
+        sub["attn"] = _init_attn(gen, cfg, device, dtype, tp)
     if cross:
         sub["normx"] = L.init_norm(cfg.d_model, cfg.norm, device)
-        sub["xattn"] = _init_attn(gen, cfg, device, dtype, cross=True)
+        sub["xattn"] = _init_attn(gen, cfg, device, dtype, tp, cross=True)
     if cfg.d_ff > 0:
         sub["norm2"] = L.init_norm(cfg.d_model, cfg.norm, device)
         if cfg.n_experts and i % cfg.moe_every == cfg.moe_every - 1:
@@ -187,18 +206,21 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, i: int, devic
     return Layer(kind, L.init_norm(cfg.d_model, cfg.norm, device), **sub)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, *,
+def init_params(cfg: ModelConfig, generator: torch.Generator, *, tp: int = 1,
                 device="cuda", dtype=torch.bfloat16) -> Transformer:
     """Random weights with the JAX package's shapes and scales, drawn from
     ``generator`` (which must live on ``device``) and made on ``device``.
-    Norm parameters stay float32, as in ``repro``.  An encoder-decoder
-    config also gets the encoder's ``"enc"`` layers."""
+    Attention heads are padded for ``tp``-way tensor parallelism as
+    ``repro``'s ``init_params(cfg, key, tp)`` pads them (the full model;
+    ``repro_torch.convert.shard_params`` cuts a rank's shards).  Norm
+    parameters stay float32, as in ``repro``.  An encoder-decoder config
+    also gets the encoder's ``"enc"`` layers."""
     device = torch.device(device)
-    layers = [_init_layer(generator, cfg, cfg.pattern_at(i), i, device, dtype,
+    layers = [_init_layer(generator, cfg, cfg.pattern_at(i), i, device, dtype, tp,
                           cross=cfg.is_encdec) for i in range(cfg.num_layers)]
     enc = None
     if cfg.is_encdec:
-        enc = Encoder([_init_layer(generator, cfg, "enc", i, device, dtype)
+        enc = Encoder([_init_layer(generator, cfg, "enc", i, device, dtype, tp)
                        for i in range(cfg.enc_layers)],
                       L.init_norm(cfg.d_model, cfg.norm, device))
     vp = cfg.padded_vocab()
@@ -215,21 +237,62 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 # ============================================================== training
 
 
+def _axis(logical: str) -> Optional[Axis]:
+    """The installed mesh's axis that the rules map ``logical`` to; None
+    off a mesh."""
+    mesh, rules = get_mesh(), get_rules()
+    if mesh is None or rules is None or rules.get(logical) is None:
+        return None
+    return mesh_axis(mesh, rules[logical])
+
+
 def embed_tokens(model: Transformer, ids: torch.Tensor) -> torch.Tensor:
-    """Embedding lookup (the JAX package's off-mesh path)."""
-    return model.embed[ids]
+    """Embedding lookup; under a mesh vocab-parallel: each model rank looks
+    up the ids in its vocabulary slice (zeros elsewhere), and a ``psum``
+    over the axis assembles the rows."""
+    ax = _axis("vocab")
+    if ax is None:
+        return model.embed[ids]
+    emb = model.embed
+    vs = emb.shape[0]
+    loc = ids - ax.index * vs
+    ok = (loc >= 0) & (loc < vs)
+    out = emb[loc.clamp(0, vs - 1)]
+    out = torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+    return psum(out, ax)
 
 
 def lm_loss(model: Transformer, x: torch.Tensor,
             labels: torch.Tensor) -> torch.Tensor:
-    """Mean softmax cross-entropy of the next-token labels (the JAX
-    package's off-mesh path): float32 logits over the padded vocabulary,
-    cut to ``vocab_size``, logsumexp minus the label's logit."""
+    """Mean softmax cross-entropy of the next-token labels: float32 logits
+    over the padded vocabulary, cut to ``vocab_size``, logsumexp minus the
+    label's logit.
+
+    Under a mesh, the fused vocab-parallel form of ``repro``: each model
+    rank keeps its vocabulary slice of the logits, masks the padding
+    (global ids >= ``vocab_size``) with -1e30, and the max (which carries
+    no gradient), the sum of exps and the label's logit are reduced over
+    the axis; the mean is over this rank's tokens (its data shard)."""
     w = model.lm_head if model.lm_head is not None else model.embed.T
-    logits = (x @ w).float()[..., :model.cfg.vocab_size]
-    lse = torch.logsumexp(logits, dim=-1)
-    lab = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(lse - lab)
+    ax = _axis("vocab")
+    if ax is None:
+        logits = (x @ w).float()[..., :model.cfg.vocab_size]
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return torch.mean(lse - lab)
+    vs = w.shape[-1]
+    off = ax.index * vs
+    logits = (copy_to(x, ax) @ w).float()                          # (b, s, vs)
+    gids = off + torch.arange(vs, device=logits.device)
+    logits = torch.where(gids < model.cfg.vocab_size, logits,
+                         torch.full((), -1e30, device=logits.device))
+    mx = pmax(logits.detach().amax(-1), ax)                        # (b, s)
+    se = psum(torch.exp(logits - mx[..., None]).sum(-1), ax)
+    loc = labels.long() - off
+    ok = (loc >= 0) & (loc < vs)
+    lab = torch.gather(logits, -1, loc.clamp(0, vs - 1)[..., None])[..., 0]
+    lab = psum(torch.where(ok, lab, torch.zeros((), device=lab.device)), ax)
+    return torch.mean((mx + torch.log(se)) - lab)
 
 
 def _attn_apply(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
@@ -242,11 +305,17 @@ def _attn_apply(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
     ``"chunked"``, bidirectional within the first ``prefix_len`` positions;
     ``"enc"`` layers attend bidirectionally without RoPE.  With ``kv``, the
     (k, v) of a cross-attention, the queries attend to all of them, without
-    RoPE."""
+    RoPE.
+
+    Under a mesh, p holds this rank's heads: x enters through *f* and the
+    output projection's partial sum leaves through a ``psum``."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     hq = p["wq"].shape[-1] // hd
     kvh = p["wk"].shape[-1] // hd
+    ax = _axis("heads")
+    if ax is not None:
+        x = copy_to(x, ax)
     q = L.matmul(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
@@ -265,7 +334,8 @@ def _attn_apply(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
             k = L.apply_rope(k, positions, cfg.rope_theta)
         out = L.flash_attention(q, k, v, causal=kind != "enc", prefix_len=prefix_len,
                                 **_mask(cfg, kind))
-    return L.matmul(out.reshape(b, s, hq * hd), p["wo"])
+    y = L.matmul(out.reshape(b, s, hq * hd), p["wo"])
+    return y if ax is None else psum(y, ax)
 
 
 def _enc_kv(layer: Layer, cfg: ModelConfig,
@@ -276,6 +346,9 @@ def _enc_kv(layer: Layer, cfg: ModelConfig,
     b, se, _ = enc_out.shape
     hd = cfg.head_dim
     kvh = xa["wk"].shape[-1] // hd
+    ax = _axis("kv_heads")
+    if ax is not None:
+        enc_out = copy_to(enc_out, ax)
     return (L.matmul(enc_out, xa["wk"]).reshape(b, se, kvh, hd),
             L.matmul(enc_out, xa["wv"]).reshape(b, se, kvh, hd))
 
@@ -285,24 +358,54 @@ def _mask(cfg: ModelConfig, kind: str) -> Dict[str, int]:
             "chunk": cfg.window if kind == "chunked" else 0}
 
 
-def _mlp_apply(layer: Layer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """The residual MLP half of a layer: dense, or MoE on one device (what
-    ``repro``'s ``_moe_dispatch`` runs without a mesh)."""
+def _mlp_apply(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
+               moe_ctx: Optional[Dict] = None) -> torch.Tensor:
+    """The residual MLP half of a layer: dense, or MoE
+    (:func:`_moe_dispatch`).  Under a mesh the dense MLP holds this rank's
+    ``ff`` columns and rows: *f* in, ``psum`` out."""
     if layer.norm2 is None:
         return x
     h2 = L.norm(x, layer.norm2, cfg.norm)
     if layer.moe is not None:
-        return x + MOE.moe_apply_local(layer.moe, cfg, h2, tp=1)
-    return x + L.mlp_apply(layer.mlp, h2, cfg.act)
+        return x + _moe_dispatch(layer.moe, cfg, h2, moe_ctx or {})
+    ax = _axis("ff")
+    if ax is None:
+        return x + L.mlp_apply(layer.mlp, h2, cfg.act)
+    return x + psum(L.mlp_apply(layer.mlp, copy_to(h2, ax), cfg.act), ax)
+
+
+def _moe_dispatch(p: MOE.MoE, cfg: ModelConfig, x: torch.Tensor,
+                  moe_ctx: Dict) -> torch.Tensor:
+    """The MoE layer on the model axis of the installed mesh, with
+    ``moe_ctx``'s ``moe_impl``, ``a2a_impl`` and ``ar_impl``; the local
+    capacity path off a mesh (``repro``'s ``_moe_dispatch``)."""
+    ax = _axis("ff")
+    if ax is None:
+        return MOE.moe_apply_local(p, cfg, x, tp=1)
+    return MOE.moe_apply_local(
+        p, cfg, x, moe_impl=moe_ctx.get("moe_impl", "tp"),
+        a2a_impl=moe_ctx.get("a2a_impl", "binary"), ar_impl=moe_ctx.get("ar_impl", "psum"),
+        tp=ax.size, group=ax)
+
+
+def _unsharded_mixer(kind: str) -> None:
+    ax = _axis("ff")
+    if ax is not None and ax.size > 1:
+        raise NotImplementedError(
+            f"{kind!r} layers run off a mesh only: their sharded blocks wait for a "
+            f"later slice (ROADMAP.md § 1 item 7)")
 
 
 def _layer_apply(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
                  positions: Optional[torch.Tensor], prefix_len: int = 0,
-                 enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 enc_out: Optional[torch.Tensor] = None,
+                 moe_ctx: Optional[Dict] = None) -> torch.Tensor:
     h = L.norm(x, layer.norm1, cfg.norm)
     if layer.kind == "ssd":
+        _unsharded_mixer("ssd")
         x = x + SSM.ssd_block_apply(layer.ssd, cfg, h)[0]
     elif layer.kind == "rglru":
+        _unsharded_mixer("rglru")
         x = x + RG.rglru_block_apply(layer.rglru, cfg, h)[0]
     else:
         x = x + _attn_apply(layer.attn, cfg, h, layer.kind, positions, prefix_len)
@@ -310,11 +413,11 @@ def _layer_apply(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
         hx = L.norm(x, layer.normx, cfg.norm)
         x = x + _attn_apply(layer.xattn, cfg, hx, "attn", positions,
                             kv=_enc_kv(layer, cfg, enc_out))
-    return _mlp_apply(layer, cfg, x)
+    return _mlp_apply(layer, cfg, x, moe_ctx)
 
 
 def forward(model: Transformer, batch: Dict[str, torch.Tensor], *,
-            remat: bool = True) -> torch.Tensor:
+            moe_ctx: Optional[Dict] = None, remat: bool = True) -> torch.Tensor:
     """Token ids (B, S) -> final hidden states (B, S, d), or (B, P + S, d)
     for a VLM config given ``batch["patches"]`` (B, P, d): the patches, cast
     to the activations' dtype, come first, and attention is bidirectional
@@ -322,7 +425,8 @@ def forward(model: Transformer, batch: Dict[str, torch.Tensor], *,
     config given ``batch["frames"]`` (B, S_enc, d) encodes them
     (:func:`encode`) and every decoder layer cross-attends to the result.
     As in ``repro``, ``patches`` and ``frames`` are ignored by configs
-    without a prefix or an encoder.
+    without a prefix or an encoder.  ``moe_ctx`` holds the MoE layers'
+    ``moe_impl``, ``a2a_impl`` and ``ar_impl`` under a mesh.
 
     With ``remat`` each decoder layer runs under ``torch.utils.checkpoint``
     (non-reentrant), as JAX wraps each group in ``jax.checkpoint`` with
@@ -345,9 +449,9 @@ def forward(model: Transformer, batch: Dict[str, torch.Tensor], *,
     for layer in model.layers:
         if remat and torch.is_grad_enabled():
             x = checkpoint(_layer_apply, layer, cfg, x, positions, prefix_len, enc_out,
-                           use_reentrant=False)
+                           moe_ctx, use_reentrant=False)
         else:
-            x = _layer_apply(layer, cfg, x, positions, prefix_len, enc_out)
+            x = _layer_apply(layer, cfg, x, positions, prefix_len, enc_out, moe_ctx)
     return L.norm(x, model.final_norm, cfg.norm)
 
 
@@ -500,6 +604,10 @@ def decode_step(model: Transformer, cache: List[Dict[str, torch.Tensor]],
     An SSD or RG-LRU layer's state has no positions: each call advances
     every lane by one token, so its lanes must move in lockstep.
     """
+    ax = _axis("heads")
+    if ax is not None and ax.size > 1:
+        raise NotImplementedError("decode_step runs off a mesh: repro serves without "
+                                  "parallel rules, and so does the port")
     cfg = model.cfg
     dev = model.device
     host = np.concatenate([np.asarray(tokens, np.int64).reshape(-1),

@@ -5,6 +5,17 @@ the flash-attention kernels on the card), loss, backward, gradient
 accumulation over microbatches in float32, optimizer update.  PyTorch runs
 eagerly, so there is no ``jit``; the step updates the model and the
 optimizer state in place and returns them with its metrics.
+
+Under a mesh (``repro_torch.parallel.parallel_rules``) each rank steps its
+own shards on its data shard.  GSPMD gives ``repro`` the global mean's
+gradients for free; here the step all-reduces every gradient over the
+batch's axes (``data``, and ``pod``) and divides by their size, which is
+the global mean since the shards are equal.  Parameters replicated over
+``model`` already hold equal gradients there (the model code's *f*
+operators sum them), so nothing is reduced over ``model``.  Clipping uses
+the global norm: squares of the parameters split over ``model`` are
+summed over it, the replicated ones counted once.  The loss metric is the
+mean over the batch's axes.
 """
 
 from __future__ import annotations
@@ -15,8 +26,13 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+import torch.distributed as dist
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import forward, init_params, lm_loss
+from repro_torch.parallel.mesh import mesh_axis
+from repro_torch.parallel.sharding import get_mesh, get_rules
+from repro_torch.parallel.specs import param_pspecs
 from repro_torch.train.optimizer import OptConfig, apply_updates, init_opt_state
 
 
@@ -25,16 +41,73 @@ class TrainConfig:
     opt: OptConfig = OptConfig()
     microbatches: int = 1          # gradient-accumulation steps
     remat: bool = True
+    moe_impl: str = "tp"           # paper default: TP-sharded experts
+    a2a_impl: str = "binary"
+    ar_impl: str = "psum"          # "ring" = explicit neighbor-only ring all-reduce
 
 
 def loss_fn(model, batch: Dict[str, torch.Tensor], train_cfg: TrainConfig) -> torch.Tensor:
     """Mean next-token loss; a VLM's prefix rows carry no label and are
     dropped before the loss, as in ``repro``."""
-    h = forward(model, batch, remat=train_cfg.remat)
+    moe_ctx = {"moe_impl": train_cfg.moe_impl, "a2a_impl": train_cfg.a2a_impl,
+               "ar_impl": train_cfg.ar_impl}
+    h = forward(model, batch, moe_ctx=moe_ctx, remat=train_cfg.remat)
     prefix = model.cfg.prefix_len
     if prefix and "patches" in batch:
         h = h[:, prefix:]
     return lm_loss(model, h, batch["labels"])
+
+
+def _mesh_axes(logical: str):
+    """The installed mesh's axes (size > 1) that ``logical`` maps to."""
+    mesh, rules = get_mesh(), get_rules()
+    if mesh is None or rules is None or rules.get(logical) is None:
+        return []
+    names = rules[logical] if isinstance(rules[logical], tuple) else (rules[logical],)
+    return [ax for ax in (mesh_axis(mesh, n) for n in names) if ax.size > 1]
+
+
+def _data_mean(t: torch.Tensor, axes) -> torch.Tensor:
+    """``t`` averaged over the batch's mesh axes, in place."""
+    n = 1
+    for ax in axes:
+        dist.all_reduce(t, group=ax.group)
+        n *= ax.size
+    return t.div_(n)
+
+
+def _global_norm(model, grads: Dict[str, torch.Tensor], model_axes, moe_impl: str):
+    """The norm of the whole model's gradient from this rank's shards."""
+    names = {ax.name for ax in model_axes}
+    specs = param_pspecs(model, moe_impl)
+    split = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
+    whole = torch.zeros_like(split)
+    for name, g in grads.items():
+        on_model = any(a in names for ax in specs[name] if ax is not None
+                       for a in (ax if isinstance(ax, tuple) else (ax,)))
+        (split if on_model else whole).add_(torch.sum(torch.square(g.float())))
+    for ax in model_axes:
+        dist.all_reduce(split, group=ax.group)
+    return torch.sqrt(split + whole)
+
+
+def sync_gradients(model, loss: torch.Tensor, grads: Dict[str, torch.Tensor],
+                   train_cfg: TrainConfig):
+    """Under a mesh, this rank's ``grads`` averaged in place over the
+    batch's axes, and ``(loss averaged over them, the whole model's
+    gradient norm)``; off a mesh ``(loss, None)``."""
+    if get_mesh() is None:
+        return loss, None
+    data_axes, model_axes = _mesh_axes("batch"), _mesh_axes("heads")
+    if model_axes and train_cfg.opt.name != "adamw":
+        raise NotImplementedError(
+            f"{train_cfg.opt.name} factors its second moment over dimensions a "
+            f"model axis splits: under a mesh the port steps AdamW only "
+            f"(ROADMAP.md § 1 item 7)")
+    for g in grads.values():
+        _data_mean(g, data_axes)
+    loss = _data_mean(loss.clone(), data_axes)
+    return loss, _global_norm(model, grads, model_axes, train_cfg.moe_impl)
 
 
 def make_train_step(cfg: ModelConfig, train_cfg: TrainConfig) -> Callable:
@@ -65,7 +138,8 @@ def make_train_step(cfg: ModelConfig, train_cfg: TrainConfig) -> Callable:
             grads = {n: a.div_(mb) for n, a in acc.items()}
         else:
             loss, grads = grads_of(model, batch)
-        metrics = apply_updates(model, state["opt"], grads, train_cfg.opt)
+        loss, norm = sync_gradients(model, loss, grads, train_cfg)
+        metrics = apply_updates(model, state["opt"], grads, train_cfg.opt, grad_norm=norm)
         metrics["loss"] = loss
         return state, metrics
 
@@ -73,10 +147,11 @@ def make_train_step(cfg: ModelConfig, train_cfg: TrainConfig) -> Callable:
 
 
 def init_train_state(cfg: ModelConfig, train_cfg: TrainConfig, seed: int = 0, *,
-                     device="cuda", dtype=torch.bfloat16) -> Dict[str, Any]:
-    """Random weights from ``seed`` on ``device`` and a fresh optimizer state."""
+                     tp: int = 1, device="cuda", dtype=torch.bfloat16) -> Dict[str, Any]:
+    """Random weights from ``seed`` on ``device`` (heads padded for ``tp``)
+    and a fresh optimizer state."""
     gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
-    model = init_params(cfg, gen, device=device, dtype=dtype)
+    model = init_params(cfg, gen, tp=tp, device=device, dtype=dtype)
     return {"params": model, "opt": init_opt_state(model, train_cfg.opt)}
 
 

@@ -14,7 +14,7 @@ A fused ``torch._foreach_*`` update over all 3 B parameters would need a
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import torch
 from torch import nn
@@ -72,11 +72,14 @@ def _f32(x: float) -> float:
 
 @torch.no_grad()
 def apply_updates(model: nn.Module, opt_state: Dict, grads: Mapping[str, torch.Tensor],
-                  cfg: OptConfig) -> Dict[str, torch.Tensor]:
+                  cfg: OptConfig, grad_norm: Optional[torch.Tensor] = None
+                  ) -> Dict[str, torch.Tensor]:
     """One optimizer step, in place on the model's parameters and on
-    ``opt_state``; returns the metrics ``grad_norm`` and ``lr``."""
+    ``opt_state``; returns the metrics ``grad_norm`` and ``lr``.  Clipping
+    uses ``grad_norm`` where given (a sharded model's global norm, which
+    this rank's ``grads`` alone do not give), else the norm of ``grads``."""
     step = opt_state["step"]
-    gn = global_norm(grads.values())
+    gn = global_norm(grads.values()) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
     lr = _f32(_lr_at(cfg, step))
     b1, b2 = cfg.b1, cfg.b2

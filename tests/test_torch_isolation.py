@@ -26,6 +26,10 @@ ENGINES = ("dcn.engine", "dcn.incremental", "dcn.kernel", "dcn.tables", "dcn.tor
            "cost", "cost.engine", "cost.tables", "cost.bridge", "sim.tables",
            "slo", "slo.arrivals", "slo.capacity", "slo.engine", "slo.torch_backend",
            "slo.tables", "faults", "faults.base", "faults.generators", "faults.torch_mirror")
+# the parallel slice: rules, specs, meshes, collectives, pipeline, the
+# production meshes and the elastic runtime
+PARALLEL = ("parallel", "parallel.sharding", "parallel.specs", "parallel.mesh",
+            "parallel.collectives", "parallel.pipeline", "launch.mesh", "train.elastic")
 # "repro" as a whole name: repro_torch does not match
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\s|\.|,|$)", re.M)
 
@@ -43,7 +47,8 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     assert len(MODULES) >= 15 and "repro_torch.models.moe" in MODULES
     assert {"repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_2b",
             *(f"repro_torch.core.{m}" for m in CORE),
-            *(f"repro_torch.{m}" for m in ENGINES)} <= set(MODULES)
+            *(f"repro_torch.{m}" for m in ENGINES),
+            *(f"repro_torch.{m}" for m in PARALLEL)} <= set(MODULES)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
@@ -76,3 +81,14 @@ def test_entry_points_default_to_cuda():
         ServeEngine(cfg, model)
     with pytest.raises(KeyError, match="starcoder2"):
         get_arch("no-such-arch")
+
+    from repro_torch.core import make_orchestrated_mesh, plan_mesh
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.train.elastic import ElasticConfig, ElasticRunner
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_orchestrated_mesh(plan_mesh(8, 1, tp_size=2, dp_size=2), world_size=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_production_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ElasticRunner(ElasticConfig(num_nodes=64), "unused", lambda *a: None)

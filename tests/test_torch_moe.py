@@ -24,6 +24,7 @@ from repro.models import moe as jax_moe
 from repro_torch import obs
 from repro_torch.configs import get_arch
 from repro_torch.models import moe
+from repro_torch.parallel.mesh import Axis
 
 ACT_TOL = 2e-5            # float32 forward, as tests/test_torch_train.py
 GRAD_TOL = 2e-5           # of the gradient's largest entry
@@ -181,14 +182,17 @@ def test_held_counter_sums_in_place_and_is_read_by_the_summary():
     assert tel._held == {}
 
 
-@pytest.mark.parametrize("kw", [{"tp": 2}, {"moe_impl": "ep"}, {"moe_impl": "ep", "tp": 4}])
-def test_sharded_experts_raise_naming_the_parallel_slice(kw):
-    """Sharded experts (tp > 1) raise.  ``moe_impl="ep"`` on one device is
-    not sharded: ``repro`` runs its local capacity path there, and so must
-    the port, with JAX's values."""
+@pytest.mark.parametrize("kw", [{"tp": 2}, {"moe_impl": "ep"}, {"moe_impl": "ep", "tp": 4},
+                                {"moe_impl": "ep", "tp": 4, "group": Axis("model", (0, 1), 0)}])
+def test_sharded_experts_need_the_model_axis_group(kw):
+    """Sharded experts (tp > 1) run on the model axis: without its process
+    group of tp ranks the call raises a ValueError that names the group
+    (tests/test_torch_parallel.py holds tp > 1 to repro).  ``moe_impl="ep"``
+    on one device is not sharded: ``repro`` runs its local capacity path
+    there, and so must the port, with JAX's values."""
     jcfg, jp, tcfg, p, x = _pair("mixtral", 1.25)
     if kw.get("tp", 1) != 1:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md § 1 item 7"):
+        with pytest.raises(ValueError, match="process group of 4 ranks|process group of 2 ranks"):
             moe.moe_apply_local(p, tcfg, torch.from_numpy(x), **kw)
         return
     want = jax.jit(lambda p, x: jax_moe.moe_apply_local(p, jcfg, x, tp=1, **kw))(
@@ -196,4 +200,25 @@ def test_sharded_experts_raise_naming_the_parallel_slice(kw):
     with torch.no_grad():
         got = moe.moe_apply_local(p, tcfg, torch.from_numpy(x), **kw)
     assert got.shape == x.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ACT_TOL, rtol=ACT_TOL)
+
+
+@pytest.mark.parametrize("kw", [{"tp": 1}, {"tp": 2},
+                                {"tp": 2, "group": Axis("model", (0, 1), 0)}])
+def test_ep_mode_with_a_shared_expert_needs_one_model_rank(kw):
+    """Llama-4's shared expert is split over ``ff`` on the model axis in
+    ``ep`` mode too (``param_pspecs``, as ``repro``'s specs), which ``ep``
+    mode's body cannot sum: with ``tp > 1`` the call raises, with a group or
+    without, before any exchange.  At ``tp = 1`` it runs ``repro``'s local
+    path with JAX's values."""
+    jcfg, jp, tcfg, p, x = _pair("llama4", 1.25)
+    assert p.shared is not None
+    if kw["tp"] != 1:
+        with pytest.raises(ValueError, match="cannot run a shared expert"):
+            moe.moe_apply_local(p, tcfg, torch.from_numpy(x), moe_impl="ep", **kw)
+        return
+    want = jax.jit(lambda p, x: jax_moe.moe_apply_local(p, jcfg, x, moe_impl="ep", tp=1))(
+        jax.tree.map(jnp.asarray, jp), jnp.asarray(x))
+    with torch.no_grad():
+        got = moe.moe_apply_local(p, tcfg, torch.from_numpy(x), moe_impl="ep", **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ACT_TOL, rtol=ACT_TOL)
