@@ -223,7 +223,27 @@ failure:
      16, DP 14, a checkpoint every 5 steps, 18 steps): one fault event, a
      settle time under 10 ms, the new DP degree, a checkpoint on disk, and
      the steps recomputed after the restore equal to the first pass's;
-     then a straggler schedule flags node 5 and rebuilds as a fault.
+     then a straggler schedule flags node 5 and rebuilds as a fault;
+ 42. the engines with the snapshot axis split into 4 slices of the card
+     (``device=["cuda:0"] * 4``, a CUDA stream each) against one slice: a
+     131,072-snapshot counter sweep at 10,000 nodes (TP-32, blocks of
+     65,536) equal to the one-slice run on every row and to numpy on the
+     first 16,384; the Fig. 17c DCN grid equal to numpy and BENCH_dcn.json;
+     benchmarks/cost.py's spec equal to phase 35's one-device grids; rows/s,
+     the card's busy share and prefix_scan launched by every slice;
+ 43. sequence parallelism and FSDP: StarCoder2-3B at full width and 8
+     layers, bf16, B=1, S=4096 a data shard, AdamW, over the 4 ranks of
+     phase 39 under four rule sets ((1, 4) with seq_sp unmapped, (1, 4)
+     and (2, 2) with the default rules' sequence parallelism, (2, 2) with
+     fsdp mapped to data too): each rank's state and peak allocated
+     memory, ms a step, flash launches, and the loss and gradient norm
+     against the unsharded port's on the same batches; then float32 at 2
+     layers, (2, 2), SP + FSDP: hidden states, the data-mean loss and every
+     gradient against the unsharded port's.
+
+Phase 40 runs under the default rules, whose ``seq_sp`` maps to the model
+axis, so it checks the sequence-parallel path: the MoE layer's gather and
+split included.
 
 The last lines are the script's time, the ``{"kernels": ...}`` record, the
 card line and ``{"ok": true, "device": ...}``.
@@ -2711,13 +2731,14 @@ def placements_equal(a, b):
             and np.array_equal(a.n_constraints, b.n_constraints))
 
 
-def check_fig17c(torch):
+def check_fig17c(torch, device="cuda"):
     """benchmarks/dcn.py's Fig. 17c grid: 2048 nodes, 512-node domains, five
     fault ratios x 100 snapshots, TP-32, all three variants through
-    ``run_dcn_sweep(backend="torch")``: every grid equal to the port's numpy
-    grid, the curves equal to the reference's recorded BENCH_dcn.json."""
+    ``run_dcn_sweep(backend="torch")`` on ``device`` (one card, or slices
+    of it): every grid equal to the port's numpy grid, the curves equal to
+    the reference's recorded BENCH_dcn.json."""
     from repro_torch.dcn import DcnSpec, cross_tor_curve, run_dcn_sweep
-    from repro_torch.dcn.torch_backend import scans_per_call
+    from repro_torch.dcn.torch_backend import num_devices, scans_per_call
     from repro_torch.kernels.prefix_scan import prefix_scan
 
     spec = DcnSpec(num_nodes=2048, agg_domain=512, fault_ratios=DCN_RATIOS, samples=100,
@@ -2727,7 +2748,8 @@ def check_fig17c(torch):
     ref = run_dcn_sweep(spec, backend="numpy", masks=masks)
     dt_np = time.perf_counter() - t0
     rows = len(DCN_RATIOS) * spec.samples
-    want = scans_per_call(spec.config, 32) * -(-rows // 1024)
+    slices = num_devices(device)
+    want = scans_per_call(spec.config, 32) * -(-rows // 1024) * slices
     # twice: the first call loads the CUDA modules of every kernel on this
     # path, the second is the steady state
     times = []
@@ -2735,7 +2757,7 @@ def check_fig17c(torch):
         torch.cuda.synchronize()
         prefix_scan.launches = 0
         t1 = time.perf_counter()
-        got = run_dcn_sweep(spec, backend="torch", masks=masks)
+        got = run_dcn_sweep(spec, backend="torch", masks=masks, device=device)
         times.append(time.perf_counter() - t1)
         launches = prefix_scan.launches
         if got.backend != "torch" or not dcn_grids_equal(got, ref):
@@ -2745,7 +2767,8 @@ def check_fig17c(torch):
             raise AssertionError(f"fig17c: prefix_scan launched {launches} times, want {want}")
     dt = times[1]
     recorded = json.loads((ROOT / "BENCH_dcn.json").read_text())
-    print(f"fig17c: {rows} snapshots x 2048 nodes, agg 512, TP-32, 3 variants: torch grids "
+    print(f"fig17c: {rows} snapshots x 2048 nodes, agg 512, TP-32, 3 variants, {slices} "
+          f"slice(s) of the card: torch grids "
           f"equal numpy on groups, dp_pairs, crossing_pairs, crossing_pod_pairs, feasible, "
           f"n_constraints, twice (torch first call {times[0]:.3f} s, then {dt:.3f} s; numpy "
           f"{dt_np:.3f} s); prefix_scan launches {launches} a run")
@@ -2758,7 +2781,8 @@ def check_fig17c(torch):
             + f" ({'equal to' if same else 'DIFFERS FROM'} BENCH_dcn.json)")
         if not same:
             raise AssertionError(f"fig17c: the {variant} curve differs from BENCH_dcn.json")
-    return {"launches": launches, "seconds": dt, "numpy_seconds": dt_np}
+    return {"launches": launches, "seconds": dt, "numpy_seconds": dt_np, "rows": rows,
+            "run": lambda: run_dcn_sweep(spec, backend="torch", masks=masks, device=device)}
 
 
 def dcn_datacenter(torch):
@@ -3163,7 +3187,7 @@ def cost_on_card(torch, device="cuda"):
               + f", numpy {np_s:.3f} s = {rows / np_s:.0f} rows/s; grids equal; prefix_scan "
               f"launches {launches}")
         out[label] = {"rows": rows, "rows_per_s": rows / dt, "numpy_rows_per_s": rows / np_s,
-                      "launches": launches}
+                      "launches": launches, "spec": spec, "result": got}
         if label == "bench":
             fig = fig17d_musd(got)
             same = all(fig[k] == recorded[k] for k in fig)
@@ -3747,14 +3771,17 @@ def shared_copy(torch, t):
 
 
 def grads_of(torch, model, batch, moe_ctx=None):
-    """(hidden states, loss, {name: gradient}) of one training forward
-    (remat) and backward."""
+    """(hidden states of the whole sequence, loss, {name: gradient}) of one
+    training forward (remat) and backward; under sequence parallelism the
+    hidden states are gathered from the ranks' slices."""
     from repro_torch.models import forward, lm_loss
+    from repro_torch.models.transformer import full_sequence
 
     names, params = zip(*model.named_parameters())
     h = forward(model, batch, moe_ctx=moe_ctx)
     loss = lm_loss(model, h, batch["labels"])
-    return h.detach(), loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))
+    grads = dict(zip(names, torch.autograd.grad(loss, params)))
+    return full_sequence(h.detach(), batch["tokens"].shape[1]), loss.detach(), grads
 
 
 def mixtral_reference(torch, cfg, device="cuda", seq=PAR_SEQ):
@@ -3815,6 +3842,7 @@ def mixtral_sharded(torch, rank, ref, cfg, device="cuda", seq=PAR_SEQ):
     from repro_torch.convert import shard_params
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.models import forward, lm_loss
+    from repro_torch.models.transformer import full_sequence
     from repro_torch.parallel.mesh import make_mesh
     from repro_torch.parallel.sharding import mesh_axes, parallel_rules
     from repro_torch.parallel.specs import param_pspecs, shard_tensor
@@ -3919,6 +3947,7 @@ def mixtral_sharded(torch, rank, ref, cfg, device="cuda", seq=PAR_SEQ):
         with torch.no_grad():
             h = forward(model, b0)
             loss = float(lm_loss(model, h, b0["labels"]))
+            h = full_sequence(h, seq)
         res["bf16_hidden"] = rel_errs(torch, h, bf["h"])
         res["bf16_loss"] = abs(loss - bf["loss"]) / bf["loss"]
         del h
@@ -4114,6 +4143,318 @@ def elastic_on_card(torch, device="cuda"):
     return res
 
 
+# phase 43: StarCoder2-3B at full width, SPF_LAYERS layers, B = 1, S = SPF_SEQ a
+# data shard, sharded over PAR_RANKS ranks of the one card under four rule sets
+SPF_LAYERS = 8
+SPF_F32_LAYERS = 2
+SPF_SEQ = 4096
+SPF_CONFIGS = (("(1, 4) seq_sp None", (1, 4), {"seq_sp": None}),
+               ("(1, 4) SP", (1, 4), {}),
+               ("(2, 2) SP", (2, 2), {}),
+               ("(2, 2) SP + FSDP", (2, 2), {"fsdp": "data"}))
+SPF_F32_RULES = {"fsdp": "data"}
+
+
+def spf_cfg(layers, reduced=False):
+    """StarCoder2-3B at ``layers`` layers (``reduced``: the reduced config,
+    which rehearses phase 43 on the CPU)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("starcoder2")
+    return dataclasses.replace(cfg.reduced() if reduced else cfg, num_layers=layers)
+
+
+def spf_reference(torch, device="cuda", seq=SPF_SEQ, reduced=False):
+    """Phase 43's unsharded port on one process: in bf16 at SPF_LAYERS
+    layers the loss and gradient norm of batch 0 and the mean loss and the
+    mean gradient's norm of batches 0 and 1; in float32 at SPF_F32_LAYERS
+    layers both batches' hidden states, their mean loss and mean gradients
+    (host copies the ranks map from shared memory)."""
+    from repro_torch.train.optimizer import global_norm
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = spf_cfg(SPF_LAYERS, reduced)
+    b0, b1 = par_batches(cfg, device, seq)
+    model = par_draw(torch, cfg, device, torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_layers = sum(p.numel() for layer in model.layers for p in layer.parameters())
+    _, l0, g0 = grads_of(torch, model, b0)
+    _, l1, g1 = grads_of(torch, model, b1)
+    ref = {"bf16": {"loss": float(l0), "grad_norm": float(global_norm(g0.values())),
+                    "mean_loss": (float(l0) + float(l1)) / 2,
+                    "mean_grad_norm": float(global_norm((g0[n].float() + g1[n].float()) / 2
+                                                       for n in g0))},
+           "params": n_params, "layer_params": n_layers}
+    del model, g0, g1, l0, l1
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    cfg2 = spf_cfg(SPF_F32_LAYERS, reduced)
+    model = par_draw(torch, cfg2, device, torch.float32)
+    h0, l0, g0 = grads_of(torch, model, b0)
+    h1, l1, g1 = grads_of(torch, model, b1)
+    ref["float32"] = {"h": [shared_copy(torch, h0), shared_copy(torch, h1)],
+                      "loss": (float(l0) + float(l1)) / 2,
+                      "grads": {n: shared_copy(torch, g.add_(g1[n]).div_(2))
+                                for n, g in g0.items()}}
+    del model, h0, h1, g0, g1, b0, b1
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    print(f"sp/fsdp: the unsharded reference of StarCoder2-3B at {SPF_LAYERS} layers "
+          f"({n_params / 1e9:.3f} B parameters, {n_layers / 1e9:.3f} B in layers; bf16, "
+          f"B=1, S={seq}, batches 0 and 1) and at {SPF_F32_LAYERS} layers in float32 took "
+          f"{time.perf_counter() - t0:.1f} s; bf16 loss {ref['bf16']['loss']:.5f}, gradient "
+          f"norm {ref['bf16']['grad_norm']:.5f}")
+    return ref
+
+
+def spf_rank(rank, ref, device="cuda", seq=SPF_SEQ, reduced=False):
+    """One rank of phase 43: each rule set's bf16 AdamW steps (peak memory,
+    ms, flash launches, loss and gradient norm), then the float32 check."""
+    import torch
+
+    from repro_torch.convert import shard_params
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.parallel.sharding import mesh_axes, parallel_rules
+    from repro_torch.parallel.specs import param_pspecs, shard_tensor
+    from repro_torch.train import TrainConfig, init_opt_state, make_train_step
+    from repro_torch.train import sync_gradients
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cuda = device == "cuda"
+    t_rank = time.perf_counter()
+    cfg = spf_cfg(SPF_LAYERS, reduced)
+    batches = par_batches(cfg, device, seq)
+    tc = TrainConfig()
+    out = {"runs": {}}
+    for label, shape, rules in SPF_CONFIGS:
+        mesh = make_mesh(shape, ("data", "model"), device=device)
+        d = mesh.get_coordinate()[0]
+        with parallel_rules(mesh_axes(rules), mesh):
+            full = par_draw(torch, cfg, device, torch.bfloat16)
+            model = shard_params(full, mesh)
+            del full
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            state = {"params": model, "opt": init_opt_state(model, tc.opt)}
+            state_gb = torch.cuda.memory_allocated() / 1e9 if cuda else 0.0
+            step = make_train_step(cfg, tc)
+            run = {"state_gb": state_gb, "ms": []}
+            for i in range(2):
+                sync(torch, device)
+                flash_attention.launches = flash_attention_bwd.launches = 0
+                t0 = time.perf_counter()
+                state, m = step(state, batches[d])
+                sync(torch, device)
+                run["ms"].append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    run["loss"], run["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
+            run["launches"] = {"fwd": flash_attention.launches, "bwd": flash_attention_bwd.launches}
+            run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+            out["runs"][label] = run
+            del state, model, step, m
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+    # float32: SP + FSDP at (2, 2) against the unsharded port
+    cfg2 = spf_cfg(SPF_F32_LAYERS, reduced)
+    mesh = make_mesh((2, 2), ("data", "model"), device=device)
+    d = mesh.get_coordinate()[0]
+    f32 = ref["float32"]
+    with parallel_rules(mesh_axes(SPF_F32_RULES), mesh):
+        full = par_draw(torch, cfg2, device, torch.float32)
+        model = shard_params(full, mesh)
+        del full
+        h, loss, grads = grads_of(torch, model, batches[d])
+        loss, _ = sync_gradients(model, loss, grads, tc)
+        specs = param_pspecs(model)
+        errs = {"hidden": rel_errs(torch, h, f32["h"][d]),
+                "loss": (abs(float(loss) - f32["loss"]) / abs(f32["loss"]),) * 2}
+        worst = (0.0, 0.0, "")
+        for name, g in grads.items():
+            e = rel_errs(torch, g, shard_tensor(f32["grads"][name], specs[name], mesh))
+            if e[0] >= worst[0]:
+                worst = (e[0], e[1], name)
+        errs["grads"] = worst[:2]
+        out["f32"] = {"errs": errs, "worst_grad": worst[2],
+                      "fsdp_leaves": sum(1 for sp in specs.values() if "data" in sp)}
+        del model, grads, h
+    out["seconds"] = time.perf_counter() - t_rank
+    return out
+
+
+def sp_fsdp_on_card(torch, device="cuda", seq=SPF_SEQ, reduced=False):
+    """Phase 43: sequence parallelism and FSDP on StarCoder2-3B, PAR_RANKS
+    ranks sharing the card over gloo (``reduced`` and ``device="cpu"``
+    rehearse it on the CPU)."""
+    from repro_torch.parallel.mesh import spawn_world
+
+    ref = spf_reference(torch, device, seq, reduced)
+    t0 = time.perf_counter()
+    outs = spawn_world(spf_rank, PAR_RANKS, ref, device, seq, reduced, backend="gloo",
+                       timeout_s=600)
+    world_s = time.perf_counter() - t0
+    want = {"fwd": 2 * SPF_LAYERS, "bwd": SPF_LAYERS}
+    bf = ref["bf16"]
+    label = f"{PAR_RANKS} ranks sharing one {'H100' if device == 'cuda' else 'CPU'} over gloo"
+    res = {}
+    for name, shape, _ in SPF_CONFIGS:
+        runs = [o["runs"][name] for o in outs]
+        wl, wn = ((bf["loss"], bf["grad_norm"]) if shape[0] == 1
+                  else (bf["mean_loss"], bf["mean_grad_norm"]))
+        loss_err = max(abs(r["loss"] - wl) / wl for r in runs)
+        norm_err = max(abs(r["grad_norm"] - wn) / wn for r in runs)
+        launches = [r["launches"] for r in runs]
+        print(f"sp/fsdp: StarCoder2-3B at {SPF_LAYERS} layers, bf16, B=1, S={seq} a data "
+              f"shard, AdamW, {name} ({label}): state after init_opt_state by rank "
+              + ", ".join(f"{r['state_gb']:.3f}" for r in runs) + " GB, peak allocated "
+              + ", ".join(f"{r['peak_gb']:.3f}" for r in runs) + " GB; ms a step (first, "
+              "second) " + ", ".join(f"{r['ms'][0]:.0f}/{r['ms'][1]:.0f}" for r in runs)
+              + f"; flash launches a rank {launches[0]} (want {want}); loss "
+              f"{runs[0]['loss']:.5f}, gradient norm {runs[0]['grad_norm']:.5f} against the "
+              f"unsharded port's {wl:.5f}, {wn:.5f}: within {loss_err:.2e} and {norm_err:.2e}")
+        if not (loss_err <= PAR_TOL["bfloat16"] and norm_err <= PAR_TOL["bfloat16"]):
+            raise AssertionError(f"sp/fsdp: {name} disagrees with the unsharded port: loss "
+                                 f"{loss_err:.3e}, gradient norm {norm_err:.3e}")
+        if device == "cuda" and any(l != want for l in launches):
+            raise AssertionError(f"sp/fsdp: {name} flash launches a rank {launches}, want {want}")
+        res[name] = {"state_gb": [r["state_gb"] for r in runs],
+                     "peak_gb": [r["peak_gb"] for r in runs],
+                     "ms": [r["ms"] for r in runs], "launches": launches,
+                     "loss_err": loss_err, "norm_err": norm_err}
+    errs = {part: (max(o["f32"]["errs"][part][0] for o in outs),
+                   max(o["f32"]["errs"][part][1] for o in outs))
+            for part in outs[0]["f32"]["errs"]}
+    print(f"sp/fsdp: float32 at {SPF_F32_LAYERS} layers, (2, 2), SP + FSDP "
+          f"({outs[0]['f32']['fsdp_leaves']} leaves split over data) against the unsharded "
+          f"port: " + ", ".join(f"{part} err {e[0]:.3e} (max {e[1]:.3e})"
+                                for part, e in errs.items()))
+    if not all(e[0] <= PAR_TOL["float32"] for e in errs.values()):
+        raise AssertionError(f"sp/fsdp: the float32 SP + FSDP step disagrees: {errs}; worst "
+                             f"gradients {[o['f32']['worst_grad'] for o in outs]}")
+    per = 16 / 1e9
+    width = spf_cfg(SPF_LAYERS, reduced).d_model
+    print(f"sp/fsdp: predicted state at 16 B a parameter: (2, 2) "
+          f"{(ref['layer_params'] / 2 + (ref['params'] - ref['layer_params']) / 2) * per:.2f} "
+          f"GB a rank, with FSDP {(ref['layer_params'] / 4 + (ref['params'] - ref['layer_params']) / 2) * per:.2f} GB "
+          f"(the embedding has no fsdp dimension); the {SPF_LAYERS} saved layer inputs at "
+          f"(1, 4) {SPF_LAYERS * seq * width * 2 / 1e6:.0f} MB a rank without SP, "
+          f"{SPF_LAYERS * seq * width * 2 / 4 / 1e6:.0f} MB with it")
+    print(f"sp/fsdp: phase 43 took {world_s:.1f} s in the world of {PAR_RANKS} ranks "
+          f"(ranks' own {max(o['seconds'] for o in outs):.1f} s)")
+    return {"runs": res, "f32": {k: v[0] for k, v in errs.items()}, "seconds": world_s}
+
+
+SLICES = 4                       # phase 42: slices of the one card
+SLICE_SAMPLES = 131_072          # phase 42's counter sweep: 2 blocks of SWEEP_BLOCK
+SLICE_CHECK_ROWS = 16_384
+
+
+def slice_run(torch, label, rows, fn, launches_want, slices, warm=False):
+    """One timed run of ``fn`` (after a warm-up unless ``warm``) and a
+    profiled one: rows/s, the card's busy share and the prefix_scan
+    launches of the timed run, which must be ``launches_want``."""
+    from repro_torch.kernels.prefix_scan import prefix_scan
+
+    if not warm:
+        fn()
+    sync(torch, "cuda")
+    prefix_scan.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch, "cuda")
+    dt = time.perf_counter() - t0
+    launches = prefix_scan.launches
+    if launches != launches_want:
+        raise AssertionError(f"slices {label}: prefix_scan launched {launches} times over "
+                             f"{slices} slice(s), want {launches_want}")
+    prof = device_share(torch, "cuda", f"{label}, {slices} slice(s)", fn)
+    return out, {"seconds": dt, "rows_per_s": rows / dt, "launches": launches,
+                 "busy_pct": 100 - prof["idle_pct"]}
+
+
+def engines_over_slices(torch, fig17c, cost_bench):
+    """Phase 42: the sweep, DCN and cost engines with the snapshot axis
+    split into SLICES slices of the one card (``device=["cuda:0"] *
+    SLICES``, a CUDA stream each) against the one-slice run (``"cuda:0"``):
+    equal grids, rows/s, the card's busy share and prefix_scan launched by
+    every slice."""
+    from repro_torch.cost import run_cost_sweep
+    from repro_torch.sim import CounterIIDSnapshots, ScenarioSpec, run_sweep
+
+    devs = {1: "cuda:0", SLICES: ["cuda:0"] * SLICES}
+    out = {"sweep": {}, "dcn": {}, "cost": {}}
+
+    # the counter sweep of sweep_main_path's configuration, two blocks
+    spec = ScenarioSpec(num_nodes=SWEEP_NODES,
+                        snapshots=CounterIIDSnapshots(0.07, SLICE_SAMPLES, 5),
+                        tp_sizes=(32,), architectures=("infinitehbd-k3", "nvl-72"))
+    blocks = -(-SLICE_SAMPLES // SWEEP_BLOCK)
+    grids = {}
+    for n, dev in devs.items():
+        grids[n], out["sweep"][n] = slice_run(
+            torch, f"counter sweep {SLICE_SAMPLES} x {SWEEP_NODES}", SLICE_SAMPLES,
+            lambda dev=dev: run_sweep(spec, backend="torch", chunk_snapshots=SWEEP_BLOCK,
+                                      device=dev),
+            sweep_scans(spec.models(), blocks) * n, n)
+    for g in ("total_gpus", "faulty_gpus", "placed_gpus"):
+        if not np.array_equal(getattr(grids[SLICES], g), getattr(grids[1], g)):
+            raise AssertionError(f"slices: the {SLICES}-slice sweep's {g} differ from one "
+                                 f"slice's")
+    head = ScenarioSpec(num_nodes=SWEEP_NODES,
+                        snapshots=CounterIIDSnapshots(0.07, SLICE_CHECK_ROWS, 5),
+                        tp_sizes=(32,), architectures=("infinitehbd-k3", "nvl-72"))
+    host = run_sweep(head, backend="numpy")
+    if not (np.array_equal(grids[SLICES].placed_gpus[:, :SLICE_CHECK_ROWS], host.placed_gpus)
+            and np.array_equal(grids[SLICES].faulty_gpus[:, :SLICE_CHECK_ROWS],
+                               host.faulty_gpus)):
+        raise AssertionError(f"slices: the first {SLICE_CHECK_ROWS} rows differ from numpy")
+    del grids, host
+
+    # the Fig. 17c grid (equal to numpy and BENCH_dcn.json inside; one
+    # slice is phase 32's run on the one card)
+    for n, fig in ((1, fig17c), (SLICES, check_fig17c(torch, devs[SLICES]))):
+        _, out["dcn"][n] = slice_run(torch, "Fig. 17c DCN grid", fig["rows"], fig["run"],
+                                     fig["launches"], n, warm=True)
+
+    # benchmarks/cost.py's spec against cost_on_card's one-device grids
+    cspec = cost_bench["spec"]
+    rows = len(cspec.fault_ratios) * cspec.samples
+    want = sweep_scans(cspec.models(), len(cspec.fault_ratios) * -(-cspec.samples // 1024))
+    for n, dev in devs.items():
+        got, out["cost"][n] = slice_run(
+            torch, f"cost sweep at {cspec.num_nodes} nodes", rows,
+            lambda dev=dev: run_cost_sweep(cspec, backend="torch", device=dev), want * n, n)
+        if not cost_grids_equal(got, cost_bench["result"]):
+            raise AssertionError(f"slices: the cost grids over {n} slice(s) differ from "
+                                 f"cost_on_card's")
+    for name, what in (("sweep", f"counter sweep, {SLICE_SAMPLES} snapshots x {SWEEP_NODES} "
+                                 f"nodes, TP-32, blocks of {SWEEP_BLOCK}"),
+                       ("dcn", "Fig. 17c DCN grid, 500 snapshots x 2048 nodes"),
+                       ("cost", f"cost sweep, {rows} rows x {cspec.num_nodes} nodes")):
+        one, many = out[name][1], out[name][SLICES]
+        print(f"slices: {what}: {SLICES} slices of the card {many['rows_per_s']:.0f} rows/s "
+              f"({many['seconds']:.3f} s, busy {many['busy_pct']:.1f}%, prefix_scan "
+              f"{many['launches']}) against one slice {one['rows_per_s']:.0f} rows/s "
+              f"({one['seconds']:.3f} s, busy {one['busy_pct']:.1f}%, prefix_scan "
+              f"{one['launches']}): x{many['rows_per_s'] / one['rows_per_s']:.2f}; grids "
+              f"equal")
+    print(f"slices: the sweep's first {SLICE_CHECK_ROWS} rows equal numpy, the DCN grids "
+          f"numpy and BENCH_dcn.json, the cost grids cost_on_card's one-device grids "
+          f"({SLICES} slices share one card: not {SLICES} cards)")
+    return out
+
+
 def main() -> int:
     import dataclasses
 
@@ -4261,11 +4602,18 @@ def main() -> int:
     par_s = time.perf_counter() - t_par
     print(f"parallel/elastic: the collectives, sharded Mixtral and elastic phases (39-41) "
           f"took {par_s:.1f} s")
+    t_spf = time.perf_counter()
+    slices = engines_over_slices(torch, fig17c, cost["bench"])
+    slices_s = time.perf_counter() - t_spf
+    spf = sp_fsdp_on_card(torch)
+    spf_s = time.perf_counter() - t_spf
+    print(f"slices/sp/fsdp: phases 42-43 took {spf_s:.1f} s (phase 42 {slices_s:.1f} s)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, of which the "
           f"decoder-config phases {decoders_s:.1f} s, the PaliGemma and Whisper phases "
           f"{vlm_s:.1f} s, the RecurrentGemma phases {rg_s:.1f} s, the DCN and churn "
-          f"phases {dcn_s:.1f} s, the cost, matrix, SLO and fault phases {engines_s:.1f} s "
-          f"and the parallel and elastic phases {par_s:.1f} s")
+          f"phases {dcn_s:.1f} s, the cost, matrix, SLO and fault phases {engines_s:.1f} s, "
+          f"the parallel and elastic phases {par_s:.1f} s and the slices, SP and FSDP "
+          f"phases {spf_s:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
@@ -4310,6 +4658,8 @@ def main() -> int:
         **{key: t["fwd"] for key, t in {**vlm_times, **rg_times}.items()},
         "launches_mixtral_sharded_step_per_rank": [l["fwd"] for l in par["launches"]],
         "launches_elastic_restart": elastic["fault_launches"],
+        "launches_starcoder2_sp_fsdp_step_per_rank": {
+            k: [l["fwd"] for l in v["launches"]] for k, v in spf["runs"].items()},
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -4331,6 +4681,8 @@ def main() -> int:
         "passes": {k: {"ms": v["ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"]}
                    for k, v in flash_times.items() if k.startswith("bwd ")},
         "launches_mixtral_sharded_step_per_rank": [l["bwd"] for l in par["launches"]],
+        "launches_starcoder2_sp_fsdp_step_per_rank": {
+            k: [l["bwd"] for l in v["launches"]] for k, v in spf["runs"].items()},
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -4378,6 +4730,10 @@ def main() -> int:
         "cost_8192_rows_per_s": cost["8192"]["rows_per_s"],
         "matrix_8192_seconds": matrix["8192"]["seconds"],
         "slo_scan_requests_per_s": {k: slo[k]["requests_per_s"] for k in ("bench", "2048")},
+        **{f"launches_{name}_{n}_slices": v["launches"]
+           for name, per in slices.items() for n, v in per.items()},
+        **{f"{name}_{n}_slices_rows_per_s": v["rows_per_s"]
+           for name, per in slices.items() for n, v in per.items()},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,11 @@ do.  All device arithmetic is int32 and widened to int64 on the host; the
 placements are bit-for-bit those of :func:`repro_torch.dcn.kernel.
 batched_fat_tree` (``tests/test_torch_dcn.py`` on the CPU, ``chip_smoke.py``
 on the card).  The device defaults to ``cuda``, which raises without a
-card.  The multi-device path of the JAX package (``shard_map`` over the
-snapshot axis) waits for the port's parallel slice.
+card.  As in the sweep (:func:`repro_torch.sim.torch_backend.devices`),
+``device`` may name several devices, or several slices of one: each block's
+rows are padded with fault-free masks to a multiple of :func:`num_devices`
+and split into equal slices, one a device, as ``repro``'s ``shard_map``
+splits them over the JAX devices.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 from .. import obs
 from ..kernels.prefix_scan import prefix_scan
-from ..sim.torch_backend import _device
+from ..sim.torch_backend import Slices, _stage, devices, num_devices, pad_rows
 from .kernel import BatchedPlacement, FatTreeConfig
 
 _I32 = torch.int32
@@ -250,9 +253,11 @@ def fat_tree_placements(masks: np.ndarray, cfg: FatTreeConfig,
 
     Returns host :class:`BatchedPlacement` objects bit-for-bit equal to
     :func:`repro_torch.dcn.kernel.batched_fat_tree` on the same masks.
-    Blocks of ``chunk_snapshots`` rows go to ``device`` one at a time.
+    Blocks of ``chunk_snapshots`` rows (rounded up to a multiple of the
+    slice count) go to ``device`` one at a time, split over its slices.
     """
-    dev = _device(device)
+    slices = Slices(devices(device))
+    ndev = len(slices.devices)
     if not cfg.regular():
         raise ValueError("torch fat-tree kernel requires regular geometry")
     masks = np.asarray(masks, dtype=bool)
@@ -275,19 +280,31 @@ def fat_tree_placements(masks: np.ndarray, cfg: FatTreeConfig,
             f"fault masks have {masks.shape[1]} columns, expected "
             f"num_nodes={cfg.num_nodes}")
 
-    placers = [_Placer(cfg, tp, job, dev) for tp, job in zip(tps, jobs)]
+    placers = {}                 # one set a distinct device, shared by its slices
+    for dev in slices.devices:
+        if dev not in placers:
+            placers[dev] = [_Placer(cfg, tp, job, dev) for tp, job in zip(tps, jobs)]
+
+    def place(part, dev, held):
+        block = _stage(part, dev, held)
+        res = []
+        for placer in placers[dev]:
+            res.extend(placer.place(block))
+        return res
+
     chunk = max(1, chunk_snapshots)
+    chunk = -(-chunk // ndev) * ndev
     for lo in range(0, snaps, chunk):
         hi = min(lo + chunk, snaps)
-        with obs.span("dcn.torch.place_block", rows=hi - lo,
-                      device=str(dev)):
-            block = torch.from_numpy(masks[lo:hi]).to(dev)
-            for out, placer in zip(outs, placers):
-                members, feasible, n_c = placer.place(block)
-                out.members[lo:hi] = members.cpu().numpy()
-                out.feasible[lo:hi] = feasible.cpu().numpy()
-                out.n_constraints[lo:hi] = n_c.cpu().numpy().astype(np.int64)
+        with obs.span("dcn.torch.place_block", rows=hi - lo, devices=ndev):
+            parts = slices.run(place, pad_rows(masks[lo:hi], ndev, counter=False))
+            for ti, out in enumerate(outs):
+                members, feasible, n_c = (np.concatenate([p[3 * ti + j] for p in parts])
+                                          [:hi - lo] for j in range(3))
+                out.members[lo:hi] = members
+                out.feasible[lo:hi] = feasible
+                out.n_constraints[lo:hi] = n_c.astype(np.int64)
     return outs
 
 
-__all__ = ["fat_tree_placements", "scans_per_call", "search_iters"]
+__all__ = ["fat_tree_placements", "num_devices", "scans_per_call", "search_iters"]

@@ -32,15 +32,40 @@ Under a mesh (``repro_torch.parallel.parallel_rules(rules, mesh)``) every
 rank runs these functions on its own shards: the batch split over
 ``data`` (and ``pod``), attention heads, the MLP's ``ff`` and the
 vocabulary split over ``model`` (``shard_params`` in
-:mod:`repro_torch.convert` cuts them), the residual stream replicated over
-``model``.  Where ``repro`` leaves the collectives to GSPMD, the port runs
-them: a column-parallel region is entered through Megatron's *f*
-(identity forward, all-reduce of the gradient backward) and a row-parallel
-partial sum leaves through *g* (``psum``: all-reduce forward, identity
-backward); the embedding is a masked local lookup and a ``psum``, the loss
-the fused vocab-parallel softmax cross-entropy, and the MoE layers run
-:func:`~repro_torch.models.moe.moe_apply_local` on the model axis.  SSD and
-RG-LRU layers, and serving, run off a mesh only.
+:mod:`repro_torch.convert` cuts them).  Where ``repro`` leaves the
+collectives to GSPMD, the port runs them:
+
+* Sequence parallelism (rules that map ``seq_sp``, as ``DEFAULT_RULES``
+  do): the residual stream between the layers, and so each layer input
+  that remat saves, is this rank's slice of the sequence over the
+  ``seq_sp`` axis, and :func:`forward` returns that slice.  A sequence the
+  axis does not divide gets zero rows in front (on the axis's first rank)
+  up to a multiple of its size, as GSPMD pads uneven shards; they are cut
+  after each gather.  A tensor-parallel region (attention, the dense MLP,
+  the loss) is entered by a ring all-gather of the normed slice (its
+  backward a reduce-scatter of the partial gradients) and left by a ring
+  reduce-scatter (its backward an all-gather); the embedding's partial
+  lookups leave by a reduce-scatter too.  The MoE layer sees the whole
+  sequence, as ``repro`` feeds it, so that capacity and routing see every
+  token: its input is gathered (backward: this rank's slice) and its
+  replicated output split.  RoPE positions and the flash masks are those
+  of the whole sequence.
+* With ``seq_sp`` unmapped the residual stream is replicated over
+  ``model``: a column-parallel region is entered through Megatron's *f*
+  (identity forward, all-reduce of the gradient backward) and a
+  row-parallel partial sum leaves through *g* (``psum``: all-reduce
+  forward, identity backward); the embedding is a masked local lookup and
+  a ``psum``.
+* FSDP (rules that map ``fsdp``, e.g. ``mesh_axes({"fsdp": "data"})``):
+  each weight with an ``fsdp`` dimension is held split over that axis too,
+  and each layer ring all-gathers its weights when it starts (their
+  backward a reduce-scatter, which sums the data shards' gradients); under
+  remat the recompute gathers again, so no gathered weight outlives its
+  layer.
+
+The loss is the fused vocab-parallel softmax cross-entropy, and the MoE
+layers run :func:`~repro_torch.models.moe.moe_apply_local` on the model
+axis.  SSD and RG-LRU layers, and serving, run off a mesh only.
 
 Dtypes follow ``repro``'s promotions: ``x @ w`` of float32 activations and
 bf16 weights computes in float32 (:func:`~repro_torch.models.layers.matmul`),
@@ -51,6 +76,7 @@ it, in float32 beside bf16 decoder activations.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -64,9 +90,11 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
-from repro_torch.parallel.collectives import copy_to, pmax, psum
+from repro_torch.parallel.collectives import (copy_to, gather_from, pmax, psum,
+                                              ring_all_gather, ring_reduce_scatter, split_to)
 from repro_torch.parallel.mesh import Axis, mesh_axis
-from repro_torch.parallel.sharding import get_mesh, get_rules
+from repro_torch.parallel.sharding import get_mesh, get_rules, resolve, seq_sp_axis
+from repro_torch.parallel.specs import fsdp_dim
 
 #: layer kinds that later slices of the port bring in (none is left)
 LATER_SLICE: Dict[str, str] = {}
@@ -246,11 +274,56 @@ def _axis(logical: str) -> Optional[Axis]:
     return mesh_axis(mesh, rules[logical])
 
 
-def embed_tokens(model: Transformer, ids: torch.Tensor) -> torch.Tensor:
-    """Embedding lookup; under a mesh vocab-parallel: each model rank looks
-    up the ids in its vocabulary slice (zeros elsewhere), and a ``psum``
-    over the axis assembles the rows."""
-    ax = _axis("vocab")
+def _pad_front(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` with zero rows in front of its sequence (dim 1) up to a
+    multiple of ``n``."""
+    pad = -x.shape[1] % n
+    if not pad:
+        return x
+    return torch.cat([x.new_zeros((x.shape[0], pad) + x.shape[2:]), x], dim=1)
+
+
+def _enter(x: torch.Tensor, sp: Optional[Axis], tp: Optional[Axis],
+           s: Optional[int] = None) -> torch.Tensor:
+    """A region's input from the residual stream ``x``: under sequence
+    parallelism (``sp``) the whole sequence gathered from every rank's
+    slice, its last ``s`` rows; then Megatron's *f* on ``tp``, the axis the
+    region is tensor-parallel on (None: a region every rank computes
+    whole).  A region tensor-parallel on ``sp`` itself is entered by the
+    all-gather alone, whose backward reduce-scatters the partial
+    gradients."""
+    on_sp = sp is not None and tp is not None and tp.name == sp.name
+    if sp is not None:
+        x = ring_all_gather(x, sp, 1) if on_sp else gather_from(x, sp, 1)
+    if s is not None:
+        x = x[:, x.shape[1] - s:]
+    return copy_to(x, tp) if tp is not None and not on_sp else x
+
+
+def _leave(y: torch.Tensor, sp: Optional[Axis], tp: Optional[Axis]) -> torch.Tensor:
+    """A region's output back into the residual stream: partial sums over
+    ``tp`` are summed (a ``psum``, or under sequence parallelism on that
+    axis a reduce-scatter to this rank's slice); a whole output is split
+    to this rank's slice under sequence parallelism."""
+    if sp is not None and tp is not None and tp.name == sp.name:
+        return ring_reduce_scatter(_pad_front(y, sp.size), sp, 1)
+    if tp is not None:
+        y = psum(y, tp)
+    return y if sp is None else split_to(_pad_front(y, sp.size), sp, 1)
+
+
+def _norm(x: torch.Tensor, p, kind: str, sp: Optional[Axis]) -> torch.Tensor:
+    """A norm of the residual stream.  Under sequence parallelism its
+    scale and bias see only this rank's rows, so they enter through *f* on
+    the axis: their gradients are summed over it."""
+    if sp is not None:
+        p = {k: copy_to(v, sp) for k, v in p.items()}
+    return L.norm(x, p, kind)
+
+
+def _lookup(model: Transformer, ids: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """The embedding rows of ``ids``; under a vocabulary split over ``ax``
+    this rank's masked local lookup (zeros for the ids it does not hold)."""
     if ax is None:
         return model.embed[ids]
     emb = model.embed
@@ -258,23 +331,35 @@ def embed_tokens(model: Transformer, ids: torch.Tensor) -> torch.Tensor:
     loc = ids - ax.index * vs
     ok = (loc >= 0) & (loc < vs)
     out = emb[loc.clamp(0, vs - 1)]
-    out = torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
-    return psum(out, ax)
+    return torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def embed_tokens(model: Transformer, ids: torch.Tensor) -> torch.Tensor:
+    """Embedding lookup; under a mesh vocab-parallel: each model rank looks
+    up the ids in its vocabulary slice (zeros elsewhere), and a ``psum``
+    over the axis assembles the rows."""
+    ax = _axis("vocab")
+    out = _lookup(model, ids, ax)
+    return out if ax is None else psum(out, ax)
 
 
 def lm_loss(model: Transformer, x: torch.Tensor,
             labels: torch.Tensor) -> torch.Tensor:
-    """Mean softmax cross-entropy of the next-token labels: float32 logits
-    over the padded vocabulary, cut to ``vocab_size``, logsumexp minus the
-    label's logit.
+    """Mean softmax cross-entropy of the next-token labels over the last
+    ``labels.shape[1]`` rows of ``x`` (rows before them, a VLM's prefix,
+    carry no label): float32 logits over the padded vocabulary, cut to
+    ``vocab_size``, logsumexp minus the label's logit.
 
     Under a mesh, the fused vocab-parallel form of ``repro``: each model
     rank keeps its vocabulary slice of the logits, masks the padding
     (global ids >= ``vocab_size``) with -1e30, and the max (which carries
     no gradient), the sum of exps and the label's logit are reduced over
-    the axis; the mean is over this rank's tokens (its data shard)."""
+    the axis; the mean is over this rank's tokens (its data shard).  Under
+    sequence parallelism ``x`` is this rank's slice of the sequence, as
+    :func:`forward` returns it, and is all-gathered first."""
     w = model.lm_head if model.lm_head is not None else model.embed.T
     ax = _axis("vocab")
+    x = _enter(x, seq_sp_axis(), ax, labels.shape[1])
     if ax is None:
         logits = (x @ w).float()[..., :model.cfg.vocab_size]
         lse = torch.logsumexp(logits, dim=-1)
@@ -282,7 +367,7 @@ def lm_loss(model: Transformer, x: torch.Tensor,
         return torch.mean(lse - lab)
     vs = w.shape[-1]
     off = ax.index * vs
-    logits = (copy_to(x, ax) @ w).float()                          # (b, s, vs)
+    logits = (x @ w).float()                                       # (b, s, vs)
     gids = off + torch.arange(vs, device=logits.device)
     logits = torch.where(gids < model.cfg.vocab_size, logits,
                          torch.full((), -1e30, device=logits.device))
@@ -295,10 +380,21 @@ def lm_loss(model: Transformer, x: torch.Tensor,
     return torch.mean((mx + torch.log(se)) - lab)
 
 
+def full_sequence(x: torch.Tensor, length: int) -> torch.Tensor:
+    """The whole sequence of ``length`` rows from this rank's slice ``x``
+    under sequence parallelism (gathered; the gradient of a consumer that
+    every rank computes whole comes back to the slice), ``x`` itself
+    without it."""
+    sp = seq_sp_axis()
+    return x if sp is None else _enter(x, sp, None, length)
+
+
 def _attn_apply(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
                 kind: str, positions: torch.Tensor, prefix_len: int = 0,
-                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
-    """Full-sequence attention (train/prefill).  x: (B, S, d).
+                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                sp: Optional[Axis] = None) -> torch.Tensor:
+    """Full-sequence attention (train/prefill).  x: (B, S, d), or under
+    sequence parallelism over ``sp`` this rank's slice of it.
 
     Self-attention is causal with RoPE, within ``cfg.window`` positions for
     ``"swa"`` and within chunks of ``cfg.window`` positions for
@@ -307,15 +403,15 @@ def _attn_apply(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
     (k, v) of a cross-attention, the queries attend to all of them, without
     RoPE.
 
-    Under a mesh, p holds this rank's heads: x enters through *f* and the
-    output projection's partial sum leaves through a ``psum``."""
-    b, s, _ = x.shape
+    Under a mesh, p holds this rank's heads: x enters and the output
+    projection's partial sum leaves as :func:`_enter` and :func:`_leave`
+    say."""
     hd = cfg.head_dim
     hq = p["wq"].shape[-1] // hd
     kvh = p["wk"].shape[-1] // hd
     ax = _axis("heads")
-    if ax is not None:
-        x = copy_to(x, ax)
+    x = _enter(x, sp, ax, None if sp is None else positions.shape[1])
+    b, s, _ = x.shape
     q = L.matmul(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
@@ -335,7 +431,7 @@ def _attn_apply(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
         out = L.flash_attention(q, k, v, causal=kind != "enc", prefix_len=prefix_len,
                                 **_mask(cfg, kind))
     y = L.matmul(out.reshape(b, s, hq * hd), p["wo"])
-    return y if ax is None else psum(y, ax)
+    return _leave(y, sp, ax)
 
 
 def _enc_kv(layer: Layer, cfg: ModelConfig,
@@ -359,19 +455,20 @@ def _mask(cfg: ModelConfig, kind: str) -> Dict[str, int]:
 
 
 def _mlp_apply(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
-               moe_ctx: Optional[Dict] = None) -> torch.Tensor:
+               moe_ctx: Optional[Dict] = None, sp: Optional[Axis] = None,
+               s: Optional[int] = None) -> torch.Tensor:
     """The residual MLP half of a layer: dense, or MoE
     (:func:`_moe_dispatch`).  Under a mesh the dense MLP holds this rank's
-    ``ff`` columns and rows: *f* in, ``psum`` out."""
+    ``ff`` columns and rows, entered and left as :func:`_enter` and
+    :func:`_leave` say; the MoE takes the whole sequence (``s`` rows)."""
     if layer.norm2 is None:
         return x
-    h2 = L.norm(x, layer.norm2, cfg.norm)
+    h2 = _norm(x, layer.norm2, cfg.norm, sp)
     if layer.moe is not None:
-        return x + _moe_dispatch(layer.moe, cfg, h2, moe_ctx or {})
+        y = _moe_dispatch(layer.moe, cfg, _enter(h2, sp, None, s), moe_ctx or {})
+        return x + _leave(y, sp, None)
     ax = _axis("ff")
-    if ax is None:
-        return x + L.mlp_apply(layer.mlp, h2, cfg.act)
-    return x + psum(L.mlp_apply(layer.mlp, copy_to(h2, ax), cfg.act), ax)
+    return x + _leave(L.mlp_apply(layer.mlp, _enter(h2, sp, ax, s), cfg.act), sp, ax)
 
 
 def _moe_dispatch(p: MOE.MoE, cfg: ModelConfig, x: torch.Tensor,
@@ -396,11 +493,50 @@ def _unsharded_mixer(kind: str) -> None:
             f"later slice (ROADMAP.md § 1 item 7)")
 
 
+_SUBDICTS = ("norm1", "attn", "ssd", "rglru", "normx", "xattn", "norm2", "mlp")
+
+
+def _fsdp_gather(layer: Layer, moe_impl: str):
+    """``layer`` with every weight that the rules' ``fsdp`` axis splits
+    ring all-gathered over it (a view of the layer's structure holding the
+    gathered tensors); ``layer`` itself when the rules leave ``fsdp``
+    unmapped.  A dimension split over several mesh axes is gathered minor
+    axis first, undoing ``shard_tensor``'s major-to-minor cut."""
+    spec = resolve(("fsdp",))
+    if not spec or spec[0] is None:
+        return layer
+    names = spec[0] if isinstance(spec[0], tuple) else (spec[0],)
+    axes = [ax for ax in (mesh_axis(get_mesh(), n) for n in reversed(names)) if ax.size > 1]
+    if not axes:
+        return layer
+    full = {}
+    for name, p in layer.named_parameters():
+        dim = fsdp_dim(name, p.dim(), moe_impl)
+        if dim is not None:
+            for ax in axes:
+                p = ring_all_gather(p, ax, dim)
+        full[name] = p
+
+    def sub(mod, prefix):
+        return None if mod is None else {k: full[f"{prefix}.{k}"] for k in mod.keys()}
+
+    view = SimpleNamespace(kind=layer.kind, moe=None,
+                           **{n: sub(getattr(layer, n), n) for n in _SUBDICTS})
+    if layer.moe is not None:
+        m = layer.moe
+        view.moe = SimpleNamespace(
+            router=full["moe.router"], w_up=full["moe.w_up"], w_down=full["moe.w_down"],
+            w_gate=full.get("moe.w_gate"), shared=sub(m.shared, "moe.shared"))
+    return view
+
+
 def _layer_apply(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
                  positions: Optional[torch.Tensor], prefix_len: int = 0,
                  enc_out: Optional[torch.Tensor] = None,
-                 moe_ctx: Optional[Dict] = None) -> torch.Tensor:
-    h = L.norm(x, layer.norm1, cfg.norm)
+                 moe_ctx: Optional[Dict] = None, sp: Optional[Axis] = None) -> torch.Tensor:
+    layer = _fsdp_gather(layer, (moe_ctx or {}).get("moe_impl", "tp"))
+    s = None if sp is None else positions.shape[1]
+    h = _norm(x, layer.norm1, cfg.norm, sp)
     if layer.kind == "ssd":
         _unsharded_mixer("ssd")
         x = x + SSM.ssd_block_apply(layer.ssd, cfg, h)[0]
@@ -408,12 +544,12 @@ def _layer_apply(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
         _unsharded_mixer("rglru")
         x = x + RG.rglru_block_apply(layer.rglru, cfg, h)[0]
     else:
-        x = x + _attn_apply(layer.attn, cfg, h, layer.kind, positions, prefix_len)
+        x = x + _attn_apply(layer.attn, cfg, h, layer.kind, positions, prefix_len, sp=sp)
     if layer.xattn is not None and enc_out is not None:
-        hx = L.norm(x, layer.normx, cfg.norm)
+        hx = _norm(x, layer.normx, cfg.norm, sp)
         x = x + _attn_apply(layer.xattn, cfg, hx, "attn", positions,
-                            kv=_enc_kv(layer, cfg, enc_out))
-    return _mlp_apply(layer, cfg, x, moe_ctx)
+                            kv=_enc_kv(layer, cfg, enc_out), sp=sp)
+    return _mlp_apply(layer, cfg, x, moe_ctx, sp, s)
 
 
 def forward(model: Transformer, batch: Dict[str, torch.Tensor], *,
@@ -426,7 +562,10 @@ def forward(model: Transformer, batch: Dict[str, torch.Tensor], *,
     (:func:`encode`) and every decoder layer cross-attends to the result.
     As in ``repro``, ``patches`` and ``frames`` are ignored by configs
     without a prefix or an encoder.  ``moe_ctx`` holds the MoE layers'
-    ``moe_impl``, ``a2a_impl`` and ``ar_impl`` under a mesh.
+    ``moe_impl``, ``a2a_impl`` and ``ar_impl`` under a mesh.  Under
+    sequence parallelism the result is this rank's slice of the sequence
+    (``ceil(S / n)`` rows of an axis of ``n`` ranks; :func:`lm_loss` takes
+    it as it is, :func:`full_sequence` gathers it).
 
     With ``remat`` each decoder layer runs under ``torch.utils.checkpoint``
     (non-reentrant), as JAX wraps each group in ``jax.checkpoint`` with
@@ -436,12 +575,26 @@ def forward(model: Transformer, batch: Dict[str, torch.Tensor], *,
     during the backward pass.  The encoder is not recomputed, as JAX's
     ``encode`` scans its layers without a checkpoint."""
     cfg = model.cfg
-    x = embed_tokens(model, batch["tokens"])
-    prefix_len = 0
-    if cfg.prefix_len and "patches" in batch:
-        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
-        prefix_len = cfg.prefix_len
+    sp = seq_sp_axis()
+    prefix = cfg.prefix_len and "patches" in batch
+    if sp is None:
+        x = embed_tokens(model, batch["tokens"])
+        if prefix:
+            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    else:
+        # the partial lookups (and the prefix, joined on the vocabulary
+        # axis's first rank) reduce-scatter straight into the slices
+        vax = _axis("vocab")
+        x = _lookup(model, batch["tokens"], vax)
+        if prefix:
+            pre = batch["patches"].to(x.dtype)
+            if vax is not None and vax.index:
+                pre = torch.zeros_like(pre)
+            x = torch.cat([pre, x], dim=1)
     b, s, _ = x.shape
+    if sp is not None:
+        x = _leave(x, sp, vax)
+    prefix_len = cfg.prefix_len if prefix else 0
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     enc_out = None
     if cfg.is_encdec and "frames" in batch:
@@ -449,10 +602,10 @@ def forward(model: Transformer, batch: Dict[str, torch.Tensor], *,
     for layer in model.layers:
         if remat and torch.is_grad_enabled():
             x = checkpoint(_layer_apply, layer, cfg, x, positions, prefix_len, enc_out,
-                           moe_ctx, use_reentrant=False)
+                           moe_ctx, sp, use_reentrant=False)
         else:
-            x = _layer_apply(layer, cfg, x, positions, prefix_len, enc_out, moe_ctx)
-    return L.norm(x, model.final_norm, cfg.norm)
+            x = _layer_apply(layer, cfg, x, positions, prefix_len, enc_out, moe_ctx, sp)
+    return _norm(x, model.final_norm, cfg.norm, sp)
 
 
 def _sinusoid_positions(s: int, d: int, device) -> torch.Tensor:

@@ -40,6 +40,15 @@ and *g* do):
     the axis size.
   * :func:`ring_reduce_scatter` and :func:`ring_all_gather` are each
     other's backward (each rank's output is its own term of the loss).
+    They are Megatron's sequence-parallel pair around a tensor-parallel
+    region: the all-gather enters it (each rank's use of the whole
+    sequence yields a partial gradient, which the reduce-scatter sums
+    into each rank's slice) and the reduce-scatter leaves it.
+  * :func:`split_to` and :func:`gather_from` are the pair around a
+    replicated region (one that every rank computes whole, as the MoE
+    layer's output is): ``gather_from`` is an all-gather whose backward
+    keeps this rank's slice of the (replicated) gradient, ``split_to``
+    keeps this rank's slice and all-gathers the gradient backward.
   * The binary exchange and the all-to-all are their own inverses, so each
     one's backward is itself; ``ppermute``'s is the inverse permutation.
   * :func:`pmax` carries no gradient.
@@ -220,6 +229,35 @@ class _AllGather(torch.autograd.Function):
         return _ring_rs(g, ctx.group, ctx.dim), None, None
 
 
+def _slice(x: torch.Tensor, group: Axis, dim: int) -> torch.Tensor:
+    n = group.size
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split into {n} chunks")
+    return x.chunk(n, dim)[group.index].contiguous()
+
+
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _slice(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ring_ag(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _ring_ag(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.group, ctx.dim), None, None
+
+
 class _SelfInverse(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, fn):
@@ -279,6 +317,23 @@ def ring_all_gather(x: torch.Tensor, group: Axis, gather_axis: int = 0) -> torch
     if group.size == 1:
         return x
     return _AllGather.apply(x, group, gather_axis)
+
+
+def split_to(x: torch.Tensor, group: Axis, axis: int = 0) -> torch.Tensor:
+    """This rank's chunk of ``x`` along ``axis`` (Megatron's scatter into
+    the sequence-parallel region); the gradient is ring all-gathered."""
+    if group.size == 1:
+        return x
+    return _SplitTo.apply(x, group, axis)
+
+
+def gather_from(x: torch.Tensor, group: Axis, axis: int = 0) -> torch.Tensor:
+    """The ring all-gather of every rank's chunk along ``axis``, whose
+    gradient is this rank's chunk of the replicated gradient (the inverse
+    of :func:`split_to`)."""
+    if group.size == 1:
+        return x
+    return _GatherFrom.apply(x, group, axis)
 
 
 def ring_all_reduce(x: torch.Tensor, group: Axis, impl: str = "ring",

@@ -29,6 +29,8 @@ from __future__ import annotations
 from contextlib import contextmanager
 from typing import Dict, Optional, Tuple, Union
 
+from .mesh import mesh_axis
+
 Axis = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[Axis, ...]
 
@@ -104,6 +106,16 @@ def shard(x, axes: Tuple[Optional[str], ...]):
     """Returns ``x``: in the port each rank already holds its shard, and
     the model code runs the collectives itself (module docstring)."""
     return x
+
+
+def seq_sp_axis():
+    """The installed mesh's :class:`~repro_torch.parallel.mesh.Axis` that
+    the rules map ``seq_sp`` to (sequence parallelism), or None off a mesh
+    or when they do not map it."""
+    rules, mesh = get_rules(), get_mesh()
+    if mesh is None or rules is None or rules.get("seq_sp") is None:
+        return None
+    return mesh_axis(mesh, rules["seq_sp"])
 
 
 def mesh_axes(rules: Optional[Dict[str, Axis]] = None,

@@ -19,11 +19,11 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 from .mesh import axis_index, axis_size
-from .sharding import Spec, resolve
+from .sharding import Spec, get_rules, resolve
 
-# logical trailing-dim specs per leaf name.  The "fsdp" axis (-> data) fully
-# shards weights + optimizer states across the cluster in repro; the port's
-# rules do not map it yet (ROADMAP.md § 1 item 7).
+# logical trailing-dim specs per leaf name.  The "fsdp" axis (-> data under
+# mesh_axes({"fsdp": "data"}); DEFAULT_RULES leave it unmapped) fully shards
+# weights + optimizer states across the cluster.
 _PARAM_RULES: Dict[str, Tuple[Optional[str], ...]] = {
     # attention
     "wq": ("fsdp", "heads"), "wk": ("fsdp", "kv_heads"),
@@ -67,8 +67,10 @@ _CACHE_RULES: Dict[str, Tuple[Optional[str], ...]] = {
 }
 
 
-def _leaf_spec(path: Sequence[str], ndim: int, rules_table, moe_impl: Optional[str]) -> Spec:
-    """The spec of the leaf at ``path`` (its name's parts), of rank ``ndim``."""
+def _leaf_logical(path: Sequence[str], ndim: int, rules_table,
+                  moe_impl: Optional[str]) -> Tuple[Optional[str], ...]:
+    """The logical axes of the leaf at ``path`` (its name's parts), of rank
+    ``ndim``; ``()`` replicates."""
     in_moe = False
     for k in path:
         if k == "moe":
@@ -77,22 +79,36 @@ def _leaf_spec(path: Sequence[str], ndim: int, rules_table, moe_impl: Optional[s
             in_moe = False
     name = path[-1]
     if name == "embed":
-        return resolve(("vocab", None)) or ()
+        return ("vocab", None)
     if name == "lm_head":
-        return resolve((None, "vocab")) or ()
+        return (None, "vocab")
     table = dict(rules_table)
     if in_moe and moe_impl == "ep":
         table.update(_MOE_EP_RULES)
     logical_tail = table.get(name)
     if logical_tail is None:
         return ()
-    spec = resolve(logical_tail)
-    if spec is None:
-        return ()
-    pad = ndim - len(spec)
+    pad = ndim - len(logical_tail)
     if pad < 0:  # leaf smaller than rule (e.g. a scalar): replicate
         return ()
-    return (None,) * pad + spec
+    return (None,) * pad + tuple(logical_tail)
+
+
+def _leaf_spec(path: Sequence[str], ndim: int, rules_table, moe_impl: Optional[str]) -> Spec:
+    """The spec of the leaf at ``path`` (its name's parts), of rank ``ndim``."""
+    return resolve(_leaf_logical(path, ndim, rules_table, moe_impl)) or ()
+
+
+def fsdp_dim(name: str, ndim: int, moe_impl: str = "tp") -> Optional[int]:
+    """The dimension of the parameter ``name`` (as ``named_parameters``
+    gives it, from any module down) that the installed rules' ``fsdp`` axis
+    splits; None when it has no ``fsdp`` dimension or the rules leave
+    ``fsdp`` unmapped."""
+    rules = get_rules()
+    if rules is None or rules.get("fsdp") is None:
+        return None
+    logical = _leaf_logical(name.split("."), ndim, _PARAM_RULES, moe_impl)
+    return logical.index("fsdp") if "fsdp" in logical else None
 
 
 def param_pspecs(model: torch.nn.Module, moe_impl: str = "tp") -> Dict[str, Spec]:
@@ -119,11 +135,11 @@ def cache_pspecs(cache: Sequence[Mapping[str, torch.Tensor]],
 
 def opt_pspecs(param_specs: Mapping[str, Spec], model: torch.nn.Module,
                opt_name: str = "adamw") -> Dict:
-    """Specs of the optimizer state: master and m mirror the param specs;
-    for the low-memory optimizer the factored second moment drops the
-    reduced dim; the step is replicated.  No path of the port uses these
-    specs yet: ``init_opt_state`` builds the state from the already-sharded
-    parameters, and FSDP waits (ROADMAP.md § 1 item 7)."""
+    """Specs of the optimizer state: master and m mirror the param specs
+    (under rules that map ``fsdp``, split over the data axis too); for the
+    low-memory optimizer the factored second moment drops the reduced dim;
+    the step is replicated.  ``init_opt_state`` builds the state from the
+    parameters' shards, so each leaf of it is the slice these specs give."""
     out = {"master": dict(param_specs), "m": dict(param_specs), "step": ()}
     if opt_name == "adamw":
         out["v"] = dict(param_specs)

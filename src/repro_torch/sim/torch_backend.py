@@ -5,7 +5,9 @@ The counterpart of ``repro.sim.jax_backend``.  Every HBD model's
 snapshot masks, ``(rows, W)`` bool -> ``(faulty, placed)``, each ``(rows, T)``
 int32: batched over the snapshot rows, where the JAX package writes one
 snapshot and maps it with ``jax.vmap``.  :class:`GridEvaluator` pushes block
-after block through the (architectures x TP sizes) kernels on one device.
+after block through the (architectures x TP sizes) kernels, each block split
+into equal slices of rows over the evaluator's devices, as ``repro``'s
+``shard_map`` splits the snapshot axis over every JAX device.
 
 Guarantees (held by ``tests/test_torch_sweep.py`` on the CPU and by
 ``chip_smoke.py`` on the card):
@@ -24,15 +26,24 @@ The InfiniteHBD kernel takes its prefix sums over the node axis with the
 hand-written CUDA scan (``repro_torch.kernels.prefix_scan``) on the card;
 the other kernels are plain torch.  The device is explicit and defaults to
 ``cuda``; a ``cuda`` device without a card raises, it never falls back to
-the CPU.  The multi-device path of the JAX package (``shard_map`` over the
-snapshot axis) waits for the port's parallel slice.
+the CPU.
+
+``device`` is one device or a sequence of them (:func:`devices`): ``"cuda"``
+without an index is every visible card, as ``repro`` takes every JAX
+device; ``"cuda:0"`` or ``"cpu"`` is one; ``["cuda:0"] * 4`` is four slices
+of one card, each run on a CUDA stream of its own, and ``["cpu"] * 8`` eight
+slices run one after the other.  A block's rows are padded to a multiple of
+the slice count as ``repro`` pads them (zero masks, or counter indices past
+the block's last), cut into equal slices, evaluated on their devices, put
+back in order and the pad rows dropped, so the grids do not depend on the
+slice count either.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple, Type
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Type
 
 import numpy as np
 import torch
@@ -81,7 +92,12 @@ class _Const:
 
     def on(self, device: torch.device) -> torch.Tensor:
         if device not in self.copies:
-            self.copies[device] = self.host.to(device)
+            copy = self.host.to(device)
+            if copy.is_cuda:
+                # slices on other streams of the card read this copy: it
+                # must be complete before any of them is launched
+                torch.cuda.current_stream(device).synchronize()
+            self.copies[device] = copy
         return self.copies[device]
 
 
@@ -280,8 +296,8 @@ def require(models: Sequence[HBDModel]) -> None:
 
 
 def _device(device) -> torch.device:
-    """The evaluator's device; ``cuda`` without a card raises rather than
-    running anywhere else."""
+    """One device; ``cuda`` without a card raises rather than running
+    anywhere else."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -290,6 +306,98 @@ def _device(device) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"the torch backend runs on cpu or cuda, not {dev}")
     return dev
+
+
+def devices(device="cuda") -> List[torch.device]:
+    """The devices the snapshot axis is split over: every visible card for
+    ``"cuda"`` without an index (``torch.cuda.device_count()``), one device
+    for any other single device, and each entry of a sequence (repeats make
+    several slices of one device)."""
+    if isinstance(device, (str, torch.device)):
+        dev = _device(device)
+        if dev.type == "cuda" and dev.index is None:
+            return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        return [dev]
+    out = [_device(d) for d in device]
+    if not out:
+        raise ValueError("device is an empty sequence")
+    return out
+
+
+def num_devices(device="cuda") -> int:
+    """How many slices the snapshot axis is split into on ``device``."""
+    return len(devices(device))
+
+
+def pad_rows(block: np.ndarray, n: int, counter: bool) -> np.ndarray:
+    """``block`` padded on its tail to a multiple of ``n`` rows, as
+    ``repro`` pads a sharded block: zero masks, or counter indices past the
+    block's last."""
+    rows = block.shape[0]
+    pad = -rows % n
+    if not pad:
+        return block
+    if counter:
+        return np.concatenate([block, block[-1] + 1 + np.arange(pad, dtype=block.dtype)])
+    return np.concatenate([block, np.zeros((pad,) + block.shape[1:], block.dtype)])
+
+
+class Slices:
+    """Runs one function on equal slices of a block's rows, a slice a
+    device.  On a card each slice runs on a stream of its own, after the
+    work already queued on the card's current stream, and its result comes
+    back to pinned host memory without a wait; :meth:`run` waits for every
+    slice at the end.  Whatever a slice stages or allocates is made on its
+    own stream, and the pinned buffers are held until that stream is done."""
+
+    def __init__(self, devs: Sequence[torch.device]):
+        self.devices = list(devs)
+        multi = len(self.devices) > 1
+        self.streams = [torch.cuda.Stream(device=d) if multi and d.type == "cuda" else None
+                        for d in self.devices]
+
+    def run(self, fn: Callable, block: np.ndarray) -> List[List[np.ndarray]]:
+        """``fn(host_slice, device, held) -> [device tensors]`` on each
+        slice (``held`` keeps the slice's pinned staging buffers, see
+        :func:`_stage`); returns the tensors of every slice on the host, in
+        slice order."""
+        n = len(self.devices)
+        step = block.shape[0] // n
+        pending = []
+        for i, (dev, stream) in enumerate(zip(self.devices, self.streams)):
+            part = block[i * step:(i + 1) * step]
+            if dev.type == "cpu":
+                pending.append((None, [t.numpy() for t in fn(part, dev, [])], None))
+                continue
+            stream = stream or torch.cuda.current_stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                held = []
+                outs = []
+                for t in fn(part, dev, held):
+                    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    outs.append(buf.copy_(t, non_blocking=True))
+                done = torch.cuda.Event()
+                done.record(stream)
+            pending.append((done, outs, held))
+        results = []
+        for done, outs, _held in pending:
+            if done is not None:
+                done.synchronize()
+                outs = [b.numpy() for b in outs]
+            results.append(outs)
+        return results
+
+
+def _stage(part: np.ndarray, dev: torch.device, held: list) -> torch.Tensor:
+    """A host slice on ``dev``: through a pinned buffer that ``held`` keeps
+    until the slice's stream is done with it."""
+    host = torch.from_numpy(np.ascontiguousarray(part))
+    if dev.type == "cpu":
+        return host
+    pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True).copy_(host)
+    held.append(pinned)
+    return pinned.to(dev, non_blocking=True)
 
 
 # ------------------------------------------------------------- grid runner
@@ -307,12 +415,12 @@ def _zero_snapshot_totals(models: Sequence[HBDModel],
 class GridEvaluator:
     """Reusable device grid evaluator bound to one ``(models, tps, width)``.
 
-    Holds the kernels and the zero-snapshot totals so a *streaming* caller
-    can push block after block through them -- device memory stays at about
-    one block's working set no matter how many snapshots flow through.
-    :func:`sweep_grids` is a loop over :meth:`eval_block`;
-    ``repro_torch.sim.engine``'s ``evaluate_mask_stream`` drives one
-    evaluator across an entire mask stream.
+    Holds the kernels, the slices and the zero-snapshot totals so a
+    *streaming* caller can push block after block through them -- device
+    memory stays at about one block's working set no matter how many
+    snapshots flow through.  :func:`sweep_grids` is a loop over
+    :meth:`eval_block`; ``repro_torch.sim.engine``'s ``evaluate_mask_stream``
+    drives one evaluator across an entire mask stream.
     """
 
     def __init__(self, models: Sequence[HBDModel], tps: Sequence[int],
@@ -323,30 +431,26 @@ class GridEvaluator:
         self.tps = [int(t) for t in tps]
         self.width = width
         self.gen = gen
-        self.device = _device(device)
+        self.slices = Slices(devices(device))
+        self.ndev = len(self.slices.devices)
         self.kernels = [_builder_for(m)(m, self.tps) for m in self.models]
 
     def totals(self) -> np.ndarray:
         """Per-model (A, T) ``total_gpus`` grid (NumPy-engine identical)."""
         return _zero_snapshot_totals(self.models, self.tps)
 
-    def _to_device(self, block: np.ndarray) -> torch.Tensor:
-        """The block's masks (or drawn masks) on the device.  A host block
-        crosses through one pinned buffer; counter indices become masks
-        drawn on the device."""
+    def _slice(self, part: np.ndarray, dev: torch.device, held: list):
+        """One slice's ``(rows, A, 2, T)`` int32 grid on ``dev``: its masks
+        staged through a pinned buffer, or drawn there from counter
+        indices."""
         if self.gen is not None:
-            idx = torch.from_numpy(np.asarray(block, dtype=np.int64))
-            return counter_masks_at(idx.to(self.device), self.gen.num_nodes,
-                                    self.gen.fault_ratio, self.gen.seed)
-        host = torch.from_numpy(np.ascontiguousarray(block, dtype=bool))
-        if self.device.type == "cpu":
-            return host
-        pinned = torch.empty(host.shape, dtype=torch.bool, pin_memory=True)
-        pinned.copy_(host)
-        # the copy is ordered before the kernels on the current stream; the
-        # pinned block is not reused before the copy is done (torch's host
-        # allocator records the copy's event when the buffer is freed)
-        return pinned.to(self.device, non_blocking=True)
+            idx = _stage(np.asarray(part, dtype=np.int64), dev, held)
+            masks = counter_masks_at(idx, self.gen.num_nodes, self.gen.fault_ratio,
+                                     self.gen.seed)
+        else:
+            masks = _stage(np.asarray(part, dtype=bool), dev, held)
+        return [torch.stack([torch.stack(kfn(masks), dim=1) for kfn in self.kernels],
+                            dim=1)]
 
     def eval_block(self, block: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Evaluate one block; returns int64 ``(faulty, placed)``, each
@@ -354,16 +458,15 @@ class GridEvaluator:
 
         ``block`` is a ``(rows, width)`` bool mask matrix -- or, when the
         evaluator was built with ``gen``, a ``(rows,)`` integer vector of
-        counter-stream snapshot indices.
+        counter-stream snapshot indices.  Rows are padded on the tail to a
+        multiple of the slice count and the pad rows discarded.
         """
         rows = block.shape[0]
-        with obs.span("sim.torch.eval_block", rows=rows,
-                      device=str(self.device)) as sp:
+        with obs.span("sim.torch.eval_block", rows=rows, devices=self.ndev) as sp:
             t0 = time.perf_counter()
-            masks = self._to_device(block)
-            out = torch.stack([torch.stack(kfn(masks), dim=1)
-                               for kfn in self.kernels], dim=1)
-            out = out.cpu().numpy()                   # (rows, A, 2, T)
+            block = pad_rows(np.asarray(block), self.ndev, self.gen is not None)
+            out = np.concatenate([o[0] for o in self.slices.run(self._slice, block)])
+            out = out[:rows]                               # (rows, A, 2, T)
             elapsed = time.perf_counter() - t0
             if elapsed > 0:
                 rate = rows / elapsed
@@ -401,6 +504,7 @@ def sweep_grids(models: Sequence[HBDModel], tps: Sequence[int], *,
 
     total[:] = ev.totals()
     chunk = max(1, chunk_snapshots)
+    chunk = -(-chunk // ev.ndev) * ev.ndev     # multiple of the slice count
     for lo in range(0, snaps, chunk):
         hi = min(lo + chunk, snaps)
         block = (masks[lo:hi] if masks is not None
@@ -412,6 +516,6 @@ def sweep_grids(models: Sequence[HBDModel], tps: Sequence[int], *,
 
 
 __all__ = [
-    "GridEvaluator", "MaskGen", "available_for", "infinitehbd_scans",
-    "require", "sweep_grids",
+    "GridEvaluator", "MaskGen", "Slices", "available_for", "devices",
+    "infinitehbd_scans", "num_devices", "pad_rows", "require", "sweep_grids",
 ]

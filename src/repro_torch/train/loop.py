@@ -10,17 +10,20 @@ Under a mesh (``repro_torch.parallel.parallel_rules``) each rank steps its
 own shards on its data shard.  GSPMD gives ``repro`` the global mean's
 gradients for free; here the step all-reduces every gradient over the
 batch's axes (``data``, and ``pod``) and divides by their size, which is
-the global mean since the shards are equal.  Parameters replicated over
-``model`` already hold equal gradients there (the model code's *f*
-operators sum them), so nothing is reduced over ``model``.  Clipping uses
-the global norm: squares of the parameters split over ``model`` are
-summed over it, the replicated ones counted once.  The loss metric is the
-mean over the batch's axes.
+the global mean since the shards are equal.  Under FSDP a weight split
+over a batch axis gets its sum over that axis from its gather's backward,
+so it is only divided there, and the AdamW step runs on the shards.
+Parameters replicated over ``model`` already hold equal gradients there
+(the model code's *f* operators sum them), so nothing is reduced over
+``model``.  Clipping uses the global norm: the squares of each parameter
+are summed over the mesh axes that split it, so every entry counts once.
+The loss metric is the mean over the batch's axes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -30,7 +33,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import forward, init_params, lm_loss
-from repro_torch.parallel.mesh import mesh_axis
+from repro_torch.parallel.mesh import axis_size, mesh_axis
 from repro_torch.parallel.sharding import get_mesh, get_rules
 from repro_torch.parallel.specs import param_pspecs
 from repro_torch.train.optimizer import OptConfig, apply_updates, init_opt_state
@@ -47,14 +50,12 @@ class TrainConfig:
 
 
 def loss_fn(model, batch: Dict[str, torch.Tensor], train_cfg: TrainConfig) -> torch.Tensor:
-    """Mean next-token loss; a VLM's prefix rows carry no label and are
-    dropped before the loss, as in ``repro``."""
+    """Mean next-token loss; a VLM's prefix rows carry no label, and
+    ``lm_loss`` scores only the last ``labels.shape[1]`` rows, which drops
+    them as ``repro`` does (also from a sequence-parallel slice)."""
     moe_ctx = {"moe_impl": train_cfg.moe_impl, "a2a_impl": train_cfg.a2a_impl,
                "ar_impl": train_cfg.ar_impl}
     h = forward(model, batch, moe_ctx=moe_ctx, remat=train_cfg.remat)
-    prefix = model.cfg.prefix_len
-    if prefix and "patches" in batch:
-        h = h[:, prefix:]
     return lm_loss(model, h, batch["labels"])
 
 
@@ -76,38 +77,56 @@ def _data_mean(t: torch.Tensor, axes) -> torch.Tensor:
     return t.div_(n)
 
 
-def _global_norm(model, grads: Dict[str, torch.Tensor], model_axes, moe_impl: str):
-    """The norm of the whole model's gradient from this rank's shards."""
-    names = {ax.name for ax in model_axes}
-    specs = param_pspecs(model, moe_impl)
-    split = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
-    whole = torch.zeros_like(split)
+def _split_over(spec) -> set:
+    """The mesh axes that a parameter's spec splits it over."""
+    return {a for ax in spec if ax is not None
+            for a in (ax if isinstance(ax, tuple) else (ax,))}
+
+
+def _global_norm(grads: Dict[str, torch.Tensor], specs):
+    """The norm of the whole model's gradient from this rank's shards: the
+    squares of the leaves split over the same mesh axes are summed over
+    those axes, so each entry counts once."""
+    mesh = get_mesh()
+    sums: Dict[tuple, torch.Tensor] = {}
     for name, g in grads.items():
-        on_model = any(a in names for ax in specs[name] if ax is not None
-                       for a in (ax if isinstance(ax, tuple) else (ax,)))
-        (split if on_model else whole).add_(torch.sum(torch.square(g.float())))
-    for ax in model_axes:
-        dist.all_reduce(split, group=ax.group)
-    return torch.sqrt(split + whole)
+        key = tuple(sorted(n for n in _split_over(specs[name]) if axis_size(mesh, n) > 1))
+        if key not in sums:
+            sums[key] = torch.zeros((), dtype=torch.float32, device=g.device)
+        sums[key].add_(torch.sum(torch.square(g.float())))
+    total = None
+    for key in sorted(sums):
+        for n in key:
+            dist.all_reduce(sums[key], group=mesh_axis(mesh, n).group)
+        total = sums[key] if total is None else total + sums[key]
+    return torch.sqrt(total)
 
 
 def sync_gradients(model, loss: torch.Tensor, grads: Dict[str, torch.Tensor],
                    train_cfg: TrainConfig):
     """Under a mesh, this rank's ``grads`` averaged in place over the
     batch's axes, and ``(loss averaged over them, the whole model's
-    gradient norm)``; off a mesh ``(loss, None)``."""
+    gradient norm)``; off a mesh ``(loss, None)``.  A leaf that FSDP splits
+    over a batch axis already holds the sum over that axis (its gather's
+    backward reduce-scattered it), so it is only divided there."""
     if get_mesh() is None:
         return loss, None
-    data_axes, model_axes = _mesh_axes("batch"), _mesh_axes("heads")
-    if model_axes and train_cfg.opt.name != "adamw":
+    data_axes = _mesh_axes("batch")
+    if train_cfg.opt.name != "adamw" and (_mesh_axes("heads") or _mesh_axes("fsdp")):
         raise NotImplementedError(
             f"{train_cfg.opt.name} factors its second moment over dimensions a "
-            f"model axis splits: under a mesh the port steps AdamW only "
+            f"mesh axis splits: under a mesh the port steps AdamW only "
             f"(ROADMAP.md § 1 item 7)")
-    for g in grads.values():
-        _data_mean(g, data_axes)
+    specs = param_pspecs(model, train_cfg.moe_impl)
+    n = math.prod(ax.size for ax in data_axes)
+    for name, g in grads.items():
+        split = _split_over(specs[name])
+        for ax in data_axes:
+            if ax.name not in split:
+                dist.all_reduce(g, group=ax.group)
+        g.div_(n)
     loss = _data_mean(loss.clone(), data_axes)
-    return loss, _global_norm(model, grads, model_axes, train_cfg.moe_impl)
+    return loss, _global_norm(grads, specs)
 
 
 def make_train_step(cfg: ModelConfig, train_cfg: TrainConfig) -> Callable:

@@ -258,6 +258,19 @@ def _check_collectives(rank, inp, ref, out):
         got = grad_of(lambda v: (wt[i] * fn(v, ax)).sum(), xa[i])
         want = unsharded(lambda v: sum((wt[r] * v[:, r]).sum() for r in range(8)), xa)[i]
         out[f"grad_{name}_err"] = _err(got, want)
+    # the replicated region's pair: split_to keeps this rank's chunk of a
+    # replicated value (a term per rank), gather_from assembles the chunks
+    # for a consumer every rank computes whole
+    got = grad_of(lambda v: (wr[i] * C.split_to(v, ax, 0)).sum(), xs[0])
+    out["split_to_value"] = _exact(C.split_to(xs[0], ax, 0).numpy(),
+                                   inp["even_f32"][0].reshape(8, 2, 3)[i])
+    want = unsharded(lambda v: sum((wr[r] * v[0].split(2, 0)[r]).sum() for r in range(8)), xs)[0]
+    out["grad_split_to_err"] = _err(got, want)
+    got = grad_of(lambda v: (wa[0] * C.gather_from(v, ax, 0)).sum(), xg[i])
+    out["gather_from_value"] = _exact(C.gather_from(xg[i], ax, 0).numpy(),
+                                      inp["gather_f32"].reshape(16, 3))
+    want = unsharded(lambda v: (wa[0] * v.reshape(16, 3)).sum(), xg)[i]
+    out["grad_gather_from_err"] = _err(got, want)
     ac = t(inp["a_copy"])                             # f: partial uses, summed by g
     got = grad_of(lambda v: (w * C.psum(C.copy_to(v, ax) * ac[i], ax)).sum(), xs[0])
     want = unsharded(lambda v: (w * (v[0] * ac).sum(0)).sum(), xs)[0]
@@ -401,11 +414,29 @@ def _world8(rank, inp, ref, moe_args):
 # ------------------------------------------------------------------ world4: models
 
 
-MODEL_RUNS = [("mixtral", None, (1, 4)), ("mixtral", MOE_CF, (2, 2)),
-              ("starcoder2", None, (1, 4)), ("starcoder2", None, (2, 2))]
+SEQ = 32
+# (arch, capacity factor, mesh, rules, sequence length); the rules are the
+# default ones (sequence parallelism over "model"), "nosp" with seq_sp
+# unmapped (the residual stream replicated over "model") or "fsdp" with
+# fsdp mapped to "data" (and sequence parallelism)
+MODEL_RUNS = [("mixtral", None, (1, 4), "sp", SEQ), ("mixtral", MOE_CF, (2, 2), "sp", SEQ),
+              ("starcoder2", None, (1, 4), "sp", SEQ), ("starcoder2", None, (2, 2), "sp", SEQ),
+              ("starcoder2", None, (1, 4), "nosp", SEQ),
+              ("mixtral", MOE_CF, (2, 2), "fsdp", SEQ),
+              ("starcoder2", None, (2, 2), "fsdp", SEQ),
+              ("mixtral", None, (1, 4), "sp", 31)]
+RULES = {"sp": {}, "nosp": {"seq_sp": None}, "fsdp": {"fsdp": "data"}}
 
 
-def _jax_model(arch, cf):
+def _run_tag(arch, shape, rules, seq):
+    return (f"{arch}_{shape[0]}x{shape[1]}" + ("" if rules == "sp" else f"_{rules}")
+            + ("" if seq == SEQ else f"_s{seq}"))
+
+
+RUN_TAGS = [_run_tag(a, s, r, n) for a, _, s, r, n in MODEL_RUNS]
+
+
+def _jax_model(arch, cf, seq):
     """The unsharded JAX references of one reduced config, tp-padded for 4
     ranks: hidden states, loss, every gradient, three AdamW steps."""
     import jax
@@ -427,7 +458,7 @@ def _jax_model(arch, cf):
     tcfg = get_arch(arch).reduced()
     if cf is not None:
         tcfg = dataclasses.replace(tcfg, capacity_factor=cf)
-    batches = [synthetic_batch(tcfg, i, 4, 32) for i in range(3)]
+    batches = [synthetic_batch(tcfg, i, 4, seq) for i in range(3)]
     params = jax.tree.map(jnp.asarray, tree)
     jb = {k: jnp.asarray(v) for k, v in batches[0].items()}
 
@@ -454,22 +485,30 @@ def _named(tcfg, tree):
             params_from_jax(tcfg, tree, device="cpu").named_parameters()}
 
 
-def _check_model(arch, cf, shape, ref, out):
+def _split_over(spec):
+    return {a for ax in spec if ax is not None for a in (ax if isinstance(ax, tuple) else (ax,))}
+
+
+def _check_model(arch, cf, shape, rules, seq, ref, out):
+    import repro_torch.models.transformer as TM
+
     tcfg = get_arch(arch).reduced()
     if cf is not None:
         tcfg = dataclasses.replace(tcfg, capacity_factor=cf)
-    tag = f"{arch}_{shape[0]}x{shape[1]}"
+    tag = _run_tag(arch, shape, rules, seq)
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
     dax = mesh_axis(mesh, "data")
     per = 4 // shape[0]
     rows = slice(dax.index * per, (dax.index + 1) * per)
     full = params_from_jax(tcfg, ref["tree"], device="cpu")
-    with sharding.parallel_rules(sharding.mesh_axes(), mesh):
+    with sharding.parallel_rules(sharding.mesh_axes(RULES[rules]), mesh):
         specs = param_pspecs(full)
         model = shard_params(full, mesh)
         b0 = {k: torch.from_numpy(v[rows].copy()) for k, v in ref["batches"][0].items()}
         h = forward(model, b0, remat=False)
-        out[f"{tag}_hidden_err"] = _err(h.detach().numpy(), ref["h"][rows])
+        out[f"{tag}_hidden_rows"] = h.shape[1]
+        out[f"{tag}_hidden_err"] = _err(TM.full_sequence(h, seq).detach().numpy(),
+                                        ref["h"][rows])
         loss = lm_loss(model, h, b0["labels"])
         names, params = zip(*model.named_parameters())
         grads = torch.autograd.grad(loss, params)
@@ -478,10 +517,12 @@ def _check_model(arch, cf, shape, ref, out):
             torch.distributed.all_reduce(total, group=dax.group)
         out[f"{tag}_loss_err"] = abs(float(total) / shape[0] - ref["loss"]) / abs(ref["loss"])
         want = _named(tcfg, ref["grads"])
-        worst, worst_name = 0.0, ""
+        worst, worst_name, n_fsdp = 0.0, "", 0
         for name, g in zip(names, grads):
             g = g.clone()
-            if dax.size > 1:
+            if "data" in _split_over(specs[name]):
+                n_fsdp += 1             # the gather's backward summed it over data
+            elif dax.size > 1:
                 torch.distributed.all_reduce(g, group=dax.group)
             e = _err(g.numpy() / shape[0], shard_tensor(want[name], specs[name], mesh).numpy())
             if e > worst:
@@ -489,16 +530,31 @@ def _check_model(arch, cf, shape, ref, out):
         out[f"{tag}_grads_err"] = worst
         out[f"{tag}_grads_worst"] = worst_name
         out[f"{tag}_n_grads"] = len(grads)
+        out[f"{tag}_n_fsdp"] = n_fsdp
 
         opt = OptConfig(lr=3e-3, warmup_steps=2, eps=ADAM_EPS)
         model = shard_params(full, mesh)
         state = {"params": model, "opt": init_opt_state(model, opt)}
+        out[f"{tag}_opt_equals_specs"] = all(
+            tuple(state["opt"][k][n].shape) == tuple(p.shape)
+            for n, p in model.named_parameters() for k in ("master", "m", "v"))
         step = make_train_step(tcfg, TrainConfig(opt=opt))
+        # the layer inputs that remat saves (the checkpoint's x), first step
+        saved, real = [], TM.checkpoint
+        TM.checkpoint = lambda fn, layer, cfg, x, *a, **k: (
+            saved.append(x.shape[1]), real(fn, layer, cfg, x, *a, **k))[1]
         losses, norms = [], []
-        for b in ref["batches"]:
-            state, m = step(state, {k: torch.from_numpy(v[rows].copy()) for k, v in b.items()})
-            losses.append(float(m["loss"]))
-            norms.append(float(m["grad_norm"]))
+        try:
+            for b in ref["batches"]:
+                state, m = step(state, {k: torch.from_numpy(v[rows].copy())
+                                        for k, v in b.items()})
+                TM.checkpoint = real
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+        finally:
+            TM.checkpoint = real
+        out[f"{tag}_saved_rows"] = sorted(set(saved))
+        out[f"{tag}_n_saved"] = len(saved)
         out[f"{tag}_step_loss_err"] = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
         out[f"{tag}_step_norm_err"] = max(abs(a - b) / abs(b) for a, b in zip(norms, ref["norms"]))
         final = _named(tcfg, ref["final"])
@@ -509,7 +565,10 @@ def _check_model(arch, cf, shape, ref, out):
 
 def _check_vocab(out):
     """The vocab-parallel embedding and loss against the off-mesh ones, at
-    a vocabulary of 250 padded to 256 (the last shard holds 6 padded ids)."""
+    a vocabulary of 250 padded to 256 (the last shard holds 6 padded ids),
+    with the residual stream replicated over the model axis and, under
+    sequence parallelism, the loss given this rank's slice of the 24 rows
+    (6 a rank)."""
     tcfg = dataclasses.replace(get_arch("starcoder2").reduced(), vocab_size=250)
     from repro_torch.models import init_params
     full = init_params(tcfg, torch.Generator().manual_seed(5), device="cpu",
@@ -520,24 +579,27 @@ def _check_vocab(out):
     labels = torch.from_numpy(rng.integers(0, 250, (2, 24)))
     x = torch.from_numpy(rng.standard_normal((2, 24, tcfg.d_model)).astype(np.float32))
 
-    def run(model):
+    def run(model, xin):
         emb = embed_tokens(model, ids)
-        xx = x.clone().requires_grad_(True)
+        xx = xin.clone().requires_grad_(True)
         loss = lm_loss(model, xx, labels)
         g_emb, g_x = torch.autograd.grad(loss + (emb * x).sum(), (model.embed, xx))
         return emb.detach(), loss.detach(), g_emb, g_x
 
-    want = run(full)
+    want = run(full, x)
     mesh = make_mesh((1, 4), ("data", "model"), device="cpu")
-    with sharding.parallel_rules(sharding.mesh_axes(), mesh):
-        spec = param_pspecs(full)["embed"]
-        got = run(shard_params(full, mesh))
-        w_emb = shard_tensor(want[2], spec, mesh)
-    out["vocab_embed_err"] = _err(got[0].numpy(), want[0].numpy())
-    out["vocab_loss_err"] = abs(float(got[1]) - float(want[1])) / abs(float(want[1]))
-    out["vocab_grad_embed_err"] = _err(got[2].numpy(), w_emb.numpy())
-    out["vocab_grad_x_err"] = _err(got[3].numpy(), want[3].numpy())
-    out["vocab_spec"] = list(spec)
+    rows = slice(6 * mesh_axis(mesh, "model").index, 6 * mesh_axis(mesh, "model").index + 6)
+    for key, rules, xin, gx_want in (("vocab_nosp", {"seq_sp": None}, x, want[3]),
+                                     ("vocab", {}, x[:, rows], want[3][:, rows])):
+        with sharding.parallel_rules(sharding.mesh_axes(rules), mesh):
+            spec = param_pspecs(full)["embed"]
+            got = run(shard_params(full, mesh), xin)
+            w_emb = shard_tensor(want[2], spec, mesh)
+        out[f"{key}_embed_err"] = _err(got[0].numpy(), want[0].numpy())
+        out[f"{key}_loss_err"] = abs(float(got[1]) - float(want[1])) / abs(float(want[1]))
+        out[f"{key}_grad_embed_err"] = _err(got[2].numpy(), w_emb.numpy())
+        out[f"{key}_grad_x_err"] = _err(got[3].numpy(), gx_want.numpy())
+        out[f"{key}_spec"] = list(spec)
 
 
 def _check_orchestrated(rank, out):
@@ -562,8 +624,8 @@ def _check_orchestrated(rank, out):
 def _world4(rank, refs):
     torch.set_num_threads(1)
     out = {}
-    for arch, cf, shape in MODEL_RUNS:
-        _check_model(arch, cf, shape, refs[(arch, cf)], out)
+    for arch, cf, shape, rules, seq in MODEL_RUNS:
+        _check_model(arch, cf, shape, rules, seq, refs[(arch, cf, seq)], out)
     _check_vocab(out)
     _check_orchestrated(rank, out)
     return out
@@ -584,7 +646,8 @@ def _main(which):
                            timeout_s=300)
         errors = {k: v for k, v in mref.items() if k.endswith("_error")}
     else:
-        refs = {key: _jax_model(*key) for key in dict.fromkeys((a, cf) for a, cf, _ in MODEL_RUNS)}
+        refs = {key: _jax_model(*key)
+                for key in dict.fromkeys((a, cf, n) for a, cf, _, _, n in MODEL_RUNS)}
         outs = spawn_world(_world4, 4, refs, backend="gloo", timeout_s=300)
         errors = {}
     # every rank's result; booleans must hold on all, errors take the worst
@@ -642,9 +705,11 @@ def test_binary_exchange_equals_baseline_and_jax(dt):
 
 @pytest.mark.parametrize("name", ["all_reduce_ring", "all_reduce_psum", "all_reduce_padded",
                                   "reduce_scatter", "all_gather", "binary", "xla",
-                                  "copy_to", "ppermute"])
+                                  "copy_to", "ppermute", "split_to", "gather_from"])
 def test_collective_gradients_match_the_unsharded_function(name):
     assert _world("world8")[f"grad_{name}_err"] <= 1e-6
+    if name in ("split_to", "gather_from"):
+        assert _world("world8")[f"{name}_value"]
 
 
 def test_pmax_and_gpipe():
@@ -672,7 +737,7 @@ def test_moe_ep_agrees_with_tp_without_drops():
 # ------------------------------------------------------------------ tests: world4
 
 
-@pytest.mark.parametrize("run", [f"{a}_{s[0]}x{s[1]}" for a, _, s in MODEL_RUNS])
+@pytest.mark.parametrize("run", RUN_TAGS)
 def test_sharded_model_matches_unsharded_jax(run):
     r = _world("world4")
     assert r[f"{run}_hidden_err"] <= TOL
@@ -681,19 +746,43 @@ def test_sharded_model_matches_unsharded_jax(run):
     assert r[f"{run}_n_grads"][0] in (23, 29)
 
 
-@pytest.mark.parametrize("run", [f"{a}_{s[0]}x{s[1]}" for a, _, s in MODEL_RUNS])
+@pytest.mark.parametrize("run", RUN_TAGS)
 def test_sharded_adamw_steps_match_jax(run):
     r = _world("world4")
     assert r[f"{run}_step_loss_err"] <= TOL
     assert r[f"{run}_step_norm_err"] <= TOL
     assert r[f"{run}_params_err"] <= PARAM_TOL
+    assert r[f"{run}_opt_equals_specs"]
+
+
+@pytest.mark.parametrize("run", RUN_TAGS)
+def test_sequence_parallel_residual_holds_a_slice(run):
+    """Under sequence parallelism the hidden states and every layer input
+    that remat saves hold ceil(S / tp) rows of the sequence, with seq_sp
+    unmapped all S; FSDP splits the weights that have an fsdp dimension."""
+    r = _world("world4")
+    arch, _, shape, rules, seq = MODEL_RUNS[RUN_TAGS.index(run)]
+    rows = seq if rules == "nosp" else -(-seq // shape[1])
+    assert r[f"{run}_hidden_rows"] == [rows] * 4
+    assert all(s == [rows] for s in r[f"{run}_saved_rows"])
+    assert r[f"{run}_n_saved"] == [get_arch(arch).reduced().num_layers] * 4
+    assert all(n > 0 for n in r[f"{run}_n_fsdp"]) == (rules == "fsdp")
+
+
+def _check_vocab_keys(key):
+    r = _world("world4")
+    assert r[f"{key}_spec"][0] == ["model", None]
+    assert r[f"{key}_embed_err"] <= 1e-6 and r[f"{key}_loss_err"] <= 1e-6
+    assert r[f"{key}_grad_embed_err"] <= 1e-6 and r[f"{key}_grad_x_err"] <= 1e-6
 
 
 def test_vocab_parallel_embedding_and_loss_match_off_mesh():
-    r = _world("world4")
-    assert r["vocab_spec"][0] == ["model", None]
-    assert r["vocab_embed_err"] <= 1e-6 and r["vocab_loss_err"] <= 1e-6
-    assert r["vocab_grad_embed_err"] <= 1e-6 and r["vocab_grad_x_err"] <= 1e-6
+    """Under the default rules: the loss takes this rank's sequence slice."""
+    _check_vocab_keys("vocab")
+
+
+def test_vocab_parallel_loss_without_sequence_parallelism():
+    _check_vocab_keys("vocab_nosp")
 
 
 def test_orchestrated_mesh_axes_follow_the_plan():
@@ -738,7 +827,7 @@ def _key(parts):
                  and not str(p).isdigit())
 
 
-def _jax_specs(tree_fn, arch, **kw):
+def _jax_specs(tree_fn, arch, rules=None, **kw):
     import jax
     from repro.configs import get_arch as jax_get_arch
     from repro.models import init_params as jinit
@@ -747,7 +836,7 @@ def _jax_specs(tree_fn, arch, **kw):
     js = _jax_rules()
     cfg = jax_get_arch(arch).reduced()
     params = jax.eval_shape(lambda: jinit(cfg, jax.random.PRNGKey(0), tp=4))
-    with js.parallel_rules(js.mesh_axes()):
+    with js.parallel_rules(js.mesh_axes(rules)):
         specs = tree_fn(jspecs, params, cfg, **kw)
     out = {}
     for path, spec in jax.tree_util.tree_flatten_with_path(
@@ -768,19 +857,30 @@ def _same_spec(port, jax_specs):
 @pytest.mark.parametrize("moe_impl", ["tp", "ep"])
 @pytest.mark.parametrize("arch", SPEC_ARCHS)
 def test_param_pspecs_equal_repro(arch, moe_impl):
+    """Under the default rules and under a rule set that maps fsdp to the
+    data axis; fsdp_dim names the dimension the latter splits."""
     from repro_torch.models import init_params
-    want = _jax_specs(lambda m, p, cfg, **kw: m.param_pspecs(p, **kw), arch, moe_impl=moe_impl)
+    from repro_torch.parallel.specs import fsdp_dim
     model = init_params(get_arch(arch).reduced(), torch.Generator().manual_seed(0), tp=4,
                         device="cpu", dtype=torch.float32)
-    with sharding.parallel_rules(sharding.mesh_axes()):
-        got = param_pspecs(model, moe_impl)
-    assert len(got) == len(list(model.parameters()))
-    for name, spec in got.items():
-        assert _same_spec(spec, want[_key(name.split("."))]), (name, spec)
-    if arch == "mixtral":
-        assert got["layers.0.moe.w_up"] == ((("model", None, None)) if moe_impl == "ep"
-                                            else (None, None, "model"))
-        assert got["embed"] == ("model", None) and got["layers.0.moe.router"] == (None, None)
+    for rules in (None, {"fsdp": "data"}):
+        want = _jax_specs(lambda m, p, cfg, **kw: m.param_pspecs(p, **kw), arch, rules,
+                          moe_impl=moe_impl)
+        with sharding.parallel_rules(sharding.mesh_axes(rules)):
+            got = param_pspecs(model, moe_impl)
+            dims = {n: fsdp_dim(n, p.dim(), moe_impl) for n, p in model.named_parameters()}
+        assert len(got) == len(list(model.parameters()))
+        for name, spec in got.items():
+            assert _same_spec(spec, want[_key(name.split("."))]), (name, spec, rules)
+            split = [i for i, ax in enumerate(spec) if ax == "data"]
+            assert split == ([] if dims[name] is None else [dims[name]]), (name, rules)
+        if arch == "mixtral":
+            fs = "data" if rules else None
+            assert got["layers.0.moe.w_up"] == ((("model", None, None)) if moe_impl == "ep"
+                                                else (None, fs, "model"))
+            assert got["embed"] == ("model", None) and got["layers.0.moe.router"] == (fs, None)
+        if rules:
+            assert any(spec[:1] == ("data",) for spec in got.values())
 
 
 @pytest.mark.parametrize("seq_sharded", [False, True])
@@ -806,19 +906,30 @@ def test_cache_pspecs_equal_repro(arch, seq_sharded):
 
 @pytest.mark.parametrize("opt_name", ["adamw", "adamw_lowmem"])
 def test_opt_pspecs_mirror_param_specs(opt_name):
+    """Under the default rules and with fsdp mapped to the data axis, and
+    equal to repro's opt_pspecs for master, m and AdamW's v."""
     from repro_torch.models import init_params
     model = init_params(get_arch("mixtral").reduced(), torch.Generator().manual_seed(0),
                         tp=4, device="cpu", dtype=torch.float32)
-    with sharding.parallel_rules(sharding.mesh_axes()):
-        ps = param_pspecs(model)
-        specs = opt_pspecs(ps, model, opt_name)
-    assert specs["master"] == ps and specs["m"] == ps and specs["step"] == ()
-    wq = ps["layers.0.attn.wq"]
-    if opt_name == "adamw":
-        assert specs["v"] == ps
-    else:
-        assert specs["v"]["layers.0.attn.wq"] == {"vr": wq[:-1], "vc": wq[-1:]}
-        assert specs["v"]["layers.0.norm1.scale"] == {"v": ps["layers.0.norm1.scale"]}
+    for rules in (None, {"fsdp": "data"}):
+        with sharding.parallel_rules(sharding.mesh_axes(rules)):
+            ps = param_pspecs(model)
+            specs = opt_pspecs(ps, model, opt_name)
+        assert specs["master"] == ps and specs["m"] == ps and specs["step"] == ()
+        wq = ps["layers.0.attn.wq"]
+        assert wq == (("data" if rules else None), "model")
+        if opt_name == "adamw":
+            assert specs["v"] == ps
+        else:
+            assert specs["v"]["layers.0.attn.wq"] == {"vr": wq[:-1], "vc": wq[-1:]}
+            assert specs["v"]["layers.0.norm1.scale"] == {"v": ps["layers.0.norm1.scale"]}
+        want = _jax_specs(lambda m, p, cfg: m.opt_pspecs(m.param_pspecs(p), p, opt_name),
+                          "mixtral", rules)
+        # repro stacks the layers, so its factored v of a 1-D leaf differs
+        for name in ps:
+            key = _key(name.split("."))
+            for part in ("master", "m") + (("v",) if opt_name == "adamw" else ()):
+                assert _same_spec(specs[part][name], want[(part,) + key]), (part, name)
 
 
 @pytest.mark.parametrize("arch", ["mixtral", "starcoder2", "whisper"])
@@ -859,7 +970,8 @@ def test_one_rank_axis_returns_inputs():
     one = Axis("model", (0,), 0)
     x = torch.arange(6.0).reshape(3, 2)
     for fn in (C.ring_all_reduce, C.ring_reduce_scatter, C.ring_all_gather,
-               C.binary_exchange_all_to_all, C.all_to_all_baseline, C.copy_to, C.psum):
+               C.binary_exchange_all_to_all, C.all_to_all_baseline, C.copy_to, C.psum,
+               C.split_to, C.gather_from):
         assert fn(x, one) is x
     assert torch.equal(C.pmax(x, one), x)
     assert torch.equal(C.ppermute(x, one, [(0, 0)]), x)
