@@ -241,6 +241,26 @@ failure:
      layers, (2, 2), SP + FSDP: hidden states, the data-mean loss and every
      gradient against the unsharded port's.
 
+ 44. recurrent layers under a model axis: Mamba2-780m (8 layers, 12 SSD
+     heads a rank) and RecurrentGemma-2B (6 layers: RG-LRU and local
+     attention) at full width, B=1, S=2048 a data shard, over the 4 ranks:
+     float32 at (1, 4), each rank's hidden states, loss and every gradient
+     after sync_gradients against the unsharded port's, with the SSD and
+     flash launches of the step; bf16 at (2, 2), 3 adamw_lowmem steps'
+     losses and gradient norms against the unsharded steps' on both data
+     shards' batches;
+ 45. the dry run against the card: phase 43's StarCoder2-3B step under its
+     four rule sets traced on meta tensors as rank 0 of a fake 4-rank
+     world (repro_torch.launch.dryrun, in a process of its own) and run
+     for real on the 4 ranks under the same op analysis: predicted
+     argument bytes equal to the bytes the setup requested of the caching
+     allocator (and, rounded to its 512-byte blocks, printed beside what it
+     allocated), FLOPs, collectives and kernel launches equal to the real
+     run's, the predicted temp bytes printed beside max_memory_allocated;
+     then the dry run of four production cells of the 256-rank mesh
+     (started beside phase 44 in a process of its own), each one's seconds
+     and per-rank bytes beside the card's total_memory.
+
 Phase 40 runs under the default rules, whose ``seq_sp`` maps to the model
 axis, so it checks the sequence-parallel path: the MoE layer's gather and
 split included.
@@ -251,6 +271,7 @@ card line and ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -259,6 +280,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -4355,6 +4377,572 @@ def sp_fsdp_on_card(torch, device="cuda", seq=SPF_SEQ, reduced=False):
     return {"runs": res, "f32": {k: v[0] for k, v in errs.items()}, "seconds": world_s}
 
 
+# phase 44: the recurrent layers under a model axis: Mamba2-780m and
+# RecurrentGemma-2B at full width, REC_LAYERS layers each, B = 1, S = REC_SEQ a
+# data shard, over PAR_RANKS ranks of the one card
+REC_LAYERS = {"mamba2": 8, "recurrentgemma": 6}
+REC_SEQ = 1024                   # RecurrentGemma's 2048 window binds at neither length
+REC_STEPS = 3
+# Float32 gradients are held to the same weights' gradients in float64
+# (plain_kernels), each rank's shard over its own norm.  The SSD leaves (A_log,
+# dt_bias, D) sum terms of both signs over every token, and a shard of a
+# few heads can have a norm far below the leaf's, so the unsharded float32
+# port's same shard is itself ~1e-4 of its norm away from float64: a
+# sharded shard may be REC_ROOM times as far from float64 as the unsharded
+# port's same shard is, and PAR_TOL["float32"] in any case.  A sharding
+# fault (a missed all-reduce, a wrong shard) is O(1e-1) and more.
+REC_ROOM = 4.0
+# adamw_lowmem.  In float32 at (1, 4), at the CPU test's settings
+# (tests/test_torch_parallel_recurrent.py), so that three steps move each
+# weight by ~lr, the state after REC_STEPS steps is held to the unsharded
+# steps': the factored second moments (vr, vc), which the means over split
+# dimensions make, each over its own norm (a missed all-reduce leaves
+# 1 / model of the sum); each rank's master shards, their max error over
+# the steps' summed lr (the same fault scales the rows' updates by ~2).
+# In bf16 at (2, 2), at the default settings, the step's scalars
+# (PAR_TOL): bf16 rounding flips the sign of small gradient entries, whose
+# weights Adam then moves by 2 lr the other way, so bf16 weights are not
+# held entry by entry.
+REC_OPT = {"lr": 3e-3, "warmup_steps": 2, "eps": 1e-6}
+REC_V_TOL = 1e-3
+REC_MASTER_TOL = 5e-2
+
+
+def rec_cfgs(reduced=False):
+    """Phase 44's configs by alias (``reduced``: the reduced configs at the
+    same depths, which rehearse the phase on the CPU)."""
+    from repro_torch.configs import get_arch
+
+    return {arch: dataclasses.replace(get_arch(arch).reduced() if reduced else get_arch(arch),
+                                      num_layers=n)
+            for arch, n in REC_LAYERS.items()}
+
+
+def rec_train_cfg(microbatches=1, cpu_test=False):
+    """adamw_lowmem at the default settings, or (``cpu_test``) at REC_OPT."""
+    from repro_torch.train import OptConfig, TrainConfig
+
+    return TrainConfig(opt=OptConfig(name="adamw_lowmem", **(REC_OPT if cpu_test else {})),
+                       microbatches=microbatches)
+
+
+def rec_sum_lr():
+    from repro_torch.train.optimizer import _lr_at
+
+    return sum(_lr_at(rec_train_cfg(cpu_test=True).opt, i) for i in range(REC_STEPS))
+
+
+def rec_steps(torch, cfg, model, batch, tc):
+    """REC_STEPS train steps of ``model`` on ``batch``: (state, [(loss,
+    gradient norm)], [ms])."""
+    from repro_torch.train import init_opt_state, make_train_step
+
+    state = {"params": model, "opt": init_opt_state(model, tc.opt)}
+    step = make_train_step(cfg, tc)
+    dev = "cuda" if next(model.parameters()).is_cuda else "cpu"
+    scalars, ms = [], []
+    for _ in range(REC_STEPS):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        scalars.append((float(m["loss"]), float(m["grad_norm"])))
+    return state, scalars, ms
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The model's flash-attention and SSD-scan entry points run their
+    plain versions, differentiated by autograd, on any device: for phase
+    44's float64 reference on the card, which no kernel takes.  Restored
+    on exit."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_fwd_ref
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models import layers, ssm
+
+    def flash(q, k, v, **opts):
+        return flash_attention_fwd_ref(q, k, v, **opts)[0]
+
+    def scan(x, dt, A, B, C, *, chunk=128, out_dtype=None):
+        return ssd_scan_ref(x, dt, A, B, C, chunk, out_dtype)
+
+    saved = layers._flash_kernel, ssm.ssd_scan
+    layers._flash_kernel, ssm.ssd_scan = flash, scan
+    try:
+        yield
+    finally:
+        layers._flash_kernel, ssm.ssd_scan = saved
+
+
+def rec_reference(torch, device="cuda", seq=REC_SEQ, reduced=False):
+    """Phase 44's unsharded port on one process: in float32 batch 0's
+    hidden states, loss and gradients; the same weights' gradients in
+    float64 (:func:`plain_kernels`, float64 for float64 inputs; the model's
+    own float32 casts, each one rounding, stay), rounded to float32; in
+    float32 REC_STEPS adamw_lowmem steps at REC_OPT on batch 0, with the
+    master weights and factored second moments after them; in bf16
+    REC_STEPS adamw_lowmem steps on batches 0 and 1 together
+    (what the (2, 2) mesh's data shards see), as two microbatches: each
+    one's bf16 gradients are summed in float32, as each data shard's are
+    computed alone and then averaged (one batch of both would accumulate
+    the embedding's scatter-add over twice the repeated tokens in bf16,
+    which moved RecurrentGemma-2B's gradient norm by 1.6%).  Tensors go to
+    the ranks as host copies in shared memory."""
+    t0 = time.perf_counter()
+    ref, f64_s = {}, {}
+    for arch, cfg in rec_cfgs(reduced).items():
+        b0, b1 = par_batches(cfg, device, seq)
+        model = par_draw(torch, cfg, device, torch.float32)
+        h, loss, grads = grads_of(torch, model, b0)
+        h, loss = shared_copy(torch, h), float(loss)
+        grads = {n: shared_copy(torch, g) for n, g in grads.items()}
+        t64 = time.perf_counter()
+        model.to(torch.float64)
+        with plain_kernels():
+            _, _, g64 = grads_of(torch, model, b0)
+        g64 = {n: shared_copy(torch, g.float()) for n, g in g64.items()}
+        f64_s[arch] = time.perf_counter() - t64
+        ref[arch] = {"float32": {"h": h, "loss": loss, "grads32": grads, "grads": g64}}
+        del model, grads, g64
+        gc.collect()
+        state, scalars, _ = rec_steps(torch, cfg, par_draw(torch, cfg, device, torch.float32),
+                                      b0, rec_train_cfg(cpu_test=True))
+        opt = state["opt"]
+        ref[arch]["lowmem"] = {
+            "scalars": scalars,
+            "master": {n: shared_copy(torch, t) for n, t in opt["master"].items()},
+            "v": {n: {k: shared_copy(torch, t) for k, t in v.items()}
+                  for n, v in opt["v"].items() if "vr" in v}}
+        del state, opt
+        gc.collect()
+        both = {k: torch.cat([b0[k], b1[k]]) for k in b0}
+        _, scalars, _ = rec_steps(torch, cfg, par_draw(torch, cfg, device, torch.bfloat16),
+                                  both, rec_train_cfg(2))
+        ref[arch]["bf16"] = scalars
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    print(f"recurrent: the unsharded references (Mamba2-780m at {REC_LAYERS['mamba2']} and "
+          f"RecurrentGemma-2B at {REC_LAYERS['recurrentgemma']} layers, B=1, S={seq}: float32 "
+          f"and float64 gradients (the latter "
+          + ", ".join(f"{a} {t:.1f} s" for a, t in f64_s.items())
+          + f"), {REC_STEPS} float32 adamw_lowmem steps at B=1 and {REC_STEPS} bf16 at B=2) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return ref
+
+
+def rec_rank(rank, ref, device="cuda", seq=REC_SEQ, reduced=False):
+    """One rank of phase 44: each config in float32 at (1, 4) (hidden
+    states and loss against the unsharded port, every gradient after
+    sync_gradients over its norm against float64, with the step's kernel
+    launches) and REC_STEPS float32 adamw_lowmem steps at REC_OPT (scalars,
+    this rank's master shards and factored second moments against the
+    unsharded steps'), then REC_STEPS bf16 adamw_lowmem steps at (2, 2)
+    (scalars)."""
+    import torch
+
+    from repro_torch.convert import shard_params
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.parallel.sharding import mesh_axes, parallel_rules
+    from repro_torch.parallel.specs import opt_pspecs, param_pspecs, shard_tensor
+    from repro_torch.train import sync_gradients
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    t_rank = time.perf_counter()
+    counters = (flash_attention, flash_attention_bwd, ssd_scan, ssd_scan_bwd)
+    sum_lr = rec_sum_lr()
+    out = {}
+    for arch, cfg in rec_cfgs(reduced).items():
+        batches = par_batches(cfg, device, seq)
+        f32 = ref[arch]["float32"]
+        res = {}
+        mesh = make_mesh((1, 4), ("data", "model"), device=device)
+        with parallel_rules(mesh_axes(), mesh):
+            full = par_draw(torch, cfg, device, torch.float32)
+            specs = param_pspecs(full)
+            model = shard_params(full, mesh)
+            del full
+            for c in counters:
+                c.launches = 0
+            h, loss, grads = grads_of(torch, model, batches[0])
+            loss, _ = sync_gradients(model, loss, grads, rec_train_cfg())
+            res["launches"] = {c.__name__: c.launches for c in counters}
+            g64 = {n: shard_tensor(f32["grads"][n], specs[n], mesh) for n in grads}
+            res["f32"] = {
+                "hidden": rel_errs(torch, h, f32["h"])[0],
+                "loss": abs(float(loss) - f32["loss"]) / abs(f32["loss"]),
+                "grads": {n: rel_errs(torch, g, g64[n])[0] for n, g in grads.items()},
+                "unsharded": {n: rel_errs(torch, shard_tensor(f32["grads32"][n], specs[n], mesh),
+                                          g64[n])[0]
+                              for n in grads}}
+            layer = next(ly for ly in model.layers if ly.kind in ("ssd", "rglru"))
+            sub = layer.ssd if layer.kind == "ssd" else layer.rglru
+            res["local"] = {"heads": int(sub["w_dt"].shape[-1]) if layer.kind == "ssd" else 0,
+                            "width": int((sub["w_x"]).shape[-1])}
+            del grads, h, g64
+            vspecs = opt_pspecs(specs, model, "adamw_lowmem")["v"]
+            state, scalars, _ = rec_steps(torch, cfg, model, batches[0],
+                                          rec_train_cfg(cpu_test=True))
+            want = ref[arch]["lowmem"]
+            res["lowmem"] = {
+                "scalars": scalars,
+                "master": {n: float((t - shard_tensor(want["master"][n], specs[n], mesh)
+                                     .to(t.device)).abs().max()) / sum_lr
+                           for n, t in state["opt"]["master"].items()},
+                "moments": {f"{n}.{k}": rel_errs(torch, t, shard_tensor(want["v"][n][k],
+                                                                        vspecs[n][k], mesh))[0]
+                            for n, v in state["opt"]["v"].items() if "vr" in v
+                            for k, t in v.items()},
+                "factored": sum(1 for v in state["opt"]["v"].values() if "vr" in v)}
+            del state, model
+        gc.collect()
+        mesh = make_mesh((2, 2), ("data", "model"), device=device)
+        d = mesh.get_coordinate()[0]
+        with parallel_rules(mesh_axes(), mesh):
+            model = shard_params(par_draw(torch, cfg, device, torch.bfloat16), mesh)
+            for c in counters:
+                c.launches = 0
+            _, scalars, ms = rec_steps(torch, cfg, model, batches[d], rec_train_cfg())
+            res["bf16"] = {"scalars": scalars, "ms": ms,
+                           "launches": {c.__name__: c.launches for c in counters}}
+            del model
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        out[arch] = res
+    out["seconds"] = time.perf_counter() - t_rank
+    return out
+
+
+def _worst(errs):
+    """(largest value, its key) of a dict of errors."""
+    return max((e, k) for k, e in errs.items())
+
+
+def recurrent_on_card(torch, device="cuda", seq=REC_SEQ, reduced=False):
+    """Phase 44: SSD and RG-LRU layers and adamw_lowmem under a model axis,
+    PAR_RANKS ranks sharing the card over gloo (``reduced`` and
+    ``device="cpu"`` rehearse it on the CPU)."""
+    from repro_torch.parallel.mesh import spawn_world
+
+    ref = rec_reference(torch, device, seq, reduced)
+    t0 = time.perf_counter()
+    outs = spawn_world(rec_rank, PAR_RANKS, ref, device, seq, reduced, backend="gloo",
+                       timeout_s=600)
+    world_s = time.perf_counter() - t0
+    label = f"{PAR_RANKS} ranks sharing one {'H100' if device == 'cuda' else 'CPU'} over gloo"
+    tol = PAR_TOL["float32"]
+    res = {}
+    for arch, cfg in rec_cfgs(reduced).items():
+        runs = [o[arch] for o in outs]
+        # by (leaf, rank): the sharded shard's and the unsharded port's same
+        # shard's errors against float64, and the first's limit
+        sharded = {(n, i): e for i, r in enumerate(runs) for n, e in r["f32"]["grads"].items()}
+        unsharded = {(n, i): e for i, r in enumerate(runs)
+                     for n, e in r["f32"]["unsharded"].items()}
+        limit = {k: max(tol, REC_ROOM * e) for k, e in unsharded.items()}
+        hidden = max(r["f32"]["hidden"] for r in runs)
+        loss_err = max(r["f32"]["loss"] for r in runs)
+        n_attn = sum(cfg.pattern_at(i) in ("attn", "swa", "chunked")
+                     for i in range(cfg.num_layers))
+        n_ssd = sum(cfg.pattern_at(i) == "ssd" for i in range(cfg.num_layers))
+        want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
+                "ssd_scan": 2 * n_ssd, "ssd_scan_bwd": n_ssd}
+        launches = [r["launches"] for r in runs]
+        local = runs[0]["local"]
+        top = sorted(sharded, key=sharded.get, reverse=True)[:3]
+        ratio = _worst({n: sharded[n] / limit[n] for n in sharded})
+        print(f"recurrent: {cfg.name} at {cfg.num_layers} layers, float32, B=1, S={seq}, "
+              f"(1, 4) ({label}), {local['heads']} SSD heads and {local['width']} channels a "
+              f"rank: hidden err {hidden:.3e}, loss err {loss_err:.3e} against the unsharded "
+              f"port; gradient shards over their norm against float64, sharded (the unsharded "
+              f"float32 port's same shard): "
+              + ", ".join(f"{n} rank {i} {sharded[n, i]:.3e} ({unsharded[n, i]:.3e})"
+                          for n, i in top)
+              + f", {len(runs[0]['f32']['grads'])} gradients, the largest unsharded "
+              f"{_worst(unsharded)[0]:.3e} ({'{} rank {}'.format(*_worst(unsharded)[1])}), "
+              f"the largest share of its limit {ratio[0]:.3f} "
+              f"({'{} rank {}'.format(*ratio[1])}); launches a rank and step {launches[0]} "
+              f"(want {want})")
+        if not (hidden <= tol and loss_err <= tol and ratio[0] <= 1.0):
+            raise AssertionError(f"recurrent: {cfg.name} sharded float32 disagrees: hidden "
+                                 f"{hidden:.3e}, loss {loss_err:.3e}, gradient {ratio[1]} "
+                                 f"{sharded[ratio[1]]:.3e} over its limit {limit[ratio[1]]:.3e}")
+        if device == "cuda" and any(l != want for l in launches):
+            raise AssertionError(f"recurrent: {cfg.name} launches {launches}, want {want}")
+        def scalar_err(part, wl):
+            return max(max(abs(a - c) / abs(c), abs(b - e) / abs(e))
+                       for r in runs for (a, b), (c, e) in zip(r[part]["scalars"], wl))
+
+        def scalars(sc):
+            return ", ".join(f"{a:.5f}/{b:.5f}" for a, b in sc)
+
+        low = ref[arch]["lowmem"]["scalars"]
+        low_err = scalar_err("lowmem", low)
+        moments = _worst({k: e for r in runs for k, e in r["lowmem"]["moments"].items()})
+        master = _worst({k: e for r in runs for k, e in r["lowmem"]["master"].items()})
+        print(f"recurrent: {cfg.name} float32, {REC_STEPS} adamw_lowmem steps at (1, 4), "
+              + ", ".join(f"{k} {v:g}" for k, v in REC_OPT.items())
+              + f" ({runs[0]['lowmem']['factored']} factored second moments a rank): "
+              f"losses/gradient norms {scalars(runs[0]['lowmem']['scalars'])} against the "
+              f"unsharded steps' {scalars(low)}: within {low_err:.2e}; factored second "
+              f"moments over their norm {moments[0]:.3e} ({moments[1]}); master shards' max "
+              f"error over the summed lr {rec_sum_lr():g} {master[0]:.3e} ({master[1]})")
+        if not (low_err <= tol and moments[0] <= REC_V_TOL and master[0] <= REC_MASTER_TOL):
+            raise AssertionError(f"recurrent: {cfg.name} float32 adamw_lowmem steps disagree: "
+                                 f"scalars {low_err:.3e}, second moments {moments}, "
+                                 f"masters {master}")
+        wl = ref[arch]["bf16"]
+        scal_err = scalar_err("bf16", wl)
+        bl = [r["bf16"]["launches"] for r in runs]
+        print(f"recurrent: {cfg.name} bf16, {REC_STEPS} adamw_lowmem steps at (2, 2): "
+              f"losses/gradient norms {scalars(runs[0]['bf16']['scalars'])} against the "
+              f"unsharded step's {scalars(wl)}: within {scal_err:.2e}; ms a step by rank "
+              + "; ".join("/".join(f"{t:.0f}" for t in r["bf16"]["ms"]) for r in runs)
+              + f"; launches a rank in {REC_STEPS} steps {bl[0]}")
+        if not scal_err <= PAR_TOL["bfloat16"]:
+            raise AssertionError(f"recurrent: {cfg.name} bf16 adamw_lowmem steps disagree: "
+                                 f"{scal_err:.3e}")
+        if device == "cuda" and any(l != {k: REC_STEPS * v for k, v in want.items()}
+                                    for l in bl):
+            raise AssertionError(f"recurrent: {cfg.name} bf16 launches {bl}")
+        res[arch] = {"f32": {"hidden": hidden, "loss": loss_err, "grads": max(sharded.values()),
+                             "unsharded": max(unsharded.values()),
+                             "limit_share": ratio[0]},
+                     "bf16_err": scal_err, "lowmem": {"scalars": low_err, "moments": moments[0],
+                                                       "master": master[0]},
+                     "launches": launches, "bf16_launches": bl, "local": local}
+    print(f"recurrent: phase 44 took {world_s:.1f} s in the world of {PAR_RANKS} ranks "
+          f"(ranks' own {max(o['seconds'] for o in outs):.1f} s)")
+    res["seconds"] = world_s
+    return res
+
+
+# phase 45: the dry run against the card: phase 43's StarCoder2-3B step under
+# its four rule sets, predicted on meta tensors in a fake world of PAR_RANKS
+# ranks and run for real on the ranks sharing the card; then production cells
+DRY_CELLS = (("starcoder2-3b", "train_4k"), ("mixtral-8x7b", "prefill_32k"),
+             ("mamba2-780m", "train_4k"), ("llama4-maverick-400b-a17b", "train_4k"))
+ALLOC_ROUND = 512                # the caching allocator rounds each block up to this
+
+
+def dry_predict(seq=SPF_SEQ, reduced=False):
+    """Phase 45's prediction, in a process of its own: each rule set's
+    StarCoder2 step traced on meta tensors as rank 0 of a fake world of
+    PAR_RANKS ranks (every rank's shards have rank 0's shapes)."""
+    import torch
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.parallel.mesh import fake_world, make_mesh
+    from repro_torch.parallel.sharding import mesh_axes, parallel_rules
+
+    cfg = spf_cfg(SPF_LAYERS, reduced)
+    out = {}
+    with fake_world(PAR_RANKS):
+        for label, shape, rules in SPF_CONFIGS:
+            t0 = time.perf_counter()
+            mesh = make_mesh(shape, ("data", "model"), device="cpu")
+            batch = {k: torch.empty((1, seq), dtype=torch.int32, device="meta")
+                     for k in ("tokens", "labels")}
+            with parallel_rules(mesh_axes(rules), mesh):
+                fn, args = D.train_step(cfg, mesh, batch)
+                sizes = D.storages(D.tensors(args)).values()
+                _, rec = D.measure(fn, args)
+            rec["argument_bytes_rounded"] = sum(-(-n // ALLOC_ROUND) * ALLOC_ROUND
+                                                for n in sizes)
+            rec["trace_s"] = time.perf_counter() - t0
+            out[label] = rec
+    return out
+
+
+def dry_cells(results):
+    """The production cells of DRY_CELLS on the single mesh, each traced in
+    its fake world of 256 ranks, records under ``results``."""
+    from repro_torch.launch import dryrun as D
+
+    D.RESULTS = Path(results)
+    return {f"{a}--{s}": D.run_cell(a, s, False, force=True) for a, s in DRY_CELLS}
+
+
+def _child(call: str) -> list:
+    """A command running ``chip_smoke.<call>`` in a fresh interpreter that
+    prints its JSON result as its last line."""
+    code = (f"import json, sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+            f"print(json.dumps(chip_smoke.{call}))")
+    return [sys.executable, "-c", code]
+
+
+def _child_result(proc, label, timeout):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode:
+        raise RuntimeError(f"{label} failed (exit {proc.returncode}):\n{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def dry_rank(rank, device="cuda", seq=SPF_SEQ, reduced=False):
+    """One rank of phase 45: each rule set's StarCoder2 step for real under
+    OpAnalysis, with the bytes its setup allocated (the state and the
+    batch), its peak above them and its flash launches."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.launch import dryrun as D
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.parallel.sharding import mesh_axes, parallel_rules
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def held():
+        if not cuda:
+            return 0, 0
+        st = torch.cuda.memory_stats()
+        return st.get("requested_bytes.all.current", -1), st["allocated_bytes.all.current"]
+
+    cfg = spf_cfg(SPF_LAYERS, reduced)
+    batches = par_batches(cfg, device, seq)
+    out = {}
+    for label, shape, rules in SPF_CONFIGS:
+        mesh = make_mesh(shape, ("data", "model"), device=device)
+        d = mesh.get_coordinate()[0]
+        with parallel_rules(mesh_axes(rules), mesh):
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+            req0, alloc0 = held()
+            batch = {k: v.clone() for k, v in batches[d].items()}
+            fn, args = D.train_step(cfg, mesh, batch, device=device, seed=PAR_SEED)
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            req1, alloc1 = held()
+            flash_attention.launches = flash_attention_bwd.launches = 0
+            t0 = time.perf_counter()
+            _, rec = D.measure(fn, args)
+            sync(torch, device)
+            run = {"rec": rec, "ms": (time.perf_counter() - t0) * 1e3,
+                   "requested": req1 - req0, "allocated": alloc1 - alloc0,
+                   "peak": (torch.cuda.max_memory_allocated() - alloc1) if cuda else 0,
+                   "launches": {"flash_attention": flash_attention.launches,
+                                "flash_attention_bwd": flash_attention_bwd.launches}}
+            out[label] = run
+            del fn, args, batch, rec
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_on_card(torch, device="cuda", seq=SPF_SEQ, reduced=False, cells=None):
+    """Phase 45: the dry run's prediction of phase 43's step against the
+    step on PAR_RANKS ranks of the card (``reduced`` and ``device="cpu"``
+    rehearse it on the CPU); then the production cells, whose dry run
+    ``cells`` (a running child process) started earlier."""
+    from repro_torch.parallel.mesh import spawn_world
+
+    t0 = time.perf_counter()
+    pred_proc = subprocess.Popen(_child(f"dry_predict({seq}, {reduced})"),
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        outs = spawn_world(dry_rank, PAR_RANKS, device, seq, reduced, backend="gloo",
+                           timeout_s=600)
+    except BaseException:
+        pred_proc.kill()
+        pred_proc.communicate()
+        raise
+    pred = _child_result(pred_proc, "the dry run's prediction", 300)
+    world_s = time.perf_counter() - t0
+    res = {"runs": {}}
+    for label, _, _ in SPF_CONFIGS:
+        p = pred[label]
+        runs = [o[label] for o in outs]
+        pk = {k: v["calls"] for k, v in p["kernels"].items()}
+        mem = p["memory"]
+        for r in runs:
+            rec = r["rec"]
+            same = {"flops": rec["cost"]["flops"] == p["cost"]["flops"],
+                    "collectives": rec["collectives"] == p["collectives"],
+                    "kernels": rec["kernels"] == p["kernels"],
+                    "traffic": rec["cost"]["bytes_accessed"] == p["cost"]["bytes_accessed"]}
+            if not (same["flops"] and same["collectives"] and same["kernels"]):
+                raise AssertionError(f"dryrun: {label}: the prediction differs from the real "
+                                     f"run: {same}; predicted {p['cost']}, "
+                                     f"{p['collectives']}, {pk}; real {rec['cost']}, "
+                                     f"{rec['collectives']}")
+            if device == "cuda":
+                if r["launches"] != pk:
+                    raise AssertionError(f"dryrun: {label}: launches {r['launches']}, "
+                                         f"predicted {pk}")
+                if r["requested"] != mem["argument_bytes"]:
+                    raise AssertionError(f"dryrun: {label}: setup requested {r['requested']} "
+                                         f"bytes, predicted {mem['argument_bytes']}")
+            r["same"] = same
+        print(f"dryrun: StarCoder2-3B at {SPF_LAYERS} layers, bf16, B=1, S={seq} a data shard, "
+              f"{label}: predicted argument bytes {mem['argument_bytes']} "
+              f"({p['argument_bytes_rounded']} in {ALLOC_ROUND}-byte blocks), setup requested "
+              + ", ".join(str(r["requested"]) for r in runs) + " and allocated "
+              + ", ".join(str(r["allocated"]) for r in runs) + " by rank; FLOPs "
+              f"{p['cost']['flops']:.6e} (real {runs[0]['rec']['cost']['flops']:.6e}), "
+              f"bytes accessed {p['cost']['bytes_accessed']:.6e} (equal on "
+              f"{sum(r['same']['traffic'] for r in runs)} of {len(runs)} ranks), collectives "
+              + ", ".join(f"{k} {int(v['count'])} x {v['bytes'] / 1e6:.1f} MB"
+                          for k, v in p["collectives"].items())
+              + f" (equal on every rank), kernels {pk}, launches "
+              + ", ".join(str(r["launches"]) for r in runs)
+              + f"; predicted temp {mem['temp_bytes'] / 1e9:.3f} GB against max allocated "
+              f"above the setup " + ", ".join(f"{r['peak'] / 1e9:.3f}" for r in runs)
+              + " GB ("
+              + ", ".join(f"{mem['temp_bytes'] / r['peak']:.3f}" if r["peak"] else "-"
+                          for r in runs)
+              + f"); trace {p['trace_s']:.1f} s, the real step "
+              + ", ".join(f"{r['ms']:.0f}" for r in runs) + " ms under the analysis")
+        res["runs"][label] = {
+            "argument_bytes": mem["argument_bytes"],
+            "requested": [r["requested"] for r in runs],
+            "allocated": [r["allocated"] for r in runs],
+            "temp_ratio": [mem["temp_bytes"] / r["peak"] if r["peak"] else None for r in runs],
+            "launches": [r["launches"] for r in runs], "predicted": pk,
+            "flops": p["cost"]["flops"]}
+    if cells is not None:
+        total = torch.cuda.get_device_properties(0).total_memory if device == "cuda" else 0
+        recs = _child_result(cells, "the production cells' dry run", 600)
+        res["cells"] = {}
+        for key, rec in recs.items():
+            if rec["status"] != "ok":
+                raise AssertionError(f"dryrun: {key} failed: {rec.get('error')}")
+            m = rec["memory"]
+            res["cells"][key] = {"trace_s": rec["trace_s"], **m,
+                                 "flops": rec["cost"]["flops"],
+                                 "wire_bytes": rec["loop_aware"]["collective_wire_bytes"],
+                                 "opt": rec.get("opt")}
+            print(f"dryrun: {key} on the single mesh (256 ranks, rank 0): traced in "
+                  f"{rec['trace_s']:.1f} s; a rank's arguments {m['argument_bytes'] / 1e9:.3f} "
+                  f"GB + temp {m['temp_bytes'] / 1e9:.3f} GB = "
+                  f"{(m['argument_bytes'] + m['temp_bytes']) / 1e9:.3f} GB against the card's "
+                  f"total_memory {total / 1e9:.3f} GB; FLOPs {rec['cost']['flops']:.4e}, "
+                  f"collective wire bytes {rec['loop_aware']['collective_wire_bytes']:.4e}"
+                  + (f", {rec['opt']}" if rec.get("opt") else ""))
+    print(f"dryrun: phase 45 took {time.perf_counter() - t0:.1f} s (the world and the "
+          f"prediction {world_s:.1f} s)")
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 SLICES = 4                       # phase 42: slices of the one card
 SLICE_SAMPLES = 131_072          # phase 42's counter sweep: 2 blocks of SWEEP_BLOCK
 SLICE_CHECK_ROWS = 16_384
@@ -4608,12 +5196,26 @@ def main() -> int:
     spf = sp_fsdp_on_card(torch)
     spf_s = time.perf_counter() - t_spf
     print(f"slices/sp/fsdp: phases 42-43 took {spf_s:.1f} s (phase 42 {slices_s:.1f} s)")
+    t_dry = time.perf_counter()
+    with tempfile.TemporaryDirectory() as cells_dir:
+        # the production cells' dry run needs no card: it runs beside phase 44
+        cells = subprocess.Popen(_child(f"dry_cells({cells_dir!r})"), stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+        try:
+            recurrent = recurrent_on_card(torch)
+            dry = dryrun_on_card(torch, cells=cells)
+        finally:
+            if cells.poll() is None:
+                cells.kill()
+                cells.communicate()
+    dry_s = time.perf_counter() - t_dry
+    print(f"recurrent/dryrun: phases 44-45 took {dry_s:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, of which the "
           f"decoder-config phases {decoders_s:.1f} s, the PaliGemma and Whisper phases "
           f"{vlm_s:.1f} s, the RecurrentGemma phases {rg_s:.1f} s, the DCN and churn "
           f"phases {dcn_s:.1f} s, the cost, matrix, SLO and fault phases {engines_s:.1f} s, "
-          f"the parallel and elastic phases {par_s:.1f} s and the slices, SP and FSDP "
-          f"phases {spf_s:.1f} s")
+          f"the parallel and elastic phases {par_s:.1f} s, the slices, SP and FSDP "
+          f"phases {spf_s:.1f} s and the recurrent and dry-run phases {dry_s:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
@@ -4660,6 +5262,10 @@ def main() -> int:
         "launches_elastic_restart": elastic["fault_launches"],
         "launches_starcoder2_sp_fsdp_step_per_rank": {
             k: [l["fwd"] for l in v["launches"]] for k, v in spf["runs"].items()},
+        "launches_recurrentgemma_sharded_step_per_rank": [
+            l["flash_attention"] for l in recurrent["recurrentgemma"]["launches"]],
+        "launches_dryrun_step_per_rank": {
+            k: [l["flash_attention"] for l in v["launches"]] for k, v in dry["runs"].items()},
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -4683,6 +5289,11 @@ def main() -> int:
         "launches_mixtral_sharded_step_per_rank": [l["bwd"] for l in par["launches"]],
         "launches_starcoder2_sp_fsdp_step_per_rank": {
             k: [l["bwd"] for l in v["launches"]] for k, v in spf["runs"].items()},
+        "launches_recurrentgemma_sharded_step_per_rank": [
+            l["flash_attention_bwd"] for l in recurrent["recurrentgemma"]["launches"]],
+        "launches_dryrun_step_per_rank": {
+            k: [l["flash_attention_bwd"] for l in v["launches"]]
+            for k, v in dry["runs"].items()},
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -4692,6 +5303,9 @@ def main() -> int:
         "max_abs_err": ssd_errs["fwd"],
         "shape": "Bt=4 S=4096 H=48 P=64 N=128 chunk=128, x/B/C bf16, y f32",
         **ssd_times["fwd"],
+        "launches_mamba2_sharded_step_per_rank": [
+            l["ssd_scan"] for l in recurrent["mamba2"]["launches"]],
+        "heads_per_launch_sharded": recurrent["mamba2"]["local"]["heads"],
     }, {
         "name": "ssd_scan_bwd",
         "route": "cuda",
@@ -4701,6 +5315,9 @@ def main() -> int:
         "max_abs_err": ssd_errs["bwd"],
         "shape": "Bt=4 S=4096 H=48 P=64 N=128 chunk=128, x/B/C bf16, dy f32",
         **ssd_times["bwd"],
+        "launches_mamba2_sharded_step_per_rank": [
+            l["ssd_scan_bwd"] for l in recurrent["mamba2"]["launches"]],
+        "heads_per_launch_sharded": recurrent["mamba2"]["local"]["heads"],
     }, {
         "name": "prefix_scan",
         "route": "cuda",

@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-Every architecture of ``repro.configs`` is listed, with its aliases.
+Every architecture of ``repro.configs`` is listed, with its aliases, and
+the input-shape cells of the dry run with the ones each architecture takes.
 """
 
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig, ShapeConfig, input_specs
 from .deepseek_67b import CONFIG as DEEPSEEK
 from .gpt_moe import CONFIG as GPT_MOE
 from .h2o_danube_1_8b import CONFIG as H2O_DANUBE
@@ -45,4 +46,19 @@ def get_arch(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "ALIASES", "ModelConfig", "get_arch"]
+def applicable_shapes(cfg: ModelConfig):
+    """The assigned shape cells that apply to this architecture.
+
+    long_500k needs sub-quadratic attention (skipped for pure full-attention
+    archs); every assigned LM arch has a decode step.
+    """
+    out = []
+    for s in SHAPES.values():
+        if s.name == "long_500k" and not cfg.subquadratic:
+            continue
+        out.append(s)
+    return out
+
+
+__all__ = ["ARCHS", "ALIASES", "SHAPES", "ModelConfig", "ShapeConfig", "applicable_shapes",
+           "get_arch", "input_specs"]

@@ -4,15 +4,38 @@
 architecture, the padding rules the model reads, a ``reduced()`` variant
 for CPU tests, and the analytic ``param_count`` and
 ``active_param_count`` that MFU reads (an MoE step counts only the top-k
-experts).  Pure Python: no tensor library is imported.  The JAX-only
-``input_specs`` waits for the launch slice.
+experts).  ``ShapeConfig`` and ``SHAPES`` are the four input-shape cells of
+the dry run (:mod:`repro_torch.launch.dryrun`), and :func:`input_specs`
+gives a cell's inputs as empty tensors, on the ``meta`` device by default.
+Pure Python at import: :func:`input_specs` imports torch when it is called.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Dict, Tuple
+
+# ---------------------------------------------------------------- shapes
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str        # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------- model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,3 +194,39 @@ class ModelConfig:
             prefix_len=4 if self.prefix_len else 0,
             max_seq=128,
         )
+
+
+# ------------------------------------------------------------- input specs
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, dtype=None, device="meta",
+                batch: int = 0) -> Dict:
+    """Empty input tensors of ``shape`` (``repro``'s ``input_specs``), on
+    ``device`` (``meta``: shapes and dtypes only, nothing allocated).
+
+    Training: token and label ids.  Prefill: token ids.  Decode: one new
+    token a sequence and its position; the cache is the model's.  Ids and
+    positions are int32.  Modality frontends are stubs: Whisper sees frame
+    embeddings and PaliGemma patch embeddings in ``dtype`` (default
+    bfloat16).  ``batch`` > 0 replaces the global batch (one rank's
+    share)."""
+    import torch
+
+    dtype = torch.bfloat16 if dtype is None else dtype
+    b, s = batch or shape.global_batch, shape.seq_len
+    i32 = dict(dtype=torch.int32, device=device)
+    emb = dict(dtype=dtype, device=device)
+    specs: Dict[str, "torch.Tensor"] = {}
+    if shape.kind in ("train", "prefill"):
+        text = s - cfg.prefix_len
+        specs["tokens"] = torch.empty((b, text), **i32)
+        if shape.kind == "train":
+            specs["labels"] = torch.empty((b, text), **i32)
+        if cfg.is_encdec:
+            specs["frames"] = torch.empty((b, cfg.enc_seq, cfg.d_model), **emb)
+        if cfg.prefix_len:
+            specs["patches"] = torch.empty((b, cfg.prefix_len, cfg.d_model), **emb)
+    else:  # decode: one token, cache of length s
+        specs["tokens"] = torch.empty((b, 1), **i32)
+        specs["position"] = torch.empty((b,), **i32)
+    return specs

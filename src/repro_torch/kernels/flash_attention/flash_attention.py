@@ -7,7 +7,13 @@ and saves ``(q, k, v, out, lse)``, and whose backward runs
 ``repro.kernels.flash_attention.flash_attention_pallas`` and the custom VJP
 of ``repro.models.layers.flash_attention_xla`` compute.  On CPU tensors
 each runs its plain version (:mod:`.ref`); on CUDA tensors it launches the
-kernels, or raises when they do not take the inputs.  Tensors keep the JAX
+kernels, or raises when they do not take the inputs; on ``meta`` tensors
+(the dry run) it checks them as for the card and returns empty outputs of
+the kernels' shapes and dtypes, launching nothing.  On every device each
+call reports the kernel's work to a running op-level analysis through
+:mod:`repro_torch.obs.op_counts` (:func:`work`: FLOPs
+over the (query, key) pairs the mask keeps, the bytes each tensor moves
+once, an exponential a pair).  Tensors keep the JAX
 layout (B, S, H, D); the kernels read their strides, so no transposed copy
 is made.  ``flash_attention.launches`` counts forward launches and
 ``flash_attention_bwd.launches`` backward calls (each launches the delta
@@ -30,8 +36,10 @@ import functools
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
+from ...obs import op_counts as A
 from .. import _build
 from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref
 
@@ -179,10 +187,56 @@ def _mask_args(causal, window, chunk, prefix_len, q_offset):
 
 
 def _on(t: torch.Tensor, name: str) -> bool:
-    """True for CUDA tensors, False for CPU ones (plain version)."""
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
+    """True for CUDA tensors (the kernels), False for CPU ones (the plain
+    version) and meta ones (shapes only)."""
+    if t.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{name} runs on cpu, cuda or meta, not {t.device}")
     return t.device.type == "cuda"
+
+
+@functools.lru_cache(maxsize=1024)
+def kept_pairs(sq: int, sk: int, causal: bool, window: int, chunk: int, prefix_len: int,
+               q_offset: int) -> int:
+    """The (query, key) pairs of one head that the mask keeps: keys at or
+    before the query (or in the prefix) when causal, fewer than ``window``
+    positions back, in the query's chunk."""
+    q = q_offset + np.arange(sq, dtype=np.int64)
+    lo = np.zeros(sq, dtype=np.int64)
+    hi = np.full(sq, sk - 1, dtype=np.int64)
+    if window:
+        lo = np.maximum(lo, q - window + 1)
+    if chunk:
+        start = q // chunk * chunk
+        lo, hi = np.maximum(lo, start), np.minimum(hi, start + chunk - 1)
+    if causal:
+        hi = np.minimum(hi, np.maximum(q, prefix_len - 1))
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def work(q: torch.Tensor, k: torch.Tensor, backward: bool, causal: bool = True,
+         window: int = 0, chunk: int = 0, prefix_len: int = 0,
+         q_offset: int = 0) -> Tuple[int, int, int]:
+    """(FLOPs, bytes, exponentials) of one forward or backward call: the
+    forward 4 D FLOPs a kept pair and head (scores and values), reading q,
+    k, v and writing the output and lse; the backward 10 D (the scores
+    recomputed, dV, dP, dQ, dK), reading q, k, v, the output, its gradient
+    and lse and writing dq, dk, dv; one exponential a kept pair either
+    way."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    pairs = b * hq * kept_pairs(sq, sk, bool(causal), int(window), int(chunk),
+                                int(prefix_len), int(q_offset))
+    qo = q.element_size() * b * sq * hq * d
+    kv = k.element_size() * b * sk * hkv * d
+    rows = 4 * b * hq * sq
+    if backward:
+        return 10 * pairs * d, 4 * qo + 4 * kv + rows, pairs
+    return 4 * pairs * d, 2 * qo + 2 * kv + rows, pairs
+
+
+def _report(name, q, k, backward, outputs, **kw):
+    flops, nbytes, exps = work(q, k, backward, **kw)
+    A.report_kernel(name, flops=flops, nbytes=nbytes, transcendentals=exps, outputs=outputs)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -191,10 +245,27 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D) -> out (B, Sq, Hq, D) in q's
     dtype and lse (B, Hq, Sq) float32."""
-    if not _on(q, "flash_attention"):
-        return flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
-                                       chunk=chunk, prefix_len=prefix_len,
-                                       q_offset=q_offset)
+    kw = dict(causal=causal, window=window, chunk=chunk, prefix_len=prefix_len,
+              q_offset=q_offset)
+    on_card = _on(q, "flash_attention")
+    with A.suspended():
+        if on_card:
+            out, lse = _fwd_cuda(q, k, v, **kw)
+        elif q.device.type == "meta":
+            _mask_args(causal, window, chunk, prefix_len, q_offset)
+            _check(q, k, v)
+            out = torch.empty_like(q, memory_format=torch.contiguous_format)
+            lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32,
+                              device=q.device)
+        else:
+            # in the kernel's layout (contiguous), so that what the caller
+            # does with it is the same on every device
+            out, lse = (t.contiguous() for t in flash_attention_fwd_ref(q, k, v, **kw))
+    _report("flash_attention", q, k, False, (out, lse), **kw)
+    return out, lse
+
+
+def _fwd_cuda(q, k, v, *, causal, window, chunk, prefix_len, q_offset):
     mask = _mask_args(causal, window, chunk, prefix_len, q_offset)
     _check(q, k, v)
     b, sq, hq, d = q.shape
@@ -217,10 +288,42 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         prefix_len: int = 0,
                         q_offset: int = 0) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) in the dtypes of (q, k, v) for the output gradient ``g``."""
-    if not _on(q, "flash_attention_bwd"):
-        return flash_attention_bwd_ref(q, k, v, out, lse, g, causal=causal,
-                                       window=window, chunk=chunk,
-                                       prefix_len=prefix_len, q_offset=q_offset)
+    kw = dict(causal=causal, window=window, chunk=chunk, prefix_len=prefix_len,
+              q_offset=q_offset)
+    on_card = _on(q, "flash_attention_bwd")
+    with A.suspended():
+        if on_card:
+            grads = _bwd_cuda(q, k, v, out, lse, g, **kw)
+        elif q.device.type == "meta":
+            grads = _bwd_meta(q, k, v, out, lse, g, **kw)
+        else:
+            grads = tuple(t.contiguous() for t in flash_attention_bwd_ref(q, k, v, out, lse,
+                                                                           g, **kw))
+    _report("flash_attention_bwd", q, k, True, grads, **kw)
+    return grads
+
+
+def _bwd_meta(q, k, v, out, lse, g, *, causal, window, chunk, prefix_len, q_offset):
+    """Empty gradients, after the checks the card makes; the scratch the
+    kernels allocate (delta, the dK/dV partials) counts towards the peak
+    while the call runs."""
+    _mask_args(causal, window, chunk, prefix_len, q_offset)
+    g = g.contiguous()
+    _check(q, k, v, out, g)
+    b, sq, hq, d = q.shape
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 ({b}, {hq}, {sq})")
+    scratch = [torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)]
+    if uses_tensor_maps(q.dtype, d):
+        scratch.append(torch.empty(dkv_partial_shape(b, k.shape[1], hq, d),
+                                   dtype=torch.float32, device=q.device))
+    grads = tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                  for t in (q, k, v))
+    A.track((*scratch, *grads))
+    return grads
+
+
+def _bwd_cuda(q, k, v, out, lse, g, *, causal, window, chunk, prefix_len, q_offset):
     mask = _mask_args(causal, window, chunk, prefix_len, q_offset)
     g = g.contiguous()               # autograd may hand the gradient in strided
     _check(q, k, v, out, g)

@@ -2,8 +2,10 @@
 
 ``ssd_scan_ref`` is the chunked state-space-dual scan of
 ``repro.models.ssm.ssd_chunked`` (the function ``ssd_scan_pallas`` computes)
-without the D term, in float32 throughout: unlike ``ssd_chunked`` it does
-not round the scores or the carried states to the input's type.  CPU
+without the D term, in float32 throughout (float64 for float64 inputs, so
+that a float64 model is a reference for float32 sums): unlike
+``ssd_chunked`` it does not round the scores or the carried states to the
+input's type.  CPU
 tensors take these in :mod:`.ssd_scan`; on the card they are what the
 kernels are held against.
 """
@@ -26,18 +28,19 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Te
                  C: torch.Tensor, chunk: int = 128,
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x (Bt, S, H, P), dt (Bt, S, H), A (H,), B/C (Bt, S, N) -> y (Bt, S, H, P)
-    in ``out_dtype`` (default x's), computed in float32 over chunks of
-    ``min(chunk, S)`` rows."""
+    in ``out_dtype`` (default x's), computed in float32 (float64 for float64
+    x) over chunks of ``min(chunk, S)`` rows."""
     bt, s, h, p = x.shape
     n = B.shape[-1]
     q = _chunk(s, chunk)
     nc = s // q
-    xb = x.float().reshape(bt, nc, q, h, p)
-    dtb = dt.float().reshape(bt, nc, q, h)
-    Bb = B.float().reshape(bt, nc, q, n)
-    Cb = C.float().reshape(bt, nc, q, n)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xb = x.to(acc).reshape(bt, nc, q, h, p)
+    dtb = dt.to(acc).reshape(bt, nc, q, h)
+    Bb = B.to(acc).reshape(bt, nc, q, n)
+    Cb = C.to(acc).reshape(bt, nc, q, n)
 
-    cs = torch.cumsum(dtb * A.float(), dim=2)                  # (Bt, nc, Q, H)
+    cs = torch.cumsum(dtb * A.to(acc), dim=2)                  # (Bt, nc, Q, H)
     total = cs[:, :, -1]                                       # (Bt, nc, H)
     scores = torch.einsum("bcin,bcjn->bcij", Cb, Bb)
     seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]          # (Bt, nc, Q, Q, H)
@@ -50,7 +53,7 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Te
     decay_end = torch.exp(total[:, :, None, :] - cs)
     states = torch.einsum("bcjn,bcjh,bcjhp->bchnp", Bb, decay_end, xbar)
     chunk_decay = torch.exp(total)
-    st = torch.zeros((bt, h, n, p), dtype=torch.float32, device=x.device)
+    st = torch.zeros((bt, h, n, p), dtype=acc, device=x.device)
     prev = []
     for c in range(nc):
         prev.append(st)

@@ -8,7 +8,12 @@ gradients of all five inputs (``A = -exp(A_log)`` is trained).  Together
 they compute what ``repro.kernels.ssd_scan.ssd_scan_pallas`` computes and
 its gradient, which JAX takes with XLA.  On CPU tensors each runs its plain
 version (:mod:`.ref`); on CUDA tensors it launches the kernels, or raises
-when they do not take the inputs.  Tensors keep the JAX layout
+when they do not take the inputs; on ``meta`` tensors (the dry run) it
+checks the sizes the kernels take and returns empty outputs of their shapes
+and dtypes, launching nothing.  On every device each call reports the
+kernels' work to a running op-level analysis through
+:mod:`repro_torch.obs.op_counts` (:func:`work`, the
+chunked algorithm's products).  Tensors keep the JAX layout
 (Bt, S, H, P); the kernels read their strides, so no transposed copy is
 made.  ``ssd_scan.launches`` counts forward calls and
 ``ssd_scan_bwd.launches`` backward calls (each launches several kernels).
@@ -22,11 +27,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...obs import op_counts as A_
 from .. import _build
 from .ref import _chunk, ssd_scan_bwd_ref, ssd_scan_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 FWD, BWD = 0, 1              # kernel kinds of the C entry point
+# the sizes the kernels take (ssd_scan_limits in csrc/ssd_scan.cu), for the
+# meta branch's checks, which cannot ask the library
+LIMITS = (128, 128, 64)
 
 
 def _lib() -> ctypes.CDLL:
@@ -67,13 +76,45 @@ def head_groups(chunks: int, heads: int, sms: int) -> int:
 
 
 def _on(t: torch.Tensor, name: str) -> bool:
-    """True for CUDA tensors, False for CPU ones (plain version)."""
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
+    """True for CUDA tensors (the kernels), False for CPU ones (the plain
+    version) and meta ones (shapes only)."""
+    if t.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{name} runs on cpu, cuda or meta, not {t.device}")
     return t.device.type == "cuda"
 
 
-def _check(x, dt, A, B, C, chunk, out_dtype, *grads):
+def work(x: torch.Tensor, dt: torch.Tensor, A_: torch.Tensor, B: torch.Tensor,
+         C: torch.Tensor, chunk: int, y_elt: int, backward: bool) -> Tuple[int, int, int]:
+    """(FLOPs, bytes, exponentials) of one forward or backward call, by
+    the chunked algorithm's products: per (batch, chunk, head) the causal
+    half of C B^T and of the intra-chunk product, the inter-chunk output and
+    the chunk state, two FLOPs a multiply-add; the backward twice that.
+    The forward reads x, dt, A, B, C once and writes y (``y_elt`` bytes an
+    element); the backward reads them and dy and writes a gradient of each.
+    Exponentials: the causal half of the decay matrix, the decays to the
+    chunk's end and from its start and the chunk's decay, recomputed by the
+    backward."""
+    bt, s, h, p = x.shape
+    n = B.shape[-1]
+    q = _chunk(s, chunk)
+    nc = s // q
+    tri = q * (q + 1) // 2
+    flops = 2 * bt * nc * h * (tri * n + tri * p + 2 * q * n * p)
+    ins = sum(t.numel() * t.element_size() for t in (x, dt, A_, B, C))
+    y = bt * s * h * p * y_elt
+    exps = bt * nc * h * (tri + 2 * q + 1)
+    if backward:
+        return 2 * flops, 2 * ins + y, exps
+    return flops, ins + y, exps
+
+
+def _meta_check(x, dt, A, B, C, chunk, out_dtype, *grads):
+    """:func:`_check` against the kernels' limits as the source states them
+    (no library to ask without the card)."""
+    return _check(x, dt, A, B, C, chunk, out_dtype, *grads, lims=LIMITS)
+
+
+def _check(x, dt, A, B, C, chunk, out_dtype, *grads, lims=None):
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B.dim() != 3 or B.shape != C.shape:
         raise ValueError(f"want x (Bt, S, H, P), dt (Bt, S, H), A (H,), B/C (Bt, S, N); got "
                          f"{[tuple(t.shape) for t in (x, dt, A, B, C)]}")
@@ -110,7 +151,7 @@ def _check(x, dt, A, B, C, chunk, out_dtype, *grads):
     if bt * h > 65535 or n * p % 4:
         raise ValueError(f"Bt * H = {bt * h}, N * P = {n * p}: the kernels take Bt * H "
                          f"up to 65535 and N * P a multiple of 4")
-    qmax, nmax, pmax = limits()
+    qmax, nmax, pmax = lims or limits()
     if q > qmax or n > nmax or p > pmax:
         raise ValueError(f"chunk {q}, N {n}, P {p}: the kernels take chunk <= {qmax}, "
                          f"N <= {nmax}, P <= {pmax}")
@@ -144,8 +185,24 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Te
     kernels read: the float32 state before every chunk (Bt, nc, H, N, P) and
     every chunk's summed decay (Bt, nc, H).  Both are None on the CPU."""
     out_dtype = out_dtype or x.dtype
-    if not _on(x, "ssd_scan"):
-        return ssd_scan_ref(x, dt, A, B, C, chunk, out_dtype), None, None
+    on_card = _on(x, "ssd_scan")
+    with A_.suspended():
+        if on_card:
+            res = _fwd_cuda(x, dt, A, B, C, chunk, out_dtype)
+        elif x.device.type == "meta":
+            bt, s, h, p, n, q = _meta_check(x, dt, A, B, C, chunk, out_dtype)
+            f32 = dict(dtype=torch.float32, device=x.device)
+            res = (torch.empty((bt, s, h, p), dtype=out_dtype, device=x.device),
+                   torch.empty((bt, s // q, h, n, p), **f32), torch.empty((bt, s // q, h), **f32))
+        else:
+            res = ssd_scan_ref(x, dt, A, B, C, chunk, out_dtype), None, None
+    flops, nbytes, exps = work(x, dt, A, B, C, chunk, torch.finfo(out_dtype).bits // 8, False)
+    A_.report_kernel("ssd_scan", flops=flops, nbytes=nbytes, transcendentals=exps,
+                     outputs=[t for t in res if t is not None])
+    return res
+
+
+def _fwd_cuda(x, dt, A, B, C, chunk, out_dtype):
     bt, s, h, p, n, q = _check(x, dt, A, B, C, chunk, out_dtype)
     nc = s // q
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -167,8 +224,40 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Te
     """(dx, ddt, dA, dB, dC) in the dtypes of (x, dt, A, B, C) for the output
     gradient ``dy``; ``states`` and ``T`` are what :func:`ssd_scan_fwd`
     returned for the same inputs."""
-    if not _on(x, "ssd_scan_bwd"):
-        return ssd_scan_bwd_ref(x, dt, A, B, C, dy, chunk)
+    on_card = _on(x, "ssd_scan_bwd")
+    with A_.suspended():
+        if on_card:
+            grads = _bwd_cuda(x, dt, A, B, C, dy, states, T, chunk)
+        elif x.device.type == "meta":
+            grads = _bwd_meta(x, dt, A, B, C, dy, states, T, chunk)
+        else:
+            grads = ssd_scan_bwd_ref(x, dt, A, B, C, dy, chunk)
+    flops, nbytes, exps = work(x, dt, A, B, C, chunk, dy.element_size(), True)
+    A_.report_kernel("ssd_scan_bwd", flops=flops, nbytes=nbytes, transcendentals=exps,
+                     outputs=grads)
+    return grads
+
+
+def _bwd_meta(x, dt, A, B, C, dy, states, T, chunk):
+    """Empty gradients after the checks the card makes; the state-gradient
+    scratch the kernels allocate counts towards the peak while it runs."""
+    dy = dy.contiguous()
+    bt, s, h, p, n, q = _meta_check(x, dt, A, B, C, chunk, dy.dtype, dy)
+    nc = s // q
+    if states is None or states.shape != (bt, nc, h, n, p) or T is None \
+            or T.shape != (bt, nc, h):
+        raise ValueError("states and T must be what ssd_scan_fwd returned")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    scratch = [torch.empty_like(states), torch.empty((bt, nc, h), **f32)]
+    grads = (torch.empty_like(x, memory_format=torch.contiguous_format),
+             torch.empty((bt, s, h), **f32), torch.empty((h,), **f32),
+             torch.empty((bt, s, n), dtype=B.dtype, device=x.device),
+             torch.empty((bt, s, n), dtype=C.dtype, device=x.device))
+    A_.track((*scratch, *grads))
+    return grads
+
+
+def _bwd_cuda(x, dt, A, B, C, dy, states, T, chunk):
     dy = dy.contiguous()             # autograd may hand the gradient in strided
     bt, s, h, p, n, q = _check(x, dt, A, B, C, chunk, dy.dtype, dy)
     nc = s // q

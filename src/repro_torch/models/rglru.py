@@ -18,6 +18,12 @@ recurrence run through the same scan); ``repro``'s ``_lru_scan`` is a
 ``lax.associative_scan``, not a Pallas kernel, so the port's is torch code.
 Decode is the plain one-step update, whose new state is stored in the
 activations' dtype, as in ``repro``.
+
+Under a model axis the block holds this rank's share of the recurrence
+width, as ``repro``'s specs shard it over ``ff``: the columns of ``w_gate``,
+``w_x``, ``w_r`` and ``w_i``, the biases, ``lam``, the conv and the rows of
+``w_out``.  The recurrence is per channel, so it needs no communication;
+the output is this rank's partial sum, which the caller reduces.
 """
 
 from __future__ import annotations

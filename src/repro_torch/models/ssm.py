@@ -7,6 +7,16 @@ the hand-written SSD-scan kernels on the card, forward and backward
 recurrence :func:`ssd_decode_step`, as in JAX, where it is no kernel either.
 Projections stay separate (``w_z``/``w_x``/``w_B``/``w_C``/``w_dt``) with the
 JAX shapes, so ``x @ w`` reads the same in both packages.
+
+Under a model axis (``axis`` of :func:`ssd_block_apply`) the block holds
+this rank's share, as ``repro``'s specs shard it: ``w_z``, ``w_x``, the x
+conv, ``norm_scale`` and the rows of ``out_proj`` over ``ff`` (``d_inner``),
+``w_dt``, ``A_log``, ``D`` and ``dt_bias`` over ``heads``, and ``w_B``,
+``w_C`` and their convs replicated.  The scan runs on the rank's heads; the
+gated norm's mean square is the sum of squares summed over the axis over
+the full ``d_inner``; the output is a partial sum over the axis, which the
+caller reduces.  Each rank's B/C leaves see only its heads, so they enter
+through *f* (their gradients are summed over the axis).
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.parallel.collectives import copy_to, psum
 
 Params = Mapping[str, torch.Tensor]
 
@@ -102,12 +113,27 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out), xp[:, -(width - 1):]
 
 
+_REPLICATED = ("w_B", "w_C", "conv_B_w", "conv_B_b", "conv_C_w", "conv_C_b")
+
+
 def ssd_block_apply(p: Params, cfg, x: torch.Tensor,
                     cache: Optional[Dict[str, torch.Tensor]] = None,
-                    decode: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
+                    decode: bool = False, axis=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x (Bt, S, d) -> (Bt, S, d) and, when ``decode``, the new cache
-    ``{state, conv_x, conv_B, conv_C}`` (else None)."""
-    di, h, hd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    ``{state, conv_x, conv_B, conv_C}`` (else None).  Under a model axis
+    ``axis`` (an :class:`~repro_torch.parallel.mesh.Axis`; training only) p
+    holds this rank's shards and the output is this rank's partial sum
+    (module docstring)."""
+    hd = cfg.ssm_head_dim
+    di, h = p["w_x"].shape[-1], p["w_dt"].shape[-1]        # this rank's share
+    if di != h * hd:
+        raise ValueError(f"{di} inner channels do not hold {h} heads of {hd}")
+    if axis is not None and axis.size > 1:
+        if decode:
+            raise NotImplementedError("SSD decode runs off a mesh")
+        p = {k: copy_to(v, axis) if k in _REPLICATED else v for k, v in p.items()}
+    else:
+        axis = None
     z = x @ p["w_z"]
     xs = x @ p["w_x"]
     B_raw = x @ p["w_B"]
@@ -136,10 +162,15 @@ def ssd_block_apply(p: Params, cfg, x: torch.Tensor,
         y = y.reshape(x.shape[0], x.shape[1], di)
         new_cache = None
 
-    # gated RMSNorm (Mamba-2), in float32
+    # gated RMSNorm (Mamba-2), in float32; under a model axis the squares of
+    # every rank's channels (the sum's gradient reaches every rank's share)
     g = y * F.silu(z)
     g32 = g.float()
-    var = torch.mean(g32 * g32, dim=-1, keepdim=True)
+    if axis is None:
+        var = torch.mean(g32 * g32, dim=-1, keepdim=True)
+    else:
+        sq = torch.sum(g32 * g32, dim=-1, keepdim=True)
+        var = copy_to(psum(sq, axis), axis) / cfg.d_inner
     g = (g32 * torch.rsqrt(var + 1e-6) * (1 + p["norm_scale"])).to(x.dtype)
     return g @ p["out_proj"], new_cache
 

@@ -65,7 +65,10 @@ collectives to GSPMD, the port runs them:
 
 The loss is the fused vocab-parallel softmax cross-entropy, and the MoE
 layers run :func:`~repro_torch.models.moe.moe_apply_local` on the model
-axis.  SSD and RG-LRU layers, and serving, run off a mesh only.
+axis.  SSD and RG-LRU layers are tensor-parallel over ``ff`` like the dense
+MLP, entered and left the same way: their recurrences run over the whole
+sequence on this rank's channels (:mod:`repro_torch.models.ssm`,
+:mod:`repro_torch.models.rglru`).  Serving runs off a mesh only.
 
 Dtypes follow ``repro``'s promotions: ``x @ w`` of float32 activations and
 bf16 weights computes in float32 (:func:`~repro_torch.models.layers.matmul`),
@@ -485,12 +488,23 @@ def _moe_dispatch(p: MOE.MoE, cfg: ModelConfig, x: torch.Tensor,
         tp=ax.size, group=ax)
 
 
-def _unsharded_mixer(kind: str) -> None:
+def _recurrent_apply(layer: Layer, cfg: ModelConfig, h: torch.Tensor,
+                     sp: Optional[Axis], s: Optional[int]) -> torch.Tensor:
+    """An SSD or RG-LRU mixer on the normed residual ``h``: under a mesh
+    tensor-parallel over ``ff`` (its heads over ``heads``, the same axis),
+    entered and left as the dense MLP (:func:`_enter`, :func:`_leave`)."""
     ax = _axis("ff")
-    if ax is not None and ax.size > 1:
-        raise NotImplementedError(
-            f"{kind!r} layers run off a mesh only: their sharded blocks wait for a "
-            f"later slice (ROADMAP.md § 1 item 7)")
+    hax = _axis("heads")
+    if (ax is None) != (hax is None) or (ax is not None and ax.name != hax.name):
+        raise ValueError(f"{layer.kind!r} layers split ff and heads over one axis; the "
+                         f"rules map them to {get_rules().get('ff')!r} and "
+                         f"{get_rules().get('heads')!r}")
+    x = _enter(h, sp, ax, s)
+    if layer.kind == "ssd":
+        y = SSM.ssd_block_apply(layer.ssd, cfg, x, axis=ax)[0]
+    else:
+        y = RG.rglru_block_apply(layer.rglru, cfg, x)[0]
+    return _leave(y, sp, ax)
 
 
 _SUBDICTS = ("norm1", "attn", "ssd", "rglru", "normx", "xattn", "norm2", "mlp")
@@ -537,12 +551,8 @@ def _layer_apply(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
     layer = _fsdp_gather(layer, (moe_ctx or {}).get("moe_impl", "tp"))
     s = None if sp is None else positions.shape[1]
     h = _norm(x, layer.norm1, cfg.norm, sp)
-    if layer.kind == "ssd":
-        _unsharded_mixer("ssd")
-        x = x + SSM.ssd_block_apply(layer.ssd, cfg, h)[0]
-    elif layer.kind == "rglru":
-        _unsharded_mixer("rglru")
-        x = x + RG.rglru_block_apply(layer.rglru, cfg, h)[0]
+    if layer.kind in ("ssd", "rglru"):
+        x = x + _recurrent_apply(layer, cfg, h, sp, s)
     else:
         x = x + _attn_apply(layer.attn, cfg, h, layer.kind, positions, prefix_len, sp=sp)
     if layer.xattn is not None and enc_out is not None:
@@ -759,8 +769,9 @@ def decode_step(model: Transformer, cache: List[Dict[str, torch.Tensor]],
     """
     ax = _axis("heads")
     if ax is not None and ax.size > 1:
-        raise NotImplementedError("decode_step runs off a mesh: repro serves without "
-                                  "parallel rules, and so does the port")
+        raise NotImplementedError("decode_step runs off a mesh: decode under a model axis "
+                                  "(and long_500k's sequence-sharded cache) waits for "
+                                  "ROADMAP.md § 1 item 7.7")
     cfg = model.cfg
     dev = model.device
     host = np.concatenate([np.asarray(tokens, np.int64).reshape(-1),

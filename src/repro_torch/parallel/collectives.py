@@ -57,6 +57,16 @@ Gloo sends host memory only, so over a gloo group a CUDA payload of a
 point-to-point send passes through pinned host buffers
 (:meth:`~repro_torch.parallel.mesh.Axis.stages`); gloo's all-reduce and
 all-to-all take CUDA tensors themselves.
+
+Every transfer goes through one of three wire primitives: ``_exchange`` (a
+point-to-point send and receive, reported as a collective-permute),
+``_all_reduce`` and ``_all_to_all``.  Each reports its kind, payload and
+group size to a running op-level analysis (:mod:`repro_torch.obs.op_counts`),
+beside the logical collective that issued it (a ring all-gather, a binary
+exchange, ...).  On ``meta`` tensors (the dry run,
+:mod:`repro_torch.launch.dryrun`) they move nothing and return empty
+tensors of the right shapes, so a step's collectives are counted without
+a network.
 """
 
 from __future__ import annotations
@@ -66,7 +76,12 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..obs import op_counts as A
 from .mesh import Axis
+
+
+def _meta(x: torch.Tensor) -> bool:
+    return x.device.type == "meta"
 
 
 def _host(x: torch.Tensor) -> torch.Tensor:
@@ -78,6 +93,17 @@ def _exchange(x: torch.Tensor, group: Axis, dst: Optional[int],
               src: Optional[int]) -> torch.Tensor:
     """Send ``x`` to coordinate ``dst`` and receive a tensor like it from
     ``src`` (zeros where ``src`` is None)."""
+    with A.suspended():
+        if _meta(x):
+            out = torch.zeros_like(x, memory_format=torch.contiguous_format)
+        else:
+            out = _send_recv(x, group, dst, src)
+    A.report_collective("collective-permute", out, group.size, (out,))
+    return out
+
+
+def _send_recv(x: torch.Tensor, group: Axis, dst: Optional[int],
+               src: Optional[int]) -> torch.Tensor:
     stage = group.stages(x)
     buf = _host(x) if stage else x.contiguous()
     out = (torch.zeros(x.shape, dtype=x.dtype, pin_memory=True) if stage
@@ -97,15 +123,32 @@ def _ppermute(x: torch.Tensor, group: Axis, perm: Sequence[Tuple[int, int]]) -> 
     i = group.index
     dst = next((d for s, d in perm if s == i), None)
     src = next((s for s, d in perm if d == i), None)
-    return _exchange(x, group, dst, src)
+    with A.issued_by("ppermute"):
+        return _exchange(x, group, dst, src)
 
 
 def _all_reduce(x: torch.Tensor, group: Axis, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    out = x.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=op, group=group.group)
+    with A.suspended():
+        out = x.detach().clone(memory_format=torch.contiguous_format)
+        if not _meta(out):
+            dist.all_reduce(out, op=op, group=group.group)
+    A.report_collective("all-reduce", out, group.size, (out,))
     return out
 
 
+def all_reduce_(t: torch.Tensor, group: Axis, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` all-reduced over ``group`` in place, outside autograd (the
+    train step's data mean, gradient norm and optimizer statistics)."""
+    if group.size == 1:
+        return t
+    with A.suspended():
+        if not _meta(t):
+            dist.all_reduce(t, op=op, group=group.group)
+    A.report_collective("all-reduce", t, group.size)
+    return t
+
+
+@A.issues("ring reduce-scatter")
 def _ring_rs(x: torch.Tensor, group: Axis, dim: int) -> torch.Tensor:
     n, i = group.size, group.index
     if x.shape[dim] % n:
@@ -122,6 +165,7 @@ def _ring_rs(x: torch.Tensor, group: Axis, dim: int) -> torch.Tensor:
     return acc + chunks[i]
 
 
+@A.issues("ring all-gather")
 def _ring_ag(x: torch.Tensor, group: Axis, dim: int) -> torch.Tensor:
     n, i = group.size, group.index
     parts: List[Optional[torch.Tensor]] = [None] * n
@@ -132,6 +176,7 @@ def _ring_ag(x: torch.Tensor, group: Axis, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim)
 
 
+@A.issues("ring all-reduce")
 def _ring_ar(x: torch.Tensor, group: Axis, chunk_axis: Optional[int]) -> torch.Tensor:
     n = group.size
     axis = chunk_axis
@@ -146,6 +191,7 @@ def _ring_ar(x: torch.Tensor, group: Axis, chunk_axis: Optional[int]) -> torch.T
     return _ring_ag(_ring_rs(x, group, axis), group, axis)
 
 
+@A.issues("binary exchange")
 def _binary_exchange(x: torch.Tensor, group: Axis) -> torch.Tensor:
     n, i = group.size, group.index
     rel = torch.tensor([r ^ i for r in range(n)], device=x.device)
@@ -168,8 +214,11 @@ def _all_to_all(x: torch.Tensor, group: Axis) -> torch.Tensor:
     order = [dist.get_group_rank(group.group, r) for r in group.ranks]
     at = torch.tensor(order, device=x.device)
     inp = torch.empty_like(x, memory_format=torch.contiguous_format).index_copy_(0, at, x)
-    out = torch.empty_like(inp)
-    dist.all_to_all_single(out, inp, group=group.group)
+    with A.suspended():
+        out = torch.empty_like(inp)
+        if not _meta(out):
+            dist.all_to_all_single(out, inp, group=group.group)
+    A.report_collective("all-to-all", out, group.size, (out,))
     return out.index_select(0, at)
 
 

@@ -11,7 +11,12 @@ rank's index on it:
 * :func:`mesh_axis` -- the :class:`Axis` of one mesh dimension: its process
   group, its global ranks in the mesh's order and this rank's coordinate;
 * :func:`axis_size`, :func:`axis_index` (``lax.axis_size``,
-  ``lax.axis_index``).
+  ``lax.axis_index``);
+* :func:`fake_world` -- a world of any size in this one process, over
+  ``torch.distributed``'s ``"fake"`` backend: the production mesh of 256 or
+  512 ranks is built over it for the dry run
+  (:mod:`repro_torch.launch.dryrun`), which runs rank 0's step on ``meta``
+  tensors and moves nothing.
 
 ``shard_map`` has no counterpart: every rank runs the model code on its own
 shard, and the collectives of :mod:`repro_torch.parallel.collectives` move
@@ -35,6 +40,7 @@ point-to-point payload must pass through a pinned host buffer.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -121,6 +127,24 @@ def axis_index(mesh, name: str) -> int:
 
 
 # ------------------------------------------------------------ worlds
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """This process as rank 0 of a world of ``world_size`` ranks
+    that exists only as a ``"fake"`` process group: groups and meshes can
+    be built over it, and no collective moves data.  The group is torn down
+    on exit."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    # importing the module registers the "fake" backend with torch.distributed
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _rank_main(fn: Callable, rank: int, world: int, backend: str, tmp: str,

@@ -12,12 +12,16 @@ gradients for free; here the step all-reduces every gradient over the
 batch's axes (``data``, and ``pod``) and divides by their size, which is
 the global mean since the shards are equal.  Under FSDP a weight split
 over a batch axis gets its sum over that axis from its gather's backward,
-so it is only divided there, and the AdamW step runs on the shards.
-Parameters replicated over ``model`` already hold equal gradients there
-(the model code's *f* operators sum them), so nothing is reduced over
-``model``.  Clipping uses the global norm: the squares of each parameter
-are summed over the mesh axes that split it, so every entry counts once.
-The loss metric is the mean over the batch's axes.
+so it is only divided there, and the optimizer steps the shards
+(``adamw_lowmem`` reduces its factored statistics over the axes that
+split each dimension).  Parameters replicated over ``model`` already hold
+equal gradients there (the model code's *f* operators sum them), so
+nothing is reduced over ``model``.  Clipping uses the global norm: the
+squares of each parameter are summed over the mesh axes that split it, so
+every entry counts once.  The loss metric is the mean over the batch's
+axes.  Every reduction goes through
+:func:`repro_torch.parallel.collectives.all_reduce_`, so the dry run
+counts it.
 """
 
 from __future__ import annotations
@@ -29,13 +33,12 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-import torch.distributed as dist
-
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import forward, init_params, lm_loss
+from repro_torch.parallel.collectives import all_reduce_
 from repro_torch.parallel.mesh import axis_size, mesh_axis
 from repro_torch.parallel.sharding import get_mesh, get_rules
-from repro_torch.parallel.specs import param_pspecs
+from repro_torch.parallel.specs import _names, param_pspecs
 from repro_torch.train.optimizer import OptConfig, apply_updates, init_opt_state
 
 
@@ -72,7 +75,7 @@ def _data_mean(t: torch.Tensor, axes) -> torch.Tensor:
     """``t`` averaged over the batch's mesh axes, in place."""
     n = 1
     for ax in axes:
-        dist.all_reduce(t, group=ax.group)
+        all_reduce_(t, ax)
         n *= ax.size
     return t.div_(n)
 
@@ -97,7 +100,7 @@ def _global_norm(grads: Dict[str, torch.Tensor], specs):
     total = None
     for key in sorted(sums):
         for n in key:
-            dist.all_reduce(sums[key], group=mesh_axis(mesh, n).group)
+            all_reduce_(sums[key], mesh_axis(mesh, n))
         total = sums[key] if total is None else total + sums[key]
     return torch.sqrt(total)
 
@@ -112,21 +115,31 @@ def sync_gradients(model, loss: torch.Tensor, grads: Dict[str, torch.Tensor],
     if get_mesh() is None:
         return loss, None
     data_axes = _mesh_axes("batch")
-    if train_cfg.opt.name != "adamw" and (_mesh_axes("heads") or _mesh_axes("fsdp")):
-        raise NotImplementedError(
-            f"{train_cfg.opt.name} factors its second moment over dimensions a "
-            f"mesh axis splits: under a mesh the port steps AdamW only "
-            f"(ROADMAP.md § 1 item 7)")
     specs = param_pspecs(model, train_cfg.moe_impl)
     n = math.prod(ax.size for ax in data_axes)
     for name, g in grads.items():
         split = _split_over(specs[name])
         for ax in data_axes:
             if ax.name not in split:
-                dist.all_reduce(g, group=ax.group)
+                all_reduce_(g, ax)
         g.div_(n)
     loss = _data_mean(loss.clone(), data_axes)
     return loss, _global_norm(grads, specs)
+
+
+def split_axes(model, moe_impl: str = "tp") -> Optional[Dict[str, tuple]]:
+    """Under a mesh, each parameter's mesh axes (size > 1) by dimension, as
+    its spec splits it (``apply_updates``' ``split``); None off a mesh."""
+    mesh = get_mesh()
+    if mesh is None:
+        return None
+    out = {}
+    for name, spec in param_pspecs(model, moe_impl).items():
+        p = model.get_parameter(name)
+        full = (None,) * (p.dim() - len(spec)) + tuple(spec)
+        out[name] = tuple(tuple(ax for ax in (mesh_axis(mesh, a) for a in _names(s) if s)
+                                if ax.size > 1) for s in full)
+    return out
 
 
 def make_train_step(cfg: ModelConfig, train_cfg: TrainConfig) -> Callable:
@@ -158,7 +171,9 @@ def make_train_step(cfg: ModelConfig, train_cfg: TrainConfig) -> Callable:
         else:
             loss, grads = grads_of(model, batch)
         loss, norm = sync_gradients(model, loss, grads, train_cfg)
-        metrics = apply_updates(model, state["opt"], grads, train_cfg.opt, grad_norm=norm)
+        split = split_axes(model, train_cfg.moe_impl) if train_cfg.opt.name != "adamw" else None
+        metrics = apply_updates(model, state["opt"], grads, train_cfg.opt, grad_norm=norm,
+                                split=split)
         metrics["loss"] = loss
         return state, metrics
 

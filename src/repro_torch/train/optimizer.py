@@ -9,15 +9,25 @@ temporaries of a step are those of the largest leaf (the 151 M-entry
 embedding of StarCoder2-3B: 0.6 GB in fp32) and never the whole model's.
 A fused ``torch._foreach_*`` update over all 3 B parameters would need a
 12 GB fp32 temporary per operation beside 48.5 GB of state.
+
+Under a mesh each rank steps its own shards.  ``adamw_lowmem``'s factored
+second moment averages the squared gradient over a parameter's last and
+second-to-last dimensions, and ``denom`` averages ``vr`` over its last; where
+mesh axes split such a dimension, the sums are all-reduced over them and
+divided by the dimension's full length (``split`` of :func:`apply_updates`).
+Like ``repro``, which factors by the stacked leaf's rank, the port factors
+by each parameter's own rank (ROADMAP.md § 3).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from repro_torch.parallel.collectives import all_reduce_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,14 +80,30 @@ def _f32(x: float) -> float:
     return torch.tensor(x, dtype=torch.float32).item()
 
 
+def _mean(t: torch.Tensor, dim: int, axes: Sequence, keepdim: bool = False) -> torch.Tensor:
+    """The mean of ``t`` over ``dim``, whose entries are split over the mesh
+    ``axes``: the local sum all-reduced over them over the full length."""
+    if not axes:
+        return torch.mean(t, dim=dim, keepdim=keepdim)
+    total = torch.sum(t, dim=dim, keepdim=keepdim)
+    n = t.shape[dim]
+    for ax in axes:
+        all_reduce_(total, ax)
+        n *= ax.size
+    return total.div_(n)
+
+
 @torch.no_grad()
 def apply_updates(model: nn.Module, opt_state: Dict, grads: Mapping[str, torch.Tensor],
-                  cfg: OptConfig, grad_norm: Optional[torch.Tensor] = None
+                  cfg: OptConfig, grad_norm: Optional[torch.Tensor] = None,
+                  split: Optional[Mapping[str, Tuple[Sequence, ...]]] = None
                   ) -> Dict[str, torch.Tensor]:
     """One optimizer step, in place on the model's parameters and on
     ``opt_state``; returns the metrics ``grad_norm`` and ``lr``.  Clipping
     uses ``grad_norm`` where given (a sharded model's global norm, which
-    this rank's ``grads`` alone do not give), else the norm of ``grads``."""
+    this rank's ``grads`` alone do not give), else the norm of ``grads``.
+    ``split`` maps a parameter's name to the mesh axes (``Axis``) that split
+    each of its dimensions; ``adamw_lowmem`` averages over them."""
     step = opt_state["step"]
     gn = global_norm(grads.values()) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
@@ -100,9 +126,10 @@ def apply_updates(model: nn.Module, opt_state: Dict, grads: Mapping[str, torch.T
             if "v" in vd:
                 vhat = vd["v"].mul_(b2).add_(g2, alpha=1 - b2) / bc2
             else:
-                vr = vd["vr"].mul_(b2).add_(torch.mean(g2, dim=-1), alpha=1 - b2)
-                vc = vd["vc"].mul_(b2).add_(torch.mean(g2, dim=-2), alpha=1 - b2)
-                denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=1e-30)
+                axes = (split or {}).get(name) or ((),) * p.dim()
+                vr = vd["vr"].mul_(b2).add_(_mean(g2, -1, axes[-1]), alpha=1 - b2)
+                vc = vd["vc"].mul_(b2).add_(_mean(g2, -2, axes[-2]), alpha=1 - b2)
+                denom = torch.clamp(_mean(vr, -1, axes[-2], keepdim=True), min=1e-30)
                 vhat = (vr[..., None] * vc[..., None, :]).div_(denom[..., None]).div_(bc2)
             u = (m32 / bc1).div_(vhat.sqrt_().add_(cfg.eps))
             m.copy_(m32)

@@ -144,7 +144,11 @@ def test_checks_reject_what_the_kernels_do_not_take():
         _check(*_both(_inputs(8, 1, 64, 2, 5, 7), "float32")[1], 16, torch.float32)
     with pytest.raises(ValueError, match="multiples of 8"):
         _check(*_both(_inputs(8, 1, 64, 2, 12, 8), "bfloat16")[1], 16, torch.bfloat16)
-    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+    # meta tensors (the dry run) give empty outputs of the kernels' shapes;
+    # inputs on two devices are refused
+    y, states, T = ssd_scan_fwd(*(t.to("meta") for t in (x, dt, A, B, C)), chunk=16)
+    assert y.device.type == "meta" and y.shape == x.shape and states.shape[:3] == (1, 4, 2)
+    with pytest.raises(ValueError, match="several devices"):
         ssd_scan_fwd(x.to("meta"), dt, A, B, C, chunk=16)
 
 
@@ -206,3 +210,39 @@ def test_forward_hands_the_kernels_its_plan(monkeypatch, dtype, bt, s, h, chunk)
     per = -(-h // groups)
     assert (groups - 1) * per < h <= groups * per
     assert groups == 1 or bt * nc * groups <= 132
+
+
+def test_meta_limits_are_the_kernel_sources():
+    """The meta branch checks against ``LIMITS``, a copy of the largest
+    chunk, state size and head dim that ``csrc/ssd_scan.cu`` compiles in."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels.ssd_scan.ssd_scan import LIMITS
+
+    src = (Path(__file__).resolve().parents[1] / "src/repro_torch/csrc/ssd_scan.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (QM|NM|PM) = (\d+);", src)}
+    assert LIMITS == (consts["QM"], consts["NM"], consts["PM"])
+
+
+def test_plain_scan_keeps_float64_inputs_in_float64():
+    """float64 inputs are scanned in float64 (a float64 model is the
+    reference for the float32 sums): equal to the token-by-token recurrence
+    h_t = exp(dt_t A) h_(t-1) + dt_t x_t B_t^T, y_t = h_t C_t in numpy
+    float64 to 1e-12, where the float32 scan is ~1e-6 away; the gradient is
+    float64 too."""
+    x, dt, A, B, C = (a.astype(np.float64) for a in _inputs(11, 2, 32, 3, 4, 5))
+    h = np.zeros((2, 3, 5, 4))
+    want = np.zeros_like(x)
+    for t in range(x.shape[1]):
+        h = (np.exp(dt[:, t] * A)[:, :, None, None] * h
+             + np.einsum("bh,bn,bhp->bhnp", dt[:, t], B[:, t], x[:, t]))
+        want[:, t] = np.einsum("bhnp,bn->bhp", h, C[:, t])
+    ins64 = [torch.from_numpy(a).requires_grad_() for a in (x, dt, A, B, C)]
+    y64 = ssd_scan_ref(*ins64, 8)
+    y32 = ssd_scan_ref(*(t.detach().float() for t in ins64), 8)
+    assert y64.dtype == torch.float64
+    assert np.abs(y64.detach().numpy() - want).max() <= 1e-12 * np.abs(want).max()
+    assert np.abs(y32.double().numpy() - want).max() >= 1e-9 * np.abs(want).max()
+    grads = torch.autograd.grad(y64.sum(), ins64)
+    assert all(g.dtype == torch.float64 for g in grads)
