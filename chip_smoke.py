@@ -259,7 +259,27 @@ failure:
      run's, the predicted temp bytes printed beside max_memory_allocated;
      then the dry run of four production cells of the 256-rank mesh
      (started beside phase 44 in a process of its own), each one's seconds
-     and per-rank bytes beside the card's total_memory.
+     and per-rank bytes beside the card's total_memory;
+ 46. decode under a mesh, in phase 45's world of 4 ranks after phase 45's
+     runs, each run against the unsharded port with the same weights: StarCoder2-3B at 8 layers, bf16,
+     (1, 4), 8 lanes fed 32 prompt tokens and 32 greedy ones through
+     decode_step (token agreement, ms a step, 8 decode_attention launches a
+     rank and step); at 2 layers in float32 at (1, 4), and under kvdedup
+     (KV heads unpadded, the cache's sequence over model): tokens equal,
+     each rank's cache shard within DEC_TOL of its norm; Mamba2-780m (8
+     layers) and RecurrentGemma-2B (6) in float32 at (1, 4), 8 lanes, 16
+     steps: tokens and state shards; one lane at (4, 1) with the cache's
+     sequence over data (long_500k's layout): StarCoder2-3B over 32,768
+     slots filled from a seed below 32,760, 8 steps in float32 and bf16,
+     and Mixtral-8x7B at one layer over its 4096-slot window wrapped, the
+     writing rank moving from rank 0 to 1 (the written k/v rows, every
+     position, the merge's ms); then the dry run of the bf16 step (a child
+     process) against the step: argument bytes equal to the allocator's
+     requested bytes, FLOPs, collectives and launches equal.  Phase 2
+     also holds flash-decode's log-sum-exp form (float32 output and lse)
+     to its plain version, rows with no valid slot included (bf16 cases on
+     the reference's own scale, LSE_TOL, which a plain version without
+     one split of 8 must fail), and it is timed at long_500k's shard shape.
 
 Phase 40 runs under the default rules, whose ``seq_sp`` maps to the model
 axis, so it checks the sequence-parallel path: the MoE layer's gather and
@@ -469,6 +489,7 @@ def check_decode_attention(torch):
         ref = decode_attention_cache_ref(q, k, v, sp, qp, window=win, chunk=chk)
         torch.cuda.synchronize()
         judge(label, out, ref, qdt, kvdt, True)
+    errs["lse"] = check_lse_form(torch)
     # the splits merge in split order, not arrival order: the same bits twice
     q, k, v, lengths = attention_inputs(torch, 90, 8, 24, 2, 128, 4096, bf, bf, None)
     q2, k2, v2, sp, qp = slot_inputs(torch, 91, 8, 24, 2, 128, 1024, bf, bf, 1024, 4000)
@@ -480,6 +501,112 @@ def check_decode_attention(torch):
     if not same:
         raise AssertionError("decode_attention is not deterministic")
     return errs
+
+
+# The log-sum-exp form (label, B, Hq, Hkv, D, W, q dtype, cache dtype, q_pos
+# range, window, chunk, lanes emptied): long_500k's shard on one rank of
+# Llama-4's global layer (B=1, Hq=3, Hkv=1, D=128, 32,768 slots) and the
+# shapes of the sharded decode phases, with lanes whose slots are all
+# empty (-1) or all after the query (a shard that holds no valid slot).
+LSE_CASES = [
+    ("long_500k shard, bf16", 1, 3, 1, 128, 32768, "bfloat16", "bfloat16", (32768, 90000),
+     0, 0, 0),
+    ("long_500k shard, f32", 1, 3, 1, 128, 32768, "float32", "float32", (32768, 90000),
+     0, 0, 0),
+    ("StarCoder2 kvdedup shard, bf16, empty lanes", 8, 24, 2, 128, 256, "bfloat16",
+     "bfloat16", (0, 1000), 0, 0, 3),
+    ("StarCoder2 shard f32, empty lanes", 8, 24, 2, 128, 8192, "float32", "float32",
+     (0, 30000), 0, 0, 3),
+    ("Mixtral window shard, bf16, empty lanes", 4, 32, 8, 128, 1024, "bfloat16", "bfloat16",
+     (0, 20000), 4096, 0, 2),
+    ("chunk 200, f32 q over a bf16 cache, empty lanes", 4, 16, 2, 64, 512, "float32",
+     "bfloat16", (0, 3000), 0, 200, 2),
+]
+
+
+# The bf16 cases of the log-sum-exp form on the reference's own scale: at
+# long_500k's shard a row averages 32,768 keys and its outputs are ~0.009,
+# under TOL's absolute 2e-2.  Each row's max abs error over the RMS of the
+# plain version's row: the kernel rounds the probabilities to bf16 for the
+# tensor cores and both sides sum in float32, which reads a few 1e-3; a
+# merge that drops one of 8 splits reads ~0.35.  lse's max abs error: both
+# sides take it from the same bf16 inputs in float32 (~1e-6); one split of
+# 8 dropped moves it by log(8/7) = 0.13, a window off by a 64-key tile of
+# 1024 keys by 0.06.
+LSE_TOL = {"out_rel": 2e-2, "lse_abs": 1e-3}
+
+
+def lse_row_rel(out, ref):
+    """The largest over rows (B, 1, Hq) of a row's max abs error over the
+    RMS of the plain version's row."""
+    err = (out.float() - ref.float()).abs().amax(-1)
+    rms = ref.float().square().mean(-1).sqrt()
+    return (err / rms).max().item()
+
+
+def check_lse_form(torch):
+    """``decode_attention_cache(..., return_lse=True)`` against its plain
+    version on every row with a valid slot: float32 cases within TOL
+    absolutely and relatively, bf16 ones within LSE_TOL of the reference's
+    scale; a row with none gives zeros and -inf (the plain version -1e30 +
+    log W beside the mean of V, either weighing 0 in a merge); the output
+    rounded to q's type is the plain launch's, bit for bit.  At long_500k's
+    shard a plain version that drops the last of the kernel's 8 splits must
+    go over LSE_TOL.  Returns the largest error."""
+    from repro_torch.kernels.decode_attention import (decode_attention_cache,
+                                                      decode_attention_cache_ref)
+
+    worst = 0.0
+    for seed, (label, b, hq, hkv, d, w, qd, kvd, (lo, hi), win, chk, empty) in \
+            enumerate(LSE_CASES):
+        qdt, kvdt = getattr(torch, qd), getattr(torch, kvd)
+        q, k, v, sp, qp = slot_inputs(torch, 200 + seed, b, hq, hkv, d, w, qdt, kvdt, lo, hi)
+        if empty:
+            sp[0] = -1                             # never written
+            sp[1:empty] = qp[1:empty, None] + 1    # every slot after the query
+        kw = dict(window=win, chunk=chk)
+        out, lse = decode_attention_cache(q, k, v, sp, qp, return_lse=True, **kw)
+        plain = decode_attention_cache(q, k, v, sp, qp, **kw)
+        ref, ref_lse = decode_attention_cache_ref(q, k, v, sp, qp, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        bf16 = torch.bfloat16 in (qdt, kvdt)
+        live = torch.ones(b, dtype=torch.bool, device="cuda")
+        live[:empty] = False
+        err = (out[live] - ref[live]).abs().max().item()
+        lerr = (lse[live] - ref_lse[live]).abs().max().item()
+        rel = lse_row_rel(out[live], ref[live])
+        if bf16:
+            close = rel <= LSE_TOL["out_rel"] and lerr <= LSE_TOL["lse_abs"]
+            limits = (f"over the reference's row RMS {rel:.3e} (tol {LSE_TOL['out_rel']}), "
+                      f"lse {lerr:.3e} (tol {LSE_TOL['lse_abs']})")
+        else:
+            tol = TOL["float32"]
+            close = (torch.allclose(out[live], ref[live], atol=tol, rtol=tol)
+                     and torch.allclose(lse[live], ref_lse[live], atol=tol, rtol=tol))
+            limits = f"lse {lerr:.3e} (tol {tol}); over the reference's row RMS {rel:.3e}"
+        ok = (out.dtype == torch.float32 and lse.dtype == torch.float32
+              and out.shape == (b, 1, hq, d) and lse.shape == (b, hq) and close
+              and bool((out[~live] == 0).all()) and bool(torch.isneginf(lse[~live]).all())
+              and bool((ref_lse[~live] <= -1e29).all())
+              and torch.equal(out.to(qdt), plain))
+        print(f"decode_attention lse form {label}: out max_abs_err {err:.3e}, {limits}; "
+              f"{empty} empty lanes give zeros and -inf; out in {qd} equals the plain "
+              f"launch's: {torch.equal(out.to(qdt), plain)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"decode_attention's lse form disagrees on {label}")
+        if seed == 0:
+            # the plain version without the last split's keys (all of them valid here)
+            cut = sp.clone()
+            cut[:, -(w // 8):] = -1
+            bad, bad_lse = decode_attention_cache_ref(q, k, v, cut, qp, return_lse=True, **kw)
+            bad_rel = lse_row_rel(out, bad)
+            bad_l = (lse - bad_lse).abs().max().item()
+            print(f"decode_attention lse form {label}: the plain version planted without the "
+                  f"last of 8 splits: over its row RMS {bad_rel:.3e}, lse {bad_l:.3e}")
+            if bad_rel <= LSE_TOL["out_rel"] or bad_l <= LSE_TOL["lse_abs"]:
+                raise AssertionError("the lse-form check passes a merge that drops a split")
+        worst = max(worst, err, lerr)
+    return worst
 
 
 # ------------------------------------------------------------ phases 3, 4
@@ -727,17 +854,18 @@ def decode_bufs(torch, s, max_len=None, slots=False, b=8, hq=24, hkv=2, d=128):
 
 
 def time_decode_attention(torch, label, s, max_len=None, slots=False, hq=24, hkv=2, d=128,
-                          window=0):
-    """Kernel, plain version and SDPA at B=8 StarCoder2 heads (or ``hq``
-    query heads over ``hkv`` KV heads of ``d``), bf16, over a cache of S
-    slots (see ``decode_bufs``); the slot form masks by ``window``."""
+                          window=0, b=8, lse=False):
+    """Kernel, plain version and SDPA at B=8 StarCoder2 heads (or ``b``
+    lanes of ``hq`` query heads over ``hkv`` KV heads of ``d``), bf16, over
+    a cache of S slots (see ``decode_bufs``); the slot form masks by
+    ``window``, and with ``lse`` runs its log-sum-exp form (float32 output
+    and lse; SDPA computes the output alone)."""
     import functools
 
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
 
-    b = 8
     bufs = decode_bufs(torch, s, max_len, slots, b, hq, hkv, d)
     n_buf = len(bufs)
     if slots:
@@ -749,8 +877,9 @@ def time_decode_attention(torch, label, s, max_len=None, slots=False, hq=24, hkv
         sdpa_in = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
                    for q, k, v, _, _ in bufs]
         live = sum(int(m.sum().item()) for m in masks) // n_buf
-        kernel_fn, plain_fn = (functools.partial(f, window=window) for f in
-                               (decode_attention_cache, decode_attention_cache_ref))
+        kernel_fn, plain_fn = (functools.partial(f, window=window, **({"return_lse": True}
+                                                                      if lse else {}))
+                               for f in (decode_attention_cache, decode_attention_cache_ref))
     else:
         lengths = bufs[0][3]
         mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
@@ -779,12 +908,14 @@ def time_decode_attention(torch, label, s, max_len=None, slots=False, hq=24, hkv
     library_ms = graph_ms(torch, library, n_buf)
     library_eager_ms = eager_ms(torch, library, n_buf)
     nbytes = (2 * live * hkv * d * 2          # the K and V rows the step needs
-              + 2 * b * hq * d * 2            # q, out
+              + b * hq * d * 2                # q
+              + b * hq * (d * 4 + 4 if lse else d * 2)     # out (float32 and lse)
               + (b * s * 4 + b * 4 if slots else b * 4))   # slot positions or lengths
     ops = 4 * live * hq * d
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS) * 1e3
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_FLOPS else "operations"
-    print(f"time decode_attention {label}: B={b} Hq={hq} Hkv={hkv} D={d} S={s} "
+    print(f"time decode_attention {label}{' (lse form)' if lse else ''}: B={b} Hq={hq} "
+          f"Hkv={hkv} D={d} S={s} "
           f"window {window}, live keys {live}, bf16: kernel {kernel_ms * 1e3:.2f} us on the card "
           f"({nbytes / kernel_ms / 1e6:.0f} GB/s; {device_ms * 1e3:.2f} us of kernel time "
           f"in torch.profiler), {kernel_eager_ms * 1e3:.2f} us eager; bound {bound_ms * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB); "
@@ -4790,10 +4921,12 @@ def _child_result(proc, label, timeout):
     return json.loads(out.strip().splitlines()[-1])
 
 
-def dry_rank(rank, device="cuda", seq=SPF_SEQ, reduced=False):
+def dry_rank(rank, device="cuda", seq=SPF_SEQ, reduced=False, dec_ref=None):
     """One rank of phase 45: each rule set's StarCoder2 step for real under
     OpAnalysis, with the bytes its setup allocated (the state and the
-    batch), its peak above them and its flash launches."""
+    batch), its peak above them and its flash launches; then, given phase
+    46's references ``dec_ref``, phase 46's rank in the same world.
+    Returns (phase 45's runs, phase 46's or None)."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
@@ -4813,6 +4946,7 @@ def dry_rank(rank, device="cuda", seq=SPF_SEQ, reduced=False):
         st = torch.cuda.memory_stats()
         return st.get("requested_bytes.all.current", -1), st["allocated_bytes.all.current"]
 
+    t_rank = time.perf_counter()
     cfg = spf_cfg(SPF_LAYERS, reduced)
     batches = par_batches(cfg, device, seq)
     out = {}
@@ -4845,28 +4979,39 @@ def dry_rank(rank, device="cuda", seq=SPF_SEQ, reduced=False):
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
-    return out
+    out["seconds"] = time.perf_counter() - t_rank
+    return out, None if dec_ref is None else dec_rank(rank, dec_ref, device, reduced)
 
 
-def dryrun_on_card(torch, device="cuda", seq=SPF_SEQ, reduced=False, cells=None):
+def dryrun_on_card(torch, device="cuda", seq=SPF_SEQ, reduced=False, cells=None,
+                   decode=False):
     """Phase 45: the dry run's prediction of phase 43's step against the
     step on PAR_RANKS ranks of the card (``reduced`` and ``device="cpu"``
     rehearse it on the CPU); then the production cells, whose dry run
-    ``cells`` (a running child process) started earlier."""
+    ``cells`` (a running child process) started earlier.  With ``decode``
+    the same world then runs phase 46, whose results go under "decode"."""
     from repro_torch.parallel.mesh import spawn_world
 
     t0 = time.perf_counter()
-    pred_proc = subprocess.Popen(_child(f"dry_predict({seq}, {reduced})"),
-                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    children = [subprocess.Popen(_child(f"dry_predict({seq}, {reduced})"),
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)]
     try:
-        outs = spawn_world(dry_rank, PAR_RANKS, device, seq, reduced, backend="gloo",
+        dec_ref = None
+        if decode:
+            children.append(subprocess.Popen(_child(f"dec_predict({reduced})"),
+                                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                             text=True))
+            dec_ref = dec_reference(torch, device, reduced)
+        both = spawn_world(dry_rank, PAR_RANKS, device, seq, reduced, dec_ref, backend="gloo",
                            timeout_s=600)
     except BaseException:
-        pred_proc.kill()
-        pred_proc.communicate()
+        for proc in children:
+            proc.kill()
+            proc.communicate()
         raise
-    pred = _child_result(pred_proc, "the dry run's prediction", 300)
+    pred = _child_result(children[0], "the dry run's prediction", 300)
     world_s = time.perf_counter() - t0
+    outs = [o for o, _ in both]
     res = {"runs": {}}
     for label, _, _ in SPF_CONFIGS:
         p = pred[label]
@@ -4937,9 +5082,474 @@ def dryrun_on_card(torch, device="cuda", seq=SPF_SEQ, reduced=False, cells=None)
                   f"total_memory {total / 1e9:.3f} GB; FLOPs {rec['cost']['flops']:.4e}, "
                   f"collective wire bytes {rec['loop_aware']['collective_wire_bytes']:.4e}"
                   + (f", {rec['opt']}" if rec.get("opt") else ""))
-    print(f"dryrun: phase 45 took {time.perf_counter() - t0:.1f} s (the world and the "
-          f"prediction {world_s:.1f} s)")
+    if decode:
+        res["decode"] = decode_mesh_check(torch, [o for _, o in both], dec_ref, children[1],
+                                          device, reduced)
+    own = max(o["seconds"] for o in outs)
+    print(f"dryrun: phase 45{' and 46' if decode else ''} took "
+          f"{time.perf_counter() - t0:.1f} s (the world and the predictions {world_s:.1f} s, "
+          f"phase 45's ranks' own {own:.1f} s)")
     res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+# phase 46: decode under a mesh, PAR_RANKS ranks sharing the card over gloo,
+# each run held to the unsharded port on the card with the same weights
+# (heads padded for PAR_RANKS; kvdedup's KV heads unpadded): StarCoder2-3B
+# tensor-parallel at (1, 4) in bf16 and in float32, phase 44's recurrent
+# configs at (1, 4) in float32, a cache split over data at (4, 1) (one lane,
+# long_500k's layout: StarCoder2-3B over 32,768 slots, and Mixtral-8x7B's
+# 4096-slot window wrapped, the writing rank moving from rank 0 to rank 1),
+# kvdedup at (1, 4); then the dry run of the bf16 step against the step.
+DEC_TOL = 2e-5                   # float32 cache shards, each over its norm
+DEC_SEED = 11
+
+
+def dec_sizes(reduced=False):
+    """Phase 46's sizes (``reduced``: the reduced configs' sizes, which
+    rehearse the phase on the CPU)."""
+    if reduced:
+        return {"layers": 2, "f32_layers": 2, "lanes": 8, "prompt": 8, "new": 8,
+                "cache": 64, "rec": (4, 4), "seq_slots": 64, "seq_steps": 8}
+    return {"layers": 8, "f32_layers": 2, "lanes": 8, "prompt": 32, "new": 32,
+            "cache": 1024, "rec": (8, 9), "seq_slots": 32768, "seq_steps": 8}
+
+
+def dec_cfg(arch, layers, reduced=False):
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    return dataclasses.replace(cfg.reduced() if reduced else cfg, num_layers=layers)
+
+
+def dec_model(torch, cfg, device, dtype, kv_pad=True):
+    """Phase 46's full weights, drawn from PAR_SEED with heads padded for
+    PAR_RANKS (``kv_pad=False``: the KV heads unpadded, as kvdedup holds
+    them)."""
+    from repro_torch.models import init_params
+
+    return init_params(cfg, torch.Generator(device=device).manual_seed(PAR_SEED),
+                       tp=PAR_RANKS, device=device, dtype=dtype, kv_pad=kv_pad)
+
+
+def dec_feed(torch, model, cache, prompts, new, pos0=0, seq_sharded=False):
+    """``prompts`` (lanes, P) fed one token a step through decode_step, as
+    repro's engine feeds a prompt, then ``new`` - 1 greedy tokens, every
+    lane at one position from ``pos0``; tokens and positions go in as device
+    tensors.  Returns every step's next tokens (lanes, P + new - 1) on the
+    host and the ms a step."""
+    from repro_torch.models import decode_step
+
+    dev = model.device
+    lanes, p = prompts.shape
+    toks = torch.from_numpy(np.ascontiguousarray(prompts, np.int32)).to(dev)
+    out, nxt = [], None
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    for i in range(p + new - 1):
+        tok = toks[:, i:i + 1] if i < p else nxt[:, None]
+        pos = torch.full((lanes,), pos0 + i, dtype=torch.int32, device=dev)
+        nxt, _ = decode_step(model, cache, tok, pos, seq_sharded=seq_sharded)
+        out.append(nxt)
+    sync(torch, dev)
+    ms = (time.perf_counter() - t0) * 1e3 / (p + new - 1)
+    return torch.stack(out, 1).cpu().numpy(), ms
+
+
+def dec_fill(torch, cache, start):
+    """Every attention layer's ring cache (one lane) as positions 0 ..
+    start - 1 leave it: slot j holds the last such t with t % W == j (-1
+    where there is none), k and v drawn from DEC_SEED and the layer."""
+    for i, c in enumerate(cache):
+        if "k" not in c:
+            continue
+        dev, w = c["k"].device, c["k"].shape[1]
+        gen = torch.Generator(device=dev).manual_seed(DEC_SEED + i)
+        for name in ("k", "v"):
+            c[name].copy_(torch.randn(c[name].shape, generator=gen, device=dev))
+        j = torch.arange(w, device=dev)
+        t = start - 1 - torch.remainder(start - 1 - j, w)
+        c["pos"].copy_(torch.where(t >= 0, t, torch.full_like(t, -1))[None].expand_as(c["pos"]))
+
+
+def dec_seq_runs(reduced=False):
+    """The (4, 1) runs: (key, arch, layers, dtype name, cache length, first
+    position): StarCoder2-3B over seq_slots slots filled below seq_slots -
+    seq_steps, in float32 and bf16; Mixtral-8x7B at one layer, its window
+    wrapped three times and the steps crossing from rank 0's slots into
+    rank 1's."""
+    sz = dec_sizes(reduced)
+    w = dec_cfg("mixtral", 1, reduced).window
+    first = sz["seq_slots"] - sz["seq_steps"]
+    return (("seq_f32", "starcoder2", sz["f32_layers"], "float32", sz["seq_slots"], first),
+            ("seq_bf16", "starcoder2", sz["f32_layers"], "bfloat16", sz["seq_slots"], first),
+            ("window", "mixtral", 1, "float32", w, 3 * w + w // PAR_RANKS - sz["seq_steps"] // 2))
+
+
+def dec_written(start, steps, w):
+    """The global slots the steps from position ``start`` write."""
+    return [(start + i) % w for i in range(steps)]
+
+
+def dec_reference(torch, device="cuda", reduced=False):
+    """Phase 46's unsharded port on one process: each run's next tokens and
+    the caches it leaves (host copies in shared memory; of a run over a
+    filled cache only the written slots and every slot's position)."""
+    from repro_torch.models import init_cache
+
+    t0 = time.perf_counter()
+    sz = dec_sizes(reduced)
+    lanes = sz["lanes"]
+    rng = np.random.default_rng(DEC_SEED)
+    sc = dec_cfg("starcoder2", sz["layers"], reduced)
+    ref = {"prompts": rng.integers(0, sc.vocab_size, (lanes, sz["prompt"]))}
+    model = dec_model(torch, sc, device, torch.bfloat16)
+    cache = init_cache(model, lanes, sz["cache"])
+    ref["tp_bf16"] = {"tokens": dec_feed(torch, model, cache, ref["prompts"], sz["new"])[0]}
+    del model, cache
+
+    def run(key, cfg, kv_pad, prompts, new):
+        model = dec_model(torch, cfg, device, torch.float32, kv_pad)
+        cache = init_cache(model, lanes, prompts.shape[1] + new if key in REC_LAYERS
+                           else sz["cache"], dtype=torch.float32)
+        toks, _ = dec_feed(torch, model, cache, prompts, new)
+        ref[key] = {"prompts": prompts, "tokens": toks,
+                    "cache": [{k: shared_copy(torch, t) for k, t in c.items()} for c in cache]}
+
+    sc2 = dec_cfg("starcoder2", sz["f32_layers"], reduced)
+    run("tp_f32", sc2, True, ref["prompts"], sz["new"])
+    run("kvdedup", sc2, False, ref["prompts"], sz["new"])
+    p, n = sz["rec"]
+    for arch, cfg in rec_cfgs(reduced).items():
+        run(arch, cfg, True, rng.integers(0, cfg.vocab_size, (lanes, p)), n)
+    for key, arch, layers, dname, w, start in dec_seq_runs(reduced):
+        cfg = dec_cfg(arch, layers, reduced)
+        model = dec_model(torch, cfg, device, getattr(torch, dname))
+        cache = init_cache(model, 1, w, dtype=getattr(torch, dname))
+        dec_fill(torch, cache, start)
+        prompts = rng.integers(0, cfg.vocab_size, (1, sz["seq_steps"]))
+        toks, _ = dec_feed(torch, model, cache, prompts, 1, pos0=start)
+        slots = dec_written(start, sz["seq_steps"], w)
+        ref[key] = {"prompts": prompts, "tokens": toks, "start": start,
+                    "written": [{"k": shared_copy(torch, c["k"][:, slots]),
+                                 "v": shared_copy(torch, c["v"][:, slots]),
+                                 "pos": shared_copy(torch, c["pos"])} for c in cache]}
+        del model, cache
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    ref["seconds"] = time.perf_counter() - t0
+    print(f"decode/mesh: the unsharded references took {ref['seconds']:.1f} s")
+    return ref
+
+
+def dec_cache_errs(torch, cache, want):
+    """(worst error over the norm of a float tensor, its layer.name, whether
+    every position and the shapes are equal) of a cache against its
+    expected shard."""
+    worst, where, same = 0.0, "", True
+    for i, (c, w) in enumerate(zip(cache, want)):
+        for name, t in c.items():
+            if t.shape != w[name].shape:
+                same = False
+            elif t.dtype == torch.int32:
+                same &= bool(torch.equal(t.cpu(), w[name].cpu()))
+            elif (e := rel_errs(torch, t, w[name])[0]) >= worst:
+                worst, where = e, f"{i}.{name}"
+    return worst, where, same
+
+
+def dec_rank(rank, ref, device="cuda", reduced=False):
+    """One rank of phase 46 (the module's list): each run's next tokens,
+    its cache shard against the unsharded port's (shard_cache), ms a step,
+    decode_attention launches and the merge's ms; then the bf16 step under
+    OpAnalysis with the bytes its setup requested."""
+    import torch
+
+    from repro_torch.convert import shard_params
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.mesh import make_mesh, mesh_axis
+    from repro_torch.parallel.sharding import mesh_axes, parallel_rules
+    from repro_torch.parallel.specs import cache_pspecs, shard_cache
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    t_rank = time.perf_counter()
+    sz = dec_sizes(reduced)
+    lanes = sz["lanes"]
+    out = {}
+    tp = make_mesh((1, PAR_RANKS), ("data", "model"), device=device)
+    sc = dec_cfg("starcoder2", sz["layers"], reduced)
+    with parallel_rules(mesh_axes(), tp):
+        model = shard_params(dec_model(torch, sc, device, torch.bfloat16), tp)
+        cache = init_cache(model, lanes, sz["cache"])
+        decode_attention.launches = 0
+        toks, ms = dec_feed(torch, model, cache, ref["prompts"], sz["new"])
+        out["tp_bf16"] = {"tokens": toks, "ms": ms, "launches": decode_attention.launches,
+                          "kv_heads": int(cache[0]["k"].shape[2])}
+        del model, cache
+    gc.collect()
+    sc2 = dec_cfg("starcoder2", sz["f32_layers"], reduced)
+    runs = [("tp_f32", sc2, {}, True), ("kvdedup", sc2, {"kv_heads": None, "seq_shard": "model"},
+                                        False)]
+    runs += [(arch, cfg, {}, True) for arch, cfg in rec_cfgs(reduced).items()]
+    for key, cfg, rules, kv_pad in runs:
+        seq = key == "kvdedup"
+        r = ref[key]
+        with parallel_rules(mesh_axes(rules), tp):
+            model = shard_params(dec_model(torch, cfg, device, torch.float32, kv_pad), tp)
+            length = sz["cache"] if key in ("tp_f32", "kvdedup") else sum(sz["rec"])
+            cache = init_cache(model, lanes, length, dtype=torch.float32, seq_sharded=seq)
+            decode_attention.launches = 0
+            toks, ms = dec_feed(torch, model, cache, r["prompts"],
+                                sz["new"] if key in ("tp_f32", "kvdedup") else sz["rec"][1],
+                                seq_sharded=seq)
+            launches = decode_attention.launches
+            want = shard_cache(r["cache"], cache_pspecs(r["cache"], seq), tp)
+            out[key] = {"tokens": toks, "ms": ms, "launches": launches,
+                        "errs": dec_cache_errs(torch, cache, want),
+                        "local": {k: list(t.shape) for k, t in cache[0].items()}}
+            del model, cache, want
+        gc.collect()
+    dm = make_mesh((PAR_RANKS, 1), ("data", "model"), device=device)
+    merges = []
+    real_merge = L.merge_partials
+
+    def timed_merge(*args):
+        sync(torch, device)
+        t0 = time.perf_counter()
+        res = real_merge(*args)
+        sync(torch, device)
+        merges.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    for key, arch, layers, dname, w, start in dec_seq_runs(reduced):
+        r = ref[key]
+        cfg = dec_cfg(arch, layers, reduced)
+        dtype = getattr(torch, dname)
+        with parallel_rules(mesh_axes({"batch": None}), dm):
+            model = shard_params(dec_model(torch, cfg, device, dtype), dm)
+            full = init_cache(model, 1, w, dtype=dtype)
+            dec_fill(torch, full, start)
+            cache = [{k: t.clone() for k, t in c.items()}
+                     for c in shard_cache(full, cache_pspecs(full, True), dm)]
+            del full
+            idx = mesh_axis(dm, "data").index
+            decode_attention.launches = 0
+            merges.clear()
+            L.merge_partials = timed_merge if key == "seq_f32" else real_merge
+            try:
+                toks, ms = dec_feed(torch, model, cache, r["prompts"], 1, pos0=start,
+                                    seq_sharded=True)
+            finally:
+                L.merge_partials = real_merge
+            launches = decode_attention.launches
+            worst, owned, pos_ok = 0.0, 0, True
+            for c, wr in zip(cache, r["written"]):
+                if "k" not in c:
+                    continue
+                wl = c["k"].shape[1]
+                pos_ok &= bool(torch.equal(c["pos"].cpu(), wr["pos"][:, idx * wl:(idx + 1) * wl]))
+                mine = [i for i, g in enumerate(dec_written(start, sz["seq_steps"], w))
+                        if g // wl == idx]
+                owned += len(mine)
+                if mine:
+                    loc = [dec_written(start, sz["seq_steps"], w)[i] % wl for i in mine]
+                    for name in ("k", "v"):
+                        worst = max(worst, rel_errs(torch, c[name][:, loc],
+                                                    wr[name][:, mine])[0])
+            out[key] = {"tokens": toks, "ms": ms, "launches": launches, "err": worst,
+                        "owned": owned, "pos_equal": pos_ok, "slots": int(cache[0]["k"].shape[1]),
+                        "merge_ms": sum(merges) / max(1, sz["seq_steps"])}
+            del model, cache
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def held():
+        if not cuda:
+            return 0
+        return torch.cuda.memory_stats().get("requested_bytes.all.current", -1)
+
+    with parallel_rules(mesh_axes(), tp):
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        req0 = held()
+        model = D.sharded_model(sc, tp, device=device, seed=PAR_SEED)
+        cache = init_cache(model, lanes, sz["cache"])
+        batch = {"tokens": torch.zeros((lanes, 1), dtype=torch.int32, device=device),
+                 "position": torch.full((lanes,), sz["prompt"], dtype=torch.int32,
+                                        device=device)}
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        req1 = held()
+        alloc1 = torch.cuda.memory_allocated() if cuda else 0
+        decode_attention.launches = 0
+        _, rec = D.measure(lambda: decode_step(model, cache, batch["tokens"],
+                                               batch["position"]), (model, cache, batch))
+        sync(torch, device)
+        out["dry"] = {"rec": rec, "requested": req1 - req0, "launches": decode_attention.launches,
+                      "peak": (torch.cuda.max_memory_allocated() - alloc1) if cuda else 0}
+        del model, cache, batch
+    out["seconds"] = time.perf_counter() - t_rank
+    return out
+
+
+def dec_predict(reduced=False):
+    """Phase 46's prediction, in a process of its own: the bf16 (1, 4)
+    decode step traced on meta tensors as rank 0 of a fake world of
+    PAR_RANKS ranks."""
+    import torch
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.parallel.mesh import fake_world, make_mesh
+    from repro_torch.parallel.sharding import mesh_axes, parallel_rules
+
+    sz = dec_sizes(reduced)
+    lanes = sz["lanes"]
+    with fake_world(PAR_RANKS):
+        mesh = make_mesh((1, PAR_RANKS), ("data", "model"), device="cpu")
+        with parallel_rules(mesh_axes(), mesh):
+            model = D.sharded_model(dec_cfg("starcoder2", sz["layers"], reduced), mesh)
+            cache = init_cache(model, lanes, sz["cache"])
+            batch = {"tokens": torch.empty((lanes, 1), dtype=torch.int32, device="meta"),
+                     "position": torch.empty((lanes,), dtype=torch.int32, device="meta")}
+            _, rec = D.measure(lambda: decode_step(model, cache, batch["tokens"],
+                                                   batch["position"]), (model, cache, batch))
+    return rec
+
+
+def decode_mesh_check(torch, outs, ref, pred_proc, device="cuda", reduced=False):
+    """Phase 46, whose ranks ran in phase 45's world (``outs``, their
+    results in rank order) on PAR_RANKS ranks sharing the card over gloo:
+    each run against the unsharded port (``ref``, made before the world),
+    then the dry run's prediction of the bf16 step (``pred_proc``, a child
+    process started before the world) against the step."""
+    t0 = time.perf_counter()
+    sz = dec_sizes(reduced)
+    pred = _child_result(pred_proc, "the decode step's dry run", 300)
+    cuda = device == "cuda"
+    sc = dec_cfg("starcoder2", sz["layers"], reduced)
+    steps = sz["prompt"] + sz["new"] - 1
+    res = {"launches": {}, "ms": {}}
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"decode/mesh: {what}")
+
+    def agreement(key):
+        return float(np.mean([np.mean(o[key]["tokens"] == ref[key]["tokens"]) for o in outs]))
+
+    runs = [o["tp_bf16"] for o in outs]
+    res["launches"]["tp_bf16"] = [r["launches"] for r in runs]
+    res["ms"]["tp_bf16"] = [r["ms"] for r in runs]
+    new = slice(sz["prompt"], None)
+    print(f"decode/mesh: {sc.name} at {sc.num_layers} layers, bf16, (1, 4), {sz['lanes']} "
+          f"lanes, {sz['prompt']} prompt + {sz['new']} new tokens, cache {sz['cache']}, "
+          f"{runs[0]['kv_heads']} KV heads a rank: token agreement with the unsharded port "
+          f"{agreement('tp_bf16'):.4f} (prompt steps "
+          f"{np.mean([np.mean(r['tokens'][:, :sz['prompt']] == ref['tp_bf16']['tokens'][:, :sz['prompt']]) for r in runs]):.4f}, "
+          f"generated {np.mean([np.mean(r['tokens'][:, new] == ref['tp_bf16']['tokens'][:, new]) for r in runs]):.4f}); "
+          f"ms a step by rank " + ", ".join(f"{r['ms']:.2f}" for r in runs)
+          + f"; decode_attention launches by rank {res['launches']['tp_bf16']} "
+          f"(want {sc.num_layers} x {steps})")
+    check(all(r["tokens"].shape == ref["tp_bf16"]["tokens"].shape for r in runs),
+          "bf16 token shapes")
+    if cuda:
+        check(all(n == sc.num_layers * steps for n in res["launches"]["tp_bf16"]),
+              f"bf16 launches {res['launches']['tp_bf16']}")
+    res["tp_bf16_agreement"] = agreement("tp_bf16")
+    res["errs"] = {}
+    for key in ("tp_f32", "kvdedup", *REC_LAYERS):
+        runs = [o[key] for o in outs]
+        equal = all(np.array_equal(r["tokens"], ref[key]["tokens"]) for r in runs)
+        worst = max(r["errs"][0] for r in runs)
+        where = max(runs, key=lambda r: r["errs"][0])["errs"][1]
+        same = all(r["errs"][2] for r in runs)
+        n_steps = ref[key]["tokens"].shape[1]
+        print(f"decode/mesh: {key}, float32, (1, 4), {n_steps} steps of {sz['lanes']} lanes: "
+              f"tokens equal to the unsharded port's on every rank: {equal}; cache shards "
+              f"against shard_cache of its cache, worst error over the norm {worst:.3e} "
+              f"({where}; limit {DEC_TOL}), positions and shapes equal: {same}; a rank's "
+              f"first layer {runs[0]['local']}; ms a step by rank "
+              + ", ".join(f"{r['ms']:.2f}" for r in runs)
+              + f"; decode_attention launches by rank {[r['launches'] for r in runs]}")
+        check(equal and same and worst <= DEC_TOL, f"{key}: tokens {equal}, cache {worst:.3e} "
+              f"({where}), positions and shapes {same}")
+        res["errs"][key] = worst
+        res["launches"][key] = [r["launches"] for r in runs]
+    for key, arch, layers, dname, w, start in dec_seq_runs(reduced):
+        runs = [o[key] for o in outs]
+        equal = all(np.array_equal(r["tokens"], ref[key]["tokens"]) for r in runs)
+        worst = max(r["err"] for r in runs)
+        owned = [r["owned"] for r in runs]
+        n_attn = attention_layers(dec_cfg(arch, layers, reduced))
+        tol = DEC_TOL if dname == "float32" else PAR_TOL["bfloat16"]
+        print(f"decode/mesh: {key}: {arch} at {layers} layers, {dname}, (4, 1), one lane, "
+              f"{w} slots ({runs[0]['slots']} a rank), {sz['seq_steps']} steps from position "
+              f"{start}: tokens equal to the unsharded port's: {equal} (agreement "
+              f"{agreement(key):.4f}); written slots by rank {owned}, their k/v against the "
+              f"unsharded port's over the norm {worst:.3e} (limit {tol}); positions equal: "
+              f"{all(r['pos_equal'] for r in runs)}; ms a step by rank "
+              + ", ".join(f"{r['ms']:.2f}" for r in runs)
+              + (f"; the merge (a pmax and a psum over data, timed between synchronisations) "
+                 f"ms a step by rank " + ", ".join(f"{r['merge_ms']:.3f}" for r in runs)
+                 if key == "seq_f32" else "")
+              + f"; decode_attention launches by rank {[r['launches'] for r in runs]}")
+        check(all(r["pos_equal"] for r in runs) and sum(owned) == n_attn * sz["seq_steps"]
+              and worst <= tol, f"{key}: slots {owned}, k/v {worst:.3e}")
+        check(equal or dname != "float32", f"{key}: tokens differ")
+        if key == "window":
+            check(sum(o > 0 for o in owned) >= 2, f"window: writers {owned}")
+        if cuda:
+            check(all(r["launches"] == n_attn * sz["seq_steps"] for r in runs),
+                  f"{key} launches {[r['launches'] for r in runs]}")
+        res["errs"][key] = worst
+        res["launches"][key] = [r["launches"] for r in runs]
+        res["ms"][key] = [r["ms"] for r in runs]
+        if key == "seq_f32":
+            res["merge_ms"] = [r["merge_ms"] for r in runs]
+    dry = [o["dry"] for o in outs]
+    pk = {k: v["calls"] for k, v in pred["kernels"].items()}
+    for r in dry:
+        rec = r["rec"]
+        check(rec["cost"]["flops"] == pred["cost"]["flops"]
+              and rec["collectives"] == pred["collectives"]
+              and rec["kernels"] == pred["kernels"],
+              f"dry run: predicted {pred['cost']}, {pred['collectives']}, {pk}; real "
+              f"{rec['cost']}, {rec['collectives']}, {rec['kernels']}")
+        if cuda:
+            check(r["requested"] == pred["memory"]["argument_bytes"],
+                  f"dry run: setup requested {r['requested']} bytes, predicted "
+                  f"{pred['memory']['argument_bytes']}")
+            check({"decode_attention": r["launches"]} == pk,
+                  f"dry run: launches {r['launches']}, predicted {pk}")
+    mem = pred["memory"]
+    print(f"decode/mesh: the dry run of the bf16 (1, 4) step: predicted argument bytes "
+          f"{mem['argument_bytes']}, setup requested " + ", ".join(str(r["requested"]) for r in dry)
+          + " by rank; FLOPs, collectives ("
+          + ", ".join(f"{k} {int(v['count'])} x {v['bytes'] / 1e6:.3f} MB"
+                      for k, v in pred["collectives"].items())
+          + f") and kernels {pk} equal on every rank; launches "
+          + ", ".join(str(r["launches"]) for r in dry)
+          + f"; predicted temp {mem['temp_bytes'] / 1e6:.3f} MB against max allocated above "
+          f"the setup " + ", ".join(f"{r['peak'] / 1e6:.3f}" for r in dry) + " MB")
+    res["dry"] = {"argument_bytes": mem["argument_bytes"],
+                  "requested": [r["requested"] for r in dry], "kernels": pk}
+    own = max(o["seconds"] for o in outs)
+    res["seconds"] = ref["seconds"] + own + time.perf_counter() - t0
+    print(f"decode/mesh: phase 46 took {res['seconds']:.1f} s in phase 45's world (the "
+          f"unsharded references {ref['seconds']:.1f} s, the ranks' own {own:.1f} s)")
     return res
 
 
@@ -5070,6 +5680,8 @@ def main() -> int:
                                           ("L=4096", 4096, None, False),
                                           ("slots serve", 1024, 64, True),
                                           ("slots wrapped W=1024", 1024, None, True)]}
+    lse_time = time_decode_attention(torch, "long_500k shard, slots wrapped", 32768, None, True,
+                                     hq=3, hkv=1, d=128, b=1, lse=True)
     train_reduced_against_cpu(torch)
     train = train_full(torch)
     flash_times = time_flash_attention(torch)
@@ -5203,19 +5815,22 @@ def main() -> int:
                                  stderr=subprocess.PIPE, text=True)
         try:
             recurrent = recurrent_on_card(torch)
-            dry = dryrun_on_card(torch, cells=cells)
+            dry = dryrun_on_card(torch, cells=cells, decode=True)
         finally:
             if cells.poll() is None:
                 cells.kill()
                 cells.communicate()
     dry_s = time.perf_counter() - t_dry
-    print(f"recurrent/dryrun: phases 44-45 took {dry_s:.1f} s")
+    dec = dry["decode"]
+    print(f"recurrent/dryrun/decode: phases 44-46 took {dry_s:.1f} s (phase 46 "
+          f"{dec['seconds']:.1f} s)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, of which the "
           f"decoder-config phases {decoders_s:.1f} s, the PaliGemma and Whisper phases "
           f"{vlm_s:.1f} s, the RecurrentGemma phases {rg_s:.1f} s, the DCN and churn "
           f"phases {dcn_s:.1f} s, the cost, matrix, SLO and fault phases {engines_s:.1f} s, "
           f"the parallel and elastic phases {par_s:.1f} s, the slices, SP and FSDP "
-          f"phases {spf_s:.1f} s and the recurrent and dry-run phases {dry_s:.1f} s")
+          f"phases {spf_s:.1f} s and the recurrent, dry-run and decode-under-a-mesh phases "
+          f"{dry_s:.1f} s (phase 46 {dec['seconds']:.1f} s)")
     print(json.dumps({"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
@@ -5240,6 +5855,13 @@ def main() -> int:
         "launches_recurrentgemma_decode": rg_runs["decode"]["launches"],
         "max_err_model_shapes": max(vlm_decode_err, rg_errs["decode"]),
         "recurrentgemma_slots_wrapped_W2048": rg_decode_time,
+        "max_err_lse": errs["lse"],
+        "lse_long_500k_shard": {**lse_time,
+                                "shape": "B=1 Hq=3 Hkv=1 D=128 S=32768 bf16, out f32 + lse"},
+        "launches_sharded_decode_per_rank": dec["launches"],
+        "sharded_decode_ms_per_step_per_rank": dec["ms"],
+        "sharded_decode_merge_ms_per_step_per_rank": dec["merge_ms"],
+        "launches_dryrun_decode_step": dec["dry"]["kernels"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

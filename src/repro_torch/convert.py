@@ -17,7 +17,8 @@ the params' structure, so the
 same function maps ``jax.grad``'s output onto the port's parameter names.
 The parameters it makes are trainable, like ``init_params``'s.  A tree
 that ``repro`` made with ``init_params(cfg, key, tp=...)`` carries its
-padded heads over as they are.
+padded heads over as they are, and one made with ``kv_pad=False`` its
+unpadded KV heads (the ``kvdedup`` layout).
 
 ``shard_params(model, mesh, moe_impl)`` cuts a rank's shards of a full
 model (the counterpart of ``device_put`` with ``param_pspecs``'

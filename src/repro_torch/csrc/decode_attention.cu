@@ -48,13 +48,19 @@
 //     block reads the others' through distributed shared memory and sums
 //     its share of the outputs in split order, so results repeat bit for
 //     bit and no partial goes to device memory.
-// Rows with no valid key give zeros.  Nothing is allocated here; launches
-// go on the caller's stream.
+// Rows with no valid key give zeros.  The log-sum-exp form (a non-null
+// `lse`, kernel instances of its own) also writes each row's natural
+// log-sum-exp of its scaled logits, (m + log2 l) ln 2 from the base-2
+// state, -inf for a row with no valid key, and the output in float32, so
+// that a caller merging partial rows across ranks rounds once.  Nothing is
+// allocated here; launches go on the caller's stream.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -74,6 +80,7 @@ constexpr int kStages = 3;                       // cp.async ring of the tensor-
 constexpr int kRepTile = 4;                      // query heads per thread, CUDA-core scores
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -132,11 +139,18 @@ struct Params {
   const int* lengths;          // mode 0: (B,)
   const int* slot_pos;         // mode 1: (B, S), rows sp_sb apart
   const int* q_pos;            // mode 1: (B,)
-  void* out;                   // (B, Hq, D) contiguous, q's type
+  void* out;                   // (B, Hq, D) contiguous, q's type (float32 with lse)
+  float* lse;                  // (B, Hq) or null: each row's natural log-sum-exp
   long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, sp_sb;
   int mode, B, Hq, Hkv, S, D, n_split, chunk, window, attn_chunk, rep, mgroups;
   float scale;
 };
+
+// The natural log-sum-exp of a row's scaled logits from its base-2 state:
+// m is the largest of them times log2 e, l the sum of exp2(. - m).
+__device__ __forceinline__ float natural_lse(float m, float l) {
+  return (m + log2f(l)) * kLn2;
+}
 
 // Where a block works: grid (n_split, Hkv * mgroups, B), clusters of the
 // n_split blocks of a row.
@@ -283,16 +297,21 @@ __device__ int find_live(Shared& sh, const Mask& mk, int k0, int k1, bool marked
 // splits' acc for its share of the outputs (distributed shared memory),
 // sums them in split order; a second barrier keeps each block's partial
 // alive until all have read it.  acc's rows are ld floats apart (ld % 4 == 0).
-template <typename TO>
+// TO is the output's type: q's, or float32 in the log-sum-exp form (kLse),
+// which also writes each row's lse.
+template <typename TO, bool kLse>
 __device__ void finish(const Params& p, const Block& bk, Shared& sh, const float* acc, int ld,
                        int live_splits) {
   const int D = p.D, tid = threadIdx.x, nh = bk.nh, ns = p.n_split;
-  TO* out = static_cast<TO*>(p.out) + ((long long)bk.b * p.Hq + bk.h0) * D;
+  const long long row0 = (long long)bk.b * p.Hq + bk.h0;
+  TO* out = static_cast<TO*>(p.out) + row0 * D;
   if (live_splits == 1) {
     for (int i = tid; i < nh * D; i += kThreads) {
       const int r = i / D;
       out[i] = from_f32<TO>(acc[r * ld + i - r * D] / fmaxf(sh.l[r], 1e-30f));
     }
+    if constexpr (kLse)
+      for (int r = tid; r < nh; r += kThreads) p.lse[row0 + r] = natural_lse(sh.m[r], sh.l[r]);
     return;
   }
   cg::cluster_group cluster = cg::this_cluster();
@@ -316,6 +335,7 @@ __device__ void finish(const Params& p, const Block& bk, Shared& sh, const float
       L = fmaf(sh.lt[r][s], w, L);
     }
     sh.norm[r] = fmaxf(L, 1e-30f);
+    if (kLse && bk.split == 0) p.lse[row0 + r] = natural_lse(M, L);
   }
   __syncthreads();
   // this block's share: groups of four outputs split, split + ns, ...
@@ -342,10 +362,10 @@ __device__ void finish(const Params& p, const Block& bk, Shared& sh, const float
 }
 
 // A block whose split holds no valid key: with at most one live split in
-// the row it leaves at once (split 0 writing zeros when there is none);
-// otherwise it joins the cluster's merge with an empty (m, l) and zero acc.
-// Returns true when the caller is done.
-template <typename TO>
+// the row it leaves at once (split 0 writing zeros, and a log-sum-exp of
+// -inf, when there is none); otherwise it joins the cluster's merge with an
+// empty (m, l) and zero acc.  Returns true when the caller is done.
+template <typename TO, bool kLse>
 __device__ bool empty_split(const Params& p, const Block& bk, Shared& sh, float* acc, int ld,
                             int live_splits) {
   if ((sh.splits >> bk.split) & 1u) return false;
@@ -356,10 +376,13 @@ __device__ bool empty_split(const Params& p, const Block& bk, Shared& sh, float*
     }
     for (int i = threadIdx.x; i < bk.nh * p.D; i += kThreads)
       acc[(i / p.D) * ld + i % p.D] = 0.f;
-    finish<TO>(p, bk, sh, acc, ld, live_splits);
+    finish<TO, kLse>(p, bk, sh, acc, ld, live_splits);
   } else if (live_splits == 0 && bk.split == 0) {
-    TO* out = static_cast<TO*>(p.out) + ((long long)bk.b * p.Hq + bk.h0) * p.D;
+    const long long row0 = (long long)bk.b * p.Hq + bk.h0;
+    TO* out = static_cast<TO*>(p.out) + row0 * p.D;
     for (int i = threadIdx.x; i < bk.nh * p.D; i += kThreads) out[i] = from_f32<TO>(0.f);
+    if constexpr (kLse)
+      for (int r = threadIdx.x; r < bk.nh; r += kThreads) p.lse[row0 + r] = -__int_as_float(0x7f800000);
   }
   return true;
 }
@@ -410,8 +433,9 @@ __host__ __device__ inline int cc_smem_bytes(int d, int kv_bytes) {
   return 4 * cc_float_words(d) + 2 * kCcTile * (2 * d + vec) * kv_bytes;
 }
 
-template <typename TQ, typename TKV, bool kPasses>
+template <typename TQ, typename TKV, bool kLse, bool kPasses>
 __global__ void __launch_bounds__(kThreads) decode_cc_kernel(const Params p) {
+  using TO = std::conditional_t<kLse, float, TQ>;
   constexpr int VEC = Vec<TKV>::N;
   __shared__ Shared sh;
   extern __shared__ float4 smem4[];
@@ -427,7 +451,7 @@ __global__ void __launch_bounds__(kThreads) decode_cc_kernel(const Params p) {
   TKV* vbuf = kbuf + 2 * kCcTile * kstride;                    // 2 x kCcTile x D
 
   const int live_splits = census(sh, p, mk, bk.k0, bk.k1);
-  if (empty_split<TQ>(p, bk, sh, acc, D, live_splits)) return;
+  if (empty_split<TO, kLse>(p, bk, sh, acc, D, live_splits)) return;
   int pk0 = bk.k0, pk1 = min(bk.k1, bk.k0 + kPassKeys);   // the pass
   int n_live = find_live<kCcTile>(sh, mk, pk0, pk1, p.mode == 1);
   const TKV* kb = static_cast<const TKV*>(p.k) + bk.b * p.k_sb + bk.g * p.k_sh;
@@ -552,7 +576,7 @@ __global__ void __launch_bounds__(kThreads) decode_cc_kernel(const Params p) {
     n_live = find_live<kCcTile>(sh, mk, pk0, pk1, false);
     if (n_live) issue(0, 0);
   }
-  finish<TQ>(p, bk, sh, acc, D, live_splits);
+  finish<TO, kLse>(p, bk, sh, acc, D, live_splits);
 }
 
 // ================================================================ tensor cores
@@ -591,8 +615,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-template <typename TQ, int DMAX, bool kPasses>
+template <typename TQ, int DMAX, bool kLse, bool kPasses>
 __global__ void __launch_bounds__(kThreads) decode_tc_kernel(const Params p) {
+  using TO = std::conditional_t<kLse, float, TQ>;
   constexpr bool kSplitQ = sizeof(TQ) == 4;
   constexpr int NT = DMAX / 8;                 // n-tiles of the output
   __shared__ Shared sh;
@@ -611,7 +636,7 @@ __global__ void __launch_bounds__(kThreads) decode_tc_kernel(const Params p) {
   float* red = reinterpret_cast<float*>(Ks);
   const int LDR = D + 8;
   const int live_splits = census(sh, p, mk, bk.k0, bk.k1);
-  if (empty_split<TQ>(p, bk, sh, red, LDR, live_splits)) return;
+  if (empty_split<TO, kLse>(p, bk, sh, red, LDR, live_splits)) return;
   int pk0 = bk.k0, pk1 = min(bk.k1, bk.k0 + kPassKeys);   // the pass
   int n_live = find_live<kTcTile>(sh, mk, pk0, pk1, p.mode == 1);
   const bf16* kb = static_cast<const bf16*>(p.k) + bk.b * p.k_sb + bk.g * p.k_sh;
@@ -816,7 +841,7 @@ __global__ void __launch_bounds__(kThreads) decode_tc_kernel(const Params p) {
     red[at] = s;
   }
   __syncthreads();
-  finish<TQ>(p, bk, sh, red, LDR, live_splits);
+  finish<TO, kLse>(p, bk, sh, red, LDR, live_splits);
 }
 
 // The row's n_split blocks (grid.x) form one cluster.
@@ -845,25 +870,41 @@ int launch(K kernel, dim3 grid, int smem, const Params& p, cudaStream_t st) {
 
 // kPasses: splits longer than kPassKeys, streamed in passes (the loop over
 // passes is compiled out of the instances that shorter splits take).
-template <typename TQ, bool kPasses>
+template <typename TQ, bool kLse, bool kPasses>
 int launch_q(const Params& p, bool kv_bf16, dim3 grid, cudaStream_t st) {
   const bool split_q = sizeof(TQ) == 4;
   if (kv_bf16 && p.D % 16 == 0) {
     const int smem = tc_smem_bytes(p.D, split_q);
-    if (p.D <= 64) return launch(decode_tc_kernel<TQ, 64, kPasses>, grid, smem, p, st);
-    if (p.D <= 128) return launch(decode_tc_kernel<TQ, 128, kPasses>, grid, smem, p, st);
-    return launch(decode_tc_kernel<TQ, 256, kPasses>, grid, smem, p, st);
+    if (p.D <= 64) return launch(decode_tc_kernel<TQ, 64, kLse, kPasses>, grid, smem, p, st);
+    if (p.D <= 128) return launch(decode_tc_kernel<TQ, 128, kLse, kPasses>, grid, smem, p, st);
+    return launch(decode_tc_kernel<TQ, 256, kLse, kPasses>, grid, smem, p, st);
   }
   if (kv_bf16)
-    return launch(decode_cc_kernel<TQ, bf16, kPasses>, grid, cc_smem_bytes(p.D, 2), p, st);
-  return launch(decode_cc_kernel<TQ, float, kPasses>, grid, cc_smem_bytes(p.D, 4), p, st);
+    return launch(decode_cc_kernel<TQ, bf16, kLse, kPasses>, grid, cc_smem_bytes(p.D, 2), p, st);
+  return launch(decode_cc_kernel<TQ, float, kLse, kPasses>, grid, cc_smem_bytes(p.D, 4), p, st);
+}
+
+// The log-sum-exp form (a non-null lse) has instances of its own, so the
+// others compile as they did before it.  Its splits of any length take the
+// instances with the loop over passes (a short split runs it once), which
+// keeps the source's build time near what it was.
+int launch_p(const Params& p, bool q_bf16, bool kv_bf16, dim3 grid, cudaStream_t st) {
+  if (p.lse)
+    return q_bf16 ? launch_q<bf16, true, true>(p, kv_bf16, grid, st)
+                  : launch_q<float, true, true>(p, kv_bf16, grid, st);
+  if (p.chunk > kPassKeys)
+    return q_bf16 ? launch_q<bf16, false, true>(p, kv_bf16, grid, st)
+                  : launch_q<float, false, true>(p, kv_bf16, grid, st);
+  return q_bf16 ? launch_q<bf16, false, false>(p, kv_bf16, grid, st)
+                : launch_q<float, false, false>(p, kv_bf16, grid, st);
 }
 
 }  // namespace
 
-// ptrs: q, k, v, lengths, slot_pos, q_pos, out.
+// ptrs: q, k, v, lengths, slot_pos, q_pos, out, lse (null: no lse).
 // strides (elements): q (b, h), k (b, s, h), v (b, s, h), slot_pos (b);
 // the last dimension of q, k, v and slot_pos is contiguous.
+// With lse, out is float32 whatever q's type.
 // dims: mode, B, Hq, Hkv, S, D, n_split, split keys, window, chunk, q_bf16,
 // kv_bf16.  Returns 0, a CUDA error code, or -1 for sizes not taken.
 extern "C" int decode_attention_launch(void* const* ptrs, const long long* strides,
@@ -876,6 +917,7 @@ extern "C" int decode_attention_launch(void* const* ptrs, const long long* strid
   p.slot_pos = static_cast<const int*>(ptrs[4]);
   p.q_pos = static_cast<const int*>(ptrs[5]);
   p.out = ptrs[6];
+  p.lse = static_cast<float*>(ptrs[7]);
   p.q_sb = strides[0]; p.q_sh = strides[1];
   p.k_sb = strides[2]; p.k_ss = strides[3]; p.k_sh = strides[4];
   p.v_sb = strides[5]; p.v_ss = strides[6]; p.v_sh = strides[7];
@@ -895,9 +937,5 @@ extern "C" int decode_attention_launch(void* const* ptrs, const long long* strid
   if ((p.mode == 0 && !p.lengths) || (p.mode == 1 && (!p.slot_pos || !p.q_pos))) return -1;
   const dim3 grid(p.n_split, p.Hkv * p.mgroups, p.B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.chunk > kPassKeys)
-    return q_bf16 ? launch_q<bf16, true>(p, kv_bf16, grid, st)
-                  : launch_q<float, true>(p, kv_bf16, grid, st);
-  return q_bf16 ? launch_q<bf16, false>(p, kv_bf16, grid, st)
-                : launch_q<float, false>(p, kv_bf16, grid, st);
+  return launch_p(p, q_bf16, kv_bf16, grid, st);
 }

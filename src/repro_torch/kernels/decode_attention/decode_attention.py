@@ -11,7 +11,17 @@ Two entry points, one kernel with two masks:
 
 On CPU tensors each runs its plain version (:mod:`.ref`); on CUDA tensors
 it launches the kernel once, or raises when the kernel does not take the
-inputs.  ``decode_attention.launches`` counts kernel launches of both.
+inputs; on ``meta`` tensors (the dry run) it checks them as for the card and
+returns empty outputs of the kernel's shapes and dtypes, launching nothing.
+On every device each call reports the kernel's work to a running op-level
+analysis through :mod:`repro_torch.obs.op_counts` (:func:`work`).
+``decode_attention.launches`` counts kernel launches of both.
+
+``decode_attention_cache(..., return_lse=True)`` is the log-sum-exp form
+that a cache split over several ranks needs: the kernel also writes each
+row's log-sum-exp and writes the output in float32, so that the partial
+rows merge across ranks (:func:`repro_torch.models.layers.merge_partials`)
+before anything rounds to q's type.
 
 The kernel splits the key axis over the blocks of one thread-block
 cluster per (batch, KV head), which merge the splits in shared memory.
@@ -25,6 +35,7 @@ import math
 
 import torch
 
+from ...obs import op_counts as A
 from .. import _build
 from .ref import decode_attention_cache_ref, decode_attention_ref
 
@@ -104,7 +115,7 @@ def _check(q, k_cache, v_cache, ints):
 
 
 def _launch(mode, q, k_cache, v_cache, lengths=None, slot_pos=None, q_pos=None,
-            window=0, chunk=0):
+            window=0, chunk=0, with_lse=False):
     qvec = 16 // q.element_size()
     if q.data_ptr() % 16 or q.stride(0) % qvec or q.stride(1) % qvec:
         q = q.clone(memory_format=torch.contiguous_format)   # the kernel loads 16-byte rows
@@ -112,13 +123,14 @@ def _launch(mode, q, k_cache, v_cache, lengths=None, slot_pos=None, q_pos=None,
     _, s, hkv, _ = k_cache.shape
     units = b * hkv * _cdiv(hq // hkv, HEADS_PER_BLOCK)
     n_split, split_keys = num_splits(units, s, _sm_count(q.device.index))
-    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+    out, lse = _outputs(q, with_lse)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    ptrs = (ctypes.c_void_p * 7)(
-        ptr(q), ptr(k_cache), ptr(v_cache), ptr(lengths), ptr(slot_pos), ptr(q_pos), ptr(out))
+    ptrs = (ctypes.c_void_p * 8)(
+        ptr(q), ptr(k_cache), ptr(v_cache), ptr(lengths), ptr(slot_pos), ptr(q_pos), ptr(out),
+        ptr(lse))
     strides = (ctypes.c_longlong * 9)(
         q.stride(0), q.stride(1), *k_cache.stride()[:3], *v_cache.stride()[:3],
         slot_pos.stride(0) if slot_pos is not None else 0)
@@ -131,48 +143,105 @@ def _launch(mode, q, k_cache, v_cache, lengths=None, slot_pos=None, q_pos=None,
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            + ("sizes not taken" if err < 0 else f"CUDA error {err}"))
     decode_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
-def _on_card(q: torch.Tensor) -> bool:
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"decode_attention runs on cpu or cuda, not {q.device}")
+def _outputs(q, with_lse):
+    """The kernel's outputs for q (B, Hq, D): out in q's type, or in float32
+    with the (B, Hq) float32 lse of the log-sum-exp form (else None)."""
+    b, hq, d = q.shape
+    if not with_lse:
+        return torch.empty((b, hq, d), dtype=q.dtype, device=q.device), None
+    return (torch.empty((b, hq, d), dtype=torch.float32, device=q.device),
+            torch.empty((b, hq), dtype=torch.float32, device=q.device))
+
+
+def work(q: torch.Tensor, k_cache: torch.Tensor, ints=(), with_lse: bool = False):
+    """(FLOPs, bytes, exponentials) of one call, from the shapes alone: 4 D
+    FLOPs and one exponential for every (query head, slot) pair, reading q,
+    both caches and the integer masks once and writing the output (and lse).
+    The kernel skips the tiles with no valid key, so on a cache that is not
+    full this is what the call could need at most."""
+    b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    pairs = b * hq * s
+    out_bytes = (4 if with_lse else q.element_size()) * b * hq * d
+    nbytes = (q.element_size() * b * hq * d + 2 * k_cache.element_size() * b * s * hkv * d
+              + out_bytes + sum(t.numel() * t.element_size() for t in ints)
+              + (4 * b * hq if with_lse else 0))
+    return 4 * pairs * d, nbytes, pairs
+
+
+def _on(q: torch.Tensor) -> bool:
+    """True for CUDA tensors (the kernel), False for CPU ones (the plain
+    version) and meta ones (shapes only)."""
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"decode_attention runs on cpu, cuda or meta, not {q.device}")
     return q.device.type == "cuda"
+
+
+def _report(q, k_cache, ints, outputs, with_lse=False):
+    flops, nbytes, exps = work(q, k_cache, ints, with_lse)
+    A.report_kernel("decode_attention", flops=flops, nbytes=nbytes, transcendentals=exps,
+                    outputs=outputs)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """q: (B, Hq, D); caches: (B, S, Hkv, D); lengths: (B,) int32 -> (B, Hq, D)
     in q's dtype.  Keys at or past ``lengths[b]`` are ignored."""
-    if not _on_card(q):
-        return decode_attention_ref(q, k_cache, v_cache, lengths)
-    _check(q, k_cache, v_cache, [("lengths", lengths, (q.shape[0],))])
-    return _launch(LENGTHS, q, k_cache, v_cache, lengths=lengths)
+    on_card = _on(q)
+    with A.suspended():
+        if q.device.type == "cpu":
+            out = decode_attention_ref(q, k_cache, v_cache, lengths)
+        else:
+            _check(q, k_cache, v_cache, [("lengths", lengths, (q.shape[0],))])
+            out = (_launch(LENGTHS, q, k_cache, v_cache, lengths=lengths) if on_card
+                   else _outputs(q, False)[0])
+    _report(q, k_cache, (lengths,), (out,))
+    return out
 
 
 def decode_attention_cache(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, slot_pos: torch.Tensor,
                            q_pos: torch.Tensor, *, window: int = 0,
-                           chunk: int = 0) -> torch.Tensor:
+                           chunk: int = 0, return_lse: bool = False):
     """q: (B, 1, Hq, D); caches: (B, W, Hkv, D); slot_pos: (B, W) int32, the
     absolute position in each slot (-1 = empty); q_pos: (B,) int32 ->
     (B, 1, Hq, D) in q's dtype.  A slot counts when ``0 <= slot_pos <=
     q_pos``, within ``window`` positions of ``q_pos`` (``window`` > 0) and
     in its chunk of ``chunk`` positions (``chunk`` > 0).  A row with no
     such slot gives zeros on the card, where the plain version averages
-    every slot; the model's decode always holds the query's own slot."""
-    if not _on_card(q):
-        return decode_attention_cache_ref(q, k_cache, v_cache, slot_pos, q_pos,
-                                          window=window, chunk=chunk)
+    every slot; the model's decode always holds the query's own slot.
+
+    With ``return_lse`` the result is ``(out, lse)``: ``out`` (B, 1, Hq, D)
+    in float32 and ``lse`` (B, Hq) float32, each row's natural log-sum-exp
+    of its scaled logits over its valid slots.  A row with no valid slot
+    gets -inf on the card; the plain version's gets -1e30 + log W beside
+    the mean of V, as its -1e30 mask gives.  Either weighs 0 in a merge
+    with a row that holds a slot."""
+    on_card = _on(q)
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"want q (B, 1, Hq, D); got {tuple(q.shape)}")
     if window < 0 or chunk < 0:
         raise ValueError(f"window {window} and chunk {chunk} must not be negative")
-    b, w = k_cache.shape[:2] if k_cache.dim() == 4 else (None, None)
-    _check(q[:, 0], k_cache, v_cache,
-           [("slot_pos", slot_pos, (b, w)), ("q_pos", q_pos, (q.shape[0],))])
-    return _launch(SLOTS, q[:, 0], k_cache, v_cache, slot_pos=slot_pos, q_pos=q_pos,
-                   window=window, chunk=chunk)[:, None]
+    with A.suspended():
+        if q.device.type == "cpu":
+            res = decode_attention_cache_ref(q, k_cache, v_cache, slot_pos, q_pos,
+                                             window=window, chunk=chunk, return_lse=return_lse)
+        else:
+            b, w = k_cache.shape[:2] if k_cache.dim() == 4 else (None, None)
+            _check(q[:, 0], k_cache, v_cache,
+                   [("slot_pos", slot_pos, (b, w)), ("q_pos", q_pos, (q.shape[0],))])
+            if on_card:
+                res = _launch(SLOTS, q[:, 0], k_cache, v_cache, slot_pos=slot_pos,
+                              q_pos=q_pos, window=window, chunk=chunk, with_lse=return_lse)
+            else:
+                out, lse = _outputs(q[:, 0], return_lse)
+                res = (out, lse) if return_lse else out
+            res = (res[0][:, None], res[1]) if return_lse else res[:, None]
+    _report(q[:, 0], k_cache, (slot_pos, q_pos), res if return_lse else (res,), return_lse)
+    return res
 
 
 decode_attention.launches = 0

@@ -51,13 +51,16 @@ def slot_mask(slot_pos: torch.Tensor, q_pos: torch.Tensor, window: int = 0,
 def decode_attention_cache_ref(q: torch.Tensor, k_cache: torch.Tensor,
                                v_cache: torch.Tensor, slot_pos: torch.Tensor,
                                q_pos: torch.Tensor, *, window: int = 0,
-                               chunk: int = 0) -> torch.Tensor:
+                               chunk: int = 0, return_lse: bool = False):
     """Single-token attention against a ring-buffer cache with per-slot
     absolute positions.
 
     q: (B, 1, Hq, D); caches: (B, W, Hkv, D); slot_pos: (B, W) absolute
     position stored in each slot (-1 = empty); q_pos: (B,).  Returns
-    (B, 1, Hq, D) in q's dtype.
+    (B, 1, Hq, D) in q's dtype; with ``return_lse`` the float32 output and
+    each row's (B, Hq) float32 log-sum-exp of its masked logits, which for
+    a row with no valid slot is -1e30 + log W (the mask's value) beside the
+    mean of V.
     """
     b, _, hq, d = q.shape
     _, w, hkv, _ = k_cache.shape
@@ -68,5 +71,7 @@ def decode_attention_cache_ref(q: torch.Tensor, k_cache: torch.Tensor,
     valid = slot_mask(slot_pos, q_pos, window, chunk)
     s_logits = s_logits.masked_fill(~valid[:, None, None, :], -1e30)
     p = torch.softmax(s_logits, dim=-1)
-    out = torch.einsum("bgrs,bsgd->bgrd", p, v_cache.float())
-    return out.reshape(b, 1, hq, d).to(q.dtype)
+    out = torch.einsum("bgrs,bsgd->bgrd", p, v_cache.float()).reshape(b, 1, hq, d)
+    if return_lse:
+        return out, torch.logsumexp(s_logits, dim=-1).reshape(b, hq)
+    return out.to(q.dtype)

@@ -31,9 +31,12 @@ data axes do not divide is replicated, steps of models above 1e11
 parameters take ``adamw_lowmem``, and the variants set ``moe_impl`` and
 ``ar_impl``.  Train is forward, loss, backward and the optimizer step with
 remat; prefill is ``forward(remat=False)`` and the masked argmax of the
-last position's logits.  A cell that raises is recorded with its error and
-traceback and the sweep goes on; decode under a mesh, and so every decode
-cell, waits for ROADMAP.md § 1 item 7.7.
+last position's logits; decode is one ``decode_step`` against a cache of
+the shape's length, each rank holding its shard of it (its lanes and KV
+heads, and for ``long_500k``, whose one lane the data axes do not divide,
+its part of the sequence over ``data``; under ``kvdedup`` its part over
+``model``).  A cell that raises is recorded with its error and traceback
+and the sweep goes on.
 
 Records go to results/dryrun_torch/<mesh>/<arch>--<shape>.json (cached;
 ``--force`` reruns).
@@ -119,9 +122,9 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, variant: str = "base
       baseline  -- current defaults (grouped-GQA, SP, flash)
       moe-ep    -- MoE layers hold their experts over the model axis and
                    exchange tokens with the binary-exchange all-to-all
-      kvdedup   -- decode only: KV heads kept at their true count and the
-                   cache sharded over the model axis (waits for decode
-                   under a mesh, ROADMAP.md § 1 item 7.7)
+      kvdedup   -- decode only: KV heads kept at their true count
+                   (replicated) and the KV cache sharded over the model
+                   axis on the sequence dim (kills GQA padding waste)
       ring      -- MoE all-reduce via the explicit neighbour ring
     """
     from repro_torch.configs import SHAPES, get_arch, input_specs
@@ -155,11 +158,13 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, variant: str = "base
     ar_impl = "ring" if variant == "ring" else "psum"
     train_cfg = TrainConfig(opt=OptConfig(name=opt_name), moe_impl=moe_impl,
                             ar_impl=ar_impl)
+    kv_pad = True
     if variant == "kvdedup":
-        raise NotImplementedError(
-            "the kvdedup variant (KV heads unpadded and replicated, the KV cache "
-            "sharded over the model axis) comes with decode under a mesh "
-            "(ROADMAP.md § 1 item 7.7)")
+        kv_pad = False
+        rules = dict(rules)
+        rules["kv_heads"] = None
+        rules["seq_shard"] = "model"
+        seq_sharded = True
 
     with parallel_rules(rules, mesh):
         batch = input_specs(cfg, shape, device="meta",
@@ -167,31 +172,35 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, variant: str = "base
         if shape.kind == "train":
             fn, args = train_step(cfg, mesh, batch, train_cfg)
         elif shape.kind == "prefill":
-            model = sharded_model(cfg, mesh, moe_impl)
+            model = sharded_model(cfg, mesh, moe_impl, kv_pad=kv_pad)
 
             def fn():
                 return prefill(model, batch)
 
             args = (model, batch)
         else:  # decode
-            model = sharded_model(cfg, mesh, moe_impl)
-            cache = T.init_cache(model, shape.global_batch // bdiv, shape.seq_len)
+            model = sharded_model(cfg, mesh, moe_impl, kv_pad=kv_pad)
+            cache = T.init_cache(model, shape.global_batch // bdiv, shape.seq_len,
+                                 seq_sharded=seq_sharded)
 
             def fn():
-                return T.decode_step(model, cache, batch["tokens"], batch["position"])
+                return T.decode_step(model, cache, batch["tokens"], batch["position"],
+                                     moe_ctx={"moe_impl": moe_impl, "ar_impl": ar_impl},
+                                     seq_sharded=seq_sharded)
 
             args = (model, cache, batch)
     info = {"opt": opt_name if shape.kind == "train" else None, "moe_impl": moe_impl,
-            "ar_impl": ar_impl, "seq_sharded": seq_sharded, "tp": tp,
+            "ar_impl": ar_impl, "seq_sharded": seq_sharded, "kv_pad": kv_pad, "tp": tp,
             "batch_per_rank": shape.global_batch // bdiv}
     return mesh, rules, fn, args, info
 
 
-def sharded_model(cfg, mesh, moe_impl: str = "tp", *, device="meta", seed: int = 0):
+def sharded_model(cfg, mesh, moe_impl: str = "tp", *, device="meta", seed: int = 0,
+                  kv_pad: bool = True):
     """This rank's bfloat16 shards of ``cfg``'s model under the installed
-    rules, its heads padded for the mesh's model axis: on ``meta`` shapes only, else
-    weights drawn from ``seed`` on ``device`` (the same draw on every rank)
-    and then cut."""
+    rules, its heads padded for the mesh's model axis (its KV heads only
+    with ``kv_pad``): on ``meta`` shapes only, else weights drawn from
+    ``seed`` on ``device`` (the same draw on every rank) and then cut."""
     import torch
 
     from repro_torch.convert import shard_params
@@ -201,7 +210,8 @@ def sharded_model(cfg, mesh, moe_impl: str = "tp", *, device="meta", seed: int =
     tp = axis_size(mesh, "model") if mesh is not None else 1
     gen = None if torch.device(device).type == "meta" else \
         torch.Generator(device=device).manual_seed(seed)
-    full = T.init_params(cfg, gen, tp=tp, device=device, dtype=torch.bfloat16)
+    full = T.init_params(cfg, gen, tp=tp, device=device, dtype=torch.bfloat16,
+                         kv_pad=kv_pad)
     return full if mesh is None else shard_params(full, mesh, moe_impl)
 
 
@@ -230,30 +240,18 @@ def prefill(model, batch):
     row comes from the sequence axis's last rank (each rank's last row is
     gathered), each model rank scores its vocabulary slice, and the best
     score and then the least id that reaches it are reduced over the axis
-    (``jnp.argmax`` takes the first maximum)."""
+    (``jnp.argmax`` takes the first maximum: ``transformer.greedy_tokens``,
+    which ``decode_step`` shares)."""
     import torch
 
     from repro_torch.models import transformer as T
-    from repro_torch.parallel.collectives import gather_from, pmax
+    from repro_torch.parallel.collectives import gather_from
 
-    cfg = model.cfg
     with torch.no_grad():
         h = T.forward(model, batch, remat=False)
         sp = T.seq_sp_axis()
         last = h[:, -1:] if sp is None else gather_from(h[:, -1:].contiguous(), sp, 1)
-        w = model.lm_head if model.lm_head is not None else model.embed.T
-        logits = (last[:, -1] @ w).float()                        # (B, vocab slice)
-        ax = T._axis("vocab")
-        off = 0 if ax is None else ax.index * w.shape[-1]
-        ids = off + torch.arange(w.shape[-1], device=logits.device)
-        logits = logits.masked_fill(ids[None] >= cfg.vocab_size, -float("inf"))
-        best, at = logits.max(dim=-1)
-        if ax is None:
-            return at.to(torch.int32)
-        top = pmax(best, ax)
-        big = torch.iinfo(torch.int64).max
-        cand = torch.where(best == top, at + off, torch.full_like(at, big))
-        return (-pmax(-cand, ax)).to(torch.int32)
+        return T.greedy_tokens(model, last[:, -1])
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, force: bool = False,

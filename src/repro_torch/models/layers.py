@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.decode_attention.ref import (  # noqa: F401
     decode_attention_cache_ref as decode_attention_cache)
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
+from repro_torch.parallel.collectives import pmax, psum
 
 Params = Mapping[str, torch.Tensor]
 
@@ -102,6 +103,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = _flash_kernel(q.to(dt), k.to(dt), v.to(dt), causal=causal, window=window,
                         chunk=chunk, prefix_len=prefix_len, q_offset=q_offset)
     return out.to(q.dtype)
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor, axis, dtype) -> torch.Tensor:
+    """One-token attention over a cache split over the ranks of ``axis``
+    (an :class:`~repro_torch.parallel.mesh.Axis`): each rank's float32
+    output (B, 1, Hq, D) over its own slots and their log-sum-exp (B, Hq),
+    as ``decode_attention_cache(..., return_lse=True)`` gives them, merged
+    into the softmax over every rank's slots: M = pmax(lse), w = exp(lse -
+    M), out = psum(w out) / psum(w) (one all-reduce of both), in float32,
+    cast to ``dtype`` once.  A rank whose row holds no valid slot (lse -inf,
+    or -1e30 + log W from the plain version) weighs 0; some rank holds the
+    query's own slot, so M is finite."""
+    m = pmax(lse, axis)
+    w = torch.exp(lse - m)                                       # (B, Hq)
+    both = psum(torch.cat([out[:, 0] * w[..., None], w[..., None]], dim=-1), axis)
+    return (both[..., :-1] / both[..., -1:]).to(dtype)[:, None]
 
 
 # --------------------------------------------------------------- dense mlp

@@ -23,7 +23,9 @@ Under a model axis the block holds this rank's share of the recurrence
 width, as ``repro``'s specs shard it over ``ff``: the columns of ``w_gate``,
 ``w_x``, ``w_r`` and ``w_i``, the biases, ``lam``, the conv and the rows of
 ``w_out``.  The recurrence is per channel, so it needs no communication;
-the output is this rank's partial sum, which the caller reduces.
+the output is this rank's partial sum, which the caller reduces.  Decode
+is elementwise over the channels too: the rank's ``h`` and conv cache
+advance alone.
 """
 
 from __future__ import annotations
@@ -153,10 +155,12 @@ def rglru_block_apply(p: Params, cfg, x: torch.Tensor,
     return (hs.to(x.dtype) * gate) @ p["w_out"], new_cache
 
 
-def init_rglru_cache(cfg, batch: int, dtype=torch.bfloat16,
-                     device="cuda") -> Dict[str, torch.Tensor]:
+def init_rglru_cache(cfg, batch: int, dtype=torch.bfloat16, device="cuda",
+                     p: Optional[Params] = None) -> Dict[str, torch.Tensor]:
     """Zeroed decode state: ``h`` (Bt, W) and the conv cache ``conv``
-    (Bt, conv_width - 1, W), both in ``dtype`` as in ``repro``."""
-    w = cfg.rnn_width or cfg.d_model
+    (Bt, conv_width - 1, W), both in ``dtype`` as in ``repro``.  Given the
+    block's weights ``p``, W is their share of the width (this rank's
+    under a mesh)."""
+    w = (cfg.rnn_width or cfg.d_model) if p is None else p["lam"].shape[-1]
     return {"h": torch.zeros((batch, w), dtype=dtype, device=device),
             "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dtype, device=device)}

@@ -15,7 +15,7 @@ conv, ``norm_scale`` and the rows of ``out_proj`` over ``ff`` (``d_inner``),
 ``w_C`` and their convs replicated.  The scan runs on the rank's heads; the
 gated norm's mean square is the sum of squares summed over the axis over
 the full ``d_inner``; the output is a partial sum over the axis, which the
-caller reduces.  Each rank's B/C leaves see only its heads, so they enter
+caller reduces.  Decode advances the rank's heads' state alone.  Each rank's B/C leaves see only its heads, so they enter
 through *f* (their gradients are summed over the axis).
 """
 
@@ -121,16 +121,16 @@ def ssd_block_apply(p: Params, cfg, x: torch.Tensor,
                     decode: bool = False, axis=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x (Bt, S, d) -> (Bt, S, d) and, when ``decode``, the new cache
     ``{state, conv_x, conv_B, conv_C}`` (else None).  Under a model axis
-    ``axis`` (an :class:`~repro_torch.parallel.mesh.Axis`; training only) p
-    holds this rank's shards and the output is this rank's partial sum
-    (module docstring)."""
+    ``axis`` (an :class:`~repro_torch.parallel.mesh.Axis`) p holds this
+    rank's shards and the output is this rank's partial sum (module
+    docstring); in decode the cache holds this rank's share too (its heads'
+    state and its channels' x conv; the B/C convs whole), and each head's
+    state advances alone."""
     hd = cfg.ssm_head_dim
     di, h = p["w_x"].shape[-1], p["w_dt"].shape[-1]        # this rank's share
     if di != h * hd:
         raise ValueError(f"{di} inner channels do not hold {h} heads of {hd}")
     if axis is not None and axis.size > 1:
-        if decode:
-            raise NotImplementedError("SSD decode runs off a mesh")
         p = {k: copy_to(v, axis) if k in _REPLICATED else v for k, v in p.items()}
     else:
         axis = None
@@ -175,15 +175,20 @@ def ssd_block_apply(p: Params, cfg, x: torch.Tensor,
     return g @ p["out_proj"], new_cache
 
 
-def init_ssd_cache(cfg, batch: int, dtype=torch.bfloat16, device="cuda") -> Dict[str, torch.Tensor]:
+def init_ssd_cache(cfg, batch: int, dtype=torch.bfloat16, device="cuda",
+                   p: Optional[Params] = None) -> Dict[str, torch.Tensor]:
     """Zeroed decode state: the (Bt, H, N, P) SSD state in float32 (JAX
     starts it in ``dtype`` and keeps it in float32 from the first step on;
-    the zeros are the same) and the conv caches (Bt, W - 1, Ch) in ``dtype``."""
+    the zeros are the same) and the conv caches (Bt, W - 1, Ch) in ``dtype``.
+    Given the block's weights ``p``, H and the x conv's channels are those
+    of its shares (this rank's under a mesh)."""
     w = cfg.conv_width - 1
+    heads = cfg.ssm_heads if p is None else p["w_dt"].shape[-1]
+    inner = cfg.d_inner if p is None else p["w_x"].shape[-1]
     return {
-        "state": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
+        "state": torch.zeros((batch, heads, cfg.ssm_state, cfg.ssm_head_dim),
                              dtype=torch.float32, device=device),
-        "conv_x": torch.zeros((batch, w, cfg.d_inner), dtype=dtype, device=device),
+        "conv_x": torch.zeros((batch, w, inner), dtype=dtype, device=device),
         "conv_B": torch.zeros((batch, w, cfg.ssm_state), dtype=dtype, device=device),
         "conv_C": torch.zeros((batch, w, cfg.ssm_state), dtype=dtype, device=device),
     }

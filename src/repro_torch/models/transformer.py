@@ -68,7 +68,14 @@ layers run :func:`~repro_torch.models.moe.moe_apply_local` on the model
 axis.  SSD and RG-LRU layers are tensor-parallel over ``ff`` like the dense
 MLP, entered and left the same way: their recurrences run over the whole
 sequence on this rank's channels (:mod:`repro_torch.models.ssm`,
-:mod:`repro_torch.models.rglru`).  Serving runs off a mesh only.
+:mod:`repro_torch.models.rglru`).
+
+:func:`decode_step` runs under a mesh too, with the same tensor-parallel
+layout and one token a lane (no sequence parallelism); a cache whose slots
+are split over a mesh axis (``seq_shard``: ``long_500k``'s sequence over
+``data``, the ``kvdedup`` cells' over ``model``) runs the flash-decode
+kernel's log-sum-exp form on each rank's slots and merges the partial
+attentions across the axis (:func:`_attn_decode`).
 
 Dtypes follow ``repro``'s promotions: ``x @ w`` of float32 activations and
 bf16 weights computes in float32 (:func:`~repro_torch.models.layers.matmul`),
@@ -192,14 +199,17 @@ class Transformer(nn.Module):
 
 
 def _init_attn(gen: torch.Generator, cfg: ModelConfig, device, dtype, tp: int = 1,
-               cross: bool = False) -> Dict:
+               cross: bool = False, kv_pad: bool = True) -> Dict:
     """Attention projections; a cross-attention's have no q/k/v bias.
     Query heads are padded to a multiple of ``tp`` and KV heads replicated
-    to ``cfg.padded_kv_heads(tp)``, as in ``repro``."""
+    to ``cfg.padded_kv_heads(tp)``, as in ``repro``; with ``kv_pad=False``
+    the KV heads keep the config's count, unless the padded query heads do
+    not group over it (then they are padded all the same)."""
     d, hd = cfg.d_model, cfg.head_dim
-    hq, kv = cfg.padded_heads(tp), cfg.padded_kv_heads(tp)
+    hq = cfg.padded_heads(tp)
+    kv = cfg.padded_kv_heads(tp) if kv_pad else max(cfg.n_kv_heads, 1)
     if hq % kv:
-        raise ValueError(f"{hq} query heads do not group over {kv} KV heads")
+        kv = cfg.padded_kv_heads(tp)     # integer GQA groups
 
     def normal(shape, std):
         return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
@@ -215,8 +225,9 @@ def _init_attn(gen: torch.Generator, cfg: ModelConfig, device, dtype, tp: int = 
 
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, i: int, device,
-                dtype, tp: int = 1, cross: bool = False) -> Layer:
-    """Layer ``i`` of kind ``kind``; ``cross`` adds normx and xattn."""
+                dtype, tp: int = 1, cross: bool = False, kv_pad: bool = True) -> Layer:
+    """Layer ``i`` of kind ``kind``; ``cross`` adds normx and xattn (whose KV
+    heads are padded whatever ``kv_pad`` says, as in ``repro``)."""
     _check_layer(kind)
     sub = {}
     if kind == "ssd":
@@ -224,7 +235,7 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, i: int, devic
     elif kind == "rglru":
         sub["rglru"] = RG.init_rglru_block(gen, cfg, device, dtype)
     else:
-        sub["attn"] = _init_attn(gen, cfg, device, dtype, tp)
+        sub["attn"] = _init_attn(gen, cfg, device, dtype, tp, kv_pad=kv_pad)
     if cross:
         sub["normx"] = L.init_norm(cfg.d_model, cfg.norm, device)
         sub["xattn"] = _init_attn(gen, cfg, device, dtype, tp, cross=True)
@@ -238,17 +249,20 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, i: int, devic
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *, tp: int = 1,
-                device="cuda", dtype=torch.bfloat16) -> Transformer:
+                device="cuda", dtype=torch.bfloat16, kv_pad: bool = True) -> Transformer:
     """Random weights with the JAX package's shapes and scales, drawn from
     ``generator`` (which must live on ``device``) and made on ``device``.
     Attention heads are padded for ``tp``-way tensor parallelism as
     ``repro``'s ``init_params(cfg, key, tp)`` pads them (the full model;
-    ``repro_torch.convert.shard_params`` cuts a rank's shards).  Norm
+    ``repro_torch.convert.shard_params`` cuts a rank's shards); with
+    ``kv_pad=False`` the decoder's self-attention keeps its true KV head
+    count, as ``repro``'s ``kvdedup`` decode cells hold it.  Norm
     parameters stay float32, as in ``repro``.  An encoder-decoder config
     also gets the encoder's ``"enc"`` layers."""
     device = torch.device(device)
     layers = [_init_layer(generator, cfg, cfg.pattern_at(i), i, device, dtype, tp,
-                          cross=cfg.is_encdec) for i in range(cfg.num_layers)]
+                          cross=cfg.is_encdec, kv_pad=kv_pad)
+              for i in range(cfg.num_layers)]
     enc = None
     if cfg.is_encdec:
         enc = Encoder([_init_layer(generator, cfg, "enc", i, device, dtype, tp)
@@ -489,10 +503,14 @@ def _moe_dispatch(p: MOE.MoE, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _recurrent_apply(layer: Layer, cfg: ModelConfig, h: torch.Tensor,
-                     sp: Optional[Axis], s: Optional[int]) -> torch.Tensor:
+                     sp: Optional[Axis], s: Optional[int],
+                     cache: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """An SSD or RG-LRU mixer on the normed residual ``h``: under a mesh
     tensor-parallel over ``ff`` (its heads over ``heads``, the same axis),
-    entered and left as the dense MLP (:func:`_enter`, :func:`_leave`)."""
+    entered and left as the dense MLP (:func:`_enter`, :func:`_leave`).
+    With ``cache`` (decode) it advances the layer's state by one token and
+    updates ``cache`` in place; under a mesh the state is this rank's share
+    (its heads or channels), which advances alone."""
     ax = _axis("ff")
     hax = _axis("heads")
     if (ax is None) != (hax is None) or (ax is not None and ax.name != hax.name):
@@ -500,10 +518,13 @@ def _recurrent_apply(layer: Layer, cfg: ModelConfig, h: torch.Tensor,
                          f"rules map them to {get_rules().get('ff')!r} and "
                          f"{get_rules().get('heads')!r}")
     x = _enter(h, sp, ax, s)
+    decode = cache is not None
     if layer.kind == "ssd":
-        y = SSM.ssd_block_apply(layer.ssd, cfg, x, axis=ax)[0]
+        y, new = SSM.ssd_block_apply(layer.ssd, cfg, x, cache, decode=decode, axis=ax)
     else:
-        y = RG.rglru_block_apply(layer.rglru, cfg, x)[0]
+        y, new = RG.rglru_block_apply(layer.rglru, cfg, x, cache, decode=decode)
+    if decode:
+        cache.update(new)
     return _leave(y, sp, ax)
 
 
@@ -650,8 +671,19 @@ def _cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
     return max_len
 
 
+def _seq_axis(seq_sharded: bool) -> Optional[Axis]:
+    """The axis a sequence-sharded cache is split over (the rules'
+    ``seq_shard``); None for a cache that is not."""
+    if not seq_sharded:
+        return None
+    ax = _axis("seq_shard")
+    if ax is None:
+        raise ValueError("a sequence-sharded cache needs a mesh and rules that map seq_shard")
+    return ax
+
+
 def init_cache(model: Transformer, batch: int, max_len: int,
-               dtype=torch.bfloat16) -> List[Dict[str, torch.Tensor]]:
+               dtype=torch.bfloat16, *, seq_sharded: bool = False) -> List[Dict[str, torch.Tensor]]:
     """Zeroed caches, one dict per layer, on the model's device: for an
     attention layer ``k`` and ``v`` (B, W, Hkv, D) in ``dtype`` and ``pos``
     (B, W) int32, -1 = empty; for an SSD layer its state and conv caches
@@ -659,19 +691,32 @@ def init_cache(model: Transformer, batch: int, max_len: int,
     its ``h`` and conv cache in ``dtype``
     (:func:`repro_torch.models.rglru.init_rglru_cache`); for a layer with
     cross-attention also ``xk`` and ``xv`` (B, S_enc, Hkv, D) in ``dtype``,
-    which :func:`encode_to_cache` replaces."""
+    which :func:`encode_to_cache` replaces.
+
+    Under a mesh each rank holds its shard, as ``cache_pspecs`` in
+    :mod:`repro_torch.parallel.specs` lays the cache out: ``batch`` is this
+    rank's lanes, and the heads, states and channels are those of the
+    rank's weights.  With ``seq_sharded`` every attention layer's slots are
+    split over the rules' ``seq_shard`` axis too: a rank holds W / n of
+    them (n the axis's size, which must divide W)."""
     cfg = model.cfg
     hd = cfg.head_dim
     dev = model.device
+    sax = _seq_axis(seq_sharded)
     cache = []
     for layer in model.layers:
         if layer.kind == "ssd":
-            c = SSM.init_ssd_cache(cfg, batch, dtype, dev)
+            c = SSM.init_ssd_cache(cfg, batch, dtype, dev, p=layer.ssd)
         elif layer.kind == "rglru":
-            c = RG.init_rglru_cache(cfg, batch, dtype, dev)
+            c = RG.init_rglru_cache(cfg, batch, dtype, dev, p=layer.rglru)
         else:
             kvh = layer.attn["wk"].shape[-1] // hd
             wc = _cache_len(cfg, layer.kind, max_len)
+            if sax is not None:
+                if wc % sax.size:
+                    raise ValueError(f"a {layer.kind!r} cache of {wc} slots does not split "
+                                     f"over {sax.size} ranks of {sax.name!r}")
+                wc //= sax.size
             c = {"k": torch.zeros((batch, wc, kvh, hd), dtype=dtype, device=dev),
                  "v": torch.zeros((batch, wc, kvh, hd), dtype=dtype, device=dev),
                  "pos": torch.full((batch, wc), -1, dtype=torch.int32, device=dev)}
@@ -683,9 +728,50 @@ def init_cache(model: Transformer, batch: int, max_len: int,
     return cache
 
 
+def _local_kv(t: torch.Tensor, hax: Optional[Axis], kax: Optional[Axis]) -> torch.Tensor:
+    """The KV heads (dim 2) of ``t`` that this rank's query heads read: all
+    of them unless the query heads are split over ``hax`` while the rules
+    leave the KV heads whole (``kax`` unmapped or another axis); then the
+    rank's share, which holds exactly its query heads' groups when the KV
+    heads are padded for the axis."""
+    if hax is None or hax.size == 1 or (kax is not None and kax.name == hax.name):
+        return t
+    n = t.shape[2]
+    if n % hax.size:
+        raise ValueError(f"{n} replicated KV heads do not split over the {hax.size} ranks "
+                         f"that split the query heads")
+    return t.narrow(2, hax.index * (n // hax.size), n // hax.size)
+
+
+def _write_slot(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
+                position: torch.Tensor, sax: Optional[Axis]) -> None:
+    """Write one token's k and v (B, Hkv, D) at ``position`` (B,) into the
+    ring-buffer cache in place: position ``t`` goes to slot ``t % W``, as in
+    ``repro``.  Over a sequence axis ``sax`` the ring of W = n * W_local
+    slots is split in n runs of W_local, rank r holding slots [r W_local,
+    (r + 1) W_local): the rank that holds slot ``t % W`` writes it at
+    ``(t % W) % W_local``, the others write back what the slot held, so no
+    rank needs to know on the host whose turn it is."""
+    kc, vc, pc = cache["k"], cache["v"], cache["pos"]
+    bi = torch.arange(kc.shape[0], device=kc.device)
+    if sax is None:
+        slot = (position % kc.shape[1]).long()
+        kc.index_put_((bi, slot), k.to(kc.dtype))
+        vc.index_put_((bi, slot), v.to(vc.dtype))
+        pc.index_put_((bi, slot), position)
+        return
+    wl = kc.shape[1]
+    g = (position % (wl * sax.size)).long()
+    own = torch.div(g, wl, rounding_mode="floor") == sax.index
+    slot = g % wl
+    kc.index_put_((bi, slot), torch.where(own[:, None, None], k.to(kc.dtype), kc[bi, slot]))
+    vc.index_put_((bi, slot), torch.where(own[:, None, None], v.to(vc.dtype), vc[bi, slot]))
+    pc.index_put_((bi, slot), torch.where(own, position, pc[bi, slot]))
+
+
 def _attn_decode(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
-                 kind: str, position: torch.Tensor,
-                 cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+                 kind: str, position: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 sax: Optional[Axis] = None) -> torch.Tensor:
     """One-token attention against the layer's ring-buffer cache.
 
     x: (B, 1, d); position: (B,) int32 absolute positions on the device.
@@ -694,11 +780,24 @@ def _attn_decode(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
     updated in place (``index_put_``), where JAX builds a new one with
     ``.at[].set``.  ``"swa"`` and ``"chunked"`` layers mask by ``cfg.window``
     as in :func:`_attn_apply`.
+
+    Under a mesh p holds this rank's query heads (``heads``) and its KV
+    heads (``kv_heads``; all of them where the rules leave those whole), the
+    cache the rank's KV heads, and the output projection's partial sum is
+    summed over the heads' axis.  Over ``sax``, the axis of a
+    sequence-sharded cache, each rank attends to its slots in the
+    log-sum-exp form of the kernel and the partial rows are merged across
+    the axis (:func:`~repro_torch.models.layers.merge_partials`); when the
+    query heads are split over that same axis (``kvdedup``: the KV heads
+    whole, the sequence over ``model``) every rank first gathers all the
+    query heads (B x Hq x D, one token), and keeps its own after the merge.
     """
     b = x.shape[0]
     hd = cfg.head_dim
     hq = p["wq"].shape[-1] // hd
     kvh = p["wk"].shape[-1] // hd
+    hax = _axis("heads")
+    x = _enter(x, None, hax)
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -708,72 +807,90 @@ def _attn_decode(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
     q = L.apply_rope(q.reshape(b, 1, hq, hd), pos_b, cfg.rope_theta)
     k = L.apply_rope(k.reshape(b, 1, kvh, hd), pos_b, cfg.rope_theta)
     v = v.reshape(b, 1, kvh, hd)
+    _write_slot(cache, k[:, 0], v[:, 0], position, sax)
 
-    kc, vc, pc = cache["k"], cache["v"], cache["pos"]
-    slot = (position % kc.shape[1]).long()
-    bi = torch.arange(b, device=x.device)
-    kc.index_put_((bi, slot), k[:, 0].to(kc.dtype))
-    vc.index_put_((bi, slot), v[:, 0].to(vc.dtype))
-    pc.index_put_((bi, slot), position)
-
-    out = decode_attention_cache(q, kc, vc, pc, position,
-                                 **_mask(cfg, kind))          # (B, 1, Hq, D)
-    return out.reshape(b, 1, hq * hd) @ p["wo"]
+    gathered = sax is not None and hax is not None and hax.name == sax.name
+    kc, vc = cache["k"], cache["v"]
+    if not gathered:
+        kax = _axis("kv_heads")
+        kc, vc = _local_kv(kc, hax, kax), _local_kv(vc, hax, kax)
+    if sax is None:
+        out = decode_attention_cache(q, kc, vc, cache["pos"], position,
+                                     **_mask(cfg, kind))          # (B, 1, Hq, D)
+    else:
+        if gathered:
+            q = ring_all_gather(q.contiguous(), hax, 2)
+        part, lse = decode_attention_cache(q, kc, vc, cache["pos"], position,
+                                           return_lse=True, **_mask(cfg, kind))
+        out = L.merge_partials(part, lse, sax, q.dtype)
+        if gathered:
+            out = out.narrow(2, hax.index * hq, hq)
+    return _leave(out.reshape(b, 1, hq * hd) @ p["wo"], None, hax)
 
 
 def _cross_decode(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
                   cache: Dict[str, torch.Tensor], lengths: torch.Tensor) -> torch.Tensor:
     """One-token cross-attention to every key of the cache's ``xk``/``xv``:
     flash-decode's lengths form, each lane's length (``lengths``, (B,)
-    int32) the whole encoder sequence.  x: (B, 1, d)."""
+    int32) the whole encoder sequence.  x: (B, 1, d).  Under a mesh
+    tensor-parallel over ``heads``, as :func:`_attn_decode`."""
     b = x.shape[0]
     hd = cfg.head_dim
     hq = p["wq"].shape[-1] // hd
+    hax, kax = _axis("heads"), _axis("kv_heads")
+    x = _enter(x, None, hax)
     q = L.matmul(x, p["wq"]).reshape(b, hq, hd)
-    out = decode_attention(q, cache["xk"], cache["xv"], lengths)  # (B, Hq, D)
-    return L.matmul(out.reshape(b, 1, hq * hd), p["wo"])
+    out = decode_attention(q, _local_kv(cache["xk"], hax, kax),
+                           _local_kv(cache["xv"], hax, kax), lengths)   # (B, Hq, D)
+    return _leave(L.matmul(out.reshape(b, 1, hq * hd), p["wo"]), None, hax)
 
 
 def _layer_decode(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
                   position: torch.Tensor, cache: Dict[str, torch.Tensor],
-                  xlen: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  xlen: Optional[torch.Tensor] = None, moe_ctx: Optional[Dict] = None,
+                  sax: Optional[Axis] = None) -> torch.Tensor:
     h = L.norm(x, layer.norm1, cfg.norm)
     if layer.kind in ("ssd", "rglru"):
         # every lane advances its state by one token: lanes run in lockstep
-        block = SSM.ssd_block_apply if layer.kind == "ssd" else RG.rglru_block_apply
-        y, new = block(getattr(layer, layer.kind), cfg, h, cache, decode=True)
-        cache.update(new)
-        x = x + y
+        x = x + _recurrent_apply(layer, cfg, h, None, None, cache)
     else:
-        x = x + _attn_decode(layer.attn, cfg, h, layer.kind, position, cache)
+        x = x + _attn_decode(layer.attn, cfg, h, layer.kind, position, cache, sax)
     if layer.xattn is not None and "xk" in cache:
         x = x + _cross_decode(layer.xattn, cfg, L.norm(x, layer.normx, cfg.norm), cache,
                               xlen)
     # every lane, idle and paused ones too, goes through an MoE router and
     # competes for expert capacity, as in repro
-    return _mlp_apply(layer, cfg, x)
+    return _mlp_apply(layer, cfg, x, moe_ctx)
 
 
-@torch.no_grad()
-def decode_step(model: Transformer, cache: List[Dict[str, torch.Tensor]],
-                tokens, position) -> Tuple[torch.Tensor, List[Dict]]:
-    """One serving step: (B, 1) tokens at (B,) positions -> (B,) int32 next
-    tokens on the model's device, plus the cache (updated in place).
+def greedy_tokens(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+    """The argmax of the logits of the final hidden rows ``x`` (B, d) over
+    the real vocabulary, as (B,) int32: float32 logits, the padded ids
+    masked with -inf.  Under a vocabulary split each model rank scores its
+    slice; the best score and then the least id that reaches it are reduced
+    over the axis, so ties go to the first maximum, as ``jnp.argmax``
+    takes it."""
+    w = model.lm_head if model.lm_head is not None else model.embed.T
+    logits = (x @ w).float()                                       # (B, vocab slice)
+    ax = _axis("vocab")
+    off = 0 if ax is None else ax.index * w.shape[-1]
+    ids = off + torch.arange(w.shape[-1], device=logits.device)
+    logits = logits.masked_fill(ids[None] >= model.cfg.vocab_size, -float("inf"))
+    if ax is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    best, at = logits.max(dim=-1)
+    top = pmax(best, ax)
+    big = torch.iinfo(torch.int64).max
+    cand = torch.where(best == top, at + off, torch.full_like(at, big))
+    return (-pmax(-cand, ax)).to(torch.int32)
 
-    ``tokens`` and ``position`` are host integer arrays (numpy or CPU
-    tensors), as the serving engine keeps them; they go to the device in one
-    copy that does not wait for it, so the step itself needs no host-device
-    sync, and nothing in it depends on the positions' values on the host.
-    An SSD or RG-LRU layer's state has no positions: each call advances
-    every lane by one token, so its lanes must move in lockstep.
-    """
-    ax = _axis("heads")
-    if ax is not None and ax.size > 1:
-        raise NotImplementedError("decode_step runs off a mesh: decode under a model axis "
-                                  "(and long_500k's sequence-sharded cache) waits for "
-                                  "ROADMAP.md § 1 item 7.7")
-    cfg = model.cfg
-    dev = model.device
+
+def _step_inputs(tokens, position, dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(tokens int64 (B,), positions int32 (B,)) on ``dev``: tensors already
+    there are taken as they are; host arrays go over in one copy from
+    pinned memory that does not wait for the card."""
+    if all(isinstance(t, torch.Tensor) and t.device == dev for t in (tokens, position)):
+        return tokens.reshape(-1).to(torch.int64), position.reshape(-1).to(torch.int32)
     host = np.concatenate([np.asarray(tokens, np.int64).reshape(-1),
                            np.asarray(position, np.int64).reshape(-1)])
     both = torch.from_numpy(host)
@@ -781,20 +898,46 @@ def decode_step(model: Transformer, cache: List[Dict[str, torch.Tensor]],
         both = both.pin_memory()
     both = both.to(dev, non_blocking=True)
     tok, pos = both.view(2, -1)
-    pos = pos.to(torch.int32)
+    return tok, pos.to(torch.int32)
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, cache: List[Dict[str, torch.Tensor]],
+                tokens, position, *, moe_ctx: Optional[Dict] = None,
+                seq_sharded: bool = False) -> Tuple[torch.Tensor, List[Dict]]:
+    """One serving step: (B, 1) tokens at (B,) positions -> (B,) int32 next
+    tokens on the model's device, plus the cache (updated in place).
+
+    ``tokens`` and ``position`` are host integer arrays (numpy or CPU
+    tensors), as the serving engine keeps them, which go to the device in
+    one copy that does not wait for it, or tensors already on the model's
+    device (``meta`` ones in the dry run); so the step itself needs no
+    host-device sync, and nothing in it depends on the positions' values
+    on the host.  An SSD or RG-LRU layer's state has no positions: each call
+    advances every lane by one token, so its lanes must move in lockstep.
+
+    Under a mesh (``parallel_rules``) each rank runs the step on its shards,
+    its lanes (``batch``) and its cache (:func:`init_cache` with the same
+    ``seq_sharded``): attention, MLP, MoE (``moe_ctx`` holds ``moe_impl``,
+    ``a2a_impl`` and ``ar_impl``), SSD and RG-LRU layers tensor-parallel over
+    the model axis, the logits vocab-parallel (:func:`greedy_tokens`); with
+    ``seq_sharded`` each attention layer's cache is split over the rules'
+    ``seq_shard`` axis and its partial attentions merged across it.  A step
+    has one token a lane, so the rules' ``seq_sp`` plays no part in it.
+    """
+    cfg = model.cfg
+    dev = model.device
+    sax = _seq_axis(seq_sharded)
+    tok, pos = _step_inputs(tokens, position, dev)
     x = embed_tokens(model, tok[:, None])                    # (B, 1, d)
     # every lane attends to all the encoder's keys: one lengths tensor a step
     # serves every layer's cross-attention
     xlen = next((torch.full((tok.shape[0],), c["xk"].shape[1], dtype=torch.int32,
                             device=dev) for c in cache if "xk" in c), None)
     for layer, c in zip(model.layers, cache):
-        x = _layer_decode(layer, cfg, x, pos, c, xlen)
+        x = _layer_decode(layer, cfg, x, pos, c, xlen, moe_ctx, sax)
     x = L.norm(x, model.final_norm, cfg.norm)
-    w = model.lm_head if model.lm_head is not None else model.embed.T
-    logits = (x[:, 0] @ w).float()
-    vmask = torch.arange(logits.shape[-1], device=dev) < cfg.vocab_size
-    logits = logits.masked_fill(~vmask[None], -float("inf"))
-    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    return greedy_tokens(model, x[:, 0]), cache
 
 
 @torch.no_grad()

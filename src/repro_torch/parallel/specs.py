@@ -121,16 +121,27 @@ def cache_pspecs(cache: Sequence[Mapping[str, torch.Tensor]],
                  seq_sharded: bool = False) -> list:
     """Specs of a decode cache (one dict a layer, as ``init_cache`` gives).
 
-    ``seq_sharded=True`` shards the KV cache sequence dim over the data axis
-    (long-context decode); requires the seq-sharded decode attention path.
-    No path of the port uses these specs yet: ``decode_step`` runs off a
-    mesh, as ``repro`` serves (ROADMAP.md § 1 item 7).
+    ``seq_sharded=True`` shards the KV cache's sequence dim over the rules'
+    ``seq_shard`` axis (``data`` for long-context decode, ``model`` under
+    ``kvdedup``), the layout that ``init_cache(..., seq_sharded=True)``
+    gives each rank and ``decode_step(..., seq_sharded=True)`` merges
+    across.  :func:`shard_cache` cuts a rank's shard of a full cache with
+    them.
     """
     swap = "seq_shard" if seq_sharded else None
     table = {k: tuple(swap if a == "seq_cache" else a for a in v)
              for k, v in _CACHE_RULES.items()}
     return [{name: _leaf_spec((name,), t.dim(), table, None) for name, t in layer.items()}
             for layer in cache]
+
+
+def shard_cache(cache: Sequence[Mapping[str, torch.Tensor]], specs: Sequence[Mapping],
+                mesh) -> list:
+    """This rank's shard of a full decode cache (one dict a layer) under
+    ``specs`` (:func:`cache_pspecs`) on ``mesh``: views, cut by
+    :func:`shard_tensor`."""
+    return [{name: shard_tensor(t, spec[name], mesh) for name, t in layer.items()}
+            for layer, spec in zip(cache, specs)]
 
 
 def opt_pspecs(param_specs: Mapping[str, Spec], model: torch.nn.Module,

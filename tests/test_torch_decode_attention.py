@@ -158,11 +158,78 @@ def test_num_splits_whole_tiles_from_shapes(b, hkv, rep, seq):
 
 
 def test_wrapper_rejects_other_devices():
-    q = torch.zeros((1, 2, 8), device="meta")
-    kc = torch.zeros((1, 4, 2, 8), device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        decode_attention(q, kc, kc, torch.ones((1,), dtype=torch.int32,
-                                               device="meta"))
+    """Meta tensors (the dry run) give empty outputs of the kernel's shapes
+    and dtypes, launch nothing and report the kernel's work; inputs on two
+    devices are refused."""
+    from repro_torch.launch.op_analysis import OpAnalysis
+
+    q = torch.zeros((1, 2, 8), device="meta", dtype=torch.bfloat16)
+    kc = torch.zeros((1, 4, 2, 8), device="meta", dtype=torch.bfloat16)
     pos = torch.zeros((1, 4), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        decode_attention_cache(q[:, None], kc, kc, pos, pos[:, 0])
+    qp = torch.zeros((1,), dtype=torch.int32, device="meta")
+    before = decode_attention.launches
+    with OpAnalysis() as an:
+        out = decode_attention(q, kc, kc, qp)
+        plain = decode_attention_cache(q[:, None], kc, kc, pos, qp)
+        part, lse = decode_attention_cache(q[:, None], kc, kc, pos, qp, return_lse=True)
+    assert decode_attention.launches == before
+    assert out.device.type == "meta" and out.shape == (1, 2, 8) and out.dtype == torch.bfloat16
+    assert plain.shape == (1, 1, 2, 8) and plain.dtype == torch.bfloat16
+    assert part.shape == (1, 1, 2, 8) and part.dtype == torch.float32
+    assert lse.shape == (1, 2) and lse.dtype == torch.float32
+    rec = an.kernels["decode_attention"]
+    assert rec["calls"] == 3
+    assert rec["flops"] == 3 * 4 * 2 * 4 * 8             # 4 D a (head, slot) pair
+    assert rec["transcendentals"] == 3 * 2 * 4
+    # q, k, v, out (float32 and lse in the log-sum-exp form) and the masks
+    cache_bytes = 2 * 2 * 4 * 2 * 8
+    assert rec["bytes"] == (3 * 2 * 16 + 3 * cache_bytes + 2 * 2 * 16 + 4 * 16 + 4 * 2
+                            + 4 + 2 * (16 + 4))
+    with pytest.raises(ValueError, match="several devices"):
+        decode_attention(q, torch.zeros((1, 4, 2, 8), dtype=torch.bfloat16), kc, qp)
+
+
+def _merge(parts):
+    """The softmax over every shard's slots from each shard's float32
+    output and log-sum-exp: weights exp(lse - max lse)."""
+    outs = torch.stack([o[:, 0] for o, _ in parts])                 # (n, B, Hq, D)
+    lses = torch.stack([l for _, l in parts])                       # (n, B, Hq)
+    w = torch.exp(lses - lses.amax(0))
+    return ((w[..., None] * outs).sum(0) / w.sum(0)[..., None])[:, None]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["wrapped", "empty", "mixed"])
+@pytest.mark.parametrize("window, chunk", [(0, 0), (7, 0), (0, 8), (5, 16)])
+@pytest.mark.parametrize("n", [2, 4])
+def test_lse_form_split_and_merged_matches_xla(dtype, case, window, chunk, n):
+    """A ring cache's slots cut into n runs, as a sequence-sharded cache
+    holds them: each run's float32 output and log-sum-exp, merged, equal
+    ``decode_attention_cache_xla`` over the whole cache, runs with no valid
+    slot (short lanes, windows, chunks) among them; the unsplit lse is the
+    logsumexp of the masked logits."""
+    rng = np.random.default_rng([n, ["wrapped", "empty", "mixed"].index(case), window, chunk])
+    b, w, hkv, rep, d = 3, 24, 2, 3, 16
+    k, v, slot_pos, q_pos = _ring_cache(rng, b, w, hkv, d, case)
+    q = rng.standard_normal((b, 1, rep * hkv, d))
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(x, dtype) for x in (q, k, v))
+    pt, qpt = torch.from_numpy(slot_pos), torch.from_numpy(q_pos)
+    kw = dict(window=window, chunk=chunk)
+    step = w // n
+    parts = [decode_attention_cache(qt, kt[:, i:i + step], vt[:, i:i + step],
+                                    pt[:, i:i + step], qpt, return_lse=True, **kw)
+             for i in range(0, w, step)]
+    assert all(o.dtype == torch.float32 and l.shape == (b, rep * hkv) for o, l in parts)
+    empty = [bool((l <= -1e29).any()) for _, l in parts]
+    if case == "empty":
+        assert any(empty)
+    want = decode_attention_cache_xla(qj, kj, vj, jnp.asarray(slot_pos), jnp.asarray(q_pos),
+                                      **kw)
+    _close(_merge(parts).to(TDT[dtype]), want, dtype)
+    out, lse = decode_attention_cache(qt, kt, vt, pt, qpt, return_lse=True, **kw)
+    assert torch.equal(out.to(TDT[dtype]), decode_attention_cache(qt, kt, vt, pt, qpt, **kw))
+    qf = qt[:, 0].float().reshape(b, hkv, rep, d) / np.sqrt(d)
+    logits = torch.einsum("bgrd,bsgd->bgrs", qf, kt.float()).reshape(b, rep * hkv, w)
+    from repro_torch.kernels.decode_attention.ref import slot_mask
+    valid = slot_mask(pt, qpt, window, chunk)[:, None, :]
+    torch.testing.assert_close(lse, torch.logsumexp(logits.masked_fill(~valid, -1e30), -1))

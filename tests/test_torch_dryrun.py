@@ -19,8 +19,9 @@ compiles it for that many forced host devices.  This file holds:
 * the FLOPs of a reduced dense train step to a closed form written here;
 * the port's collective wire bytes to ``repro.launch.hlo_analysis``'s on a
   hand-written HLO text, for every kind and group size;
-* the CLI's cell list to ``repro``'s, a decode cell's error record and the
-  CLI's exit code.
+* the CLI's cell list to ``repro``'s, and two decode cells' records (the
+  merge's all-reduces over ``data`` in ``long_500k``'s, none in
+  ``decode_32k``'s) and the ``kvdedup`` variant's through the CLI.
 """
 
 import dataclasses
@@ -356,17 +357,51 @@ def test_cli_list_equals_repro():
     assert (kinds.count("train"), kinds.count("prefill"), kinds.count("decode")) == (10, 10, 15)
 
 
-def test_decode_cell_records_item_7_7_and_the_cli_fails(tmp_path, monkeypatch):
+@pytest.mark.parametrize("cell, merges", [(("mixtral-8x7b", "long_500k"), 2),
+                                          (("starcoder2-3b", "decode_32k"), 0)])
+def test_decode_cell_records_ok_with_the_merge_over_data(cell, merges, tmp_path, monkeypatch):
+    """A decode cell runs ``decode_step`` on rank 0's shards: ``long_500k``'s
+    one lane does not divide the data axis, so its cache's sequence is
+    split over ``data`` and every attention layer merges its partial
+    attention there (a pmax and a psum); ``decode_32k`` splits its lanes
+    over ``data`` and reduces nothing over it."""
     monkeypatch.setattr(D, "RESULTS", tmp_path)
-    monkeypatch.setattr(sys, "argv", ["dryrun", "--arch", "mamba2", "--shape", "decode_32k",
-                                      "--mesh", "single"])
+    axes = []
+    real = C._all_reduce
+
+    def spy(x, group, *args, **kwargs):
+        axes.append(group.name)
+        return real(x, group, *args, **kwargs)
+
+    monkeypatch.setattr(C, "_all_reduce", spy)
+    rec = D.run_cell(*cell, False, force=True)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["seq_sharded"] == bool(merges) and rec["kv_pad"]
+    assert rec["kernels"]["decode_attention"]["calls"] == get_arch(cell[0]).num_layers
+    assert rec["collectives"]["all-reduce"]["count"] == len(axes)
+    assert axes.count("data") == merges * get_arch(cell[0]).num_layers
+    assert rec["memory"]["argument_bytes"] > 0
+
+
+def test_kvdedup_variant_runs_a_decode_cell(tmp_path, monkeypatch):
+    """``--variant kvdedup``: the KV heads unpadded and whole, the cache's
+    sequence split over ``model``; StarCoder2-3B's 2 KV heads over 2048 slots
+    a rank hold a quarter of the baseline's padded head over 32768."""
+    monkeypatch.setattr(D, "RESULTS", tmp_path / "dryrun_torch")
+    base = D.run_cell("starcoder2-3b", "decode_32k", False, force=True)
+    monkeypatch.setattr(sys, "argv", ["dryrun", "--arch", "starcoder2", "--shape",
+                                      "decode_32k", "--mesh", "single", "--variant",
+                                      "kvdedup"])
     with pytest.raises(SystemExit) as exit_:
         D.main()
-    assert exit_.value.code == 1
-    rec = json.loads((tmp_path / "single" / "mamba2-780m--decode_32k.json").read_text())
-    assert rec["status"] == "error"
-    assert "NotImplementedError" in rec["error"] and "item 7.7" in rec["error"]
-    assert "decode_step" in rec["traceback"]
+    assert exit_.value.code == 0
+    rec = json.loads((tmp_path / "dryrun_torch_kvdedup" / "single" /
+                      "starcoder2-3b--decode_32k.json").read_text())
+    assert rec["status"] == "ok" and rec["seq_sharded"] and not rec["kv_pad"]
+    # each layer gathers the query heads over model: a ring of 15 sends
+    gathered = rec["collectives_issued_by"]["ring all-gather"]["collective-permute@16"]
+    assert gathered["count"] == 15 * get_arch("starcoder2").num_layers
+    assert rec["memory"]["argument_bytes"] < base["memory"]["argument_bytes"]
 
 
 if __name__ == "__main__":
