@@ -279,7 +279,36 @@ failure:
      also holds flash-decode's log-sum-exp form (float32 output and lse)
      to its plain version, rows with no valid slot included (bf16 cases on
      the reference's own scale, LSE_TOL, which a plain version without
-     one split of 8 must fail), and it is timed at long_500k's shard shape.
+     one split of 8 must fail), and it is timed at long_500k's shard shape;
+ 47. Llama-4 Maverick at full width and 2 of its 48 layers with its MoE layer
+     in ep mode (experts over the model axis, the shared expert over ff), in
+     phase 45's world of 4 ranks after phase 46, mesh (1, 4), bf16, each
+     rank drawing only its own shards leaf by leaf (ep_draw): the MoE layer's
+     ep output with the shared expert, both exchanges, against the ep routed
+     part plus the whole shared MLP on the replicated tokens (each row
+     within EP_ROW_TOL of its RMS; a plant that adds only the rank's ff share
+     must fail); the forward and loss at B=1, S=512 and capacity factor 128
+     (no drops) against tp mode on the same weights (the share of rows
+     within EP_ROW_TOL); 8 lanes decoded, 32 prompt + 32 greedy tokens, in
+     both modes (token agreement, 2 decode_attention launches a rank and
+     step); the dry run of ep mode's forward and decode step (a child
+     process) against the measured ones: argument bytes equal to the
+     allocator's requested bytes, FLOPs, collectives and launches equal;
+     then reduced Llama-4 in float32 at capacity factor 4, ep at (1, 4):
+     hidden states, loss and every gradient against the unsharded port;
+ 48. Mamba2-780m at full width and 12 of its 48 layers (RSERVE_LAYERS) and
+     RecurrentGemma-2B at full depth and width, bf16, served through
+     ServeEngine with its lane mask: 8 requests of 32 + 32 tokens at
+     batch 8 admitted two engine steps apart, slots 6 and 7 paused by
+     set_capacity for 4 steps and resumed, a ninth request in the slot the
+     first to finish leaves: every request's stream bit-identical to an
+     engine serving that request alone in the same slot, while the engine
+     without the lane mask (repro's behaviour), through the first two
+     admissions, must change some stream; ms a
+     step, decode_attention launches (RecurrentGemma's 8 a step, slot form),
+     a profile of engine steps (the device's idle share); before them the
+     reduced configs in float32 through the same drive, card streams equal
+     to the CPU's.
 
 Phase 40 runs under the default rules, whose ``seq_sp`` maps to the model
 axis, so it checks the sequence-parallel path: the MoE layer's gather and
@@ -947,7 +976,7 @@ def profile_engine_steps(torch, eng, n_steps=4):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     eng.run_until_done()
-    summarize_profile(torch, prof, wall_ms, n_steps,
+    return summarize_profile(torch, prof, wall_ms, n_steps,
                       f"{eng.cfg.name}: {n_steps} engine steps of batch {eng.max_batch}",
                       {"flash-decode": "decode_", "cuBLAS GEMM": "nvjet"})
 
@@ -4921,12 +4950,13 @@ def _child_result(proc, label, timeout):
     return json.loads(out.strip().splitlines()[-1])
 
 
-def dry_rank(rank, device="cuda", seq=SPF_SEQ, reduced=False, dec_ref=None):
+def dry_rank(rank, device="cuda", seq=SPF_SEQ, reduced=False, dec_ref=None, ep=False):
     """One rank of phase 45: each rule set's StarCoder2 step for real under
     OpAnalysis, with the bytes its setup allocated (the state and the
     batch), its peak above them and its flash launches; then, given phase
-    46's references ``dec_ref``, phase 46's rank in the same world.
-    Returns (phase 45's runs, phase 46's or None)."""
+    46's references ``dec_ref``, phase 46's rank in the same world, and with
+    ``ep`` phase 47's.  Returns (phase 45's runs, phase 46's or None, phase
+    47's or None)."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
@@ -4980,16 +5010,18 @@ def dry_rank(rank, device="cuda", seq=SPF_SEQ, reduced=False, dec_ref=None):
         if cuda:
             torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_rank
-    return out, None if dec_ref is None else dec_rank(rank, dec_ref, device, reduced)
+    dec = None if dec_ref is None else dec_rank(rank, dec_ref, device, reduced)
+    return out, dec, ep_rank(rank, device, reduced) if ep else None
 
 
 def dryrun_on_card(torch, device="cuda", seq=SPF_SEQ, reduced=False, cells=None,
-                   decode=False):
+                   decode=False, ep=False):
     """Phase 45: the dry run's prediction of phase 43's step against the
     step on PAR_RANKS ranks of the card (``reduced`` and ``device="cpu"``
     rehearse it on the CPU); then the production cells, whose dry run
     ``cells`` (a running child process) started earlier.  With ``decode``
-    the same world then runs phase 46, whose results go under "decode"."""
+    the same world then runs phase 46, whose results go under "decode", and
+    with ``ep`` phase 47, under "ep"."""
     from repro_torch.parallel.mesh import spawn_world
 
     t0 = time.perf_counter()
@@ -5002,8 +5034,12 @@ def dryrun_on_card(torch, device="cuda", seq=SPF_SEQ, reduced=False, cells=None,
                                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                              text=True))
             dec_ref = dec_reference(torch, device, reduced)
-        both = spawn_world(dry_rank, PAR_RANKS, device, seq, reduced, dec_ref, backend="gloo",
-                           timeout_s=600)
+        if ep:
+            children.append(subprocess.Popen(_child(f"ep_predict({reduced})"),
+                                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                             text=True))
+        both = spawn_world(dry_rank, PAR_RANKS, device, seq, reduced, dec_ref, ep,
+                           backend="gloo", timeout_s=900)
     except BaseException:
         for proc in children:
             proc.kill()
@@ -5011,7 +5047,7 @@ def dryrun_on_card(torch, device="cuda", seq=SPF_SEQ, reduced=False, cells=None,
         raise
     pred = _child_result(children[0], "the dry run's prediction", 300)
     world_s = time.perf_counter() - t0
-    outs = [o for o, _ in both]
+    outs = [o for o, _, _ in both]
     res = {"runs": {}}
     for label, _, _ in SPF_CONFIGS:
         p = pred[label]
@@ -5083,10 +5119,12 @@ def dryrun_on_card(torch, device="cuda", seq=SPF_SEQ, reduced=False, cells=None,
                   f"collective wire bytes {rec['loop_aware']['collective_wire_bytes']:.4e}"
                   + (f", {rec['opt']}" if rec.get("opt") else ""))
     if decode:
-        res["decode"] = decode_mesh_check(torch, [o for _, o in both], dec_ref, children[1],
+        res["decode"] = decode_mesh_check(torch, [o for _, o, _ in both], dec_ref, children[1],
                                           device, reduced)
+    if ep:
+        res["ep"] = ep_check(torch, [o for _, _, o in both], children[-1], device, reduced)
     own = max(o["seconds"] for o in outs)
-    print(f"dryrun: phase 45{' and 46' if decode else ''} took "
+    print(f"dryrun: phase 45{' and 46' if decode else ''}{' and 47' if ep else ''} took "
           f"{time.perf_counter() - t0:.1f} s (the world and the predictions {world_s:.1f} s, "
           f"phase 45's ranks' own {own:.1f} s)")
     res["seconds"] = time.perf_counter() - t0
@@ -5132,12 +5170,12 @@ def dec_model(torch, cfg, device, dtype, kv_pad=True):
                        tp=PAR_RANKS, device=device, dtype=dtype, kv_pad=kv_pad)
 
 
-def dec_feed(torch, model, cache, prompts, new, pos0=0, seq_sharded=False):
+def dec_feed(torch, model, cache, prompts, new, pos0=0, seq_sharded=False, moe_ctx=None):
     """``prompts`` (lanes, P) fed one token a step through decode_step, as
     repro's engine feeds a prompt, then ``new`` - 1 greedy tokens, every
     lane at one position from ``pos0``; tokens and positions go in as device
-    tensors.  Returns every step's next tokens (lanes, P + new - 1) on the
-    host and the ms a step."""
+    tensors; the MoE layers run as ``moe_ctx`` says.  Returns every step's
+    next tokens (lanes, P + new - 1) on the host and the ms a step."""
     from repro_torch.models import decode_step
 
     dev = model.device
@@ -5149,7 +5187,7 @@ def dec_feed(torch, model, cache, prompts, new, pos0=0, seq_sharded=False):
     for i in range(p + new - 1):
         tok = toks[:, i:i + 1] if i < p else nxt[:, None]
         pos = torch.full((lanes,), pos0 + i, dtype=torch.int32, device=dev)
-        nxt, _ = decode_step(model, cache, tok, pos, seq_sharded=seq_sharded)
+        nxt, _ = decode_step(model, cache, tok, pos, seq_sharded=seq_sharded, moe_ctx=moe_ctx)
         out.append(nxt)
     sync(torch, dev)
     ms = (time.perf_counter() - t0) * 1e3 / (p + new - 1)
@@ -5553,6 +5591,639 @@ def decode_mesh_check(torch, outs, ref, pred_proc, device="cuda", reduced=False)
     return res
 
 
+# phase 47: Llama-4 Maverick at full width and EP_LAYERS layers with its MoE
+# layer in ep mode (experts over the model axis, the shared expert over ff),
+# in phase 45's world of PAR_RANKS ranks after phase 46, mesh (1, 4), bf16;
+# each rank draws only its own shards, leaf by leaf (ep_draw), one mode's
+# model at a time
+EP_LAYERS = 2                    # a chunked layer with a dense MLP, one with the MoE
+EP_SEED = 23
+# Llama-4 routes top-1 over 128 experts: at capacity factor E / top_k a
+# rank's capacity holds every token it dispatches, so neither mode drops an
+# assignment and ep and tp compute the same function
+EP_CF = 128.0
+EP_REDUCED_CF = 4.0              # the reduced config's 4 experts, top-1
+# each row's error over its RMS: the shared-expert check, and ep against tp
+EP_ROW_TOL = 2e-2
+# the share of hidden-state rows of the ep forward within EP_ROW_TOL of tp
+# mode's, and the decode's token agreement with tp mode (PERF.md, PR 31)
+EP_ROW_SHARE = 0.99
+EP_TOKEN_AGREEMENT = 0.8
+
+
+def ep_sizes(reduced=False):
+    """Phase 47's sizes (``reduced``: a rehearsal on the CPU)."""
+    if reduced:
+        return {"seq": 64, "tokens": 64, "lanes": 8, "prompt": 8, "new": 8, "cache": 64,
+                "f32_seq": 64}
+    # at capacity factor 128 tp mode's (E x C, d) buffer holds 128 slots a
+    # token: S = 1024 took ~20 GB a rank at its peak, past a quarter of the card
+    return {"seq": 512, "tokens": 512, "lanes": 8, "prompt": 32, "new": 32, "cache": 1024,
+            "f32_seq": 64}
+
+
+def ep_cfg(reduced=False, cf=EP_CF):
+    """Llama-4 Maverick at EP_LAYERS layers (its reduced config rehearses
+    on the CPU) at capacity factor ``cf`` (None: the published one)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("llama4")
+    cfg = dataclasses.replace(cfg.reduced() if reduced else cfg, num_layers=EP_LAYERS)
+    return cfg if cf is None else dataclasses.replace(cfg, capacity_factor=cf)
+
+
+def ep_draw(torch, cfg, mesh, moe_impl, device, dtype=None, seed=EP_SEED):
+    """This rank's shards of ``cfg``'s bf16 model (heads padded for
+    PAR_RANKS) under ``moe_impl``'s specs and the installed rules, drawn
+    without the full model: each leaf is drawn in pieces along its first
+    dimension, piece j of leaf i from its own seed, so every rank and both
+    modes see the same full leaf, and a rank holds its shards and at most
+    one piece (an expert, or rows of 2^25 entries) beside them.  Matrices
+    are normal with repro's scales (0.02 for the embedding and the head,
+    1/sqrt(fan-in) for the rest); norm scales are zero, as init_params
+    makes them."""
+    from repro_torch.convert import shard_params
+    from repro_torch.models import init_params
+    from repro_torch.parallel.specs import param_pspecs, shard_tensor
+
+    dtype = dtype or torch.bfloat16
+    if cfg.norm != "rmsnorm" or cfg.qkv_bias or cfg.is_encdec or \
+            set(cfg.layer_pattern) & {"ssd", "rglru"}:
+        raise ValueError(f"ep_draw draws attention, MLP and MoE leaves of an RMSNorm model, "
+                         f"not {cfg.name}'s")
+    full = init_params(cfg, None, tp=PAR_RANKS, device="meta", dtype=dtype)
+    specs = param_pspecs(full, moe_impl)
+    shapes = {n: tuple(p.shape) for n, p in full.named_parameters()}
+    model = shard_params(full, mesh, moe_impl).to_empty(device=device)
+    del full
+    with torch.no_grad():
+        for i, (name, p) in enumerate(model.named_parameters()):
+            shape, spec = shapes[name], specs[name]
+            if len(shape) == 1:
+                p.zero_()
+                continue
+            std = 0.02 if name in ("embed", "lm_head") else 1.0 / math.sqrt(shape[-2])
+            rows = shard_tensor(torch.arange(shape[0]), spec[:1], mesh)
+            lo, hi = int(rows[0]), int(rows[-1]) + 1
+            per = max(1, (1 << 25) // math.prod(shape[1:]))
+            for j in range(lo // per, -(-hi // per)):
+                a, b = j * per, min((j + 1) * per, shape[0])
+                gen = torch.Generator(device=device).manual_seed(seed * 1_000_003 + i * 4099 + j)
+                piece = torch.randn((b - a, *shape[1:]), generator=gen, device=device)
+                piece = piece[max(lo - a, 0):min(hi, b) - a]
+                p[max(a, lo) - lo:min(b, hi) - lo].copy_(
+                    shard_tensor(piece.mul_(std), (None, *spec[1:]), mesh))
+                del piece
+    return model
+
+
+def row_rel(torch, got, want):
+    """Each row's error over its RMS, (rows,) on the host: the norm of the
+    difference over the reference row's norm, in float32."""
+    g = got.float().reshape(-1, got.shape[-1])
+    w = want.to(got.device).float().reshape(-1, got.shape[-1])
+    return ((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).cpu().numpy()
+
+
+def ep_shared_check(torch, model, ax, device, reduced=False):
+    """The MoE layer's ep output with the shared expert, both exchanges,
+    against the ep routed part (the same layer without ``shared``) plus the
+    whole shared MLP (its ff shares gathered) on the replicated tokens; and
+    a plant that adds only this rank's ff share.  At the published capacity
+    factor: the routed part is the same call's, so drops do not matter."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.parallel.collectives import ring_all_gather
+
+    cfg = ep_cfg(reduced, cf=None)
+    p = next(layer.moe for layer in model.layers if layer.moe is not None)
+    t, d = ep_sizes(reduced)["tokens"], cfg.d_model
+    gen = torch.Generator(device=device).manual_seed(EP_SEED)
+    x = torch.randn((1, t, d), generator=gen, device=device).to(p.w_up.dtype)
+    routed = MOE.MoE(p.router, p.w_up, p.w_down, p.w_gate)
+
+    def run(moe, a2a_impl="binary"):
+        return MOE.moe_apply_local(moe, cfg, x, moe_impl="ep", a2a_impl=a2a_impl,
+                                   tp=ax.size, group=ax)
+
+    with torch.no_grad():
+        ys = {a2a: run(p, a2a_impl=a2a).reshape(t, d) for a2a in ("binary", "xla")}
+        base = run(routed).reshape(t, d)
+        whole = {k: ring_all_gather(v.detach().contiguous(), ax, 1 if k != "w_down" else 0)
+                 for k, v in p.shared.items()}
+        want = base + L.mlp_apply(whole, x.reshape(t, d), cfg.act)
+        plant = base + L.mlp_apply(dict(p.shared), x.reshape(t, d), cfg.act)
+    errs = {a2a: row_rel(torch, y, want) for a2a, y in ys.items()}
+    bad = row_rel(torch, plant, want)
+    return {"max": {k: float(e.max()) for k, e in errs.items()},
+            "plant_max": float(bad.max()), "plant_share": float(np.mean(bad <= EP_ROW_TOL)),
+            "shared_ff": int(p.shared["w_up"].shape[1]), "whole_ff": int(whole["w_up"].shape[1]),
+            "tokens": t}
+
+
+def ep_f32_check(torch, mesh, device, reduced_seq):
+    """Reduced Llama-4 (4 layers, 4 experts, top-1) in float32 at capacity
+    factor EP_REDUCED_CF: the ep step at (1, 4) against the unsharded port
+    on the same weights: hidden states, loss and every gradient (each
+    tensor's error over its norm).  Top-1 routing renormalises the one
+    weight to 1, so the routers' gradients are zero but for rounding: they
+    are held against the largest entry of any gradient instead."""
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import shard_params
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import mesh_axes, parallel_rules
+    from repro_torch.parallel.specs import param_pspecs, shard_tensor
+    from repro_torch.train import TrainConfig, sync_gradients
+
+    cfg = dataclasses.replace(get_arch("llama4").reduced(), capacity_factor=EP_REDUCED_CF)
+    full = init_params(cfg, torch.Generator(device=device).manual_seed(PAR_SEED),
+                       tp=PAR_RANKS, device=device, dtype=torch.float32)
+    batch = par_batches(cfg, device, reduced_seq)[0]
+    h_ref, l_ref, g_ref = grads_of(torch, full, batch)
+    ctx = {"moe_impl": "ep"}
+    with parallel_rules(mesh_axes(), mesh):
+        model = shard_params(full, mesh, "ep")
+        specs = param_pspecs(full, "ep")
+        h, loss, grads = grads_of(torch, model, batch, ctx)
+        loss, _ = sync_gradients(model, loss, grads, TrainConfig(moe_impl="ep"))
+        top = max(float(g.abs().max()) for g in g_ref.values())
+        worst, router = (0.0, ""), 0.0
+        for name, g in grads.items():
+            want = shard_tensor(g_ref[name], specs[name], mesh)
+            if name.endswith("moe.router") and cfg.top_k == 1:
+                router = max(router, float((g - want).abs().max()) / top)
+                continue
+            e = rel_errs(torch, g, want)[0]
+            if e >= worst[0]:
+                worst = (e, name)
+    return {"hidden": rel_errs(torch, h, h_ref)[0],
+            "loss": abs(float(loss) - float(l_ref)) / abs(float(l_ref)),
+            "grads": max(worst[0], router), "worst": worst[1], "router": router,
+            "n_grads": len(grads),
+            "experts_a_rank": int(model.layers[1].moe.w_up.shape[0])}
+
+
+def ep_rank(rank, device="cuda", reduced=False):
+    """Phase 47 on one rank: for ep and then tp mode, this rank's shards
+    drawn (ep_draw), ep mode's shared-expert check, the forward and loss
+    at S = EP_SEQ under OpAnalysis, 8 lanes decoded (tokens, launches, ms
+    a step), one decode step under OpAnalysis, each with the bytes its
+    setup requested; then the float32 step at reduced width."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import decode_step, forward, init_cache, lm_loss
+    from repro_torch.models.transformer import full_sequence
+    from repro_torch.parallel.mesh import make_mesh, mesh_axis
+    from repro_torch.parallel.sharding import mesh_axes, parallel_rules
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    t_rank = time.perf_counter()
+    sz = ep_sizes(reduced)
+    cfg = ep_cfg(reduced, EP_CF if not reduced else EP_REDUCED_CF)
+    mesh = make_mesh((1, PAR_RANKS), ("data", "model"), device=device)
+    ax = mesh_axis(mesh, "model")
+    lanes = sz["lanes"]
+    prompts = np.random.default_rng(EP_SEED).integers(0, cfg.vocab_size, (lanes, sz["prompt"]))
+
+    def settle():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def held():
+        return torch.cuda.memory_stats().get("requested_bytes.all.current", -1) if cuda else 0
+
+    out = {}
+    with parallel_rules(mesh_axes(), mesh):
+        for impl in ("ep", "tp"):
+            settle()
+            req0 = held()
+            t0 = time.perf_counter()
+            model = ep_draw(torch, cfg, mesh, impl, device)
+            sync(torch, device)
+            r = out[impl] = {"model_bytes": held() - req0, "draw_s": time.perf_counter() - t0,
+                             "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0}
+            if impl == "ep":
+                r["shared"] = ep_shared_check(torch, model, ax, device, reduced)
+            ctx = {"moe_impl": impl}
+            settle()
+            req0 = held()
+            batch = par_batches(cfg, device, sz["seq"])[0]
+            r["fwd_requested"] = r["model_bytes"] + held() - req0
+
+            def fwd():
+                with torch.no_grad():
+                    h = forward(model, batch, moe_ctx=ctx, remat=False)
+                    return h, lm_loss(model, h, batch["labels"])
+
+            flash_attention.launches = 0
+            t0 = time.perf_counter()
+            (h, loss), rec = D.measure(fwd, (model, batch))
+            sync(torch, device)
+            r["fwd"] = {"rec": rec, "launches": flash_attention.launches,
+                        "ms": (time.perf_counter() - t0) * 1e3}
+            with torch.no_grad():
+                r["h"] = full_sequence(h, sz["seq"]).cpu()
+            r["loss"] = float(loss)
+            del h, loss, batch
+            settle()
+            cache = init_cache(model, lanes, sz["cache"])
+            decode_attention.launches = 0
+            toks, ms = dec_feed(torch, model, cache, prompts, sz["new"], moe_ctx=ctx)
+            r["dec"] = {"tokens": toks, "ms": ms, "launches": decode_attention.launches}
+            del cache
+            settle()
+            req0 = held()
+            cache = init_cache(model, lanes, sz["cache"])
+            db = {"tokens": torch.zeros((lanes, 1), dtype=torch.int32, device=device),
+                  "position": torch.full((lanes,), sz["prompt"], dtype=torch.int32,
+                                         device=device)}
+            r["dec_requested"] = r["model_bytes"] + held() - req0
+            decode_attention.launches = 0
+            _, rec = D.measure(lambda: decode_step(model, cache, db["tokens"], db["position"],
+                                                   moe_ctx=ctx), (model, cache, db))
+            sync(torch, device)
+            r["dec_dry"] = {"rec": rec, "launches": decode_attention.launches}
+            del model, cache, db
+    settle()
+    out["f32"] = ep_f32_check(torch, mesh, device, sz["f32_seq"])
+    settle()
+    out["seconds"] = time.perf_counter() - t_rank
+    return out
+
+
+def ep_predict(reduced=False):
+    """Phase 47's prediction, in a process of its own: ep mode's forward
+    and loss and its decode step traced on meta tensors as rank 0 of a fake
+    world of PAR_RANKS ranks."""
+    import torch
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import decode_step, forward, init_cache, lm_loss
+    from repro_torch.parallel.mesh import fake_world, make_mesh
+    from repro_torch.parallel.sharding import mesh_axes, parallel_rules
+
+    sz = ep_sizes(reduced)
+    cfg = ep_cfg(reduced, EP_CF if not reduced else EP_REDUCED_CF)
+    ctx = {"moe_impl": "ep"}
+    meta = dict(dtype=torch.int32, device="meta")
+    with fake_world(PAR_RANKS):
+        mesh = make_mesh((1, PAR_RANKS), ("data", "model"), device="cpu")
+        with parallel_rules(mesh_axes(), mesh):
+            model = D.sharded_model(cfg, mesh, "ep")
+            batch = {k: torch.empty((1, sz["seq"]), **meta) for k in ("tokens", "labels")}
+
+            def fwd():
+                with torch.no_grad():
+                    h = forward(model, batch, moe_ctx=ctx, remat=False)
+                    return h, lm_loss(model, h, batch["labels"])
+
+            _, fwd_rec = D.measure(fwd, (model, batch))
+            cache = init_cache(model, sz["lanes"], sz["cache"])
+            db = {"tokens": torch.empty((sz["lanes"], 1), **meta),
+                  "position": torch.empty((sz["lanes"],), **meta)}
+            _, dec_rec = D.measure(lambda: decode_step(model, cache, db["tokens"],
+                                                       db["position"], moe_ctx=ctx),
+                                   (model, cache, db))
+    return {"fwd": fwd_rec, "dec": dec_rec}
+
+
+def ep_check(torch, outs, pred_proc, device="cuda", reduced=False):
+    """Phase 47, whose ranks ran in phase 45's world (``outs`` in rank
+    order): the shared-expert sum and its plant, ep against tp (hidden
+    rows, loss, decode tokens), launches, the dry run's prediction
+    (``pred_proc``, a child process) against the measured forward and
+    decode step, and the float32 step at reduced width."""
+    t0 = time.perf_counter()
+    pred = _child_result(pred_proc, "phase 47's dry run", 300)
+    cuda = device == "cuda"
+    sz = ep_sizes(reduced)
+    cfg = ep_cfg(reduced)
+    res = {}
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"ep: {what}")
+
+    sh = [o["ep"]["shared"] for o in outs]
+    worst = {a2a: max(s["max"][a2a] for s in sh) for a2a in ("binary", "xla")}
+    print(f"ep: {cfg.name} at {depth(cfg)}, bf16, (1, 4): the MoE layer's ep output with the "
+          f"shared expert ({sh[0]['shared_ff']} of its {sh[0]['whole_ff']} ff columns a rank) "
+          f"on {sh[0]['tokens']} replicated tokens against the ep routed part plus the whole "
+          f"shared MLP: worst row error over its RMS, binary exchange {worst['binary']:.3e}, "
+          f"all_to_all_single {worst['xla']:.3e} (limit {EP_ROW_TOL}); a plant that adds only "
+          f"the rank's ff share: worst {max(s['plant_max'] for s in sh):.3e}, rows within the "
+          f"limit {min(s['plant_share'] for s in sh):.4f}")
+    check(max(worst.values()) <= EP_ROW_TOL, f"shared expert rows {worst}")
+    check(all(s["plant_max"] > EP_ROW_TOL for s in sh), "the plant passes the check")
+    res["shared"] = worst
+    ep, tp = outs[0]["ep"], outs[0]["tp"]
+    rows = row_rel(torch, ep["h"], tp["h"])
+    share = float(np.mean(rows <= EP_ROW_TOL))
+    loss_rel = abs(ep["loss"] - tp["loss"]) / abs(tp["loss"])
+    same_h = all(torch.equal(o["ep"]["h"], ep["h"]) and torch.equal(o["tp"]["h"], tp["h"])
+                 for o in outs)
+    print(f"ep: the forward at B=1, S={sz['seq']}, capacity factor {cfg.capacity_factor:g} "
+          f"(no drops in either mode): hidden rows within {EP_ROW_TOL} of tp mode's "
+          f"{share:.4f} (limit {EP_ROW_SHARE}; median row error {np.median(rows):.3e}, worst "
+          f"{rows.max():.3e}), loss ep {ep['loss']:.5f} tp {tp['loss']:.5f} "
+          f"({loss_rel:.2e}), the ranks' gathered rows equal: {same_h}; ms under the analysis "
+          f"ep " + ", ".join(f"{o['ep']['fwd']['ms']:.0f}" for o in outs)
+          + ", tp " + ", ".join(f"{o['tp']['fwd']['ms']:.0f}" for o in outs)
+          + "; shards drawn in ep " + ", ".join(f"{o['ep']['draw_s']:.1f}" for o in outs)
+          + " s, tp " + ", ".join(f"{o['tp']['draw_s']:.1f}" for o in outs)
+          + f" s, {ep['model_bytes'] / 1e9:.3f} / {tp['model_bytes'] / 1e9:.3f} GB a rank, "
+          f"peak allocated after the draw " + ", ".join(f"{o['ep']['peak_gb']:.2f}" for o in outs)
+          + " GB by rank")
+    check(same_h and share >= EP_ROW_SHARE and loss_rel <= PAR_TOL["bfloat16"],
+          f"ep against tp: rows {share:.4f}, loss {loss_rel:.2e}, ranks agree {same_h}")
+    res["row_share"], res["loss_rel"] = share, loss_rel
+    steps = sz["prompt"] + sz["new"] - 1
+    n_attn = attention_layers(cfg)
+    agree = float(np.mean([np.mean(o["ep"]["dec"]["tokens"] == o["tp"]["dec"]["tokens"])
+                           for o in outs]))
+    prompt_agree = float(np.mean([np.mean(o["ep"]["dec"]["tokens"][:, :sz["prompt"]]
+                                          == o["tp"]["dec"]["tokens"][:, :sz["prompt"]])
+                                  for o in outs]))
+    res["launches"] = {m: [o[m]["dec"]["launches"] for o in outs] for m in ("ep", "tp")}
+    res["ms"] = {m: [o[m]["dec"]["ms"] for o in outs] for m in ("ep", "tp")}
+    res["fwd_launches"] = [o["ep"]["fwd"]["launches"] for o in outs]
+    print(f"ep: decode at (1, 4), {sz['lanes']} lanes ({sz['lanes'] // PAR_RANKS} tokens an ep "
+          f"rank dispatches a step), {sz['prompt']} prompt + {sz['new']} new tokens: token "
+          f"agreement with tp mode {agree:.4f} (prompt steps {prompt_agree:.4f}; limit "
+          f"{EP_TOKEN_AGREEMENT}); ms a step by rank ep "
+          + ", ".join(f"{v:.1f}" for v in res["ms"]["ep"]) + ", tp "
+          + ", ".join(f"{v:.1f}" for v in res["ms"]["tp"])
+          + f"; decode_attention launches by rank {res['launches']} (want {n_attn} x {steps}); "
+          f"flash_attention launches of the forward {res['fwd_launches']}")
+    check(agree >= EP_TOKEN_AGREEMENT, f"token agreement {agree:.4f}")
+    if cuda:
+        check(all(n == n_attn * steps for m in ("ep", "tp") for n in res["launches"][m]),
+              f"decode launches {res['launches']}")
+        check(all(n == n_attn for n in res["fwd_launches"]),
+              f"forward launches {res['fwd_launches']}")
+    res["agreement"] = agree
+    for key, real_key, req_key, kernel in (("fwd", "fwd", "fwd_requested", "flash_attention"),
+                                           ("dec", "dec_dry", "dec_requested",
+                                            "decode_attention")):
+        p = pred[key]
+        pk = {k: v["calls"] for k, v in p["kernels"].items()}
+        for o in outs:
+            rec = o["ep"][real_key]["rec"]
+            check(rec["cost"]["flops"] == p["cost"]["flops"]
+                  and rec["collectives"] == p["collectives"] and rec["kernels"] == p["kernels"],
+                  f"the dry run of the {key}: predicted {p['cost']}, {p['collectives']}, {pk}; "
+                  f"real {rec['cost']}, {rec['collectives']}, {rec['kernels']}")
+            if cuda:
+                check(o["ep"][req_key] == p["memory"]["argument_bytes"],
+                      f"the dry run of the {key}: setup requested {o['ep'][req_key]} bytes, "
+                      f"predicted {p['memory']['argument_bytes']}")
+                check({kernel: o["ep"][real_key]["launches"]} == pk,
+                      f"the dry run of the {key}: launches {o['ep'][real_key]['launches']}, "
+                      f"predicted {pk}")
+        print(f"ep: the dry run of ep mode's {'forward and loss' if key == 'fwd' else 'decode step'}: "
+              f"predicted argument bytes {p['memory']['argument_bytes']}, setup requested "
+              + ", ".join(str(o["ep"][req_key]) for o in outs) + " by rank; FLOPs "
+              f"{p['cost']['flops']:.6e}, collectives ("
+              + ", ".join(f"{k} {int(v['count'])} x {v['bytes'] / 1e6:.3f} MB"
+                          for k, v in p["collectives"].items())
+              + f") and kernels {pk} equal on every rank; launches "
+              + ", ".join(str(o["ep"][real_key]["launches"]) for o in outs)
+              + f"; predicted temp {p['memory']['temp_bytes'] / 1e6:.3f} MB")
+    res["dry"] = {k: {"argument_bytes": pred[k]["memory"]["argument_bytes"],
+                      "kernels": {n: v["calls"] for n, v in pred[k]["kernels"].items()}}
+                  for k in ("fwd", "dec")}
+    f32 = [o["f32"] for o in outs]
+    worst = max(f32, key=lambda f: f["grads"])
+    print(f"ep: reduced {cfg.name.replace('-reduced', '')} in float32 (4 layers, 4 experts, "
+          f"{f32[0]['experts_a_rank']} a rank), capacity factor {EP_REDUCED_CF:g}, (1, 4) ep "
+          f"against the unsharded port: hidden {max(f['hidden'] for f in f32):.3e}, loss "
+          f"{max(f['loss'] for f in f32):.3e}, worst of {f32[0]['n_grads']} gradients "
+          f"{worst['grads']:.3e} ({worst['worst']}; the top-1 routers' against the largest "
+          f"gradient entry {max(f['router'] for f in f32):.3e}; limit {PAR_TOL['float32']})")
+    check(all(max(f["hidden"], f["loss"], f["grads"]) <= PAR_TOL["float32"] for f in f32),
+          "float32 ep step against the unsharded port")
+    res["f32"] = max(max(f["hidden"], f["loss"], f["grads"]) for f in f32)
+    own = max(o["seconds"] for o in outs)
+    res["seconds"] = own + time.perf_counter() - t0
+    print(f"ep: phase 47 took {res['seconds']:.1f} s in phase 45's world (the ranks' own "
+          f"{own:.1f} s)")
+    return res
+
+
+# phase 48: the recurrent configs served through ServeEngine, whose lane mask
+# keeps each request's state its own: Mamba2-780m and RecurrentGemma-2B at
+# full depth and width, bf16, 8 requests of 32 + 32 tokens at batch 8
+# admitted staggered, two slots paused and resumed, a ninth request in the
+# slot the first to finish leaves; every stream bit-identical to an engine
+# that serves that request alone in the same slot
+RSERVE = {"batch": 8, "requests": 8, "prompt": 32, "new": 32, "max_len": 128, "gap": 2,
+          "pause": 4}
+# Mamba2-780m's 48 layers take ~103 ms an engine step (4,100 small kernels,
+# host-bound) and the phase runs ~1,000 steps a model: its depth is cut to
+# keep the script inside its time; RecurrentGemma-2B keeps its 26 layers
+RSERVE_LAYERS = {"mamba2": 12}
+RSERVE_REDUCED = {"batch": 3, "requests": 3, "prompt": 5, "new": 8, "max_len": 32, "gap": 1,
+                  "pause": 2}
+
+
+def rserve_requests(cfg, sizes, seed=31):
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(i, rng.integers(0, cfg.vocab_size, sizes["prompt"]).tolist(),
+                    max_new=sizes["new"]) for i in range(sizes["requests"] + 1)]
+
+
+def rserve_drive(eng, reqs, sizes):
+    """``reqs`` through ``eng``: request i admitted after i * gap engine
+    steps, the last two slots paused for ``pause`` steps after the last
+    admission and resumed, the last request submitted into the slot that
+    the first request to finish leaves.  Returns {rid: slot}."""
+    n = sizes["requests"]
+    lanes = {}
+
+    def admit(r):
+        if not eng.submit(r):
+            raise AssertionError(f"request {r.rid} found no free slot")
+        lanes[r.rid] = eng.slots.index(r)
+
+    for r in reqs[:n]:
+        admit(r)
+        for _ in range(sizes["gap"]):
+            eng.step()
+    eng.set_capacity(eng.max_batch - 2)
+    for _ in range(sizes["pause"]):
+        eng.step()
+    eng.set_capacity(eng.max_batch)
+    while all(s is not None for s in eng.slots):
+        eng.step()
+    admit(reqs[n])
+    if eng.run_until_done() or not all(r.done and len(r.out) == r.max_new for r in reqs):
+        raise AssertionError("not every request finished with max_new tokens")
+    return lanes
+
+
+def rserve_alone(torch, cfg, model, req, lane, sizes, device):
+    """``req``'s stream from a fresh engine that serves it alone in slot
+    ``lane`` (the slots before it held by placeholders while it is
+    submitted, so no other lane is prefilled)."""
+    from repro_torch.serve import Request, ServeEngine
+
+    eng = ServeEngine(cfg, model, max_batch=sizes["batch"], max_len=sizes["max_len"],
+                      device=device)
+    eng.slots[:lane] = [Request(-1, [0])] * lane
+    r = Request(req.rid, list(req.prompt), max_new=req.max_new)
+    if not eng.submit(r) or eng.slots.index(r) != lane:
+        raise AssertionError(f"request {req.rid} did not take slot {lane}")
+    eng.slots[:lane] = [None] * lane
+    if eng.run_until_done():
+        raise AssertionError(f"request {req.rid} did not finish alone")
+    return r.out
+
+
+def rserve_streams(torch, cfg, model, sizes, device, masked=True):
+    """The drive's streams and slots, ms an engine step, decode steps and
+    flash-decode launches (``masked=False``: the engine without its lane
+    mask, as repro's advances every lane)."""
+    from repro_torch import obs
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(cfg, model, max_batch=sizes["batch"], max_len=sizes["max_len"],
+                      device=device)
+    eng.masked = masked
+    reqs = rserve_requests(cfg, sizes)
+    obs.enable()
+    obs.reset()
+    decode_attention.launches = 0
+    sync(torch, device)
+    t0 = time.perf_counter()
+    try:
+        lanes = rserve_drive(eng, reqs, sizes)
+        sync(torch, device)
+        steps = obs.summary()["counters"]["serve.decode_steps"]
+    finally:
+        obs.disable()
+        obs.reset()
+    return {"streams": {r.rid: r.out for r in reqs}, "lanes": lanes, "steps": steps,
+            "ms": (time.perf_counter() - t0) * 1e3 / steps,
+            "launches": decode_attention.launches, "engine": eng}
+
+
+def rserve_plant(torch, cfg, model, sizes, device, alone):
+    """The drive's first two admissions (request 0, ``gap`` steps, request 1,
+    ``gap`` steps) through the engine without its lane mask, which advances
+    every lane at every step as repro's does: the requests whose tokens so
+    far are not a prefix of their streams alone (request 1's prefill
+    advances request 0's state)."""
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(cfg, model, max_batch=sizes["batch"], max_len=sizes["max_len"],
+                      device=device)
+    eng.masked = False
+    reqs = rserve_requests(cfg, sizes)[:2]
+    for r in reqs:
+        if not eng.submit(r):
+            raise AssertionError(f"request {r.rid} found no free slot")
+        for _ in range(sizes["gap"]):
+            eng.step()
+    return [r.rid for r in reqs if r.out != alone[r.rid][:len(r.out)]]
+
+
+def serve_recurrent(torch, cfg, sizes=RSERVE, device="cuda", model=None):
+    """Phase 48 for one config (bf16 weights drawn on ``device`` from seed
+    0 unless ``model`` is given): the drive, every request alone in its
+    slot (streams bit-identical), the engine without the lane mask (must
+    differ), launches a step, and a profile of engine steps."""
+    from repro_torch.models import init_params
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    if model is None:
+        model = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device,
+                            dtype=torch.bfloat16)
+    run = rserve_streams(torch, cfg, model, sizes, device)
+    reqs = rserve_requests(cfg, sizes)
+    alone = {r.rid: rserve_alone(torch, cfg, model, r, run["lanes"][r.rid], sizes, device)
+             for r in reqs}
+    same = [rid for rid in alone if alone[rid] == run["streams"][rid]]
+    leaked = rserve_plant(torch, cfg, model, sizes, device, alone)
+    n_attn = attention_layers(cfg)
+    paused = [rid for rid, lane in run["lanes"].items() if lane >= sizes["batch"] - 2]
+    reused = sizes["requests"]
+    print(f"serve/recurrent: {cfg.name}, {depth(cfg)}, {next(model.parameters()).dtype}, "
+          f"{sizes['requests']} requests of {sizes['prompt']} + {sizes['new']} tokens at batch "
+          f"{sizes['batch']}, admitted every {sizes['gap']} engine steps, slots "
+          f"{sizes['batch'] - 2}-{sizes['batch'] - 1} (requests {paused}) paused for "
+          f"{sizes['pause']} steps, request {reused} in slot {run['lanes'][reused]} after its "
+          f"last request: {len(same)} of {len(alone)} streams bit-identical to an engine "
+          f"serving the request alone in its slot; the engine without the lane mask, through "
+          f"the drive's first two admissions: the streams of requests {leaked} leave their "
+          f"runs alone; "
+          f"{run['steps']} decode steps, {run['ms']:.3f} ms a step; decode_attention "
+          f"launches {run['launches']} = {n_attn} x {run['steps']}")
+    if len(same) != len(alone):
+        raise AssertionError(f"serve/recurrent: {cfg.name}: streams of requests "
+                             f"{sorted(set(alone) - set(same))} differ from their runs alone")
+    if not leaked:
+        raise AssertionError(f"serve/recurrent: {cfg.name}: the engine without the lane "
+                             f"mask passes the check")
+    if device == "cuda" and run["launches"] != n_attn * run["steps"]:
+        raise AssertionError(f"serve/recurrent: {cfg.name}: {run['launches']} decode_attention "
+                             f"launches in {run['steps']} steps of {n_attn} attention layers")
+    prof = profile_engine_steps(torch, run["engine"]) if device == "cuda" else None
+    out = {"ms_per_step": run["ms"], "steps": run["steps"], "launches": run["launches"],
+           "launches_per_step": run["launches"] / run["steps"],
+           "idle_pct": prof["idle_pct"] if prof else None,
+           "streams": run["streams"], "seconds": time.perf_counter() - t0}
+    del model, run
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_recurrent_on_card(torch):
+    """Phase 48: reduced Mamba-2 and RecurrentGemma in float32, the card's
+    streams equal to the CPU's (plain versions) through the same drive;
+    then Mamba2-780m and RecurrentGemma-2B (serve_recurrent)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    res = {}
+    for arch in ("mamba2", "recurrentgemma"):
+        cfg = get_arch(arch).reduced()
+        model = init_params(cfg, torch.Generator().manual_seed(1), device="cpu",
+                            dtype=torch.float32)
+        streams = {dev: serve_recurrent(torch, cfg, RSERVE_REDUCED, dev,
+                                        model.to(dev))["streams"] for dev in ("cpu", "cuda")}
+        print(f"serve/recurrent: reduced {cfg.name}, float32: card streams equal the CPU's: "
+              f"{streams['cpu'] == streams['cuda']}")
+        if streams["cpu"] != streams["cuda"]:
+            raise AssertionError(f"serve/recurrent: reduced {cfg.name}: card {streams['cuda']} "
+                                 f"!= cpu {streams['cpu']}")
+    for arch in ("mamba2", "recurrentgemma"):
+        cfg = get_arch(arch)
+        if arch in RSERVE_LAYERS:
+            cfg = dataclasses.replace(cfg, num_layers=RSERVE_LAYERS[arch])
+        res[arch] = serve_recurrent(torch, cfg)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"serve/recurrent: phase 48 took {res['seconds']:.1f} s")
+    return res
+
+
 SLICES = 4                       # phase 42: slices of the one card
 SLICE_SAMPLES = 131_072          # phase 42's counter sweep: 2 blocks of SWEEP_BLOCK
 SLICE_CHECK_ROWS = 16_384
@@ -5815,22 +6486,24 @@ def main() -> int:
                                  stderr=subprocess.PIPE, text=True)
         try:
             recurrent = recurrent_on_card(torch)
-            dry = dryrun_on_card(torch, cells=cells, decode=True)
+            dry = dryrun_on_card(torch, cells=cells, decode=True, ep=True)
         finally:
             if cells.poll() is None:
                 cells.kill()
                 cells.communicate()
     dry_s = time.perf_counter() - t_dry
-    dec = dry["decode"]
-    print(f"recurrent/dryrun/decode: phases 44-46 took {dry_s:.1f} s (phase 46 "
-          f"{dec['seconds']:.1f} s)")
+    dec, ep = dry["decode"], dry["ep"]
+    print(f"recurrent/dryrun/decode/ep: phases 44-47 took {dry_s:.1f} s (phase 46 "
+          f"{dec['seconds']:.1f} s, phase 47 {ep['seconds']:.1f} s)")
+    rserve = serve_recurrent_on_card(torch)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, of which the "
           f"decoder-config phases {decoders_s:.1f} s, the PaliGemma and Whisper phases "
           f"{vlm_s:.1f} s, the RecurrentGemma phases {rg_s:.1f} s, the DCN and churn "
           f"phases {dcn_s:.1f} s, the cost, matrix, SLO and fault phases {engines_s:.1f} s, "
           f"the parallel and elastic phases {par_s:.1f} s, the slices, SP and FSDP "
-          f"phases {spf_s:.1f} s and the recurrent, dry-run and decode-under-a-mesh phases "
-          f"{dry_s:.1f} s (phase 46 {dec['seconds']:.1f} s)")
+          f"phases {spf_s:.1f} s, the recurrent, dry-run, decode-under-a-mesh and ep phases "
+          f"{dry_s:.1f} s (phase 46 {dec['seconds']:.1f} s, phase 47 {ep['seconds']:.1f} s) "
+          f"and the recurrent serving phase {rserve['seconds']:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
@@ -5862,6 +6535,16 @@ def main() -> int:
         "sharded_decode_ms_per_step_per_rank": dec["ms"],
         "sharded_decode_merge_ms_per_step_per_rank": dec["merge_ms"],
         "launches_dryrun_decode_step": dec["dry"]["kernels"],
+        "launches_llama4_ep_decode_per_rank": ep["launches"]["ep"],
+        "launches_llama4_tp_decode_per_rank": ep["launches"]["tp"],
+        "llama4_ep_decode_ms_per_step_per_rank": ep["ms"]["ep"],
+        "launches_dryrun_llama4_ep_decode_step": ep["dry"]["dec"]["kernels"],
+        "launches_recurrentgemma_serve": rserve["recurrentgemma"]["launches"],
+        "launches_mamba2_serve": rserve["mamba2"]["launches"],
+        "recurrent_serve_ms_per_step": {k: rserve[k]["ms_per_step"]
+                                        for k in ("mamba2", "recurrentgemma")},
+        "recurrent_serve_idle_pct": {k: rserve[k]["idle_pct"]
+                                     for k in ("mamba2", "recurrentgemma")},
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -5888,6 +6571,7 @@ def main() -> int:
             l["flash_attention"] for l in recurrent["recurrentgemma"]["launches"]],
         "launches_dryrun_step_per_rank": {
             k: [l["flash_attention"] for l in v["launches"]] for k, v in dry["runs"].items()},
+        "launches_llama4_ep_forward_per_rank": ep["fwd_launches"],
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",

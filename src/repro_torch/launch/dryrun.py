@@ -24,7 +24,12 @@ step runs exactly the code it runs on the card.  Under
     (``repro.launch.hlo_analysis``'s keys: every layer runs, so the totals
     count every layer), with the collectives by the logical collective that
     issued them and the kernels' calls and work;
-  * ``trace_s`` (build and step) and ``num_devices``.
+  * ``trace_s`` (build and step) and ``num_devices``;
+  * for an MoE config under ``moe-ep``, ``ep_tokens_per_rank``: of the t
+    tokens a data shard routes, each rank of the model axis dispatches
+    t // tp, as ``repro``'s ``ep`` body does, so the trailing t % tp get no
+    routed expert (every token of a decode cell whose shard holds fewer
+    lanes than tp).
 
 The cell rules follow ``repro``'s ``build_cell`` line for line: a batch the
 data axes do not divide is replicated, steps of models above 1e11
@@ -175,7 +180,7 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, variant: str = "base
             model = sharded_model(cfg, mesh, moe_impl, kv_pad=kv_pad)
 
             def fn():
-                return prefill(model, batch)
+                return prefill(model, batch, {"moe_impl": moe_impl, "ar_impl": ar_impl})
 
             args = (model, batch)
         else:  # decode
@@ -189,9 +194,14 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, variant: str = "base
                                      seq_sharded=seq_sharded)
 
             args = (model, cache, batch)
+    # the tokens a data shard routes (the MoE takes the whole sequence), of
+    # which each ep rank dispatches its t // tp
+    moe_tokens = shape.global_batch // bdiv * (1 if shape.kind == "decode" else shape.seq_len)
     info = {"opt": opt_name if shape.kind == "train" else None, "moe_impl": moe_impl,
             "ar_impl": ar_impl, "seq_sharded": seq_sharded, "kv_pad": kv_pad, "tp": tp,
-            "batch_per_rank": shape.global_batch // bdiv}
+            "batch_per_rank": shape.global_batch // bdiv,
+            "ep_tokens_per_rank": (moe_tokens // tp if cfg.n_experts and moe_impl == "ep"
+                                   else None)}
     return mesh, rules, fn, args, info
 
 
@@ -234,9 +244,10 @@ def train_step(cfg, mesh, batch, train_cfg=None, **model_kw):
     return fn, (state, batch)
 
 
-def prefill(model, batch):
-    """``forward(remat=False)`` without gradients, then the argmax of the
-    last position's logits over the real vocabulary.  Under a mesh the last
+def prefill(model, batch, moe_ctx=None):
+    """``forward(remat=False)`` without gradients (the MoE layers as
+    ``moe_ctx`` says), then the argmax of the last position's logits over
+    the real vocabulary.  Under a mesh the last
     row comes from the sequence axis's last rank (each rank's last row is
     gathered), each model rank scores its vocabulary slice, and the best
     score and then the least id that reaches it are reduced over the axis
@@ -248,7 +259,7 @@ def prefill(model, batch):
     from repro_torch.parallel.collectives import gather_from
 
     with torch.no_grad():
-        h = T.forward(model, batch, remat=False)
+        h = T.forward(model, batch, moe_ctx=moe_ctx, remat=False)
         sp = T.seq_sp_axis()
         last = h[:, -1:] if sp is None else gather_from(h[:, -1:].contiguous(), sp, 1)
         return T.greedy_tokens(model, last[:, -1])

@@ -83,6 +83,14 @@ def _coll_entry() -> Dict[str, float]:
     return {"count": 0.0, "bytes": 0.0, "wire_bytes": 0.0, "wire_bytes_bf16": 0.0}
 
 
+def _free_in(ref, key: int) -> None:
+    """A tracked storage was freed: uncount it in its analysis, if that is
+    still alive."""
+    analysis = ref()
+    if analysis is not None:
+        analysis._free(key)
+
+
 class OpAnalysis(TorchDispatchMode):
     """Counts what one step does (module docstring).  ``arguments`` are
     the step's inputs (parameters, optimizer state, batch): their storages
@@ -157,7 +165,10 @@ class OpAnalysis(TorchDispatchMode):
             n = st.nbytes()
             old = self._sizes.get(key)
             if old is None:
-                weakref.finalize(st, self._free, key)
+                # through a weak reference: a storage made here that outlives
+                # the step (a cached table, an output kept) must not keep the
+                # analysis, and with it the arguments' storages, alive
+                weakref.finalize(st, _free_in, weakref.ref(self), key)
                 self._sizes[key] = n
                 self.live_bytes += n
             elif old != n:

@@ -3,6 +3,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2 --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2 --device cpu
 
 Runs on the card unless ``--device cpu`` is given.  Without ``--full`` the
 model is the arch's ``reduced()`` config, as in ``repro.launch.serve``.
@@ -11,9 +12,10 @@ bf16 weights of Mixtral-8x7B, DeepSeek-67B, Llama-4 Maverick and GPT-MoE
 exceed one 80 GB card.  PaliGemma is served as text only, as in ``repro``.
 An encoder-decoder config (Whisper) first fills the engine's cache with
 ``encode_to_cache`` over float32 stub frames drawn from seed 0, one
-utterance a slot.  Configs with recurrent layers (Mamba-2, RecurrentGemma)
-are refused by ``ServeEngine`` (see its docstring); ``decode_step`` decodes
-them in lockstep.
+utterance a slot.  Configs with recurrent layers (Mamba-2, RecurrentGemma;
+reduced, or Mamba2-780m and RecurrentGemma-2B with ``--full``) are served
+with the engine's lane mask: each request's state advances only on its
+own steps (see the engine's docstring).
 """
 
 from __future__ import annotations

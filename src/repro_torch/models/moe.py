@@ -47,11 +47,21 @@ routes its own slice of the tokens -- so their gradients are summed over
 the axis.  The outputs leave through *g* (the all-reduce, identity
 backward).
 
-A shared expert (Llama-4) runs in ``tp`` mode only when ``tp > 1``:
-``param_pspecs`` splits ``shared`` over ``ff`` on the model axis in both
-modes, as ``repro``'s specs do, but ``ep`` mode's body treats it as
-replicated, so each row would get only its rank's share of it.  ``repro``
-has the same mismatch (ROADMAP.md § 3); the port raises instead.
+A shared expert (Llama-4) is split over ``ff`` on the model axis in both
+modes (``param_pspecs``, as ``repro``'s specs split ``shared``).  In
+``ep`` mode each rank applies its ``ff`` share to all t tokens and adds
+that partial to the re-assembled (t, d) output before the one all-reduce,
+which then sums the routed slices and the shared expert's partials, as
+``tp`` mode's does.  ``repro``'s ``ep`` body adds the shared expert as if
+it were replicated, on the rank's token slice only, so each row lacks
+(tp - 1)/tp of it (ROADMAP.md § 3); the port computes the whole expert.
+
+``ep`` mode keeps ``repro``'s token slicing: rank i dispatches tokens
+[i t_loc, (i + 1) t_loc) with t_loc = t // tp, so the trailing t % tp
+tokens get no routed expert (all of them when t < tp, as in a decode step
+of fewer lanes a data shard than model ranks); the shared expert still
+reaches every row.  ``t_loc = 0`` runs an empty dispatch through the
+exchange.
 
 With telemetry on (``repro_torch.obs``) each call counts its assignments
 (``moe.assignments``) and the dropped ones (``moe.dropped_assignments``, a
@@ -163,7 +173,7 @@ def _dispatch(x2d: torch.Tensor, router_w: torch.Tensor, e: int, k: int, capacit
         rows = x2d[:, None].expand(t, k, d).reshape(t * k, d)
         buf = x2d.new_zeros((e * capacity + 1, d)).index_put(
             (_slots(flat_e, flat_pos, keep, e, capacity),), rows)
-    meta = (flat_e, flat_pos, keep, topw.reshape(-1), t)
+    meta = (flat_e, flat_pos, keep, topw.reshape(-1), t, k)
     return buf[:-1].view(e, capacity, d), meta
 
 
@@ -175,12 +185,12 @@ def _slots(flat_e, flat_pos, keep, e: int, capacity: int) -> torch.Tensor:
 
 def _combine(out_buf: torch.Tensor, meta, dtype) -> torch.Tensor:
     """Each token's k expert rows, weighted, summed in slot order."""
-    flat_e, flat_pos, keep, w, t = meta
+    flat_e, flat_pos, keep, w, t, k = meta
     e, capacity, d = out_buf.shape
     padded = torch.cat([out_buf.reshape(e * capacity, d), out_buf.new_zeros((1, d))])
     gathered = padded.index_select(0, _slots(flat_e, flat_pos, keep, e, capacity))
     gathered = gathered * (w * keep).to(out_buf.dtype)[:, None]
-    rows = gathered.view(t, -1, d)                               # (T, k, d)
+    rows = gathered.view(t, k, d)                                # (T, k, d)
     y = rows[:, 0]
     for j in range(1, rows.shape[1]):
         y = y + rows[:, j]
@@ -215,11 +225,6 @@ def moe_apply_local(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     The output is replicated over the axis."""
     if moe_impl not in ("tp", "ep"):
         raise ValueError(f"moe_impl is 'tp' or 'ep', not {moe_impl!r}")
-    if moe_impl == "ep" and tp > 1 and p.shared is not None:
-        raise ValueError(
-            "moe_impl='ep' with tp > 1 cannot run a shared expert: its weights are split "
-            "over ff on the model axis (param_pspecs, as repro's ep specs shard 'shared'), "
-            "and ep mode would add only this rank's part of it; use moe_impl='tp'")
     if tp != 1 and (group is None or group.size != tp):
         got = "none" if group is None else f"one of {group.size} ranks"
         raise ValueError(f"moe_apply_local with tp={tp} runs on the model axis: it needs "
@@ -274,4 +279,8 @@ def moe_apply_local(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     # re-assemble the replicated (t, d) output across EP ranks
     y = torch.cat([y_loc.new_zeros((idx * t_loc, d)), y_loc,
                    y_loc.new_zeros((t - (idx + 1) * t_loc, d))])
+    if p.shared is not None:
+        # this rank's ff share of the shared expert over all t tokens: the
+        # psum below sums the shares as tp mode's all-reduce does
+        y = y + L.mlp_apply(p.shared, x2d, cfg.act)
     return psum(y, group).reshape(bt, s, d)

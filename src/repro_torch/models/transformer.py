@@ -504,13 +504,15 @@ def _moe_dispatch(p: MOE.MoE, cfg: ModelConfig, x: torch.Tensor,
 
 def _recurrent_apply(layer: Layer, cfg: ModelConfig, h: torch.Tensor,
                      sp: Optional[Axis], s: Optional[int],
-                     cache: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                     cache: Optional[Dict[str, torch.Tensor]] = None,
+                     live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """An SSD or RG-LRU mixer on the normed residual ``h``: under a mesh
     tensor-parallel over ``ff`` (its heads over ``heads``, the same axis),
     entered and left as the dense MLP (:func:`_enter`, :func:`_leave`).
     With ``cache`` (decode) it advances the layer's state by one token and
     updates ``cache`` in place; under a mesh the state is this rank's share
-    (its heads or channels), which advances alone."""
+    (its heads or channels), which advances alone.  With ``live`` ((B,)
+    bool) a lane that is not live keeps its old state in every leaf."""
     ax = _axis("ff")
     hax = _axis("heads")
     if (ax is None) != (hax is None) or (ax is not None and ax.name != hax.name):
@@ -524,6 +526,9 @@ def _recurrent_apply(layer: Layer, cfg: ModelConfig, h: torch.Tensor,
     else:
         y, new = RG.rglru_block_apply(layer.rglru, cfg, x, cache, decode=decode)
     if decode:
+        if live is not None:
+            new = {k: torch.where(live.view(-1, *(1,) * (v.dim() - 1)), v,
+                                  cache[k].to(v.dtype)) for k, v in new.items()}
         cache.update(new)
     return _leave(y, sp, ax)
 
@@ -848,11 +853,12 @@ def _cross_decode(p: nn.ParameterDict, cfg: ModelConfig, x: torch.Tensor,
 def _layer_decode(layer: Layer, cfg: ModelConfig, x: torch.Tensor,
                   position: torch.Tensor, cache: Dict[str, torch.Tensor],
                   xlen: Optional[torch.Tensor] = None, moe_ctx: Optional[Dict] = None,
-                  sax: Optional[Axis] = None) -> torch.Tensor:
+                  sax: Optional[Axis] = None,
+                  live: Optional[torch.Tensor] = None) -> torch.Tensor:
     h = L.norm(x, layer.norm1, cfg.norm)
     if layer.kind in ("ssd", "rglru"):
-        # every lane advances its state by one token: lanes run in lockstep
-        x = x + _recurrent_apply(layer, cfg, h, None, None, cache)
+        # the live lanes advance their state by one token, the others keep it
+        x = x + _recurrent_apply(layer, cfg, h, None, None, cache, live)
     else:
         x = x + _attn_decode(layer.attn, cfg, h, layer.kind, position, cache, sax)
     if layer.xattn is not None and "xk" in cache:
@@ -885,26 +891,28 @@ def greedy_tokens(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     return (-pmax(-cand, ax)).to(torch.int32)
 
 
-def _step_inputs(tokens, position, dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(tokens int64 (B,), positions int32 (B,)) on ``dev``: tensors already
-    there are taken as they are; host arrays go over in one copy from
-    pinned memory that does not wait for the card."""
-    if all(isinstance(t, torch.Tensor) and t.device == dev for t in (tokens, position)):
-        return tokens.reshape(-1).to(torch.int64), position.reshape(-1).to(torch.int32)
-    host = np.concatenate([np.asarray(tokens, np.int64).reshape(-1),
-                           np.asarray(position, np.int64).reshape(-1)])
+def _step_inputs(tokens, position, dev: torch.device, live=None):
+    """(tokens int64 (B,), positions int32 (B,), the lane mask bool (B,) or
+    None) on ``dev``: tensors already there are taken as they are; host
+    arrays go over in one copy from pinned memory that does not wait for
+    the card."""
+    given = [t for t in (tokens, position, live) if t is not None]
+    if all(isinstance(t, torch.Tensor) and t.device == dev for t in given):
+        return (tokens.reshape(-1).to(torch.int64), position.reshape(-1).to(torch.int32),
+                None if live is None else live.reshape(-1).bool())
+    host = np.concatenate([np.asarray(t, np.int64).reshape(-1) for t in given])
     both = torch.from_numpy(host)
     if dev.type == "cuda":      # a pinned source lets the copy skip the wait
         both = both.pin_memory()
-    both = both.to(dev, non_blocking=True)
-    tok, pos = both.view(2, -1)
-    return tok, pos.to(torch.int32)
+    both = both.to(dev, non_blocking=True).view(len(given), -1)
+    return both[0], both[1].to(torch.int32), None if live is None else both[2].bool()
 
 
 @torch.no_grad()
 def decode_step(model: Transformer, cache: List[Dict[str, torch.Tensor]],
                 tokens, position, *, moe_ctx: Optional[Dict] = None,
-                seq_sharded: bool = False) -> Tuple[torch.Tensor, List[Dict]]:
+                seq_sharded: bool = False,
+                live: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, List[Dict]]:
     """One serving step: (B, 1) tokens at (B,) positions -> (B,) int32 next
     tokens on the model's device, plus the cache (updated in place).
 
@@ -914,7 +922,14 @@ def decode_step(model: Transformer, cache: List[Dict[str, torch.Tensor]],
     device (``meta`` ones in the dry run); so the step itself needs no
     host-device sync, and nothing in it depends on the positions' values
     on the host.  An SSD or RG-LRU layer's state has no positions: each call
-    advances every lane by one token, so its lanes must move in lockstep.
+    advances every lane by one token, unless ``live`` ((B,) bool, like the
+    tokens a host array or a tensor on the model's device) is given: then
+    a lane that is not live keeps the old value of every leaf of every
+    recurrent layer's state (its next token is computed all the same and
+    may be ignored).  Attention layers take no
+    mask: a lane that is not live rewrites the slot of its position, which
+    its next live step writes again.  ``None`` advances every lane; a host
+    mask goes over in the tokens' copy.
 
     Under a mesh (``parallel_rules``) each rank runs the step on its shards,
     its lanes (``batch``) and its cache (:func:`init_cache` with the same
@@ -924,18 +939,19 @@ def decode_step(model: Transformer, cache: List[Dict[str, torch.Tensor]],
     ``seq_sharded`` each attention layer's cache is split over the rules'
     ``seq_shard`` axis and its partial attentions merged across it.  A step
     has one token a lane, so the rules' ``seq_sp`` plays no part in it.
+    ``live`` is then this rank's slice of the lanes.
     """
     cfg = model.cfg
     dev = model.device
     sax = _seq_axis(seq_sharded)
-    tok, pos = _step_inputs(tokens, position, dev)
+    tok, pos, live = _step_inputs(tokens, position, dev, live)
     x = embed_tokens(model, tok[:, None])                    # (B, 1, d)
     # every lane attends to all the encoder's keys: one lengths tensor a step
     # serves every layer's cross-attention
     xlen = next((torch.full((tok.shape[0],), c["xk"].shape[1], dtype=torch.int32,
                             device=dev) for c in cache if "xk" in c), None)
     for layer, c in zip(model.layers, cache):
-        x = _layer_decode(layer, cfg, x, pos, c, xlen, moe_ctx, sax)
+        x = _layer_decode(layer, cfg, x, pos, c, xlen, moe_ctx, sax, live)
     x = L.norm(x, model.final_norm, cfg.norm)
     return greedy_tokens(model, x[:, 0]), cache
 

@@ -21,12 +21,17 @@ against the encoder K/V in ``self.cache``: as in ``repro``, the engine
 takes no frames, and the caller fills the cache with
 :func:`~repro_torch.models.encode_to_cache` before submitting requests.
 
-Configs with recurrent layers (``"ssd"``, ``"rglru"``) are refused: every
-step advances the state of every lane, so prefilling one request (a step
-per prompt token) would also advance the other live and paused requests,
-and a reused slot would inherit its last request's state.  ``repro``'s
-engine does just that (ROADMAP.md § 3); the port waits for admission that
-resets and masks lanes.
+A config with recurrent layers (``"ssd"``, ``"rglru"``) keeps a state
+that has no positions, so the engine masks its lanes: each prefill step
+advances only the lane being filled, each engine step only the active
+lanes (``decode_step``'s ``live``), so live and paused requests do not
+leak into each other, and :meth:`ServeEngine.submit` first resets the
+slot's lane to what :func:`~repro_torch.models.init_cache` gives, so a
+reused slot starts from zeros.  ``repro``'s engine advances every lane at
+every step (ROADMAP.md § 3), so the two give the same stream to a request
+only while no other request is prefilled, paused or held in its slot: to
+the first request into a fresh engine, served alone.  A config without
+recurrent layers runs the unmasked step, as ``repro``'s.
 """
 
 from __future__ import annotations
@@ -41,9 +46,6 @@ from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Transformer, decode_step, init_cache
 
-RECURRENT = {"ssd", "rglru"}     # layer kinds whose decode state has no positions
-
-
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -56,14 +58,6 @@ class Request:
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, model: Transformer, max_batch: int = 4,
                  max_len: int = 256, *, device="cuda"):
-        recurrent = sorted(set(cfg.layer_pattern) & RECURRENT)
-        if recurrent:
-            raise NotImplementedError(
-                f"ServeEngine does not serve {cfg.name}: its {recurrent} layers keep a "
-                f"recurrent state that every engine step advances in every lane, so "
-                f"requests would leak into each other (ROADMAP.md § 3, 'repro's "
-                f"ServeEngine advances recurrent state in every lane'); decode_step "
-                f"serves such models in lockstep")
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -79,13 +73,26 @@ class ServeEngine:
         self.slots: List[Optional[Request]] = [None] * max_batch
         self.pending_tok = np.zeros((max_batch,), np.int32)
         self.capacity = max_batch
+        # lanes are masked only where a layer keeps a state without positions
+        self.masked = any(layer.kind in ("ssd", "rglru") for layer in model.layers)
 
-    def _step(self) -> torch.Tensor:
-        """Decode the whole batch once; next tokens stay on the device."""
-        nxt, self.cache = decode_step(self.model, self.cache,
-                                      self.pending_tok[:, None], self.positions)
+    def _step(self, live: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Decode the whole batch once; next tokens stay on the device.  In
+        a masked engine only the ``live`` lanes ((B,) bool) advance their
+        recurrent state."""
+        nxt, self.cache = decode_step(self.model, self.cache, self.pending_tok[:, None],
+                                      self.positions, live=live)
         obs.count("serve.decode_steps")
         return nxt
+
+    def _reset_lane(self, i: int) -> None:
+        """Lane ``i`` of every layer's cache as ``init_cache`` leaves it: the
+        recurrent states and the conv and k/v caches zero, every slot's
+        position -1 (empty)."""
+        for c in self.cache:
+            for name, t in c.items():
+                if name not in ("xk", "xv"):
+                    t[i].fill_(-1 if name == "pos" else 0)
 
     # ---------------------------------------------------------- capacity
 
@@ -110,11 +117,15 @@ class ServeEngine:
             raise ValueError(f"request {req.rid} has an empty prompt: nothing to prefill")
         for i, slot in enumerate(self.slots[:self.capacity]):
             if slot is None:
+                only = None
+                if self.masked:
+                    self._reset_lane(i)
+                    only = np.arange(self.max_batch) == i
                 # prefill: feed prompt tokens through the decode path
                 for j, tok in enumerate(req.prompt):
                     self.pending_tok[i] = tok
                     self.positions[i] = j
-                    nxt = self._step()
+                    nxt = self._step(only)
                 self.pending_tok[i] = int(nxt[i])
                 self.positions[i] = len(req.prompt)
                 req.out = [int(self.pending_tok[i])]
@@ -130,12 +141,14 @@ class ServeEngine:
         Slots at indices ``>= capacity`` are paused: they are excluded from
         the active count and their positions/pending token never advance
         (the decode still runs the full batch, but a paused lane rewrites
-        the same cache line with the same token, a no-op)."""
+        the same cache line with the same token, a no-op, and in a masked
+        engine keeps its recurrent state)."""
         active = [i for i, s in enumerate(self.slots)
                   if s is not None and i < self.capacity]
         if not active:
             return 0
-        nxt = self._step().cpu().numpy()
+        live = np.isin(np.arange(self.max_batch), active) if self.masked else None
+        nxt = self._step(live).cpu().numpy()
         done = 0
         for i in active:
             req = self.slots[i]

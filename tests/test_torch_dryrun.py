@@ -404,6 +404,50 @@ def test_kvdedup_variant_runs_a_decode_cell(tmp_path, monkeypatch):
     assert rec["memory"]["argument_bytes"] < base["memory"]["argument_bytes"]
 
 
+def test_analysis_releases_the_arguments_after_the_step():
+    """A tensor made under the analysis that outlives the step (the step's
+    outputs here, a cached table in general) keeps neither the analysis nor
+    the arguments' storages it holds alive."""
+    import gc
+    import weakref
+
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+
+    model = init_params(get_arch("starcoder2").reduced(), torch.Generator().manual_seed(0),
+                        device="cpu")
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
+    cache = init_cache(model, 2, 8)
+    tok, pos = torch.zeros((2, 1), dtype=torch.int32), torch.zeros(2, dtype=torch.int32)
+    with torch.no_grad():
+        h, rec = D.measure(lambda: forward(model, batch, remat=False), (model, batch))
+    (nxt, _), _ = D.measure(lambda: decode_step(model, cache, tok, pos), (model, cache))
+    assert rec["memory"]["argument_bytes"] > 0
+    gc.collect()
+    assert not any(isinstance(o, A.OpAnalysis) for o in gc.get_objects())
+    gone = weakref.ref(model.embed)
+    del model, cache, _
+    gc.collect()
+    assert gone() is None and h.shape == (1, 8, get_arch("starcoder2").reduced().d_model)
+    assert nxt.shape == (2,)
+
+
+def test_sharded_prefill_runs_the_variant_moe_mode():
+    """The moe-ep variant's prefill cells run the MoE layers in ep mode on
+    the expert shards (reduced Llama-4 at (1, 4) on meta tensors): with the
+    default tp mode the (E/tp, d, f) shards do not multiply the (E, C, d)
+    buffer."""
+    cfg = get_arch("llama4").reduced()
+    with fake_world(4):
+        mesh = make_mesh((1, 4), ("data", "model"), device="cpu")
+        with parallel_rules(mesh_axes(), mesh):
+            model = D.sharded_model(cfg, mesh, "ep")
+            batch = {"tokens": torch.empty((1, 16), dtype=torch.int32, device="meta")}
+            nxt = D.prefill(model, batch, {"moe_impl": "ep"})
+            with pytest.raises(RuntimeError):
+                D.prefill(model, batch)
+    assert nxt.device.type == "meta" and nxt.shape == (1,)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["world"]:
         _main()

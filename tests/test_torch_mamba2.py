@@ -31,11 +31,9 @@ from repro.train.optimizer import OptConfig as JaxOptConfig
 from repro.train.optimizer import init_opt_state as jax_init_opt_state
 from repro_torch.configs import get_arch
 from repro_torch.convert import params_from_jax
-from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import train as train_cli
 from repro_torch.models import decode_step, forward, init_cache, init_params, lm_loss
 from repro_torch.models.ssm import ssd_block_apply
-from repro_torch.serve import ServeEngine
 from repro_torch.train import (OptConfig, TrainConfig, init_opt_state, make_train_step,
                                synthetic_batch)
 
@@ -220,16 +218,6 @@ def test_decode_steps_match_jax(pair, cache_dtype):
                 np.testing.assert_allclose(c[key].float().numpy(), want,
                                            atol=TOL["float32"], rtol=TOL["float32"],
                                            err_msg=f"layer {li} {key} step {i}")
-
-
-@pytest.mark.parametrize("arch", ["mamba2", "recurrentgemma"])
-def test_serve_engine_and_cli_refuse_recurrent_configs(arch):
-    cfg = get_arch(arch).reduced()
-    model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md § 3"):
-        ServeEngine(cfg, model, device="cpu")
-    with pytest.raises(NotImplementedError, match="recurrent state"):
-        serve_cli.main(["--arch", arch, "--device", "cpu"])
 
 
 def test_cli_trains_mamba2_on_the_cpu(capsys):

@@ -8,9 +8,23 @@ assignments are dropped.  Routing (experts, ranks, kept assignments) must
 equal JAX's exactly; values agree within the forward tolerance of
 ``tests/test_torch_train.py``.  The model-level checks of the MoE configs
 are in ``tests/test_torch_windowed.py``.
+
+``ep`` mode over a model axis runs in one world of 4 gloo ranks, started
+as ``python tests/test_torch_moe.py world`` (it computes ``repro``'s
+references in ``shard_map`` over 4 forced host devices first and prints
+one JSON line): Llama-4's shared expert at mesh (2, 2) against the
+unsharded port and ``repro``'s ``tp`` mode, and the routed part with
+fewer tokens than ranks, or a count the ranks do not divide, at (1, 4)
+against ``repro``'s ``ep`` body.
 """
 
 import dataclasses
+import functools
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -203,22 +217,199 @@ def test_sharded_experts_need_the_model_axis_group(kw):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ACT_TOL, rtol=ACT_TOL)
 
 
-@pytest.mark.parametrize("kw", [{"tp": 1}, {"tp": 2},
-                                {"tp": 2, "group": Axis("model", (0, 1), 0)}])
+# ------------------------------------------------------------ ep over a model axis
+
+ROOT = Path(__file__).resolve().parents[1]
+SHARED_CF = 4.0            # E / top_k of reduced Llama-4: no assignment drops
+SHARED_CASES = [{"tp": 1}, {"tp": 2}, {"tp": 2, "a2a_impl": "xla"}]
+# (tokens a data shard, capacity factor) of the routed-part cases at tp = 4:
+# 7 tokens leave 3 without a routed expert, 3 give every rank an empty slice
+SLICE_CASES = {"t7": (7, 1.25), "t3": (3, 1.25)}
+
+
+def _shard_map_moe(jcfg, jp, x, mesh_shape, impl, tp):
+    """repro's MoE body in shard_map over ``mesh_shape`` (data, model), the
+    tokens split over data, the weights as ``_moe_dispatch`` splits them."""
+    from jax.sharding import PartitionSpec as P
+    from repro.parallel.compat import shard_map
+
+    mesh = jax.make_mesh(mesh_shape, ("data", "model"))
+    ax = "model" if impl == "ep" else None
+    wspec = {"router": P(None, None)}
+    for name in ("w_up", "w_gate", "w_down"):
+        if name in jp:
+            wspec[name] = (P(ax, None, None) if impl == "ep" else
+                           P(None, "model", None) if name == "w_down" else
+                           P(None, None, "model"))
+    if "shared" in jp:
+        wspec["shared"] = {n: P("model", None) if n == "w_down" else P(None, "model")
+                           for n in jp["shared"]}
+    body = functools.partial(jax_moe.moe_apply_local, cfg=jcfg, axis_name="model",
+                             moe_impl=impl, tp=tp)
+    y = jax.jit(shard_map(lambda pl, xl: body(pl, x=xl), mesh=mesh,
+                          in_specs=(wspec, P("data", None, None)),
+                          out_specs=P("data", None, None), check_vma=False))(
+        jax.tree.map(jnp.asarray, jp), jnp.asarray(x))
+    return np.asarray(y)
+
+
+def _world_refs():
+    """repro's outputs for the world's checks: Llama-4 in tp mode at (2, 2)
+    and Mixtral in ep mode at (1, 4) on the slice cases."""
+    jcfg, jp, _, _, x = _pair("llama4", SHARED_CF)
+    refs = {"shared_jax_tp": _shard_map_moe(jcfg, jp, x, (2, 2), "tp", 2)}
+    for key, (t, cf) in SLICE_CASES.items():
+        jcfg, jp, _, _, x = _pair("mixtral", cf)
+        xs = x.reshape(-1, x.shape[-1])[:t][None]
+        refs[f"{key}_x"] = xs
+        try:
+            refs[f"{key}_jax_ep"] = _shard_map_moe(jcfg, jp, xs, (1, 4), "ep", 4)
+        except Exception as e:   # recorded: the test names it
+            refs[f"{key}_jax_ep_error"] = f"{type(e).__name__}: {e}"[:300]
+    return refs
+
+
+def _moe_holder(p):
+    holder = torch.nn.Module()
+    holder.moe = p
+    return holder
+
+
+def _rank(rank, refs):
+    from repro_torch.convert import shard_params
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.mesh import make_mesh, mesh_axis
+
+    torch.set_num_threads(1)
+    out = {}
+    # Llama-4's shared expert at (2, 2): each data shard one row of x
+    _, _, tcfg, p, x = _pair("llama4", SHARED_CF)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    ax, d = mesh_axis(mesh, "model"), mesh_axis(mesh, "data").index
+    xd = torch.from_numpy(x[d:d + 1].copy())
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(xd.shape).astype(np.float32))
+    xr = xd.clone().requires_grad_()
+    want = moe.moe_apply_local(p, tcfg, xr)
+    (want * g).sum().backward()
+    with sharding.parallel_rules(sharding.mesh_axes(), mesh):
+        local = shard_params(_moe_holder(p), mesh, moe_impl="ep").moe
+        for a2a in ("binary", "xla"):
+            xe = xd.clone().requires_grad_()
+            got = moe.moe_apply_local(local, tcfg, xe, moe_impl="ep", a2a_impl=a2a, tp=2,
+                                      group=ax)
+            (got * g).sum().backward()
+            out[f"shared_{a2a}_vs_unsharded"] = _rel(got.detach(), want.detach())
+            out[f"shared_{a2a}_vs_jax_tp"] = _rel(got.detach(), refs["shared_jax_tp"][d:d + 1])
+            out[f"shared_{a2a}_grad_x"] = _rel(xe.grad, xr.grad)
+    # the routed part at (1, 4) with t % tp != 0 and t < tp (Mixtral)
+    mesh = make_mesh((1, 4), ("data", "model"), device="cpu")
+    ax = mesh_axis(mesh, "model")
+    for key, (t, cf) in SLICE_CASES.items():
+        _, _, tcfg, p, _ = _pair("mixtral", cf)
+        xs = torch.from_numpy(refs[f"{key}_x"].copy()).requires_grad_()
+        with sharding.parallel_rules(sharding.mesh_axes(), mesh):
+            local = shard_params(_moe_holder(p), mesh, moe_impl="ep").moe
+            got = moe.moe_apply_local(local, tcfg, xs, moe_impl="ep", tp=4, group=ax)
+            got.sum().backward()
+        yt = got.detach().numpy()
+        out[f"{key}_routed_rows"] = int(np.abs(yt).reshape(t, -1).max(-1).astype(bool).sum())
+        out[f"{key}_grad_finite"] = bool(torch.isfinite(xs.grad).all())
+        if f"{key}_jax_ep" in refs:
+            out[f"{key}_vs_jax_ep"] = _rel(yt, refs[f"{key}_jax_ep"])
+    return out
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _main():
+    from repro_torch.parallel.mesh import spawn_world
+
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    torch.set_num_threads(1)
+    refs = _world_refs()
+    outs = spawn_world(_rank, 4, refs, backend="gloo", timeout_s=300)
+    merged = {}
+    for key in outs[0]:
+        vals = [o[key] for o in outs]
+        merged[key] = (all(vals) if isinstance(vals[0], bool) else
+                       max(vals) if isinstance(vals[0], float) else vals)
+    merged["jax_errors"] = {k: v for k, v in refs.items() if k.endswith("_error")}
+    print(json.dumps(merged))
+
+
+@functools.lru_cache(maxsize=None)
+def _world() -> dict:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    res = subprocess.run([sys.executable, str(Path(__file__)), "world"], capture_output=True,
+                         text=True, env=env, timeout=600, cwd=ROOT)
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-8000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("kw", SHARED_CASES)
 def test_ep_mode_with_a_shared_expert_needs_one_model_rank(kw):
     """Llama-4's shared expert is split over ``ff`` on the model axis in
-    ``ep`` mode too (``param_pspecs``, as ``repro``'s specs), which ``ep``
-    mode's body cannot sum: with ``tp > 1`` the call raises, with a group or
-    without, before any exchange.  At ``tp = 1`` it runs ``repro``'s local
-    path with JAX's values."""
+    ``ep`` mode too (``param_pspecs``, as ``repro``'s specs).  At ``tp =
+    1`` the call runs ``repro``'s local path with JAX's values; at ``tp =
+    2`` (mesh (2, 2), both exchanges) each rank adds its ``ff`` share over
+    all tokens before the all-reduce, so the output and the tokens'
+    gradient equal the unsharded port's, and the output equals ``repro``'s
+    ``tp`` mode on the same weights: the capacity factor E / top_k drops no
+    assignment in either mode.  (``repro``'s own ``ep`` body adds only the
+    rank's share on the rank's token slice: ROADMAP.md § 3.)"""
+    if kw["tp"] != 1:
+        r = _world()
+        a2a = kw.get("a2a_impl", "binary")
+        assert r[f"shared_{a2a}_vs_unsharded"] <= ACT_TOL
+        assert r[f"shared_{a2a}_vs_jax_tp"] <= ACT_TOL
+        assert r[f"shared_{a2a}_grad_x"] <= GRAD_TOL
+        return
     jcfg, jp, tcfg, p, x = _pair("llama4", 1.25)
     assert p.shared is not None
-    if kw["tp"] != 1:
-        with pytest.raises(ValueError, match="cannot run a shared expert"):
-            moe.moe_apply_local(p, tcfg, torch.from_numpy(x), moe_impl="ep", **kw)
-        return
     want = jax.jit(lambda p, x: jax_moe.moe_apply_local(p, jcfg, x, moe_impl="ep", tp=1))(
         jax.tree.map(jnp.asarray, jp), jnp.asarray(x))
     with torch.no_grad():
         got = moe.moe_apply_local(p, tcfg, torch.from_numpy(x), moe_impl="ep", **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ACT_TOL, rtol=ACT_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(SLICE_CASES))
+def test_ep_slices_tokens_as_repro(case):
+    """``repro``'s ``ep`` body dispatches t // tp tokens a rank: with 7
+    tokens over 4 ranks the last 3 get no routed expert, with 3 none does
+    (every rank's slice is empty and the exchange carries empty buffers).
+    The port keeps that slicing: its output equals ``repro``'s, rows past
+    4 * (t // 4) are zero, and the backward runs."""
+    r = _world()
+    assert r["jax_errors"] == {}
+    t = SLICE_CASES[case][0]
+    assert r[f"{case}_vs_jax_ep"] <= ACT_TOL
+    assert r[f"{case}_routed_rows"] == [4 * (t // 4)] * 4
+    assert r[f"{case}_grad_finite"]
+
+
+def test_ep_with_fewer_tokens_than_ranks_runs_on_meta_tensors():
+    """The dry run's decode cells give an ep rank no token: the empty
+    dispatch runs on ``meta`` tensors in a fake world of 4 ranks."""
+    from repro_torch.convert import shard_params
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.mesh import fake_world, make_mesh, mesh_axis
+
+    _, _, tcfg, p, _ = _pair("llama4", 1.25)
+    with fake_world(4):
+        mesh = make_mesh((1, 4), ("data", "model"), device="cpu")
+        with sharding.parallel_rules(sharding.mesh_axes(), mesh):
+            local = shard_params(_moe_holder(p), mesh, moe_impl="ep").moe.to("meta")
+            x = torch.empty((3, 1, tcfg.d_model), device="meta")
+            y = moe.moe_apply_local(local, tcfg, x, moe_impl="ep", tp=4,
+                                    group=mesh_axis(mesh, "model"))
+    assert y.device.type == "meta" and y.shape == x.shape and y.dtype == x.dtype
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] == ["world"]:
+        _main()

@@ -415,6 +415,7 @@ def _world8(rank, inp, ref, moe_args):
 
 
 SEQ = 32
+LLAMA4_EP_CF = 4.0                # E / top_k of reduced Llama-4: no drops in either mode
 # (arch, capacity factor, mesh, rules, sequence length); the rules are the
 # default ones (sequence parallelism over "model"), "nosp" with seq_sp
 # unmapped (the residual stream replicated over "model") or "fsdp" with
@@ -424,8 +425,12 @@ MODEL_RUNS = [("mixtral", None, (1, 4), "sp", SEQ), ("mixtral", MOE_CF, (2, 2), 
               ("starcoder2", None, (1, 4), "nosp", SEQ),
               ("mixtral", MOE_CF, (2, 2), "fsdp", SEQ),
               ("starcoder2", None, (2, 2), "fsdp", SEQ),
-              ("mixtral", None, (1, 4), "sp", 31)]
-RULES = {"sp": {}, "nosp": {"seq_sp": None}, "fsdp": {"fsdp": "data"}}
+              ("mixtral", None, (1, 4), "sp", 31),
+              ("llama4", LLAMA4_EP_CF, (1, 4), "ep", SEQ),
+              ("llama4", LLAMA4_EP_CF, (2, 2), "ep", SEQ)]
+# "ep": the default rules with the MoE layers in ep mode (experts over the
+# model axis, Llama-4's shared expert over ff)
+RULES = {"sp": {}, "nosp": {"seq_sp": None}, "fsdp": {"fsdp": "data"}, "ep": {}}
 
 
 def _run_tag(arch, shape, rules, seq):
@@ -501,11 +506,12 @@ def _check_model(arch, cf, shape, rules, seq, ref, out):
     per = 4 // shape[0]
     rows = slice(dax.index * per, (dax.index + 1) * per)
     full = params_from_jax(tcfg, ref["tree"], device="cpu")
+    moe_impl = "ep" if rules == "ep" else "tp"
     with sharding.parallel_rules(sharding.mesh_axes(RULES[rules]), mesh):
-        specs = param_pspecs(full)
-        model = shard_params(full, mesh)
+        specs = param_pspecs(full, moe_impl)
+        model = shard_params(full, mesh, moe_impl)
         b0 = {k: torch.from_numpy(v[rows].copy()) for k, v in ref["batches"][0].items()}
-        h = forward(model, b0, remat=False)
+        h = forward(model, b0, moe_ctx={"moe_impl": moe_impl}, remat=False)
         out[f"{tag}_hidden_rows"] = h.shape[1]
         out[f"{tag}_hidden_err"] = _err(TM.full_sequence(h, seq).detach().numpy(),
                                         ref["h"][rows])
@@ -533,12 +539,12 @@ def _check_model(arch, cf, shape, rules, seq, ref, out):
         out[f"{tag}_n_fsdp"] = n_fsdp
 
         opt = OptConfig(lr=3e-3, warmup_steps=2, eps=ADAM_EPS)
-        model = shard_params(full, mesh)
+        model = shard_params(full, mesh, moe_impl)
         state = {"params": model, "opt": init_opt_state(model, opt)}
         out[f"{tag}_opt_equals_specs"] = all(
             tuple(state["opt"][k][n].shape) == tuple(p.shape)
             for n, p in model.named_parameters() for k in ("master", "m", "v"))
-        step = make_train_step(tcfg, TrainConfig(opt=opt))
+        step = make_train_step(tcfg, TrainConfig(opt=opt, moe_impl=moe_impl))
         # the layer inputs that remat saves (the checkpoint's x), first step
         saved, real = [], TM.checkpoint
         TM.checkpoint = lambda fn, layer, cfg, x, *a, **k: (
@@ -736,6 +742,10 @@ def test_moe_ep_agrees_with_tp_without_drops():
 
 # ------------------------------------------------------------------ tests: world4
 
+# parameters of the reduced configs, each with its gradient: Llama-4's 4
+# layers hold two MoE layers with a shared expert
+N_GRADS = {"mixtral": 23, "starcoder2": 29, "llama4": 47}
+
 
 @pytest.mark.parametrize("run", RUN_TAGS)
 def test_sharded_model_matches_unsharded_jax(run):
@@ -743,7 +753,8 @@ def test_sharded_model_matches_unsharded_jax(run):
     assert r[f"{run}_hidden_err"] <= TOL
     assert r[f"{run}_loss_err"] <= TOL
     assert r[f"{run}_grads_err"] <= TOL, r[f"{run}_grads_worst"]
-    assert r[f"{run}_n_grads"][0] in (23, 29)
+    arch = MODEL_RUNS[RUN_TAGS.index(run)][0]
+    assert r[f"{run}_n_grads"][0] == N_GRADS[arch]
 
 
 @pytest.mark.parametrize("run", RUN_TAGS)

@@ -22,9 +22,16 @@ in one JSON line:
   expert), Mamba-2 (SSD), RecurrentGemma (RG-LRU and windowed MQA) and
   Whisper (cross-attention to a cache filled by ``encode_to_cache`` under
   the mesh) at meshes (1, 4) and (2, 2), 4 lanes at different positions;
-* StarCoder2 and Mixtral at (4, 1) with one lane and the cache's sequence
-  split over ``data`` (``long_500k``'s layout), positions past Mixtral's
-  32-slot window so that its ring wraps and the writing rank rotates;
+* StarCoder2, Mixtral and Llama-4 at (4, 1) with one lane and the cache's
+  sequence split over ``data`` (``long_500k``'s layout), positions past
+  the 32-slot window of Mixtral's ring and Llama-4's chunks, so that the
+  ring wraps, the writing rank rotates and a chunk's slots lie on several
+  ranks;
+* Llama-4 at (1, 4) with its MoE layers in ``ep`` mode (experts over the
+  model axis, the shared expert over ``ff``) at capacity factor 4 (E /
+  top_k: no assignment drops), against JAX at the same factor, with the
+  default rules and under ``kvdedup``'s (the cache's sequence over
+  ``model``);
 * StarCoder2 and Mixtral under ``kvdedup`` at (1, 4): KV heads unpadded
   and whole on every rank, the sequence split over ``model``, the query
   heads gathered over it.
@@ -36,6 +43,7 @@ within each data shard, as ``repro``'s do under a mesh, so a config with
 experts is held at (2, 2) to JAX run on each data shard's lanes.
 """
 
+import dataclasses
 import functools
 import json
 import os
@@ -68,12 +76,17 @@ OFFSETS = (0, 3, 5, 9)          # each lane's first position
 SEQ_LANE = 3                    # the one lane of the (4, 1) runs: positions 9..48
 ARCHS = ("starcoder2", "mixtral", "llama4", "mamba2", "recurrentgemma", "whisper")
 # (arch, mesh, mode): "tp" the default rules, "seq" the cache's sequence
-# over data with the batch replicated, "kvdedup" repro's variant
+# over data with the batch replicated, "kvdedup" repro's variant, "ep" the
+# default rules with the MoE layers in ep mode
 RUNS = [(arch, shape, "tp") for arch in ARCHS for shape in ((1, 4), (2, 2))]
-RUNS += [(arch, (4, 1), "seq") for arch in ("starcoder2", "mixtral")]
+RUNS += [(arch, (4, 1), "seq") for arch in ("starcoder2", "mixtral", "llama4")]
 RUNS += [(arch, (1, 4), "kvdedup") for arch in ("starcoder2", "mixtral")]
+RUNS += [("llama4", (1, 4), "ep"), ("llama4", (1, 4), "ep_kvdedup")]
 MODE_RULES = {"tp": {}, "seq": {"batch": None},
-              "kvdedup": {"kv_heads": None, "seq_shard": "model"}}
+              "kvdedup": {"kv_heads": None, "seq_shard": "model"}, "ep": {},
+              "ep_kvdedup": {"kv_heads": None, "seq_shard": "model"}}
+SEQ_MODES = ("seq", "kvdedup", "ep_kvdedup")      # the cache's sequence split
+EP_CF = 4.0                     # E / top_k of reduced Llama-4: no assignment drops
 
 
 def _tag(arch, shape, mode):
@@ -144,15 +157,25 @@ def _cat_lanes(parts):
             for i in range(len(parts[0]))]
 
 
-def _jax_refs(arch, kv_pad):
+def _cfg(get, arch, mode):
+    """The reduced config of a run: at EP_CF in ep mode."""
+    cfg = get(arch).reduced()
+    return dataclasses.replace(cfg, capacity_factor=EP_CF) if mode.startswith("ep") else cfg
+
+
+def _ref_key(arch, mode):
+    return arch, mode.endswith("kvdedup"), mode.startswith("ep")
+
+
+def _jax_refs(arch, kv_pad, ep=False):
     """The references of one config: its tree, the stream, and JAX's tokens
-    and caches for every lane group a run holds."""
+    and caches for every lane group a run holds (``ep``: at EP_CF)."""
     import jax
     import jax.numpy as jnp
     from repro.configs import get_arch as jax_get_arch
     from repro.models import init_params as jinit
 
-    jcfg = jax_get_arch(arch).reduced()
+    jcfg = _cfg(jax_get_arch, arch, "ep" if ep else "tp")
     tree = _perturb(jax.tree.map(np.asarray, jinit(jcfg, jax.random.PRNGKey(0), tp=4,
                                                    dtype=jnp.float32, kv_pad=kv_pad)),
                     seed=13)
@@ -178,11 +201,12 @@ def _jax_refs(arch, kv_pad):
 
 
 def _check_run(arch, shape, mode, refs, out):
-    tcfg = get_arch(arch).reduced()
+    tcfg = _cfg(get_arch, arch, mode)
     tag = _tag(arch, shape, mode)
-    r = refs[(arch, mode == "kvdedup")]
+    r = refs[_ref_key(arch, mode)]
+    moe_impl = "ep" if mode.startswith("ep") else "tp"
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
-    seq = mode != "tp"
+    seq = mode in SEQ_MODES
     if mode == "seq":
         rows, key = slice(SEQ_LANE, SEQ_LANE + 1), "seq"
     else:
@@ -193,7 +217,7 @@ def _check_run(arch, shape, mode, refs, out):
     want_tokens, want_cache = r["ref"][key]
     full = params_from_jax(tcfg, r["tree"], device="cpu")
     with sharding.parallel_rules(sharding.mesh_axes(MODE_RULES[mode]), mesh):
-        model = shard_params(full, mesh)
+        model = shard_params(full, mesh, moe_impl)
         cache = TM.init_cache(model, rows.stop - rows.start, MAX_LEN, dtype=torch.float32,
                               seq_sharded=seq)
         if r["frames"] is not None:
@@ -201,7 +225,7 @@ def _check_run(arch, shape, mode, refs, out):
         got = []
         for t in range(STEPS):
             nxt, _ = TM.decode_step(model, cache, r["tokens"][rows, t:t + 1],
-                                    r["pos"][rows, t], moe_ctx={"moe_impl": "tp"},
+                                    r["pos"][rows, t], moe_ctx={"moe_impl": moe_impl},
                                     seq_sharded=seq)
             got.append(nxt.numpy())
         got = np.stack(got, 1)
@@ -241,8 +265,9 @@ def _world(rank, refs):
 
 def _main():
     torch.set_num_threads(1)
-    keys = dict.fromkeys((arch, mode == "kvdedup") for arch, _, mode in RUNS)
-    refs = {(arch, dedup): _jax_refs(arch, kv_pad=not dedup) for arch, dedup in keys}
+    keys = dict.fromkeys(_ref_key(arch, mode) for arch, _, mode in RUNS)
+    refs = {(arch, dedup, ep): _jax_refs(arch, kv_pad=not dedup, ep=ep)
+            for arch, dedup, ep in keys}
     outs = spawn_world(_world, 4, refs, backend="gloo", timeout_s=300)
     merged = {}
     for key in outs[0]:
@@ -296,8 +321,9 @@ def test_each_rank_holds_its_cache_shard(run):
         elif cfg.layer_pattern[0] == "rglru":
             assert shapes["h"] == [lanes, cfg.rnn_width // tp]
         else:
-            slots = min(MAX_LEN, cfg.window or MAX_LEN) // (4 if mode != "tp" else 1)
-            heads = cfg.n_kv_heads if mode == "kvdedup" else cfg.padded_kv_heads(4) // tp
+            slots = min(MAX_LEN, cfg.window or MAX_LEN) // (4 if mode in SEQ_MODES else 1)
+            heads = (cfg.n_kv_heads if mode.endswith("kvdedup")
+                     else cfg.padded_kv_heads(4) // tp)
             assert shapes["k"] == [lanes, slots, heads, cfg.head_dim]
             assert shapes["pos"] == [lanes, slots]
 
