@@ -8,7 +8,11 @@ exits non-zero before printing any result.  Phases, each of which raises on
 failure:
 
   1. print the card's name and power limit; build every CUDA kernel of the
-     port from ``src/repro_torch/csrc`` (one nvcc per source, together);
+     port from ``src/repro_torch/csrc`` (one nvcc per source, together,
+     flash-decode's in four parts); meanwhile a process of its own, which
+     needs no card, computes the numpy references of phases 28, 30 and
+     33-36 (``Background``), and once the build is done another replays phase
+     37's trace;
   2. hold each kernel against its plain PyTorch version on the card: the
      flash-decode kernel with both masks, lengths at the shapes the
      serving path gives it and ring-buffer slot positions on wrapped,
@@ -138,7 +142,8 @@ failure:
      the sweep's (65536, 10000) block;
  28. the architecture zoo: for all 13 registered architectures the torch
      sweep on the card equals the port's numpy sweep on 4096 counter
-     snapshots of 10,000 nodes at TP 16/32/64/24 (chunks of 1 and 8192), on
+     snapshots of 10,000 nodes at TP 16/32/64/24 in chunks of 8192, and on
+     the first 256 of them in chunks of 1, on
      all-healthy and all-faulty rows and masks narrower and wider than the
      cluster; tpuv4's over-placement at TP-24 shows;
  29. Fig. 13 / Table 7: 1000 trace snapshots of 720 nodes, torch grids equal
@@ -183,7 +188,8 @@ failure:
      at 6 decimals; then 8192 nodes x 256 snapshots, equal to numpy, the
      time of each span and the busy share;
  37. SLO: benchmarks/serve.py's spec (a 400-node, 60-day trace replayed on
-     the card with its control plane at TP-16; 3 streams, 6
+     the card with its control plane at TP-16, host code, in a process of
+     its own since the build; 3 streams, 6
      architectures): ``run_serve_sweep(backend="torch")`` equal to numpy
      and the scalar reference, 261,209 requests, slo_table equal to
      BENCH_serve.json; then the 348-day trace of 2048 nodes (37,791
@@ -202,7 +208,7 @@ failure:
      references (the rings bit for bit in their order of adds, integers
      exactly), and gpipe over the 4 ranks at width 4096 against the stages
      in sequence; ms per call by rank;
- 40. Mixtral-8x7B at full width and MIXTRAL_LAYERS layers, sharded over the
+ 40. Mixtral-8x7B at full width and PAR_LAYERS (1) layer, sharded over the
      same 4 ranks, B=1, S=2048 a data shard; the unsharded port computed
      here first.  In float32 at mesh (data=1, model=4): tp mode with
      ar_impl "psum" and "ring", each rank's hidden states, loss and every
@@ -231,7 +237,7 @@ failure:
      first 16,384; the Fig. 17c DCN grid equal to numpy and BENCH_dcn.json;
      benchmarks/cost.py's spec equal to phase 35's one-device grids; rows/s,
      the card's busy share and prefix_scan launched by every slice;
- 43. sequence parallelism and FSDP: StarCoder2-3B at full width and 8
+ 43. sequence parallelism and FSDP: StarCoder2-3B at full width and 4
      layers, bf16, B=1, S=4096 a data shard, AdamW, over the 4 ranks of
      phase 39 under four rule sets ((1, 4) with seq_sp unmapped, (1, 4)
      and (2, 2) with the default rules' sequence parallelism, (2, 2) with
@@ -241,8 +247,8 @@ failure:
      layers, (2, 2), SP + FSDP: hidden states, the data-mean loss and every
      gradient against the unsharded port's.
 
- 44. recurrent layers under a model axis: Mamba2-780m (8 layers, 12 SSD
-     heads a rank) and RecurrentGemma-2B (6 layers: RG-LRU and local
+ 44. recurrent layers under a model axis: Mamba2-780m (4 layers, 12 SSD
+     heads a rank) and RecurrentGemma-2B (3 layers: RG-LRU and local
      attention) at full width, B=1, S=2048 a data shard, over the 4 ranks:
      float32 at (1, 4), each rank's hidden states, loss and every gradient
      after sync_gradients against the unsharded port's, with the SSD and
@@ -324,8 +330,10 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import hashlib
 import json
 import math
+import pickle
 import statistics
 import subprocess
 import sys
@@ -419,7 +427,8 @@ def attention_inputs(torch, seed, b, hq, hkv, d, s, qdt, kvdt, max_len=None):
     lengths = torch.randint(1, top + 1, (b,), generator=gen, device="cuda",
                             dtype=torch.int32)
     lengths[0] = 1
-    lengths[1] = top
+    if b > 1:
+        lengths[1] = top
     return q, k, v, lengths
 
 
@@ -443,9 +452,28 @@ def slot_inputs(torch, seed, b, hq, hkv, d, w, qdt, kvdt, lo, hi, strided=False)
     return q, k, v, ring_slots(torch, q_pos, w), q_pos
 
 
+def decode_path(torch, b, hq, hkv, s):
+    """(plan, words): how flash-decode splits a call of q (b, hq, D) over
+    ``s`` slots and ``hkv`` KV heads on card 0, and merges the splits."""
+    from repro_torch.kernels.decode_attention.decode_attention import plan
+
+    pl = plan(b, hq, hkv, s, torch.cuda.get_device_properties(0).multi_processor_count)
+    if pl.merge == "cluster":
+        how = "in one cluster"
+    elif pl.group == pl.n_split:
+        how = "through memory in one step"
+    else:
+        how = f"through memory in groups of {pl.group}, then the groups"
+    return pl, f"{pl.n_split} splits of {pl.split_keys} keys a row, merged {how}"
+
+
 def check_decode_attention(torch):
     """Both masks of the decode kernel against their plain versions, and a
-    bit-identical repeat of a call whose splits the kernel merges."""
+    bit-identical repeat of a call whose splits the kernel merges, in a
+    cluster and through device memory.  The few-row cases (rows whose splits
+    merge through device memory, and their neighbours) are also held to
+    FEW_ROW_TOL on each row's error over the plain version's row RMS, and a
+    row with no valid key must give zeros."""
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_cache,
                                                       decode_attention_cache_ref,
@@ -518,17 +546,88 @@ def check_decode_attention(torch):
         ref = decode_attention_cache_ref(q, k, v, sp, qp, window=win, chunk=chk)
         torch.cuda.synchronize()
         judge(label, out, ref, qdt, kvdt, True)
+    def judge_rows(label, out, ref, qdt, kvdt, live, slots):
+        judge(label, out[live], ref[live], qdt, kvdt, slots)
+        rel = lse_row_rel(out[live], ref[live])
+        tol = FEW_ROW_TOL["bfloat16" if out.dtype == bf else "float32"]
+        zeros = bool((out[~live] == 0).all())
+        ok = rel <= tol and zeros
+        print(f"decode_attention {'slots ' if slots else ''}{label}: over the reference's row "
+              f"RMS {rel:.3e} (tol {tol}); {int((~live).sum())} rows with no "
+              f"valid key give zeros: {zeros} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"decode_attention disagrees with its plain version on {label}")
+
+    # few rows: (label, B, Hq, Hkv, D, S, q dtype, cache dtype, lengths)
+    few = [
+        ("long_500k shard, every key", 1, 3, 1, 128, 32768, bf, bf, [32768]),
+        ("long_500k shard f32, every key", 1, 3, 1, 128, 32768, f32, f32, [32768]),
+        ("long_500k shard, keys in split 0 only", 1, 3, 1, 128, 32768, bf, bf, [100]),
+        ("S=30001, not a whole number of splits, a row with no key", 3, 3, 1, 128, 30001, bf,
+         bf, [30001, 17777, 0]),
+        ("S=30001 f32, a row with no key", 3, 3, 1, 128, 30001, f32, f32, [0, 30001, 5]),
+    ]
+    for seed, (label, b, hq, hkv, d, s, qdt, kvdt, lens) in enumerate(few):
+        q, k, v, lengths = attention_inputs(torch, 300 + seed, b, hq, hkv, d, s, qdt, kvdt)
+        lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+        out = decode_attention(q, k, v, lengths)
+        ref = decode_attention_ref(q, k, v, lengths)
+        torch.cuda.synchronize()
+        path = decode_path(torch, b, hq, hkv, s)[1]
+        judge_rows(f"{label} (B={b} Hq={hq} Hkv={hkv} D={d} S={s}; {path})", out, ref, qdt,
+                   kvdt, lengths > 0, False)
+    # (label, B, Hq, Hkv, D, W, q dtype, cache dtype, q_pos range, window)
+    few_slots = [
+        ("long_500k shard, wrapped", 1, 3, 1, 128, 32768, bf, bf, (32768, 90000), 0),
+        ("long_500k shard f32, wrapped", 1, 3, 1, 128, 32768, f32, f32, (32768, 90000), 0),
+        ("long_500k shard, q_pos early: keys in split 0 only", 1, 3, 1, 128, 32768, bf, bf,
+         (0, 100), 0),
+        ("W=30001 window 3000: few live splits, the last one short", 2, 3, 1, 128, 30001, bf,
+         bf, (40000, 90000), 3000),
+        ("RecurrentGemma 10/1 D=256, wrapped, window 2048", 8, 10, 1, 256, 2048, bf, bf,
+         (2048, 8192), 2048),
+        ("RecurrentGemma 10/1 D=256 f32, wrapped, window 2048", 8, 10, 1, 256, 2048, f32, f32,
+         (2048, 8192), 2048),
+        ("RecurrentGemma 10/1 D=256, short lanes", 8, 10, 1, 256, 2048, bf, bf, (0, 300), 2048),
+        ("PaliGemma 8/1 D=256 W=1024", 8, 8, 1, 256, 1024, bf, bf, (0, 2500), 0),
+        ("PaliGemma 8/1 D=256 W=4096", 8, 8, 1, 256, 4096, bf, bf, (0, 9000), 0),
+    ]
+    for seed, (label, b, hq, hkv, d, w, qdt, kvdt, (lo, hi), win) in enumerate(few_slots):
+        q, k, v, sp, qp = slot_inputs(torch, 320 + seed, b, hq, hkv, d, w, qdt, kvdt, lo, hi)
+        out = decode_attention_cache(q, k, v, sp, qp, window=win)
+        ref = decode_attention_cache_ref(q, k, v, sp, qp, window=win)
+        torch.cuda.synchronize()
+        path = decode_path(torch, b, hq, hkv, w)[1]
+        judge_rows(f"{label} (B={b} Hq={hq} Hkv={hkv} D={d} W={w}; {path})", out, ref, qdt,
+                   kvdt, torch.ones(b, dtype=torch.bool, device="cuda"), True)
     errs["lse"] = check_lse_form(torch)
-    # the splits merge in split order, not arrival order: the same bits twice
+    # the splits merge in split order, not arrival order: the same bits twice,
+    # in a cluster and through device memory (long_500k's shard in the
+    # log-sum-exp form, RecurrentGemma's ring)
     q, k, v, lengths = attention_inputs(torch, 90, 8, 24, 2, 128, 4096, bf, bf, None)
     q2, k2, v2, sp, qp = slot_inputs(torch, 91, 8, 24, 2, 128, 1024, bf, bf, 1024, 4000)
-    same = all(torch.equal(f(), f()) for f in (
-        lambda: decode_attention(q, k, v, lengths),
-        lambda: decode_attention_cache(q2, k2, v2, sp, qp)))
-    print(f"decode_attention S=4096 and wrapped W=1024, bf16, run twice: "
-          f"{'bit-identical' if same else 'DIFFER'}")
-    if not same:
-        raise AssertionError("decode_attention is not deterministic")
+    q3, k3, v3, sp3, qp3 = slot_inputs(torch, 92, 1, 3, 1, 128, 32768, bf, bf, 32768, 90000)
+    dc = RECURRENTGEMMA_DECODE
+    q4, k4, v4, sp4, qp4 = slot_inputs(torch, 93, dc["b"], dc["hq"], dc["hkv"], dc["d"],
+                                       dc["w"], bf, bf, dc["w"], 4 * dc["w"])
+    repeats = {
+        "S=4096, bf16": lambda: decode_attention(q, k, v, lengths),
+        "wrapped W=1024, bf16": lambda: decode_attention_cache(q2, k2, v2, sp, qp),
+        "long_500k shard, lse form": lambda: torch.cat(
+            [t.flatten() for t in decode_attention_cache(q3, k3, v3, sp3, qp3,
+                                                         return_lse=True)]),
+        "RecurrentGemma's ring": lambda: decode_attention_cache(q4, k4, v4, sp4, qp4,
+                                                                window=dc["w"]),
+    }
+    paths = [decode_path(torch, *a)[1] for a in ((8, 24, 2, 4096), (8, 24, 2, 1024),
+                                                 (1, 3, 1, 32768),
+                                                 (dc["b"], dc["hq"], dc["hkv"], dc["w"]))]
+    for (label, f), path in zip(repeats.items(), paths):
+        same = torch.equal(f(), f())
+        print(f"decode_attention {label} ({path}), run twice: "
+              f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"decode_attention is not deterministic on {label}")
     return errs
 
 
@@ -550,6 +649,14 @@ LSE_CASES = [
      (0, 20000), 4096, 0, 2),
     ("chunk 200, f32 q over a bf16 cache, empty lanes", 4, 16, 2, 64, 512, "float32",
      "bfloat16", (0, 3000), 0, 200, 2),
+    ("long_500k shard, q_pos early: keys in split 0 only, bf16", 1, 3, 1, 128, 32768,
+     "bfloat16", "bfloat16", (0, 100), 0, 0, 0),
+    ("long_500k shard, no valid slot, bf16", 1, 3, 1, 128, 32768, "bfloat16", "bfloat16",
+     (32768, 90000), 0, 0, 1),
+    ("W=30001 f32, not a whole number of splits, an empty lane", 2, 3, 1, 128, 30001,
+     "float32", "float32", (30001, 90000), 0, 0, 1),
+    ("RecurrentGemma's ring, window 2048, bf16, an empty lane", 8, 10, 1, 256, 2048,
+     "bfloat16", "bfloat16", (2048, 8192), 2048, 0, 1),
 ]
 
 
@@ -558,11 +665,18 @@ LSE_CASES = [
 # under TOL's absolute 2e-2.  Each row's max abs error over the RMS of the
 # plain version's row: the kernel rounds the probabilities to bf16 for the
 # tensor cores and both sides sum in float32, which reads a few 1e-3; a
-# merge that drops one of 8 splits reads ~0.35.  lse's max abs error: both
-# sides take it from the same bf16 inputs in float32 (~1e-6); one split of
-# 8 dropped moves it by log(8/7) = 0.13, a window off by a 64-key tile of
-# 1024 keys by 0.06.
+# merge that drops the last of the kernel's 256 splits (128 keys) reads
+# ~0.16 (4096 keys, one of 8: ~1.1).  lse's max abs error: both sides take
+# it from the same bf16 inputs in float32 (~1e-6); one split of 256 dropped
+# moves it by log(256/255) = 0.004, a window off by a 64-key tile of 1024
+# keys by 0.06.
 LSE_TOL = {"out_rel": 2e-2, "lse_abs": 1e-3}
+# The few-row cases of both masks (check_decode_attention) on the same
+# scale, by the output's type: a float32 output within LSE_TOL's 2e-2; a
+# bf16 one within 4e-2, since both sides round to bf16 and may land one ulp
+# apart, up to 2^-7 of an entry that can be ~3.5x its row's RMS (~0.027).
+# A merge that drops one split of 256 reads ~0.16, one of 16 far more.
+FEW_ROW_TOL = {"float32": 2e-2, "bfloat16": 4e-2}
 
 
 def lse_row_rel(out, ref):
@@ -580,8 +694,9 @@ def check_lse_form(torch):
     scale; a row with none gives zeros and -inf (the plain version -1e30 +
     log W beside the mean of V, either weighing 0 in a merge); the output
     rounded to q's type is the plain launch's, bit for bit.  At long_500k's
-    shard a plain version that drops the last of the kernel's 8 splits must
-    go over LSE_TOL.  Returns the largest error."""
+    shard a plain version that drops the last of the kernel's splits (as
+    many as ``decode_path`` says) must go over LSE_TOL.  Returns the largest
+    error."""
     from repro_torch.kernels.decode_attention import (decode_attention_cache,
                                                       decode_attention_cache_ref)
 
@@ -601,9 +716,11 @@ def check_lse_form(torch):
         bf16 = torch.bfloat16 in (qdt, kvdt)
         live = torch.ones(b, dtype=torch.bool, device="cuda")
         live[:empty] = False
-        err = (out[live] - ref[live]).abs().max().item()
-        lerr = (lse[live] - ref_lse[live]).abs().max().item()
-        rel = lse_row_rel(out[live], ref[live])
+        err = lerr = rel = 0.0
+        if bool(live.any()):
+            err = (out[live] - ref[live]).abs().max().item()
+            lerr = (lse[live] - ref_lse[live]).abs().max().item()
+            rel = lse_row_rel(out[live], ref[live])
         if bf16:
             close = rel <= LSE_TOL["out_rel"] and lerr <= LSE_TOL["lse_abs"]
             limits = (f"over the reference's row RMS {rel:.3e} (tol {LSE_TOL['out_rel']}), "
@@ -618,7 +735,8 @@ def check_lse_form(torch):
               and bool((out[~live] == 0).all()) and bool(torch.isneginf(lse[~live]).all())
               and bool((ref_lse[~live] <= -1e29).all())
               and torch.equal(out.to(qdt), plain))
-        print(f"decode_attention lse form {label}: out max_abs_err {err:.3e}, {limits}; "
+        pl, path = decode_path(torch, b, hq, hkv, w)
+        print(f"decode_attention lse form {label} ({path}): out max_abs_err {err:.3e}, {limits}; "
               f"{empty} empty lanes give zeros and -inf; out in {qd} equals the plain "
               f"launch's: {torch.equal(out.to(qdt), plain)} {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -626,12 +744,13 @@ def check_lse_form(torch):
         if seed == 0:
             # the plain version without the last split's keys (all of them valid here)
             cut = sp.clone()
-            cut[:, -(w // 8):] = -1
+            cut[:, (pl.n_split - 1) * pl.split_keys:] = -1
             bad, bad_lse = decode_attention_cache_ref(q, k, v, cut, qp, return_lse=True, **kw)
             bad_rel = lse_row_rel(out, bad)
             bad_l = (lse - bad_lse).abs().max().item()
             print(f"decode_attention lse form {label}: the plain version planted without the "
-                  f"last of 8 splits: over its row RMS {bad_rel:.3e}, lse {bad_l:.3e}")
+                  f"last of {pl.n_split} splits ({w - (pl.n_split - 1) * pl.split_keys} keys): "
+                  f"over its row RMS {bad_rel:.3e}, lse {bad_l:.3e}")
             if bad_rel <= LSE_TOL["out_rel"] or bad_l <= LSE_TOL["lse_abs"]:
                 raise AssertionError("the lse-form check passes a merge that drops a split")
         worst = max(worst, err, lerr)
@@ -943,8 +1062,9 @@ def time_decode_attention(torch, label, s, max_len=None, slots=False, hq=24, hkv
     ops = 4 * live * hq * d
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS) * 1e3
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_FLOPS else "operations"
+    pl, path = decode_path(torch, b, hq, hkv, s)
     print(f"time decode_attention {label}{' (lse form)' if lse else ''}: B={b} Hq={hq} "
-          f"Hkv={hkv} D={d} S={s} "
+          f"Hkv={hkv} D={d} S={s} ({path}) "
           f"window {window}, live keys {live}, bf16: kernel {kernel_ms * 1e3:.2f} us on the card "
           f"({nbytes / kernel_ms / 1e6:.0f} GB/s; {device_ms * 1e3:.2f} us of kernel time "
           f"in torch.profiler), {kernel_eager_ms * 1e3:.2f} us eager; bound {bound_ms * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB); "
@@ -952,7 +1072,8 @@ def time_decode_attention(torch, label, s, max_len=None, slots=False, hq=24, hkv
           f"card, {library_eager_ms * 1e3:.2f} us eager")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": by, "library_ms": library_ms, "profiler_ms": device_ms,
-            "eager_ms": kernel_eager_ms, "library_eager_ms": library_eager_ms}
+            "eager_ms": kernel_eager_ms, "library_eager_ms": library_eager_ms,
+            "n_split": pl.n_split, "merge": pl.merge}
 
 
 def profile_engine_steps(torch, eng, n_steps=4):
@@ -2652,33 +2773,61 @@ def grids_equal(a, b):
         for f in ("total_gpus", "faulty_gpus", "placed_gpus"))
 
 
-def check_sweep_zoo(torch):
-    """All 13 architectures: torch grids on the card equal the port's numpy
-    grids, on the counter stream at 10,000 nodes (chunks of 1 and 8192), on
-    all-faulty and all-healthy rows and on masks narrower and wider than the
-    cluster."""
+ZOO_TPS = (16, 32, 64, 24)
+# the zoo's counter snapshots at chunks of 8192, and the first ZOO_CHUNK1 of
+# them (snapshot i is drawn from its own counter) at chunks of 1
+ZOO_SNAPSHOTS = 4096
+ZOO_CHUNK1 = 256
+
+
+def zoo_spec(snapshots):
     from repro_torch.core import arch
-    from repro_torch.sim import CounterIIDSnapshots, ScenarioSpec, run_sweep
+    from repro_torch.sim import CounterIIDSnapshots, ScenarioSpec
+
+    return ScenarioSpec(num_nodes=SWEEP_NODES,
+                        snapshots=CounterIIDSnapshots(0.07, snapshots, 0),
+                        tp_sizes=ZOO_TPS, architectures=arch.names())
+
+
+def zoo_refs():
+    """The zoo's numpy grids: {snapshots: (grid, seconds)}."""
+    from repro_torch.sim import run_sweep
+
+    out = {}
+    for n in (ZOO_SNAPSHOTS, ZOO_CHUNK1):
+        t0 = time.perf_counter()
+        out[n] = (run_sweep(zoo_spec(n), backend="numpy"), time.perf_counter() - t0)
+    return out
+
+
+def check_sweep_zoo(torch, refs=None):
+    """All 13 architectures: torch grids on the card equal the port's numpy
+    grids, on the counter stream at 10,000 nodes (4096 snapshots in chunks
+    of 8192, the first 256 in chunks of 1), on all-faulty and all-healthy
+    rows and on masks narrower and wider than the cluster.  ``refs``: a
+    Background of host_refs, which computed the numpy grids beside the
+    earlier phases."""
+    from repro_torch.core import arch
+    from repro_torch.sim import ScenarioSpec, run_sweep
 
     names = arch.names()
-    tps = (16, 32, 64, 24)
-    spec = ScenarioSpec(num_nodes=SWEEP_NODES, snapshots=CounterIIDSnapshots(0.07, 4096, 0),
-                        tp_sizes=tps, architectures=names)
-    t0 = time.perf_counter()
-    ref = run_sweep(spec, backend="numpy")
-    t1 = time.perf_counter()
-    for chunk in (8192, 1):
+    tps = ZOO_TPS
+    zoo = refs.get("zoo") if refs else zoo_refs()
+    where = " in a process of its own" if refs else ""
+    for n, chunk in ((ZOO_SNAPSHOTS, 8192), (ZOO_CHUNK1, 1)):
+        ref, np_s = zoo[n]
         t2 = time.perf_counter()
-        got = run_sweep(spec, backend="torch", chunk_snapshots=chunk)
+        got = run_sweep(zoo_spec(n), backend="torch", chunk_snapshots=chunk)
         dt = time.perf_counter() - t2
         if got.backend != "torch" or not grids_equal(got, ref):
             bad = [n for i, n in enumerate(names)
                    if not np.array_equal(got.placed_gpus[i], ref.placed_gpus[i])
                    or not np.array_equal(got.faulty_gpus[i], ref.faulty_gpus[i])]
             raise AssertionError(f"zoo: torch grids at chunk {chunk} differ from numpy for {bad}")
-        print(f"zoo: {len(names)} architectures x 4096 counter snapshots x {SWEEP_NODES} nodes "
+        print(f"zoo: {len(names)} architectures x {n} counter snapshots x {SWEEP_NODES} nodes "
               f"x TP {tps}, chunk {chunk}: torch grids equal numpy ({dt:.2f} s on the card, "
-              f"numpy {t1 - t0:.2f} s)")
+              f"numpy {np_s:.2f} s{where})")
+    ref = zoo[ZOO_SNAPSHOTS][0]
     waste = ref.waste_ratio.mean(axis=1)
     print("zoo: mean waste at TP " + "/".join(map(str, tps)) + ": " + "; ".join(
         f"{n} " + "/".join(f"{100 * w:.3f}%" for w in waste[i]) for i, n in enumerate(names)))
@@ -2747,21 +2896,41 @@ def _busy_ms(torch, prof):
     return (busy + (cur[1] - cur[0] if cur else 0)) / 1e3
 
 
-def sweep_main_path(torch, samples=1_000_000, check_rows=16_384):
+SWEEP_CHECK_ROWS = 16_384
+
+
+def sweep_spec(n):
+    """benchmarks/scale.py's sweep at ``n`` counter snapshots."""
+    from repro_torch.sim import CounterIIDSnapshots, ScenarioSpec
+
+    return ScenarioSpec(num_nodes=SWEEP_NODES, snapshots=CounterIIDSnapshots(0.07, n, 5),
+                        tp_sizes=(32,), architectures=("infinitehbd-k3", "nvl-72"))
+
+
+def sweep_ref():
+    """The numpy path on host masks of the sweep's first SWEEP_CHECK_ROWS
+    snapshots: (grid, seconds)."""
+    from repro_torch.sim import run_sweep
+
+    t0 = time.perf_counter()
+    return run_sweep(sweep_spec(SWEEP_CHECK_ROWS), backend="numpy"), time.perf_counter() - t0
+
+
+def sweep_main_path(torch, samples=1_000_000, refs=None):
     """Main path at benchmarks/scale.py's configuration: 1,000,000 counter
     snapshots of 10,000 nodes x 4 GPUs at 7%, seed 5, TP-32, InfiniteHBD-K3
-    and NVL-72, masks drawn on the card, blocks of 65,536 snapshots."""
+    and NVL-72, masks drawn on the card, blocks of 65,536 snapshots
+    (``refs``: a Background of host_refs, which ran the numpy path on the
+    first rows)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.prng import counter_masks_at
     from repro_torch.kernels.prefix_scan import prefix_scan
-    from repro_torch.sim import CounterIIDSnapshots, ScenarioSpec, run_sweep
+    from repro_torch.sim import run_sweep
     from repro_torch.sim.torch_backend import GridEvaluator, MaskGen, infinitehbd_scans
 
-    def spec_of(n):
-        return ScenarioSpec(num_nodes=SWEEP_NODES, snapshots=CounterIIDSnapshots(0.07, n, 5),
-                            tp_sizes=(32,), architectures=("infinitehbd-k3", "nvl-72"))
-
+    spec_of = sweep_spec
+    check_rows = SWEEP_CHECK_ROWS
     spec = spec_of(samples)
     scans_per_block = sum(infinitehbd_scans(m) for m in spec.models()
                           if m.name.startswith("infinitehbd"))
@@ -2803,9 +2972,7 @@ def sweep_main_path(torch, samples=1_000_000, check_rows=16_384):
           f"{INT32_OPS / 1e12:.2f} TOP/s), {samples / bound_ms * 1e3:.0f} snapshots/s")
 
     head = spec_of(check_rows)
-    t1 = time.perf_counter()
-    host = run_sweep(head, backend="numpy")
-    t2 = time.perf_counter()
+    host, np_s = refs.get("sweep") if refs else sweep_ref()
     small = run_sweep(head, backend="torch", chunk_snapshots=8192)
     for name, other in (("host numpy path", host), ("chunk 8192 torch run", small)):
         if not (np.array_equal(res.placed_gpus[:, :check_rows], other.placed_gpus)
@@ -2814,7 +2981,8 @@ def sweep_main_path(torch, samples=1_000_000, check_rows=16_384):
             raise AssertionError(f"main path: the first {check_rows} rows differ from the "
                                  f"{name}")
     print(f"sweep: first {check_rows} rows equal the numpy path on host masks "
-          f"(counter_fault_masks, {t2 - t1:.2f} s on the host) and a chunk-8192 torch run")
+          f"(counter_fault_masks, {np_s:.2f} s on the host"
+          f"{' in a process of its own' if refs else ''}) and a chunk-8192 torch run")
 
     # where a block's time goes: two whole blocks under the profiler, then
     # the draw alone and the model kernels alone on one block's rows
@@ -2967,21 +3135,55 @@ def check_fig17c(torch, device="cuda"):
             "run": lambda: run_dcn_sweep(spec, backend="torch", masks=masks, device=device)}
 
 
-def dcn_datacenter(torch):
+def dc_spec():
+    from repro_torch.dcn import DcnSpec
+
+    return DcnSpec(num_nodes=DC_NODES, agg_domain=512, fault_ratios=DCN_RATIOS,
+                   samples=DC_SAMPLES, tp_sizes=DC_TPS, job_scale=0.85, seed=3,
+                   variants=("orchestrated",))
+
+
+def placement_digest(bp):
+    """sha256 of a placement's members, feasible and n_constraints (their
+    shapes and int64 values), which equal digests hold equal."""
+    h = hashlib.sha256()
+    for a in (bp.members, bp.feasible, bp.n_constraints):
+        a = np.asarray(a)
+        h.update(repr(a.shape).encode())
+        h.update(np.ascontiguousarray(a, dtype=np.int64).tobytes())
+    return h.hexdigest()
+
+
+def dc_refs():
+    """numpy's placements of dcn_datacenter's rows, ~2.5 ms a row on the
+    host: {tp: ([digest of each ratio's rows], seconds)}."""
+    from repro_torch.dcn import batched_fat_tree
+
+    spec = dc_spec()
+    masks = [spec.masks(ri) for ri in range(len(DCN_RATIOS))]
+    out = {}
+    for tp in DC_TPS:
+        t0 = time.perf_counter()
+        out[tp] = ([placement_digest(batched_fat_tree(mk, spec.config, tp, spec.job_gpus(tp)))
+                    for mk in masks], time.perf_counter() - t0)
+    return out
+
+
+def dcn_datacenter(torch, refs=None):
     """8192 nodes (32,768 GPUs), 512-node domains, the five ratios x 1024
     snapshots, TP 32 and 64, orchestrated only; masks drawn before the
     timer.  The main path (``run_dcn_sweep``) with its launch count, the
-    placement kernel timed alone per TP and held to numpy on every row, a
-    profile of one TP's blocks, and two plants caught."""
+    placement kernel timed alone per TP and held to numpy on every row (by
+    digest when ``refs``, a Background of host_refs, computed numpy's
+    beside the earlier phases), a profile of one TP's blocks, and two
+    plants caught."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.dcn import DcnSpec, batched_fat_tree, run_dcn_sweep
+    from repro_torch.dcn import batched_fat_tree, run_dcn_sweep
     from repro_torch.dcn.torch_backend import fat_tree_placements, scans_per_call, search_iters
     from repro_torch.kernels.prefix_scan import prefix_scan
 
-    spec = DcnSpec(num_nodes=DC_NODES, agg_domain=512, fault_ratios=DCN_RATIOS,
-                   samples=DC_SAMPLES, tp_sizes=DC_TPS, job_scale=0.85, seed=3,
-                   variants=("orchestrated",))
+    spec = dc_spec()
     cfg = spec.config
     masks = [spec.masks(ri) for ri in range(len(DCN_RATIOS))]
     stacked = np.concatenate(masks)
@@ -3016,23 +3218,30 @@ def dcn_datacenter(torch):
     out = {"launches": launches, "rows": rows, "peak_gb": peak / 1e9,
            "sweep_rows_per_s": rows / wall, "per_tp": {}}
     scans_bytes = 0
+    want = refs.get("dc") if refs else None
+    where = " in a process of its own" if refs else ""
     for tp, job in zip(DC_TPS, jobs):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         bp = fat_tree_placements(stacked, cfg, [tp], [job], chunk_snapshots=DC_CHUNK)[0]
         dt = time.perf_counter() - t1
-        dt_np = 0.0
+        dt_np = want[tp][1] if want else 0.0
         for ri, mk in enumerate(masks):
-            t2 = time.perf_counter()
-            ref = batched_fat_tree(mk, cfg, tp, job)
-            dt_np += time.perf_counter() - t2
             rows_ri = slice(ri * DC_SAMPLES, (ri + 1) * DC_SAMPLES)
             got = type(bp)(bp.members[rows_ri], bp.feasible[rows_ri],
                            bp.n_constraints[rows_ri], bp.need, bp.m)
-            if not placements_equal(got, ref):
+            if want:
+                same = placement_digest(got) == want[tp][0][ri]
+            else:
+                t2 = time.perf_counter()
+                ref = batched_fat_tree(mk, cfg, tp, job)
+                dt_np += time.perf_counter() - t2
+                same = placements_equal(got, ref)
+                del ref
+            if not same:
                 raise AssertionError(f"dc: TP-{tp} placements differ from numpy at "
                                      f"{DCN_RATIOS[ri]:.0%} faults")
-            del ref, got
+            del got
         ti = DC_TPS.index(tp)
         if not (np.array_equal(res.feasible[0, :, :, ti].reshape(-1), bp.feasible)
                 and np.array_equal(res.n_constraints[:, :, ti].reshape(-1), bp.n_constraints)):
@@ -3043,8 +3252,8 @@ def dcn_datacenter(torch):
         scans_bytes += scan_bytes
         feas = bp.feasible.reshape(len(DCN_RATIOS), DC_SAMPLES).mean(axis=1)
         print(f"dc: TP-{tp}: placement kernel {dt:.3f} s = {rows / dt:.0f} rows/s on the card; "
-              f"numpy {rows / dt_np:.0f} rows/s on the host ({dt_np:.2f} s; every row equal "
-              f"to the card's); "
+              f"numpy {rows / dt_np:.0f} rows/s on the host ({dt_np:.2f} s{where}; every row "
+              f"equal to the card's); "
               f"feasible share by ratio " + "/".join(f"{f:.3f}" for f in feas)
               + f"; scans' bytes bound {scan_bytes / 1e9:.3f} GB = "
               f"{scan_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
@@ -3121,12 +3330,27 @@ def time_short_row_scans(torch, rows=DC_CHUNK):
     return out
 
 
-def churn_on_card(torch):
+TRAFFIC_KW = dict(tp_sizes=(32,), agg_domain=512)
+
+
+def traffic_ref():
+    """numpy's ``traffic_replay`` of churn_on_card's 348-day trace:
+    (timeline, seconds)."""
+    from repro_torch.churn import ChurnSpec, traffic_replay
+
+    trace = ChurnSpec(trace_nodes=1024).trace(0)
+    t0 = time.perf_counter()
+    tl = traffic_replay(trace, backend="numpy", **TRAFFIC_KW)
+    return tl, time.perf_counter() - t0
+
+
+def churn_on_card(torch, refs=None):
     """benchmarks/churn.py's acceptance ensemble (256 traces of 200 8-GPU
     nodes, 60 days, TP-32, InfiniteHBD-K3, NVL-72, TPUv4) batched and
     streamed on the card, equal to numpy; one 348-day trace of 1024 8-GPU
     nodes (2048 4-GPU nodes, 512-node domains) through ``traffic_replay``,
-    equal to numpy; one control-plane replay on the host."""
+    equal to numpy (``refs``: a Background of host_refs, which replayed it
+    beside the earlier phases); one control-plane replay on the host."""
     from repro_torch.churn import (ChurnJob, ChurnSpec, control_plane_replay,
                                    latency_table, monte_carlo_replay, traffic_replay)
     from repro_torch.dcn.engine import VARIANTS, evaluate_placements
@@ -3180,7 +3404,7 @@ def churn_on_card(torch):
 
     trace = ChurnSpec(trace_nodes=1024).trace(0)
     edges = len(trace.interval_edges())
-    kw = dict(tp_sizes=(32,), agg_domain=512)
+    kw = TRAFFIC_KW
     cfg = FatTreeConfig(trace.num_nodes, 4, 8, 512, 3)
     torch.cuda.synchronize()
     prefix_scan.launches = 0
@@ -3188,16 +3412,15 @@ def churn_on_card(torch):
     tl = traffic_replay(trace, backend="torch", **kw)
     dt = time.perf_counter() - t3
     launches = prefix_scan.launches
-    t4 = time.perf_counter()
-    tl_np = traffic_replay(trace, backend="numpy", **kw)
-    dt_np = time.perf_counter() - t4
+    tl_np, dt_np = refs.get("traffic") if refs else traffic_ref()
+    where = " in a process of its own" if refs else ""
     fields = ("groups", "dp_pairs", "crossing_pairs", "crossing_pod_pairs", "feasible")
     same = tl.backend == "torch" and all(
         np.array_equal(getattr(tl, f), getattr(tl_np, f)) for f in fields)
     want = scans_per_call(cfg, 32) * -(-edges // 4096)
     print(f"traffic replay: one 348-day trace of {trace.num_nodes} nodes, {edges} intervals, "
           f"agg 512, TP-32, {len(VARIANTS)} variants: torch {dt:.3f} s = {edges / dt:.0f} "
-          f"rows/s, numpy {dt_np:.3f} s = {edges / dt_np:.0f} rows/s; grids "
+          f"rows/s, numpy {dt_np:.3f} s{where} = {edges / dt_np:.0f} rows/s; grids "
           f"{'equal' if same else 'DIFFER'}; prefix_scan launches {launches} (want {want})")
     if not same or launches != want:
         raise AssertionError("traffic replay: torch grids differ from numpy or the scan "
@@ -3321,14 +3544,32 @@ def cost_grids_equal(a, b):
         for f in ("total_gpus", "faulty_gpus", "placed_gpus", "cost_usd"))
 
 
-def cost_on_card(torch, device="cuda"):
+def cost_spec(nodes, samples):
+    from repro_torch.cost import CostSpec
+
+    recorded = json.loads((ROOT / "BENCH_cost.json").read_text())
+    return CostSpec(num_nodes=nodes, fault_ratios=tuple(recorded["fault_ratios"]),
+                    samples=samples, tp_sizes=tuple(recorded["tp_sizes"]), seed=COST_SEED,
+                    architectures=tuple(recorded["architectures"]))
+
+
+def cost_ref():
+    """numpy's cost grids at 8192 nodes x 1024 snapshots a ratio: (grids,
+    seconds)."""
+    from repro_torch.cost import run_cost_sweep
+
+    t0 = time.perf_counter()
+    return run_cost_sweep(cost_spec(BIG_NODES, 1024), backend="numpy"), time.perf_counter() - t0
+
+
+def cost_on_card(torch, device="cuda", refs=None):
     """benchmarks/cost.py's spec (768 nodes, 6 ratios x 200 snapshots, TP 8
     and 32, seed 5, 7 architectures) through ``run_cost_sweep`` on the
     card: grids equal to numpy, Fig. 17d, Table 6 and the headline ratios
     equal to BENCH_cost.json; then 8192 nodes x 1024 snapshots a ratio,
-    equal to numpy, rows/s for each backend and the card's busy share."""
-    from repro_torch.cost import (CostSpec, headline_ratio_rows, per_gpu_cost_table,
-                                  run_cost_sweep)
+    equal to numpy (``refs``: a Background of host_refs, which computed
+    numpy's), rows/s for each backend and the card's busy share."""
+    from repro_torch.cost import headline_ratio_rows, per_gpu_cost_table, run_cost_sweep
     from repro_torch.kernels.prefix_scan import prefix_scan
 
     recorded = json.loads((ROOT / "BENCH_cost.json").read_text())
@@ -3339,13 +3580,14 @@ def cost_on_card(torch, device="cuda"):
     out = {}
     for label, nodes, samples in (("bench", recorded["num_nodes"], recorded["samples"]),
                                   ("8192", BIG_NODES, 1024)):
-        spec = CostSpec(num_nodes=nodes, fault_ratios=tuple(recorded["fault_ratios"]),
-                        samples=samples, tp_sizes=tuple(recorded["tp_sizes"]), seed=COST_SEED,
-                        architectures=tuple(recorded["architectures"]))
+        spec = cost_spec(nodes, samples)
         rows = len(spec.fault_ratios) * samples
-        t0 = time.perf_counter()
-        ref = run_cost_sweep(spec, backend="numpy")
-        np_s = time.perf_counter() - t0
+        if refs and label == "8192":
+            ref, np_s = refs.get("cost")
+        else:
+            t0 = time.perf_counter()
+            ref = run_cost_sweep(spec, backend="numpy")
+            np_s = time.perf_counter() - t0
         want = sweep_scans(spec.models(), len(spec.fault_ratios) * -(-samples // 1024))
         times = []
         for _ in range(2 if label == "bench" else 1):   # the first call loads the modules
@@ -3396,12 +3638,29 @@ def matrix_rows_rounded(rows):
              "usd_per_mfu_gpu_h": r6(r["usd_per_mfu_gpu_h"])} for r in rows]
 
 
-def matrix_on_card(torch, device="cuda"):
+def matrix_kw(samples):
+    recorded = json.loads((ROOT / "BENCH_matrix.json").read_text())
+    return dict(fault_ratios=tuple(recorded["fault_ratios"]), samples=samples,
+                tp=recorded["tp_size"], architectures=tuple(recorded["architectures"]))
+
+
+def matrix_ref():
+    """numpy's comparison matrix at 8192 nodes x 256 snapshots a ratio:
+    (rows, seconds)."""
+    from repro_torch.sim import comparison_matrix
+
+    t0 = time.perf_counter()
+    return comparison_matrix(BIG_NODES, backend="numpy", **matrix_kw(256)), \
+        time.perf_counter() - t0
+
+
+def matrix_on_card(torch, device="cuda", refs=None):
     """benchmarks/matrix.py's comparison matrix (512 nodes, 4 ratios x 25
     snapshots, TP-32, 12 architectures) with both sweeps on the card: rows
     equal to numpy's and to BENCH_matrix.json at 6 decimals; then 8192
-    nodes x 4 ratios x 256 snapshots, equal to numpy, with the time of
-    each span and the card's busy share."""
+    nodes x 4 ratios x 256 snapshots, equal to numpy (``refs``: a
+    Background of host_refs, which computed numpy's), with the time of each
+    span and the card's busy share."""
     from repro_torch import obs
     from repro_torch.dcn import DcnSpec
     from repro_torch.dcn.torch_backend import scans_per_call
@@ -3414,15 +3673,18 @@ def matrix_on_card(torch, device="cuda"):
     out = {}
     for label, nodes, samples in (("bench", recorded["num_nodes"], recorded["samples"]),
                                   ("8192", BIG_NODES, 256)):
-        kw = dict(fault_ratios=ratios, samples=samples, tp=tp, architectures=arches)
+        kw = matrix_kw(samples)
         cfg = DcnSpec(num_nodes=nodes).config
         rows_n = len(ratios) * samples
         want = sweep_scans([make_model(a, nodes) for a in arches],
                            len(ratios) * -(-samples // 1024)) \
             + (scans_per_call(cfg, tp) * -(-rows_n // 1024) if cfg.regular() else 0)
-        t0 = time.perf_counter()
-        ref = comparison_matrix(nodes, backend="numpy", **kw)
-        np_s = time.perf_counter() - t0
+        if refs and label == "8192":
+            ref, np_s = refs.get("matrix")
+        else:
+            t0 = time.perf_counter()
+            ref = comparison_matrix(nodes, backend="numpy", **kw)
+            np_s = time.perf_counter() - t0
         was = obs.enabled()
         obs.enable()
         obs.reset()
@@ -3522,24 +3784,41 @@ def time_scans(torch, device, res, label):
                      "requests_per_s": requests / dt, "numpy_requests_per_s": requests / np_s}
 
 
-def slo_on_card(torch, device="cuda"):
-    """benchmarks/serve.py's spec on the card (the replay's sweep and the
-    serving scan): grids equal to numpy and to the scalar reference,
-    261,209 requests, slo_table equal to BENCH_serve.json; then PR 24's
-    348-day trace of 2048 nodes (37,791 intervals) with 64 streams near the
-    fleet's fault-free capacity, grids equal to numpy, requests/s."""
-    from repro_torch.churn import ChurnSpec, replay_trace
-    from repro_torch.kernels.prefix_scan import prefix_scan
-    from repro_torch.slo import (DiurnalArrivals, PoissonArrivals, ServeSpec, run_serve_scalar,
-                                 run_serve_sweep, slo_table, torch_backend)
+def slo_replay(device="cuda"):
+    """serve_spec_bench's replay (its control plane is host code): (churn
+    spec, serving spec, seconds, prefix_scan launches)."""
+    import torch
 
-    recorded = json.loads((ROOT / "BENCH_serve.json").read_text())
+    from repro_torch.kernels.prefix_scan import prefix_scan
+
     sync(torch, device)
     prefix_scan.launches = 0
     t0 = time.perf_counter()
     cspec, spec = serve_spec_bench(device)
-    replay_s = time.perf_counter() - t0
-    replay_launches = prefix_scan.launches
+    return cspec, spec, time.perf_counter() - t0, prefix_scan.launches
+
+
+def slo_replay_to(path):
+    """slo_replay on the card, pickled to ``path``; returns its seconds."""
+    out = slo_replay()
+    with open(path, "wb") as f:
+        pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+    return out[2]
+
+
+def slo_on_card(torch, device="cuda", replay=None):
+    """benchmarks/serve.py's spec on the card (the replay's sweep and the
+    serving scan): grids equal to numpy and to the scalar reference,
+    261,209 requests, slo_table equal to BENCH_serve.json; then PR 24's
+    348-day trace of 2048 nodes (37,791 intervals) with 64 streams near the
+    fleet's fault-free capacity, grids equal to numpy, requests/s.
+    ``replay``: slo_replay's result, from a process of its own."""
+    from repro_torch.churn import ChurnSpec, replay_trace
+    from repro_torch.slo import (DiurnalArrivals, PoissonArrivals, ServeSpec, run_serve_scalar,
+                                 run_serve_sweep, slo_table, torch_backend)
+
+    recorded = json.loads((ROOT / "BENCH_serve.json").read_text())
+    cspec, spec, replay_s, replay_launches = replay or slo_replay(device)
     tl = spec.timeline
     # the replay's sweep: the InfiniteHBD models' scans, once a 4096-interval block
     want = sweep_scans(cspec.models(), -(-tl.num_intervals // 4096))
@@ -3555,7 +3834,8 @@ def slo_on_card(torch, device="cuda"):
     table_same = slo_table(got) == recorded["slo_table"]
     print(f"slo bench: {cspec.num_nodes} nodes, "
           f"{tl.num_intervals} intervals ({len(tl.reconfigs)} reconfigurations, the trace "
-          f"replayed on the card with its control plane in {replay_s:.2f} s, prefix_scan "
+          f"replayed on the card with its control plane in {replay_s:.2f} s"
+          f"{' in a process of its own' if replay else ''}, prefix_scan "
           f"launches {replay_launches}); {requests} requests: torch grids "
           f"{'equal' if same else 'DIFFER FROM'} numpy and the scalar reference; slo_table "
           f"{'equal to' if table_same else 'DIFFERS FROM'} BENCH_serve.json")
@@ -3603,8 +3883,6 @@ def time_mean_waste(tl):
 def fault_masks_on_card(torch, device, gens, nodes):
     """Each generator's ``torch_masks`` on the card equal to its NumPy masks
     at BENCH_faults.json's size, at the pinned digests and at 8192 nodes."""
-    import hashlib
-
     from repro_torch.faults import GENERATORS
 
     out = {}
@@ -3793,7 +4071,9 @@ PAR_PAYLOAD = (2048, 4096)
 PAR_GPIPE = (8, 16, 4096)        # microbatches, rows a microbatch, width
 # gloo's all-reduce adds 4 float32 terms in its own order
 PAR_PSUM_TOL = 1e-5
-# phase 40: Mixtral-8x7B at MIXTRAL_LAYERS layers, B = 1, S = 2048 a data shard
+# phase 40: Mixtral-8x7B at PAR_LAYERS layers (the depth cut for the script's
+# time, the widths published), B = 1, S = 2048 a data shard
+PAR_LAYERS = 1
 PAR_SEQ = 2048
 PAR_SEED = 0
 # The sharded model against the unsharded one.  In float32 each tensor's
@@ -3812,7 +4092,7 @@ PAR_EP_CF = 16.0                 # tests/_sharded_checks.py: no assignment drops
 def par_cfg(cf=None):
     from repro_torch.configs import get_arch
 
-    cfg = dataclasses.replace(get_arch("mixtral"), num_layers=MIXTRAL_LAYERS)
+    cfg = dataclasses.replace(get_arch("mixtral"), num_layers=PAR_LAYERS)
     return cfg if cf is None else dataclasses.replace(cfg, capacity_factor=cf)
 
 
@@ -4327,7 +4607,7 @@ def elastic_on_card(torch, device="cuda"):
 
 # phase 43: StarCoder2-3B at full width, SPF_LAYERS layers, B = 1, S = SPF_SEQ a
 # data shard, sharded over PAR_RANKS ranks of the one card under four rule sets
-SPF_LAYERS = 8
+SPF_LAYERS = 4
 SPF_F32_LAYERS = 2
 SPF_SEQ = 4096
 SPF_CONFIGS = (("(1, 4) seq_sp None", (1, 4), {"seq_sp": None}),
@@ -4540,7 +4820,9 @@ def sp_fsdp_on_card(torch, device="cuda", seq=SPF_SEQ, reduced=False):
 # phase 44: the recurrent layers under a model axis: Mamba2-780m and
 # RecurrentGemma-2B at full width, REC_LAYERS layers each, B = 1, S = REC_SEQ a
 # data shard, over PAR_RANKS ranks of the one card
-REC_LAYERS = {"mamba2": 8, "recurrentgemma": 6}
+REC_LAYERS = {"mamba2": 4, "recurrentgemma": 3}
+# phase 46's recurrent runs keep their depths
+DEC_REC_LAYERS = {"mamba2": 8, "recurrentgemma": 6}
 REC_SEQ = 1024                   # RecurrentGemma's 2048 window binds at neither length
 REC_STEPS = 3
 # Float32 gradients are held to the same weights' gradients in float64
@@ -4568,14 +4850,15 @@ REC_V_TOL = 1e-3
 REC_MASTER_TOL = 5e-2
 
 
-def rec_cfgs(reduced=False):
-    """Phase 44's configs by alias (``reduced``: the reduced configs at the
-    same depths, which rehearse the phase on the CPU)."""
+def rec_cfgs(reduced=False, layers=None):
+    """Phase 44's configs by alias, at REC_LAYERS or ``layers`` (``reduced``:
+    the reduced configs at the same depths, which rehearse the phase on the
+    CPU)."""
     from repro_torch.configs import get_arch
 
     return {arch: dataclasses.replace(get_arch(arch).reduced() if reduced else get_arch(arch),
                                       num_layers=n)
-            for arch, n in REC_LAYERS.items()}
+            for arch, n in (layers or REC_LAYERS).items()}
 
 
 def rec_train_cfg(microbatches=1, cpu_test=False):
@@ -4946,8 +5229,51 @@ def _child_result(proc, label, timeout):
         proc.communicate()
         raise
     if proc.returncode:
-        raise RuntimeError(f"{label} failed (exit {proc.returncode}):\n{err[-4000:]}")
+        raise RuntimeError(f"{label} failed (exit {proc.returncode}):\n{out[-4000:]}\n"
+                           f"{err[-4000:]}")
     return json.loads(out.strip().splitlines()[-1])
+
+
+def host_refs(path):
+    """The numpy references of the zoo, the sweep's first rows, the
+    8192-node placement, the traffic replay and the 8192-node cost and
+    matrix grids, which need no card: pickled to ``path``; returns each
+    one's seconds."""
+    refs = {"zoo": zoo_refs(), "sweep": sweep_ref(), "dc": dc_refs(), "traffic": traffic_ref(),
+            "cost": cost_ref(), "matrix": matrix_ref()}
+    with open(path, "wb") as f:
+        pickle.dump(refs, f, protocol=pickle.HIGHEST_PROTOCOL)
+    return {"zoo": {n: v[1] for n, v in refs["zoo"].items()},
+            "dc": {tp: v[1] for tp, v in refs["dc"].items()},
+            **{k: refs[k][1] for k in ("sweep", "traffic", "cost", "matrix")}}
+
+
+class Background:
+    """``chip_smoke.<fn>(path)`` in a process of its own, started at once,
+    which pickles its result to ``path``: work that needs little or none
+    of the card runs beside the phases.  ``get`` waits for the result;
+    ``close`` stops the process if it still runs."""
+
+    def __init__(self, fn, label):
+        self.label = label
+        self.dir = tempfile.TemporaryDirectory()
+        self.path = str(Path(self.dir.name) / "result.pkl")
+        self.proc = subprocess.Popen(_child(f"{fn}({self.path!r})"),
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.result = None
+
+    def get(self, key=None):
+        if self.result is None:
+            _child_result(self.proc, self.label, timeout=1200)
+            with open(self.path, "rb") as f:
+                self.result = pickle.load(f)
+        return self.result if key is None else self.result[key]
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+        self.dir.cleanup()
 
 
 def dry_rank(rank, device="cuda", seq=SPF_SEQ, reduced=False, dec_ref=None, ep=False):
@@ -5258,7 +5584,7 @@ def dec_reference(torch, device="cuda", reduced=False):
     run("tp_f32", sc2, True, ref["prompts"], sz["new"])
     run("kvdedup", sc2, False, ref["prompts"], sz["new"])
     p, n = sz["rec"]
-    for arch, cfg in rec_cfgs(reduced).items():
+    for arch, cfg in rec_cfgs(reduced, DEC_REC_LAYERS).items():
         run(arch, cfg, True, rng.integers(0, cfg.vocab_size, (lanes, p)), n)
     for key, arch, layers, dname, w, start in dec_seq_runs(reduced):
         cfg = dec_cfg(arch, layers, reduced)
@@ -5336,7 +5662,7 @@ def dec_rank(rank, ref, device="cuda", reduced=False):
     sc2 = dec_cfg("starcoder2", sz["f32_layers"], reduced)
     runs = [("tp_f32", sc2, {}, True), ("kvdedup", sc2, {"kv_heads": None, "seq_shard": "model"},
                                         False)]
-    runs += [(arch, cfg, {}, True) for arch, cfg in rec_cfgs(reduced).items()]
+    runs += [(arch, cfg, {}, True) for arch, cfg in rec_cfgs(reduced, DEC_REC_LAYERS).items()]
     for key, cfg, rules, kv_pad in runs:
         seq = key == "kvdedup"
         r = ref[key]
@@ -6325,8 +6651,6 @@ def engines_over_slices(torch, fig17c, cost_bench):
 
 
 def main() -> int:
-    import dataclasses
-
     import torch
 
     if not torch.cuda.is_available():
@@ -6335,16 +6659,43 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the host's numpy references of phases 28, 30 and 33-36 need no card
+    children = [Background("host_refs", "the host's numpy references")]
+    try:
+        return smoke(torch, children)
+    finally:
+        for child in children:
+            child.close()
+
+
+def smoke(torch, children) -> int:
+    """The phases in order (``children``: the processes started beside them,
+    the first the host's numpy references)."""
+    refs = children[0]
     t_start = time.perf_counter()
+    last = [t_start]
+
+    def stage(label):
+        now = time.perf_counter()
+        print(f"stage: {label} took {now - last[0]:.1f} s ({now - t_start:.1f} s in all)")
+        last[0] = now
+
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
     build_kernels()
+    # the SLO phase's control-plane replay, host code that launches
+    # prefix_scan 4 times
+    children.append(Background("slo_replay_to", "the SLO phase's replay"))
+    stage("the build")
     errs = check_decode_attention(torch)
+    stage("flash-decode's checks")
     flash_errs = check_flash_attention(torch)
+    stage("flash-attention's checks")
     check_reduced_against_cpu(torch)
     launches = serve_full(torch)["launches"]
+    stage("StarCoder2 served, reduced and full")
     times = {label: time_decode_attention(torch, label, s, top, slots)
              for label, s, top, slots in [("serve", 1024, 64, False),
                                           ("L=1024", 1024, None, False),
@@ -6353,13 +6704,16 @@ def main() -> int:
                                           ("slots wrapped W=1024", 1024, None, True)]}
     lse_time = time_decode_attention(torch, "long_500k shard, slots wrapped", 32768, None, True,
                                      hq=3, hkv=1, d=128, b=1, lse=True)
+    stage("flash-decode timed")
     train_reduced_against_cpu(torch)
     train = train_full(torch)
+    stage("StarCoder2 trained, reduced and full")
     flash_times = time_flash_attention(torch)
+    stage("flash-attention timed")
 
     from repro_torch.configs import get_arch
 
-    t_decoders = time.perf_counter()
+    last[0] = t_decoders = time.perf_counter()
     decoders_reduced_against_cpu(torch)
     danube = get_arch("h2o-danube")
     mixtral = dataclasses.replace(get_arch("mixtral"), num_layers=MIXTRAL_LAYERS)
@@ -6440,29 +6794,33 @@ def main() -> int:
     print(f"recurrentgemma: the RecurrentGemma phases (flash and flash-decode at its shapes, "
           f"the reduced model against the CPU, RecurrentGemma-2B trained and decoded in "
           f"lockstep, flash and flash-decode timed at its shapes) took {rg_s:.1f} s")
+    last[0] = time.perf_counter()
     ssd_errs = check_ssd_scan(torch)
     train_mamba_reduced_against_cpu(torch)
     mamba = train_mamba_full(torch)
     decode_lockstep(torch)
     ssd_times = time_ssd_scan(torch)
+    stage("the Mamba-2 phases")
     scan_err = check_prefix_scan(torch)
-    check_sweep_zoo(torch)
+    check_sweep_zoo(torch, refs)
+    stage("prefix_scan's checks and the zoo")
     check_fig13(torch)
-    sweep = sweep_main_path(torch)
+    sweep = sweep_main_path(torch, refs=refs)
     scan_times = time_prefix_scan(torch)
+    stage("Fig. 13, the sweep's main path and prefix_scan timed")
     t_dcn = time.perf_counter()
     fig17c = check_fig17c(torch)
-    dc = dcn_datacenter(torch)
+    dc = dcn_datacenter(torch, refs)
     short_rows = time_short_row_scans(torch)
-    churn = churn_on_card(torch)
+    churn = churn_on_card(torch, refs)
     dcn_s = time.perf_counter() - t_dcn
     print(f"dcn/churn: the DCN and churn phases (the Fig. 17c grid, the 8192-node placement, "
           f"the short-row scans, the churn ensemble, the traffic and control-plane replays) "
           f"took {dcn_s:.1f} s")
     t_engines = time.perf_counter()
-    cost = cost_on_card(torch)
-    matrix = matrix_on_card(torch)
-    slo = slo_on_card(torch)
+    cost = cost_on_card(torch, refs=refs)
+    matrix = matrix_on_card(torch, refs=refs)
+    slo = slo_on_card(torch, replay=children[1].get())
     faults = faults_on_card(torch)
     engines_s = time.perf_counter() - t_engines
     print(f"cost/matrix/slo/faults: the cost, comparison-matrix, serving-SLO and fault "

@@ -40,14 +40,39 @@
 //     so both products keep ~16 bits of them;
 //   * other shapes (f32 caches, D % 16 != 0) run the CUDA-core kernel: fp32
 //     arithmetic, a lane per key, held to 2e-5 in f32;
-//   * one launch: every block first learns which splits of its row hold a
-//     valid key (from the length, or by testing the row's slots); a row
-//     with one live split writes its output from that block, the others
-//     leaving at once.  Otherwise the row's splits, one thread-block
-//     cluster of at most 8, merge their (acc, m, l) in shared memory: each
-//     block reads the others' through distributed shared memory and sums
-//     its share of the outputs in split order, so results repeat bit for
-//     bit and no partial goes to device memory.
+//   * one launch, and a row's splits merge in split order, so results
+//     repeat bit for bit whichever block ends first.  Two merges:
+//     - a row of at most 8 splits (kMaxSplits; the wrapper's rule where the
+//       rows alone give most SMs a block) is one thread-block cluster.
+//       Every block first learns which splits of its row hold a valid key
+//       (from the length, or by testing the row's slots); a row with one
+//       live split writes its output from that block, the others leaving
+//       at once.  Otherwise the blocks merge their (acc, m, l) in shared
+//       memory: each reads the others' through distributed shared memory
+//       and sums its share of the outputs, and no partial goes to device
+//       memory;
+//     - a row of more splits (few rows: a long cache at small batch, where
+//       8 splits a row would leave most SMs idle) merges through device
+//       memory.  A block tests only its own split's keys (the lengths form
+//       knows from the length alone), and a split with none writes an
+//       empty partial (m = -inf, l = 0) and does nothing more.  Each block
+//       writes its float32 partial (acc, m, l) to the wrapper's workspace
+//       and takes a ticket (a barrier, then one thread's acquire-release
+//       atomicAdd on its group's int32 counter).  The last block of a
+//       group of splits merges the group's partials in split order
+//       (brought into shared memory by bulk copies of the copy engine);
+//       with more than one group it writes the group's partial and takes
+//       the row's ticket, and the last group merges the groups in order.
+//       The merge is a function of its own, kept out of the key loop's
+//       registers, in kernel instances of their own, so the cluster's
+//       instances compile as they did before it.  Its time is a chain of
+//       latencies (one block, 4 warps), so the wrapper merges up to 16
+//       splits in one step and more in two steps of about sqrt(n) each.
+//       The counters are a buffer of the wrapper's, one per card,
+//       zeroed once; the block that takes a counter's last ticket sets it
+//       back to 0, so a launch leaves every counter at 0 and the next
+//       launch on the stream, or a CUDA graph's replay, finds them so.
+//       Two launches at once on two streams of one card would share them.
 // Rows with no valid key give zeros.  The log-sum-exp form (a non-null
 // `lse`, kernel instances of its own) also writes each row's natural
 // log-sum-exp of its scaled logits, (m + log2 l) ln 2 from the base-2
@@ -73,7 +98,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kHeads = 16;                       // query heads of a block
 constexpr int kPassKeys = 16384;                 // keys a block marks and streams at once
 constexpr int kMaxWords = kPassKeys / 32;        // validity words of a pass
-constexpr int kMaxSplits = 8;                    // a row's splits: one portable cluster
+constexpr int kMaxSplits = 8;                    // a row's splits merged in one portable cluster
+constexpr int kMaxMerge = 64;                    // partials one merge through memory takes
+// the merge through memory's (m, l) of kMaxMerge partials and its weights,
+// at the start of the dynamic shared memory; its acc rounds come after them
+constexpr int kMergeFloats = 3 * kHeads * kMaxMerge;
 constexpr int kTcTile = 64;                      // keys per tile, tensor cores: 16 a warp
 constexpr int kCcTile = 32;                      // keys per tile, CUDA cores: one a lane
 constexpr int kStages = 3;                       // cp.async ring of the tensor-core kernel
@@ -120,6 +149,10 @@ template <> struct Vec<bf16> {
   }
 };
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 // Copy 16 bytes global -> shared without staging in registers; with
 // valid == false nothing is read and the 16 bytes become zeros.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
@@ -141,10 +174,37 @@ struct Params {
   const int* q_pos;            // mode 1: (B,)
   void* out;                   // (B, Hq, D) contiguous, q's type (float32 with lse)
   float* lse;                  // (B, Hq) or null: each row's natural log-sum-exp
+  float* ws;                   // null: a row is one cluster; else the partials (MergeJob)
+  int* tickets;                // with ws: a counter a (unit, group) and a unit, at 0
   long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, sp_sb;
   int mode, B, Hq, Hkv, S, D, n_split, chunk, window, attn_chunk, rep, mgroups;
+  int group;                   // with ws: splits a group of the merge, <= kMaxMerge
+  int smem;                    // bytes of dynamic shared memory
   float scale;
 };
+
+// Phase stamps (the globaltimer, ns) of each block's thread 0, compiled in
+// only with -DDECODE_ATTENTION_STAMPS (tools/decode_attention_phases.py):
+// 0 start, 1 keys marked, 2 first tiles' loads issued, 3 first tile landed,
+// 4 keys streamed, 5 partial ready, 6 first ticket taken, 7 group merged,
+// 8 output written; inside a merge through memory (the last one of the
+// block's) 9 the partials' (m, l) landed, 10 their acc landed and the
+// weights taken, 11 columns summed.
+#ifdef DECODE_ATTENTION_STAMPS
+constexpr int kStamps = 12;
+__device__ unsigned long long* g_stamps;
+__device__ long long g_stamp_blocks;
+__device__ __forceinline__ void stamp(int k) {
+  const long long blk = ((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0 && g_stamps && blk < g_stamp_blocks) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    g_stamps[blk * kStamps + k] = t;
+  }
+}
+#else
+__device__ __forceinline__ void stamp(int) {}
+#endif
 
 // The natural log-sum-exp of a row's scaled logits from its base-2 state:
 // m is the largest of them times log2 e, l the sum of exp2(. - m).
@@ -199,6 +259,8 @@ struct Shared {
   float m[kHeads], l[kHeads];      // this split's (m, l), read by the cluster
   float wt[kHeads][kMaxSplits], lt[kHeads][kMaxSplits];   // the splits' m (then weights), l
   float norm[kHeads];
+  int last;                        // merge through memory: this block took the last ticket
+  unsigned long long bar[2];       // merge through memory: its (m, l) and acc copies landed
 };
 
 __device__ __forceinline__ bool key_bit(const Shared& sh, int rel) {
@@ -387,6 +449,288 @@ __device__ bool empty_split(const Params& p, const Block& bk, Shared& sh, float*
   return true;
 }
 
+// ------------------------------------------------ merge through device memory
+// A unit is one row of the merge, a (batch, KV head, head group).  The
+// workspace holds every unit's partials, its splits' and then its groups':
+// first all their acc (hs x D floats each, unnormalised), then all their
+// (m, l) (ml_floats(hs) each: m (hs), l (hs), padded to 16 bytes), so that
+// a run of a unit's partials is two runs of memory; hs = min(rep, kHeads)
+// (a unit's last head group may use fewer rows).
+__host__ __device__ inline int ml_floats(int hs) { return (2 * hs + 3) & ~3; }
+__host__ __device__ inline int merge_groups(int n_split, int group) {
+  return (n_split + group - 1) / group;
+}
+
+// What the merge through memory reads of the launch and of the block, by
+// value: the merge is a function of its own (merge_through_memory), kept
+// out of the kernels' key loops and their registers.
+struct MergeJob {
+  float* ws;
+  int* tickets;
+  void* out;
+  float* lse;
+  int n_split, group, D, hs, Hq, smem, b, h0, nh, split;
+  bool out_bf16;               // the output is bf16 (q's type); else float32
+  __device__ MergeJob(const Params& p, const Block& bk, bool q_bf16)
+      : ws(p.ws), tickets(p.tickets), out(p.out), lse(p.lse), n_split(p.n_split),
+        group(p.group), D(p.D), hs(min(p.rep, kHeads)), Hq(p.Hq), smem(p.smem), b(bk.b),
+        h0(bk.h0), nh(bk.nh), split(bk.split), out_bf16(q_bf16 && !p.lse) {}
+  __device__ long long unit() const { return (long long)blockIdx.z * gridDim.y + blockIdx.y; }
+  __device__ long long per_unit() const { return n_split + merge_groups(n_split, group); }
+  // the unit's partial i (splits 0 .. n_split - 1, then the groups): its acc
+  __device__ float* acc(int i) const { return ws + (unit() * per_unit() + i) * hs * D; }
+  // and its (m, l)
+  __device__ float* ml(int i) const {
+    const long long units = (long long)gridDim.z * gridDim.y;
+    return ws + units * per_unit() * hs * D + (unit() * per_unit() + i) * ml_floats(hs);
+  }
+};
+
+// mbarriers of the merge's bulk copies.  A wait that never ends (a wrong
+// parity or byte count) faults after 2^28 polls instead of hanging the card.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 28)) asm volatile("st.global.u32 [%0], %1;\n" ::"l"(0ull), "r"(0u) : "memory");
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+// One thread: `bytes` (a multiple of 16) from global src into shared dst by
+// the copy engine, counted on bar, after a proxy fence that puts this
+// block's and (acquired) other blocks' earlier plain accesses first.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          unsigned long long* bar) {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Take a ticket of counter c once the block's writes are done: true for
+// the block that takes the last of `arrivals`, which sets the counter back
+// to 0 and may then read what the others wrote, through L2.  One thread
+// takes the ticket with an acquire-release atomic: the barrier before it
+// puts every thread's writes before its release, the barrier after it puts
+// every thread's reads after its acquire of the others' writes.
+__device__ bool last_arrival(Shared& sh, int* c, int arrivals) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t;
+    asm volatile("atom.acq_rel.gpu.add.s32 %0, [%1], 1;" : "=r"(t) : "l"(c) : "memory");
+    sh.last = t == arrivals - 1;
+    if (sh.last) *c = 0;
+  }
+  __syncthreads();
+  return sh.last;
+}
+
+// Merge the unit's partials first .. first + count - 1 (count <= kMaxMerge)
+// in order.  Their (m, l) and acc come into shared memory by two bulk
+// copies of the copy engine, issued at once (acc in rounds of as many
+// partials as the shared memory holds past the merge's kMergeFloats), and
+// the weights are taken from the (m, l) while the acc still lands.  One
+// block does the whole merge, so its time is a chain of latencies.  A warp
+// per head takes the largest m (M) and the weights exp2(m_s - M), 0 for a
+// partial with no valid key (whose acc is never written, so never used);
+// its lane 0 sums L = sum of l_s w_s in partial order.  Each thread then
+// sums its output columns over the partials in partial order, a column at
+// a time, four partials' loads issued together.  The result goes to the
+// unit's partial `to` (acc unnormalised, M, L) or, with to < 0, to the
+// row's output: acc / L (zeros for a row with no valid key) and, in the
+// log-sum-exp form, its lse (-inf then).  `uses` counts the block's waits
+// on each of sh.bar, for their parities.
+__device__ void merge(const MergeJob& job, Shared& sh, float* smem, int first, int count,
+                      int to, int (&uses)[2]) {
+  const int D = job.D, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nh = job.nh;
+  const int hs = job.hs, d4 = D / 4, row4 = nh * d4, hsd4 = hs * d4, ml = ml_floats(hs);
+  const float* mls = smem;                                   // [kMaxMerge][ml]: m, l
+  float* wt = smem + kMergeFloats - kHeads * kMaxMerge;      // [kHeads][kMaxMerge]: weights
+  float4* stage = reinterpret_cast<float4*>(smem + kMergeFloats);
+  constexpr int kCols = kHeads * 256 / 4 / kThreads;   // float4 columns a thread owns, at most
+  const int per = (job.smem / 16 - kMergeFloats / 4) / hsd4;   // partials a round (>= 1)
+  if (tid == 0) {
+    bulk_copy(smem, job.ml(first), count * ml * 4, &sh.bar[0]);
+    bulk_copy(stage, job.acc(first), min(per, count) * hsd4 * 16, &sh.bar[1]);
+  }
+  mbar_wait(&sh.bar[0], uses[0]++ & 1);   // the (m, l): the weights while the acc lands
+  stamp(9);
+  for (int r = warp; r < nh; r += kWarps) {
+    float m[kMaxMerge / 32];
+    float M = kNegInf;
+#pragma unroll
+    for (int q = 0; q < kMaxMerge / 32; ++q) {
+      const int s = lane + 32 * q;
+      m[q] = s < count ? mls[s * ml + r] : kNegInf;
+      M = fmaxf(M, m[q]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+#pragma unroll
+    for (int q = 0; q < kMaxMerge / 32; ++q)
+      if (lane + 32 * q < count)
+        wt[r * kMaxMerge + lane + 32 * q] = m[q] > kNegInf ? exp2f(m[q] - M) : 0.f;
+    __syncwarp();
+    if (lane == 0) {
+      float L = 0.f;
+#pragma unroll 8
+      for (int s = 0; s < count; ++s) L = fmaf(mls[s * ml + hs + r], wt[r * kMaxMerge + s], L);
+      sh.m[r] = M;
+      sh.norm[r] = L;
+    }
+  }
+  mbar_wait(&sh.bar[1], uses[1]++ & 1);
+  __syncthreads();                   // the weights
+  stamp(10);
+  float4 o[kCols];
+  const float* w[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    o[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    w[j] = wt + min((tid + j * kThreads) / d4, kHeads - 1) * kMaxMerge;
+  }
+  for (int s0 = 0; s0 < count; s0 += per) {
+    const int n = min(per, count - s0);
+    if (s0 > 0) {                    // a further round: the stage is free again
+      __syncthreads();
+      if (tid == 0) bulk_copy(stage, job.acc(first + s0), n * hsd4 * 16, &sh.bar[1]);
+      mbar_wait(&sh.bar[1], uses[1]++ & 1);
+    }
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int v = tid + j * kThreads;
+      if (v < row4)
+#pragma unroll 4
+        for (int s = 0; s < n; ++s) {
+          const float ws = w[j][s0 + s];
+          if (ws != 0.f) {   // 0: no valid key, or a weight below float range
+            const float4 x = stage[s * hsd4 + v];
+            o[j].x = fmaf(x.x, ws, o[j].x);
+            o[j].y = fmaf(x.y, ws, o[j].y);
+            o[j].z = fmaf(x.z, ws, o[j].z);
+            o[j].w = fmaf(x.w, ws, o[j].w);
+          }
+        }
+    }
+  }
+  stamp(11);
+  const long long row0 = (long long)job.b * job.Hq + job.h0;
+  float* dst = to >= 0 ? job.acc(to) : static_cast<float*>(job.out) + row0 * D;
+  bf16* out = static_cast<bf16*>(job.out) + row0 * D;
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    const int v = tid + j * kThreads;
+    if (v < row4) {
+      float4 x = o[j];
+      if (to < 0) {
+        const float il = 1.f / fmaxf(sh.norm[v / d4], 1e-30f);
+        x = make_float4(x.x * il, x.y * il, x.z * il, x.w * il);
+      }
+      if (to < 0 && job.out_bf16) {
+        reinterpret_cast<__nv_bfloat162*>(out + 4 * v)[0] = __floats2bfloat162_rn(x.x, x.y);
+        reinterpret_cast<__nv_bfloat162*>(out + 4 * v)[1] = __floats2bfloat162_rn(x.z, x.w);
+      } else {
+        reinterpret_cast<float4*>(dst)[v] = x;
+      }
+    }
+  }
+  for (int r = tid; r < nh; r += kThreads) {
+    if (to >= 0) {
+      job.ml(to)[r] = sh.m[r];
+      job.ml(to)[hs + r] = sh.norm[r];
+    } else if (job.lse) {
+      job.lse[row0 + r] = sh.norm[r] > 0.f ? natural_lse(sh.m[r], sh.norm[r])
+                                           : -__int_as_float(0x7f800000);
+    }
+  }
+}
+
+// The block's split is done and its partial written: take its group's
+// ticket.  The group's last block merges the group; with more than one
+// group it writes the group's partial and takes the unit's ticket, and the
+// unit's last group merges the groups.
+__device__ __noinline__ void merge_through_memory(const MergeJob job, Shared& sh, float* smem) {
+  const int n = job.n_split, G = job.group, ng = merge_groups(n, G), g = job.split / G;
+  int* tickets = job.tickets + job.unit() * (ng + 1);
+  const int count = min(G, n - g * G);
+  const bool last = last_arrival(sh, tickets + g, count);
+  stamp(6);
+  if (!last) return;
+  if (threadIdx.x == 0) {
+    mbar_init(&sh.bar[0]);
+    mbar_init(&sh.bar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int uses[2] = {0, 0};
+  merge(job, sh, smem, g * G, count, ng > 1 ? n + g : -1, uses);
+  if (ng > 1) {
+    stamp(7);
+    if (!last_arrival(sh, tickets + ng, ng)) return;
+    merge(job, sh, smem, n, ng, -1, uses);
+  }
+  stamp(8);
+}
+
+// A split with no valid key: an empty partial (m = -inf, l = 0; acc is not
+// written, its weight being 0), then the merge.
+template <typename TQ>
+__device__ void empty_partial(const Params& p, const Block& bk, Shared& sh, float* smem) {
+  const MergeJob job(p, bk, std::is_same_v<TQ, bf16>);
+  float* ml = job.ml(bk.split);
+  for (int r = threadIdx.x; r < bk.nh; r += kThreads) {
+    ml[r] = kNegInf;
+    ml[job.hs + r] = 0.f;
+  }
+  stamp(5);
+  merge_through_memory(job, sh, smem);
+}
+
+// The block's partial from its (m, l) in sh and acc (nh x D, rows ld floats
+// apart, ld % 4 == 0, summed over kParts copies kHeads * ld floats apart in
+// order: the tensor-core kernel's warps), then the merge.
+template <typename TQ, int kParts>
+__device__ void split_partial(const Params& p, const Block& bk, Shared& sh, const float* acc,
+                              int ld, float* smem) {
+  const MergeJob job(p, bk, std::is_same_v<TQ, bf16>);
+  float* part = job.acc(bk.split);
+  float* ml = job.ml(bk.split);
+  const int D = p.D, d4 = D / 4, hs = job.hs;
+#pragma unroll 4
+  for (int v = threadIdx.x; v < bk.nh * d4; v += kThreads) {
+    const int r = v / d4, at = r * ld + 4 * (v - r * d4);
+    float4 s = *reinterpret_cast<const float4*>(acc + at);
+#pragma unroll
+    for (int w = 1; w < kParts; ++w) {
+      const float4 x = *reinterpret_cast<const float4*>(acc + w * kHeads * ld + at);
+      s.x += x.x;
+      s.y += x.y;
+      s.z += x.z;
+      s.w += x.w;
+    }
+    reinterpret_cast<float4*>(part)[v] = s;
+  }
+  for (int r = threadIdx.x; r < bk.nh; r += kThreads) {
+    ml[r] = sh.m[r];
+    ml[hs + r] = sh.l[r];
+  }
+  stamp(5);
+  merge_through_memory(job, sh, smem);
+}
+
 // The block's q rows h0 .. h0 + nh, 16 bytes a load (rows 16-byte aligned,
 // which the wrapper ensures), rows up to kHeads zero.  load() issues every
 // load of the thread at once; put() hands each piece of EP values over as
@@ -433,7 +777,7 @@ __host__ __device__ inline int cc_smem_bytes(int d, int kv_bytes) {
   return 4 * cc_float_words(d) + 2 * kCcTile * (2 * d + vec) * kv_bytes;
 }
 
-template <typename TQ, typename TKV, bool kLse, bool kPasses>
+template <typename TQ, typename TKV, bool kLse, bool kPasses, bool kMemory>
 __global__ void __launch_bounds__(kThreads) decode_cc_kernel(const Params p) {
   using TO = std::conditional_t<kLse, float, TQ>;
   constexpr int VEC = Vec<TKV>::N;
@@ -450,10 +794,21 @@ __global__ void __launch_bounds__(kThreads) decode_cc_kernel(const Params p) {
   TKV* kbuf = reinterpret_cast<TKV*>(qs + cc_float_words(D));  // 2 x kCcTile x kstride
   TKV* vbuf = kbuf + 2 * kCcTile * kstride;                    // 2 x kCcTile x D
 
-  const int live_splits = census(sh, p, mk, bk.k0, bk.k1);
-  if (empty_split<TO, kLse>(p, bk, sh, acc, D, live_splits)) return;
+  stamp(0);
+  int live_splits = 0, n_live;
   int pk0 = bk.k0, pk1 = min(bk.k1, bk.k0 + kPassKeys);   // the pass
-  int n_live = find_live<kCcTile>(sh, mk, pk0, pk1, p.mode == 1);
+  QRows<TQ, 256> qrows;
+  if constexpr (kMemory) {   // the block's own split only; the lengths form needs no load for it
+    if (p.mode == 0 && bk.k0 >= mk.len) return empty_partial<TQ>(p, bk, sh, qs);
+    qrows.load(p, bk);       // in flight while the split's keys are marked
+    n_live = find_live<kCcTile>(sh, mk, pk0, pk1, false);
+    if (n_live == 0 && pk1 >= bk.k1) return empty_partial<TQ>(p, bk, sh, qs);
+  } else {
+    live_splits = census(sh, p, mk, bk.k0, bk.k1);
+    if (empty_split<TO, kLse>(p, bk, sh, acc, D, live_splits)) return;
+    n_live = find_live<kCcTile>(sh, mk, pk0, pk1, p.mode == 1);
+  }
+  stamp(1);
   const TKV* kb = static_cast<const TKV*>(p.k) + bk.b * p.k_sb + bk.g * p.k_sh;
   const TKV* vb = static_cast<const TKV*>(p.v) + bk.b * p.v_sb + bk.g * p.v_sh;
   const int vec_per_row = D / VEC;
@@ -470,9 +825,9 @@ __global__ void __launch_bounds__(kThreads) decode_cc_kernel(const Params p) {
     }
     cp_async_commit();
   };
-  QRows<TQ, 256> qrows;
-  qrows.load(p, bk);
+  if constexpr (!kMemory) qrows.load(p, bk);
   if (n_live) issue(0, 0);
+  stamp(2);
   const float qscale = p.scale * kLog2e;
   qrows.put(D, [&](int r, int c, const TQ* v) {
 #pragma unroll
@@ -498,6 +853,7 @@ __global__ void __launch_bounds__(kThreads) decode_cc_kernel(const Params p) {
         cp_async_wait<0>();
       }
       __syncthreads();
+      if (i == 0) stamp(3);
       const unsigned bits = sh.vm[sh.live[i]];
       const TKV* ks = kbuf + buf * kCcTile * kstride;
       const TKV* vs = vbuf + buf * kCcTile * D;
@@ -576,7 +932,14 @@ __global__ void __launch_bounds__(kThreads) decode_cc_kernel(const Params p) {
     n_live = find_live<kCcTile>(sh, mk, pk0, pk1, false);
     if (n_live) issue(0, 0);
   }
-  finish<TO, kLse>(p, bk, sh, acc, D, live_splits);
+  stamp(4);
+  if constexpr (kMemory) {
+    split_partial<TQ, 1>(p, bk, sh, acc, D, qs);
+  } else {
+    stamp(5);
+    finish<TO, kLse>(p, bk, sh, acc, D, live_splits);
+    stamp(8);
+  }
 }
 
 // ================================================================ tensor cores
@@ -588,9 +951,6 @@ __host__ __device__ inline int tc_smem_bytes(int d, bool split_q) {
   return ((split_q ? 2 : 1) * kHeads + 2 * kStages * kTcTile) * (d + 8) * 2;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -615,7 +975,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-template <typename TQ, int DMAX, bool kLse, bool kPasses>
+template <typename TQ, int DMAX, bool kLse, bool kPasses, bool kMemory>
 __global__ void __launch_bounds__(kThreads) decode_tc_kernel(const Params p) {
   using TO = std::conditional_t<kLse, float, TQ>;
   constexpr bool kSplitQ = sizeof(TQ) == 4;
@@ -635,10 +995,22 @@ __global__ void __launch_bounds__(kThreads) decode_tc_kernel(const Params p) {
   // 8 floats of padding keep float2 stores of 8 rows free of bank conflicts
   float* red = reinterpret_cast<float*>(Ks);
   const int LDR = D + 8;
-  const int live_splits = census(sh, p, mk, bk.k0, bk.k1);
-  if (empty_split<TO, kLse>(p, bk, sh, red, LDR, live_splits)) return;
+  float* smem = reinterpret_cast<float*>(smem4);
+  stamp(0);
+  int live_splits = 0, n_live;
   int pk0 = bk.k0, pk1 = min(bk.k1, bk.k0 + kPassKeys);   // the pass
-  int n_live = find_live<kTcTile>(sh, mk, pk0, pk1, p.mode == 1);
+  QRows<TQ, DMAX> qrows;
+  if constexpr (kMemory) {   // the block's own split only; the lengths form needs no load for it
+    if (p.mode == 0 && bk.k0 >= mk.len) return empty_partial<TQ>(p, bk, sh, smem);
+    qrows.load(p, bk);       // in flight while the split's keys are marked
+    n_live = find_live<kTcTile>(sh, mk, pk0, pk1, false);
+    if (n_live == 0 && pk1 >= bk.k1) return empty_partial<TQ>(p, bk, sh, smem);
+  } else {
+    live_splits = census(sh, p, mk, bk.k0, bk.k1);
+    if (empty_split<TO, kLse>(p, bk, sh, red, LDR, live_splits)) return;
+    n_live = find_live<kTcTile>(sh, mk, pk0, pk1, p.mode == 1);
+  }
+  stamp(1);
   const bf16* kb = static_cast<const bf16*>(p.k) + bk.b * p.k_sb + bk.g * p.k_sh;
   const bf16* vb = static_cast<const bf16*>(p.v) + bk.b * p.v_sb + bk.g * p.v_sh;
   // this thread's 16-byte pieces of a tile: row << 9 | column, the same for
@@ -668,10 +1040,10 @@ __global__ void __launch_bounds__(kThreads) decode_tc_kernel(const Params p) {
     }
     cp_async_commit();   // possibly empty, so every step waits on the same count
   };
-  QRows<TQ, DMAX> qrows;
-  qrows.load(p, bk);
+  if constexpr (!kMemory) qrows.load(p, bk);
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) issue(i);
+  stamp(2);
   // q into shared memory as bf16 (an fp32 q as hi and lo parts)
   qrows.put(D, [&](int r, int c, const TQ* v) {
 #pragma unroll
@@ -699,6 +1071,7 @@ __global__ void __launch_bounds__(kThreads) decode_tc_kernel(const Params p) {
     for (int i = 0; i < n_live; ++i) {
       cp_async_wait<kStages - 2>();
       __syncthreads();               // tile i landed; every warp is done with tile i - 1
+      if (i == 0) stamp(3);
       issue(i + kStages - 1);        // into tile i - 1's stage
       const int t = sh.live[i], st = i % kStages;
       const bf16* kt = Ks + (st * kTcTile + warp * 16) * LD;   // this warp's 16 keys
@@ -792,6 +1165,7 @@ __global__ void __launch_bounds__(kThreads) decode_tc_kernel(const Params p) {
   }
   cp_async_wait<0>();
   __syncthreads();                 // the stage buffers are free from here
+  stamp(4);
 
   // merge the four warps' (m, l, acc) in warp order; red reuses the K tiles
   const int g = lane >> 2;
@@ -833,7 +1207,13 @@ __global__ void __launch_bounds__(kThreads) decode_tc_kernel(const Params p) {
     sh.l[tid] = L;
   }
   __syncthreads();
-  for (int i = tid; i < nh * D; i += kThreads) {   // in place over warp 0's rows
+  // the warps' sums in warp order: straight to the workspace, or in place
+  // over warp 0's rows
+  if constexpr (kMemory) {
+    split_partial<TQ, kWarps>(p, bk, sh, red, LDR, smem);
+    return;
+  }
+  for (int i = tid; i < nh * D; i += kThreads) {
     const int at = (i / D) * LDR + i % D;
     float s = red[at];
 #pragma unroll
@@ -841,13 +1221,21 @@ __global__ void __launch_bounds__(kThreads) decode_tc_kernel(const Params p) {
     red[at] = s;
   }
   __syncthreads();
+  stamp(5);
   finish<TO, kLse>(p, bk, sh, red, LDR, live_splits);
+  stamp(8);
 }
 
-// The row's n_split blocks (grid.x) form one cluster.
+// The row's n_split blocks (grid.x) form one cluster, unless they merge
+// through device memory: then the merge's weights and a partial must fit
+// the dynamic shared memory.
 template <typename K>
 int launch(K kernel, dim3 grid, int smem, const Params& p, cudaStream_t st) {
-  if (smem > 48 * 1024) {
+  Params lp = p;
+  const int merge_smem = 4 * kMergeFloats + 4 * kHeads * p.D;
+  if (p.ws && smem < merge_smem) smem = merge_smem;
+  lp.smem = smem;
+  if (smem + (int)sizeof(Shared) > 48 * 1024) {   // past 48 KB with the static part: opt in
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
@@ -863,50 +1251,100 @@ int launch(K kernel, dim3 grid, int smem, const Params& p, cudaStream_t st) {
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  cfg.numAttrs = p.ws ? 0 : 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, lp);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // kPasses: splits longer than kPassKeys, streamed in passes (the loop over
 // passes is compiled out of the instances that shorter splits take).
-template <typename TQ, bool kLse, bool kPasses>
+template <typename TQ, bool kLse, bool kPasses, bool kMemory = false>
 int launch_q(const Params& p, bool kv_bf16, dim3 grid, cudaStream_t st) {
   const bool split_q = sizeof(TQ) == 4;
   if (kv_bf16 && p.D % 16 == 0) {
     const int smem = tc_smem_bytes(p.D, split_q);
-    if (p.D <= 64) return launch(decode_tc_kernel<TQ, 64, kLse, kPasses>, grid, smem, p, st);
-    if (p.D <= 128) return launch(decode_tc_kernel<TQ, 128, kLse, kPasses>, grid, smem, p, st);
-    return launch(decode_tc_kernel<TQ, 256, kLse, kPasses>, grid, smem, p, st);
+    if (p.D <= 64)
+      return launch(decode_tc_kernel<TQ, 64, kLse, kPasses, kMemory>, grid, smem, p, st);
+    if (p.D <= 128)
+      return launch(decode_tc_kernel<TQ, 128, kLse, kPasses, kMemory>, grid, smem, p, st);
+    return launch(decode_tc_kernel<TQ, 256, kLse, kPasses, kMemory>, grid, smem, p, st);
   }
   if (kv_bf16)
-    return launch(decode_cc_kernel<TQ, bf16, kLse, kPasses>, grid, cc_smem_bytes(p.D, 2), p, st);
-  return launch(decode_cc_kernel<TQ, float, kLse, kPasses>, grid, cc_smem_bytes(p.D, 4), p, st);
+    return launch(decode_cc_kernel<TQ, bf16, kLse, kPasses, kMemory>, grid, cc_smem_bytes(p.D, 2),
+                  p, st);
+  return launch(decode_cc_kernel<TQ, float, kLse, kPasses, kMemory>, grid, cc_smem_bytes(p.D, 4),
+                p, st);
 }
 
-// The log-sum-exp form (a non-null lse) has instances of its own, so the
-// others compile as they did before it.  Its splits of any length take the
-// instances with the loop over passes (a short split runs it once), which
-// keeps the source's build time near what it was.
-int launch_p(const Params& p, bool q_bf16, bool kv_bf16, dim3 grid, cudaStream_t st) {
-  if (p.lse)
-    return q_bf16 ? launch_q<bf16, true, true>(p, kv_bf16, grid, st)
-                  : launch_q<float, true, true>(p, kv_bf16, grid, st);
-  if (p.chunk > kPassKeys)
-    return q_bf16 ? launch_q<bf16, false, true>(p, kv_bf16, grid, st)
-                  : launch_q<float, false, true>(p, kv_bf16, grid, st);
-  return q_bf16 ? launch_q<bf16, false, false>(p, kv_bf16, grid, st)
-                : launch_q<float, false, false>(p, kv_bf16, grid, st);
+// One family of instances: q's type picks bf16 or float.
+template <bool kLse, bool kPasses, bool kMemory>
+int launch_family(const void* params, int q_bf16, int kv_bf16, void* stream) {
+  const Params& p = *static_cast<const Params*>(params);
+  const dim3 grid(p.n_split, p.Hkv * p.mgroups, p.B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return q_bf16 ? launch_q<bf16, kLse, kPasses, kMemory>(p, kv_bf16 != 0, grid, st)
+                : launch_q<float, kLse, kPasses, kMemory>(p, kv_bf16 != 0, grid, st);
 }
 
 }  // namespace
 
-// ptrs: q, k, v, lengths, slot_pos, q_pos, out, lse (null: no lse).
+// The instances come in four families: short splits, splits streamed in
+// passes, the log-sum-exp form and the merge through memory.  The merge
+// through memory (a non-null ws) and the log-sum-exp form (a non-null lse)
+// have instances of their own, so the others compile as they did before
+// them; their splits of any length take the instances with the loop over
+// passes (a short split runs it once), and the merge through memory's
+// instances write the lse form's outputs when the launch asks for them.
+// Built whole (DECODE_ATTENTION_PART undefined) the source is one
+// translation unit; built in parts, part k (0-3) compiles family k alone,
+// part 0 with the entry point, so that nvcc compiles the four at once and
+// the parts link into one library.  A family's launcher takes the Params
+// by address, since each translation unit has its own anonymous namespace.
+#ifndef DECODE_ATTENTION_PART
+#define DECODE_ATTENTION_PART -1
+#endif
+#define DECODE_ATTENTION_FAMILY(k) (DECODE_ATTENTION_PART < 0 || DECODE_ATTENTION_PART == (k))
+
+extern "C" {
+int decode_attention_short(const void* p, int q_bf16, int kv_bf16, void* st);
+int decode_attention_passes(const void* p, int q_bf16, int kv_bf16, void* st);
+int decode_attention_lse(const void* p, int q_bf16, int kv_bf16, void* st);
+int decode_attention_memory(const void* p, int q_bf16, int kv_bf16, void* st);
+
+#if DECODE_ATTENTION_FAMILY(0)
+int decode_attention_short(const void* p, int q_bf16, int kv_bf16, void* st) {
+  return launch_family<false, false, false>(p, q_bf16, kv_bf16, st);
+}
+#endif
+#if DECODE_ATTENTION_FAMILY(1)
+int decode_attention_passes(const void* p, int q_bf16, int kv_bf16, void* st) {
+  return launch_family<false, true, false>(p, q_bf16, kv_bf16, st);
+}
+#endif
+#if DECODE_ATTENTION_FAMILY(2)
+int decode_attention_lse(const void* p, int q_bf16, int kv_bf16, void* st) {
+  return launch_family<true, true, false>(p, q_bf16, kv_bf16, st);
+}
+#endif
+#if DECODE_ATTENTION_FAMILY(3)
+int decode_attention_memory(const void* p, int q_bf16, int kv_bf16, void* st) {
+  return launch_family<false, true, true>(p, q_bf16, kv_bf16, st);
+}
+#endif
+}  // extern "C"
+
+#if DECODE_ATTENTION_FAMILY(0)
+// ptrs: q, k, v, lengths, slot_pos, q_pos, out, lse (null: no lse), and
+// the merge through device memory's workspace and int32 counters at 0 (both
+// null: a row's splits, at most kMaxSplits, are one cluster).
 // strides (elements): q (b, h), k (b, s, h), v (b, s, h), slot_pos (b);
 // the last dimension of q, k, v and slot_pos is contiguous.
 // With lse, out is float32 whatever q's type.
 // dims: mode, B, Hq, Hkv, S, D, n_split, split keys, window, chunk, q_bf16,
-// kv_bf16.  Returns 0, a CUDA error code, or -1 for sizes not taken.
+// kv_bf16, and the splits a group of the merge through memory (the wrapper
+// sizes the workspace: units x (n_split + groups) partials of hs x D +
+// ml_floats(hs) floats, and the counters: units x (groups + 1)).  Returns
+// 0, a CUDA error code, or -1 for sizes not taken.
 extern "C" int decode_attention_launch(void* const* ptrs, const long long* strides,
                                        const int* dims, float scale, void* stream) {
   Params p;
@@ -918,6 +1356,8 @@ extern "C" int decode_attention_launch(void* const* ptrs, const long long* strid
   p.q_pos = static_cast<const int*>(ptrs[5]);
   p.out = ptrs[6];
   p.lse = static_cast<float*>(ptrs[7]);
+  p.ws = static_cast<float*>(ptrs[8]);
+  p.tickets = static_cast<int*>(ptrs[9]);
   p.q_sb = strides[0]; p.q_sh = strides[1];
   p.k_sb = strides[2]; p.k_ss = strides[3]; p.k_sh = strides[4];
   p.v_sb = strides[5]; p.v_ss = strides[6]; p.v_sh = strides[7];
@@ -925,17 +1365,37 @@ extern "C" int decode_attention_launch(void* const* ptrs, const long long* strid
   p.mode = dims[0]; p.B = dims[1]; p.Hq = dims[2]; p.Hkv = dims[3]; p.S = dims[4];
   p.D = dims[5]; p.n_split = dims[6]; p.chunk = dims[7]; p.window = dims[8];
   p.attn_chunk = dims[9];
+  p.group = dims[12];
+  p.smem = 0;
   const bool q_bf16 = dims[10] != 0, kv_bf16 = dims[11] != 0;
   p.scale = scale;
   if (p.Hkv < 1 || p.Hq % p.Hkv || p.D % 8 || p.D < 8 || p.D > 256 || p.S < 1) return -1;
   p.rep = p.Hq / p.Hkv;
   p.mgroups = (p.rep + kHeads - 1) / kHeads;
-  if (p.n_split < 1 || p.n_split > kMaxSplits || p.chunk % kTcTile ||
-      (long long)p.n_split * p.chunk < p.S || (long long)(p.n_split - 1) * p.chunk >= p.S)
+  if (p.n_split < 1 || p.chunk % kTcTile || (long long)p.n_split * p.chunk < p.S ||
+      (long long)(p.n_split - 1) * p.chunk >= p.S)
+    return -1;
+  if (p.ws ? !p.tickets || p.group < 1 || p.group > kMaxMerge ||
+                 merge_groups(p.n_split, p.group) > kMaxMerge
+           : p.n_split > kMaxSplits)
     return -1;
   if (p.B > 65535 || (long long)p.Hkv * p.mgroups > 65535) return -1;
   if ((p.mode == 0 && !p.lengths) || (p.mode == 1 && (!p.slot_pos || !p.q_pos))) return -1;
-  const dim3 grid(p.n_split, p.Hkv * p.mgroups, p.B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return launch_p(p, q_bf16, kv_bf16, grid, st);
+  const int qb = q_bf16, kb = kv_bf16;
+  if (p.ws) return decode_attention_memory(&p, qb, kb, stream);
+  if (p.lse) return decode_attention_lse(&p, qb, kb, stream);
+  if (p.chunk > kPassKeys) return decode_attention_passes(&p, qb, kb, stream);
+  return decode_attention_short(&p, qb, kb, stream);
 }
+
+#ifdef DECODE_ATTENTION_STAMPS
+// Where the kernel's phase stamps go: kStamps a block, blocks numbered
+// (z * gridDim.y + y) * gridDim.x + x, up to `blocks` of them (null: none).
+extern "C" int decode_attention_stamps(void* buf, long long blocks) {
+  unsigned long long* b = static_cast<unsigned long long*>(buf);
+  cudaError_t err = cudaMemcpyToSymbol(g_stamps, &b, sizeof(b));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_stamp_blocks, &blocks, sizeof(blocks));
+  return (int)err;
+}
+#endif
+#endif  // DECODE_ATTENTION_FAMILY(0)

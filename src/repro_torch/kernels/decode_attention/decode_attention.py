@@ -23,8 +23,17 @@ row's log-sum-exp and writes the output in float32, so that the partial
 rows merge across ranks (:func:`repro_torch.models.layers.merge_partials`)
 before anything rounds to q's type.
 
-The kernel splits the key axis over the blocks of one thread-block
-cluster per (batch, KV head), which merge the splits in shared memory.
+The kernel splits each row's key axis (a row: a batch lane, KV head and
+group of up to 16 query heads) into whole tiles (:func:`num_splits`).  A
+row of at most ``MAX_SPLITS`` splits is one thread-block cluster whose
+blocks merge in shared memory, as on every shape where the rows alone give
+most SMs a block.  With few rows (a long cache at small batch) a row takes
+more splits, enough to fill the card, and they merge through device memory:
+each block writes a float32 partial to a workspace this wrapper allocates,
+and the last blocks to finish merge them in split order, in groups and then
+the groups (:func:`merge_group`), counting arrivals on int32 counters kept
+at zero a card (:func:`_tickets`).  Either way a call is one launch and its
+results repeat bit for bit.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -46,7 +56,19 @@ HEADS_PER_BLOCK = 16
 #: fewest keys a split streams, so that each block keeps a ring of tiles
 #: busy instead of paying its fixed cost for one tile
 MIN_SPLIT_KEYS = 128
-MAX_SPLITS = 8               # a row's splits form one (portable) cluster
+#: a row of at most this many splits is one (portable) thread-block
+#: cluster, whose blocks merge in shared memory
+MAX_SPLITS = 8
+#: blocks an SM holds at once where a row takes more splits: the
+#: tensor-core kernel's 3-stage ring of 64-key tiles leaves room for two at
+#: D <= 128 (one at D = 256)
+BLOCKS_PER_SM = 2
+#: partials one merge through device memory takes: a row of more splits
+#: merges in two steps, groups and then the groups, so it takes at most
+#: MAX_MERGE ** 2 splits
+MAX_MERGE = 64
+#: a row of up to this many splits merges through memory in one step
+MERGE_ONE_STEP = 16
 _DTYPES = (torch.float32, torch.bfloat16)
 LENGTHS, SLOTS = 0, 1        # the kernel's two masks
 
@@ -70,15 +92,87 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def num_splits(units: int, seq: int, sms: int) -> tuple:
-    """(n_split, chunk) for ``units`` blocks of query heads over ``seq``
-    keys: about one block per SM in all, each split at least MIN_SPLIT_KEYS
-    keys (one split for a shorter cache), a whole number of tiles, at most
-    MAX_SPLITS of them; the kernel streams a long split in passes.  Depends
-    on shapes only, never on the masks' values, so choosing it needs no
-    device sync."""
-    n = max(1, min(_cdiv(sms, units), _cdiv(seq, MIN_SPLIT_KEYS), MAX_SPLITS))
+    """(n_split, chunk) for ``units`` rows of query heads over ``seq`` keys,
+    each split at least MIN_SPLIT_KEYS keys (one split for a shorter cache)
+    and a whole number of tiles, none empty; the kernel streams a long split
+    in passes.  Where MAX_SPLITS splits a row give at least half the SMs a
+    block (``units * MAX_SPLITS >= sms / 2``), about one block per SM in all
+    and at most MAX_SPLITS a row: one cluster.  Below that, about
+    BLOCKS_PER_SM blocks per SM in all, at most MAX_MERGE ** 2 a row: more
+    than MAX_SPLITS merge through device memory.  Depends on shapes only,
+    never on the masks' values, so choosing it needs no device sync."""
+    if 2 * units * MAX_SPLITS >= sms:
+        cap = min(_cdiv(sms, units), MAX_SPLITS)
+    else:
+        cap = min(_cdiv(BLOCKS_PER_SM * sms, units), MAX_MERGE ** 2)
+    n = max(1, min(cap, _cdiv(seq, MIN_SPLIT_KEYS)))
     chunk = _cdiv(_cdiv(seq, n), TILE_K) * TILE_K
     return _cdiv(seq, chunk), chunk
+
+
+def merge_group(n_split: int) -> int:
+    """Splits a group of the merge through device memory takes, or 0 for a
+    row of at most MAX_SPLITS splits (one cluster).  Up to MERGE_ONE_STEP
+    splits merge in one step (one group); more in two, groups of about the
+    square root of the splits, so that each step reads few partials."""
+    if n_split <= MAX_SPLITS:
+        return 0
+    return n_split if n_split <= MERGE_ONE_STEP else math.isqrt(n_split - 1) + 1
+
+
+class Plan(NamedTuple):
+    """How one call splits and merges: ``units`` rows, ``n_split`` splits a
+    row of ``split_keys`` keys, merged in one cluster (``group`` 0) or
+    through device memory in groups of ``group`` splits."""
+    units: int
+    n_split: int
+    split_keys: int
+    group: int
+
+    @property
+    def merge(self) -> str:
+        return "cluster" if self.group == 0 else "memory"
+
+
+def plan(b: int, hq: int, hkv: int, seq: int, sms: int) -> Plan:
+    """The :class:`Plan` of a call with q (b, hq, D) over a cache of ``seq``
+    slots and ``hkv`` KV heads on a card of ``sms`` SMs."""
+    units = b * hkv * _cdiv(hq // hkv, HEADS_PER_BLOCK)
+    n_split, split_keys = num_splits(units, seq, sms)
+    return Plan(units, n_split, split_keys, merge_group(n_split))
+
+
+def workspace_floats(pl: Plan, hq: int, hkv: int, d: int) -> int:
+    """float32s of the merge through memory's workspace: a partial (acc of
+    hs = min(rep, 16) head rows, and their m and l padded to 4 floats) for
+    every split and group of every row; the kernel keeps all the acc first
+    and all the (m, l) after them."""
+    hs = min(hq // hkv, HEADS_PER_BLOCK)
+    groups = _cdiv(pl.n_split, pl.group)
+    return pl.units * (pl.n_split + groups) * _cdiv(hs * (d + 2), 4) * 4
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, count: int) -> torch.Tensor:
+    """The merge through memory's int32 counters on ``device``, at least
+    ``count`` of them: zeroed when made and kept for the process, so that a
+    CUDA graph may hold their address.  Every launch leaves each counter it
+    takes at 0 (the block that takes its last ticket resets it), so the
+    next launch on the stream, or a graph's replay, finds them at 0.  Made
+    outside graph capture (a first call on a card, or one needing more,
+    must not be captured) and waited for, so that any stream sees the
+    zeros."""
+    buf = _TICKETS.get(device.index)
+    if buf is None or buf.numel() < count:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode_attention: call it once outside CUDA-graph capture "
+                               "at this size first; its merge counters are made then")
+        buf = torch.zeros(max(count, 4096), dtype=torch.int32, device=device)
+        torch.cuda.synchronize(device)
+        _TICKETS[device.index] = buf
+    return buf
 
 
 def _check(q, k_cache, v_cache, ints):
@@ -121,22 +215,26 @@ def _launch(mode, q, k_cache, v_cache, lengths=None, slot_pos=None, q_pos=None,
         q = q.clone(memory_format=torch.contiguous_format)   # the kernel loads 16-byte rows
     b, hq, d = q.shape
     _, s, hkv, _ = k_cache.shape
-    units = b * hkv * _cdiv(hq // hkv, HEADS_PER_BLOCK)
-    n_split, split_keys = num_splits(units, s, _sm_count(q.device.index))
+    pl = plan(b, hq, hkv, s, _sm_count(q.device.index))
+    ws = tickets = None
+    if pl.group:
+        ws = torch.empty(workspace_floats(pl, hq, hkv, d), dtype=torch.float32,
+                         device=q.device)
+        tickets = _tickets(q.device, pl.units * (_cdiv(pl.n_split, pl.group) + 1))
     out, lse = _outputs(q, with_lse)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    ptrs = (ctypes.c_void_p * 8)(
+    ptrs = (ctypes.c_void_p * 10)(
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(lengths), ptr(slot_pos), ptr(q_pos), ptr(out),
-        ptr(lse))
+        ptr(lse), ptr(ws), ptr(tickets))
     strides = (ctypes.c_longlong * 9)(
         q.stride(0), q.stride(1), *k_cache.stride()[:3], *v_cache.stride()[:3],
         slot_pos.stride(0) if slot_pos is not None else 0)
-    dims = (ctypes.c_int * 12)(
-        mode, b, hq, hkv, s, d, n_split, split_keys, window, chunk,
-        int(q.dtype == torch.bfloat16), int(k_cache.dtype == torch.bfloat16))
+    dims = (ctypes.c_int * 13)(
+        mode, b, hq, hkv, s, d, pl.n_split, pl.split_keys, window, chunk,
+        int(q.dtype == torch.bfloat16), int(k_cache.dtype == torch.bfloat16), pl.group)
     err = _lib().decode_attention_launch(ptrs, strides, dims, 1.0 / math.sqrt(d),
                                          torch.cuda.current_stream(q.device).cuda_stream)
     if err:

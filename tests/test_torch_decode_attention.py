@@ -22,7 +22,8 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_cache_ref,
                                                   decode_attention_ref)
 from repro_torch.kernels.decode_attention.decode_attention import (
-    HEADS_PER_BLOCK, MAX_SPLITS, MIN_SPLIT_KEYS, TILE_K, num_splits)
+    BLOCKS_PER_SM, HEADS_PER_BLOCK, MAX_MERGE, MAX_SPLITS, MERGE_ONE_STEP, MIN_SPLIT_KEYS, TILE_K,
+    num_splits, plan)
 from repro_torch.models import layers
 
 # the tolerances of tests/test_kernels.py
@@ -147,14 +148,34 @@ def test_plain_slot_form_matches_xla(dtype, d, case, window, chunk):
 
 @pytest.mark.parametrize("b, hkv, rep, seq", [
     (8, 2, 12, 1024), (8, 2, 12, 4096), (1, 1, 1, 100), (64, 8, 4, 2048),
-    (1, 2, 12, 65536), (4, 1, 40, 300), (1, 1, 1, 131073), (2, 2, 12, 1 << 20)])
+    (1, 2, 12, 65536), (4, 1, 40, 300), (1, 1, 1, 131073), (2, 2, 12, 1 << 20),
+    (1, 1, 3, 32768), (8, 1, 10, 2048)])
 def test_num_splits_whole_tiles_from_shapes(b, hkv, rep, seq):
+    """Splits are whole tiles and none is empty.  Where MAX_SPLITS splits a
+    row give at least half the SMs a block, the rule is the cluster's: at
+    most MAX_SPLITS, about one block an SM.  With fewer rows (long_500k's
+    shard, RecurrentGemma's ring: 1 and 8 rows) a row takes more splits,
+    about BLOCKS_PER_SM blocks an SM, merged through device memory in
+    groups of at most MAX_MERGE."""
     units = b * hkv * -(-rep // HEADS_PER_BLOCK)
     n, keys = num_splits(units, seq, 132)
     assert keys % TILE_K == 0
     assert (n - 1) * keys < seq <= n * keys          # no empty trailing split
     assert n == 1 or keys >= MIN_SPLIT_KEYS
-    assert n <= min(MAX_SPLITS, -(-132 // units))    # any cache length is taken
+    pl = plan(b, hkv * rep, hkv, seq, 132)
+    assert (pl.units, pl.n_split, pl.split_keys) == (units, n, keys)
+    if units * MAX_SPLITS >= 132 / 2:                # the cluster's rule, unchanged
+        assert n <= min(MAX_SPLITS, -(-132 // units)) and pl.merge == "cluster"
+    else:
+        assert n <= min(-(-BLOCKS_PER_SM * 132 // units), MAX_MERGE ** 2)
+    assert (pl.merge == "memory") == (n > MAX_SPLITS)
+    if pl.merge == "memory":
+        groups = -(-n // pl.group)
+        assert pl.group <= MAX_MERGE and groups <= MAX_MERGE
+        assert pl.group == n or (n > MERGE_ONE_STEP and groups <= pl.group)
+    if (b, hkv, rep, seq) in ((1, 1, 3, 32768), (8, 1, 10, 2048)):
+        assert n > MAX_SPLITS                        # the few-row shapes fill the card
+        assert units * n >= 132 // 2
 
 
 def test_wrapper_rejects_other_devices():

@@ -6,8 +6,11 @@ Each DIR is a checkout of this repository (its ``chip_smoke.py`` and
 checkout's ``csrc/decode_attention.cu`` and times, through that checkout's
 ``chip_smoke.time_decode_attention``, the shapes ``chip_smoke.py`` times:
 StarCoder2 heads at B=8 (lengths form over a serving cache and L=1024 and
-4096, slot form over a serving cache and wrapped at W=1024) and
-RecurrentGemma-2B's wrapped 2048-slot window.  Giving the checkouts as
+4096, slot form over a serving cache and wrapped at W=1024),
+RecurrentGemma-2B's wrapped 2048-slot window, and the log-sum-exp form at
+long_500k's shard (B=1, Hq=3, Hkv=1, D=128, 32,768 wrapped slots: one rank
+of Llama-4's global layer under a sequence-sharded cache).  Giving the
+checkouts as
 ``parent change change parent`` brackets drift of the card.  Needs a CUDA
 card and nvcc; prints the card's name and power limit, then one JSON line a
 run ({"dir", "us": {form: kernel us}, "profiler_us": {form: us}})::
@@ -37,6 +40,8 @@ t = {{label: C.time_decode_attention(torch, label, s, top, slots)
 dc = C.RECURRENTGEMMA_DECODE
 t["recurrentgemma slots wrapped W=2048"] = C.time_decode_attention(
     torch, "recurrentgemma", dc["w"], None, True, dc["hq"], dc["hkv"], dc["d"], window=dc["w"])
+t["long_500k shard lse"] = C.time_decode_attention(
+    torch, "long_500k shard", 32768, None, True, hq=3, hkv=1, d=128, b=1, lse=True)
 print(json.dumps({{"us": {{k: v["ms"] * 1e3 for k, v in t.items()}},
                   "profiler_us": {{k: v["profiler_ms"] * 1e3 for k, v in t.items()}}}}))
 """
