@@ -139,7 +139,11 @@ failure:
  27. hold the prefix-scan kernel bit-equal to its plain version (torch.cumsum)
      on tests/test_prefix_scan.py's shapes, empty shapes, one row of 2^20,
      bool/uint8/int32 input, 3-D leading axes, strided and offset views and
-     the sweep's (65536, 10000) block;
+     the sweep's (65536, 10000) block, then at the routes' boundaries
+     (SCAN_LENGTHS x SCAN_ROWS in bool, uint8 and full-range int32, offset
+     base pointers on every route), and show each route's kernel by name
+     at a shape of that route; phases 28-38 and 42 print prefix_scan's
+     launches by (rows, length, route) (``ScanHistogram``);
  28. the architecture zoo: for all 13 registered architectures the torch
      sweep on the card equals the port's numpy sweep on 4096 counter
      snapshots of 10,000 nodes at TP 16/32/64/24 in chunks of 8192, and on
@@ -156,7 +160,8 @@ failure:
      host numpy path and to a chunk-8192 run; two blocks under
      torch.profiler, then the draw and the waste kernels each alone;
  31. time the prefix-scan kernel, its plain version and torch.cumsum at the
-     sweep's block beside the bytes bound;
+     sweep's block beside the bytes bound (CUDA graph over 4 inputs, the
+     profiler's device time beside it);
  32. the Fig. 17c grid of benchmarks/dcn.py (2048 nodes, 512-node domains,
      five fault ratios x 100 snapshots, TP-32, three variants) through
      ``run_dcn_sweep(backend="torch")``: every grid equal to the port's
@@ -170,7 +175,7 @@ failure:
      (busy and idle share, the scans' share beside their bytes bound), a
      fault planted in the card's input and a member changed in its output
      both caught; then the placement's scans timed at their short tier rows
-     (64 entries) and full rows;
+     (64 entries) and full rows, as phase 31;
  34. churn: benchmarks/churn.py's 256-trace ensemble through
      ``monte_carlo_replay(backend="torch")``, batched and streamed, equal to
      numpy (traces/s); one 348-day trace of 2048 nodes through
@@ -331,6 +336,7 @@ import copy
 import dataclasses
 import gc
 import hashlib
+import importlib
 import json
 import math
 import pickle
@@ -2695,11 +2701,24 @@ SWEEP_NODES = 10_000             # benchmarks/scale.py: 10,000 nodes x 4 GPUs
 SWEEP_BLOCK = 65_536             # snapshots per device block of the main path
 
 
+# lengths at the scan routes' thresholds (the warp route's team widths, one
+# warp tile, the block route past 1024 entries) and row counts below and
+# above the persistent grid and the block route's 4224 rows, for the
+# route-boundary cases of scan_cases
+SCAN_LENGTHS = (1, 3, 4, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256, 257,
+                511, 512, 513, 1023, 1024, 1025, 8191, 8192, 8193)
+SCAN_ROWS = (1, 7, 131, 1000, 131072)
+
+
 def scan_cases(torch):
     """(label, input) pairs on the card: tests/test_prefix_scan.py's shape
     sweep, empty shapes, one row of 2^20, bool/uint8/int32 (int32 with sums
     that wrap), 3-D leading axes, strided and offset views, the sweep's
-    block."""
+    block; then the routes' boundaries: every length of SCAN_LENGTHS at
+    every row count of SCAN_ROWS in bool, uint8 and int32 drawn over the
+    whole int32 range (so sums pass 2^31 and wrap; at 131,072 rows bool
+    only past 513 entries, for memory), and offset base pointers at 7 and
+    131 rows of every length (the element-access form of each route)."""
     gen = torch.Generator(device="cuda").manual_seed(13)
 
     def mask(shape, p=0.3):
@@ -2707,6 +2726,9 @@ def scan_cases(torch):
 
     def ints(shape, lo=-1000, hi=1000):
         return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int32)
+
+    def wide(shape):
+        return ints(shape, -(1 << 31) + 1, (1 << 31) - 1)
 
     shapes = [(1, 0), (1, 1), (3, 7), (64, 8), (16, 128), (8, 129), (8, 300), (2, 1024),
               (4, 3, 40), (2, 3, 4, 8), (0, 5), (0, 0), (1, 257), (5, 1), (7, 4099)]
@@ -2735,21 +2757,108 @@ def scan_cases(torch):
     return cases
 
 
+def scan_boundary_cases(torch):
+    """scan_cases' route-boundary cases, made one at a time (the largest,
+    131,072 rows of 8193, is 1.07 G elements)."""
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    draw = {
+        "bool": lambda shape: torch.rand(shape, generator=gen, device="cuda") < 0.3,
+        "uint8": lambda shape: torch.randint(0, 256, shape, generator=gen, device="cuda",
+                                             dtype=torch.uint8),
+        "int32": lambda shape: torch.randint(-(1 << 31) + 1, (1 << 31) - 1, shape,
+                                             generator=gen, device="cuda", dtype=torch.int32),
+    }
+    for rows in SCAN_ROWS:
+        for length in SCAN_LENGTHS:
+            for dtype, fn in draw.items():
+                if rows == SCAN_ROWS[-1] and length > 513 and dtype != "bool":
+                    continue
+                yield f"{dtype} ({rows}, {length})", fn((rows, length))
+                if rows == 1000 and length > 1024:
+                    # the block route's last row count and the warp route's first
+                    for more in (4223, 4224):
+                        yield f"{dtype} ({more}, {length})", fn((more, length))
+                if rows in (7, 131):
+                    yield (f"{dtype} ({rows}, {length}) offset base pointer",
+                           fn((rows * length + 1,))[1:].view(rows, length))
+
+
+def route_label(route) -> str:
+    """A scan route as the histogram prints it: warp16/vec, block/elem, ..."""
+    return (f"{route.route}{route.lanes if route.route == 'warp' else ''}/"
+            f"{'vec' if route.vec else 'elem'}")
+
+
+def scan_kernel_routes(names):
+    """(route label, input kind) of each prefix-scan kernel in ``names``
+    (profiler kernel names, demangled or not)."""
+    import re
+
+    out = set()
+    for name in names:
+        m = re.search(r"prefix_scan_(warp|block)_kernel<(unsigned char|int), (?:\(int\))?"
+                      r"(?:(\d+), (?:\(bool\))?)?(true|false|1|0)>", name)
+        if m:
+            route, ctype, lanes, vec = m.groups()
+            kind = 0 if ctype == "unsigned char" else 1
+            vec = vec in ("true", "1")
+        else:
+            m = re.search(r"prefix_scan_(warp|block)_kernelI([hi])(?:Li(\d+)E)?Lb([01])E", name)
+            if not m:
+                continue
+            route, ctype, lanes, vec = m.groups()
+            kind = 0 if ctype == "h" else 1
+            vec = vec == "1"
+        out.add((f"{route}{lanes or ''}/{'vec' if vec else 'elem'}", kind))
+    return out
+
+
+def scan_kernel_events(torch, fn, tries=5):
+    """{name: [device us of each launch]} of the prefix-scan kernels ``fn``
+    launches, from torch.profiler: the union over up to ``tries`` profiles
+    of four calls each after a warm-up call, stopping at the first that
+    recorded one (an isolated profile can miss launches, PERF.md § 7)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and "prefix_scan_" in e.name:
+                out.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+        if out:
+            break
+    return out
+
+
 def check_prefix_scan(torch):
     """The prefix-scan kernel against its plain version on the card:
-    bit-equal (tolerance 0) on every case."""
+    bit-equal (tolerance 0) on every case of scan_cases and
+    scan_boundary_cases; then, by the profiler's kernel names, each route's
+    kernel launched at a shape of that route."""
     from repro_torch.kernels.prefix_scan import mask_cumsum, prefix_scan, prefix_scan_ref
+    from repro_torch.kernels.prefix_scan.prefix_scan import route_of
 
-    worst, n_cases = 0, 0
-    for label, x in scan_cases(torch):
+    t0 = time.perf_counter()
+    worst, n_cases, routes = 0, 0, {}
+    for label, x in [*scan_cases(torch), *scan_boundary_cases(torch)]:
         out = prefix_scan(x)
         ref = prefix_scan_ref(x)
-        torch.cuda.synchronize()
-        err = ((out.long() - ref.long()).abs().max().item() if out.numel() else 0)
         ok = (out.dtype == torch.int32 and out.shape == x.shape and out.device == x.device
               and torch.equal(out, ref))
+        err = 0
+        if not ok and out.shape == ref.shape and out.numel():
+            err = (out.long() - ref.long()).abs().max().item()
         if x.dtype == torch.bool:
             ok = ok and torch.equal(mask_cumsum(x), ref)
+        if x.numel():
+            key = route_label(route_of(x.contiguous()))
+            routes[key] = routes.get(key, 0) + 1
         if "sweep block" in label or "2^20" in label or not ok:
             print(f"prefix_scan {label}: max_abs_err {err} (tol 0) {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -2763,8 +2872,69 @@ def check_prefix_scan(torch):
     else:
         raise AssertionError("mask_cumsum took an int32 tensor")
     torch.cuda.empty_cache()
-    print(f"prefix_scan: {n_cases} cases bit-equal to torch.cumsum on the card")
+    print(f"prefix_scan: {n_cases} cases bit-equal to torch.cumsum on the card; cases by "
+          f"route: " + ", ".join(f"{k} {v}" for k, v in sorted(routes.items())))
+
+    # each route's kernel by name, at a shape of that route
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    named = [torch.rand((131072, 64), generator=gen, device="cuda") < 0.07,
+             torch.rand((1024, DC_NODES), generator=gen, device="cuda") < 0.07,
+             torch.rand((8192, 1000), generator=gen, device="cuda") < 0.07,
+             torch.randint(0, 9, (1000, 3), generator=gen, device="cuda", dtype=torch.uint8),
+             torch.randint(0, 9, (1000, 64), generator=gen, device="cuda", dtype=torch.int32),
+             torch.randint(0, 9, (131 * 8193 + 1,), generator=gen, device="cuda",
+                           dtype=torch.int32)[1:].view(131, 8193)]
+    launches = prefix_scan.launches
+    for x in named:
+        want = {(route_label(route_of(x)), 0 if x.element_size() == 1 else 1)}
+        ran = scan_kernel_routes(scan_kernel_events(torch, lambda: prefix_scan(x)))
+        print(f"prefix_scan kernel at {tuple(x.shape)} {str(x.dtype)[6:]}: ran {sorted(ran)}, "
+              f"route {sorted(want)} {'ok' if ran == want else 'FAIL'}")
+        if ran != want:
+            raise AssertionError(f"prefix_scan at {tuple(x.shape)} ran {ran}, not {want}")
+    prefix_scan.launches = launches              # these launches are not a main path's
+    del named
+    torch.cuda.empty_cache()
+    print(f"prefix_scan: the checks took {time.perf_counter() - t0:.1f} s")
     return worst
+
+
+class ScanHistogram:
+    """prefix_scan's launches by (rows, length, route) while entered: the
+    kernel module's ``launch`` (which every call of the wrapper goes
+    through) is replaced by one that records its route and calls through.
+    The wrapper's own count, ``prefix_scan.launches``, is untouched."""
+
+    def __init__(self):
+        self.counts = {}
+
+    def __enter__(self):
+        mod = importlib.import_module("repro_torch.kernels.prefix_scan.prefix_scan")
+        self._mod, self._launch = mod, mod.launch
+
+        def counted(x, out, route):
+            key = (x.numel() // x.shape[-1], x.shape[-1], route_label(route))
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return self._launch(x, out, route)
+
+        mod.launch = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.launch = self._launch
+
+    def add(self, counts):
+        for key, n in counts.items():
+            self.counts[key] = self.counts.get(key, 0) + n
+
+    def line(self, label):
+        total = sum(self.counts.values())
+        return (f"prefix_scan histogram, {label}: {total} launches: "
+                + ", ".join(f"({r}, {n}) {route} x {c}"
+                            for (r, n, route), c in sorted(self.counts.items())))
+
+    def rows(self):
+        return [[r, n, route, c] for (r, n, route), c in sorted(self.counts.items())]
 
 
 def grids_equal(a, b):
@@ -3000,10 +3170,10 @@ def sweep_main_path(torch, samples=1_000_000, refs=None):
         block_ms = (time.perf_counter() - t3) * 1e3 / 2
     prof_block = summarize_profile(torch, prof, 2 * block_ms, 2,
                                    f"2 sweep blocks of {SWEEP_BLOCK} snapshots",
-                                   {"prefix scan": "prefix_scan_kernel",
+                                   {"prefix scan": "prefix_scan_",
                                     "cummax/cummin": "with_indices"})
     scan_ms = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                  if "prefix_scan_kernel" in e.name) / 1e3 / 2
+                  if "prefix_scan_" in e.name) / 1e3 / 2
     idx_dev = torch.from_numpy(idx).cuda()
     with profile(activities=[ProfilerActivity.CUDA]) as prof_draw:
         masks = counter_masks_at(idx_dev, SWEEP_NODES, 0.07, 5)
@@ -3028,35 +3198,60 @@ def sweep_main_path(torch, samples=1_000_000, refs=None):
             "scan_ms": scan_ms, **(prof_block or {})}
 
 
-def time_prefix_scan(torch, rows=SWEEP_BLOCK, length=SWEEP_NODES):
-    """The kernel, its plain version and torch.cumsum at the sweep's block,
+def time_scan_shape(torch, label, shape, n_buf=4, seed=21):
+    """The prefix-scan kernel at ``shape`` (bool at 7%, as the engines' masks)
     beside the bytes bound (each input byte read once, each int32 written
-    once).  The plain version is the library call torch.cumsum after a cast
-    to int32; the library time is torch.cumsum(..., dtype=torch.int32) on
-    the bool mask itself."""
+    once), its plain version (torch.cumsum after a cast to int32) and the
+    library call torch.cumsum(..., dtype=torch.int32) on the mask itself:
+    device time by CUDA graph over ``n_buf`` distinct inputs (more bytes
+    than the 50 MB L2 at every timed shape), and the profiler's device time
+    of a launch beside it (the mean of the launches it recorded)."""
     from repro_torch.kernels.prefix_scan import prefix_scan, prefix_scan_ref
+    from repro_torch.kernels.prefix_scan.prefix_scan import route_of
 
-    gen = torch.Generator(device="cuda").manual_seed(21)
-    x = torch.rand((rows, length), generator=gen, device="cuda") < 0.07
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xs = [torch.rand(shape, generator=gen, device="cuda") < 0.07 for _ in range(n_buf)]
+    keep = [None] * n_buf
+
+    def timed(fn):
+        # each call's output stays alive until its input comes round again,
+        # so the outputs rotate through n_buf + 1 buffers too
+        def call(i):
+            keep[i] = fn(xs[i])
+        ms = graph_ms(torch, call, n_buf)
+        keep[:] = [None] * n_buf
+        return ms
+
     launches = prefix_scan.launches
-    kernel_ms = eager_ms(torch, lambda i: prefix_scan(x), 1, iters=20, repeats=5)
+    kernel_ms = timed(prefix_scan)
+    events = [us for v in scan_kernel_events(torch, lambda: [prefix_scan(x) for x in xs]).values()
+              for us in v]
+    device_ms = statistics.mean(events) / 1e3 if events else float("nan")
     prefix_scan.launches = launches              # timing launches are not the main path's
-    plain_ms = eager_ms(torch, lambda i: prefix_scan_ref(x), 1, iters=10, repeats=5)
-    library_ms = eager_ms(torch, lambda i: torch.cumsum(x, -1, dtype=torch.int32), 1,
-                          iters=10, repeats=5)
-    nbytes = rows * length * (1 + 4)
-    ops = rows * length                          # one int32 add per element
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS
+    plain_ms = timed(prefix_scan_ref)
+    library_ms = timed(lambda x: torch.cumsum(x, -1, dtype=torch.int32))
+    n = xs[0].numel()
+    nbytes = n * (1 + 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n / INT32_OPS   # one int32 add per element
     bound_ms = max(t_bytes, t_ops) * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"time prefix_scan: ({rows}, {length}) bool -> int32: kernel {kernel_ms:.3f} ms "
-          f"({nbytes / kernel_ms / 1e6:.0f} GB/s), bound {bound_ms:.3f} ms ({by}: "
-          f"{nbytes / 1e9:.3f} GB at 3.35 TB/s); plain (torch.cumsum of the int32 cast) "
-          f"{plain_ms:.3f} ms; library torch.cumsum(dtype=int32) {library_ms:.3f} ms")
-    del x
+    route = route_label(route_of(xs[0]))
+    print(f"time prefix_scan {label} {tuple(shape)} bool -> int32, route {route}: kernel "
+          f"{kernel_ms:.4f} ms by CUDA graph over {n_buf} inputs ({nbytes / kernel_ms / 1e6:.0f} "
+          f"GB/s, {100 * bound_ms / kernel_ms:.1f}% of the bound), profiler device time "
+          f"{device_ms:.4f} ms a launch; bound {bound_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB at 3.35 "
+          f"TB/s); plain (torch.cumsum of the int32 cast) {plain_ms:.4f} ms; library "
+          f"torch.cumsum(dtype=int32) {library_ms:.4f} ms")
+    del xs
     torch.cuda.empty_cache()
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+    return {"shape": list(shape), "scan_route": route, "ms": kernel_ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": library_ms}
+
+
+def time_prefix_scan(torch, rows=SWEEP_BLOCK, length=SWEEP_NODES):
+    """The kernel at the sweep's block (time_scan_shape)."""
+    return time_scan_shape(torch, "sweep block", (rows, length))
 
 
 # ------------------------------------------------------------ DCN and churn slice
@@ -3291,7 +3486,7 @@ def dcn_datacenter(torch, refs=None):
         prof_ms = (time.perf_counter() - t3) * 1e3
     summary = summarize_profile(torch, prof, prof_ms, 1,
                                 f"TP-{tp} placement of {rows} rows x {DC_NODES} nodes",
-                                {"prefix scan": "prefix_scan_kernel", "cummax/cummin":
+                                {"prefix scan": "prefix_scan_", "cummax/cummin":
                                  "with_indices", "sorts": "ort"})
     if summary:
         scan_ms = summary["groups"]["prefix scan"]
@@ -3304,30 +3499,11 @@ def dcn_datacenter(torch, refs=None):
 
 
 def time_short_row_scans(torch, rows=DC_CHUNK):
-    """The tier carve's scans: rows x 16 domains x 8 sub-lines of 64 ToR
-    positions (8192 nodes, 512-node domains), and the residual carve's
-    rows of 8192, each beside its bytes bound and the plain version."""
-    from repro_torch.kernels.prefix_scan import prefix_scan, prefix_scan_ref
-
-    gen = torch.Generator(device="cuda").manual_seed(24)
-    out = {}
-    for label, shape in (("tier", (rows, 16, 8, 64)), ("residual", (rows, DC_NODES))):
-        x = torch.rand(shape, generator=gen, device="cuda") < 0.07
-        launches = prefix_scan.launches
-        kernel_ms = eager_ms(torch, lambda i: prefix_scan(x), 1, iters=20, repeats=5)
-        prefix_scan.launches = launches         # timing launches are not the main path's
-        plain_ms = eager_ms(torch, lambda i: prefix_scan_ref(x), 1, iters=20, repeats=5)
-        library_ms = eager_ms(torch, lambda i: torch.cumsum(x, -1, dtype=torch.int32), 1,
-                              iters=20, repeats=5)
-        nbytes = x.numel() * 5
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, x.numel() / INT32_OPS) * 1e3
-        print(f"time prefix_scan {label} rows {tuple(shape)}: kernel {kernel_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms (bytes: {nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms, "
-              f"library torch.cumsum {library_ms:.4f} ms")
-        out[label] = {"shape": list(shape), "ms": kernel_ms, "bound_ms": bound_ms,
-                      "plain_ms": plain_ms, "library_ms": library_ms}
-        del x
-    return out
+    """The placement's scans at 8192 nodes (time_scan_shape): the tier
+    carve's rows x 16 domains x 8 sub-lines of 64 ToR positions (512-node
+    domains) and the residual carve's rows of 8192."""
+    return {label: time_scan_shape(torch, label, shape, seed=24)
+            for label, shape in (("tier", (rows, 16, 8, 64)), ("residual", (rows, DC_NODES)))}
 
 
 TRAFFIC_KW = dict(tp_sizes=(32,), agg_domain=512)
@@ -3786,7 +3962,7 @@ def time_scans(torch, device, res, label):
 
 def slo_replay(device="cuda"):
     """serve_spec_bench's replay (its control plane is host code): (churn
-    spec, serving spec, seconds, prefix_scan launches)."""
+    spec, serving spec, seconds, prefix_scan launches and their histogram)."""
     import torch
 
     from repro_torch.kernels.prefix_scan import prefix_scan
@@ -3794,8 +3970,9 @@ def slo_replay(device="cuda"):
     sync(torch, device)
     prefix_scan.launches = 0
     t0 = time.perf_counter()
-    cspec, spec = serve_spec_bench(device)
-    return cspec, spec, time.perf_counter() - t0, prefix_scan.launches
+    with ScanHistogram() as hist:
+        cspec, spec = serve_spec_bench(device)
+    return cspec, spec, time.perf_counter() - t0, prefix_scan.launches, hist.counts
 
 
 def slo_replay_to(path):
@@ -3818,7 +3995,7 @@ def slo_on_card(torch, device="cuda", replay=None):
                                  run_serve_sweep, slo_table, torch_backend)
 
     recorded = json.loads((ROOT / "BENCH_serve.json").read_text())
-    cspec, spec, replay_s, replay_launches = replay or slo_replay(device)
+    cspec, spec, replay_s, replay_launches, _ = replay or slo_replay(device)
     tl = spec.timeline
     # the replay's sweep: the InfiniteHBD models' scans, once a 4096-interval block
     want = sweep_scans(cspec.models(), -(-tl.num_intervals // 4096))
@@ -6801,27 +6978,48 @@ def smoke(torch, children) -> int:
     decode_lockstep(torch)
     ssd_times = time_ssd_scan(torch)
     stage("the Mamba-2 phases")
+    t_check = time.perf_counter()
     scan_err = check_prefix_scan(torch)
-    check_sweep_zoo(torch, refs)
-    stage("prefix_scan's checks and the zoo")
-    check_fig13(torch)
-    sweep = sweep_main_path(torch, refs=refs)
+    scan_check_s = time.perf_counter() - t_check
+    stage("prefix_scan's checks")
+    hists = {}
+
+    def counted(phase, fn, *args, elsewhere=None, **kw):
+        """fn's result, its prefix_scan launches counted by (rows, length,
+        route) under ``phase``, with ``elsewhere``'s counts (launches of the
+        phase made in another process)."""
+        with ScanHistogram() as h:
+            out = fn(*args, **kw)
+        h.add(elsewhere or {})
+        hists[phase] = h
+        print(h.line(phase))
+        return out
+
+    counted("phase 28 (the zoo)", check_sweep_zoo, torch, refs)
+    stage("the zoo")
+    counted("phase 29 (Fig. 13)", check_fig13, torch)
+    sweep = counted("phase 30 (the sweep's main path)", sweep_main_path, torch, refs=refs)
+    t_times = time.perf_counter()
     scan_times = time_prefix_scan(torch)
     stage("Fig. 13, the sweep's main path and prefix_scan timed")
     t_dcn = time.perf_counter()
-    fig17c = check_fig17c(torch)
-    dc = dcn_datacenter(torch, refs)
+    fig17c = counted("phase 32 (Fig. 17c)", check_fig17c, torch)
+    dc = counted("phase 33 (DCN at 8192 nodes)", dcn_datacenter, torch, refs)
+    t_short = time.perf_counter()
     short_rows = time_short_row_scans(torch)
-    churn = churn_on_card(torch, refs)
+    times_s = t_dcn - t_times + time.perf_counter() - t_short
+    churn = counted("phase 34 (churn)", churn_on_card, torch, refs)
     dcn_s = time.perf_counter() - t_dcn
     print(f"dcn/churn: the DCN and churn phases (the Fig. 17c grid, the 8192-node placement, "
           f"the short-row scans, the churn ensemble, the traffic and control-plane replays) "
           f"took {dcn_s:.1f} s")
     t_engines = time.perf_counter()
-    cost = cost_on_card(torch, refs=refs)
-    matrix = matrix_on_card(torch, refs=refs)
-    slo = slo_on_card(torch, replay=children[1].get())
-    faults = faults_on_card(torch)
+    cost = counted("phase 35 (cost)", cost_on_card, torch, refs=refs)
+    matrix = counted("phase 36 (matrix)", matrix_on_card, torch, refs=refs)
+    replay = children[1].get()
+    slo = counted("phase 37 (SLO, with its replay's process)", slo_on_card, torch,
+                  replay=replay, elsewhere=replay[4])
+    faults = counted("phase 38 (faults)", faults_on_card, torch)
     engines_s = time.perf_counter() - t_engines
     print(f"cost/matrix/slo/faults: the cost, comparison-matrix, serving-SLO and fault "
           f"phases took {engines_s:.1f} s")
@@ -6832,7 +7030,13 @@ def smoke(torch, children) -> int:
     print(f"parallel/elastic: the collectives, sharded Mixtral and elastic phases (39-41) "
           f"took {par_s:.1f} s")
     t_spf = time.perf_counter()
-    slices = engines_over_slices(torch, fig17c, cost["bench"])
+    slices = counted("phase 42 (4 slices)", engines_over_slices, torch, fig17c, cost["bench"])
+    every = ScanHistogram()
+    for h in hists.values():
+        every.add(h.counts)
+    print(every.line("phases 28-38 and 42"))
+    print(f"prefix_scan: its checks took {scan_check_s:.1f} s, the three shapes' timing "
+          f"{times_s:.1f} s")
     slices_s = time.perf_counter() - t_spf
     spf = sp_fsdp_on_card(torch)
     spf_s = time.perf_counter() - t_spf
@@ -6989,10 +7193,10 @@ def smoke(torch, children) -> int:
         "replaces": "src/repro/kernels/prefix_scan/prefix_scan.py:41",
         "launches": sweep["launches"],
         "max_abs_err": scan_err,
-        "shape": f"({SWEEP_BLOCK}, {SWEEP_NODES}) bool -> int32",
         "plain": "torch.cumsum of the int32 cast (a library call)",
         "library": "torch.cumsum(mask, -1, dtype=torch.int32)",
         **scan_times,
+        "shape": f"({SWEEP_BLOCK}, {SWEEP_NODES}) bool -> int32",
         "sweep_snaps_per_s": sweep["snaps_per_s"],
         "launches_dcn_fig17c": fig17c["launches"],
         "launches_dcn_8192": dc["launches"],
@@ -7002,6 +7206,7 @@ def smoke(torch, children) -> int:
         "dcn_8192_rows_per_s": {str(tp): v["rows_per_s"] for tp, v in dc["per_tp"].items()},
         "dcn_8192_scan_bound_ms": dc["scan_bound_ms"],
         "dcn_short_rows": short_rows,
+        "launch_histogram": {phase: h.rows() for phase, h in hists.items()},
         "launches_cost_bench": cost["bench"]["launches"],
         "launches_cost_8192": cost["8192"]["launches"],
         "launches_matrix_bench": matrix["bench"]["launches"],
